@@ -1,0 +1,316 @@
+"""GPT-style decoder-only causal LM (port of ``models/gpt.py``).
+
+Pre-LN transformer decoder, learned or rotary positions, grouped-query
+attention (``kv_heads``), weight-tied LM head.  Ported paths:
+
+* training/eval mode: dense causal attention over the whole sequence;
+* paged slot decode (the serving path, ``serving/kv_cache.py``): the
+  caller passes per-slot ``positions``, per-slot int32 ``block_tables`` and
+  one ``{"key_pool", "value_pool"}`` dict per layer.  Each layer writes its
+  K/V through the block table into the pool, then reads it back either
+  fused (``ops.paged_attention``, the Hopper kernel) or gathered (block
+  table gather + masked dense attention, the prefill path and the oracle).
+
+Flax's numerics are kept: parameters are stored in float32 and Dense/Embed
+compute in the model ``dtype``; LayerNorm has epsilon 1e-6 and normalizes
+in float32; GELU is the tanh approximation; logits are returned in f32.
+Layouts are the JAX package's: activations (B, L, H, D), pools (N, blk,
+KVH, D), block tables (S, MB) int32.  ``models/convert.py`` maps a flax
+param tree onto this module's ``state_dict``.
+
+Not ported here (each raises ``NotImplementedError``): MoE blocks, remat,
+sequence-parallel and flash attention, tensor-parallel partitioning, the
+cursor ``decode`` mode, and the monolithic slot table.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+    dense_attention)
+
+LN_EPS = 1e-6   # flax nn.LayerNorm default (torch's is 1e-5)
+
+
+def apply_rope(x, pos, base: float = 10000.0):
+    """Rotary position embedding over the head dim (half-split layout).
+
+    ``x``: (B, L, H, D) with D even; ``pos``: (B, L) or (1, L) absolute
+    positions.  Computed in f32, returned in ``x``'s dtype."""
+    d2 = x.shape[-1] // 2
+    inv = base ** (-torch.arange(d2, dtype=torch.float32, device=x.device)
+                   / d2)
+    ang = pos.to(torch.float32)[..., None] * inv         # (B, L, D/2)
+    cos = torch.cos(ang)[:, :, None, :]                  # (B, L, 1, D/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _dense(lin: nn.Linear, x, dtype):
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _layer_norm(ln: nn.LayerNorm, x, dtype):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics in f32, output in
+    ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        LN_EPS).to(dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    """Multi-head causal self-attention: dense (training) or paged decode."""
+
+    def __init__(self, hidden: int, heads: int, kv_heads: int | None = None,
+                 rope: bool = False, dtype=torch.float32, device=None):
+        super().__init__()
+        kvh = kv_heads if kv_heads is not None else heads
+        if kvh < 1 or heads % kvh:
+            raise ValueError(f"kv_heads must be a positive divisor of heads "
+                             f"{heads}, got {kvh}")
+        self.hidden, self.heads, self.kv_heads = hidden, heads, kvh
+        self.head_dim = hidden // heads
+        self.rope = rope
+        self.dtype = dtype
+        self.query = nn.Linear(hidden, heads * self.head_dim, device=device)
+        self.key = nn.Linear(hidden, kvh * self.head_dim, device=device)
+        self.value = nn.Linear(hidden, kvh * self.head_dim, device=device)
+        self.out = nn.Linear(heads * self.head_dim, hidden, device=device)
+
+    def _widen(self, t):
+        """kv_heads → heads by group broadcast (no-op for MHA)."""
+        if self.kv_heads == self.heads:
+            return t
+        return t.repeat_interleave(self.heads // self.kv_heads, dim=2)
+
+    def forward(self, x, pos=None, pool=None, block_tables=None,
+                paged_fused: bool = True):
+        if self.rope and pos is None:
+            raise ValueError("rope=True needs the caller to pass positions")
+        b, lq, _ = x.shape
+        q = _dense(self.query, x, self.dtype).reshape(
+            b, lq, self.heads, self.head_dim)
+        k = _dense(self.key, x, self.dtype).reshape(
+            b, lq, self.kv_heads, self.head_dim)
+        v = _dense(self.value, x, self.dtype).reshape(
+            b, lq, self.kv_heads, self.head_dim)
+        if self.rope:
+            q, k = apply_rope(q, pos), apply_rope(k, pos)
+        if pool is None:
+            out = dense_attention(q, self._widen(k), self._widen(v),
+                                  causal=True)
+        else:
+            out = self._paged_attend(q, k, v, pos, pool, block_tables,
+                                     paged_fused)
+        out = out.reshape(b, lq, self.heads * self.head_dim)
+        return _dense(self.out, out, self.dtype)
+
+    def _paged_attend(self, q, k, v, pos, pool, block_tables, fused):
+        """Paged KV write, then read (fused kernel or gather + dense).
+
+        Writes scatter each (row, position) K/V vector into
+        ``pool[bt[row, pos // blk], pos % blk]`` in place.  A position past
+        the table (a pad position beyond max_len) must be dropped, as the
+        JAX scatter drops it; ``index_put_`` would raise or wrap instead, so
+        such writes are routed to the pool's LAST block, the scratch block
+        that no live table entry maps (``PagedSlotKVCache``'s pool is
+        ``num_blocks + 1`` blocks for this reason).  The current token's
+        K/V is written before the read, so ``t <= pos`` includes it."""
+        if block_tables is None:
+            raise ValueError(
+                "paged decode needs block_tables (B, max_blocks) — the "
+                "serving engine passes each slot's block table")
+        kp, vp = pool["key_pool"], pool["value_pool"]
+        blk, mb = kp.shape[1], block_tables.shape[1]
+        idx = pos.long()                                   # (B, L)
+        j = idx // blk
+        oob = j >= mb
+        bt = block_tables.long()
+        blk_ids = torch.gather(bt, 1, j.clamp(max=mb - 1))
+        blk_ids = torch.where(oob, kp.shape[0] - 1, blk_ids)
+        off = idx % blk
+        kp[blk_ids, off] = k.to(kp.dtype)
+        vp[blk_ids, off] = v.to(vp.dtype)
+        if fused:
+            from distributed_tensorflow_tpu_torch.ops.paged_attention import (
+                paged_attention)
+            return paged_attention(
+                q.contiguous(), kp, vp, block_tables,
+                pos[:, 0].to(torch.int32).contiguous()).to(self.dtype)
+        # gather the logical table back through the block table and run
+        # masked dense attention; rows from unmapped entries sit past the
+        # validity mask
+        b = q.shape[0]
+        t = mb * blk
+        ct = torch.promote_types(q.dtype, kp.dtype)
+        keys = kp[bt].reshape(b, t, self.kv_heads, self.head_dim).to(ct)
+        vals = vp[bt].reshape(b, t, self.kv_heads, self.head_dim).to(ct)
+        valid = (torch.arange(t, device=q.device)[None, None, :]
+                 <= idx[:, :, None])
+        return dense_attention(q.to(ct), self._widen(keys), self._widen(vals),
+                               causal=False, kv_mask=valid).to(self.dtype)
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN decoder block: x + attn(LN(x)); x + ffn(LN(x))."""
+
+    def __init__(self, hidden: int, heads: int, ffn: int,
+                 dropout_rate: float = 0.1, rope: bool = False,
+                 kv_heads: int | None = None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.attn = CausalSelfAttention(hidden, heads, kv_heads, rope, dtype,
+                                        device)
+        self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.fc1 = nn.Linear(hidden, ffn, device=device)
+        self.fc2 = nn.Linear(ffn, hidden, device=device)
+
+    def forward(self, x, train: bool = False, pos=None, pool=None,
+                block_tables=None, paged_fused: bool = True):
+        y = self.attn(_layer_norm(self.ln1, x, self.dtype), pos, pool,
+                      block_tables, paged_fused)
+        x = x + F.dropout(y, self.dropout_rate, training=train)
+        y = _layer_norm(self.ln2, x, self.dtype)
+        y = F.gelu(_dense(self.fc1, y, self.dtype), approximate="tanh")
+        y = _dense(self.fc2, y, self.dtype)
+        return x + F.dropout(y, self.dropout_rate, training=train)
+
+
+class GPTLM(nn.Module):
+    """Decoder-only causal LM: token ids (B, L) → next-token logits (B, L, V)
+    in f32.
+
+    ``forward(ids)`` is the training/eval mode.  ``forward(ids,
+    positions=..., block_tables=..., pools=...)`` is paged slot decode:
+    ``pools`` holds one ``{"key_pool", "value_pool"}`` dict per layer,
+    written in place; ``paged_fused`` picks the kernel read (True) or the
+    gather read (False)."""
+
+    def __init__(self, vocab_size: int = 256, hidden: int = 128,
+                 layers: int = 2, heads: int = 4, ffn: int = 512,
+                 max_len: int = 512, dropout_rate: float = 0.1,
+                 attention_impl: str = "dense", positional: str = "learned",
+                 kv_heads: int | None = None, tie_embeddings: bool = True,
+                 dtype=torch.float32, moe_experts: int = 0,
+                 remat: bool = False, partition_model: bool = False,
+                 decode: bool = False, device=None):
+        super().__init__()
+        if moe_experts:
+            not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
+        if remat:
+            not_ported("remat", "flash attention with GPT training")
+        if partition_model:
+            not_ported("partition_model (TP layout)", "remaining engines")
+        if decode:
+            not_ported("the cursor decode mode (generate)",
+                        "monolithic layout")
+        if attention_impl != "dense":
+            not_ported(f"attention_impl={attention_impl!r}",
+                        "flash attention with GPT training, or sequence "
+                        "parallelism")
+        if positional not in ("learned", "rope"):
+            raise ValueError(
+                f"unknown positional '{positional}'; learned | rope")
+        device = resolve_device(device)
+        self.vocab_size, self.hidden, self.layers = vocab_size, hidden, layers
+        self.heads, self.ffn, self.max_len = heads, ffn, max_len
+        self.kv_heads = kv_heads if kv_heads is not None else heads
+        self.dropout_rate = dropout_rate
+        self.positional = positional
+        self.tie_embeddings = tie_embeddings
+        self.dtype = dtype
+        rope = positional == "rope"
+        self.token_embed = nn.Embedding(vocab_size, hidden, device=device)
+        self.pos_embed = (None if rope
+                          else nn.Embedding(max_len, hidden, device=device))
+        self.blocks = nn.ModuleList(
+            GPTBlock(hidden, heads, ffn, dropout_rate, rope, kv_heads, dtype,
+                     device) for _ in range(layers))
+        self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.lm_head = (None if tie_embeddings
+                        else nn.Linear(hidden, vocab_size, device=device))
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Flax's initializers, drawn from ``generator`` on the CPU and
+        copied to the model's device: Dense kernels lecun-normal
+        (truncated at ±2σ), biases zero, embeddings normal with std
+        ``hidden ** -0.5``, LayerNorm scale 1 and bias 0."""
+        def fill(p, std, truncated=False):
+            host = torch.empty(p.shape, dtype=torch.float32)
+            if truncated:
+                # flax lecun_normal: std / .87962566 keeps the truncated
+                # distribution's variance at fan_in ** -1
+                nn.init.trunc_normal_(host, 0.0, std / .87962566103423978,
+                                      -2 * std / .87962566103423978,
+                                      2 * std / .87962566103423978,
+                                      generator=generator)
+            else:
+                host.normal_(0.0, std, generator=generator)
+            p.copy_(host)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                fill(mod.weight, math.sqrt(1.0 / mod.in_features), True)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                fill(mod.weight, math.sqrt(1.0 / mod.embedding_dim))
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        return self
+
+    def forward(self, token_ids, train: bool = False, positions=None,
+                block_tables=None, pools=None, paged_fused: bool = True):
+        lq = token_ids.shape[1]
+        if pools is None:
+            if positions is not None or block_tables is not None:
+                raise ValueError(
+                    "positions/block_tables are only accepted in paged "
+                    "slot decode (pass pools)")
+            if lq > self.max_len:
+                raise ValueError(
+                    f"sequence length {lq} exceeds max_len={self.max_len}; "
+                    f"raise max_len or shorten the input")
+            pos = torch.arange(lq, device=token_ids.device)[None, :]
+        else:
+            if positions is None or positions.shape != token_ids.shape:
+                raise ValueError(
+                    "paged slot decode needs positions (B, L) matching "
+                    "token_ids: the per-slot write index / position input")
+            if len(pools) != self.layers:
+                raise ValueError(f"pools must hold one dict per layer "
+                                 f"({self.layers}), got {len(pools)}")
+            pos = positions
+        x = self.token_embed(token_ids).to(self.dtype)
+        if self.pos_embed is not None:
+            # clamped like the JAX table lookup: a pad position past
+            # max_len reads the last row (its write is dropped anyway)
+            x = x + self.pos_embed(
+                pos.long().clamp(max=self.max_len - 1)).to(self.dtype)
+        x = F.dropout(x, self.dropout_rate, training=train)
+        for i, block in enumerate(self.blocks):
+            x = block(x, train, pos, None if pools is None else pools[i],
+                      block_tables, paged_fused)
+        x = _layer_norm(self.ln_f, x, self.dtype)
+        if self.tie_embeddings:
+            logits = F.linear(x, self.token_embed.weight.to(self.dtype))
+        else:
+            logits = _dense(self.lm_head, x, self.dtype)
+        return logits.float()

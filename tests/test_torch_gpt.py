@@ -1,0 +1,200 @@
+"""Port of ``models/gpt.py`` and its building blocks, held to the JAX package
+at a small size in f32: GPT training-mode logits against flax (learned and
+RoPE positions, GQA) through ``models/convert.py``, ``apply_rope``,
+``dense_attention``, the int8 channel codec, the paged write's drop of
+positions past the table, and a subprocess showing the port imports no JAX.
+
+Tolerance for the logits: ``atol=2e-5, rtol=1e-5`` — f32 with the same
+operation order up to BLAS blocking and flax's one-pass LayerNorm variance.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from distributed_tensorflow_tpu.models.gpt import GPTLM as JaxGPT
+from distributed_tensorflow_tpu.models.gpt import apply_rope as jax_rope
+from distributed_tensorflow_tpu.parallel import compression as jcomp
+from distributed_tensorflow_tpu.parallel.ring_attention import (
+    dense_attention as jax_dense)
+from distributed_tensorflow_tpu_torch.models import create_model
+from distributed_tensorflow_tpu_torch.models.convert import gpt_state_dict
+from distributed_tensorflow_tpu_torch.models.gpt import GPTLM, apply_rope
+from distributed_tensorflow_tpu_torch.parallel import compression as tcomp
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+    dense_attention)
+
+SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=4, kv_heads=2,
+             ffn=64, max_len=32, dropout_rate=0.0)
+TOL = dict(rtol=1e-5, atol=2e-5)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _pair(**over):
+    kw = dict(SMALL, **over)
+    jm = JaxGPT(**kw)
+    params = jm.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
+                     train=False)["params"]
+    tm = GPTLM(**kw, device="cpu")
+    tm.load_state_dict(gpt_state_dict(jax.tree.map(np.asarray, params)))
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("positional", ["learned", "rope"])
+@pytest.mark.parametrize("kv_heads", [2, 4])
+def test_training_logits_match_flax(positional, kv_heads):
+    jm, params, tm = _pair(positional=positional, kv_heads=kv_heads)
+    ids = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(np.int32)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids),
+                               train=False))
+    got = tm(torch.from_numpy(ids)).detach().numpy()
+    assert got.dtype == np.float32 and got.shape == (2, 12, 64)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_untied_head_converts():
+    jm, params, tm = _pair(tie_embeddings=False)
+    assert tm.lm_head is not None
+    ids = np.random.default_rng(1).integers(0, 64, (1, 9)).astype(np.int32)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids),
+                               train=False))
+    np.testing.assert_allclose(
+        tm(torch.from_numpy(ids)).detach().numpy(), want, **TOL)
+
+
+def test_convert_layouts():
+    """Dense kernels transpose to (out, in); embeddings copy as they are;
+    LayerNorm scale becomes weight; the tied head has no weight of its
+    own."""
+    _, params, tm = _pair()
+    sd = gpt_state_dict(jax.tree.map(np.asarray, params))
+    q = np.asarray(params["GPTBlock_0"]["CausalSelfAttention_0"]["query"]
+                   ["kernel"])
+    np.testing.assert_array_equal(sd["blocks.0.attn.query.weight"].numpy(),
+                                  q.T)
+    np.testing.assert_array_equal(
+        sd["token_embed.weight"].numpy(),
+        np.asarray(params["token_embed"]["embedding"]))
+    np.testing.assert_array_equal(
+        sd["ln_f.weight"].numpy(),
+        np.asarray(params["LayerNorm_0"]["scale"]))
+    assert not any(k.startswith("lm_head") for k in sd)
+    assert set(sd) == set(tm.state_dict())
+
+
+def test_apply_rope_matches_jax():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
+    pos = rng.integers(0, 100, (2, 5)).astype(np.int32)
+    want = np.asarray(jax_rope(jnp.asarray(x), jnp.asarray(pos)))
+    got = apply_rope(torch.from_numpy(x), torch.from_numpy(pos)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mask", ["none", "causal", "per_row", "per_query"])
+def test_dense_attention_matches_jax(mask):
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 4, 3, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 6, 3, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 6, 3, 8)).astype(np.float32)
+    kw = {}
+    if mask == "causal":
+        k, v = k[:, :4], v[:, :4]
+        kw["causal"] = True
+    elif mask == "per_row":
+        kw["kv_mask"] = (rng.uniform(size=(2, 6)) > 0.3).astype(np.float32)
+    elif mask == "per_query":
+        kw["kv_mask"] = (rng.uniform(size=(2, 4, 6)) > 0.3).astype(
+            np.float32)
+    want = np.asarray(jax_dense(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        **{n: (jnp.asarray(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}))
+    got = dense_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        **{n: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_int8_channel_codec_matches_jax():
+    """Round to nearest, clip ±127, scale floor finfo(f32).tiny (the zero
+    vector) — the same int8 payload bit for bit."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 5, 2, 8)) * 3).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    jq, js = jcomp.int8_channel_encode(jnp.asarray(x))
+    tq, ts = tcomp.int8_channel_encode(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert float(ts[0, 0, 0]) == np.finfo(np.float32).tiny
+    np.testing.assert_array_equal(
+        tcomp.int8_channel_decode(tq, ts, torch.float32).numpy(),
+        np.asarray(jcomp.int8_channel_decode(jq, js, jnp.float32)))
+
+
+def test_paged_write_drops_positions_past_the_table():
+    """A position past max_len (a pad row) must not land in any live
+    block: it goes to the pool's last block, the scratch block."""
+    tm = GPTLM(**SMALL, device="cpu")
+    tm.reset_parameters(torch.Generator().manual_seed(0))
+    blk, mb = 4, SMALL["max_len"] // 4
+    pools = [{"key_pool": torch.zeros(mb + 1, blk, 2, 8),
+              "value_pool": torch.zeros(mb + 1, blk, 2, 8)}
+             for _ in range(SMALL["layers"])]
+    bt = torch.arange(mb, dtype=torch.int32)[None, :]
+    ids = torch.tensor([[5, 6, 7, 8]])
+    pos = torch.tensor([[30, 31, 32, 33]], dtype=torch.int32)
+    with torch.no_grad():
+        logits = tm(ids, positions=pos, block_tables=bt, pools=pools,
+                    paged_fused=False)
+    assert torch.isfinite(logits).all()
+    for layer in pools:
+        kp = layer["key_pool"]
+        assert kp[:mb - 1].abs().sum() == 0           # untouched live blocks
+        assert kp[mb - 1, 2:].abs().sum() > 0          # positions 30, 31
+        assert kp[mb - 1, :2].abs().sum() == 0
+        assert kp[mb, :2].abs().sum() > 0              # 32, 33 → scratch
+
+
+def test_unported_options_raise():
+    for kw in (dict(moe_experts=2), dict(remat=True),
+               dict(partition_model=True), dict(decode=True),
+               dict(attention_impl="flash"), dict(attention_impl="ring")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GPTLM(**SMALL, **kw, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_model("cnn", device="cpu")
+
+
+def test_create_model_builds_gpt_on_cpu_and_defaults_to_cuda():
+    m = create_model("gpt", num_classes=64, hidden=32, layers=1, heads=4,
+                     ffn=64, max_len=16, dtype="bf16", device="cpu")
+    assert m.vocab_size == 64 and m.dtype == torch.bfloat16
+    assert m.token_embed.weight.dtype == torch.float32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_model("gpt", num_classes=64, hidden=32, layers=1,
+                         heads=4, ffn=64, max_len=16)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import distributed_tensorflow_tpu_torch.serving\n"
+        "import distributed_tensorflow_tpu_torch.models.convert\n"
+        "import distributed_tensorflow_tpu_torch.ops.paged_attention\n"
+        "import distributed_tensorflow_tpu_torch.observability\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'distributed_tensorflow_tpu')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
