@@ -5,11 +5,13 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device  — torch/CUDA versions, the card's name and power limit;
-2. build   — nvcc builds every kernel of the serving path from the sources
-             in this checkout (``ops/csrc/*.cu``);
+2. build   — nvcc builds every kernel from the sources in this checkout
+             (``ops/csrc/*.cu``), one nvcc per source, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card, on
-             seeded inputs, with the stated tolerances; the decode shape of
-             the serving path is timed beside its bound and a library call;
+             seeded inputs, with the stated tolerances: the paged decode
+             kernel, and the three flash-attention kernels (forward, dQ,
+             dK/dV) and their block primitives; the main paths' shapes are
+             timed beside their bounds and a library call;
 4. serve   — the paged-KV GPT server at the full width of the repo's serve
              bench (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048,
              max_len 144, bf16, 8 slots, block 8), random weights from a
@@ -17,7 +19,16 @@ Phases (any failure raises and the script exits non-zero):
              ``SlotKVCache(..., kv_layout="paged")`` and
              ``ContinuousBatcher.run``; the launch counts show the decode
              steps went through the kernel, and the first decode step's
-             logits are held against the gather read.
+             logits are held against the gather read;
+5. train   — the GPT of ``bench.py --lm`` (vocab 16384, hidden 512, 8
+             layers, 8 heads, ffn 2048, sequence 1024, bf16, dropout 0,
+             flash attention), random weights from a seed, trained for two
+             epochs of 64 seeded rows at batch 8 (16 steps) by
+             ``Trainer(model, engine=SyncEngine(model)).fit`` and evaluated
+             by ``Trainer.evaluate``; the launch counts show every
+             attention forward and backward went through the kernels, and
+             one step is held against a dense-attention twin;
+6. profile — where a decode step's and a train step's device time goes.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -30,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,8 +54,23 @@ BF16_TOL = dict(rtol=8e-3, atol=8e-3)
 # two attention reads round differently to bf16 and the difference passes
 # through 8 layers; logits have unit scale at this init
 LOGIT_ATOL = 0.1
+# f32 flash gradients: the bounds of tests/test_flash_attention.py (tile
+# and online-softmax reassociation against one dense pass); bf16 gradients
+# are held to BF16_TOL: the kernels sum in f32 and round once to bf16
+FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# one train step of the bf16 flash model against its dense-attention twin
+# (same weights, same batch): the dense path rounds scores, softmax and
+# P·V to bf16 where the kernels keep f32, in each of 8 layers.  Loss: 0.2%
+# of its ~9.7; each parameter's gradient: 10% relative (Frobenius norm).
+# The attention key biases are not compared: their gradient is zero in
+# exact arithmetic (a per-row score shift leaves the softmax unchanged),
+# so both sides hold rounding noise.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_RTOL = 1e-1
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+LM = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
+          seq=1024, batch=8)
 
 
 def _device_line() -> str:
@@ -126,7 +153,7 @@ def _bound_ms(q, kp, pos, ks) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase() -> dict:
+def paged_kernel_phase() -> dict:
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     cases = {
@@ -188,6 +215,201 @@ def kernel_phase() -> dict:
             "max_abs_err": errs["decode_bench_bf16"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
+                masked=False, dead_row=False):
+    """Seeded q, k, v, dO and key mask on the card (numpy draws)."""
+    rng = np.random.default_rng(seed)
+    lk = lk or lq
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+
+    q, k, v, do = draw(b, lq, h, d), draw(b, lk, h, d), draw(b, lk, h, d), \
+        draw(b, lq, h, d)
+    mask = None
+    if masked or dead_row:
+        m = (rng.uniform(size=(b, lk)) > 0.3 if masked
+             else np.ones((b, lk), bool))
+        m[:, 0] = True
+        if dead_row:
+            m[-1] = False            # the last batch row has no valid key
+        mask = torch.from_numpy(m.astype(np.float32)).cuda()
+    return q, k, v, do, mask
+
+
+def _flash_bound_ms(kind, q, k, causal) -> tuple[float, str]:
+    """Least time for one kernel's work on these inputs: each input read
+    once and each output written once at the HBM rate, against the products
+    of the unmasked (causal) pairs at the peak rate for the input type —
+    QKᵀ and PV (fwd: 4·D per pair), QKᵀ, dO·Vᵀ and dS·K (dq: 6·D), QKᵀ,
+    dO·Vᵀ, Pᵀ·dO and dSᵀ·Q (dkv: 8·D).  The larger of the two bounds it."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    tensor = q.numel() * q.element_size()       # q, k, v, dO alike (Lq=Lk)
+    row = b * h * lq * 4                        # lse or delta, f32
+    tensors, rows, per_pair = {"fwd": (4, 1, 4), "dq": (5, 2, 6),
+                               "dkv": (6, 2, 8)}[kind]
+    nbytes = tensors * tensor + rows * row
+    qpos = np.arange(lq)
+    pairs = b * h * float((np.minimum(qpos + 1, lk) if causal
+                           else np.full(lq, lk)).sum())
+    flops = float(per_pair * d) * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check_flash(name, case, causal, out_tol, grad_tol) -> dict:
+    """Forward, dQ and dK/dV kernels against the plain versions; the
+    backward gets the plain forward's lse and Δ = rowsum(dO·O)."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, mask = case
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal)
+    ref_out, ref_lse = fa._fwd_reference(q, k, v, mask, scale, causal)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    grads = fa._bwd_cuda(q, k, v, mask, do, ref_lse.contiguous(), delta,
+                         scale, causal)
+    torch.cuda.synchronize()
+    refs = fa._bwd_reference(q, k, v, mask, do, ref_lse, delta, scale,
+                             causal)
+    torch.testing.assert_close(out.float(), ref_out.float(), **out_tol)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    errs = {"out": float((out.float() - ref_out.float()).abs().max()),
+            "lse": float((lse - ref_lse).abs().max())}
+    for g, w, n in zip(grads, refs, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), w, msg=f"{name} {n}",
+                                   **grad_tol)
+        errs[n] = float((g.float() - w).abs().max())
+    print(f"[flash] {name}: " + " ".join(f"{n}_max_abs_err={e:.3e}"
+                                         for n, e in errs.items()) + " ok")
+    return errs
+
+
+def _check_flash_blocks() -> None:
+    """``flash_fwd_block``/``flash_bwd_block`` over a two-block split of
+    the keys, given the full rows' lse and Δ: each block against the plain
+    versions, and the blocks merged against the whole."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, _ = _flash_case(30, b=2, lq=512, h=4, d=64)
+    scale = 64 ** -0.5
+    full_out, lse = fa._fwd_reference(q, k, v, None, scale, False)
+    delta = (do * full_out).sum(-1).transpose(1, 2).contiguous()
+    full = fa._bwd_reference(q, k, v, None, do, lse, delta, scale, False)
+    ones = torch.ones(2, 256, device="cuda")
+    merged, dq, dks, dvs = 0.0, 0.0, [], []
+    for half in (slice(0, 256), slice(256, 512)):
+        kb, vb = k[:, half].contiguous(), v[:, half].contiguous()
+        out_b, lse_b = fa.flash_fwd_block(q, kb, vb, ones, scale=scale)
+        want_out, want_lse = fa._fwd_reference(q, kb, vb, ones, scale, False)
+        torch.testing.assert_close(out_b, want_out, **F32_TOL)
+        torch.testing.assert_close(lse_b, want_lse, **F32_TOL)
+        grads = fa.flash_bwd_block(q, kb, vb, ones, do, lse, delta,
+                                   scale=scale)
+        want = fa._bwd_reference(q, kb, vb, ones, do, lse, delta, scale,
+                                 False)
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, **FLASH_GRAD_TOL)
+        merged = merged + torch.exp(lse_b - lse).transpose(1, 2)[
+            ..., None] * out_b
+        dq = dq + grads[0]
+        dks.append(grads[1])
+        dvs.append(grads[2])
+    torch.testing.assert_close(merged, full_out, **F32_TOL)
+    for g, w in zip((dq, torch.cat(dks, 1), torch.cat(dvs, 1)), full):
+        torch.testing.assert_close(g, w, **FLASH_GRAD_TOL)
+    print(f"[flash] block primitives, two-block split: merged out "
+          f"max_abs_err={float((merged - full_out).abs().max()):.3e}, "
+          f"dq {float((dq - full[0]).abs().max()):.3e} ok")
+
+
+def flash_kernel_phase() -> list[dict]:
+    """The three flash kernels against their plain versions on seeded
+    cases, then timed at the training slice's shape."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    f32 = (F32_TOL, FLASH_GRAD_TOL)
+    cases = {
+        "slice_bf16_causal": (dict(b=8, lq=1024, h=8, d=64,
+                                   dtype=torch.bfloat16), True,
+                              (BF16_TOL, BF16_TOL)),
+        "ragged_l1000_f32_causal": (dict(b=2, lq=1000, h=4, d=64), True, f32),
+        "key_mask_f32": (dict(b=2, lq=512, h=4, d=64, masked=True), False,
+                         f32),
+        "cross_96x160_f32": (dict(b=2, lq=96, lk=160, h=4, d=64), False, f32),
+        "head_dim_128_f32": (dict(b=1, lq=384, h=2, d=128), True, f32),
+        "head_dim_256_f32": (dict(b=1, lq=384, h=2, d=256), True, f32),
+        "no_valid_key_row_f32": (dict(b=2, lq=256, h=2, d=64,
+                                      dead_row=True), False, f32),
+    }
+    errs = {}
+    for i, (name, (kw, causal, (out_tol, grad_tol))) in enumerate(
+            cases.items()):
+        case = _flash_case(20 + i, **kw)
+        errs[name] = _check_flash(name, case, causal, out_tol, grad_tol)
+        if kw.get("dead_row"):
+            q, k, v, _, mask = case
+            out = fa.flash_attention(q, k, v, kv_mask=mask)
+            torch.testing.assert_close(
+                out[-1], v[-1].mean(0, keepdim=True).expand_as(out[-1]),
+                **F32_TOL)
+    _check_flash_blocks()
+
+    # the training slice's shape, timed
+    q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64,
+                                 dtype=torch.bfloat16)
+    scale = 64 ** -0.5
+    out, lse = fa._fwd_cuda(q, k, v, None, scale, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, None, do, lse, delta, scale, True)
+    ms = {"fwd": _time_ms(lambda: fa._fwd_cuda(q, k, v, None, scale, True),
+                          iters=50, warmup=5),
+          "dq": _time_ms(lambda: fa._dq_cuda(*args), iters=50, warmup=5),
+          "dkv": _time_ms(lambda: fa._dkv_cuda(*args), iters=50, warmup=5)}
+    plain_fwd = _time_ms(lambda: fa._fwd_reference(q, k, v, None, scale,
+                                                   True), iters=10, warmup=2)
+    # the plain backward computes dq, dk and dv in one function: its time
+    # stands in both backward rows
+    plain_bwd = _time_ms(lambda: fa._bwd_reference(*args), iters=10,
+                         warmup=2)
+    # library yardstick, used nowhere in the port: one SDPA call, and the
+    # autograd backward of that call (against dq + dkv)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=50,
+                       warmup=5)
+    o = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), iters=50, warmup=5)
+    print(f"[flash] slice B=8 L=1024 H=8 D=64 bf16 causal: dq+dkv "
+          f"{ms['dq'] + ms['dkv']:.5f} ms against the SDPA backward "
+          f"{lib_bwd:.5f} ms")
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu"
+    replaces = {"fwd": 170, "dq": 281, "dkv": 299}
+    slice_errs = errs["slice_bf16_causal"]
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by = _flash_bound_ms(kind, q, k, True)
+        err = {"fwd": slice_errs["out"], "dq": slice_errs["dq"],
+               "dkv": max(slice_errs["dk"], slice_errs["dv"])}[kind]
+        rows.append({
+            "name": f"flash_attention.{kind}", "route": "cuda",
+            "source": src,
+            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
+                        f"{replaces[kind]}",
+            "max_abs_err": err, "ms": ms[kind],
+            "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_fwd if kind == "fwd" else lib_bwd})
+    return rows
 
 
 def serve_phase(gpu: str) -> int:
@@ -261,12 +483,183 @@ def serve_phase(gpu: str) -> int:
     return launches
 
 
+def _lm_data(rows: int):
+    """bench.py --lm's tokens: default_rng(0) ids over 1025 positions,
+    split into inputs and next-token labels."""
+    tok = np.random.default_rng(0).integers(0, LM["vocab"],
+                                            (rows, LM["seq"] + 1))
+    return tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
+
+
+def _lm_model(attention_impl: str):
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    return create_model("gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
+                        layers=LM["layers"], heads=LM["heads"],
+                        ffn=LM["ffn"], max_len=LM["seq"], dropout_rate=0.0,
+                        dtype="bfloat16", attention_impl=attention_impl)
+
+
+def _flash_counts() -> dict:
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    f = fa.flash_attention
+    return {"fwd": f.fwd_launches, "dq": f.dq_launches,
+            "dkv": f.dkv_launches}
+
+
+def _reset_flash_counts() -> None:
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_attention.fwd_launches = 0
+    fa.flash_attention.dq_launches = 0
+    fa.flash_attention.dkv_launches = 0
+
+
+def train_phase(gpu: str):
+    """Full-width GPT LM training through SyncEngine and Trainer; returns
+    the flash launches of the fit, of the evaluate call, and the steps."""
+    from distributed_tensorflow_tpu_torch.data import Dataset
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine, Trainer
+
+    layers, batch = LM["layers"], LM["batch"]
+    x, y = _lm_data(64 + 16)
+    train_ds = Dataset(x=x[:64], y=y[:64], num_classes=LM["vocab"],
+                       name="lm_bench")
+    eval_ds = Dataset(x=x[64:], y=y[64:], num_classes=LM["vocab"],
+                      name="lm_bench")
+    model = _lm_model("flash")
+    trainer = Trainer(model, engine=SyncEngine(model), seed=0)
+    # the heartbeat reads each step's loss (a host sync per step), so its
+    # timestamps mark when each step finished on the device
+    beats = []
+    _reset_flash_counts()
+    result = trainer.fit(train_ds, epochs=2, batch_size=batch, log_every=1,
+                         log_fn=lambda line: beats.append(
+                             (time.perf_counter(), line)))
+    torch.cuda.synchronize()
+    fit = _flash_counts()
+    steps = result["steps"]
+    losses = [float(line.split()[3]) for _, line in beats]
+    assert steps == 16 and len(losses) == 16, (steps, len(losses))
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert fit == {"fwd": layers * steps, "dq": layers * steps,
+                   "dkv": layers * steps}, fit
+    _reset_flash_counts()
+    ev = trainer.evaluate(eval_ds, batch_size=batch)
+    torch.cuda.synchronize()
+    evaluate = _flash_counts()
+    eval_batches = -(-len(eval_ds) // batch)
+    assert evaluate == {"fwd": layers * eval_batches, "dq": 0, "dkv": 0}, \
+        evaluate
+    assert np.isfinite(ev["loss"]) and ev["count"] == 16 * LM["seq"], ev
+    stamps = [t for t, _ in beats]
+    gaps = np.diff(stamps)                  # steps 2..16, first excluded
+    tokens = batch * LM["seq"]
+    print(f"[train] {gpu}: steps={steps} loss first={losses[0]:.4f} "
+          f"last={losses[-1]:.4f} "
+          f"steady_tokens_per_sec={tokens * len(gaps) / gaps.sum():.1f} "
+          f"step_ms_p50={np.median(gaps) * 1e3:.3f} "
+          f"eval_loss={ev['loss']:.5f} eval_accuracy={ev['accuracy']:.6f} "
+          f"elapsed_s={result['elapsed']:.3f} "
+          f"flash_launches_fit={json.dumps(fit)} "
+          f"flash_launches_eval={json.dumps(evaluate)}")
+    print(f"[train] losses {' '.join(f'{v:.4f}' for v in losses)}")
+    _flash_vs_dense_step(x[:batch], y[:batch])
+    _profile_train(trainer.engine, trainer.state, x[:batch], y[:batch])
+    return fit, evaluate, steps
+
+
+def _flash_vs_dense_step(x, y) -> None:
+    """One SyncEngine step of the flash model and of a dense-attention twin
+    from the same fresh weights on the same batch: loss and every
+    parameter's gradient (left in ``.grad`` by the step)."""
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine
+
+    losses, grads = {}, {}
+    for impl in ("flash", "dense"):
+        eng = SyncEngine(_lm_model(impl))
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        state, m = eng.step(state, *eng.shard_batch(x, y))
+        losses[impl] = float(m["loss"])
+        grads[impl] = {n: p.grad for n, p in state.model.named_parameters()}
+    worst, worst_name = 0.0, None
+    for name, g in grads["dense"].items():
+        if name.endswith("attn.key.bias"):
+            continue
+        rel = float((grads["flash"][name].float() - g.float()).norm()
+                    / g.float().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    rel_loss = abs(losses["flash"] - losses["dense"]) / abs(losses["dense"])
+    print(f"[train] one step flash vs dense twin: loss {losses['flash']:.6f}"
+          f" vs {losses['dense']:.6f} (rel {rel_loss:.2e}, bound "
+          f"{TRAIN_LOSS_RTOL}); worst gradient rel err {worst:.3e} at "
+          f"{worst_name} (bound {TRAIN_GRAD_RTOL})")
+    assert rel_loss <= TRAIN_LOSS_RTOL, rel_loss
+    assert worst <= TRAIN_GRAD_RTOL, (worst, worst_name)
+
+
+def _device_rows(prof, steps):
+    """(device us per step, launches per step, name) of each device kernel,
+    largest first.  User annotations with device time (the optimizer's
+    ``Optimizer.step#...`` range) are left out: they span kernels that are
+    counted on their own."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / steps, e.count / steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0), reverse=True)
+
+
+def _profile_train(engine, state, x, y, steps: int = 4) -> None:
+    """Where a train step's time goes: ``steps`` SyncEngine steps timed on
+    the host clock, then the same under ``torch.profiler``: the device's
+    busy share of an unprofiled step, the flash kernels' share of device
+    time, kernels per step, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, ys = engine.shard_batch(x, y)
+    engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step(state, xs, ys)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof, steps)
+    busy_us = sum(r[0] for r in rows)
+    if not busy_us:
+        print("[profile] no device time in the trace: not measured")
+        return
+    flash_us = {kind: sum(r[0] for r in rows if f"flash_{kind}_kernel"
+                          in r[2]) for kind in ("fwd", "dq", "dkv")}
+    total_flash = sum(flash_us.values())
+    print(f"[profile] train step (B=8, L=1024, bf16): wall_ms="
+          f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
+          f"busy_share={busy_us / wall_us:.4f} "
+          f"flash_ms={total_flash / 1e3:.4f} "
+          f"flash_share_of_device={total_flash / busy_us:.4f} "
+          + " ".join(f"flash_{k}_ms={v / 1e3:.4f}"
+                     for k, v in flash_us.items())
+          + f" kernels_per_step={sum(r[1] for r in rows):.1f}")
+    for dev_us, count, key in rows[:8]:
+        print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
+
+
 def _profile_decode(kv, steps: int = 16) -> None:
     """Where a decode step's time goes: ``steps`` decode iterations of the
     full table timed on the host clock, then the same again under
     ``torch.profiler`` for the device kernels' own time — the device's
     busy share of an unprofiled step, and the top kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -280,10 +673,7 @@ def _profile_decode(kv, steps: int = 16) -> None:
         for _ in range(steps):
             kv.advance()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / steps, e.count / steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = _device_rows(prof, steps)
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
@@ -299,27 +689,47 @@ def _profile_decode(kv, steps: int = 16) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
+def build_phase() -> None:
+    """One nvcc per kernel source, all started together."""
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(m.build) for m in (pa, fa)]:
+            fut.result()
+    for name in ("paged_attention", "flash_attention"):
+        print(f"[build] {name}.cu built in "
+              f"{_build.build_seconds[name]:.2f}s")
+    print(f"[build] phase {time.perf_counter() - t0:.2f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity on the card
     torch.backends.cudnn.allow_tf32 = False
-    from distributed_tensorflow_tpu_torch.ops import _build
-    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     gpu = _device_line()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    pa.build()
-    print(f"[build] paged_attention.cu built in "
-          f"{_build.build_seconds['paged_attention']:.2f}s "
-          f"(phase {time.perf_counter() - t0:.2f}s)")
-    row = kernel_phase()
-    row["launches"] = serve_phase(gpu)
+    build_phase()
+    paged_row = paged_kernel_phase()
+    flash_rows = flash_kernel_phase()
+    paged_row["launches"] = serve_phase(gpu)
+    fit, evaluate, steps = train_phase(gpu)
+    for row in flash_rows:
+        kind = row["name"].rsplit(".", 1)[1]
+        row["launches"] = fit[kind] + evaluate[kind]
+        print(f"[flash] {row['name']} at the slice's shape: "
+              f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"library_ms={row['library_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+              f"launches_per_train_step={fit[kind] / steps:.1f}")
     print(gpu)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [paged_row, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

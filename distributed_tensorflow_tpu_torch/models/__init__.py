@@ -16,11 +16,11 @@ _DTYPES = {
 }
 
 _CNN = "training with the CNN/MLP sync path"
-_GPT_TRAIN = "flash attention with GPT training"
+_BERT = "BERT, ResNet and remat"
 _LATER = {
     "mlp": _CNN, "mnist_mlp": _CNN, "fashion_mlp": _CNN, "cnn": _CNN,
-    "mnist_cnn": _CNN, "resnet20": _GPT_TRAIN, "resnet": _GPT_TRAIN,
-    "bert_tiny": _GPT_TRAIN, "bert": _GPT_TRAIN,
+    "mnist_cnn": _CNN, "resnet20": _BERT, "resnet": _BERT,
+    "bert_tiny": _BERT, "bert": _BERT,
     "moe": "remaining engines", "moe_mlp": "remaining engines",
 }
 

@@ -3,7 +3,10 @@
 Pre-LN transformer decoder, learned or rotary positions, grouped-query
 attention (``kv_heads``), weight-tied LM head.  Ported paths:
 
-* training/eval mode: dense causal attention over the whole sequence;
+* training/eval mode: causal attention over the whole sequence, dense
+  (``attention_impl="dense"``) or through the flash kernels
+  (``attention_impl="flash"``: ``ops.flash_attention``, the Hopper ports
+  of the Pallas forward, dQ and dK/dV kernels);
 * paged slot decode (the serving path, ``serving/kv_cache.py``): the
   caller passes per-slot ``positions``, per-slot int32 ``block_tables`` and
   one ``{"key_pool", "value_pool"}`` dict per layer.  Each layer writes its
@@ -18,9 +21,13 @@ Layouts are the JAX package's: activations (B, L, H, D), pools (N, blk,
 KVH, D), block tables (S, MB) int32.  ``models/convert.py`` maps a flax
 param tree onto this module's ``state_dict``.
 
+Dropout draws its keep masks from the ``generator`` the caller passes to
+``forward`` (the engine's ``TrainState`` generator); it cannot reproduce
+flax's random bits.
+
 Not ported here (each raises ``NotImplementedError``): MoE blocks, remat,
-sequence-parallel and flash attention, tensor-parallel partitioning, the
-cursor ``decode`` mode, and the monolithic slot table.
+sequence-parallel attention, tensor-parallel partitioning, the cursor
+``decode`` mode, and the monolithic slot table.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default (torch's is 1e-5)
+_SEQ_PARALLEL = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 
 def apply_rope(x, pos, base: float = 10000.0):
@@ -60,6 +68,15 @@ def _dense(lin: nn.Linear, x, dtype):
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
+def _dropout(x, rate: float, train: bool, generator):
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale by
+    ``1 / (1 - rate)``; the keep mask is drawn from ``generator``."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _layer_norm(ln: nn.LayerNorm, x, dtype):
     """flax ``nn.LayerNorm(dtype=...)``: statistics in f32, output in
     ``dtype``."""
@@ -68,10 +85,12 @@ def _layer_norm(ln: nn.LayerNorm, x, dtype):
 
 
 class CausalSelfAttention(nn.Module):
-    """Multi-head causal self-attention: dense (training) or paged decode."""
+    """Multi-head causal self-attention: dense or flash (training/eval) or
+    paged decode."""
 
     def __init__(self, hidden: int, heads: int, kv_heads: int | None = None,
-                 rope: bool = False, dtype=torch.float32, device=None):
+                 rope: bool = False, dtype=torch.float32, device=None,
+                 attention_impl: str = "dense"):
         super().__init__()
         kvh = kv_heads if kv_heads is not None else heads
         if kvh < 1 or heads % kvh:
@@ -81,6 +100,7 @@ class CausalSelfAttention(nn.Module):
         self.head_dim = hidden // heads
         self.rope = rope
         self.dtype = dtype
+        self.attention_impl = attention_impl
         self.query = nn.Linear(hidden, heads * self.head_dim, device=device)
         self.key = nn.Linear(hidden, kvh * self.head_dim, device=device)
         self.value = nn.Linear(hidden, kvh * self.head_dim, device=device)
@@ -105,7 +125,12 @@ class CausalSelfAttention(nn.Module):
             b, lq, self.kv_heads, self.head_dim)
         if self.rope:
             q, k = apply_rope(q, pos), apply_rope(k, pos)
-        if pool is None:
+        if pool is None and self.attention_impl == "flash":
+            from distributed_tensorflow_tpu_torch.ops.flash_attention import (
+                flash_attention)
+            out = flash_attention(q, self._widen(k), self._widen(v),
+                                  causal=True)
+        elif pool is None:
             out = dense_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
         else:
@@ -166,33 +191,34 @@ class GPTBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dropout_rate: float = 0.1, rope: bool = False,
                  kv_heads: int | None = None, dtype=torch.float32,
-                 device=None):
+                 device=None, attention_impl: str = "dense"):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(hidden, heads, kv_heads, rope, dtype,
-                                        device)
+                                        device, attention_impl)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.fc1 = nn.Linear(hidden, ffn, device=device)
         self.fc2 = nn.Linear(ffn, hidden, device=device)
 
     def forward(self, x, train: bool = False, pos=None, pool=None,
-                block_tables=None, paged_fused: bool = True):
+                block_tables=None, paged_fused: bool = True, generator=None):
         y = self.attn(_layer_norm(self.ln1, x, self.dtype), pos, pool,
                       block_tables, paged_fused)
-        x = x + F.dropout(y, self.dropout_rate, training=train)
+        x = x + _dropout(y, self.dropout_rate, train, generator)
         y = _layer_norm(self.ln2, x, self.dtype)
         y = F.gelu(_dense(self.fc1, y, self.dtype), approximate="tanh")
         y = _dense(self.fc2, y, self.dtype)
-        return x + F.dropout(y, self.dropout_rate, training=train)
+        return x + _dropout(y, self.dropout_rate, train, generator)
 
 
 class GPTLM(nn.Module):
     """Decoder-only causal LM: token ids (B, L) → next-token logits (B, L, V)
     in f32.
 
-    ``forward(ids)`` is the training/eval mode.  ``forward(ids,
+    ``forward(ids, train=..., generator=...)`` is the training/eval mode
+    (``generator`` feeds dropout when ``train``).  ``forward(ids,
     positions=..., block_tables=..., pools=...)`` is paged slot decode:
     ``pools`` holds one ``{"key_pool", "value_pool"}`` dict per layer,
     written in place; ``paged_fused`` picks the kernel read (True) or the
@@ -210,16 +236,19 @@ class GPTLM(nn.Module):
         if moe_experts:
             not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
         if remat:
-            not_ported("remat", "flash attention with GPT training")
+            not_ported("remat", "BERT, ResNet and remat")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
         if decode:
             not_ported("the cursor decode mode (generate)",
                         "monolithic layout")
-        if attention_impl != "dense":
+        if attention_impl in _SEQ_PARALLEL:
             not_ported(f"attention_impl={attention_impl!r}",
-                        "flash attention with GPT training, or sequence "
-                        "parallelism")
+                        "sequence parallelism")
+        if attention_impl not in ("dense", "flash"):
+            raise ValueError(f"unknown attention_impl '{attention_impl}'; "
+                             f"dense | flash (ported), or one of "
+                             f"{_SEQ_PARALLEL}")
         if positional not in ("learned", "rope"):
             raise ValueError(
                 f"unknown positional '{positional}'; learned | rope")
@@ -228,6 +257,7 @@ class GPTLM(nn.Module):
         self.heads, self.ffn, self.max_len = heads, ffn, max_len
         self.kv_heads = kv_heads if kv_heads is not None else heads
         self.dropout_rate = dropout_rate
+        self.attention_impl = attention_impl
         self.positional = positional
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
@@ -237,7 +267,7 @@ class GPTLM(nn.Module):
                           else nn.Embedding(max_len, hidden, device=device))
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, dropout_rate, rope, kv_heads, dtype,
-                     device) for _ in range(layers))
+                     device, attention_impl) for _ in range(layers))
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.lm_head = (None if tie_embeddings
                         else nn.Linear(hidden, vocab_size, device=device))
@@ -277,7 +307,8 @@ class GPTLM(nn.Module):
         return self
 
     def forward(self, token_ids, train: bool = False, positions=None,
-                block_tables=None, pools=None, paged_fused: bool = True):
+                block_tables=None, pools=None, paged_fused: bool = True,
+                generator=None):
         lq = token_ids.shape[1]
         if pools is None:
             if positions is not None or block_tables is not None:
@@ -304,10 +335,10 @@ class GPTLM(nn.Module):
             # max_len reads the last row (its write is dropped anyway)
             x = x + self.pos_embed(
                 pos.long().clamp(max=self.max_len - 1)).to(self.dtype)
-        x = F.dropout(x, self.dropout_rate, training=train)
+        x = _dropout(x, self.dropout_rate, train, generator)
         for i, block in enumerate(self.blocks):
             x = block(x, train, pos, None if pools is None else pools[i],
-                      block_tables, paged_fused)
+                      block_tables, paged_fused, generator)
         x = _layer_norm(self.ln_f, x, self.dtype)
         if self.tie_embeddings:
             logits = F.linear(x, self.token_embed.weight.to(self.dtype))

@@ -1,11 +1,17 @@
 """Port of ``models/gpt.py`` and its building blocks, held to the JAX package
 at a small size in f32: GPT training-mode logits against flax (learned and
-RoPE positions, GQA) through ``models/convert.py``, ``apply_rope``,
+RoPE positions, GQA) through ``models/convert.py``, dense and flash
+attention, and the gradients of the mean cross-entropy of the flash model
+against ``jax.grad`` of flax's (whose flash attention runs the Pallas
+kernels in interpret mode), ``apply_rope``,
 ``dense_attention``, the int8 channel codec, the paged write's drop of
 positions past the table, and a subprocess showing the port imports no JAX.
 
 Tolerance for the logits: ``atol=2e-5, rtol=1e-5`` — f32 with the same
 operation order up to BLAS blocking and flax's one-pass LayerNorm variance.
+Gradients: ``rtol=1e-4, atol=1e-6`` — the flash backward's tolerance
+(``tests/test_flash_attention.py``), carried through two layers; gradient
+entries are of order 1e-3 to 1e-1 here.
 """
 
 import subprocess
@@ -50,13 +56,56 @@ def _pair(**over):
 @pytest.mark.parametrize("positional", ["learned", "rope"])
 @pytest.mark.parametrize("kv_heads", [2, 4])
 def test_training_logits_match_flax(positional, kv_heads):
-    jm, params, tm = _pair(positional=positional, kv_heads=kv_heads)
+    _assert_logits_match(positional=positional, kv_heads=kv_heads)
+
+
+@pytest.mark.parametrize("positional", ["learned", "rope"])
+@pytest.mark.parametrize("kv_heads", [2, 4])
+def test_flash_training_logits_match_flax(positional, kv_heads):
+    _assert_logits_match(positional=positional, kv_heads=kv_heads,
+                         attention_impl="flash")
+
+
+def _assert_logits_match(**kw):
+    jm, params, tm = _pair(**kw)
     ids = np.random.default_rng(0).integers(0, 64, (2, 12)).astype(np.int32)
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids),
                                train=False))
     got = tm(torch.from_numpy(ids)).detach().numpy()
     assert got.dtype == np.float32 and got.shape == (2, 12, 64)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("positional, kv_heads", [("learned", 4),
+                                                  ("rope", 2)])
+def test_flash_model_loss_gradients_match_flax(positional, kv_heads):
+    """Gradients of the mean next-token cross-entropy over every token, the
+    tied token table's included (its lookup and head uses summed)."""
+    import optax
+
+    jm, params, tm = _pair(positional=positional, kv_heads=kv_heads,
+                           attention_impl="flash")
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 64, (2, 16)).astype(np.int32)
+    labels = rng.integers(0, 64, (2, 16)).astype(np.int32)
+
+    def loss_fn(p):
+        logits = jm.apply({"params": p}, jnp.asarray(ids), train=True)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(labels)).mean()
+
+    want_loss, grads = jax.value_and_grad(loss_fn)(params)
+    want = gpt_state_dict(jax.tree.map(np.asarray, grads))
+    logits = tm(torch.from_numpy(ids), train=True)
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, 64), torch.from_numpy(labels).long().reshape(-1))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-6)
+    named = dict(tm.named_parameters())
+    assert set(named) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 def test_untied_head_converts():
@@ -167,9 +216,15 @@ def test_paged_write_drops_positions_past_the_table():
 def test_unported_options_raise():
     for kw in (dict(moe_experts=2), dict(remat=True),
                dict(partition_model=True), dict(decode=True),
-               dict(attention_impl="flash"), dict(attention_impl="ring")):
+               dict(attention_impl="ring_flash"), dict(attention_impl="ring"),
+               dict(attention_impl="ulysses"),
+               dict(attention_impl="ulysses_flash")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTLM(**SMALL, **kw, device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        GPTLM(**SMALL, attention_impl="ring_flash", device="cpu")
+    with pytest.raises(ValueError, match="unknown attention_impl"):
+        GPTLM(**SMALL, attention_impl="sparse", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model("cnn", device="cpu")
 
