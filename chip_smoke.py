@@ -6,12 +6,17 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device  — torch/CUDA versions, the card's name and power limit;
 2. build   — nvcc builds every kernel from the sources in this checkout
-             (``ops/csrc/*.cu``), one nvcc per source, all started together;
+             (``ops/csrc/*.cu``), one nvcc per source, all started together,
+             and prints ptxas's registers and spills of the tensor-core
+             flash kernels;
 3. kernels — each kernel against its plain PyTorch version on the card, on
              seeded inputs, with the stated tolerances: the paged decode
-             kernel, and the three flash-attention kernels (forward, dQ,
-             dK/dV) and their block primitives; the main paths' shapes are
-             timed beside their bounds and a library call;
+             kernel; the flash-attention kernels of both routes — f32 cases
+             on the SIMT kernels (forward, dQ, dK/dV), their bf16 twins on
+             the tensor-core forward and dK/dV (``tc``) — and the block
+             primitives; the main paths' shapes are timed (median of three
+             windows) beside their bounds and a library call under a named
+             backend;
 4. serve   — the paged-KV GPT server at the full width of the repo's serve
              bench (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048,
              max_len 144, bf16, 8 slots, block 8), random weights from a
@@ -26,8 +31,9 @@ Phases (any failure raises and the script exits non-zero):
              epochs of 64 seeded rows at batch 8 (16 steps) by
              ``Trainer(model, engine=SyncEngine(model)).fit`` and evaluated
              by ``Trainer.evaluate``; the launch counts show every
-             attention forward and backward went through the kernels, and
-             one step is held against a dense-attention twin;
+             attention forward and backward went through the kernels — the
+             forward and dK/dV through the ``tc`` route —, and one step is
+             held against a dense-attention twin;
 6. profile — where a decode step's and a train step's device time goes.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -37,7 +43,9 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +66,14 @@ LOGIT_ATOL = 0.1
 # and online-softmax reassociation against one dense pass); bf16 gradients
 # are held to BF16_TOL: the kernels sum in f32 and round once to bf16
 FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# the tensor-core route (bf16, head dim a multiple of 16 up to 128) rounds
+# each P (and dS) to bf16 before its product and each output to bf16
+# again: a rounding of a term moves an output by at most 2^-9 (bf16's unit
+# roundoff) of that term, so outputs are held element-wise to
+# 2^-8 (|want| + sum of |terms|) + 1e-5 (a bound on |want| alone fails
+# where large terms cancel), and to a relative Frobenius error under 1e-2.
+# lse stays f32 on both routes (F32_TOL); dQ is the SIMT kernel.
+TC_RTOL, TC_ATOL, TC_FROBENIUS = 2.0 ** -8, 1e-5, 1e-2
 # one train step of the bf16 flash model against its dense-attention twin
 # (same weights, same batch): the dense path rounds scores, softmax and
 # P·V to bf16 where the kernels keep f32, in each of 8 layers.  Loss: 0.2%
@@ -78,6 +94,14 @@ def _device_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def _time_windows(fn, iters: int, warmup: int, windows: int = 3):
+    """(median ms of ``windows`` timed windows, their spread: (max - min)
+    / median)."""
+    times = sorted(_time_ms(fn, iters, warmup) for _ in range(windows))
+    mid = times[len(times) // 2]
+    return mid, (times[-1] - times[0]) / mid
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -262,13 +286,27 @@ def _flash_bound_ms(kind, q, k, causal) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _check_flash(name, case, causal, out_tol, grad_tol) -> dict:
+def _close_tc(name, got, want, terms):
+    """The tensor-core tolerance (TC_*); returns (max abs err, relative
+    Frobenius err)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    worst = float((err / (TC_RTOL * (want.abs() + terms) + TC_ATOL)).max())
+    frob = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert worst <= 1.0 and frob < TC_FROBENIUS, (name, worst, frob)
+    return float(err.max()), frob
+
+
+def _check_flash(name, case, causal, route) -> dict:
     """Forward, dQ and dK/dV kernels against the plain versions; the
-    backward gets the plain forward's lse and Δ = rowsum(dO·O)."""
+    backward gets the plain forward's lse and Δ = rowsum(dO·O).  The
+    launch counters show the kernels of ``route`` ran."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, mask = case
     scale = q.shape[-1] ** -0.5
+    assert fa._route(q.dtype, q.shape[-1]) == route, (name, route)
+    before = _flash_counts()
     out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal)
     ref_out, ref_lse = fa._fwd_reference(q, k, v, mask, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
@@ -276,18 +314,39 @@ def _check_flash(name, case, causal, out_tol, grad_tol) -> dict:
     grads = fa._bwd_cuda(q, k, v, mask, do, ref_lse.contiguous(), delta,
                          scale, causal)
     torch.cuda.synchronize()
+    tc = int(route == "tc")
+    assert _flash_counts() == {
+        "fwd": before["fwd"] + 1, "dq": before["dq"] + 1,
+        "dkv": before["dkv"] + 1, "fwd_tc": before["fwd_tc"] + tc,
+        "dkv_tc": before["dkv_tc"] + tc}, (name, route)
     refs = fa._bwd_reference(q, k, v, mask, do, ref_lse, delta, scale,
                              causal)
-    torch.testing.assert_close(out.float(), ref_out.float(), **out_tol)
     torch.testing.assert_close(lse, ref_lse, **F32_TOL)
-    errs = {"out": float((out.float() - ref_out.float()).abs().max()),
-            "lse": float((lse - ref_lse).abs().max())}
-    for g, w, n in zip(grads, refs, ("dq", "dk", "dv")):
-        torch.testing.assert_close(g.float(), w, msg=f"{name} {n}",
-                                   **grad_tol)
-        errs[n] = float((g.float() - w).abs().max())
-    print(f"[flash] {name}: " + " ".join(f"{n}_max_abs_err={e:.3e}"
-                                         for n, e in errs.items()) + " ok")
+    errs = {"lse": float((lse - ref_lse).abs().max())}
+    f32 = q.dtype == torch.float32
+    if route == "tc":
+        terms = fa._term_sums(q, k, v, mask, do, ref_lse, delta, scale,
+                              causal)
+        for n, got, want, t in (("out", out, ref_out, terms[0]),
+                                ("dk", grads[1], refs[1], terms[1]),
+                                ("dv", grads[2], refs[2], terms[2])):
+            errs[n], errs[f"{n}_frobenius"] = _close_tc(f"{name} {n}", got,
+                                                        want, t)
+        torch.testing.assert_close(grads[0].float(), refs[0],
+                                   msg=f"{name} dq", **BF16_TOL)
+        errs["dq"] = float((grads[0].float() - refs[0]).abs().max())
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(),
+                                   **(F32_TOL if f32 else BF16_TOL))
+        errs["out"] = float((out.float() - ref_out.float()).abs().max())
+        for g, w, n in zip(grads, refs, ("dq", "dk", "dv")):
+            torch.testing.assert_close(g.float(), w, msg=f"{name} {n}",
+                                       **(FLASH_GRAD_TOL if f32
+                                          else BF16_TOL))
+            errs[n] = float((g.float() - w).abs().max())
+    print(f"[flash] {name} ({route}): " + " ".join(
+        f"{n}_{'rel' if n.endswith('frobenius') else 'max_abs_err'}={e:.3e}"
+        for n, e in errs.items()) + " ok")
     return errs
 
 
@@ -329,86 +388,132 @@ def _check_flash_blocks() -> None:
           f"dq {float((dq - full[0]).abs().max()):.3e} ok")
 
 
+def _sdpa_backend():
+    """The first SDPA backend that takes the slice's causal bf16 shape, in
+    the order flash, cuDNN, memory-efficient."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q = torch.zeros(1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, q, q, is_causal=True)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes the slice's shape")
+
+
 def flash_kernel_phase() -> list[dict]:
-    """The three flash kernels against their plain versions on seeded
-    cases, then timed at the training slice's shape."""
+    """The flash kernels of both routes against their plain versions on
+    seeded cases, then timed at the training slice's shape."""
+    from torch.nn.attention import sdpa_kernel
+
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    f32 = (F32_TOL, FLASH_GRAD_TOL)
-    cases = {
-        "slice_bf16_causal": (dict(b=8, lq=1024, h=8, d=64,
-                                   dtype=torch.bfloat16), True,
-                              (BF16_TOL, BF16_TOL)),
-        "ragged_l1000_f32_causal": (dict(b=2, lq=1000, h=4, d=64), True, f32),
-        "key_mask_f32": (dict(b=2, lq=512, h=4, d=64, masked=True), False,
-                         f32),
-        "cross_96x160_f32": (dict(b=2, lq=96, lk=160, h=4, d=64), False, f32),
-        "head_dim_128_f32": (dict(b=1, lq=384, h=2, d=128), True, f32),
-        "head_dim_256_f32": (dict(b=1, lq=384, h=2, d=256), True, f32),
-        "no_valid_key_row_f32": (dict(b=2, lq=256, h=2, d=64,
-                                      dead_row=True), False, f32),
-    }
+    bf16 = torch.bfloat16
+    cases = {"slice_bf16_causal": (dict(b=8, lq=1024, h=8, d=64,
+                                         dtype=bf16), True, "tc")}
+    for name, kw, causal in (
+            ("ragged_l1000", dict(b=2, lq=1000, h=4, d=64), True),
+            ("key_mask", dict(b=2, lq=512, h=4, d=64, masked=True), False),
+            ("cross_96x160", dict(b=2, lq=96, lk=160, h=4, d=64), False),
+            ("head_dim_128", dict(b=1, lq=384, h=2, d=128), True),
+            ("head_dim_256", dict(b=1, lq=384, h=2, d=256), True),
+            ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
+                                      dead_row=True), False)):
+        cases[f"{name}_f32"] = (kw, causal, "simt")
+        # the bf16 twin: the tc route where it takes the head dim
+        cases[f"{name}_bf16"] = (dict(kw, dtype=bf16), causal,
+                                 fa._route(bf16, kw["d"]))
     errs = {}
-    for i, (name, (kw, causal, (out_tol, grad_tol))) in enumerate(
-            cases.items()):
+    for i, (name, (kw, causal, route)) in enumerate(cases.items()):
         case = _flash_case(20 + i, **kw)
-        errs[name] = _check_flash(name, case, causal, out_tol, grad_tol)
+        errs[name] = _check_flash(name, case, causal, route)
         if kw.get("dead_row"):
             q, k, v, _, mask = case
             out = fa.flash_attention(q, k, v, kv_mask=mask)
-            torch.testing.assert_close(
-                out[-1], v[-1].mean(0, keepdim=True).expand_as(out[-1]),
-                **F32_TOL)
+            mean_v = v[-1].float().mean(0, keepdim=True).expand_as(out[-1])
+            if route == "tc":
+                _close_tc(f"{name} mean of V", out[-1], mean_v,
+                          v[-1].float().abs().mean(0, keepdim=True))
+            else:
+                torch.testing.assert_close(out[-1], mean_v, **F32_TOL)
     _check_flash_blocks()
 
-    # the training slice's shape, timed
-    q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64,
-                                 dtype=torch.bfloat16)
+    # the training slice's shape, timed: each time the median of three
+    # windows of back-to-back launches
+    q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64, dtype=bf16)
     scale = 64 ** -0.5
     out, lse = fa._fwd_cuda(q, k, v, None, scale, True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, None, do, lse, delta, scale, True)
-    ms = {"fwd": _time_ms(lambda: fa._fwd_cuda(q, k, v, None, scale, True),
-                          iters=50, warmup=5),
-          "dq": _time_ms(lambda: fa._dq_cuda(*args), iters=50, warmup=5),
-          "dkv": _time_ms(lambda: fa._dkv_cuda(*args), iters=50, warmup=5)}
-    plain_fwd = _time_ms(lambda: fa._fwd_reference(q, k, v, None, scale,
-                                                   True), iters=10, warmup=2)
+    timed = {
+        "fwd": lambda: fa._fwd_cuda(q, k, v, None, scale, True),
+        "dq": lambda: fa._dq_cuda(*args),
+        "dkv": lambda: fa._dkv_cuda(*args),
+        # the SIMT kernels on the same bf16 inputs: the design the tc
+        # route replaced on this path
+        "fwd_simt": lambda: fa._fwd_cuda(q, k, v, None, scale, True,
+                                         route="simt"),
+        "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
+    ms = {n: _time_windows(fn, iters=50, warmup=5) for n, fn in timed.items()}
+    plain_fwd = _time_windows(lambda: fa._fwd_reference(
+        q, k, v, None, scale, True), iters=10, warmup=2)
     # the plain backward computes dq, dk and dv in one function: its time
     # stands in both backward rows
-    plain_bwd = _time_ms(lambda: fa._bwd_reference(*args), iters=10,
-                         warmup=2)
-    # library yardstick, used nowhere in the port: one SDPA call, and the
-    # autograd backward of that call (against dq + dkv)
+    plain_bwd = _time_windows(lambda: fa._bwd_reference(*args), iters=10,
+                              warmup=2)
+    # library yardstick, used nowhere in the port: one SDPA call under a
+    # named backend, and the autograd backward of that call (dq, dk, dv)
+    backend = _sdpa_backend()
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=50,
-                       warmup=5)
-    o = sdpa(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(
+    with sdpa_kernel(backend):
+        lib_fwd = _time_windows(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                iters=50, warmup=5)
+        o = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd = _time_windows(lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True), iters=50, warmup=5)
-    print(f"[flash] slice B=8 L=1024 H=8 D=64 bf16 causal: dq+dkv "
-          f"{ms['dq'] + ms['dkv']:.5f} ms against the SDPA backward "
-          f"{lib_bwd:.5f} ms")
-    src = "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention.cu"
+    print(f"[flash] library yardstick: SDPA backend {backend.name}: "
+          f"fwd {lib_fwd[0]:.5f} ms (spread {lib_fwd[1]:.3f}), bwd "
+          f"{lib_bwd[0]:.5f} ms (spread {lib_bwd[1]:.3f})")
+    for n, (t, spread) in ms.items():
+        print(f"[flash] slice B=8 L=1024 H=8 D=64 bf16 causal: {n} "
+              f"{t:.5f} ms (spread {spread:.3f} over 3 windows)")
+    print(f"[flash] dq+dkv {ms['dq'][0] + ms['dkv'][0]:.5f} ms against the "
+          f"SDPA backward {lib_bwd[0]:.5f} ms")
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/"
     replaces = {"fwd": 170, "dq": 281, "dkv": 299}
     slice_errs = errs["slice_bf16_causal"]
     rows = []
     for kind in ("fwd", "dq", "dkv"):
+        variant = fa._route(bf16, 64) if kind != "dq" else "simt"
         bound_ms, bound_by = _flash_bound_ms(kind, q, k, True)
         err = {"fwd": slice_errs["out"], "dq": slice_errs["dq"],
                "dkv": max(slice_errs["dk"], slice_errs["dv"])}[kind]
-        rows.append({
+        row = {
             "name": f"flash_attention.{kind}", "route": "cuda",
-            "source": src,
+            "variant": variant,
+            "source": src + ("flash_attention_sm90.cu" if variant == "tc"
+                             else "flash_attention.cu"),
             "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
                         f"{replaces[kind]}",
-            "max_abs_err": err, "ms": ms[kind],
-            "plain_ms": plain_fwd if kind == "fwd" else plain_bwd,
+            "max_abs_err": err, "ms": ms[kind][0], "ms_spread": ms[kind][1],
+            "plain_ms": (plain_fwd if kind == "fwd" else plain_bwd)[0],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_fwd if kind == "fwd" else lib_bwd})
+            "bound_share": bound_ms / ms[kind][0],
+            "library_ms": (lib_fwd if kind == "fwd" else lib_bwd)[0],
+            "library_spread": (lib_fwd if kind == "fwd" else lib_bwd)[1],
+            "library_backend": backend.name}
+        if f"{kind}_simt" in ms:
+            row["simt_ms"] = ms[f"{kind}_simt"][0]
+        rows.append(row)
     return rows
 
 
@@ -500,20 +605,22 @@ def _lm_model(attention_impl: str):
                         dtype="bfloat16", attention_impl=attention_impl)
 
 
+_FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dkv_tc")
+
+
 def _flash_counts() -> dict:
+    """Launches of each flash kernel (all routes), and of the tc route."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    f = fa.flash_attention
-    return {"fwd": f.fwd_launches, "dq": f.dq_launches,
-            "dkv": f.dkv_launches}
+    return {n: getattr(fa.flash_attention, f"{n}_launches")
+            for n in _FLASH_COUNTS}
 
 
 def _reset_flash_counts() -> None:
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    fa.flash_attention.fwd_launches = 0
-    fa.flash_attention.dq_launches = 0
-    fa.flash_attention.dkv_launches = 0
+    for n in _FLASH_COUNTS:
+        setattr(fa.flash_attention, f"{n}_launches", 0)
 
 
 def train_phase(gpu: str):
@@ -544,15 +651,18 @@ def train_phase(gpu: str):
     assert steps == 16 and len(losses) == 16, (steps, len(losses))
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
-    assert fit == {"fwd": layers * steps, "dq": layers * steps,
-                   "dkv": layers * steps}, fit
+    # every forward and dK/dV of the bf16 model on the tc route
+    n = layers * steps
+    assert fit == {"fwd": n, "dq": n, "dkv": n, "fwd_tc": n,
+                   "dkv_tc": n}, fit
     _reset_flash_counts()
     ev = trainer.evaluate(eval_ds, batch_size=batch)
     torch.cuda.synchronize()
     evaluate = _flash_counts()
     eval_batches = -(-len(eval_ds) // batch)
-    assert evaluate == {"fwd": layers * eval_batches, "dq": 0, "dkv": 0}, \
-        evaluate
+    n = layers * eval_batches
+    assert evaluate == {"fwd": n, "dq": 0, "dkv": 0, "fwd_tc": n,
+                        "dkv_tc": 0}, evaluate
     assert np.isfinite(ev["loss"]) and ev["count"] == 16 * LM["seq"], ev
     stamps = [t for t, _ in beats]
     gaps = np.diff(stamps)                  # steps 2..16, first excluded
@@ -640,8 +750,13 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
         return
-    flash_us = {kind: sum(r[0] for r in rows if f"flash_{kind}_kernel"
-                          in r[2]) for kind in ("fwd", "dq", "dkv")}
+    # flash_{kind}_kernel (SIMT) or flash_{kind}_tc_kernel (tensor cores)
+    flash_us = {kind: sum(r[0] for r in rows
+                          if re.search(rf"flash_{kind}(_tc)?_kernel", r[2]))
+                for kind in ("fwd", "dq", "dkv")}
+    names = sorted({m.group(0) for r in rows
+                    if (m := re.search(r"flash_(fwd|dq|dkv)(_tc)?_kernel",
+                                       r[2]))})
     total_flash = sum(flash_us.values())
     print(f"[profile] train step (B=8, L=1024, bf16): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
@@ -650,7 +765,8 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
           f"flash_share_of_device={total_flash / busy_us:.4f} "
           + " ".join(f"flash_{k}_ms={v / 1e3:.4f}"
                      for k, v in flash_us.items())
-          + f" kernels_per_step={sum(r[1] for r in rows):.1f}")
+          + f" kernels_per_step={sum(r[1] for r in rows):.1f} "
+          f"flash_kernels={','.join(names)}")
     for dev_us, count, key in rows[:8]:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
@@ -689,20 +805,42 @@ def _profile_decode(kv, steps: int = 16) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
+def _ptxas_lines(log: str):
+    """One line per kernel of a ptxas -v report: registers and spills."""
+    for block in log.split("Compiling entry function")[1:]:
+        name = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tc)?_kernel)ILi(\d+)E",
+                         block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if name and regs and spill:
+            yield (f"{name.group(1)}<{name.group(2)}>: {regs.group(1)} "
+                   f"registers, {spill.group(1)} bytes spill stores, "
+                   f"{spill.group(2)} bytes spill loads")
+
+
 def build_phase() -> None:
     """One nvcc per kernel source, all started together."""
     from distributed_tensorflow_tpu_torch.ops import _build
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
+    jobs = {"paged_attention": pa.build,
+            "flash_attention": functools.partial(fa.build, "simt"),
+            "flash_attention_sm90": functools.partial(fa.build, "tc")}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(m.build) for m in (pa, fa)]:
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for fut in [pool.submit(fn) for fn in jobs.values()]:
             fut.result()
-    for name in ("paged_attention", "flash_attention"):
+    for name in jobs:
         print(f"[build] {name}.cu built in "
               f"{_build.build_seconds[name]:.2f}s")
     print(f"[build] phase {time.perf_counter() - t0:.2f}s")
+    for line in _ptxas_lines(_build.build_logs["flash_attention_sm90"]):
+        print(f"[build] ptxas {line}")
+    for d in (64, 128):
+        print(f"[build] tc dynamic shared memory at head_dim {d}: "
+              f"{fa.smem_bytes(d, 'tc')}")
 
 
 def main() -> int:
@@ -722,12 +860,19 @@ def main() -> int:
     fit, evaluate, steps = train_phase(gpu)
     for row in flash_rows:
         kind = row["name"].rsplit(".", 1)[1]
-        row["launches"] = fit[kind] + evaluate[kind]
-        print(f"[flash] {row['name']} at the slice's shape: "
-              f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+        # the launches of this row's kernel: the tc count for a tc row
+        counter = f"{kind}_tc" if row["variant"] == "tc" else kind
+        row["launches"] = fit[counter] + evaluate[counter]
+        print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
+              f"shape: kernel_ms={row['ms']:.5f} "
+              f"plain_ms={row['plain_ms']:.5f} "
               f"library_ms={row['library_ms']:.5f} "
+              f"({row['library_backend']}) "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
-              f"launches_per_train_step={fit[kind] / steps:.1f}")
+              f"bound_share={row['bound_share']:.4f} "
+              f"launches_per_train_step={fit[counter] / steps:.1f}"
+              + (f" simt_ms={row['simt_ms']:.5f}" if "simt_ms" in row
+                 else ""))
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ is bound with ``ctypes``.  The library is compiled with ``nvcc`` for
 ``sm_90a`` at first use, into ``ops/_build/`` inside the package, under a
 name keyed by a hash of the source and the flags: an edited source builds
 anew, an unchanged one loads the library already there.  Nothing is
-compiled at import time.
+compiled at import time.  ``ptxas -v`` reports each kernel's registers,
+spills and shared memory; the report is kept beside the library
+(``<name>-<hash>.log``) and in ``build_logs``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # seconds each library took to build in this process (0.0 = loaded as built)
 build_seconds: dict[str, float] = {}
+# nvcc's output (the ptxas report) of each library loaded in this process
+build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -47,6 +52,7 @@ def load(name: str) -> ctypes.CDLL:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
+    log = lib.with_suffix(".log")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -58,8 +64,10 @@ def load(name: str) -> ctypes.CDLL:
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for {src.name}:\n"
                                    f"{proc.stdout}{proc.stderr}")
+            log.write_text(proc.stdout + proc.stderr)
             os.replace(out, lib)   # atomic: a reader never sees half a file
         build_seconds[name] = time.perf_counter() - t0
     else:
         build_seconds.setdefault(name, 0.0)
+    build_logs[name] = log.read_text() if log.exists() else ""
     return ctypes.CDLL(str(lib))

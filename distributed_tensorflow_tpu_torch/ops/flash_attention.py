@@ -3,12 +3,19 @@
 Exact ``softmax(scale·QKᵀ)V`` on model-layout ``(B, L, H, D)`` tensors,
 with an optional causal mask (by absolute position) and an optional
 ``(B, Lk)`` key-validity mask, both writing ``NEG_INF = -1e30``.  On CUDA
-tensors the three hand-written Hopper kernels of
-``csrc/flash_attention.cu`` run — the ports of the Pallas kernels
-``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; on CPU tensors the
-plain PyTorch versions ``_fwd_reference``/``_bwd_reference`` run (the math
-of the JAX package's ``_fwd_block_ref``/``_bwd_block_ref``, in f32).  A
-CUDA tensor never falls back to a plain version.
+tensors the hand-written Hopper kernels run — the ports of the Pallas
+kernels ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; on CPU
+tensors the plain PyTorch versions ``_fwd_reference``/``_bwd_reference``
+run (the math of the JAX package's ``_fwd_block_ref``/``_bwd_block_ref``,
+in f32).  A CUDA tensor never falls back to a plain version.
+
+Two routes, chosen by ``_route(dtype, head_dim)`` from the inputs alone:
+``"tc"`` for bfloat16 with a head dim that is a multiple of 16 up to 128
+(the GPT training path) runs the forward and dK/dV on Hopper's tensor
+cores, ``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, other head
+dims) runs ``csrc/flash_attention.cu``.  dQ runs the ``simt`` kernel on
+both routes.  The ``tc`` kernels round P and dS to bf16 for their
+products: one rounding more than the ``simt`` kernels' f32 P.
 
 ``flash_attention`` is differentiable through ``_FlashCore``, the
 counterpart of the JAX ``_flash_core`` custom_vjp: the forward saves
@@ -26,7 +33,9 @@ in the JAX kernels as here; the GPT path never has one (a causal row always
 sees its own position).
 
 Launch counts (the main path's proof that it ran the kernels):
-``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``.
+``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
+over both routes, and ``.fwd_tc_launches`` and ``.dkv_tc_launches`` for
+the ``tc`` route alone.
 """
 
 from __future__ import annotations
@@ -84,34 +93,72 @@ def _bwd_reference(q, k, v, kv_mask, do, lse, delta, scale, causal):
     return dq, dk, dv
 
 
+def _term_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
+    """The sum of the absolute terms of each output of the plain versions,
+    ``(out, dk, dv)`` in f32: ``Σ_k p|v|`` (p normalized by lse),
+    ``Σ_q |dS||q|`` and ``Σ_q p|dO|``.  A kernel that rounds each P or dS
+    to bf16 before the product is off by at most 2^-9 times these."""
+    s = _scores(q, k, kv_mask, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    do32 = do.float()
+    dp = torch.einsum("blhd,bmhd->bhlm", do32, v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    return (torch.einsum("bhlm,bmhd->blhd", p, v.float().abs()),
+            torch.einsum("bhlm,blhd->bmhd", ds, q.float().abs()),
+            torch.einsum("bhlm,blhd->bmhd", p, do32.abs()))
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
 
+_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+
+
 @functools.cache
-def _library():
+def _library(route: str = "simt"):
+    """The kernel library of ``route``: ``simt`` = ``flash_attention.cu``
+    (fwd, dq, dkv; a dtype argument), ``tc`` = ``flash_attention_sm90.cu``
+    (fwd and dkv, bf16 only)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32] * 5 + [ctypes.c_float, i32, i32, ptr]
-    lib.flash_fwd_launch.argtypes = [ptr] * 6 + tail
-    lib.flash_dq_launch.argtypes = [ptr] * 8 + tail
-    lib.flash_dkv_launch.argtypes = [ptr] * 9 + tail
-    for fn in (lib.flash_fwd_launch, lib.flash_dq_launch,
-               lib.flash_dkv_launch):
+    if route == "simt":
+        lib = _build.load("flash_attention")
+        tail = _TAIL + [i32, ptr]
+        fns = {"fwd": 6, "dq": 8, "dkv": 9}
+    else:
+        lib = _build.load("flash_attention_sm90")
+        tail = _TAIL + [ptr]
+        fns = {"fwd_tc": 6, "dkv_tc": 9}
+    for name, n_ptrs in fns.items():
+        fn = getattr(lib, f"flash_{name}_launch")
+        fn.argtypes = [ptr] * n_ptrs + tail
         fn.restype = i32
     return lib
 
 
-def build() -> None:
-    """Build (or load the already-built) kernel library now."""
-    _library()
+def build(route: str | None = None) -> None:
+    """Build (or load the already-built) kernel library of ``route``, or
+    of both routes."""
+    for r in ((route,) if route else ("simt", "tc")):
+        _library(r)
 
 
-def _tiles(d: int) -> tuple[int, int, int]:
-    """(BQ, BK, DT) the kernels use for head dim ``d`` (mirrors
-    ``by_head_dim`` in the CUDA source)."""
+def _route(dtype, head_dim: int) -> str:
+    """``"tc"`` where the tensor-core kernels take the inputs (bfloat16, a
+    head dim that is a multiple of 16 up to 128), else ``"simt"``."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+            and 16 <= head_dim <= 128):
+        return "tc"
+    return "simt"
+
+
+def _tiles(d: int, route: str = "simt") -> tuple[int, int, int]:
+    """(BQ, BK, DT) the kernels of ``route`` use for head dim ``d``
+    (mirrors ``by_head_dim`` / ``dispatch`` in the CUDA sources)."""
+    if route == "tc":
+        return 64, 64, (64 if d <= 64 else 128)
     if d <= 64:
         return 64, 64, 64
     if d <= 128:
@@ -119,58 +166,93 @@ def _tiles(d: int) -> tuple[int, int, int]:
     return 32, 32, 256
 
 
-def smem_bytes(d: int) -> dict[str, int]:
-    """Dynamic shared memory each kernel needs per CTA at head dim ``d``
-    (mirrors ``Smem`` in the CUDA source)."""
+def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
+    """Dynamic shared memory each kernel of ``route`` needs per CTA at head
+    dim ``d`` (mirrors ``Smem`` in the CUDA sources); dq is the ``simt``
+    kernel on both routes."""
     bq, bk, dt = _tiles(d)
     ld, ldp = dt + 1, bk + 1
-    return {"fwd": 4 * (bq * ld + 2 * bk * ld + bq * ldp + bk),
+    simt = {"fwd": 4 * (bq * ld + 2 * bk * ld + bq * ldp + bk),
             "dq": 4 * (2 * bq * ld + 2 * bk * ld + bq * ldp + bk),
             "dkv": 4 * (2 * bk * ld + 2 * bq * ld + 2 * bq * ldp + bk
                         + 2 * bq)}
+    if route == "simt":
+        return simt
+    if _route(torch.bfloat16, d) != "tc":
+        raise ValueError(f"the tc route takes head dims that are multiples "
+                         f"of 16 up to 128, not {d}")
+    tile, _, dt = _tiles(d, "tc")
+    row = 2 * tile * (dt + 8)              # one bf16 tile, rows padded by 8
+    return {"fwd": row + 4 * row + 2 * tile * 4,
+            "dq": simt["dq"],
+            "dkv": 2 * row + 4 * row + 4 * tile * 4}
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    ``tc`` kernels copy 16 bytes at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(name, *tensors, dims, scale, causal, dtype, device):
-    lib = _library()
+    route = "tc" if name.endswith("_tc") else "simt"
+    lib = _library(route)
+    extra = () if route == "tc" else (_DTYPES[dtype],)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"flash_{name}_launch")(
             *(_ptr(t) for t in tensors), *dims, float(scale), int(causal),
-            _DTYPES[dtype], stream)
+            *extra, stream)
     if err:
         raise RuntimeError(f"flash_attention {name} kernel launch failed "
                            f"with cudaError_t {err}")
 
 
-def _fwd_cuda(q, k, v, mask, scale, causal):
-    b, lq, h, d = q.shape
+def _dims(q, k):
+    return q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]
+
+
+def _fwd_cuda(q, k, v, mask, scale, causal, route=None):
+    """The forward kernel of ``route`` (default: ``_route`` of the inputs)."""
+    route = route or _route(q.dtype, q.shape[-1])
+    b, lq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, k, v, mask, out, lse, dims=(b, h, lq, k.shape[1], d),
-            scale=scale, causal=causal, dtype=q.dtype, device=q.device)
+    if route == "tc":
+        q, k, v = (_aligned(x) for x in (q, k, v))
+    _launch("fwd_tc" if route == "tc" else "fwd", q, k, v, mask, out, lse,
+            dims=_dims(q, k), scale=scale, causal=causal, dtype=q.dtype,
+            device=q.device)
     flash_attention.fwd_launches += 1
+    if route == "tc":
+        flash_attention.fwd_tc_launches += 1
     return out, lse
 
 
 def _dq_cuda(q, k, v, mask, do, lse, delta, scale, causal):
     dq = torch.empty_like(q)
-    _launch("dq", q, k, v, mask, do, lse, delta, dq,
-            dims=(q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]),
+    _launch("dq", q, k, v, mask, do, lse, delta, dq, dims=_dims(q, k),
             scale=scale, causal=causal, dtype=q.dtype, device=q.device)
     flash_attention.dq_launches += 1
     return dq
 
 
-def _dkv_cuda(q, k, v, mask, do, lse, delta, scale, causal):
+def _dkv_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
+    """The dK/dV kernel of ``route`` (default: ``_route`` of the inputs)."""
+    route = route or _route(q.dtype, q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("dkv", q, k, v, mask, do, lse, delta, dk, dv,
-            dims=(q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]),
-            scale=scale, causal=causal, dtype=q.dtype, device=q.device)
+    if route == "tc":
+        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    _launch("dkv_tc" if route == "tc" else "dkv", q, k, v, mask, do, lse,
+            delta, dk, dv, dims=_dims(q, k), scale=scale, causal=causal,
+            dtype=q.dtype, device=q.device)
     flash_attention.dkv_launches += 1
+    if route == "tc":
+        flash_attention.dkv_tc_launches += 1
     return dk, dv
 
 
@@ -224,7 +306,7 @@ def _check(q, k, v, kv_mask, extra=()):
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim={d} exceeds the kernels' maximum "
                          f"{MAX_HEAD_DIM}")
-    need = max(smem_bytes(d).values())
+    need = max(smem_bytes(d, _route(q.dtype, d)).values())
     if need > _SMEM_LIMIT:
         raise ValueError(f"flash attention needs {need} bytes of shared "
                          f"memory per CTA at head_dim {d}; the card allows "
@@ -290,6 +372,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 flash_attention.fwd_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
+flash_attention.fwd_tc_launches = 0
+flash_attention.dkv_tc_launches = 0
 
 
 # --------------------------------------------------------------------------

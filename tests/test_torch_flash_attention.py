@@ -9,6 +9,10 @@ on the TPU; and the wrapper's input checks.  The Hopper kernels themselves
 are held to these plain versions on the card by
 ``tests/test_torch_flash_attention_cuda.py``.
 
+The route choice (``_route``: the tensor-core kernels for bf16 at head
+dims that are multiples of 16 up to 128) and the shared memory of both
+routes are checked here; the kernels of both routes run only on the card.
+
 Tolerances, those of ``tests/test_flash_attention.py``: outputs
 ``rtol=atol=1e-5`` (online-softmax reassociation against one softmax);
 gradients ``1e-4``; bf16 outputs one bf16 rounding (``rtol=atol=8e-3``),
@@ -222,17 +226,62 @@ def test_block_primitives_match_pallas_kernels(causal, lq, lk):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD)
 
 
+def _launch_counts():
+    f = tfa.flash_attention
+    return (f.fwd_launches, f.dq_launches, f.dkv_launches, f.fwd_tc_launches,
+            f.dkv_tc_launches)
+
+
 def test_grads_come_back_in_input_dtypes_and_count_no_cpu_launches():
     q, k, v = (x.to(torch.bfloat16).requires_grad_()
                for x in _t(*_qkv(12, 1, 16, 2, 8)))
-    before = (tfa.flash_attention.fwd_launches,
-              tfa.flash_attention.dq_launches,
-              tfa.flash_attention.dkv_launches)
+    before = _launch_counts()
     tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
     assert {q.grad.dtype, k.grad.dtype, v.grad.dtype} == {torch.bfloat16}
-    assert before == (tfa.flash_attention.fwd_launches,
-                      tfa.flash_attention.dq_launches,
-                      tfa.flash_attention.dkv_launches)
+    assert before == _launch_counts()
+
+
+@pytest.mark.parametrize("dtype, d, route", [
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 72, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 8, "simt"),
+    (torch.float32, 256, "simt")])
+def test_route_takes_tensor_cores_for_bf16_at_multiples_of_16(dtype, d,
+                                                               route):
+    assert tfa._route(dtype, d) == route
+
+
+def test_cpu_tensors_of_the_tc_route_run_the_plain_versions():
+    """bf16 at head_dim 16 would take the tensor-core kernels on the card;
+    on the CPU it runs the plain versions and counts no launch."""
+    q, k, v = (x.to(torch.bfloat16)
+               for x in _t(*_qkv(14, 2, 24, 2, 16, lk=40)))
+    mask = torch.ones(2, 40)
+    mask[1, 30:] = 0.0
+    assert tfa._route(q.dtype, 16) == "tc"
+    before = _launch_counts()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, kv_mask=mask)
+    out.float().sum().backward()
+    assert before == _launch_counts()
+    want, _ = tfa._fwd_reference(q, k, v, mask, 0.25, False)
+    assert torch.equal(out.detach(), want)
+
+
+def test_term_sums_bound_the_plain_outputs():
+    """The rounding bound of the tensor-core tolerance: each output is at
+    most the sum of its absolute terms."""
+    q, k, v = _t(*_qkv(15, 1, 32, 2, 16))
+    do = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        q.shape).astype(np.float32))
+    out, lse = tfa._fwd_reference(q, k, v, None, 0.25, True)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    _, dk, dv = tfa._bwd_reference(q, k, v, None, do, lse, delta, 0.25,
+                                   True)
+    terms = tfa._term_sums(q, k, v, None, do, lse, delta, 0.25, True)
+    for got, bound in zip((out, dk, dv), terms):
+        assert bool((got.abs() <= bound * (1 + 1e-5) + 1e-6).all())
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -256,6 +305,14 @@ def test_wrapper_rejects_bad_inputs():
                             scale=1.0)
 
 
-def test_shared_memory_fits_the_card_at_every_head_dim_tier():
-    for d in (1, 64, 65, 128, 129, 256):
-        assert max(tfa.smem_bytes(d).values()) <= tfa._SMEM_LIMIT
+@pytest.mark.parametrize("route, d", [
+    ("simt", 1), ("simt", 64), ("simt", 65), ("simt", 128), ("simt", 129),
+    ("simt", 256), ("tc", 16), ("tc", 64), ("tc", 80), ("tc", 128)])
+def test_shared_memory_fits_the_card_at_every_head_dim_tier(route, d):
+    assert max(tfa.smem_bytes(d, route).values()) <= tfa._SMEM_LIMIT
+
+
+def test_tc_shared_memory_is_refused_outside_its_head_dims():
+    for d in (8, 72, 144, 256):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tfa.smem_bytes(d, "tc")
