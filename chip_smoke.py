@@ -8,15 +8,14 @@ Phases (any failure raises and the script exits non-zero):
 2. build   — nvcc builds every kernel from the sources in this checkout
              (``ops/csrc/*.cu``), one nvcc per source, all started together,
              and prints ptxas's registers and spills of the tensor-core
-             flash kernels;
+             flash kernels and the paged kernels;
 3. kernels — each kernel against its plain PyTorch version on the card, on
              seeded inputs, with the stated tolerances: the paged decode
-             kernel; the flash-attention kernels of both routes — f32 cases
-             on the SIMT kernels (forward, dQ, dK/dV), their bf16 twins on
-             the tensor-core forward and dK/dV (``tc``) — and the block
-             primitives; the main paths' shapes are timed (median of three
-             windows) beside their bounds and a library call under a named
-             backend;
+             kernel (split-key flash-decoding) at the split count it picks
+             and at forced counts 1, 2, 4 and one table entry per split;
+             the flash-attention kernels of both routes — f32 cases on the
+             SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
+             tensor-core kernels (``tc``) — and the block primitives;
 4. serve   — the paged-KV GPT server at the full width of the repo's serve
              bench (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048,
              max_len 144, bf16, 8 slots, block 8), random weights from a
@@ -24,17 +23,25 @@ Phases (any failure raises and the script exits non-zero):
              ``SlotKVCache(..., kv_layout="paged")`` and
              ``ContinuousBatcher.run``; the launch counts show the decode
              steps went through the kernel, and the first decode step's
-             logits are held against the gather read;
+             logits are held against the gather read; then where a decode
+             step's device time goes (``torch.profiler``);
 5. train   — the GPT of ``bench.py --lm`` (vocab 16384, hidden 512, 8
              layers, 8 heads, ffn 2048, sequence 1024, bf16, dropout 0,
              flash attention), random weights from a seed, trained for two
              epochs of 64 seeded rows at batch 8 (16 steps) by
              ``Trainer(model, engine=SyncEngine(model)).fit`` and evaluated
              by ``Trainer.evaluate``; the launch counts show every
-             attention forward and backward went through the kernels — the
-             forward and dK/dV through the ``tc`` route —, and one step is
-             held against a dense-attention twin;
-6. profile — where a decode step's and a train step's device time goes.
+             attention forward and backward went through the kernels of
+             the ``tc`` route, and one step is held against a
+             dense-attention twin; then where a train step's device time
+             goes;
+6. timings — the main paths' kernels at their shapes beside their bounds,
+             the plain versions and a library call: each one's device time
+             per launch from ``torch.profiler`` (``ms``) and the
+             event-window time per call with the host's cost
+             (``call_ms``); the paged kernel also at a 4096-token context,
+             with a sweep of split counts at both shapes.  Last, so that
+             no profiler session precedes the serve and train windows.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -72,7 +79,7 @@ FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # roundoff) of that term, so outputs are held element-wise to
 # 2^-8 (|want| + sum of |terms|) + 1e-5 (a bound on |want| alone fails
 # where large terms cancel), and to a relative Frobenius error under 1e-2.
-# lse stays f32 on both routes (F32_TOL); dQ is the SIMT kernel.
+# lse stays f32 on both routes (F32_TOL).
 TC_RTOL, TC_ATOL, TC_FROBENIUS = 2.0 ** -8, 1e-5, 1e-2
 # one train step of the bf16 flash model against its dense-attention twin
 # (same weights, same batch): the dense path rounds scores, softmax and
@@ -116,6 +123,26 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device time per call of ``fn``: the self device time of every
+    kernel ``iters`` calls launch, from ``torch.profiler``, over ``iters``
+    (the host's cost between launches is not in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(r[0] for r in _device_rows(prof, iters))
+    if not us:
+        raise RuntimeError("the profiler saw no device time")
+    return us / 1e3
 
 
 def _paged_case(seed, *, s=8, l_q=1, h=8, kvh=8, d=64, blk=8, mb=18,
@@ -177,7 +204,42 @@ def _bound_ms(q, kp, pos, ks) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_kernel_phase() -> dict:
+def _paged_timed(q, kp, vp, bt, pos, splits_list) -> dict:
+    """Device ms per call of the kernel at each split count (None = the
+    count ``_splits`` picks), the plain version and the library yardstick,
+    the event-window ms per call of each, and the bound."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    s, l_q, h, d = q.shape
+    mb, blk = bt.shape[1], kp.shape[1]
+    sweep = {sp: _device_ms(lambda sp=sp: pa._paged_cuda(
+        q, kp, vp, bt, pos, splits=sp)) for sp in splits_list}
+    kernel = lambda: pa.paged_attention(q, kp, vp, bt, pos)  # noqa: E731
+    plain = lambda: pa.paged_attention_reference(  # noqa: E731
+        q, kp, vp, bt, pos)
+    # library yardstick: one scaled_dot_product_attention call over the
+    # table gathered beforehand (the gather is not in the timed call)
+    keys = kp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
+    vals = vp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
+    mask = (torch.arange(mb * blk, device="cuda")[None, None, None, :]
+            <= pos.long()[:, None, None, None])
+    qt = q.transpose(1, 2)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+        qt, keys, vals, attn_mask=mask)
+    bound_ms, bound_by = _bound_ms(q, kp, pos, None)
+    return {"splits": pa._splits(s, kp.shape[2], mb, blk),
+            "ms": _device_ms(kernel), "call_ms": _time_ms(kernel),
+            "plain_ms": _device_ms(plain, iters=10),
+            "plain_call_ms": _time_ms(plain, iters=20, warmup=3),
+            "library_ms": _device_ms(library),
+            "library_call_ms": _time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "sweep": {str(sp): t for sp, t in sweep.items()}}
+
+
+def paged_check_phase() -> dict:
+    """The paged kernel against its plain version on nine seeded cases at
+    every split count; returns each case's max abs error."""
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     cases = {
@@ -193,52 +255,77 @@ def paged_kernel_phase() -> dict:
         "block_edges_f32": (dict(pos=[0, 7, 8, 15, 16, 63, 64, 143]),
                             F32_TOL),
         "head_dim_256_f32": (dict(d=256, h=4, kvh=4, mb=4), F32_TOL),
-        # 80 folded rows x head_dim 128: 93 KB of dynamic shared memory
+        # 80 folded rows x head_dim 128: 95 KB of dynamic shared memory
         "large_group_smem_f32": (dict(h=32, kvh=2, l_q=5, d=128), F32_TOL),
     }
     errs = {}
     for i, (name, (kw, tol)) in enumerate(cases.items()):
         q, kp, vp, bt, pos, ks, vs = _paged_case(100 + i, **kw)
-        out = pa.paged_attention(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs)
-        torch.cuda.synchronize()
         ref = pa.paged_attention_reference(q, kp, vp, bt, pos,
                                            k_scale=ks, v_scale=vs)
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
-        if kw.get("alias"):
-            assert torch.equal(out[0::2], out[1::2]), "aliased rows differ"
-        errs[name] = float((out.float() - ref.float()).abs().max())
-        print(f"[kernel] {name}: max_abs_err={errs[name]:.3e} ok")
+        mb = bt.shape[1]
+        # the wrapper's own split count, then forced counts up to one
+        # table entry per split
+        for sp in (None, 1, 2, 4, mb):
+            out = pa._paged_cuda(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs,
+                                 splits=sp)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), ref.float(), **tol,
+                                       msg=f"{name} splits={sp}")
+            if kw.get("alias"):
+                assert torch.equal(out[0::2], out[1::2]), "aliased rows differ"
+            err = float((out.float() - ref.float()).abs().max())
+            errs[name] = max(errs.get(name, 0.0), err)
+        print(f"[kernel] {name}: max_abs_err={errs[name]:.3e} at splits "
+              f"default/1/2/4/{mb} ok")
+    return errs
 
-    # the serving path's decode shape, timed
+
+def paged_timing_phase(errs) -> dict:
+    """The paged kernel timed at the serve decode shape and at a long
+    context, with a sweep of split counts; returns the kernel's row."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    sweep = (1, 2, 4, 8, 16, 32, 64)
+    # the serving path's decode shape
     q, kp, vp, bt, pos, _, _ = _paged_case(
         7, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16)
-    s, l_q, h, d = q.shape
-    kernel_ms = _time_ms(lambda: pa.paged_attention(q, kp, vp, bt, pos))
-    plain_ms = _time_ms(lambda: pa.paged_attention_reference(
-        q, kp, vp, bt, pos))
-    # library yardstick: one scaled_dot_product_attention call over the
-    # table gathered beforehand (the gather is not in the timed call)
-    mb, blk = bt.shape[1], kp.shape[1]
-    keys = kp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
-    vals = vp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
-    mask = (torch.arange(mb * blk, device="cuda")[None, None, None, :]
-            <= pos.long()[:, None, None, None])
-    qt = q.transpose(1, 2)
-    library_ms = _time_ms(lambda: torch.nn.functional.
-                          scaled_dot_product_attention(qt, keys, vals,
-                                                       attn_mask=mask))
-    bound_ms, bound_by = _bound_ms(q, kp, pos, None)
-    print(f"[kernel] decode S={s} H=KVH={h} D={d} blk={blk} MB={mb} bf16: "
-          f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={library_ms:.5f} bound_ms={bound_ms:.6f} "
-          f"({bound_by})")
+    dec = _paged_timed(q, kp, vp, bt, pos, sweep)
+    # a long context: 4096-token tables, positions in [3584, 4095]
+    long_pos = np.random.default_rng(8).integers(3584, 4096, 8)
+    q, kp, vp, bt, pos, _, _ = _paged_case(
+        8, blk=16, mb=256, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+        pos=long_pos)
+    out = pa.paged_attention(q, kp, vp, bt, pos)
+    ref = pa.paged_attention_reference(q, kp, vp, bt, pos)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    lng = _paged_timed(q, kp, vp, bt, pos, sweep)
+    del q, kp, vp, bt, pos, out, ref
+    for label, t in (("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16", dec),
+                     ("long context S=8 H=KVH=8 D=64 blk=16 MB=256 pos "
+                      "3584-4095 bf16", lng)):
+        print(f"[kernel] {label}: device ms per call: kernel={t['ms']:.5f} "
+              f"(splits={t['splits']}) plain={t['plain_ms']:.5f} "
+              f"library={t['library_ms']:.5f}; call ms: "
+              f"kernel={t['call_ms']:.5f} plain={t['plain_call_ms']:.5f} "
+              f"library={t['library_call_ms']:.5f}; bound_ms="
+              f"{t['bound_ms']:.6f} ({t['bound_by']}), kernel/bound="
+              f"{t['ms'] / t['bound_ms']:.2f}")
+        print(f"[kernel] {label}: split sweep (device ms per call): "
+              + " ".join(f"{sp}:{ms:.5f}" for sp, ms in t["sweep"].items()))
     return {"name": "paged_attention", "route": "cuda",
             "source": "distributed_tensorflow_tpu_torch/ops/csrc/"
                       "paged_attention.cu",
             "replaces": "distributed_tensorflow_tpu/ops/paged_attention.py:257",
-            "max_abs_err": errs["decode_bench_bf16"], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "max_abs_err": errs["decode_bench_bf16"],
+            **{k: dec[k] for k in ("ms", "call_ms", "plain_ms",
+                                   "plain_call_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_call_ms",
+                                   "splits")},
+            "split_sweep": dec["sweep"],
+            "long_context": {k: lng[k] for k in (
+                "ms", "call_ms", "splits", "bound_ms", "bound_by",
+                "plain_ms", "library_ms", "sweep")}}
 
 
 def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
@@ -318,6 +405,7 @@ def _check_flash(name, case, causal, route) -> dict:
     assert _flash_counts() == {
         "fwd": before["fwd"] + 1, "dq": before["dq"] + 1,
         "dkv": before["dkv"] + 1, "fwd_tc": before["fwd_tc"] + tc,
+        "dq_tc": before["dq_tc"] + tc,
         "dkv_tc": before["dkv_tc"] + tc}, (name, route)
     refs = fa._bwd_reference(q, k, v, mask, do, ref_lse, delta, scale,
                              causal)
@@ -328,13 +416,11 @@ def _check_flash(name, case, causal, route) -> dict:
         terms = fa._term_sums(q, k, v, mask, do, ref_lse, delta, scale,
                               causal)
         for n, got, want, t in (("out", out, ref_out, terms[0]),
+                                ("dq", grads[0], refs[0], terms[3]),
                                 ("dk", grads[1], refs[1], terms[1]),
                                 ("dv", grads[2], refs[2], terms[2])):
             errs[n], errs[f"{n}_frobenius"] = _close_tc(f"{name} {n}", got,
                                                         want, t)
-        torch.testing.assert_close(grads[0].float(), refs[0],
-                                   msg=f"{name} dq", **BF16_TOL)
-        errs["dq"] = float((grads[0].float() - refs[0]).abs().max())
     else:
         torch.testing.assert_close(out.float(), ref_out.float(),
                                    **(F32_TOL if f32 else BF16_TOL))
@@ -407,11 +493,9 @@ def _sdpa_backend():
     raise RuntimeError("no SDPA backend takes the slice's shape")
 
 
-def flash_kernel_phase() -> list[dict]:
+def flash_check_phase() -> dict:
     """The flash kernels of both routes against their plain versions on
-    seeded cases, then timed at the training slice's shape."""
-    from torch.nn.attention import sdpa_kernel
-
+    seeded cases; returns each case's errors."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     bf16 = torch.bfloat16
@@ -443,9 +527,20 @@ def flash_kernel_phase() -> list[dict]:
             else:
                 torch.testing.assert_close(out[-1], mean_v, **F32_TOL)
     _check_flash_blocks()
+    return errs
 
-    # the training slice's shape, timed: each time the median of three
-    # windows of back-to-back launches
+
+def flash_timing_phase(errs) -> list[dict]:
+    """The flash kernels timed at the training slice's shape; returns
+    their rows."""
+    from torch.nn.attention import sdpa_kernel
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    # the training slice's shape, timed: device ms per launch from the
+    # profiler; beside it the event-window ms per call (median of three
+    # windows of back-to-back calls, host cost included)
     q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64, dtype=bf16)
     scale = 64 ** -0.5
     out, lse = fa._fwd_cuda(q, k, v, None, scale, True)
@@ -459,14 +554,18 @@ def flash_kernel_phase() -> list[dict]:
         # route replaced on this path
         "fwd_simt": lambda: fa._fwd_cuda(q, k, v, None, scale, True,
                                          route="simt"),
+        "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
         "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
-    ms = {n: _time_windows(fn, iters=50, warmup=5) for n, fn in timed.items()}
-    plain_fwd = _time_windows(lambda: fa._fwd_reference(
-        q, k, v, None, scale, True), iters=10, warmup=2)
+    dev = {n: _device_ms(fn) for n, fn in timed.items()}
+    call = {n: _time_windows(fn, iters=50, warmup=5) for n, fn in timed.items()}
+    plain_fwd = lambda: fa._fwd_reference(q, k, v, None, scale, True)  # noqa: E731,E501
     # the plain backward computes dq, dk and dv in one function: its time
     # stands in both backward rows
-    plain_bwd = _time_windows(lambda: fa._bwd_reference(*args), iters=10,
-                              warmup=2)
+    plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
+    plain = {"fwd": (_device_ms(plain_fwd, iters=10, warmup=2),
+                     _time_windows(plain_fwd, iters=10, warmup=2)[0]),
+             "bwd": (_device_ms(plain_bwd, iters=10, warmup=2),
+                     _time_windows(plain_bwd, iters=10, warmup=2)[0])}
     # library yardstick, used nowhere in the port: one SDPA call under a
     # named backend, and the autograd backward of that call (dq, dk, dv)
     backend = _sdpa_backend()
@@ -474,46 +573,54 @@ def flash_kernel_phase() -> list[dict]:
                   for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dot = do.transpose(1, 2)
+    lib_fwd_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
     with sdpa_kernel(backend):
-        lib_fwd = _time_windows(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                iters=50, warmup=5)
+        lib_fwd = (_device_ms(lib_fwd_fn),
+                   *_time_windows(lib_fwd_fn, iters=50, warmup=5))
         o = sdpa(qt, kt, vt, is_causal=True)
-    lib_bwd = _time_windows(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), dot, retain_graph=True), iters=50, warmup=5)
+    lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
+        o, (qt, kt, vt), dot, retain_graph=True)
+    lib_bwd = (_device_ms(lib_bwd_fn),
+               *_time_windows(lib_bwd_fn, iters=50, warmup=5))
     print(f"[flash] library yardstick: SDPA backend {backend.name}: "
-          f"fwd {lib_fwd[0]:.5f} ms (spread {lib_fwd[1]:.3f}), bwd "
-          f"{lib_bwd[0]:.5f} ms (spread {lib_bwd[1]:.3f})")
-    for n, (t, spread) in ms.items():
-        print(f"[flash] slice B=8 L=1024 H=8 D=64 bf16 causal: {n} "
-              f"{t:.5f} ms (spread {spread:.3f} over 3 windows)")
-    print(f"[flash] dq+dkv {ms['dq'][0] + ms['dkv'][0]:.5f} ms against the "
-          f"SDPA backward {lib_bwd[0]:.5f} ms")
+          f"fwd device {lib_fwd[0]:.5f} ms, call {lib_fwd[1]:.5f} ms "
+          f"(spread {lib_fwd[2]:.3f}); bwd device {lib_bwd[0]:.5f} ms, call "
+          f"{lib_bwd[1]:.5f} ms (spread {lib_bwd[2]:.3f})")
+    for n in timed:
+        print(f"[flash] slice B=8 L=1024 H=8 D=64 bf16 causal: {n} device "
+              f"{dev[n]:.5f} ms, call {call[n][0]:.5f} ms (spread "
+              f"{call[n][1]:.3f} over 3 windows)")
+    print(f"[flash] plain device ms: fwd {plain['fwd'][0]:.5f}, bwd "
+          f"{plain['bwd'][0]:.5f}")
+    print(f"[flash] dq+dkv {dev['dq'] + dev['dkv']:.5f} ms against the "
+          f"SDPA backward {lib_bwd[0]:.5f} ms (device)")
     src = "distributed_tensorflow_tpu_torch/ops/csrc/"
     replaces = {"fwd": 170, "dq": 281, "dkv": 299}
     slice_errs = errs["slice_bf16_causal"]
     rows = []
     for kind in ("fwd", "dq", "dkv"):
-        variant = fa._route(bf16, 64) if kind != "dq" else "simt"
+        variant = fa._route(bf16, 64)
         bound_ms, bound_by = _flash_bound_ms(kind, q, k, True)
         err = {"fwd": slice_errs["out"], "dq": slice_errs["dq"],
                "dkv": max(slice_errs["dk"], slice_errs["dv"])}[kind]
-        row = {
+        lib = lib_fwd if kind == "fwd" else lib_bwd
+        pl = plain["fwd" if kind == "fwd" else "bwd"]
+        rows.append({
             "name": f"flash_attention.{kind}", "route": "cuda",
             "variant": variant,
             "source": src + ("flash_attention_sm90.cu" if variant == "tc"
                              else "flash_attention.cu"),
             "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
                         f"{replaces[kind]}",
-            "max_abs_err": err, "ms": ms[kind][0], "ms_spread": ms[kind][1],
-            "plain_ms": (plain_fwd if kind == "fwd" else plain_bwd)[0],
+            "max_abs_err": err, "ms": dev[kind],
+            "call_ms": call[kind][0], "call_spread": call[kind][1],
+            "plain_ms": pl[0], "plain_call_ms": pl[1],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / ms[kind][0],
-            "library_ms": (lib_fwd if kind == "fwd" else lib_bwd)[0],
-            "library_spread": (lib_fwd if kind == "fwd" else lib_bwd)[1],
-            "library_backend": backend.name}
-        if f"{kind}_simt" in ms:
-            row["simt_ms"] = ms[f"{kind}_simt"][0]
-        rows.append(row)
+            "bound_share": bound_ms / dev[kind],
+            "library_ms": lib[0], "library_call_ms": lib[1],
+            "library_spread": lib[2], "library_backend": backend.name,
+            "simt_ms": dev[f"{kind}_simt"],
+            "simt_call_ms": call[f"{kind}_simt"][0]})
     return rows
 
 
@@ -605,7 +712,7 @@ def _lm_model(attention_impl: str):
                         dtype="bfloat16", attention_impl=attention_impl)
 
 
-_FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dkv_tc")
+_FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
 
 
 def _flash_counts() -> dict:
@@ -651,9 +758,9 @@ def train_phase(gpu: str):
     assert steps == 16 and len(losses) == 16, (steps, len(losses))
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
-    # every forward and dK/dV of the bf16 model on the tc route
+    # every forward, dQ and dK/dV of the bf16 model on the tc route
     n = layers * steps
-    assert fit == {"fwd": n, "dq": n, "dkv": n, "fwd_tc": n,
+    assert fit == {"fwd": n, "dq": n, "dkv": n, "fwd_tc": n, "dq_tc": n,
                    "dkv_tc": n}, fit
     _reset_flash_counts()
     ev = trainer.evaluate(eval_ds, batch_size=batch)
@@ -662,7 +769,7 @@ def train_phase(gpu: str):
     eval_batches = -(-len(eval_ds) // batch)
     n = layers * eval_batches
     assert evaluate == {"fwd": n, "dq": 0, "dkv": 0, "fwd_tc": n,
-                        "dkv_tc": 0}, evaluate
+                        "dq_tc": 0, "dkv_tc": 0}, evaluate
     assert np.isfinite(ev["loss"]) and ev["count"] == 16 * LM["seq"], ev
     stamps = [t for t, _ in beats]
     gaps = np.diff(stamps)                  # steps 2..16, first excluded
@@ -794,7 +901,9 @@ def _profile_decode(kv, steps: int = 16) -> None:
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
         return
-    paged_us = sum(r[0] for r in rows if "paged_attention" in r[2])
+    # the split kernel and, with more than one split, the combine kernel
+    paged_us = sum(r[0] for r in rows
+                   if re.search(r"paged_(attention|combine)_kernel", r[2]))
     print(f"[profile] decode step (8 active slots): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
@@ -805,16 +914,25 @@ def _profile_decode(kv, steps: int = 16) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
+_MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "a": "int8",
+            "Lb0E": "false", "Lb1E": "true"}
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(flash_(?:fwd|dq|dkv)(?:_tc)?_kernel)ILi(\d+)E",
+        name = re.search(r"\d+((?:flash|paged)_\w+?_kernel)I(.*?)EE?v",
                          block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         if name and regs and spill:
-            yield (f"{name.group(1)}<{name.group(2)}>: {regs.group(1)} "
+            args = re.findall(r"Li(\d+)E|(Lb[01]E)|(13__nv_bfloat16|S1_|f|a)",
+                              name.group(2))
+            shown = [a[0] or _MANGLED.get(a[1] or a[2], "") for a in args]
+            # S1_ repeats the first type argument
+            shown = [x or shown[0] for x in shown]
+            yield (f"{name.group(1)}<{', '.join(shown)}>: {regs.group(1)} "
                    f"registers, {spill.group(1)} bytes spill stores, "
                    f"{spill.group(2)} bytes spill loads")
 
@@ -836,8 +954,9 @@ def build_phase() -> None:
         print(f"[build] {name}.cu built in "
               f"{_build.build_seconds[name]:.2f}s")
     print(f"[build] phase {time.perf_counter() - t0:.2f}s")
-    for line in _ptxas_lines(_build.build_logs["flash_attention_sm90"]):
-        print(f"[build] ptxas {line}")
+    for lib in ("flash_attention_sm90", "paged_attention"):
+        for line in _ptxas_lines(_build.build_logs[lib]):
+            print(f"[build] ptxas {line}")
     for d in (64, 128):
         print(f"[build] tc dynamic shared memory at head_dim {d}: "
               f"{fa.smem_bytes(d, 'tc')}")
@@ -854,25 +973,29 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     build_phase()
-    paged_row = paged_kernel_phase()
-    flash_rows = flash_kernel_phase()
-    paged_row["launches"] = serve_phase(gpu)
+    paged_errs = paged_check_phase()
+    flash_errs = flash_check_phase()
+    launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
+    # the timings last: each profiler session before the serve and train
+    # windows would be in their host times
+    paged_row = paged_timing_phase(paged_errs)
+    paged_row["launches"] = launches
+    flash_rows = flash_timing_phase(flash_errs)
     for row in flash_rows:
         kind = row["name"].rsplit(".", 1)[1]
         # the launches of this row's kernel: the tc count for a tc row
         counter = f"{kind}_tc" if row["variant"] == "tc" else kind
         row["launches"] = fit[counter] + evaluate[counter]
         print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
-              f"shape: kernel_ms={row['ms']:.5f} "
-              f"plain_ms={row['plain_ms']:.5f} "
-              f"library_ms={row['library_ms']:.5f} "
-              f"({row['library_backend']}) "
+              f"shape, device ms: kernel={row['ms']:.5f} "
+              f"plain={row['plain_ms']:.5f} "
+              f"library={row['library_ms']:.5f} "
+              f"({row['library_backend']}) simt={row['simt_ms']:.5f}; "
+              f"call ms: kernel={row['call_ms']:.5f}; "
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
               f"bound_share={row['bound_share']:.4f} "
-              f"launches_per_train_step={fit[counter] / steps:.1f}"
-              + (f" simt_ms={row['simt_ms']:.5f}" if "simt_ms" in row
-                 else ""))
+              f"launches_per_train_step={fit[counter] / steps:.1f}")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {

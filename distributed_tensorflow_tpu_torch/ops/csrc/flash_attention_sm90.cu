@@ -1,41 +1,47 @@
-// Exact attention on Hopper's tensor cores: the forward and the dK/dV
+// Exact attention on Hopper's tensor cores: the forward, dQ and dK/dV
 // kernels for bf16 inputs with head_dim a multiple of 16 up to 128.
 //
 //   flash_fwd_tc_kernel  <- _fwd_kernel (launched by _fwd, the pl.pallas_call
 //                           at distributed_tensorflow_tpu/ops/
 //                           flash_attention.py:170)
+//   flash_dq_tc_kernel   <- _dq_kernel (launched by _bwd,
+//                           flash_attention.py:281)
 //   flash_dkv_tc_kernel  <- _dkv_kernel (launched by _bwd,
 //                           flash_attention.py:299)
 //
-// They compute the function of flash_attention.cu's flash_fwd_kernel and
-// flash_dkv_kernel (which stay the route for f32 inputs and other head
-// dims): S = scale * Q K^T; a causal mask by absolute position and a
+// They compute the function of flash_attention.cu's flash_fwd_kernel,
+// flash_dq_kernel and flash_dkv_kernel (which stay the route for f32
+// inputs, and so for flash_bwd_block, and for other head dims):
+// S = scale * Q K^T; a causal mask by absolute position and a
 // key-validity mask score NEG_INF = -1e30, never -inf, so a row with no
 // valid key gets the mean of V over the keys it visits; a key past Lk
 // scores -inf (weight exactly 0); a row past Lq writes nothing and adds
 // nothing to dK/dV.  Ragged and cross lengths are masked here, not padded.
 // Tensors stay in the model's (B, L, H, D) layout; lse and Delta are
-// (B, H, Lq) f32; O, dK and dV are written in bf16.
+// (B, H, Lq) f32; O, dQ, dK and dV are written in bf16.
 //
 // What bounds them on this card: at the training slice's shape (B*H = 64,
 // L = 1024, D = 64, causal) the forward moves about 34 MB and does about
 // 8.6 GFLOP, so its bound is the ~10 us of memory traffic at 3.35 TB/s;
-// dK/dV does about 17 GFLOP, ~17 us at 989 TFLOP/s of bf16 tensor cores.
-// Both are far from the 67 TFLOP/s f32 CUDA-core peak that bounds the
+// dQ does about 13 GFLOP and dK/dV about 17 GFLOP, ~13 and ~17 us at
+// 989 TFLOP/s of bf16 tensor cores.
+// All are far from the 67 TFLOP/s f32 CUDA-core peak that bounds the
 // SIMT kernels; here every product runs on the tensor cores, and what is
 // left is feeding them and the softmax's exponentials.
 //
 // What the design does about it (FlashAttention-2's structure on mma.sync;
 // wgmma with TMA staging is not used here):
-// - CTAs of 4 warps; in the forward a CTA owns 64 query rows and each warp
-//   16 of them, in dK/dV a CTA owns 64 keys and each warp 16 of them.
+// - CTAs of 4 warps; in the forward and dQ a CTA owns 64 query rows and
+//   each warp 16 of them, in dK/dV a CTA owns 64 keys and each warp 16 of
+//   them.
 // - Products are mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
 //   Fragments come from shared memory with ldmatrix (.trans for the
 //   operands whose reduction runs along rows: V in P V, dO and Q in
-//   P^T dO and dS^T Q).  Rows are padded by 8 bf16 (16 bytes), so the 8
-//   row addresses of one ldmatrix fall in 8 different bank groups.  Each
-//   warp's Q fragments (forward) and, at head_dim <= 64, its K and V
-//   fragments (dK/dV) are read once and kept in registers.
+//   P^T dO and dS^T Q, K in dS K).  Rows are padded by 8 bf16 (16 bytes),
+//   so the 8 row addresses of one ldmatrix fall in 8 different bank
+//   groups.  Each warp's Q fragments (forward) and, at head_dim <= 64, its
+//   Q and dO fragments (dQ) and its K and V fragments (dK/dV) are read
+//   once and kept in registers.
 // - Tiles are copied straight from the (B, L, H, D) layout with 16-byte
 //   cp.async.cg, zero-filled past Lq, Lk and D, into two shared-memory
 //   stages: tile j+1 is in flight while tile j is consumed.
@@ -46,15 +52,20 @@
 //   of P V: P never goes through shared memory.  lse is written in natural
 //   log units.  dK/dV recomputes P^T = exp(S^T - lse) and
 //   dS^T = P^T * (dP^T - Delta) * scale in registers and rounds both to
-//   bf16 as the A fragments of dV += P^T dO and dK += dS^T Q.
+//   bf16 as the A fragments of dV += P^T dO and dK += dS^T Q.  dQ is the
+//   forward's loop with the online softmax replaced by the known lse:
+//   P = exp(S - lse), dP = dO V^T and dS = P (dP - Delta) scale in
+//   registers, dS rounded to bf16 as the A fragment of dQ += dS K, over
+//   32-key sub-steps of each key tile (registers).
 // - Occupancy over registers at head_dim <= 64: the forward is held to 128
-//   registers (4 CTAs per SM) and dK/dV to 168 (3 CTAs per SM), at the
+//   registers (4 CTAs per SM), dQ to 128 (4 CTAs per SM) and dK/dV to
+//   168 (3 CTAs per SM), at the
 //   cost of a few spilled bytes (ptxas -v; PERF.md has the figures): with
 //   fewer resident warps the ldmatrix and mma latencies are not hidden.
 // - Under the causal mask, tiles wholly in the future are skipped and only
 //   tiles crossing the diagonal take the per-element mask; the CTAs with
 //   the most tiles to visit are launched first (the last q tiles in the
-//   forward, the first k tiles in dK/dV), so the last wave is short.
+//   forward and dQ, the first k tiles in dK/dV), so the last wave is short.
 // P and dS rounded to bf16 are one rounding more than the SIMT kernels'
 // f32 P; the tests state the tolerance that needs.
 
@@ -74,7 +85,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;           // q rows and keys per tile
 constexpr int kPad = 8;             // bf16 of padding per shared-memory row
-constexpr int kSub = 32;            // q columns per dK/dV sub-step
+constexpr int kSub = 32;            // q (dK/dV) or key (dQ) columns per
+                                    // sub-step
 
 struct Dims {
   int B, H, Lq, Lk, D;
@@ -177,6 +189,8 @@ struct Smem {
   static constexpr int fwd = tile + 4 * tile + 2 * kTile * 4;
   // K, V; 2 stages of (Q, dO); 2 stages of (lse, Delta)
   static constexpr int dkv = 2 * tile + 4 * tile + 4 * kTile * 4;
+  // Q, dO; 2 stages of (K, V); 2 stages of the key mask
+  static constexpr int dq = 2 * tile + 4 * tile + 2 * kTile * 4;
 };
 
 // Stage rows [r0, r0 + kTile) of head (b, h) of a (B, L, H, D) bf16 tensor
@@ -596,6 +610,199 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<DT>(dv, vs, b, h, wk0, dm.Lk, dm, lane);
 }
 
+// -------------------------------------------------------------------- dQ
+// One CTA per (b*h, q tile of 64 rows), looping over the k tiles up to the
+// diagonal.  With QREG the warp's Q and dO fragments are read from shared
+// memory once and kept in registers; without, they are read again for
+// every sub-step.
+template <int DT, bool QREG>
+__global__ void __launch_bounds__(kThreads, DT == 64 ? 4 : 1)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const float* __restrict__ mask,
+                   const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   Dims dm) {
+  constexpr int LD = Smem<DT>::LD;
+  constexpr int KD = DT / 16;
+  constexpr int DB = DT / 8;
+  constexpr int NB = kSub / 8;       // 8-key column blocks per sub-step
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* do_s = q_s + kTile * LD;
+  bf16* kv_s = do_s + kTile * LD;                         // [stage][K|V]
+  float* m_s = reinterpret_cast<float*>(kv_s + 4 * kTile * LD);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bhn = dm.B * dm.H;
+  const int n_qt = (dm.Lq + kTile - 1) / kTile;
+  const int bh = blockIdx.x % bhn;
+  const int q0 = (n_qt - 1 - blockIdx.x / bhn) * kTile;   // longest first
+  const int b = bh / dm.H, h = bh - b * dm.H;
+  const int wq0 = q0 + warp * 16;
+  const int q_last = min(q0 + kTile, dm.Lq) - 1;
+  const int k_end = dm.causal ? min(dm.Lk, q_last + 1) : dm.Lk;
+  const int n_kt = (k_end + kTile - 1) / kTile;
+  const float sl2 = dm.scale * kLog2e;
+
+  auto load_kv = [&](int j) {
+    bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    load_tile<DT>(ks, k, b, h, j * kTile, dm.Lk, dm);
+    load_tile<DT>(ks + kTile * LD, v, b, h, j * kTile, dm.Lk, dm);
+    if (mask != nullptr && threadIdx.x < kTile) {
+      const int kpos = j * kTile + threadIdx.x;
+      cp_async4(m_s + (j & 1) * kTile + threadIdx.x,
+                mask + (size_t)b * dm.Lk + min(kpos, dm.Lk - 1),
+                kpos < dm.Lk);
+    }
+  };
+
+  load_tile<DT>(q_s, q, b, h, q0, dm.Lq, dm);
+  load_tile<DT>(do_s, dout, b, h, q0, dm.Lq, dm);
+  if (n_kt > 0) load_kv(0);
+  cp_async_commit();
+
+  // per lane: rows g and g + 8 of the warp's 16; lse also in log2 units
+  float lse_n[2], lse2[2], dl[2];
+  bool row_in[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wq0 + g + 8 * i;
+    row_in[i] = row < dm.Lq;
+    const size_t at = (size_t)bh * dm.Lq + min(row, dm.Lq - 1);
+    lse_n[i] = lse[at];
+    lse2[i] = lse_n[i] * kLog2e;
+    dl[i] = delta[at];
+  }
+
+  float dq_acc[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i)
+    dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
+
+  const bf16* qw = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const bf16* ow = do_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  uint32_t qf[QREG ? KD : 1][4], of[QREG ? KD : 1][4];
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) load_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (QREG) {
+      if (j == 0) {
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          ldsm_x4(qf[kd], qw + kd * 16);
+          ldsm_x4(of[kd], ow + kd * 16);
+        }
+      }
+    }
+    const bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    const bf16* vs = ks + kTile * LD;
+    const float* ms = m_s + (j & 1) * kTile;
+    const int k0 = j * kTile;
+
+#pragma unroll
+    for (int sub = 0; sub < kTile / kSub; ++sub) {
+      const int c0 = sub * kSub;        // first key column of the sub-step
+      // S = Q K^T and dP = dO V^T: the warp's 16 rows x 32 keys
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4], oa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            qa[i] = qf[kd][i];
+            oa[i] = of[kd][i];
+          }
+        } else {
+          ldsm_x4(qa, qw + kd * 16);
+          ldsm_x4(oa, ow + kd * 16);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          const int off = (c0 + nb * 8 + lane % 8 + (lane / 16) * 8) * LD +
+                          kd * 16 + ((lane / 8) % 2) * 8;
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, ks + off);
+          ldsm_x4(bv, vs + off);
+          mma(s[nb], qa, bk[0], bk[1]);
+          mma(s[nb + 1], qa, bk[2], bk[3]);
+          mma(dp[nb], oa, bv[0], bv[1]);
+          mma(dp[nb + 1], oa, bv[2], bv[3]);
+        }
+      }
+
+      // P = exp(S - lse), dS = P (dP - Delta) scale
+      const int kc0 = k0 + c0;
+      const bool edge = (dm.causal && kc0 + kSub - 1 > wq0) ||
+                        kc0 + kSub > dm.Lk || wq0 + 16 > dm.Lq ||
+                        mask != nullptr;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p;
+          if (!edge) {
+            p = exp2_approx(s[nb][e] * sl2 - lse2[r]);
+          } else {
+            const int col = c0 + nb * 8 + 2 * t + (e & 1);
+            const int kpos = k0 + col, qpos = wq0 + g + 8 * r;
+            if (!row_in[r] || kpos >= dm.Lk)
+              p = 0.f;
+            else if ((dm.causal && qpos < kpos) ||
+                     (mask != nullptr && !(ms[col] > 0.f)))
+              p = expf(kNegInf - lse_n[r]);   // 1 on a row with no
+                                              // valid key
+            else
+              p = exp2_approx(s[nb][e] * sl2 - lse2[r]);
+          }
+          dp[nb][e] = p * (dp[nb][e] - dl[r]) * dm.scale;
+        }
+      }
+
+      // dQ += dS K over the sub-step's 32 keys
+#pragma unroll
+      for (int kc = 0; kc < kSub / 16; ++kc) {
+        uint32_t da[4];
+        acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
+        const int row = c0 + kc * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+#pragma unroll
+        for (int db = 0; db < DB; db += 2) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, ks + row * LD + db * 8 + (lane / 16) * 8);
+          mma(dq_acc[db], da, bk[0], bk[1]);
+          mma(dq_acc[db + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();                   // this stage may be refilled
+  }
+
+  // dQ through the warp's own rows of q_s, then 16-byte stores
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* qs = q_s + warp * 16 * LD;
+#pragma unroll
+  for (int db = 0; db < DB; ++db) {
+    const int c = db * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(qs + g * LD + c) =
+        __floats2bfloat162_rn(dq_acc[db][0], dq_acc[db][1]);
+    *reinterpret_cast<__nv_bfloat162*>(qs + (g + 8) * LD + c) =
+        __floats2bfloat162_rn(dq_acc[db][2], dq_acc[db][3]);
+  }
+  __syncwarp();
+  store_rows<DT>(dq, qs, b, h, wq0, dm.Lq, dm, lane);
+}
+
 // --------------------------------------------------------------- launchers
 template <typename Kern>
 cudaError_t prepare(Kern kern, int bytes) {
@@ -612,6 +819,7 @@ struct Ptrs {
   const float *lse_in, *delta;
   bf16 *out, *dk, *dv;
   float* lse_out;
+  bf16* dq;
 };
 
 template <int DT>
@@ -625,13 +833,20 @@ cudaError_t run(int which, const Ptrs& p, const Dims& dm, cudaStream_t st) {
     const int grid = bh * ((dm.Lq + kTile - 1) / kTile);
     kern<<<grid, kThreads, S::fwd, st>>>(p.q, p.k, p.v, p.mask, p.out,
                                           p.lse_out, dm);
-  } else {
+  } else if (which == 1) {
     // at DT = 128 the dK and dV accumulators leave no registers for K, V
     auto kern = flash_dkv_tc_kernel<DT, DT == 64>;
     if ((err = prepare(kern, S::dkv)) != cudaSuccess) return err;
     const int grid = bh * ((dm.Lk + kTile - 1) / kTile);
     kern<<<grid, kThreads, S::dkv, st>>>(p.q, p.k, p.v, p.mask, p.dout,
                                           p.lse_in, p.delta, p.dk, p.dv, dm);
+  } else {
+    // at DT = 128 the dQ accumulators leave no registers for Q, dO
+    auto kern = flash_dq_tc_kernel<DT, DT == 64>;
+    if ((err = prepare(kern, S::dq)) != cudaSuccess) return err;
+    const int grid = bh * ((dm.Lq + kTile - 1) / kTile);
+    kern<<<grid, kThreads, S::dq, st>>>(p.q, p.k, p.v, p.mask, p.dout,
+                                         p.lse_in, p.delta, p.dq, dm);
   }
   return cudaGetLastError();
 }
@@ -667,7 +882,7 @@ int flash_fwd_tc_launch(const void* q, const void* k, const void* v,
   Ptrs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
          static_cast<const bf16*>(v), static_cast<const float*>(mask),
          nullptr, nullptr, nullptr, static_cast<bf16*>(out), nullptr,
-         nullptr, static_cast<float*>(lse)};
+         nullptr, static_cast<float*>(lse), nullptr};
   return dispatch(0, p, B, H, Lq, Lk, D, scale, causal, stream);
 }
 
@@ -681,8 +896,21 @@ int flash_dkv_tc_launch(const void* q, const void* k, const void* v,
          static_cast<const bf16*>(v), static_cast<const float*>(mask),
          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, static_cast<bf16*>(dk),
-         static_cast<bf16*>(dv), nullptr};
+         static_cast<bf16*>(dv), nullptr, nullptr};
   return dispatch(1, p, B, H, Lq, Lk, D, scale, causal, stream);
+}
+
+// dq: (B, Lq, H, D) bf16.
+int flash_dq_tc_launch(const void* q, const void* k, const void* v,
+                       const void* mask, const void* dout, const void* lse,
+                       const void* delta, void* dq, int B, int H, int Lq,
+                       int Lk, int D, float scale, int causal, void* stream) {
+  Ptrs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<const float*>(mask),
+         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+         static_cast<const float*>(delta), nullptr, nullptr, nullptr,
+         nullptr, static_cast<bf16*>(dq)};
+  return dispatch(2, p, B, H, Lq, Lk, D, scale, causal, stream);
 }
 
 }  // extern "C"

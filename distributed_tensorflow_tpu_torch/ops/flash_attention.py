@@ -11,11 +11,11 @@ in f32).  A CUDA tensor never falls back to a plain version.
 
 Two routes, chosen by ``_route(dtype, head_dim)`` from the inputs alone:
 ``"tc"`` for bfloat16 with a head dim that is a multiple of 16 up to 128
-(the GPT training path) runs the forward and dK/dV on Hopper's tensor
-cores, ``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, other head
-dims) runs ``csrc/flash_attention.cu``.  dQ runs the ``simt`` kernel on
-both routes.  The ``tc`` kernels round P and dS to bf16 for their
-products: one rounding more than the ``simt`` kernels' f32 P.
+(the GPT training path) runs the forward, dQ and dK/dV on Hopper's tensor
+cores, ``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, and so
+``flash_bwd_block``, and other head dims) runs ``csrc/flash_attention.cu``.
+The ``tc`` kernels round P and dS to bf16 for their products: one rounding
+more than the ``simt`` kernels' f32 P.
 
 ``flash_attention`` is differentiable through ``_FlashCore``, the
 counterpart of the JAX ``_flash_core`` custom_vjp: the forward saves
@@ -34,8 +34,8 @@ sees its own position).
 
 Launch counts (the main path's proof that it ran the kernels):
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
-over both routes, and ``.fwd_tc_launches`` and ``.dkv_tc_launches`` for
-the ``tc`` route alone.
+over both routes, and ``.fwd_tc_launches``, ``.dq_tc_launches`` and
+``.dkv_tc_launches`` for the ``tc`` route alone.
 """
 
 from __future__ import annotations
@@ -95,9 +95,10 @@ def _bwd_reference(q, k, v, kv_mask, do, lse, delta, scale, causal):
 
 def _term_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
     """The sum of the absolute terms of each output of the plain versions,
-    ``(out, dk, dv)`` in f32: ``Σ_k p|v|`` (p normalized by lse),
-    ``Σ_q |dS||q|`` and ``Σ_q p|dO|``.  A kernel that rounds each P or dS
-    to bf16 before the product is off by at most 2^-9 times these."""
+    ``(out, dk, dv, dq)`` in f32: ``Σ_k p|v|`` (p normalized by lse),
+    ``Σ_q |dS||q|``, ``Σ_q p|dO|`` and ``Σ_k |dS||k|``.  A kernel that
+    rounds each P or dS to bf16 before the product is off by at most 2^-9
+    times these."""
     s = _scores(q, k, kv_mask, scale, causal)
     p = torch.exp(s - lse[..., None])
     do32 = do.float()
@@ -105,7 +106,8 @@ def _term_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
     ds = (p * (dp - delta[..., None]) * scale).abs()
     return (torch.einsum("bhlm,bmhd->blhd", p, v.float().abs()),
             torch.einsum("bhlm,blhd->bmhd", ds, q.float().abs()),
-            torch.einsum("bhlm,blhd->bmhd", p, do32.abs()))
+            torch.einsum("bhlm,blhd->bmhd", p, do32.abs()),
+            torch.einsum("bhlm,bmhd->blhd", ds, k.float().abs()))
 
 
 # --------------------------------------------------------------------------
@@ -119,7 +121,7 @@ _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
 def _library(route: str = "simt"):
     """The kernel library of ``route``: ``simt`` = ``flash_attention.cu``
     (fwd, dq, dkv; a dtype argument), ``tc`` = ``flash_attention_sm90.cu``
-    (fwd and dkv, bf16 only)."""
+    (fwd, dq and dkv, bf16 only)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -130,7 +132,7 @@ def _library(route: str = "simt"):
     else:
         lib = _build.load("flash_attention_sm90")
         tail = _TAIL + [ptr]
-        fns = {"fwd_tc": 6, "dkv_tc": 9}
+        fns = {"fwd_tc": 6, "dq_tc": 8, "dkv_tc": 9}
     for name, n_ptrs in fns.items():
         fn = getattr(lib, f"flash_{name}_launch")
         fn.argtypes = [ptr] * n_ptrs + tail
@@ -168,8 +170,7 @@ def _tiles(d: int, route: str = "simt") -> tuple[int, int, int]:
 
 def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
     """Dynamic shared memory each kernel of ``route`` needs per CTA at head
-    dim ``d`` (mirrors ``Smem`` in the CUDA sources); dq is the ``simt``
-    kernel on both routes."""
+    dim ``d`` (mirrors ``Smem`` in the CUDA sources)."""
     bq, bk, dt = _tiles(d)
     ld, ldp = dt + 1, bk + 1
     simt = {"fwd": 4 * (bq * ld + 2 * bk * ld + bq * ldp + bk),
@@ -184,7 +185,7 @@ def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
     tile, _, dt = _tiles(d, "tc")
     row = 2 * tile * (dt + 8)              # one bf16 tile, rows padded by 8
     return {"fwd": row + 4 * row + 2 * tile * 4,
-            "dq": simt["dq"],
+            "dq": 2 * row + 4 * row + 2 * tile * 4,
             "dkv": 2 * row + 4 * row + 4 * tile * 4}
 
 
@@ -233,11 +234,18 @@ def _fwd_cuda(q, k, v, mask, scale, causal, route=None):
     return out, lse
 
 
-def _dq_cuda(q, k, v, mask, do, lse, delta, scale, causal):
+def _dq_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
+    """The dQ kernel of ``route`` (default: ``_route`` of the inputs)."""
+    route = route or _route(q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
-    _launch("dq", q, k, v, mask, do, lse, delta, dq, dims=_dims(q, k),
-            scale=scale, causal=causal, dtype=q.dtype, device=q.device)
+    if route == "tc":
+        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    _launch("dq_tc" if route == "tc" else "dq", q, k, v, mask, do, lse,
+            delta, dq, dims=_dims(q, k), scale=scale, causal=causal,
+            dtype=q.dtype, device=q.device)
     flash_attention.dq_launches += 1
+    if route == "tc":
+        flash_attention.dq_tc_launches += 1
     return dq
 
 
@@ -373,6 +381,7 @@ flash_attention.fwd_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0
 flash_attention.fwd_tc_launches = 0
+flash_attention.dq_tc_launches = 0
 flash_attention.dkv_tc_launches = 0
 
 

@@ -229,7 +229,7 @@ def test_block_primitives_match_pallas_kernels(causal, lq, lk):
 def _launch_counts():
     f = tfa.flash_attention
     return (f.fwd_launches, f.dq_launches, f.dkv_launches, f.fwd_tc_launches,
-            f.dkv_tc_launches)
+            f.dq_tc_launches, f.dkv_tc_launches)
 
 
 def test_grads_come_back_in_input_dtypes_and_count_no_cpu_launches():
@@ -277,10 +277,12 @@ def test_term_sums_bound_the_plain_outputs():
         q.shape).astype(np.float32))
     out, lse = tfa._fwd_reference(q, k, v, None, 0.25, True)
     delta = (do * out).sum(-1).transpose(1, 2)
-    _, dk, dv = tfa._bwd_reference(q, k, v, None, do, lse, delta, 0.25,
-                                   True)
+    dq, dk, dv = tfa._bwd_reference(q, k, v, None, do, lse, delta, 0.25,
+                                    True)
     terms = tfa._term_sums(q, k, v, None, do, lse, delta, 0.25, True)
-    for got, bound in zip((out, dk, dv), terms):
+    assert len(terms) == 4
+    for got, bound in zip((out, dk, dv, dq), terms):
+        assert got.shape == bound.shape
         assert bool((got.abs() <= bound * (1 + 1e-5) + 1e-6).all())
 
 
@@ -310,6 +312,17 @@ def test_wrapper_rejects_bad_inputs():
     ("simt", 256), ("tc", 16), ("tc", 64), ("tc", 80), ("tc", 128)])
 def test_shared_memory_fits_the_card_at_every_head_dim_tier(route, d):
     assert max(tfa.smem_bytes(d, route).values()) <= tfa._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d, kind, want", [
+    # Q and dO tiles, two stages of K and V, two stages of the key mask
+    (64, "dq", 6 * 64 * 72 * 2 + 2 * 64 * 4),
+    (128, "dq", 6 * 64 * 136 * 2 + 2 * 64 * 4),
+    (16, "dq", 6 * 64 * 72 * 2 + 2 * 64 * 4),
+    (64, "fwd", 5 * 64 * 72 * 2 + 2 * 64 * 4),
+    (64, "dkv", 6 * 64 * 72 * 2 + 4 * 64 * 4)])
+def test_tc_shared_memory_mirrors_the_kernels(d, kind, want):
+    assert tfa.smem_bytes(d, "tc")[kind] == want
 
 
 def test_tc_shared_memory_is_refused_outside_its_head_dims():

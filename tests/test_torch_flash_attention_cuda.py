@@ -6,16 +6,14 @@ card, with no JAX installed there:
     python -m pytest -m cuda tests/test_torch_flash_attention_cuda.py
 
 bf16 inputs with a head dim that is a multiple of 16 up to 128 take the
-tensor-core route (``csrc/flash_attention_sm90.cu``, forward and dK/dV);
-f32 inputs and other head dims take the SIMT route
-(``csrc/flash_attention.cu``).  dQ is the SIMT kernel on both.
+tensor-core route (``csrc/flash_attention_sm90.cu``: forward, dQ and
+dK/dV); f32 inputs and other head dims take the SIMT route
+(``csrc/flash_attention.cu``).
 
 Tolerances: f32 outputs and lse ``rtol=1e-5, atol=2e-5``, f32 gradients
 ``rtol=atol=1e-4`` (the bounds of ``tests/test_flash_attention.py``:
-online-softmax and tile-order reassociation against one dense pass); bf16
-outputs of the SIMT kernels ``rtol=atol=8e-3`` — both versions compute in
-f32 and round once to bf16, so they may differ by one bf16 rounding
-(2^-8).  The tensor-core kernels round each P (and dS) to bf16 before
+online-softmax and tile-order reassociation against one dense pass).  The
+tensor-core kernels round each P (and dS) to bf16 before
 their products and the result to bf16 again: two bf16 roundings.  Each
 rounding of a term moves an output by at most 2^-9 (bf16's unit roundoff)
 of that term, so an output is held element-wise to
@@ -35,7 +33,6 @@ from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa
 
 F32 = dict(rtol=1e-5, atol=2e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)
-BF16 = dict(rtol=8e-3, atol=8e-3)
 TC_RTOL, TC_ATOL = 2.0 ** -8, 1e-5
 TC_FROBENIUS = 1e-2
 
@@ -98,11 +95,11 @@ def test_kernels_match_plain_versions_f32(cuda_device, b, lq, lk, h, d,
 def _counts():
     f = tfa.flash_attention
     return (f.fwd_launches, f.dq_launches, f.dkv_launches, f.fwd_tc_launches,
-            f.dkv_tc_launches)
+            f.dq_tc_launches, f.dkv_tc_launches)
 
 
-def _moved(before, fwd=0, dq=0, dkv=0, fwd_tc=0, dkv_tc=0):
-    return tuple(a + n for a, n in zip(before, (fwd, dq, dkv, fwd_tc,
+def _moved(before, fwd=0, dq=0, dkv=0, fwd_tc=0, dq_tc=0, dkv_tc=0):
+    return tuple(a + n for a, n in zip(before, (fwd, dq, dkv, fwd_tc, dq_tc,
                                                 dkv_tc)))
 
 
@@ -143,8 +140,8 @@ def test_tensor_core_kernels_match_plain_versions_bf16(
     dq = tfa._dq_cuda(q, k, v, mask, do, ref_lse, delta, scale, causal)
     torch.cuda.synchronize()
     assert _counts() == _moved(before, fwd=1, dq=1, dkv=1, fwd_tc=1,
-                               dkv_tc=1)
-    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
+                               dq_tc=1, dkv_tc=1)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     terms = tfa._term_sums(q, k, v, mask, do, ref_lse, delta, scale, causal)
     _close_tc(out, ref_out, terms[0], "out")
     torch.testing.assert_close(lse, ref_lse, **F32)
@@ -152,7 +149,7 @@ def test_tensor_core_kernels_match_plain_versions_bf16(
         q, k, v, mask, do, ref_lse, delta, scale, causal)
     _close_tc(dk, want_dk, terms[1], "dk")
     _close_tc(dv, want_dv, terms[2], "dv")
-    torch.testing.assert_close(dq.float(), want_dq, **BF16)   # simt dQ
+    _close_tc(dq, want_dq, terms[3], "dq")
 
 
 @pytest.mark.cuda
@@ -167,17 +164,20 @@ def test_tensor_core_row_with_no_valid_key_is_the_mean_of_v(cuda_device):
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
     dk, dv = tfa._dkv_cuda(q, k, v, mask, do, ref_lse, delta, 0.125, False)
+    dq = tfa._dq_cuda(q, k, v, mask, do, ref_lse, delta, 0.125, False)
     torch.cuda.synchronize()
-    assert _counts()[3:] == _moved(before, fwd_tc=1, dkv_tc=1)[3:]
+    assert _counts()[3:] == _moved(before, fwd_tc=1, dq_tc=1, dkv_tc=1)[3:]
     terms = tfa._term_sums(q, k, v, mask, do, ref_lse, delta, 0.125, False)
     mean_v = v[1].float().mean(0, keepdim=True).expand_as(out[1])
     _close_tc(out[1], mean_v, terms[0][1], "out of the dead row")
     _close_tc(out, ref_out, terms[0], "out")
     torch.testing.assert_close(lse, ref_lse, **F32)
-    _, want_dk, want_dv = tfa._bwd_reference(q, k, v, mask, do, ref_lse,
-                                             delta, 0.125, False)
+    want_dq, want_dk, want_dv = tfa._bwd_reference(q, k, v, mask, do,
+                                                   ref_lse, delta, 0.125,
+                                                   False)
     _close_tc(dk, want_dk, terms[1], "dk")
     _close_tc(dv, want_dv, terms[2], "dv")
+    _close_tc(dq, want_dq, terms[3], "dq")
 
 
 @pytest.mark.cuda
@@ -189,9 +189,9 @@ def test_bf16_autograd_matches_plain_version(cuda_device):
     out = tfa.flash_attention(*leaves, causal=True)
     out.backward(do)
     torch.cuda.synchronize()
-    # the tensor-core forward and dK/dV, the simt dQ
+    # the tensor-core forward, dQ and dK/dV
     assert _counts() == _moved(before, fwd=1, dq=1, dkv=1, fwd_tc=1,
-                               dkv_tc=1)
+                               dq_tc=1, dkv_tc=1)
     ref_out, ref_lse = tfa._fwd_reference(q, k, v, None, 64 ** -0.5, True)
     assert out.dtype == torch.bfloat16
     assert all(x.grad.dtype == torch.bfloat16 for x in leaves)
@@ -201,7 +201,7 @@ def test_bf16_autograd_matches_plain_version(cuda_device):
     terms = tfa._term_sums(*args)
     want = tfa._bwd_reference(*args)
     _close_tc(out, ref_out, terms[0], "out")
-    torch.testing.assert_close(leaves[0].grad.float(), want[0], **BF16)
+    _close_tc(leaves[0].grad, want[0], terms[3], "dq")
     _close_tc(leaves[1].grad, want[1], terms[1], "dk")
     _close_tc(leaves[2].grad, want[2], terms[2], "dv")
 

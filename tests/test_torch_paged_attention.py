@@ -2,12 +2,18 @@
 JAX kernel (Pallas interpret mode on the CPU, as the JAX package's own tests
 run it) on the cases of ``tests/test_serving_paged_kernel.py``, including
 the JAX kernel under a GSPMD mesh, and the wrapper's input checks.  The
-Hopper kernel itself is held to the plain version on the card by
+plain model of the kernel's split-key design (``_split_reference``: a
+partial ``(m, l, acc)`` per split, then the merge) is held to the one-pass
+plain version and to the JAX kernel at split counts 1–4, and the split
+and shared-memory planning is checked.  The Hopper kernel itself is held
+to the plain version on the card by
 ``tests/test_torch_paged_attention_cuda.py``.
 
 Tolerance: f32 ``rtol=1e-5, atol=2e-5``, the JAX package's own kernel-vs-
 oracle bound (online-softmax reassociation against one dense softmax).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -79,6 +85,105 @@ def test_plain_version_matches_jax_kernel(name):
     np.testing.assert_allclose(_port(c), _jax(c), **TOL)
     np.testing.assert_allclose(
         _port(c, tpa.paged_attention_reference), _jax(c), **TOL)
+
+
+SPLIT_CASES = dict(
+    CASES,
+    # 4 live entries of 6 at most: splits 3 and 4 leave a split past the
+    # last position (an empty range)
+    past_last_position=dict(seed=10, s=3, mb=6, blk=4, pos=[0, 5, 13]),
+    # l_q=5 at pos 3, block 2: 4 live entries, and at 2 splits the boundary
+    # (key 4) falls between pos and pos + 4, so row 0 sees no valid key in
+    # split 1
+    verify_boundary=dict(seed=11, s=2, l_q=5, h=4, kvh=2, mb=5, blk=2,
+                         pos=[3, 3]),
+)
+
+
+@functools.cache
+def _split_case(name):
+    kw = dict(SPLIT_CASES[name])
+    pos = kw.pop("pos", None)
+    c = _case(kw.pop("seed"), **kw)
+    if pos is not None:
+        c["pos"] = np.asarray(pos, np.int32)
+    return c, _jax(c)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_model_matches_reference_and_jax_kernel(name, splits):
+    """The kernel's split and merge, in plain PyTorch, equals the one-pass
+    plain version and the Pallas kernel in interpret mode."""
+    c, want = _split_case(name)
+    got = _port(c, functools.partial(tpa._split_reference, splits=splits))
+    np.testing.assert_allclose(got, _port(c, tpa.paged_attention_reference),
+                               **TOL)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_splits_at_the_timed_shapes():
+    """The serve decode shape and the 4096-token context of
+    ``chip_smoke.py``: the counts its sweep measured best."""
+    assert tpa._splits(8, 8, 18, 8) == 4
+    assert tpa._splits(8, 8, 256, 16) == 8
+
+
+def test_split_ranges_cover_the_live_entries_in_order():
+    for n_live in range(1, 20):
+        for splits in range(1, 9):
+            ranges = tpa._split_ranges(n_live, splits)
+            assert len(ranges) == splits
+            assert ranges[0][0] == 0 and ranges[-1][1] == n_live
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert max(j1 - j0 for j0, j1 in ranges) == -(-n_live // splits)
+    # the verify case above: split 1 starts past row 0's position
+    assert tpa._split_ranges(4, 2) == [(0, 2), (2, 4)]
+    assert tpa._split_ranges(2, 4) == [(0, 1), (1, 2), (2, 2), (2, 2)]
+
+
+@pytest.mark.parametrize("slots, kvh, mb, blk", [
+    (8, 8, 18, 8), (8, 8, 256, 16), (4, 2, 4, 4), (1, 1, 1, 8),
+    (64, 8, 18, 8), (2, 1, 300, 16)])
+def test_splits_depend_on_shapes_only_and_stay_in_range(slots, kvh, mb, blk):
+    n = tpa._splits(slots, kvh, mb, blk)
+    assert 1 <= n <= mb and n & (n - 1) == 0
+    assert n == tpa._splits(slots, kvh, mb, blk)
+    assert tpa._splits(slots * 2, kvh, mb, blk) <= n
+
+
+@pytest.mark.parametrize("kw, want", [
+    # decode shape: GL=1, D=64, bf16 rows (128 bytes, padded to 144), 5
+    # splits of 18 -> 4 entries
+    (dict(gl=1, d=64, blk=8, mb=18, splits=5, chunk=4, kv_bytes=2),
+     2 * 256 + 16 + 16 + 128 + 512 + 2 * 32 * 144),
+    # a chunk shorter than the split: two stages
+    (dict(gl=1, d=64, blk=16, mb=256, splits=4, chunk=7, kv_bytes=2),
+     2 * 256 + 16 + 256 + 448 + 512 + 2 * 2 * 112 * 144),
+    # int8 rows of 8 bytes (not padded) and their scales
+    (dict(gl=2, d=8, blk=4, mb=4, splits=1, chunk=4, kv_bytes=1,
+          quantized=True),
+     2 * 64 + 32 + 16 + 128 + 512 + 2 * (128 + 64)),
+    # f32 rows of 48 bytes: already an odd number of chunks
+    (dict(gl=1, d=12, blk=4, mb=2, splits=2, chunk=1),
+     2 * 48 + 16 + 16 + 16 + 512 + 2 * 4 * 48),
+])
+def test_smem_bytes_mirror_the_kernel_layout(kw, want):
+    assert tpa.smem_bytes(**kw) == want
+
+
+@pytest.mark.parametrize("gl, d, blk, mb, splits, kv_bytes", [
+    (1, 64, 8, 18, 5, 2), (1, 64, 16, 256, 1, 2), (1, 64, 16, 256, 5, 2),
+    (80, 128, 8, 6, 1, 4), (1, 256, 8, 4, 1, 4), (8, 8, 4, 4, 2, 1)])
+def test_plan_keeps_a_cta_under_its_target_where_it_can(gl, d, blk, mb,
+                                                        splits, kv_bytes):
+    chunk, smem = tpa._plan(gl, d, blk, mb, splits, kv_bytes, False)
+    cmax = -(-mb // splits)
+    assert 1 <= chunk <= cmax
+    assert smem == tpa.smem_bytes(gl, d, blk, mb=mb, splits=splits,
+                                  chunk=chunk, kv_bytes=kv_bytes)
+    assert smem <= tpa._SMEM_TARGET or chunk == 1
+    assert smem <= tpa._SMEM_LIMIT
 
 
 def test_verify_staircase_row0_equals_solo_decode():
