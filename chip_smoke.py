@@ -16,15 +16,24 @@ Phases (any failure raises and the script exits non-zero):
              the flash-attention kernels of both routes — f32 cases on the
              SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
              tensor-core kernels (``tc``) — and the block primitives;
-4. serve   — the paged-KV GPT server at the full width of the repo's serve
-             bench (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048,
-             max_len 144, bf16, 8 slots, block 8), random weights from a
-             seed, answering 16 seeded requests through
-             ``SlotKVCache(..., kv_layout="paged")`` and
-             ``ContinuousBatcher.run``; the launch counts show the decode
-             steps went through the kernel, and the first decode step's
-             logits are held against the gather read; then where a decode
-             step's device time goes (``torch.profiler``);
+4. serve   — the GPT server at the full width of the repo's serve bench
+             (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048, max_len
+             144, bf16, 8 slots), random weights from a seed, answering
+             ``bench.py --serve``'s default trace (32 requests, a shared
+             16-token prefix, prefill chunk 16, a 128-block prefix pool of
+             8-token blocks) through ``SlotKVCache`` and
+             ``ContinuousBatcher.run`` in three windows: M, the monolithic
+             table (no paged launch); P, the paged table with the
+             zero-copy pool (one kernel launch per layer per decode
+             iteration, copy-on-write); Q, window P with int8 pools (every
+             launch on the kernel's int8 route).  Then first-decode-step
+             logits of the paged fused read against the gather read and
+             against the monolithic table, of a warm prefix pool against a
+             cold one, the cursor mode (``generate``) against the
+             monolithic prefill and ``generate``'s greedy streams against
+             the table's, a seeded 0.8-temperature window run twice, and
+             where a decode step's device time goes (``torch.profiler``):
+             paged, paged on int8 pools, monolithic;
 5. train   — the GPT of ``bench.py --lm`` (vocab 16384, hidden 512, 8
              layers, 8 heads, ffn 2048, sequence 1024, bf16, dropout 0,
              flash attention), random weights from a seed, trained for two
@@ -40,7 +49,8 @@ Phases (any failure raises and the script exits non-zero):
              per launch from ``torch.profiler`` (``ms``) and the
              event-window time per call with the host's cost
              (``call_ms``); the paged kernel also at a 4096-token context,
-             with a sweep of split counts at both shapes.  Last, so that
+             with a sweep of split counts at both shapes, and on int8 pools at
+             the decode shape.  Last, so that
              no profiler session precedes the serve and train windows.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -204,29 +214,38 @@ def _bound_ms(q, kp, pos, ks) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _paged_timed(q, kp, vp, bt, pos, splits_list) -> dict:
+def _paged_timed(q, kp, vp, bt, pos, splits_list, ks=None, vs=None) -> dict:
     """Device ms per call of the kernel at each split count (None = the
     count ``_splits`` picks), the plain version and the library yardstick,
-    the event-window ms per call of each, and the bound."""
+    the event-window ms per call of each, and the bound.  ``ks``/``vs``:
+    the scales of int8 pools."""
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     s, l_q, h, d = q.shape
     mb, blk = bt.shape[1], kp.shape[1]
+    sc = dict(k_scale=ks, v_scale=vs)
     sweep = {sp: _device_ms(lambda sp=sp: pa._paged_cuda(
-        q, kp, vp, bt, pos, splits=sp)) for sp in splits_list}
-    kernel = lambda: pa.paged_attention(q, kp, vp, bt, pos)  # noqa: E731
+        q, kp, vp, bt, pos, splits=sp, **sc)) for sp in splits_list}
+    kernel = lambda: pa.paged_attention(  # noqa: E731
+        q, kp, vp, bt, pos, **sc)
     plain = lambda: pa.paged_attention_reference(  # noqa: E731
-        q, kp, vp, bt, pos)
+        q, kp, vp, bt, pos, **sc)
     # library yardstick: one scaled_dot_product_attention call over the
-    # table gathered beforehand (the gather is not in the timed call)
-    keys = kp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
-    vals = vp[bt.long()].reshape(s, mb * blk, h, d).transpose(1, 2)
+    # table gathered (and dequantized) beforehand, not in the timed call
+    keys = kp[bt.long()].reshape(s, mb * blk, h, d)
+    vals = vp[bt.long()].reshape(s, mb * blk, h, d)
+    if ks is not None:
+        keys = (keys.float() * ks[bt.long()].reshape(s, mb * blk, h, 1)
+                ).to(q.dtype)
+        vals = (vals.float() * vs[bt.long()].reshape(s, mb * blk, h, 1)
+                ).to(q.dtype)
+    keys, vals = keys.transpose(1, 2), vals.transpose(1, 2)
     mask = (torch.arange(mb * blk, device="cuda")[None, None, None, :]
             <= pos.long()[:, None, None, None])
     qt = q.transpose(1, 2)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
         qt, keys, vals, attn_mask=mask)
-    bound_ms, bound_by = _bound_ms(q, kp, pos, None)
+    bound_ms, bound_by = _bound_ms(q, kp, pos, ks)
     return {"splits": pa._splits(s, kp.shape[2], mb, blk),
             "ms": _device_ms(kernel), "call_ms": _time_ms(kernel),
             "plain_ms": _device_ms(plain, iters=10),
@@ -238,7 +257,7 @@ def _paged_timed(q, kp, vp, bt, pos, splits_list) -> dict:
 
 
 def paged_check_phase() -> dict:
-    """The paged kernel against its plain version on nine seeded cases at
+    """The paged kernel against its plain version on ten seeded cases at
     every split count; returns each case's max abs error."""
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
@@ -248,6 +267,9 @@ def paged_check_phase() -> dict:
         "gqa_f32": (dict(h=8, kvh=2), F32_TOL),
         "verify_lq5_gqa_f32": (dict(h=8, kvh=2, l_q=5), F32_TOL),
         "int8_scales": (dict(h=8, kvh=2, kv_dtype=torch.int8), F32_TOL),
+        # window Q's decode shape: bf16 queries over int8 pools
+        "decode_int8_bf16": (dict(q_dtype=torch.bfloat16,
+                                  kv_dtype=torch.int8), BF16_TOL),
         "mha_f32": (dict(), F32_TOL),
         "aliased_tables_bf16": (dict(q_dtype=torch.bfloat16,
                                      kv_dtype=torch.bfloat16, alias=True),
@@ -301,7 +323,14 @@ def paged_timing_phase(errs) -> dict:
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
     lng = _paged_timed(q, kp, vp, bt, pos, sweep)
     del q, kp, vp, bt, pos, out, ref
+    # window Q's decode shape: int8 pools with f32 scales
+    q, kp, vp, bt, pos, ks, vs = _paged_case(
+        9, q_dtype=torch.bfloat16, kv_dtype=torch.int8)
+    i8 = _paged_timed(q, kp, vp, bt, pos, (1, 2, 4, 8), ks, vs)
+    del q, kp, vp, bt, pos, ks, vs
     for label, t in (("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16", dec),
+                     ("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16 q, int8 "
+                      "pools + f32 scales", i8),
                      ("long context S=8 H=KVH=8 D=64 blk=16 MB=256 pos "
                       "3584-4095 bf16", lng)):
         print(f"[kernel] {label}: device ms per call: kernel={t['ms']:.5f} "
@@ -325,7 +354,11 @@ def paged_timing_phase(errs) -> dict:
             "split_sweep": dec["sweep"],
             "long_context": {k: lng[k] for k in (
                 "ms", "call_ms", "splits", "bound_ms", "bound_by",
-                "plain_ms", "library_ms", "sweep")}}
+                "plain_ms", "library_ms", "sweep")},
+            "int8": {"max_abs_err": errs["decode_int8_bf16"],
+                     **{k: i8[k] for k in (
+                         "ms", "call_ms", "splits", "bound_ms", "bound_by",
+                         "plain_ms", "library_ms", "sweep")}}}
 
 
 def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
@@ -624,75 +657,298 @@ def flash_timing_phase(errs) -> list[dict]:
     return rows
 
 
-def serve_phase(gpu: str) -> int:
-    """Full-width paged serving window; returns the kernel launches made
-    by the main path."""
-    from distributed_tensorflow_tpu_torch.models import create_model
-    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
-    from distributed_tensorflow_tpu_torch.serving import (
-        ContinuousBatcher, Request, SlotKVCache)
+SERVE = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
+             slots=8, block=8, chunk=16, pool=128)
 
-    layers, slots, block, vocab = 8, 8, 8, 16384
-    model = create_model("gpt", num_classes=vocab, hidden=512,
-                         layers=layers, heads=8, ffn=2048,
+
+def _serve_model():
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    model = create_model("gpt", num_classes=SERVE["vocab"],
+                         hidden=SERVE["hidden"], layers=SERVE["layers"],
+                         heads=SERVE["heads"], ffn=SERVE["ffn"],
                          max_len=16 + 64 + 64, dropout_rate=0.0,
                          dtype="bfloat16")
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    kv = SlotKVCache(model, None, slots, kv_layout="paged",
-                     paged_block=block)
+    return model.reset_parameters(torch.Generator().manual_seed(0))
+
+
+def _bench_trace():
+    """``bench.py --serve``'s default trace, drawn in its order from
+    ``default_rng(0)``: 32 requests, prompts of the 16-token shared prefix
+    plus 16-32 tokens (every 4th plus 64), 32-64 new tokens.  Returns the
+    shared prefix and the requests."""
+    from distributed_tensorflow_tpu_torch.serving import Request
+
     rng = np.random.default_rng(0)
-    requests = [Request(rid=i,
-                        prompt=rng.integers(0, vocab, int(rng.integers(16, 65)))
-                        .astype(np.int32),
-                        max_new_tokens=int(rng.integers(32, 65)))
-                for i in range(16)]
-    batcher = ContinuousBatcher(kv, prefill_chunk=16)
-    batcher.run(requests[:2])                 # warm-up window (allocator)
-    torch.cuda.synchronize()
+    n, rate, prompt_len, max_new, shared_len = 32, 4.0, 32, 64, 16
+    rng.exponential(1.0 / rate, n)          # the arrivals (see below)
+    p_lens = rng.integers(prompt_len // 2, prompt_len + 1, n)
+    p_lens[::4] = 2 * prompt_len
+    n_news = rng.integers(max_new // 2, max_new + 1, n)
+    shared = rng.integers(0, SERVE["vocab"], shared_len).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, SERVE["vocab"], pl).astype(np.int32)]) for pl in p_lens]
+    # every request arrives at 0: the smoke is no benchmark, and the
+    # Poisson arrivals at 4 per second would add about 8 s of wall time to
+    # each window
+    return shared, [Request(rid=i, prompt=prompts[i],
+                            max_new_tokens=int(n_news[i]))
+                    for i in range(n)]
+
+
+def _reset_paged_counts() -> None:
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     pa.paged_attention.launches = 0
+    pa.paged_attention.int8_launches = 0
+
+
+def _paged_counts() -> tuple[int, int]:
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    return pa.paged_attention.launches, pa.paged_attention.int8_launches
+
+
+def _serve_window(name, kv, requests, gpu):
+    """A warm-up window of the first two requests (allocator, library
+    handles; they stay in the prefix pool), then the whole trace with the
+    paged counts set to 0 just before; returns the summary and the counts
+    (all launches, int8-route launches)."""
+    from distributed_tensorflow_tpu_torch.serving import ContinuousBatcher
+
+    batcher = ContinuousBatcher(kv, prefill_chunk=SERVE["chunk"])
+    batcher.run(requests[:2])
+    torch.cuda.synchronize()
+    _reset_paged_counts()
     summary = batcher.run(requests)
     torch.cuda.synchronize()
-    launches = pa.paged_attention.launches
-
-    assert summary["completed"] == len(requests), summary["completed"]
+    counts = _paged_counts()
+    assert summary["completed"] == len(requests), (name, summary["completed"])
     for r in summary["results"]:
         req = requests[r.rid]
-        assert len(r.tokens) == req.max_new_tokens, (r.rid, len(r.tokens))
-        assert all(0 <= t < vocab for t in r.tokens)
-    iters = summary["decode_iterations"]
-    assert launches == layers * iters, (launches, layers, iters)
-    assert kv.blocks_in_use == 0, kv.blocks_in_use
-    print(f"[serve] {gpu}: completed={summary['completed']} "
-          f"decode_iterations={iters} kernel_launches={launches} "
+        assert len(r.tokens) == req.max_new_tokens, (name, r.rid)
+        assert all(0 <= t < SERVE["vocab"] for t in r.tokens), name
+    pool = summary["prefix_cache"]
+    assert pool["hits"] > 0, (name, pool)
+    lp_sum = sum(len(r.prompt) for r in requests)
+    assert summary["prefill_tokens"] == lp_sum - pool["tokens_reused"], (
+        name, summary["prefill_tokens"], lp_sum, pool)
+    paged = summary["paged"] or {}
+    print(f"[serve] window {name} ({gpu}; {kv.kv_layout}, {kv.kv_dtype}): "
+          f"completed={summary['completed']} "
+          f"decode_iterations={summary['decode_iterations']} "
+          f"prefill_chunks={summary['prefill_chunks']} "
+          f"prefill_tokens={summary['prefill_tokens']} "
+          f"paged_launches={counts[0]} int8_launches={counts[1]} "
           f"serve_tokens_per_sec={summary['serve_tokens_per_sec']:.3f} "
           f"ttft_p50_s={summary['serve_ttft_p50_s']:.5f} "
+          f"ttft_p95_s={summary['serve_ttft_p95_s']:.5f} "
           f"itl_p50_s={summary['serve_itl_p50_s']:.6f} "
           f"itl_p95_s={summary['serve_itl_p95_s']:.6f} "
+          f"serve_prefix_cache_hit_rate="
+          f"{summary['serve_prefix_cache_hit_rate']:.4f} "
+          f"serve_prefix_zero_copy_hit_rate="
+          f"{summary['serve_prefix_zero_copy_hit_rate']} "
+          f"cow_copies={paged.get('cow_copies')} "
+          f"kv_bytes_per_slot={summary['serve_kv_bytes_per_slot']} "
           f"elapsed_s={summary['elapsed_s']:.4f}")
+    print(f"[serve] window {name}: prefix_cache={json.dumps(pool)} "
+          f"device_phase_s={json.dumps(summary['device_phase_s'])}")
+    return summary, counts
 
-    # first decode step's logits: fused table vs a gather twin holding the
-    # same prompts (prefill writes identical pools on both)
+
+def serve_phase(gpu: str) -> tuple[int, int]:
+    """Windows M, P and Q on ``bench.py --serve``'s trace, the
+    cross-checks, ``generate`` and temperature checks, and the decode
+    profiles; returns the paged kernel's launches in windows P and Q
+    (all, and on the int8 route)."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    layers, slots, block = SERVE["layers"], SERVE["slots"], SERVE["block"]
+    model = _serve_model()
+    shared, requests = _bench_trace()
+    pool = dict(prefix_cache_blocks=SERVE["pool"], prefix_block=block)
+
+    # M: the default table of bench.py --serve: monolithic, prefix pool
+    mono = SlotKVCache(model, None, slots, **pool)
+    m, (launches, _) = _serve_window("M", mono, requests, gpu)
+    assert launches == 0, launches
+    assert m["paged"] is None and m["serve_kv_blocks_in_use"] is None
+
+    # P: the same trace on the paged table, the same pool (zero copy)
+    kv = SlotKVCache(model, None, slots, kv_layout="paged",
+                     paged_block=block, **pool)
+    p, (p_launches, p_int8) = _serve_window("P", kv, requests, gpu)
+    iters = p["decode_iterations"]
+    assert p_launches == layers * iters and p_int8 == 0, (p_launches, iters)
+    assert p["paged"]["zero_copy_blocks"] == p["prefix_cache"]["hits"]
+    # the warm-up left requests 0 and 1 pooled, block-aligned at 80 and 40
+    # tokens: each admission here reuses all but the last token and writes
+    # that one into a shared block
+    assert p["paged"]["cow_copies"] >= 1, p["paged"]
+    assert kv.blocks_in_use == p["prefix_cache"]["cached_blocks"], (
+        kv.blocks_in_use, p["prefix_cache"])
+    kv.reset_prefix_cache()
+    assert kv.blocks_in_use == 0, kv.blocks_in_use
+
+    # Q: window P at int8 storage; every launch on the kernel's int8 route
+    kv8 = SlotKVCache(model, None, slots, kv_layout="paged",
+                      paged_block=block, kv_dtype="int8", **pool)
+    q, (q_launches, q_int8) = _serve_window("Q", kv8, requests, gpu)
+    assert q_launches == q_int8 == layers * q["decode_iterations"], (
+        q_launches, q_int8, q["decode_iterations"])
+    ratio = q["serve_kv_bytes_per_slot"] / p["serve_kv_bytes_per_slot"]
+    assert ratio < 0.6, ratio
+    agree = total = 0
+    for a, b in zip(p["results"], q["results"]):
+        agree += sum(x == y for x, y in zip(a.tokens, b.tokens))
+        total += len(a.tokens)
+    print(f"[serve] window Q vs P: kv_bytes_per_slot ratio {ratio:.4f} "
+          f"(bound 0.6); greedy tokens equal at {agree}/{total} positions")
+
+    _fused_vs_gather(model, kv, requests)
+    _profile_decode(kv, "paged")
+    for req in requests[:slots]:
+        kv8.insert(req.prompt)
+    _profile_decode(kv8, "paged int8")
+    xcheck = _cross_checks(model, requests)
+    _profile_decode(xcheck, "monolithic")
+    _generate_check(model, shared)
+    _temperature_check(model, requests)
+    return p_launches + q_launches, q_int8
+
+
+def _fused_vs_gather(model, kv, requests) -> None:
+    """First decode step's logits: the paged fused table vs a gather twin
+    holding the same prompts (prefill writes identical pools on both)."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    slots = SERVE["slots"]
     twin = SlotKVCache(model, None, slots, kv_layout="paged",
-                       paged_block=block, paged_fused=False)
+                       paged_block=SERVE["block"], paged_fused=False)
     for table in (kv, twin):
         for req in requests[:slots]:
             table.insert(req.prompt)
     fused = kv.decode_logits()
     gather = twin.decode_logits()
     torch.cuda.synchronize()
-    assert fused.shape == (slots, vocab) and bool(fused.isfinite().all())
-    err = float((fused - gather).abs().max())
-    agree = int((fused.argmax(-1) == gather.argmax(-1)).sum())
-    print(f"[serve] first decode step fused vs gather logits: "
-          f"max_abs_err={err:.4e} (bound {LOGIT_ATOL}), "
-          f"greedy agreement {agree}/{slots}, "
-          f"logit scale {float(gather.abs().max()):.3f}")
-    assert err <= LOGIT_ATOL, err
-    print(f"[serve] device_phase_s={json.dumps(summary['device_phase_s'])} "
-          f"prefill_chunks={summary['prefill_chunks']}")
-    _profile_decode(kv)
-    return launches
+    assert fused.shape == (slots, SERVE["vocab"])
+    assert bool(fused.isfinite().all())
+    _close_logits("paged fused vs gather", fused, gather)
+
+
+def _close_logits(label, got, want) -> float:
+    err = float((got - want).abs().max())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"[serve] {label} logits: max_abs_err={err:.4e} (bound "
+          f"{LOGIT_ATOL}), bitwise equal {bool(torch.equal(got, want))}, "
+          f"greedy agreement {agree}/{got.shape[0]}, logit scale "
+          f"{float(want.abs().max()):.3f}")
+    assert err <= LOGIT_ATOL, (label, err)
+    return err
+
+
+def _cross_checks(model, requests):
+    """The trace's first 8 prompts: first-decode-step logits of the
+    monolithic table (dense read) against the paged fused table, and of a
+    warm prefix pool (the prompts admitted and evicted once) against the
+    cold admission.  Returns the monolithic table, 8 slots active."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    slots, block = SERVE["slots"], SERVE["block"]
+    prompts = [r.prompt for r in requests[:slots]]
+    mono = SlotKVCache(model, None, slots)
+    paged = SlotKVCache(model, None, slots, kv_layout="paged",
+                        paged_block=block)
+    for table in (mono, paged):
+        for p in prompts:
+            table.insert(p)
+    _close_logits("monolithic (dense) vs paged fused", mono.decode_logits(),
+                  paged.decode_logits())
+    pooled = SlotKVCache(model, None, slots, prefix_cache_blocks=SERVE["pool"],
+                         prefix_block=block)
+    for p in prompts:
+        pooled.insert(p)
+    cold = pooled.decode_logits().clone()
+    before = pooled.prefix_cache_stats()["hits"]
+    for s in range(slots):
+        pooled.evict(s)
+    for p in prompts:
+        pooled.insert(p)
+    warm_hits = pooled.prefix_cache_stats()["hits"] - before
+    assert warm_hits > 0, warm_hits
+    print(f"[serve] warm pool re-admission: {warm_hits} block hits")
+    _close_logits("monolithic warm pool vs cold", pooled.decode_logits(),
+                  cold)
+    return mono
+
+
+def _generate_check(model, shared) -> None:
+    """Eight prompts of the shared prefix plus 16 tokens: the cursor mode's
+    logits at the first generated position against the monolithic table's
+    prefill logits, and ``generate(greedy=True)``'s 64 tokens against the
+    table's stream (agreement printed)."""
+    from distributed_tensorflow_tpu_torch.models.gpt import generate
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    slots = SERVE["slots"]
+    rng = np.random.default_rng(1)
+    prompts = np.stack([np.concatenate([shared, rng.integers(
+        0, SERVE["vocab"], 16).astype(np.int32)]) for _ in range(slots)])
+    lp = prompts.shape[1]
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(prompts).cuda().long(),
+                          cache=model.init_cache(slots))
+    table = SlotKVCache(model, None, slots)
+    prefill = []
+    for p in prompts:
+        slot, _ = table.begin_insert(p)
+        prefill.append(table._prefill_forward(
+            slot, p[None], np.arange(lp, dtype=np.int32)[None])[0, -1])
+    _close_logits("cursor (generate) vs monolithic prefill", logits[:, -1],
+                  torch.stack(prefill))
+    t0 = time.perf_counter()
+    gen = generate(model, None, prompts, 64, greedy=True).cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    table = SlotKVCache(model, None, slots)
+    stream = [[table.insert(p)[1]] for p in prompts]
+    for _ in range(63):
+        toks = table.advance()
+        for s in range(slots):
+            stream[s].append(int(toks[s]))
+    stream = np.asarray(stream)
+    assert gen.shape == stream.shape == (slots, 64)
+    assert ((gen >= 0) & (gen < SERVE["vocab"])).all()
+    print(f"[serve] generate(greedy=True) vs the monolithic table over 64 "
+          f"new tokens: {int((gen == stream).sum())}/{gen.size} equal, "
+          f"{int((gen == stream).all(1).sum())}/{slots} whole streams "
+          f"equal; generate took {gen_s:.3f} s")
+
+
+def _temperature_check(model, requests) -> None:
+    """A 0.8-temperature window of 8 requests twice from the same seed:
+    identical streams, every id in range."""
+    from distributed_tensorflow_tpu_torch.serving import (
+        ContinuousBatcher, SlotKVCache)
+
+    def run():
+        kv = SlotKVCache(model, None, SERVE["slots"], greedy=False,
+                         temperature=0.8,
+                         generator=torch.Generator("cuda").manual_seed(0))
+        res = ContinuousBatcher(kv, prefill_chunk=SERVE["chunk"]).run(
+            requests[:8])
+        return [r.tokens for r in res["results"]]
+
+    a, b = run(), run()
+    assert a == b, "same seed, different streams"
+    assert all(0 <= t < SERVE["vocab"] for toks in a for t in toks)
+    greedy = [r.tokens for r in ContinuousBatcher(
+        SlotKVCache(model, None, SERVE["slots"]),
+        prefill_chunk=SERVE["chunk"]).run(requests[:8])["results"]]
+    same = sum(x == y for s, g in zip(a, greedy) for x, y in zip(s, g))
+    print(f"[serve] temperature 0.8 window, 8 requests, twice from seed "
+          f"0: streams identical; {same}/{sum(map(len, a))} tokens equal "
+          f"the greedy window's")
 
 
 def _lm_data(rows: int):
@@ -878,7 +1134,7 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
-def _profile_decode(kv, steps: int = 16) -> None:
+def _profile_decode(kv, label: str, steps: int = 16) -> None:
     """Where a decode step's time goes: ``steps`` decode iterations of the
     full table timed on the host clock, then the same again under
     ``torch.profiler`` for the device kernels' own time — the device's
@@ -904,7 +1160,7 @@ def _profile_decode(kv, steps: int = 16) -> None:
     # the split kernel and, with more than one split, the combine kernel
     paged_us = sum(r[0] for r in rows
                    if re.search(r"paged_(attention|combine)_kernel", r[2]))
-    print(f"[profile] decode step (8 active slots): wall_ms="
+    print(f"[profile] {label} decode step (8 active slots): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
           f"paged_attention_ms={paged_us / 1e3:.4f} "
@@ -975,12 +1231,14 @@ def main() -> int:
     build_phase()
     paged_errs = paged_check_phase()
     flash_errs = flash_check_phase()
-    launches = serve_phase(gpu)
+    launches, int8_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
+    # windows P and Q; the int8 sub-entry counts Q's int8-route launches
     paged_row["launches"] = launches
+    paged_row["int8"]["launches"] = int8_launches
     flash_rows = flash_timing_phase(flash_errs)
     for row in flash_rows:
         kind = row["name"].rsplit(".", 1)[1]

@@ -285,7 +285,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
       scale: softmax scale; defaults to ``head_dim ** -0.5``.
 
     Returns (slots, l_q, heads, head_dim) in ``q.dtype``.  Each launch of
-    the CUDA kernel adds one to ``paged_attention.launches``.
+    the CUDA kernel adds one to ``paged_attention.launches``, and one on
+    int8 pools also to ``paged_attention.int8_launches``.
     """
     _check(q, k_pool, v_pool, block_tables, positions, k_scale, v_scale)
     if q.device.type == "cpu":
@@ -331,7 +332,9 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, positions, *,
         raise RuntimeError(f"paged_attention kernel launch failed with "
                            f"cudaError_t {err}")
     paged_attention.launches += 1
+    paged_attention.int8_launches += quantized
     return out
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0

@@ -1,10 +1,13 @@
 """Continuous-batching inference serving (port of
 ``distributed_tensorflow_tpu.serving``).
 
-* ``kv_cache.SlotKVCache`` — the device half.  ``kv_layout="paged"``
-  builds ``PagedSlotKVCache``: a refcounted physical block pool with
-  per-slot block tables; prefill reads it by gather, decode through the
-  Hopper kernel of ``ops.paged_attention``.
+* ``kv_cache.SlotKVCache`` — the device half.  The default layout is
+  monolithic (one K/V row per slot, dense masked read);
+  ``kv_layout="paged"`` builds ``PagedSlotKVCache``: a refcounted physical
+  block pool with per-slot block tables; prefill reads it by gather,
+  decode through the Hopper kernel of ``ops.paged_attention``.  Both take
+  a prefix pool (``prefix_cache_blocks``), ``kv_dtype="int8"`` and
+  temperature sampling (``greedy=False``).
 * ``scheduler.ContinuousBatcher`` — the host half: iteration-level
   admission/eviction, chunked prefill, TTFT/ITL percentile accounting.
 

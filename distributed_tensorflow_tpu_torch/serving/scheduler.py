@@ -15,7 +15,10 @@ deliveries, both as p50/p95/p99.  Clocks are injectable: ``WallClock``
 (real time) or ``VirtualClock`` (time = decode iterations, deterministic).
 
 All host-side: this module is the JAX package's scheduler with the
-single-token decode loop only.  Speculative decoding (``draft_kv``),
+single-token decode loop only, over either table layout (the paged pool's
+admission gate and ledger are used when the table has them).  The summary
+carries the prefix pool's hit rate and ledger, and under the paged layout
+the zero-copy hit rate.  Speculative decoding (``draft_kv``),
 ``multi_step``, disaggregated roles/handoff, the roofline, the timeline
 sampler and SLO monitors are not ported yet and raise
 ``NotImplementedError``.
@@ -287,8 +290,9 @@ class ContinuousBatcher:
         with tracer.span("prefill", rid=req.rid, prompt_len=lp):
             slot, first = kv.insert(req.prompt)
         self.clock.on_prefill(kv.prefill_tokens_computed - before)
-        # the paged block budget (prompt + decode growth) for can_admit
-        kv.note_admission(slot, lp + req.max_new_tokens)
+        if hasattr(kv, "note_admission"):
+            # the paged block budget (prompt + decode growth) for can_admit
+            kv.note_admission(slot, lp + req.max_new_tokens)
         now = self.clock.now()
         result = RequestResult(
             rid=req.rid, prompt_len=lp, tokens=[first],
@@ -313,7 +317,8 @@ class ContinuousBatcher:
                                max_new_tokens=req.max_new_tokens)
         req_attrs = req_span.__enter__() or {}
         slot, reused = kv.begin_insert(req.prompt)
-        kv.note_admission(slot, lp + req.max_new_tokens)
+        if hasattr(kv, "note_admission"):
+            kv.note_admission(slot, lp + req.max_new_tokens)
         pending[slot] = {"req": req, "span": req_span, "lp": lp,
                          "admitted_s": t_claim, "reused": reused,
                          "attrs": req_attrs,
@@ -458,7 +463,7 @@ class ContinuousBatcher:
             # request's worst-case block need must fit the free list.  With
             # nothing in flight the pool is as free as it gets, so admit
             # and let BlockPoolExhausted surface an impossible config.
-            if ((live or pending)
+            if (hasattr(kv, "can_admit") and (live or pending)
                     and not kv.can_admit(
                         int(np.asarray(req.prompt).reshape(-1).shape[0]),
                         req.max_new_tokens)):
@@ -531,9 +536,12 @@ class ContinuousBatcher:
         self._preempted: str | None = None
         live: dict[int, _Live] = {}
         pending: dict[int, dict] = {}
+        prefix_before = self.kv.prefix_cache_stats()
         prefill_before = self.kv.prefill_tokens_computed
         phases_before = self.kv.phase_times()
-        paged_before = self.kv.paged_stats()
+        # cumulative pool counters: the summary reports deltas over this run
+        paged_before = (self.kv.paged_stats()
+                        if hasattr(self.kv, "paged_stats") else None)
         with queue.claim():
             self.clock.start()
             t_start = self.clock.now()
@@ -567,14 +575,35 @@ class ContinuousBatcher:
             self.metrics.merge(self._registry)
         phases_after = self.kv.phase_times()
         prefill_tokens = self.kv.prefill_tokens_computed - prefill_before
-        paged_after = self.kv.paged_stats()
-        paged_sec = {
-            k: paged_after[k] - paged_before.get(k, 0)
-            for k in ("zero_copy_hits", "zero_copy_blocks",
-                      "zero_copy_tokens", "cow_copies")}
-        for k in ("num_blocks", "block", "blocks_in_use", "utilization"):
-            paged_sec[k] = paged_after[k]
-        paged_sec["block_deferrals"] = self._block_deferrals
+        # prefix-pool ledger (None: pool off): deltas over this run, and
+        # the block-level hit rate
+        prefix_after = self.kv.prefix_cache_stats()
+        prefix_sec = hit_rate = None
+        if prefix_after is not None:
+            prefix_sec = {
+                k: prefix_after[k] - (prefix_before or {}).get(k, 0)
+                for k in ("hits", "misses", "evictions", "tokens_reused",
+                          "inserted_blocks")}
+            prefix_sec["cached_blocks"] = prefix_after["cached_blocks"]
+            asked = prefix_sec["hits"] + prefix_sec["misses"]
+            hit_rate = prefix_sec["hits"] / asked if asked else 0.0
+        # paged pool (None under monolithic): current utilization, the
+        # zero-copy/CoW ledger as deltas; the zero-copy hit rate is blocks
+        # aliased by pointer over blocks asked of the prefix pool
+        paged_sec = zero_copy_rate = None
+        if paged_before is not None:
+            paged_after = self.kv.paged_stats()
+            paged_sec = {
+                k: paged_after[k] - paged_before.get(k, 0)
+                for k in ("zero_copy_hits", "zero_copy_blocks",
+                          "zero_copy_tokens", "cow_copies")}
+            for k in ("num_blocks", "block", "blocks_in_use", "utilization"):
+                paged_sec[k] = paged_after[k]
+            paged_sec["block_deferrals"] = self._block_deferrals
+            if prefix_sec is not None:
+                asked = prefix_sec["hits"] + prefix_sec["misses"]
+                zero_copy_rate = (paged_sec["zero_copy_blocks"] / asked
+                                  if asked else 0.0)
 
         def rate(n):
             return n / elapsed if elapsed > 0 else None
@@ -586,8 +615,11 @@ class ContinuousBatcher:
             "serve_kv_dtype": self.kv.kv_dtype,
             "serve_kv_bytes_per_slot": self.kv.kv_bytes_per_slot(),
             "serve_kv_layout": self.kv.kv_layout,
-            "serve_kv_blocks_in_use": paged_sec["blocks_in_use"],
-            "serve_kv_block_utilization": paged_sec["utilization"],
+            "serve_kv_blocks_in_use": (paged_sec["blocks_in_use"]
+                                       if paged_sec else None),
+            "serve_kv_block_utilization": (paged_sec["utilization"]
+                                           if paged_sec else None),
+            "serve_prefix_zero_copy_hit_rate": zero_copy_rate,
             "serve_kv_block_deferrals": self._block_deferrals,
             "paged": paged_sec,
             "decode_iterations": decode_iterations,
@@ -603,6 +635,8 @@ class ContinuousBatcher:
             "serve_tokens_per_sec": rate(tokens),
             "serve_prefill_tokens_per_sec": rate(prefill_tokens),
             "serve_decode_tokens_per_sec": rate(self._decode_tokens),
+            "serve_prefix_cache_hit_rate": hit_rate,
+            "prefix_cache": prefix_sec,
             "serve_ttft_p50_s": _percentile(ttfts, 0.50),
             "serve_ttft_p95_s": _percentile(ttfts, 0.95),
             "serve_ttft_p99_s": _percentile(ttfts, 0.99),
