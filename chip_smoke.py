@@ -34,11 +34,23 @@ Phases (any failure raises and the script exits non-zero):
              the table's, a seeded 0.8-temperature window run twice, and
              where a decode step's device time goes (``torch.profiler``):
              paged, paged on int8 pools, monolithic;
+4b. cnn    — the reference's own training path through ``cli.main``, as a
+             user runs it: ``-m c -cs sync -n 1 -b 32 --model cnn --dataset
+             mnist`` (BASELINE config 1 at full width: synthetic MNIST,
+             8192/2048 rows, 256 steps at steps_per_call 8, prefetch 2)
+             over a 1-rank NCCL process group, to test accuracy >= 0.97
+             with one NCCL all-reduce per step; steps-to-97% of the same
+             config (``steps_to_accuracy``); ``-m d -ds keras`` with the
+             MLP at steps_per_call 1 and 8, whose heartbeat loss lines
+             must be identical; later, with the other profiles, where a
+             CNN step's device time goes.  The card has one GPU, so
+             scaling n=1→8 is not measured here;
 5. train   — the GPT of ``bench.py --lm`` (vocab 16384, hidden 512, 8
              layers, 8 heads, ffn 2048, sequence 1024, bf16, dropout 0,
              flash attention), random weights from a seed, trained for two
              epochs of 64 seeded rows at batch 8 (16 steps) by
-             ``Trainer(model, engine=SyncEngine(model)).fit`` and evaluated
+             ``Trainer(model, engine=SyncEngine(model)).fit`` at one step
+             per call (each heartbeat timestamps its step) and evaluated
              by ``Trainer.evaluate``; the launch counts show every
              attention forward and backward went through the kernels of
              the ``tc`` route, and one step is held against a
@@ -46,12 +58,16 @@ Phases (any failure raises and the script exits non-zero):
              goes;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
-             per launch from ``torch.profiler`` (``ms``) and the
+             per launch from ``torch.profiler`` (``ms``; a session that
+             sees no device time is run again, and then CUDA events around
+             launches queued behind a device-side spin measure it) and the
              event-window time per call with the host's cost
              (``call_ms``); the paged kernel also at a 4096-token context,
              with a sweep of split counts at both shapes, and on int8 pools at
              the decode shape.  Last, so that
-             no profiler session precedes the serve and train windows.
+             no profiler session precedes the serve and train windows; then
+             the spin-queued event time beside the profiler's for the
+             paged decode kernel and the tc forward.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -60,7 +76,9 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import re
 import subprocess
@@ -135,24 +153,105 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Device time per call of ``fn``: the self device time of every
-    kernel ``iters`` calls launch, from ``torch.profiler``, over ``iters``
-    (the host's cost between launches is not in it)."""
+# device times that torch.profiler did not see and queued CUDA events
+# measured instead (``_device_ms``)
+EVENT_TIMED: list[str] = []
+_SLEEP_CYCLES_PER_MS: list[float] = []
+
+
+def _profiled(run, steps: int):
+    """``_device_rows`` of a ``torch.profiler`` session around ``run()``
+    (``steps`` calls of the work measured).  A session whose trace holds
+    no device kernel is run once more before the result stands: CUPTI
+    has, in one run on the card, handed a session no kernel at all."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof, steps)
+        if rows:
+            return rows
+    return rows
+
+
+def _queued_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` from CUDA events around ``iters`` calls
+    queued behind a device-side spin (``torch.cuda._sleep``) that outlasts
+    their enqueueing: the card then runs them back to back, so the window
+    holds their kernels and the gaps between kernels but not the host's
+    launch cost (unless ``fn`` itself waits for the card)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if not _SLEEP_CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(2 * enqueue_ms * _SLEEP_CYCLES_PER_MS[0]) + 1)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str) -> float:
+    """Device time per call of ``fn``: the self device time of every
+    kernel ``iters`` calls launch, from ``torch.profiler``, over ``iters``
+    (the host's cost between launches is not in it).  Where the profiler
+    sees no device time, ``_queued_ms`` measures it, and ``label`` goes
+    into ``EVENT_TIMED``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(r[0] for r in _device_rows(prof, iters))
-    if not us:
-        raise RuntimeError("the profiler saw no device time")
-    return us / 1e3
+
+    us = sum(r[0] for r in _profiled(run, iters))
+    if us:
+        return us / 1e3
+    EVENT_TIMED.append(label)
+    ms = _queued_ms(fn, iters)
+    print(f"[timing] {label}: the profiler saw no device time; queued "
+          f"CUDA events: {ms:.5f} ms per call")
+    return ms
+
+
+def timing_cross_check() -> None:
+    """``_device_ms``'s fallback beside the profiler on the same calls:
+    the paged kernel at the decode shape and the tc flash forward at the
+    train window's shape.  The fallback's window also holds the gaps
+    between kernels, so it reads at or above the profiler's sum."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, bt, pos, _, _ = _paged_case(
+        7, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16)
+    fq, fk, fv, _, _ = _flash_case(7, b=8, lq=1024, h=8, d=64,
+                                   dtype=torch.bfloat16)
+    calls = {"paged decode": lambda: pa.paged_attention(q, kp, vp, bt, pos),
+             "flash fwd tc": lambda: fa._fwd_cuda(fq, fk, fv, None,
+                                                  64 ** -0.5, True)}
+    for name, fn in calls.items():
+        prof = _device_ms(fn, label=f"{name} (cross-check)")
+        queued = _queued_ms(fn, 50)
+        print(f"[timing] {name}: profiler {prof:.5f} ms, queued CUDA "
+              f"events {queued:.5f} ms per call (ratio "
+              f"{queued / prof:.3f})")
 
 
 def _paged_case(seed, *, s=8, l_q=1, h=8, kvh=8, d=64, blk=8, mb=18,
@@ -214,18 +313,20 @@ def _bound_ms(q, kp, pos, ks) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _paged_timed(q, kp, vp, bt, pos, splits_list, ks=None, vs=None) -> dict:
+def _paged_timed(tag, q, kp, vp, bt, pos, splits_list, ks=None,
+                 vs=None) -> dict:
     """Device ms per call of the kernel at each split count (None = the
     count ``_splits`` picks), the plain version and the library yardstick,
     the event-window ms per call of each, and the bound.  ``ks``/``vs``:
-    the scales of int8 pools."""
+    the scales of int8 pools; ``tag`` names the shape in ``EVENT_TIMED``."""
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
     s, l_q, h, d = q.shape
     mb, blk = bt.shape[1], kp.shape[1]
     sc = dict(k_scale=ks, v_scale=vs)
-    sweep = {sp: _device_ms(lambda sp=sp: pa._paged_cuda(
-        q, kp, vp, bt, pos, splits=sp, **sc)) for sp in splits_list}
+    sweep = {sp: _device_ms(
+        lambda sp=sp: pa._paged_cuda(q, kp, vp, bt, pos, splits=sp, **sc),
+        label=f"paged {tag} splits={sp}") for sp in splits_list}
     kernel = lambda: pa.paged_attention(  # noqa: E731
         q, kp, vp, bt, pos, **sc)
     plain = lambda: pa.paged_attention_reference(  # noqa: E731
@@ -247,10 +348,12 @@ def _paged_timed(q, kp, vp, bt, pos, splits_list, ks=None, vs=None) -> dict:
         qt, keys, vals, attn_mask=mask)
     bound_ms, bound_by = _bound_ms(q, kp, pos, ks)
     return {"splits": pa._splits(s, kp.shape[2], mb, blk),
-            "ms": _device_ms(kernel), "call_ms": _time_ms(kernel),
-            "plain_ms": _device_ms(plain, iters=10),
+            "ms": _device_ms(kernel, label=f"paged {tag}"),
+            "call_ms": _time_ms(kernel),
+            "plain_ms": _device_ms(plain, iters=10,
+                                   label=f"paged {tag} plain"),
             "plain_call_ms": _time_ms(plain, iters=20, warmup=3),
-            "library_ms": _device_ms(library),
+            "library_ms": _device_ms(library, label=f"paged {tag} SDPA"),
             "library_call_ms": _time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "sweep": {str(sp): t for sp, t in sweep.items()}}
@@ -312,7 +415,7 @@ def paged_timing_phase(errs) -> dict:
     # the serving path's decode shape
     q, kp, vp, bt, pos, _, _ = _paged_case(
         7, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16)
-    dec = _paged_timed(q, kp, vp, bt, pos, sweep)
+    dec = _paged_timed("decode", q, kp, vp, bt, pos, sweep)
     # a long context: 4096-token tables, positions in [3584, 4095]
     long_pos = np.random.default_rng(8).integers(3584, 4096, 8)
     q, kp, vp, bt, pos, _, _ = _paged_case(
@@ -321,12 +424,12 @@ def paged_timing_phase(errs) -> dict:
     out = pa.paged_attention(q, kp, vp, bt, pos)
     ref = pa.paged_attention_reference(q, kp, vp, bt, pos)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
-    lng = _paged_timed(q, kp, vp, bt, pos, sweep)
+    lng = _paged_timed("4096-token", q, kp, vp, bt, pos, sweep)
     del q, kp, vp, bt, pos, out, ref
     # window Q's decode shape: int8 pools with f32 scales
     q, kp, vp, bt, pos, ks, vs = _paged_case(
         9, q_dtype=torch.bfloat16, kv_dtype=torch.int8)
-    i8 = _paged_timed(q, kp, vp, bt, pos, (1, 2, 4, 8), ks, vs)
+    i8 = _paged_timed("int8", q, kp, vp, bt, pos, (1, 2, 4, 8), ks, vs)
     del q, kp, vp, bt, pos, ks, vs
     for label, t in (("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16", dec),
                      ("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16 q, int8 "
@@ -589,15 +692,17 @@ def flash_timing_phase(errs) -> list[dict]:
                                          route="simt"),
         "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
         "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
-    dev = {n: _device_ms(fn) for n, fn in timed.items()}
+    dev = {n: _device_ms(fn, label=f"flash {n}") for n, fn in timed.items()}
     call = {n: _time_windows(fn, iters=50, warmup=5) for n, fn in timed.items()}
     plain_fwd = lambda: fa._fwd_reference(q, k, v, None, scale, True)  # noqa: E731,E501
     # the plain backward computes dq, dk and dv in one function: its time
     # stands in both backward rows
     plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
-    plain = {"fwd": (_device_ms(plain_fwd, iters=10, warmup=2),
+    plain = {"fwd": (_device_ms(plain_fwd, iters=10, warmup=2,
+                                label="flash fwd plain"),
                      _time_windows(plain_fwd, iters=10, warmup=2)[0]),
-             "bwd": (_device_ms(plain_bwd, iters=10, warmup=2),
+             "bwd": (_device_ms(plain_bwd, iters=10, warmup=2,
+                                label="flash bwd plain"),
                      _time_windows(plain_bwd, iters=10, warmup=2)[0])}
     # library yardstick, used nowhere in the port: one SDPA call under a
     # named backend, and the autograd backward of that call (dq, dk, dv)
@@ -608,12 +713,12 @@ def flash_timing_phase(errs) -> list[dict]:
     dot = do.transpose(1, 2)
     lib_fwd_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
     with sdpa_kernel(backend):
-        lib_fwd = (_device_ms(lib_fwd_fn),
+        lib_fwd = (_device_ms(lib_fwd_fn, label="flash fwd SDPA"),
                    *_time_windows(lib_fwd_fn, iters=50, warmup=5))
         o = sdpa(qt, kt, vt, is_causal=True)
     lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
         o, (qt, kt, vt), dot, retain_graph=True)
-    lib_bwd = (_device_ms(lib_bwd_fn),
+    lib_bwd = (_device_ms(lib_bwd_fn, label="flash bwd SDPA"),
                *_time_windows(lib_bwd_fn, iters=50, warmup=5))
     print(f"[flash] library yardstick: SDPA backend {backend.name}: "
           f"fwd device {lib_fwd[0]:.5f} ms, call {lib_fwd[1]:.5f} ms "
@@ -951,6 +1056,133 @@ def _temperature_check(model, requests) -> None:
           f"the greedy window's")
 
 
+CNN_ARGV = ["-m", "c", "-cs", "sync", "-n", "1", "-b", "32", "--model",
+            "cnn", "--dataset", "mnist", "--log-every", "0"]
+SUMMARY_KEYS = {"engine", "model", "dataset", "synthetic_data", "n_devices",
+                "data_parallel", "global_batch", "epochs", "steps",
+                "steps_per_call", "prefetch_depth", "elapsed_s",
+                "examples_per_sec", "examples_per_sec_per_device",
+                "test_accuracy", "test_loss"}
+
+
+def _cli(argv):
+    """``cli.main(argv)`` with its stdout captured: (summary, heartbeat
+    lines)."""
+    from distributed_tensorflow_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = cli.main(argv)
+    lines = out.getvalue().splitlines()
+    assert json.loads(lines[-1]) == summary
+    return summary, [line for line in lines[:-1] if line.startswith("step ")]
+
+
+def cnn_phase(gpu: str) -> dict:
+    """The MNIST CNN through the CLI on an NCCL group of one rank,
+    steps-to-97%, and the MLP's drain at k=1 against k=8."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+    from distributed_tensorflow_tpu_torch.utils.harness import (
+        ExperimentConfig, steps_to_accuracy)
+
+    coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+    summary, _ = _cli(CNN_ARGV)
+    nccl = coll.all_reduce_.nccl_launches
+    missing = SUMMARY_KEYS - set(summary)
+    assert not missing, missing
+    steps = summary["steps"]
+    assert summary["synthetic_data"] is True, summary
+    assert (steps, summary["global_batch"], summary["steps_per_call"],
+            summary["prefetch_depth"]) == (256, 32, 8, 2), summary
+    # the fit's nan guard read the last step's loss; the eval's loss too
+    assert np.isfinite(summary["test_loss"]), summary
+    assert summary["test_accuracy"] >= 0.97, summary
+    # one gradient all-reduce per step, one for the final evaluate
+    assert nccl == coll.all_reduce_.launches == steps + 1, (nccl, steps)
+    rr = summary["run_report"]
+    print(f"[cnn] {gpu}: -m c -cs sync -n 1 -b 32 --model cnn --dataset "
+          f"mnist: steps={steps} examples_per_sec="
+          f"{summary['examples_per_sec']:.1f} step_ms_p50="
+          f"{rr['step_time_p50_s'] * 1e3:.4f} step_ms_p95="
+          f"{rr['step_time_p95_s'] * 1e3:.4f} first_chunk_s="
+          f"{rr['compile_s']:.4f} elapsed_s={summary['elapsed_s']:.4f} "
+          f"test_accuracy={summary['test_accuracy']:.6f} test_loss="
+          f"{summary['test_loss']:.6f} nccl_allreduce_launches={nccl} "
+          f"({nccl / steps:.4f} per step)")
+
+    cfg = ExperimentConfig(engine="sync", model="cnn", dataset="mnist",
+                           n_devices=1, batch_size=32)
+    reach = steps_to_accuracy(cfg, 0.97)
+    assert reach["reached"], reach
+    print(f"[cnn] {gpu}: steps_to_97pct={reach['steps']} "
+          f"step_resolution={reach['step_resolution']} accuracy="
+          f"{reach['accuracy']:.6f} elapsed_s={reach['elapsed_s']:.4f} "
+          f"synthetic={reach['synthetic']}")
+
+    # k=1, 8, 8, 1: the pairs' spread says how far one reading of a
+    # host-bound wall metric can be trusted
+    beats = []
+    for k in (1, 8, 8, 1):
+        mlp, lines = _cli(["-m", "d", "-ds", "keras", "-n", "1", "-b", "32",
+                           "--model", "mlp", "--dataset", "mnist",
+                           "--log-every", "16", "--steps-per-call", str(k)])
+        assert mlp["engine"] == "allreduce" and mlp["steps_per_call"] == k
+        beats.append(lines)
+        print(f"[cnn] {gpu}: -m d -ds keras --model mlp --steps-per-call "
+              f"{k}: examples_per_sec={mlp['examples_per_sec']:.1f} "
+              f"step_ms_p50="
+              f"{mlp['run_report']['step_time_p50_s'] * 1e3:.4f} "
+              f"test_accuracy={mlp['test_accuracy']:.6f}")
+    losses = [float(line.split()[3]) for line in beats[0]]
+    assert all(b == beats[0] for b in beats) and len(losses) == 16, beats
+    assert all(np.isfinite(losses)), losses
+    print(f"[cnn] MLP heartbeats identical in all four runs ({len(losses)} "
+          f"lines): losses {' '.join(f'{v:.4f}' for v in losses)}")
+    return summary
+
+
+def _profile_cnn(steps: int = 16) -> None:
+    """Where a CNN train step's time goes (batch 32, 1-rank NCCL mesh):
+    ``steps`` steps on the host clock, then the same under
+    ``torch.profiler``: the device's busy share, kernels per step and the
+    top kernels."""
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    ds = load_dataset("mnist")
+    mesh = create_mesh(1)
+    try:
+        eng = SyncEngine(create_model("cnn"), mesh=mesh)
+        state = eng.init_state(torch.Generator().manual_seed(0), ds.x[:1])
+        xs, ys = eng.shard_batch(ds.x[:32], ds.y[:32])
+        for _ in range(4):
+            eng.step(state, xs, ys)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step(state, xs, ys)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / steps
+        rows = _profiled(lambda: [eng.step(state, xs, ys)
+                                  for _ in range(steps)], steps)
+    finally:
+        mesh.close()
+    busy_us = sum(r[0] for r in rows)
+    if not busy_us:
+        print("[profile] no device time in the CNN trace: not measured")
+        return
+    nccl_us = sum(r[0] for r in rows if "nccl" in r[2].lower())
+    print(f"[profile] CNN train step (B=32, f32, 1-rank NCCL): wall_ms="
+          f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
+          f"busy_share={busy_us / wall_us:.4f} "
+          f"kernels_per_step={sum(r[1] for r in rows):.1f} "
+          f"nccl_ms={nccl_us / 1e3:.4f}")
+    for dev_us, count, key in rows[:10]:
+        print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
+
+
 def _lm_data(rows: int):
     """bench.py --lm's tokens: default_rng(0) ids over 1025 positions,
     split into inputs and next-token labels."""
@@ -1000,11 +1232,14 @@ def train_phase(gpu: str):
                       name="lm_bench")
     model = _lm_model("flash")
     trainer = Trainer(model, engine=SyncEngine(model), seed=0)
-    # the heartbeat reads each step's loss (a host sync per step), so its
-    # timestamps mark when each step finished on the device
+    # one step per call: the heartbeat reads each step's loss as it is
+    # dispatched (a host sync per step), so its timestamps mark when each
+    # step finished on the device (a chunk of 8 would log its steps
+    # together after one read)
     beats = []
     _reset_flash_counts()
     result = trainer.fit(train_ds, epochs=2, batch_size=batch, log_every=1,
+                         steps_per_call=1,
                          log_fn=lambda line: beats.append(
                              (time.perf_counter(), line)))
     torch.cuda.synchronize()
@@ -1093,8 +1328,6 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
     the host clock, then the same under ``torch.profiler``: the device's
     busy share of an unprofiled step, the flash kernels' share of device
     time, kernels per step, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     xs, ys = engine.shard_batch(x, y)
     engine.step(state, xs, ys)
     torch.cuda.synchronize()
@@ -1103,12 +1336,8 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
         engine.step(state, xs, ys)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step(state, xs, ys)
-        torch.cuda.synchronize()
-    rows = _device_rows(prof, steps)
+    rows = _profiled(lambda: [engine.step(state, xs, ys)
+                              for _ in range(steps)], steps)
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
@@ -1139,20 +1368,13 @@ def _profile_decode(kv, label: str, steps: int = 16) -> None:
     full table timed on the host clock, then the same again under
     ``torch.profiler`` for the device kernels' own time — the device's
     busy share of an unprofiled step, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         kv.advance()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            kv.advance()
-        torch.cuda.synchronize()
-    rows = _device_rows(prof, steps)
+    rows = _profiled(lambda: [kv.advance() for _ in range(steps)], steps)
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
@@ -1231,6 +1453,8 @@ def main() -> int:
     build_phase()
     paged_errs = paged_check_phase()
     flash_errs = flash_check_phase()
+    # before any profiler session: its host times are the measurement
+    cnn_phase(gpu)
     launches, int8_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
     # the timings last: each profiler session before the serve and train
@@ -1254,6 +1478,11 @@ def main() -> int:
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
               f"bound_share={row['bound_share']:.4f} "
               f"launches_per_train_step={fit[counter] / steps:.1f}")
+    timing_cross_check()
+    _profile_cnn()
+    print(f"[timing] device times from queued CUDA events, where the "
+          f"profiler saw no device time: {len(EVENT_TIMED)} "
+          f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {

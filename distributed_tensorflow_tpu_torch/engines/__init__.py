@@ -1,9 +1,9 @@
 """Step engines (port of ``distributed_tensorflow_tpu.engines``).
 
-Ported: ``sync`` (``SyncEngine`` on one device) and ``allreduce`` (the same
-engine, driven through the Keras-fit-like ``Trainer``).  The other engines
-of the JAX registry raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item.
+Ported: ``sync`` (``SyncEngine``: one device, or one rank of a
+``torch.distributed`` group) and ``allreduce`` (the same engine, driven
+through the Keras-fit-like ``Trainer``).  The other engines of the JAX
+registry raise ``NotImplementedError`` naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -17,14 +17,22 @@ from distributed_tensorflow_tpu_torch.engines.sync import (  # noqa: F401
     SyncEngine)
 
 ENGINES = {"sync": SyncEngine, "allreduce": SyncEngine}
-_LATER = {"async": "remaining engines", "gossip": "remaining engines",
+_LATER = {"async": "the reference's async and gossip modes",
+          "gossip": "the reference's async and gossip modes",
           "fsdp": "remaining engines"}
 
 
-def create_engine(name: str, *args, **kw):
+def check_engine(name: str) -> None:
+    """Raise unless ``name`` is a ported engine: ``NotImplementedError``
+    naming its ROADMAP item for the JAX registry's others, ``KeyError``
+    for an unknown name."""
     if name in _LATER:
         not_ported(f"engine '{name}'", _LATER[name])
     if name not in ENGINES:
         raise KeyError(f"unknown engine '{name}'; known: "
                        f"{sorted(ENGINES) + sorted(_LATER)}")
+
+
+def create_engine(name: str, *args, **kw):
+    check_engine(name)
     return ENGINES[name](*args, **kw)

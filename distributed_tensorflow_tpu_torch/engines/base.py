@@ -1,12 +1,15 @@
 """Shared engine machinery: TrainState, loss, eval, batch placement (port of
-``engines/base.py`` for one device).
+``engines/base.py``).
 
 The JAX engines are jitted SPMD programs over a mesh with a pure
-``TrainState`` value.  The port runs eagerly on one device: the state holds
-the live ``nn.Module`` and ``torch.optim`` optimizer, and a step updates
-them in place.  Multi-GPU sync over ``torch.distributed``, the gradient
-codecs, bucketing, mixed-precision policies and the health layer are later
-work (ROADMAP Queue 1) and raise ``NotImplementedError``.
+``TrainState`` value.  The port runs eagerly, one process per device: the
+state holds the live ``nn.Module`` and ``torch.optim`` optimizer, and a
+step updates them in place.  With a ``mesh`` (``parallel/mesh.py``) the
+ranks of a ``torch.distributed`` group each take their rows of every
+global batch and sum their gradients with one collective; without one the
+engine runs on one device.  The gradient codecs, bucketing,
+mixed-precision policies and the health layer are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,24 +21,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.parameter import is_lazy
 
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
-
-_MULTI_GPU = "training with the CNN/MLP sync path"
-_ENGINES = "remaining engines"
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass
 class TrainState:
     """The JAX ``TrainState`` (step, params, opt_state, rng) as live
     objects: ``model`` holds the parameters, ``optimizer`` the optimizer
-    state, ``generator`` the random stream dropout draws from.  Engines
-    update it in place."""
+    state, ``generator`` the device stream dropout draws from (reseeded
+    each step from ``seed``, the step and the rank).  Engines update it in
+    place."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    seed: int = 0
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -70,29 +74,41 @@ def make_loss_fn(model: nn.Module) -> Callable:
 
 
 class Engine:
-    """Base: owns model, optimizer factory and device; subclasses implement
-    ``step``.
+    """Base: owns model, optimizer factory, mesh and device; subclasses
+    implement ``step``.
 
     ``optimizer`` is a callable ``params -> torch.optim.Optimizer``; the
     default ``torch.optim.Adam(lr=learning_rate)`` is the counterpart of the
     JAX default ``optax.adam(learning_rate)`` (same betas, eps 1e-8 outside
     the square root, same bias correction; the two round differently).
-    ``device=None`` means the CUDA card; the model is moved there."""
+    ``mesh`` (``parallel.mesh.create_mesh``) makes this process one rank of
+    a data-parallel group and puts the model on the mesh's device;
+    without one, ``device=None`` means the CUDA card."""
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
                  grad_bucket_mb: float = 0.0, precision: str = "f32",
                  device=None):
-        if mesh is not None:
-            not_ported("a device mesh (multi-GPU sync over "
-                       "torch.distributed)", _MULTI_GPU)
         if grad_compression != "none":
-            not_ported(f"grad_compression={grad_compression!r}", _ENGINES)
+            not_ported(f"grad_compression={grad_compression!r}",
+                       "remaining engines")
         if grad_bucket_mb:
-            not_ported("grad_bucket_mb > 0 (bucketed overlap)", _ENGINES)
+            not_ported("grad_bucket_mb > 0 (bucketed overlap)",
+                       "remaining engines")
         if precision != "f32":
-            not_ported(f"precision={precision!r}", _ENGINES)
-        self.device = resolve_device(device)
+            not_ported(f"precision={precision!r}", "mixed precision")
+        if mesh is not None:
+            want = torch.device(mesh.device if device is None else device)
+            if (want.type, want.index or mesh.device.index) != (
+                    mesh.device.type, mesh.device.index):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_devices = mesh.world_size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
         self.model = model.to(self.device)
         self.make_optimizer = (optimizer if optimizer is not None else
                                lambda params: torch.optim.Adam(
@@ -103,32 +119,75 @@ class Engine:
                    sample_x=None) -> TrainState:
         """Fresh parameters drawn from ``generator`` (a CPU generator:
         ``model.reset_parameters``), a fresh optimizer over them, and a
-        dropout generator on the device seeded from ``generator``.
-        ``sample_x`` is accepted for the JAX signature; a module's shapes do
-        not depend on it."""
-        del sample_x
+        dropout seed drawn from ``generator``.  Every rank passes a
+        generator seeded alike, so every rank starts from the same
+        parameters.  A model with lazy layers (MLP, CNN) first takes its
+        input widths from ``sample_x``, as flax's ``init`` does."""
+        if any(is_lazy(p) for p in self.model.parameters()):
+            if sample_x is None:
+                raise ValueError(f"{type(self.model).__name__} infers its "
+                                 f"input widths: pass sample_x")
+            with torch.no_grad():
+                self.model(self._put(np.asarray(sample_x[:1])), train=False)
         self.model.reset_parameters(generator)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
-        dropout = torch.Generator(device=self.device).manual_seed(seed)
         return TrainState(step=0, model=self.model,
                           optimizer=self.make_optimizer(
                               self.model.parameters()),
-                          generator=dropout)
+                          generator=torch.Generator(device=self.device),
+                          seed=seed)
 
     # ------------------------------------------------------------- batches
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            # a non-blocking copy is asynchronous only from pinned memory
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def shard_batch(self, x: np.ndarray, y: np.ndarray,
-                    mask: np.ndarray | None = None):
-        """Move a host batch to the engine's device (one device: no split)."""
+                    mask: np.ndarray | None = None,
+                    process_local: bool = False):
+        """Place a batch on this rank's device with its leading dim split
+        over the ranks, as JAX's ``data_sharding`` splits it: every rank
+        passes the same global batch and keeps rows ``[r·B/n, (r+1)·B/n)``.
+        ``process_local=True``: the rows given are already this rank's."""
         def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+            if self.mesh is not None and not process_local:
+                n, r = self.n_devices, self.rank
+                if len(a) % n:
+                    raise ValueError(f"batch of {len(a)} rows does not "
+                                     f"split over {n} ranks")
+                b = len(a) // n
+                a = a[r * b:(r + 1) * b]
+            return self._put(a)
 
         if mask is None:
             return put(x), put(y)
         return put(x), put(y), put(mask)
 
+    def step_generator(self, state: TrainState) -> torch.Generator:
+        """This step's dropout stream on this rank, a function of (seed,
+        step, rank): the counterpart of JAX's ``_per_device_rng``."""
+        seq = np.random.SeedSequence([state.seed, state.step, self.rank])
+        return state.generator.manual_seed(
+            int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
     # ---------------------------------------------------------------- step
     def step(self, state: TrainState, x, y):
         raise NotImplementedError
+
+    def many_step(self, state: TrainState, xs_seq, ys_seq):
+        """``len(xs_seq)`` steps back to back (the chunk of the Trainer's
+        drain): returns the state and each metric stacked over the steps
+        on the device, so the host reads the chunk once.  Eager: the JAX
+        package's ``lax.scan`` drain as a Python loop."""
+        per_step = []
+        for x, y in zip(xs_seq, ys_seq):
+            state, m = self.step(state, x, y)
+            per_step.append(m)
+        return state, {k: torch.stack([m[k] for m in per_step])
+                       for k in per_step[0]}
 
     # ---------------------------------------------------------------- eval
     def eval_params(self, state: TrainState) -> nn.Module:
@@ -139,18 +198,24 @@ class Engine:
     def evaluate(self, state: TrainState, dataset,
                  batch_size: int = 100) -> dict:
         """Full-test-set eval: accuracy and loss per valid label element,
-        padded rows of the last batch masked out."""
+        padded rows of the last batch masked out.  Over a mesh the batch
+        rounds down to a multiple of the ranks, each rank evaluates its
+        rows, and one collective sums the three totals."""
         model = self.eval_params(state)
+        n = self.n_devices
+        bs = (max(batch_size, n) // n) * n
         correct = loss_sum = count = torch.zeros((), device=self.device)
-        for bx, by, bm in dataset.batches(batch_size, shuffle=False):
+        for bx, by, bm in dataset.batches(bs, shuffle=False):
             x, y, m = self.shard_batch(bx, by, bm)
             logits = model(x, train=False)
             w = token_weights(m, y)
             correct = correct + ((logits.argmax(-1) == y) * w).sum()
             loss_sum = loss_sum + (cross_entropy(logits, y) * w).sum()
             count = count + w.sum()
-        tot_correct, tot_loss, tot_count = (float(t) for t in
-                                            (correct, loss_sum, count))
+        totals = torch.stack([correct, loss_sum, count])
+        if self.mesh is not None:
+            coll.all_reduce_(totals, self.mesh)
+        tot_correct, tot_loss, tot_count = totals.tolist()
         return {
             "accuracy": tot_correct / max(tot_count, 1.0),
             "loss": tot_loss / max(tot_count, 1.0),

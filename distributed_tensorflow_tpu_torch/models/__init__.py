@@ -1,13 +1,22 @@
 """Model plug-in point (port of ``distributed_tensorflow_tpu.models``).
 
-``create_model("gpt", ...)`` builds the ported ``GPTLM``; the other names
-of the JAX registry are not ported yet and raise ``NotImplementedError``.
-Models keep float32 parameters and compute in ``dtype``.
+``create_model`` builds the ported models: the MLP (``mlp``,
+``mnist_mlp``, ``fashion_mlp``), the CNN (``cnn``, ``mnist_cnn``) and the
+GPT (``gpt``, ``gpt_tiny``); ``get_model_fn`` is the reference's zero-arg
+``model_fn``.  ResNet, BERT and MoE are not ported yet and raise
+``NotImplementedError``.  Models keep float32 parameters and compute in
+``dtype``; ``device=None`` means the CUDA card.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from distributed_tensorflow_tpu_torch import not_ported
+from distributed_tensorflow_tpu_torch.models.cnn import CNN
+from distributed_tensorflow_tpu_torch.models.mlp import MLP
 
 _DTYPES = {
     "float32": torch.float32, "f32": torch.float32, "fp32": torch.float32,
@@ -15,13 +24,14 @@ _DTYPES = {
     "float16": torch.float16, "f16": torch.float16, "fp16": torch.float16,
 }
 
-_CNN = "training with the CNN/MLP sync path"
 _BERT = "BERT, ResNet and remat"
 _LATER = {
-    "mlp": _CNN, "mnist_mlp": _CNN, "fashion_mlp": _CNN, "cnn": _CNN,
-    "mnist_cnn": _CNN, "resnet20": _BERT, "resnet": _BERT,
-    "bert_tiny": _BERT, "bert": _BERT,
+    "resnet20": _BERT, "resnet": _BERT, "bert_tiny": _BERT, "bert": _BERT,
     "moe": "remaining engines", "moe_mlp": "remaining engines",
+}
+_REGISTRY: dict[str, Callable[..., torch.nn.Module]] = {
+    "mlp": MLP, "mnist_mlp": MLP, "fashion_mlp": MLP,
+    "cnn": CNN, "mnist_cnn": CNN,
 }
 
 
@@ -47,7 +57,14 @@ def create_model(name: str, num_classes: int = 10, **kw):
         kw.setdefault("vocab_size", num_classes)
         return GPTLM(**kw)
     if name in _LATER:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to the PyTorch package yet "
-            f"(ROADMAP Queue 1: {_LATER[name]})")
-    raise KeyError(f"unknown model '{name}'; ported: gpt")
+        not_ported(f"model '{name}'", _LATER[name])
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)} "
+                       f"+ gpt, resnet20, bert_tiny, moe")
+    return _REGISTRY[name](num_classes=num_classes, **kw)
+
+
+def get_model_fn(name: str, num_classes: int = 10,
+                 **kw) -> Callable[[], torch.nn.Module]:
+    """Reference-style zero-arg model_fn."""
+    return lambda: create_model(name, num_classes=num_classes, **kw)

@@ -1,12 +1,17 @@
-"""Carry a flax GPT param tree across to the port's ``state_dict``.
+"""Carry a flax param tree across to the port's ``state_dict``.
 
-The input is the JAX ``GPTLM`` param tree as nested dicts of arrays (numpy,
-or anything ``numpy.asarray`` reads); nothing here imports jax.  Rules:
+The input is a JAX model's param tree as nested dicts of arrays (numpy, or
+anything ``numpy.asarray`` reads); nothing here imports jax.  Rules:
 
 * a Dense ``kernel (in, out)`` becomes a Linear ``weight (out, in)``;
+* a Conv ``kernel (kh, kw, in, out)`` becomes a Conv2d ``weight (out, in,
+  kh, kw)``;
 * Embed tables are copied as they are (the tied head shares the single
   token embedding, so there is no separate head weight);
 * a LayerNorm's ``scale``/``bias`` become its ``weight``/``bias``.
+
+The CNN flattens its feature map in flax's NHWC order (``models/cnn.py``),
+so its first Dense kernel needs no permutation of its rows.
 """
 
 from __future__ import annotations
@@ -30,8 +35,13 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _module(tree: dict, prefix: str, out: dict) -> None:
-    """One flax leaf module (Dense, LayerNorm or Embed) → state_dict keys."""
-    if "kernel" in tree:
+    """One flax leaf module (Dense, Conv, LayerNorm or Embed) → state_dict
+    keys."""
+    if "kernel" in tree and np.ndim(tree["kernel"]) == 4:
+        out[f"{prefix}.weight"] = _tensor(tree["kernel"]).permute(
+            3, 2, 0, 1).contiguous()
+        out[f"{prefix}.bias"] = _tensor(tree["bias"])
+    elif "kernel" in tree:
         out[f"{prefix}.weight"] = _tensor(tree["kernel"]).T.contiguous()
         if "bias" in tree:
             out[f"{prefix}.bias"] = _tensor(tree["bias"])
@@ -67,4 +77,25 @@ def gpt_state_dict(params: dict) -> dict[str, torch.Tensor]:
             _module(sub, name, out)
         else:
             raise KeyError(f"unrecognized GPT param {name}")
+    return out
+
+
+def mlp_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``MLP`` params (``Dense_0``, ``Dense_1``) → ``MLP.state_dict()``."""
+    out: dict[str, torch.Tensor] = {}
+    for i in range(2):
+        _module(params[f"Dense_{i}"], f"fc{i + 1}", out)
+    return out
+
+
+def cnn_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``CNN`` params (``Conv_i``, ``Dense_0``, ``Dense_1``) →
+    ``CNN.state_dict()``."""
+    out: dict[str, torch.Tensor] = {}
+    convs = sorted((k for k in params if k.startswith("Conv_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, name in enumerate(convs):
+        _module(params[name], f"convs.{i}", out)
+    for i in range(2):
+        _module(params[f"Dense_{i}"], f"fc{i + 1}", out)
     return out

@@ -52,6 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch.models.layers import (
+    dense as _dense, dropout as _dropout, lecun_normal_)
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
@@ -75,21 +77,6 @@ def apply_rope(x, pos, base: float = 10000.0):
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
-
-
-def _dense(lin: nn.Linear, x, dtype):
-    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
-
-
-def _dropout(x, rate: float, train: bool, generator):
-    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale by
-    ``1 / (1 - rate)``; the keep mask is drawn from ``generator``."""
-    if not train or rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _layer_norm(ln: nn.LayerNorm, x, dtype):
@@ -373,25 +360,15 @@ class GPTLM(nn.Module):
         copied to the model's device: Dense kernels lecun-normal
         (truncated at ±2σ), biases zero, embeddings normal with std
         ``hidden ** -0.5``, LayerNorm scale 1 and bias 0."""
-        def fill(p, std, truncated=False):
-            host = torch.empty(p.shape, dtype=torch.float32)
-            if truncated:
-                # flax lecun_normal: std / .87962566 keeps the truncated
-                # distribution's variance at fan_in ** -1
-                nn.init.trunc_normal_(host, 0.0, std / .87962566103423978,
-                                      -2 * std / .87962566103423978,
-                                      2 * std / .87962566103423978,
-                                      generator=generator)
-            else:
-                host.normal_(0.0, std, generator=generator)
-            p.copy_(host)
-
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                fill(mod.weight, math.sqrt(1.0 / mod.in_features), True)
+                lecun_normal_(mod.weight, mod.in_features, generator)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                fill(mod.weight, math.sqrt(1.0 / mod.embedding_dim))
+                host = torch.empty(mod.weight.shape, dtype=torch.float32)
+                host.normal_(0.0, math.sqrt(1.0 / mod.embedding_dim),
+                             generator=generator)
+                mod.weight.copy_(host)
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()

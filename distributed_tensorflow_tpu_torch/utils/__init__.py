@@ -1,5 +1,8 @@
 """Utilities (port of ``distributed_tensorflow_tpu.utils``).
 
-Only ``metrics.StepTimer`` is ported, for the ``Trainer``; the checkpoint,
-failure, supervisor and harness modules are later work (ROADMAP Queue 1).
+Ported: ``metrics.StepTimer``, ``wire`` (the reference's framing),
+``supervisor`` (``ResultSink``, ``SupervisorListener``) and a slim
+``harness`` (``ExperimentConfig``, ``run``, ``steps_to_accuracy``).  The
+checkpoint, failure and profiling modules are later work (ROADMAP
+Queue 1).
 """

@@ -390,7 +390,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown attention_impl"):
         GPTLM(**SMALL, attention_impl="sparse", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("cnn", device="cpu")
+        create_model("resnet20", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate(GPTLM(**SMALL, device="cpu"), None,
                  np.zeros((1, 4), np.int32), 2, device="cpu", mesh=object())

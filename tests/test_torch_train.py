@@ -17,8 +17,8 @@ L 32, f32, dropout 0, flash attention):
 * ``grad_accum=2`` against K = 1 on the same batch;
 * ``Trainer.fit`` for two epochs and ``Trainer.evaluate`` against the JAX
   Trainer's;
-* options not ported raise ``NotImplementedError``, and the port imports
-  no JAX.
+* options not ported raise ``NotImplementedError`` naming their ROADMAP
+  item, and the port imports no JAX.
 """
 
 import subprocess
@@ -44,6 +44,7 @@ from distributed_tensorflow_tpu_torch.engines import (
     SyncEngine, Trainer, create_engine)
 from distributed_tensorflow_tpu_torch.engines.base import (
     cross_entropy, token_weights)
+from distributed_tensorflow_tpu_torch.models import create_model
 from distributed_tensorflow_tpu_torch.models.convert import gpt_state_dict
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 
@@ -211,7 +212,10 @@ def test_trainer_fit_and_evaluate_match_jax():
                 log_fn=logs["port"].append)
     assert tr["steps"] == jr["steps"] == 8
     assert tr["examples"] == jr["examples"] == 64
-    assert tr["steps_per_call"] == 1 and tr["start_step"] == 0
+    assert tr["steps_per_call"] == jr["steps_per_call"] == 8
+    assert tr["prefetch_depth"] == jr["prefetch_depth"] == 2
+    assert tr["chunk_sizes"] == jr["chunk_sizes"] == [4]
+    assert tr["start_step"] == 0
     assert set(tr) <= set(jr), set(tr) - set(jr)
     assert {"elapsed", "steps", "epochs", "examples", "examples_per_sec",
             "step_time", "start_step", "final_loss",
@@ -249,12 +253,15 @@ def test_trainer_initializes_state_from_seed():
 
 def test_unported_options_raise():
     model = GPTLM(**SMALL, device="cpu")
-    for kw in (dict(mesh=object()), dict(grad_compression="bf16"),
-               dict(grad_bucket_mb=4.0), dict(precision="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(grad_compression="bf16"), "remaining engines"),
+                     (dict(grad_bucket_mb=4.0), "remaining engines"),
+                     (dict(precision="bf16"), "mixed precision")):
+        with pytest.raises(NotImplementedError, match=f"(?i){item}"):
             SyncEngine(model, device="cpu", **kw)
-    for name in ("async", "gossip", "fsdp"):
-        with pytest.raises(NotImplementedError, match="remaining engines"):
+    for name, item in (("async", "async and gossip modes"),
+                       ("gossip", "async and gossip modes"),
+                       ("fsdp", "remaining engines")):
+        with pytest.raises(NotImplementedError, match=item):
             create_engine(name, model, device="cpu")
     with pytest.raises(KeyError):
         create_engine("nope", model, device="cpu")
@@ -263,19 +270,21 @@ def test_unported_options_raise():
     x, y = _lm(8)
     ds = tloaders.Dataset(x=x, y=y, num_classes=64)
     trainer = Trainer(model, device="cpu")
-    for kw in (dict(steps_per_call=8), dict(prefetch=2),
-               dict(checkpoint_manager=object()), dict(metrics_logger=[]),
-               dict(watchdog=object()), dict(target_accuracy=0.5),
-               dict(eval_ds=ds), dict(tracer=object()),
+    for kw in (dict(checkpoint_manager=object()), dict(metrics_logger=[]),
+               dict(watchdog=object()), dict(tracer=object()),
                dict(should_stop=lambda s: None), dict(data_state={}),
                dict(straggler_detector=object()), dict(timeline=object()),
                dict(roofline=object()), dict(on_anomaly="halt")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trainer.fit(ds, batch_size=8, **kw)
+    for kw in (dict(prefetch=0), dict(steps_per_call=0),
+               dict(target_accuracy=0.5)):
+        with pytest.raises(ValueError):
+            trainer.fit(ds, batch_size=8, **kw)
     with pytest.raises(NotImplementedError, match="native"):
         ds.batches(8, native=True)
-    with pytest.raises(NotImplementedError, match="CNN/MLP"):
-        tloaders.load_dataset("mnist")
+    with pytest.raises(NotImplementedError, match="BERT, ResNet"):
+        create_model("resnet20", device="cpu")
     with pytest.raises(KeyError):
         tloaders.load_dataset("nope")
 
@@ -285,8 +294,17 @@ def test_training_path_imports_no_jax():
         "import sys\n"
         "import distributed_tensorflow_tpu_torch.engines\n"
         "import distributed_tensorflow_tpu_torch.data\n"
+        "import distributed_tensorflow_tpu_torch.data.device_prefetch\n"
+        "import distributed_tensorflow_tpu_torch.models\n"
+        "import distributed_tensorflow_tpu_torch.models.convert\n"
         "import distributed_tensorflow_tpu_torch.ops.flash_attention\n"
+        "import distributed_tensorflow_tpu_torch.parallel.mesh\n"
+        "import distributed_tensorflow_tpu_torch.parallel.collectives\n"
         "import distributed_tensorflow_tpu_torch.utils.metrics\n"
+        "import distributed_tensorflow_tpu_torch.utils.wire\n"
+        "import distributed_tensorflow_tpu_torch.utils.supervisor\n"
+        "import distributed_tensorflow_tpu_torch.utils.harness\n"
+        "import distributed_tensorflow_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributed_tensorflow_tpu')]\n"
         "assert not bad, bad\n")
