@@ -45,6 +45,19 @@ Phases (any failure raises and the script exits non-zero):
              must be identical; later, with the other profiles, where a
              CNN step's device time goes.  The card has one GPU, so
              scaling n=1→8 is not measured here;
+4c. local  — BASELINE configs 3 and 4 through ``cli.main`` on a 1-rank
+             NCCL group: ``-m c -cs async -n 1 -b 32 --model resnet20
+             --dataset cifar10`` (ResNet-20 at its published widths on
+             synthetic CIFAR-10, 8192/2048 rows, 256 steps, sync_every 10,
+             steps_per_call 8, prefetch 2) to at least the CPU
+             rehearsal's test accuracy less 0.05, with exactly steps + 2
+             NCCL all-reduces (one per step, ``eval_params``, the eval
+             totals); ``-m d -ds custom -d 1`` and ``-ds graph`` with the
+             MLP on Fashion-MNIST (gossip; on one rank the mix is the
+             full-mean all-reduce), whose heartbeats must be identical;
+             ResNet-20's logits and one step's gradients on the card
+             against the CPU; later, with the other profiles, where a
+             ResNet-20 async step's device time goes;
 5. train   — the GPT of ``bench.py --lm`` (vocab 16384, hidden 512, 8
              layers, 8 heads, ffn 2048, sequence 1024, bf16, dropout 0,
              flash attention), random weights from a seed, trained for two
@@ -1141,20 +1154,164 @@ def cnn_phase(gpu: str) -> dict:
     return summary
 
 
-def _profile_cnn(steps: int = 16) -> None:
-    """Where a CNN train step's time goes (batch 32, 1-rank NCCL mesh):
-    ``steps`` steps on the host clock, then the same under
-    ``torch.profiler``: the device's busy share, kernels per step and the
-    top kernels."""
+# BASELINE config 3: ResNet-20 on CIFAR-10 under the async engine.  The
+# CPU rehearsal of the same command (``--device cpu``) reaches test
+# accuracy 0.96631 (loss 0.13729) after 256 steps.  Rounding alone moves
+# it by a point (the same run with the pads outside the convolutions
+# read 0.97119), and the card's convolutions sum in other orders, so the
+# gate allows 0.05.
+C3_ARGV = ["-m", "c", "-cs", "async", "-n", "1", "-b", "32", "--model",
+           "resnet20", "--dataset", "cifar10", "--log-every", "0"]
+C3_CPU_ACCURACY, C3_ACCURACY_MARGIN = 0.96630859375, 0.05
+# BASELINE config 4: the MLP under gossip, ``-ds custom`` and ``-ds graph``
+C4_ARGV = ["-m", "d", "-ds", "{}", "-d", "1", "-n", "1", "-b", "32",
+           "--model", "mlp", "--dataset", "fashion_mnist", "--log-every",
+           "16"]
+# ResNet-20 on the card against the CPU (f32, TF32 off, the same
+# parameters and batch, the card's ReLUs on the CPU's masks): f32 sums in
+# other orders, cuDNN's algorithms among them
+RESNET_LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+RESNET_GRAD_FROBENIUS = 1e-4
+
+
+def _resnet_card_vs_cpu(gpu: str) -> None:
+    """ResNet-20's logits and one step's gradients on the card against
+    the CPU.  A ReLU input within the devices' rounding difference of 0
+    may take the other side of its kink on each, moving the gradients
+    upstream by ~1e-3: the card applies the CPU forward's ReLU masks,
+    checked against its own signs wherever an input is farther than 1e-5
+    from 0."""
     from distributed_tensorflow_tpu_torch.data import load_dataset
-    from distributed_tensorflow_tpu_torch.engines import SyncEngine
+    from distributed_tensorflow_tpu_torch.engines.base import cross_entropy
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    ds = load_dataset("cifar10")
+    x, y = torch.from_numpy(ds.x[:32]), torch.from_numpy(ds.y[:32])
+    ref = create_model("resnet20", device="cpu")
+    with torch.no_grad():
+        ref(x[:1])
+    ref.reset_parameters(torch.Generator().manual_seed(0))
+    state_dict = ref.state_dict()
+    relu = torch.relu
+
+    def run(device, masks=None):
+        model = create_model("resnet20", device=device)
+        with torch.no_grad():
+            model(x[:1].to(device))
+        model.load_state_dict(state_dict)
+        seen, given = [], iter(masks or [])
+
+        def masked(v):
+            own = v.detach() > 0
+            seen.append(own.cpu())
+            if masks is None:
+                return v * own
+            mask = next(given).to(v.device)
+            far = v.detach().abs() > 1e-5
+            assert torch.equal(own[far], mask[far]), "ReLU signs differ"
+            return v * mask
+
+        torch.relu = masked
+        try:
+            logits = model(x.to(device))
+        finally:
+            torch.relu = relu
+        cross_entropy(logits, y.to(device)).mean().backward()
+        return (logits.detach().cpu(),
+                {n: p.grad.cpu() for n, p in model.named_parameters()}, seen)
+
+    want_logits, want, masks = run("cpu")
+    got_logits, got, _ = run("cuda", masks)
+    assert len(masks) == 19, len(masks)
+    torch.testing.assert_close(got_logits, want_logits, **RESNET_LOGITS_TOL)
+    errs = {n: float((got[n] - w).norm() / w.norm()) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] < RESNET_GRAD_FROBENIUS, (worst, errs[worst])
+    print(f"[local] {gpu}: ResNet-20 card vs CPU (B=32, f32, TF32 off): "
+          f"logits max_abs_err="
+          f"{(got_logits - want_logits).abs().max().item():.3e}; gradients "
+          f"max relative Frobenius err={errs[worst]:.3e} ({worst}), "
+          f"{len(errs)} tensors")
+
+
+def local_phase(gpu: str) -> None:
+    """BASELINE configs 3 and 4 through the CLI on an NCCL group of one
+    rank: ResNet-20 under the async engine (one all-reduce per step, one
+    for ``eval_params``, one for the eval totals); the MLP under gossip
+    from ``-ds custom`` and ``-ds graph`` (on one rank the mix is the
+    degenerate all-reduce, packed with the metrics), whose heartbeats
+    must be identical; then ResNet-20 on the card against the CPU."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+    coll.neighbor_mean.launches = 0
+    summary, _ = _cli(C3_ARGV)
+    nccl = coll.all_reduce_.nccl_launches
+    missing = SUMMARY_KEYS - set(summary)
+    assert not missing, missing
+    steps = summary["steps"]
+    assert summary["engine"] == "async" and summary["synthetic_data"], summary
+    assert (steps, summary["global_batch"], summary["steps_per_call"],
+            summary["prefetch_depth"]) == (256, 32, 8, 2), summary
+    assert np.isfinite(summary["test_loss"]), summary
+    assert summary["test_accuracy"] >= (C3_CPU_ACCURACY
+                                        - C3_ACCURACY_MARGIN), summary
+    # one per step (a parameter mean every 10th, the metrics otherwise),
+    # eval_params, the eval totals
+    assert nccl == coll.all_reduce_.launches == steps + 2, (nccl, steps)
+    assert coll.neighbor_mean.launches == 0
+    rr = summary["run_report"]
+    print(f"[local] {gpu}: config 3: -m c -cs async -n 1 -b 32 --model "
+          f"resnet20 --dataset cifar10 (sync_every 10): steps={steps} "
+          f"examples_per_sec={summary['examples_per_sec']:.1f} "
+          f"step_ms_p50={rr['step_time_p50_s'] * 1e3:.4f} step_ms_p95="
+          f"{rr['step_time_p95_s'] * 1e3:.4f} first_chunk_s="
+          f"{rr['compile_s']:.4f} elapsed_s={summary['elapsed_s']:.4f} "
+          f"test_accuracy={summary['test_accuracy']:.6f} (CPU rehearsal "
+          f"{C3_CPU_ACCURACY:.6f}) test_loss={summary['test_loss']:.6f} "
+          f"nccl_allreduce_launches={nccl} (steps + 2)")
+
+    beats = []
+    for strategy in ("custom", "graph"):
+        coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+        mlp, lines = _cli([a.format(strategy) for a in C4_ARGV])
+        nccl = coll.all_reduce_.nccl_launches
+        assert mlp["engine"] == "gossip", mlp
+        assert nccl == coll.all_reduce_.launches == mlp["steps"] + 2, (
+            nccl, mlp["steps"])
+        assert coll.neighbor_mean.launches == 0
+        beats.append(lines)
+        print(f"[local] {gpu}: config 4: -m d -ds {strategy} -d 1 -n 1 -b "
+              f"32 --model mlp --dataset fashion_mnist: steps="
+              f"{mlp['steps']} examples_per_sec="
+              f"{mlp['examples_per_sec']:.1f} step_ms_p50="
+              f"{mlp['run_report']['step_time_p50_s'] * 1e3:.4f} "
+              f"test_accuracy={mlp['test_accuracy']:.6f} "
+              f"nccl_allreduce_launches={nccl} (steps + 2)")
+    losses = [float(line.split()[3]) for line in beats[0]]
+    assert beats[0] == beats[1] and len(losses) == 16, beats
+    assert all(np.isfinite(losses)), losses
+    print(f"[local] gossip heartbeats identical for custom and graph "
+          f"({len(losses)} lines): losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}")
+    _resnet_card_vs_cpu(gpu)
+
+
+def _profile_step(label: str, engine: str, model: str, dataset: str,
+                  steps: int = 16) -> None:
+    """Where a train step's time goes (batch 32, 1-rank NCCL mesh):
+    ``steps`` steps of ``engine`` on ``model`` on the host clock, then
+    the same under ``torch.profiler``: the device's busy share, kernels per
+    step and the top kernels."""
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.engines import create_engine
     from distributed_tensorflow_tpu_torch.models import create_model
     from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
 
-    ds = load_dataset("mnist")
+    ds = load_dataset(dataset)
     mesh = create_mesh(1)
     try:
-        eng = SyncEngine(create_model("cnn"), mesh=mesh)
+        eng = create_engine(engine, create_model(model), mesh=mesh)
         state = eng.init_state(torch.Generator().manual_seed(0), ds.x[:1])
         xs, ys = eng.shard_batch(ds.x[:32], ds.y[:32])
         for _ in range(4):
@@ -1171,10 +1328,10 @@ def _profile_cnn(steps: int = 16) -> None:
         mesh.close()
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
-        print("[profile] no device time in the CNN trace: not measured")
+        print(f"[profile] no device time in the {label} trace: not measured")
         return
     nccl_us = sum(r[0] for r in rows if "nccl" in r[2].lower())
-    print(f"[profile] CNN train step (B=32, f32, 1-rank NCCL): wall_ms="
+    print(f"[profile] {label} (B=32, f32, 1-rank NCCL): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
           f"kernels_per_step={sum(r[1] for r in rows):.1f} "
@@ -1455,6 +1612,7 @@ def main() -> int:
     flash_errs = flash_check_phase()
     # before any profiler session: its host times are the measurement
     cnn_phase(gpu)
+    local_phase(gpu)
     launches, int8_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
     # the timings last: each profiler session before the serve and train
@@ -1479,7 +1637,9 @@ def main() -> int:
               f"bound_share={row['bound_share']:.4f} "
               f"launches_per_train_step={fit[counter] / steps:.1f}")
     timing_cross_check()
-    _profile_cnn()
+    _profile_step("CNN train step", "sync", "cnn", "mnist")
+    _profile_step("ResNet-20 async train step", "async", "resnet20",
+                  "cifar10")
     print(f"[timing] device times from queued CUDA events, where the "
           f"profiler saw no device time: {len(EVENT_TIMED)} "
           f"({', '.join(EVENT_TIMED) or 'none'})")

@@ -11,9 +11,9 @@ Mapping to engines (``select_engine``, as the JAX CLI maps them):
   -m c  -cs sync    → sync engine       (ported)
   -m d  -ds keras   → allreduce engine  (ported: the same engine)
   -m t/tpu_pod      → sync engine       (ported)
-  -m c  -cs async   → async engine      (not ported: raises)
-  -m d  -ds graph   → gossip engine     (not ported: raises)
-  -m d  -ds custom  → gossip engine     (not ported: raises)
+  -m c  -cs async   → async engine      (ported; --sync-every)
+  -m d  -ds graph   → gossip engine     (ported; -d/--degree)
+  -m d  -ds custom  → gossip engine     (ported; -d/--degree)
   -m d  -ds fsdp    → fsdp engine       (not ported: raises)
 
 ``-n N`` runs N ranks, one device each, as the reference runs one process
@@ -24,10 +24,11 @@ gradient all-reduce runs on NCCL on the card and on gloo on the CPU.
 ``-b`` is the per-worker batch, so the global batch is b × n.  ``-ca`` is
 accepted and ignored.  ``-tt/-ti/-sa`` become ``init_process_group``
 coordinates for a run across machines: the server is process 0, worker i
-is process i + 1.  ``--device cpu`` runs on the CPU (gloo); the default
-is the CUDA card, and without one the run raises.  Only rank 0 prints the
-summary and reports to the supervisor.  The models' f32 math runs in full
-f32 (the harness turns TF32 off for the run).
+is process i + 1; a process that already belongs to a process group (a
+launcher's) runs as its rank.  ``--device cpu`` runs on the CPU (gloo);
+the default is the CUDA card, and without one the run raises.  Only rank
+0 prints the summary and reports to the supervisor.  The models' f32 math
+runs in full f32 (the harness turns TF32 off for the run).
 
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 32 \\
         --model cnn --dataset mnist
@@ -109,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
                    const=True, default=False,
                    help="accepted for compatibility; no-op")
     p.add_argument("--model", default="mlp", help="registered model name "
-                   "(mlp|cnn|gpt)")
+                   "(mlp|cnn|resnet20|gpt)")
     p.add_argument("--dataset", default="mnist",
                    help="mnist|fashion_mnist|cifar10|synthetic|glue_synth|"
                         "lm_synth")
@@ -117,6 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches accumulated per optimizer step")
+    p.add_argument("--sync-every", type=int, default=10,
+                   help="async engine: parameter-averaging period")
+    p.add_argument("-d", "--degree", type=int, default=1,
+                   help="gossip neighbor degree (the reference's "
+                        "commented-out -d flag, initializer.py:90-92)")
     p.add_argument("--num-processes", type=int, default=None,
                    help="multi-machine: total process count")
     p.add_argument("--model-arg", action="append", default=[],
@@ -204,7 +210,8 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         model_fn=model_fn, dataset_fn=dataset_fn,
         n_devices=args.number_nodes, batch_size=args.batch_size,
         epochs=args.epochs, learning_rate=args.lr,
-        grad_accum=args.grad_accum, seed=args.seed,
+        grad_accum=args.grad_accum, sync_every=args.sync_every,
+        degree=args.degree, seed=args.seed,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,
@@ -219,6 +226,8 @@ def main(argv: list[str] | None = None, *, model_fn=None,
             process_id=(args.task_index + 1 if args.task_type == "worker"
                         else 0),
             device=device)
+    if torch.distributed.is_initialized():
+        # this process is a rank of a group already: run as that rank
         summary = run(config)
         if torch.distributed.get_rank() != 0:
             return summary

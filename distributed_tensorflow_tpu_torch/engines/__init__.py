@@ -1,9 +1,11 @@
 """Step engines (port of ``distributed_tensorflow_tpu.engines``).
 
 Ported: ``sync`` (``SyncEngine``: one device, or one rank of a
-``torch.distributed`` group) and ``allreduce`` (the same engine, driven
-through the Keras-fit-like ``Trainer``).  The other engines of the JAX
-registry raise ``NotImplementedError`` naming their ROADMAP Queue 1 item.
+``torch.distributed`` group), ``allreduce`` (the same engine, driven
+through the Keras-fit-like ``Trainer``), ``async`` (``AsyncLocalEngine``:
+local SGD with a parameter mean every ``sync_every`` steps) and ``gossip``
+(``GossipEngine``: a ring mix of degree ``degree``).  ``fsdp`` raises
+``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -11,15 +13,18 @@ from __future__ import annotations
 from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.engines.allreduce import (  # noqa: F401
     Trainer)
+from distributed_tensorflow_tpu_torch.engines.async_local import (  # noqa: F401
+    AsyncLocalEngine)
 from distributed_tensorflow_tpu_torch.engines.base import (  # noqa: F401
     Engine, TrainState)
+from distributed_tensorflow_tpu_torch.engines.gossip import (  # noqa: F401
+    GossipEngine)
 from distributed_tensorflow_tpu_torch.engines.sync import (  # noqa: F401
     SyncEngine)
 
-ENGINES = {"sync": SyncEngine, "allreduce": SyncEngine}
-_LATER = {"async": "the reference's async and gossip modes",
-          "gossip": "the reference's async and gossip modes",
-          "fsdp": "remaining engines"}
+ENGINES = {"sync": SyncEngine, "allreduce": SyncEngine,
+           "async": AsyncLocalEngine, "gossip": GossipEngine}
+_LATER = {"fsdp": "remaining engines"}
 
 
 def check_engine(name: str) -> None:

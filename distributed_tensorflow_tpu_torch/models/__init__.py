@@ -1,11 +1,12 @@
 """Model plug-in point (port of ``distributed_tensorflow_tpu.models``).
 
 ``create_model`` builds the ported models: the MLP (``mlp``,
-``mnist_mlp``, ``fashion_mlp``), the CNN (``cnn``, ``mnist_cnn``) and the
-GPT (``gpt``, ``gpt_tiny``); ``get_model_fn`` is the reference's zero-arg
-``model_fn``.  ResNet, BERT and MoE are not ported yet and raise
-``NotImplementedError``.  Models keep float32 parameters and compute in
-``dtype``; ``device=None`` means the CUDA card.
+``mnist_mlp``, ``fashion_mlp``), the CNN (``cnn``, ``mnist_cnn``), the GPT
+(``gpt``, ``gpt_tiny``) and ResNet-20 (``resnet20``, ``resnet``);
+``get_model_fn`` is the reference's zero-arg ``model_fn``.  BERT and MoE
+are not ported yet and raise ``NotImplementedError``.  Models keep
+float32 parameters and compute in ``dtype``; ``device=None`` means the
+CUDA card.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.models.cnn import CNN
 from distributed_tensorflow_tpu_torch.models.mlp import MLP
+from distributed_tensorflow_tpu_torch.models.resnet import ResNet20
 
 _DTYPES = {
     "float32": torch.float32, "f32": torch.float32, "fp32": torch.float32,
@@ -24,14 +26,15 @@ _DTYPES = {
     "float16": torch.float16, "f16": torch.float16, "fp16": torch.float16,
 }
 
-_BERT = "BERT, ResNet and remat"
+_BERT = "BERT and remat"
 _LATER = {
-    "resnet20": _BERT, "resnet": _BERT, "bert_tiny": _BERT, "bert": _BERT,
+    "bert_tiny": _BERT, "bert": _BERT,
     "moe": "remaining engines", "moe_mlp": "remaining engines",
 }
 _REGISTRY: dict[str, Callable[..., torch.nn.Module]] = {
     "mlp": MLP, "mnist_mlp": MLP, "fashion_mlp": MLP,
     "cnn": CNN, "mnist_cnn": CNN,
+    "resnet20": ResNet20, "resnet": ResNet20,
 }
 
 
@@ -60,7 +63,7 @@ def create_model(name: str, num_classes: int = 10, **kw):
         not_ported(f"model '{name}'", _LATER[name])
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)} "
-                       f"+ gpt, resnet20, bert_tiny, moe")
+                       f"+ gpt, bert_tiny, moe")
     return _REGISTRY[name](num_classes=num_classes, **kw)
 
 

@@ -4,11 +4,12 @@ The input is a JAX model's param tree as nested dicts of arrays (numpy, or
 anything ``numpy.asarray`` reads); nothing here imports jax.  Rules:
 
 * a Dense ``kernel (in, out)`` becomes a Linear ``weight (out, in)``;
-* a Conv ``kernel (kh, kw, in, out)`` becomes a Conv2d ``weight (out, in,
-  kh, kw)``;
+* a Conv ``kernel (kh, kw, in, out)`` (flax HWIO) becomes a Conv2d
+  ``weight (out, in, kh, kw)`` (OIHW);
 * Embed tables are copied as they are (the tied head shares the single
   token embedding, so there is no separate head weight);
-* a LayerNorm's ``scale``/``bias`` become its ``weight``/``bias``.
+* a LayerNorm's or GroupNorm's ``scale``/``bias`` become its
+  ``weight``/``bias``.
 
 The CNN flattens its feature map in flax's NHWC order (``models/cnn.py``),
 so its first Dense kernel needs no permutation of its rows.
@@ -40,7 +41,8 @@ def _module(tree: dict, prefix: str, out: dict) -> None:
     if "kernel" in tree and np.ndim(tree["kernel"]) == 4:
         out[f"{prefix}.weight"] = _tensor(tree["kernel"]).permute(
             3, 2, 0, 1).contiguous()
-        out[f"{prefix}.bias"] = _tensor(tree["bias"])
+        if "bias" in tree:
+            out[f"{prefix}.bias"] = _tensor(tree["bias"])
     elif "kernel" in tree:
         out[f"{prefix}.weight"] = _tensor(tree["kernel"]).T.contiguous()
         if "bias" in tree:
@@ -98,4 +100,32 @@ def cnn_state_dict(params: dict) -> dict[str, torch.Tensor]:
         _module(params[name], f"convs.{i}", out)
     for i in range(2):
         _module(params[f"Dense_{i}"], f"fc{i + 1}", out)
+    return out
+
+
+# flax BasicBlock children in creation order → the port's BasicBlock
+_RESNET_BLOCK_CHILDREN = {
+    "Conv_0": "conv1", "GroupNorm_0": "norm1",
+    "Conv_1": "conv2", "GroupNorm_1": "norm2",
+    "Conv_2": "proj", "GroupNorm_2": "proj_norm",
+}
+
+
+def resnet_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``ResNet20`` params (``Conv_0``, ``GroupNorm_0``,
+    ``BasicBlock_k``, ``Dense_0``) → ``ResNet20.state_dict()``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        m = re.fullmatch(r"BasicBlock_(\d+)", name)
+        if m:
+            for child, tree in sub.items():
+                if child not in _RESNET_BLOCK_CHILDREN:
+                    raise KeyError(f"unrecognized ResNet block child {child}")
+                _module(tree, f"blocks.{m.group(1)}."
+                        f"{_RESNET_BLOCK_CHILDREN[child]}", out)
+        elif name in ("Conv_0", "GroupNorm_0", "Dense_0"):
+            _module(sub, {"Conv_0": "stem", "GroupNorm_0": "stem_norm",
+                          "Dense_0": "head"}[name], out)
+        else:
+            raise KeyError(f"unrecognized ResNet param {name}")
     return out

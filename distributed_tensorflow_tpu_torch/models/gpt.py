@@ -316,7 +316,7 @@ class GPTLM(nn.Module):
         if moe_experts:
             not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
         if remat:
-            not_ported("remat", "BERT, ResNet and remat")
+            not_ported("remat", "BERT and remat")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
         if attention_impl in _SEQ_PARALLEL:

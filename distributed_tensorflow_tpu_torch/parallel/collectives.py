@@ -8,9 +8,12 @@ returns new tensors; the inputs are left as they are.  A mean is a sum
 divided by the size (``ReduceOp.AVG`` is not on every gloo build).
 
 ``all_reduce_`` is the in-place sum the engines reduce their flat gradient
-buffer with; it counts its calls in ``all_reduce_.launches`` (and the NCCL
-ones in ``all_reduce_.nccl_launches``), so a run can show its gradient
-reduce went through the process group.
+(or parameter) buffer with; it counts its calls in
+``all_reduce_.launches`` (and the NCCL ones in
+``all_reduce_.nccl_launches``), so a run can show its reduce went through
+the process group.  ``neighbor_mean.launches`` counts the gossip mixes
+that went round the ring (point-to-point exchanges); a mix whose
+neighbourhood covers the ring is an all-reduce and counts there.
 """
 
 from __future__ import annotations
@@ -116,13 +119,16 @@ def ring_shift(tree: Tree, mesh, shift: int = 1) -> Tree:
 
 def neighbor_mean(tree: Tree, mesh, degree: int = 1) -> Tree:
     """Mean of each rank's value and its ``degree`` ring neighbours on
-    each side (gossip averaging).  When ``2·degree + 1 >= n`` the
-    neighbourhood covers the ring and this is the full mean."""
+    each side (gossip averaging): ``2·degree`` exchanges per tensor, so
+    the engines pass one flat buffer.  When ``2·degree + 1 >= n`` the
+    neighbourhood covers the ring and this is the full mean (JAX
+    ``collectives.py:88-92``)."""
     if degree <= 0:
         return tree
     n = mesh.world_size
     if 2 * degree + 1 >= n:
         return all_reduce_mean(tree, mesh)
+    neighbor_mean.launches += 1
 
     def mix(x):
         acc = x.clone()
@@ -131,6 +137,9 @@ def neighbor_mean(tree: Tree, mesh, degree: int = 1) -> Tree:
         return acc / (2 * degree + 1)
 
     return _map(mix, tree)
+
+
+neighbor_mean.launches = 0
 
 
 def broadcast_from(tree: Tree, mesh, src: int = 0) -> Tree:

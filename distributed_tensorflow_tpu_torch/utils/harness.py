@@ -3,12 +3,16 @@ CLI fills, the setup of a data-parallel run on this process's rank, and
 the run that trains, evaluates and reports.
 
 Served here: the ``sync`` and ``allreduce`` engines (the reference's
-``-m c -cs sync`` and ``-m d -ds keras``) with the ported models and
-datasets.  A run computes the models' f32 math in full f32: TF32 is off
-for matmuls and convolutions while it runs (torch's default lets cuDNN
-convolutions use TF32), and mixed precision is not ported.  The JAX ``ExperimentConfig``'s other fields (schedules, codecs,
-precision, model parallelism, checkpoints, telemetry, sampling, serving)
-are absent.
+``-m c -cs sync`` and ``-m d -ds keras``), ``async`` (``-m c -cs async``,
+local SGD averaging every ``sync_every`` steps) and ``gossip`` (``-m d -ds
+graph|custom``, a ring mix of degree ``degree``) with the ported models
+and datasets.  The summary's test accuracy is the consensus model's:
+``Engine.evaluate`` goes through ``eval_params``, the ranks' mean under
+async and gossip.  A run computes the models' f32 math in full f32: TF32
+is off for matmuls and convolutions while it runs (torch's default lets
+cuDNN convolutions use TF32), and mixed precision is not ported.  The JAX
+``ExperimentConfig``'s other fields (schedules, codecs, precision, model
+parallelism, checkpoints, telemetry, sampling, serving) are absent.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ class ExperimentConfig:
     """What the reference CLI configures (reference initializer.py:72-114),
     plus the knobs this port serves."""
 
-    engine: str = "sync"            # sync | allreduce
+    engine: str = "sync"            # sync | allreduce | async | gossip
     model: str = "mlp"
     dataset: str = "mnist"
     model_fn: Callable | None = None       # user plug-in override
@@ -45,6 +49,8 @@ class ExperimentConfig:
     epochs: int = 1
     learning_rate: float = 1e-3
     grad_accum: int = 1             # microbatches per optimizer step
+    sync_every: int = 10            # async: parameter-averaging period
+    degree: int = 1                 # gossip: ring neighbours on each side
     seed: int = 0
     log_every: int = 50
     steps_per_call: int | None = None  # drain chunk (None: auto, 8)
@@ -107,13 +113,24 @@ def _setup(config: ExperimentConfig) -> _Experiment:
         model = _resolve_model(config, train_ds.num_classes, mesh.device)
         # reference -b is the PER-WORKER batch: global batch = b × n
         global_batch = _global_batch(config, n)
-        if (global_batch // n) % config.grad_accum:
-            raise ValueError(
-                f"per-device batch {global_batch // n} not divisible by "
-                f"grad_accum {config.grad_accum}")
-        engine = create_engine(config.engine, model, mesh=mesh,
-                               learning_rate=config.learning_rate,
-                               grad_accum=config.grad_accum)
+        engine_kw: dict[str, Any] = dict(
+            mesh=mesh, learning_rate=config.learning_rate)
+        if config.engine == "async":
+            engine_kw["sync_every"] = config.sync_every
+        elif config.engine == "gossip":
+            engine_kw["degree"] = config.degree
+        if config.grad_accum > 1:
+            if config.engine not in ("sync", "allreduce"):
+                raise ValueError(
+                    f"grad_accum is implemented by the sync/allreduce/fsdp "
+                    f"engines (got engine='{config.engine}')")
+            if (global_batch // n) % config.grad_accum:
+                raise ValueError(
+                    f"per-device batch {global_batch // n} not divisible by "
+                    f"grad_accum {config.grad_accum}")
+        if config.engine in ("sync", "allreduce"):
+            engine_kw["grad_accum"] = config.grad_accum
+        engine = create_engine(config.engine, model, **engine_kw)
     except BaseException:
         mesh.close()
         raise

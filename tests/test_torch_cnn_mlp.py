@@ -23,8 +23,9 @@ drain, prefetch and early stop, ``utils/{wire,supervisor,harness}.py`` and
   target-accuracy stop and ``steps_to_accuracy`` as the JAX tests expect,
   ``DevicePrefetch``'s counters equal to JAX's;
 * the CLI: the reference flag surface, the mode → engine mapping of JAX
-  ``select_engine``, the summary keys of the JAX summary, and unported
-  modes and models raising with their ROADMAP item;
+  ``select_engine``, the summary keys of the JAX summary, unported modes
+  and models raising with their ROADMAP item, and ``grad_accum`` on the
+  async and gossip engines raising JAX's ``ValueError``;
 * the wire bytes and the supervisor's event triple against JAX's.
 """
 
@@ -477,16 +478,21 @@ def test_reference_flag_surface_accepted():
         tcli.main(["--model-arg", "novalue", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["-m", "c", "-cs", "async"], "async and gossip modes"),
-    (["-m", "d", "-ds", "graph"], "async and gossip modes"),
-    (["-m", "d", "-ds", "custom"], "async and gossip modes"),
-    (["-m", "d", "-ds", "fsdp"], "remaining engines"),
-    (["--model", "resnet20"], "BERT, ResNet and remat"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["-m", "d", "-ds", "fsdp"], NotImplementedError, "remaining engines"),
+    (["--model", "moe"], NotImplementedError, "remaining engines"),
     (["--model", "bert_tiny", "--dataset", "glue_synth"],
-     "BERT, ResNet and remat")])
-def test_unported_modes_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+     NotImplementedError, "BERT and remat"),
+    (["--model", "gpt", "--dataset", "lm_synth", "--model-arg",
+      "remat=true"], NotImplementedError, "BERT and remat"),
+    # the local engines decouple the optimizer cadence themselves (JAX
+    # harness.py:712-716)
+    (["-m", "c", "-cs", "async", "--grad-accum", "2"], ValueError,
+     "grad_accum is implemented by the sync/allreduce/fsdp engines"),
+    (["-m", "d", "-ds", "custom", "--grad-accum", "2"], ValueError,
+     "grad_accum is implemented by the sync/allreduce/fsdp engines")])
+def test_unported_modes_raise(argv, exc, match):
+    with pytest.raises(exc, match=match):
         tcli.main(argv + ["--device", "cpu", "--log-every", "0"])
 
 

@@ -389,8 +389,8 @@ def test_unported_options_raise():
         GPTLM(**SMALL, attention_impl="ring_flash", device="cpu")
     with pytest.raises(ValueError, match="unknown attention_impl"):
         GPTLM(**SMALL, attention_impl="sparse", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("resnet20", device="cpu")
+    with pytest.raises(NotImplementedError, match="BERT and remat"):
+        create_model("bert_tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate(GPTLM(**SMALL, device="cpu"), None,
                  np.zeros((1, 4), np.int32), 2, device="cpu", mesh=object())

@@ -41,7 +41,7 @@ from distributed_tensorflow_tpu.parallel.mesh import create_mesh
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.data import pipeline as tpipeline
 from distributed_tensorflow_tpu_torch.engines import (
-    SyncEngine, Trainer, create_engine)
+    AsyncLocalEngine, GossipEngine, SyncEngine, Trainer, create_engine)
 from distributed_tensorflow_tpu_torch.engines.base import (
     cross_entropy, token_weights)
 from distributed_tensorflow_tpu_torch.models import create_model
@@ -258,11 +258,10 @@ def test_unported_options_raise():
                      (dict(precision="bf16"), "mixed precision")):
         with pytest.raises(NotImplementedError, match=f"(?i){item}"):
             SyncEngine(model, device="cpu", **kw)
-    for name, item in (("async", "async and gossip modes"),
-                       ("gossip", "async and gossip modes"),
-                       ("fsdp", "remaining engines")):
-        with pytest.raises(NotImplementedError, match=item):
-            create_engine(name, model, device="cpu")
+    with pytest.raises(NotImplementedError, match="remaining engines"):
+        create_engine("fsdp", model, device="cpu")
+    for name, cls in (("async", AsyncLocalEngine), ("gossip", GossipEngine)):
+        assert type(create_engine(name, model, device="cpu")) is cls
     with pytest.raises(KeyError):
         create_engine("nope", model, device="cpu")
     assert isinstance(create_engine("allreduce", model, device="cpu"),
@@ -283,8 +282,8 @@ def test_unported_options_raise():
             trainer.fit(ds, batch_size=8, **kw)
     with pytest.raises(NotImplementedError, match="native"):
         ds.batches(8, native=True)
-    with pytest.raises(NotImplementedError, match="BERT, ResNet"):
-        create_model("resnet20", device="cpu")
+    with pytest.raises(NotImplementedError, match="BERT and remat"):
+        create_model("bert", device="cpu")
     with pytest.raises(KeyError):
         tloaders.load_dataset("nope")
 
