@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits non-zero):
              and at forced counts 1, 2, 4 and one table entry per split;
              the flash-attention kernels of both routes — f32 cases on the
              SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
-             tensor-core kernels (``tc``) — and the block primitives;
+             tensor-core kernels (``tc``), float16 cases on both routes
+             (dO scaled by the fp16 loss scale 2^15 among them, once with
+             V scaled so that dS passes float16's range) — and the block
+             primitives;
 4. serve   — the GPT server at the full width of the repo's serve bench
              (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048, max_len
              144, bf16, 8 slots), random weights from a seed, answering
@@ -39,7 +42,9 @@ Phases (any failure raises and the script exits non-zero):
              mnist`` (BASELINE config 1 at full width: synthetic MNIST,
              8192/2048 rows, 256 steps at steps_per_call 8, prefetch 2)
              over a 1-rank NCCL process group, to test accuracy >= 0.97
-             with one NCCL all-reduce per step; steps-to-97% of the same
+             with one NCCL all-reduce per step and the chunks replayed as
+             CUDA graphs (1 capture, 31 replays); the same window under
+             ``--precision bf16-f32master``; steps-to-97% of the same
              config (``steps_to_accuracy``); ``-m d -ds keras`` with the
              MLP at steps_per_call 1 and 8, whose heartbeat loss lines
              must be identical; later, with the other profiles, where a
@@ -69,6 +74,11 @@ Phases (any failure raises and the script exits non-zero):
              the ``tc`` route, and one step is held against a
              dense-attention twin; then where a train step's device time
              goes;
+5b. precision — the same GPT under ``bf16-f32master`` through
+             ``Trainer.fit`` at 8 steps per call (epoch 1 eager, epoch 2 a
+             captured and replayed graph; params == cast(master) after),
+             evaluated; then 4 steps under ``fp16-f32master``, every
+             flash launch on the float16 ``tc`` kernels;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -80,7 +90,11 @@ Phases (any failure raises and the script exits non-zero):
              the decode shape.  Last, so that
              no profiler session precedes the serve and train windows; then
              the spin-queued event time beside the profiler's for the
-             paged decode kernel and the tc forward.
+             paged decode kernel and the tc forward; the float16 ``tc``
+             kernels' rows; then the step profiles: the GPT step under
+             ``bf16-f32master`` beside the f32-param one (copy kernels by
+             kind and by copied shape), and replayed-graph chunks of the
+             CNN and the GPT (wall, device busy, busy share).
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -122,6 +136,19 @@ FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # where large terms cancel), and to a relative Frobenius error under 1e-2.
 # lse stays f32 on both routes (F32_TOL).
 TC_RTOL, TC_ATOL, TC_FROBENIUS = 2.0 ** -8, 1e-5, 1e-2
+# float16 dQ and dK also allow CANCEL of ``_cancel_sums``: dS = P (dP - Δ)
+# scale cancels to near 0 where dP ≈ Δ (a causal row's first key), and the
+# f32 sums of dP and Δ, in other orders on each side, leave a few f32
+# roundings (2^-24) of the cancelled magnitudes, large beside the small
+# results when dO carries an fp16 loss scale
+CANCEL = 2.0 ** -20
+# float16 outputs are compared where the plain version's f32 result rounds
+# to a finite float16 (below 65520); there the kernel's must be finite too,
+# save within its bound of 65520, where the two roundings may fall on
+# either side of it.  dO scaled by the fp16 loss scale 2^15 is drawn as
+# N(0, 1) x 2^15 saturated at 65504 (the draws past 2 would be inf, which
+# makes the plain version non-finite on nearly every row).
+F16_MAX, F16_OVERFLOW, LOSS_SCALE = 65504.0, 65520.0, 2.0 ** 15
 # one train step of the bf16 flash model against its dense-attention twin
 # (same weights, same batch): the dense path rounds scores, softmax and
 # P·V to bf16 where the kernels keep f32, in each of 8 layers.  Loss: 0.2%
@@ -132,7 +159,8 @@ TC_RTOL, TC_ATOL, TC_FROBENIUS = 2.0 ** -8, 1e-5, 1e-2
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_RTOL = 1e-1
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 LM = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
           seq=1024, batch=8)
 
@@ -223,7 +251,10 @@ def _queued_ms(fn, iters: int) -> float:
 def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str) -> float:
     """Device time per call of ``fn``: the self device time of every
     kernel ``iters`` calls launch, from ``torch.profiler``, over ``iters``
-    (the host's cost between launches is not in it).  Where the profiler
+    (the host's cost between launches is not in it).  Two sessions are
+    taken and the one that recorded more kernel launches stands: CUPTI
+    has, in one run on the card, handed a session half of a kernel's
+    launches (device time half the call's wall time).  Where the profiler
     sees no device time, ``_queued_ms`` measures it, and ``label`` goes
     into ``EVENT_TIMED``."""
     for _ in range(warmup):
@@ -234,7 +265,14 @@ def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str) -> float:
         for _ in range(iters):
             fn()
 
-    us = sum(r[0] for r in _profiled(run, iters))
+    sessions = [_profiled(run, iters) for _ in range(2)]
+    counts = [sum(r[1] for r in rows) for rows in sessions]
+    if counts[0] != counts[1]:
+        print(f"[timing] {label}: the two profiler sessions recorded "
+              f"{counts[0]:.2f} and {counts[1]:.2f} kernels per call; the "
+              f"larger stands")
+    us = sum(r[0] for r in max(sessions,
+                               key=lambda rows: sum(r[1] for r in rows)))
     if us:
         return us / 1e3
     EVENT_TIMED.append(label)
@@ -478,17 +516,18 @@ def paged_timing_phase(errs) -> dict:
 
 
 def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
-                masked=False, dead_row=False):
-    """Seeded q, k, v, dO and key mask on the card (numpy draws)."""
+                masked=False, dead_row=False, do_scale=1.0, v_scale=1.0):
+    """Seeded q, k, v (times ``v_scale``), dO (times ``do_scale``,
+    saturated at ±65504) and key mask on the card (numpy draws)."""
     rng = np.random.default_rng(seed)
     lk = lk or lq
 
-    def draw(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", dtype)
+    def draw(*shape, scale=1.0):
+        a = np.clip(rng.standard_normal(shape) * scale, -F16_MAX, F16_MAX)
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
 
-    q, k, v, do = draw(b, lq, h, d), draw(b, lk, h, d), draw(b, lk, h, d), \
-        draw(b, lq, h, d)
+    q, k, v, do = draw(b, lq, h, d), draw(b, lk, h, d), \
+        draw(b, lk, h, d, scale=v_scale), draw(b, lq, h, d, scale=do_scale)
     mask = None
     if masked or dead_row:
         m = (rng.uniform(size=(b, lk)) > 0.3 if masked
@@ -522,18 +561,37 @@ def _flash_bound_ms(kind, q, k, causal) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _close_tc(name, got, want, terms):
-    """The tensor-core tolerance (TC_*); returns (max abs err, relative
-    Frobenius err)."""
+def _f16_kept(name, got, want, bound):
+    """The elements of a float16 output to compare (F16_OVERFLOW): where
+    the plain f32 ``want`` rounds to a finite float16, less the ones where
+    ``got`` overflowed within ``bound`` of 65520 (any other overflow
+    fails)."""
+    ok = torch.isfinite(want.half())
+    lost = ok & ~torch.isfinite(got)
+    assert bool((want.abs() + bound)[lost].ge(F16_OVERFLOW).all()), (
+        name, "non-finite where the plain version is finite in float16")
+    return ok & ~lost
+
+
+def _close_tc(name, got, want, terms, cancel=None):
+    """The tensor-core tolerance (TC_*; dQ and dK also ``CANCEL`` of
+    ``_cancel_sums``); returns (max abs err, relative Frobenius err)."""
+    f16 = got.dtype == torch.float16
     got, want = got.float(), want.float()
+    bound = TC_RTOL * (want.abs() + terms) + TC_ATOL
+    if cancel is not None:
+        bound = bound + CANCEL * cancel
+    if f16:
+        keep = _f16_kept(name, got, want, bound)
+        got, want, bound = got[keep], want[keep], bound[keep]
     err = (got - want).abs()
-    worst = float((err / (TC_RTOL * (want.abs() + terms) + TC_ATOL)).max())
+    worst = float((err / bound).max())
     frob = float((got - want).norm() / want.norm().clamp_min(1e-30))
     assert worst <= 1.0 and frob < TC_FROBENIUS, (name, worst, frob)
     return float(err.max()), frob
 
 
-def _check_flash(name, case, causal, route) -> dict:
+def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
     """Forward, dQ and dK/dV kernels against the plain versions; the
     backward gets the plain forward's lse and Δ = rowsum(dO·O).  The
     launch counters show the kernels of ``route`` ran."""
@@ -541,14 +599,17 @@ def _check_flash(name, case, causal, route) -> dict:
 
     q, k, v, do, mask = case
     scale = q.shape[-1] ** -0.5
-    assert fa._route(q.dtype, q.shape[-1]) == route, (name, route)
+    # a case runs on its inputs' route, or on simt where it is forced there
+    assert route == "simt" or fa._route(q.dtype, q.shape[-1]) == route, (
+        name, route)
     before = _flash_counts()
-    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal)
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=route)
     ref_out, ref_lse = fa._fwd_reference(q, k, v, mask, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
-    grads = fa._bwd_cuda(q, k, v, mask, do, ref_lse.contiguous(), delta,
-                         scale, causal)
+    bwd = (q, k, v, mask, do, ref_lse.contiguous(), delta, scale, causal)
+    grads = (fa._dq_cuda(*bwd, route=route),
+             *fa._dkv_cuda(*bwd, route=route))
     torch.cuda.synchronize()
     tc = int(route == "tc")
     assert _flash_counts() == {
@@ -558,27 +619,45 @@ def _check_flash(name, case, causal, route) -> dict:
         "dkv_tc": before["dkv_tc"] + tc}, (name, route)
     refs = fa._bwd_reference(q, k, v, mask, do, ref_lse, delta, scale,
                              causal)
+    if v_scale > 1.0:
+        # the case holds what it is for: a dS that float16 cannot hold
+        p = torch.exp(fa._scores(q, k, mask, scale, causal)
+                      - ref_lse[..., None])
+        dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+        ds_max = float((p * (dp - delta[..., None]) * scale).abs().max())
+        del p, dp
+        assert ds_max > F16_OVERFLOW, (name, ds_max)
+        print(f"[flash] {name}: the plain version's largest |dS| is "
+              f"{ds_max:.0f}")
     torch.testing.assert_close(lse, ref_lse, **F32_TOL)
     errs = {"lse": float((lse - ref_lse).abs().max())}
     f32 = q.dtype == torch.float32
     if route == "tc":
         terms = fa._term_sums(q, k, v, mask, do, ref_lse, delta, scale,
                               causal)
-        for n, got, want, t in (("out", out, ref_out, terms[0]),
-                                ("dq", grads[0], refs[0], terms[3]),
-                                ("dk", grads[1], refs[1], terms[1]),
-                                ("dv", grads[2], refs[2], terms[2])):
+        # the cancellation term only for float16 (bf16 keeps its bound)
+        cancel = (fa._cancel_sums(q, k, v, mask, do, ref_lse, delta, scale,
+                                  causal) if q.dtype == torch.float16
+                  else (None, None))
+        for n, got, want, t, c in (
+                ("out", out, ref_out, terms[0], None),
+                ("dq", grads[0], refs[0], terms[3], cancel[1]),
+                ("dk", grads[1], refs[1], terms[1], cancel[0]),
+                ("dv", grads[2], refs[2], terms[2], None)):
             errs[n], errs[f"{n}_frobenius"] = _close_tc(f"{name} {n}", got,
-                                                        want, t)
+                                                        want, t, c)
     else:
-        torch.testing.assert_close(out.float(), ref_out.float(),
-                                   **(F32_TOL if f32 else BF16_TOL))
-        errs["out"] = float((out.float() - ref_out.float()).abs().max())
-        for g, w, n in zip(grads, refs, ("dq", "dk", "dv")):
-            torch.testing.assert_close(g.float(), w, msg=f"{name} {n}",
-                                       **(FLASH_GRAD_TOL if f32
-                                          else BF16_TOL))
-            errs[n] = float((g.float() - w).abs().max())
+        for n, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                           (ref_out, *refs)):
+            g, w = g.float(), w.float()
+            tol = ((F32_TOL if n == "out" else FLASH_GRAD_TOL) if f32
+                   else BF16_TOL)
+            if q.dtype == torch.float16:
+                keep = _f16_kept(f"{name} {n}", g, w,
+                                 tol["rtol"] * w.abs() + tol["atol"])
+                g, w = g[keep], w[keep]
+            torch.testing.assert_close(g, w, msg=f"{name} {n}", **tol)
+            errs[n] = float((g - w).abs().max())
     print(f"[flash] {name} ({route}): " + " ".join(
         f"{n}_{'rel' if n.endswith('frobenius') else 'max_abs_err'}={e:.3e}"
         for n, e in errs.items()) + " ok")
@@ -623,12 +702,12 @@ def _check_flash_blocks() -> None:
           f"dq {float((dq - full[0]).abs().max()):.3e} ok")
 
 
-def _sdpa_backend():
-    """The first SDPA backend that takes the slice's causal bf16 shape, in
-    the order flash, cuDNN, memory-efficient."""
+def _sdpa_backend(dtype=torch.bfloat16):
+    """The first SDPA backend that takes the slice's causal shape in
+    ``dtype``, in the order flash, cuDNN, memory-efficient."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q = torch.zeros(1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 128, 64, device="cuda", dtype=dtype)
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION):
         try:
@@ -662,10 +741,29 @@ def flash_check_phase() -> dict:
         # the bf16 twin: the tc route where it takes the head dim
         cases[f"{name}_bf16"] = (dict(kw, dtype=bf16), causal,
                                  fa._route(bf16, kw["d"]))
+    # float16 (the fp16-f32master GPT): both routes at the slice's shape,
+    # also with dO scaled by the fp16 loss scale 2^15, and with V scaled
+    # so that dS passes float16's range; and the tc route's edge cases
+    f16 = torch.float16
+    slice16 = dict(b=8, lq=1024, h=8, d=64, dtype=f16)
+    for route in ("tc", "simt"):
+        cases[f"slice_f16_causal_{route}"] = (slice16, True, route)
+        cases[f"scaled_do_f16_{route}"] = (dict(slice16, do_scale=LOSS_SCALE),
+                                           True, route)
+        cases[f"scaled_do_large_ds_f16_{route}"] = (
+            dict(slice16, do_scale=LOSS_SCALE, v_scale=4.0), True, route)
+    for name, kw, causal in (
+            ("ragged_l1000", dict(b=2, lq=1000, h=4, d=64), True),
+            ("key_mask", dict(b=2, lq=512, h=4, d=64, masked=True), False),
+            ("head_dim_128", dict(b=1, lq=384, h=2, d=128), True),
+            ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
+                                      dead_row=True), False)):
+        cases[f"{name}_f16"] = (dict(kw, dtype=f16), causal, "tc")
     errs = {}
     for i, (name, (kw, causal, route)) in enumerate(cases.items()):
         case = _flash_case(20 + i, **kw)
-        errs[name] = _check_flash(name, case, causal, route)
+        errs[name] = _check_flash(name, case, causal, route,
+                                  kw.get("v_scale", 1.0))
         if kw.get("dead_row"):
             q, k, v, _, mask = case
             out = fa.flash_attention(q, k, v, kv_mask=mask)
@@ -772,6 +870,71 @@ def flash_timing_phase(errs) -> list[dict]:
             "library_spread": lib[2], "library_backend": backend.name,
             "simt_ms": dev[f"{kind}_simt"],
             "simt_call_ms": call[f"{kind}_simt"][0]})
+    return rows
+
+
+def flash_f16_timing_phase(errs) -> list[dict]:
+    """The float16 tensor-core kernels (the fp16-f32master GPT's) timed at
+    the training slice's shape beside their bounds, the plain versions and
+    float16 SDPA; returns their rows (launches filled in by ``main``)."""
+    from torch.nn.attention import sdpa_kernel
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    f16 = torch.float16
+    q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64, dtype=f16)
+    scale = 64 ** -0.5
+    out, lse = fa._fwd_cuda(q, k, v, None, scale, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, None, do, lse, delta, scale, True)
+    timed = {"fwd": lambda: fa._fwd_cuda(q, k, v, None, scale, True),
+             "dq": lambda: fa._dq_cuda(*args),
+             "dkv": lambda: fa._dkv_cuda(*args)}
+    dev = {n: _device_ms(fn, label=f"flash {n} f16")
+           for n, fn in timed.items()}
+    call = {n: _time_windows(fn, iters=50, warmup=5)[0]
+            for n, fn in timed.items()}
+    plain_fwd = lambda: fa._fwd_reference(q, k, v, None, scale, True)  # noqa: E731,E501
+    plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
+    plain = {"fwd": _device_ms(plain_fwd, iters=10, warmup=2,
+                               label="flash fwd f16 plain"),
+             "bwd": _device_ms(plain_bwd, iters=10, warmup=2,
+                               label="flash bwd f16 plain")}
+    backend = _sdpa_backend(f16)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+    with sdpa_kernel(backend):
+        lib_fwd = _device_ms(lib_fwd_fn, label="flash fwd f16 SDPA")
+        o = sdpa(qt, kt, vt, is_causal=True)
+    lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    lib_bwd = _device_ms(lib_bwd_fn, label="flash bwd f16 SDPA")
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention_sm90.cu"
+    replaces = {"fwd": 170, "dq": 281, "dkv": 299}
+    e = errs["slice_f16_causal_tc"]
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by = _flash_bound_ms(kind, q, k, True)
+        err = {"fwd": e["out"], "dq": e["dq"],
+               "dkv": max(e["dk"], e["dv"])}[kind]
+        rows.append({
+            "name": f"flash_attention.{kind}_f16", "route": "cuda",
+            "variant": "tc", "source": src,
+            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
+                        f"{replaces[kind]}",
+            "max_abs_err": err, "ms": dev[kind], "call_ms": call[kind],
+            "plain_ms": plain["fwd" if kind == "fwd" else "bwd"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / dev[kind],
+            "library_ms": lib_fwd if kind == "fwd" else lib_bwd,
+            "library_backend": backend.name})
+        print(f"[flash] slice B=8 L=1024 H=8 D=64 float16 causal: {kind} "
+              f"device {dev[kind]:.5f} ms, call {call[kind]:.5f} ms; plain "
+              f"{rows[-1]['plain_ms']:.5f}; SDPA {backend.name} "
+              f"{rows[-1]['library_ms']:.5f}; bound {bound_ms:.6f} "
+              f"({bound_by})")
     return rows
 
 
@@ -1094,13 +1257,20 @@ def _cli(argv):
 def cnn_phase(gpu: str) -> dict:
     """The MNIST CNN through the CLI on an NCCL group of one rank,
     steps-to-97%, and the MLP's drain at k=1 against k=8."""
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
     from distributed_tensorflow_tpu_torch.parallel import collectives as coll
     from distributed_tensorflow_tpu_torch.utils.harness import (
         ExperimentConfig, steps_to_accuracy)
 
     coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+    graphs = _ChunkGraph.captures, _ChunkGraph.replays
     summary, _ = _cli(CNN_ARGV)
     nccl = coll.all_reduce_.nccl_launches
+    # 32 chunks of 8: the first eager, the second captured, every chunk
+    # after the first replayed
+    graphs = (_ChunkGraph.captures - graphs[0],
+              _ChunkGraph.replays - graphs[1])
+    assert graphs == (1, summary["steps"] // 8 - 1), graphs
     missing = SUMMARY_KEYS - set(summary)
     assert not missing, missing
     steps = summary["steps"]
@@ -1121,7 +1291,30 @@ def cnn_phase(gpu: str) -> dict:
           f"{rr['compile_s']:.4f} elapsed_s={summary['elapsed_s']:.4f} "
           f"test_accuracy={summary['test_accuracy']:.6f} test_loss="
           f"{summary['test_loss']:.6f} nccl_allreduce_launches={nccl} "
-          f"({nccl / steps:.4f} per step)")
+          f"({nccl / steps:.4f} per step) graph captures/replays="
+          f"{graphs[0]}/{graphs[1]}")
+
+    # the same window under bf16-f32master: bf16 parameters, f32 master;
+    # the 16-bit gradients and the f32 metrics take one all-reduce each
+    coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+    bf16, _ = _cli(CNN_ARGV + ["--precision", "bf16-f32master"])
+    nccl16 = coll.all_reduce_.nccl_launches
+    rr16 = bf16["run_report"]
+    assert bf16["precision"] == rr16["precision"] == "bf16-f32master"
+    assert bf16["steps"] == steps and bf16["test_accuracy"] >= 0.97, bf16
+    assert nccl16 == 2 * steps + 1, (nccl16, steps)
+    assert 2 * rr16["param_bytes_per_device"] == rr[
+        "param_bytes_per_device"], (rr16, rr)
+    print(f"[cnn] {gpu}: ... --precision bf16-f32master: steps={steps} "
+          f"examples_per_sec={bf16['examples_per_sec']:.1f} step_ms_p50="
+          f"{rr16['step_time_p50_s'] * 1e3:.4f} step_ms_p95="
+          f"{rr16['step_time_p95_s'] * 1e3:.4f} test_accuracy="
+          f"{bf16['test_accuracy']:.6f} test_loss={bf16['test_loss']:.6f} "
+          f"param_bytes={rr16['param_bytes_per_device']} (f32 "
+          f"{rr['param_bytes_per_device']}) opt_state_bytes="
+          f"{rr16['opt_state_bytes_per_device']} (f32 "
+          f"{rr['opt_state_bytes_per_device']}) nccl_allreduce_launches="
+          f"{nccl16}")
 
     cfg = ExperimentConfig(engine="sync", model="cnn", dataset="mnist",
                            n_devices=1, batch_size=32)
@@ -1348,16 +1541,17 @@ def _lm_data(rows: int):
     return tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
 
 
-def _lm_model(attention_impl: str):
+def _lm_model(attention_impl: str, dtype: str = "bfloat16"):
     from distributed_tensorflow_tpu_torch.models import create_model
 
     return create_model("gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
                         layers=LM["layers"], heads=LM["heads"],
                         ffn=LM["ffn"], max_len=LM["seq"], dropout_rate=0.0,
-                        dtype="bfloat16", attention_impl=attention_impl)
+                        dtype=dtype, attention_impl=attention_impl)
 
 
 _FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
+_F16_COUNTS = ("fwd_f16", "dq_f16", "dkv_f16")
 
 
 def _flash_counts() -> dict:
@@ -1371,8 +1565,149 @@ def _flash_counts() -> dict:
 def _reset_flash_counts() -> None:
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    for n in _FLASH_COUNTS:
+    for n in _FLASH_COUNTS + _F16_COUNTS:
         setattr(fa.flash_attention, f"{n}_launches", 0)
+
+
+def _f16_counts() -> dict:
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    return {n: getattr(fa.flash_attention, f"{n}_launches")
+            for n in _F16_COUNTS}
+
+
+def precision_phase(gpu: str):
+    """The GPT of ``bench.py --lm`` under ``bf16-f32master`` (16 steps at
+    the Trainer's default 8 steps per call: the second epoch's chunk is a
+    replayed CUDA graph), then under ``fp16-f32master`` for 4 steps.
+    Returns the flash launches of the bf16 fit, of the fp16 fit (f16
+    counters), and the bf16 trainer (profiled after the timings)."""
+    from distributed_tensorflow_tpu_torch.data import Dataset
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine, Trainer
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
+
+    layers, batch = LM["layers"], LM["batch"]
+    x, y = _lm_data(64 + 16)
+    train_ds = Dataset(x=x[:64], y=y[:64], num_classes=LM["vocab"],
+                       name="lm_bench")
+    eval_ds = Dataset(x=x[64:], y=y[64:], num_classes=LM["vocab"],
+                      name="lm_bench")
+    model = _lm_model("flash")
+    trainer = Trainer(model, engine=SyncEngine(
+        model, precision="bf16-f32master"), seed=0)
+    beats = []
+    graphs = _ChunkGraph.captures, _ChunkGraph.replays
+    _reset_flash_counts()
+    result = trainer.fit(train_ds, epochs=2, batch_size=batch, log_every=1,
+                         log_fn=beats.append)
+    torch.cuda.synchronize()
+    fit = _flash_counts()
+    graphs = (_ChunkGraph.captures - graphs[0],
+              _ChunkGraph.replays - graphs[1])
+    losses = [float(line.split()[3]) for line in beats]
+    assert result["steps"] == 16 and len(losses) == 16, result
+    assert result["steps_per_call"] == 8 and graphs == (1, 1), graphs
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    n = layers * 16
+    assert fit == {k: n for k in _FLASH_COUNTS}, fit
+    opt = trainer.state.optimizer
+    # the stored bf16 parameters are the downcast f32 master, bitwise
+    assert torch.equal(opt.flat, opt.master.to(torch.bfloat16))
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    ev = trainer.evaluate(eval_ds, batch_size=batch)
+    assert np.isfinite(ev["loss"]) and ev["count"] == 16 * LM["seq"], ev
+    st = result["step_time"]
+    print(f"[precision] {gpu}: GPT bench --lm under bf16-f32master, "
+          f"steps_per_call 8 (graph captures/replays {graphs[0]}/"
+          f"{graphs[1]}): loss first={losses[0]:.4f} last={losses[-1]:.4f} "
+          f"tokens_per_sec={result['examples_per_sec'] * LM['seq']:.1f} "
+          f"step_ms_p50={st['steady_p50_s'] * 1e3:.3f} "
+          f"first_chunk_s={st['compile_s']:.3f} "
+          f"eval_loss={ev['loss']:.5f} param_bytes="
+          f"{result['param_bytes_per_device']} opt_state_bytes="
+          f"{result['opt_state_bytes_per_device']} "
+          f"flash_launches_fit={json.dumps(fit)}")
+    print(f"[precision] losses {' '.join(f'{v:.4f}' for v in losses)}")
+
+    # fp16-f32master: 4 steps, every flash launch on the float16 tc route
+    model16 = _lm_model("flash", "float16")
+    trainer16 = Trainer(model16, engine=SyncEngine(
+        model16, precision="fp16-f32master"), seed=0)
+    beats16 = []
+    _reset_flash_counts()
+    r16 = trainer16.fit(train_ds, epochs=1, batch_size=batch, log_every=1,
+                        max_steps=4, log_fn=beats16.append)
+    torch.cuda.synchronize()
+    fit16 = {**_flash_counts(), **_f16_counts()}
+    n = layers * 4
+    assert r16["steps"] == 4 and fit16 == {
+        k: n for k in _FLASH_COUNTS + _F16_COUNTS}, fit16
+    losses16 = [float(line.split()[3]) for line in beats16]
+    ls = r16["loss_scale"]
+    assert all(np.isfinite(losses16)), losses16
+    assert ls["skipped_steps"] < 4, ls
+    print(f"[precision] {gpu}: GPT under fp16-f32master: steps=4 losses "
+          f"{' '.join(f'{v:.4f}' for v in losses16)} loss_scale="
+          f"{json.dumps(ls)} flash_launches_fit={json.dumps(fit16)}")
+    del trainer16, model16
+    return fit, fit16, trainer, (x[:batch], y[:batch])
+
+
+def _profile_chunk(label: str, engine, state, xs, ys, chunks: int = 4):
+    """Where a replayed chunk's time goes: ``chunks`` replays of the
+    engine's CUDA graph for ``len(xs)`` steps on the host clock, then under
+    ``torch.profiler``: per step, the wall, the kernels' device time, the
+    busy share and the kernels; beside it the CUDA-event time of a chunk
+    (kernels and the gaps between them)."""
+    k = len(xs)
+    for _ in range(2):     # eager on a key's first chunk, then the capture
+        engine.many_step(state, xs, ys)
+    assert engine._graphs, "no graph captured"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        engine.many_step(state, xs, ys)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / (chunks * k)
+    event_ms = _time_ms(lambda: engine.many_step(state, xs, ys),
+                        iters=chunks, warmup=1) / k
+    rows = _profiled(lambda: [engine.many_step(state, xs, ys)
+                              for _ in range(chunks)], chunks * k)
+    busy_us = sum(r[0] for r in rows)
+    if not busy_us:
+        print(f"[profile] {label}: no device time in the trace (not "
+              f"measured); event_ms_per_step={event_ms:.4f} "
+              f"wall_ms_per_step={wall_us / 1e3:.4f}")
+        return
+    print(f"[profile] {label}, replayed CUDA graph of {k} steps: "
+          f"wall_ms_per_step={wall_us / 1e3:.4f} event_ms_per_step="
+          f"{event_ms:.4f} device_busy_ms={busy_us / 1e3:.4f} "
+          f"busy_share={busy_us / wall_us:.4f} "
+          f"kernels_per_step={sum(r[1] for r in rows):.1f}")
+    for dev_us, count, key in rows[:6]:
+        print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
+
+
+def _profile_cnn_chunk() -> None:
+    """The CNN window's step (B=32, f32, 1-rank NCCL) as a replayed chunk
+    of 8."""
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.engines import create_engine
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    ds = load_dataset("mnist")
+    mesh = create_mesh(1)
+    try:
+        eng = create_engine("sync", create_model("cnn"), mesh=mesh)
+        state = eng.init_state(torch.Generator().manual_seed(0), ds.x[:1])
+        xs, ys = zip(*(eng.shard_batch(ds.x[32 * i:32 * i + 32],
+                                       ds.y[32 * i:32 * i + 32])
+                       for i in range(8)))
+        _profile_chunk("CNN train step (B=32, f32, 1-rank NCCL)", eng, state,
+                       list(xs), list(ys))
+    finally:
+        mesh.close()
 
 
 def train_phase(gpu: str):
@@ -1480,11 +1815,32 @@ def _device_rows(prof, steps):
                    and e.self_device_time_total > 0), reverse=True)
 
 
-def _profile_train(engine, state, x, y, steps: int = 4) -> None:
+def _copy_ops(engine, state, xs, ys, steps: int, top: int = 6):
+    """The ``aten::copy_`` calls of ``steps`` SyncEngine steps grouped by
+    input shapes, largest device time first: (device us per step, calls
+    per step, shapes) — what the copy kernels copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            engine.step(state, xs, ys)
+        torch.cuda.synchronize()
+    ops = sorted(((e.device_time_total / steps, e.count / steps,
+                   str(e.input_shapes)[:90])
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key == "aten::copy_" and e.device_time_total > 0),
+                 reverse=True)
+    return ops[:top]
+
+
+def _profile_train(engine, state, x, y, steps: int = 4,
+                   label: str = "f32 params") -> None:
     """Where a train step's time goes: ``steps`` SyncEngine steps timed on
     the host clock, then the same under ``torch.profiler``: the device's
     busy share of an unprofiled step, the flash kernels' share of device
-    time, kernels per step, and the top kernels."""
+    time, the copy kernels (dtype casts among them: the per-call weight
+    casts of f32 parameters), kernels per step, and the top kernels."""
     xs, ys = engine.shard_batch(x, y)
     engine.step(state, xs, ys)
     torch.cuda.synchronize()
@@ -1507,7 +1863,21 @@ def _profile_train(engine, state, x, y, steps: int = 4) -> None:
                     if (m := re.search(r"flash_(fwd|dq|dkv)(_tc)?_kernel",
                                        r[2]))})
     total_flash = sum(flash_us.values())
-    print(f"[profile] train step (B=8, L=1024, bf16): wall_ms="
+    copies = [r for r in rows if "copy" in r[2].lower()]
+    print(f"[profile] train step (B=8, L=1024, bf16 compute, {label}): "
+          f"copy_kernels_per_step={sum(r[1] for r in copies):.1f} "
+          f"copy_ms={sum(r[0] for r in copies) / 1e3:.4f}")
+    # by kernel: the vectorized bfloat16_copy_kernel is the f32→bf16 cast
+    # (the per-call weight casts of f32 parameters among them); the
+    # unrolled direct_copy_kernel the casts to f32 (activations into
+    # LayerNorm and the logits, gradients)
+    for dev_us, count, key in copies:
+        print(f"[profile]   copy {dev_us:9.2f} us/step x{count:<6.1f} "
+              f"{key[:100]}")
+    for dev_us, count, shapes in _copy_ops(engine, state, xs, ys, steps):
+        print(f"[profile]   aten::copy_ {dev_us:9.2f} us/step "
+              f"x{count:<6.1f} {shapes}")
+    print(f"[profile] train step (B=8, L=1024, bf16, {label}): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
           f"flash_ms={total_flash / 1e3:.4f} "
@@ -1549,7 +1919,8 @@ def _profile_decode(kv, label: str, steps: int = 16) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
-_MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "a": "int8",
+_MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "half",
+            "a": "int8",
             "Lb0E": "false", "Lb1E": "true"}
 
 
@@ -1562,8 +1933,9 @@ def _ptxas_lines(log: str):
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         if name and regs and spill:
-            args = re.findall(r"Li(\d+)E|(Lb[01]E)|(13__nv_bfloat16|S1_|f|a)",
-                              name.group(2))
+            args = re.findall(
+                r"Li(\d+)E|(Lb[01]E)|(13__nv_bfloat16|6__half|S1_|f|a)",
+                name.group(2))
             shown = [a[0] or _MANGLED.get(a[1] or a[2], "") for a in args]
             # S1_ repeats the first type argument
             shown = [x or shown[0] for x in shown]
@@ -1615,6 +1987,7 @@ def main() -> int:
     local_phase(gpu)
     launches, int8_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
+    fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -1627,6 +2000,7 @@ def main() -> int:
         # the launches of this row's kernel: the tc count for a tc row
         counter = f"{kind}_tc" if row["variant"] == "tc" else kind
         row["launches"] = fit[counter] + evaluate[counter]
+        row["launches_bf16_f32master"] = fit_master[counter]
         print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
               f"shape, device ms: kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} "
@@ -1636,15 +2010,26 @@ def main() -> int:
               f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
               f"bound_share={row['bound_share']:.4f} "
               f"launches_per_train_step={fit[counter] / steps:.1f}")
+    f16_rows = flash_f16_timing_phase(flash_errs)
+    for row in f16_rows:
+        # the fp16-f32master window's launches of this float16 kernel
+        row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     timing_cross_check()
     _profile_step("CNN train step", "sync", "cnn", "mnist")
+    _profile_cnn_chunk()
+    _profile_train(ptrainer.engine, ptrainer.state, px, py,
+                   label="bf16-f32master")
+    pxs, pys = ptrainer.engine.shard_batch(px, py)
+    _profile_chunk("GPT train step (B=8, L=1024, bf16-f32master)",
+                   ptrainer.engine, ptrainer.state, [pxs] * 8, [pys] * 8,
+                   chunks=2)
     _profile_step("ResNet-20 async train step", "async", "resnet20",
                   "cifar10")
     print(f"[timing] device times from queued CUDA events, where the "
           f"profiler saw no device time: {len(EVENT_TIMED)} "
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
-    print(json.dumps({"kernels": [paged_row, *flash_rows]}))
+    print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,8 @@ is process i + 1; a process that already belongs to a process group (a
 launcher's) runs as its rank.  ``--device cpu`` runs on the CPU (gloo);
 the default is the CUDA card, and without one the run raises.  Only rank
 0 prints the summary and reports to the supervisor.  The models' f32 math
-runs in full f32 (the harness turns TF32 off for the run).
+runs in full f32 (the harness turns TF32 off for the run); ``--precision``
+picks a mixed-precision policy (``parallel/precision.py``).
 
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 32 \\
         --model cnn --dataset mnist
@@ -128,6 +129,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-arg", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="extra model constructor field (repeatable)")
+    p.add_argument("--precision", default="f32",
+                   choices=["f32", "bf16", "bf16-f32master",
+                            "fp16-f32master"],
+                   help="end-to-end mixed-precision policy "
+                        "(parallel/precision.py): parameter storage, "
+                        "compute and gradient-reduce dtypes.  bf16: "
+                        "parameters and optimizer state in bfloat16.  "
+                        "bf16-f32master: bfloat16 parameters with a "
+                        "float32 master copy in the optimizer.  "
+                        "fp16-f32master: float16 + master + dynamic loss "
+                        "scaling (sync/allreduce only)")
+    p.add_argument("--dtype", default="float32",
+                   help="model compute dtype (float32|bfloat16|float16); "
+                        "a non-f32 --precision sets it")
     p.add_argument("--steps-per-call", type=int, default=None,
                    help="drain chunk: steps dispatched back to back per "
                         "host read (default auto: 8)")
@@ -211,7 +226,8 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         n_devices=args.number_nodes, batch_size=args.batch_size,
         epochs=args.epochs, learning_rate=args.lr,
         grad_accum=args.grad_accum, sync_every=args.sync_every,
-        degree=args.degree, seed=args.seed,
+        degree=args.degree, seed=args.seed, precision=args.precision,
+        dtype=args.dtype,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,

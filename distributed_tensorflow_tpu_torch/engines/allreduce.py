@@ -8,22 +8,33 @@ per-step loss and accuracy stacked on the device and read by the host
 once per chunk; up to ``MAX_IN_FLIGHT`` dispatched chunks stay unread
 while no chunk-boundary consumer needs the state.  Heartbeat lines stay
 step-exact, and the trajectory is step-for-step identical to k = 1 on
-the same seed.  The drain runs eagerly: the JAX package compiles the chunk
-as one ``lax.scan`` program; capturing it as a CUDA graph is later work.
-k = 1 keeps a loop of its own, as in the JAX Trainer: it reads metrics
-only at the log cadence, where chunks of one step under a target
-accuracy would each be read before the next eval check
-(``tools/drain_k1.py`` measures the difference).
+the same seed.  The JAX package compiles the chunk as one ``lax.scan``
+program; on the card ``SyncEngine`` replays it as a CUDA graph, the other
+engines run it eagerly.  k = 1 keeps a loop of its own, as in the JAX
+Trainer: it reads metrics only at the log cadence, where chunks of one
+step under a target accuracy would each be read before the next eval
+check (``tools/drain_k1.py`` measures the difference).
 
 ``target_accuracy`` with ``eval_ds`` stops early once a full-test-set
 eval reaches the target, evaluated every ``eval_every`` steps far from
-it and every ≤ 10 steps within 0.05 of it.  Checkpointing, the watchdog,
-telemetry sinks, the health policy and the elastic hooks are not ported:
-passing any of them raises ``NotImplementedError``.
+it and every ≤ 10 steps within 0.05 of it.
+
+The result names the engine's precision policy and the per-device
+parameter and optimizer bytes; under fp16 loss scaling it also carries a
+``loss_scale`` section (the final scale, the count of skipped steps and up
+to 64 of their numbers), read from the per-step ``loss_scale`` and
+``ls_skipped`` metrics, which the Trainer then reads every step as the
+JAX Trainer does.  A step the scaler skipped does not trip ``nan_guard``:
+the scaler already answered its non-finite gradients (the JAX Trainer
+waives it through its health policy, which the port does not have yet).
+Checkpointing, the watchdog, telemetry sinks, the health policy and the
+elastic hooks are not ported: passing any of them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Callable
@@ -46,7 +57,10 @@ MAX_IN_FLIGHT = 4
 
 
 def _check_finite(metrics: dict[str, float], step: int) -> None:
-    """The JAX ``check_finite``: a NaN/inf metric ends the fit."""
+    """The JAX ``check_finite``: a NaN/inf metric ends the fit, unless the
+    loss scaler skipped the step."""
+    if metrics.get("ls_skipped"):
+        return
     for k, v in metrics.items():
         if not math.isfinite(v):
             raise FloatingPointError(f"training diverged: metric '{k}' is "
@@ -170,6 +184,11 @@ class Trainer:
         pf_starvation, pf_fill_wait = 0, 0.0
         prev_eval_step = 0   # step of the eval BEFORE the current one
         eval_gap = None      # the resolution of a reached target
+        # fp16 loss scaling: the skip accounting of JAX allreduce.py:243-275
+        ls_active = eng.precision.loss_scaling
+        ls_skipped_steps: list[int] = []
+        ls_n_skipped = 0
+        ls_last_scale = None
 
         def place(batch):
             bx, by, _mask = batch
@@ -199,10 +218,22 @@ class Trainer:
                 return True
             return False
 
+        def note_loss_scale(gstep: int, floats: dict) -> None:
+            """Record the running scale and each skipped step."""
+            nonlocal ls_last_scale, ls_n_skipped
+            ls_last_scale = floats["loss_scale"]
+            if floats["ls_skipped"]:
+                ls_n_skipped += 1
+                if len(ls_skipped_steps) < 64:
+                    ls_skipped_steps.append(gstep)
+
         def record_step(gstep: int, floats_fn) -> None:
-            """The log_every heartbeat with its nan guard; ``floats_fn``
-            reads the step's metrics only when the cadence fires."""
+            """The loss-scale bookkeeping and the log_every heartbeat with
+            its nan guard; ``floats_fn`` reads the step's metrics only when
+            one of them needs them."""
             nonlocal last_metrics
+            if ls_active:
+                note_loss_scale(gstep, floats_fn())
             if log_every and steps % log_every == 0:
                 m = floats_fn()
                 if nan_guard:
@@ -233,9 +264,10 @@ class Trainer:
                                     in_flight.pop(0).synchronize()
                         steps += 1
                         examples += bs  # global examples per step
-                        dev_metrics = metrics
-                        record_step(start_step + steps, lambda: {
-                            kk: float(v) for kk, v in dev_metrics.items()})
+                        floats = functools.cache(
+                            lambda m=metrics: {kk: float(v)
+                                               for kk, v in m.items()})
+                        record_step(start_step + steps, floats)
                         at_cap = max_steps is not None and steps >= max_steps
                         if eval_and_maybe_stop(steps - 1, at_cap):
                             break
@@ -338,6 +370,15 @@ class Trainer:
                 "eval_resolution": eval_gap}
                if target_accuracy is not None else {}),
             "step_time": timer.summary(),
+            "precision": eng.precision.name,
+            "param_bytes_per_device": eng.param_bytes_per_device(self.state),
+            "opt_state_bytes_per_device":
+                eng.opt_state_bytes_per_device(self.state),
+            **({"loss_scale": {
+                "final_scale": ls_last_scale,
+                "skipped_steps": ls_n_skipped,
+                "skipped_step_list": ls_skipped_steps,
+            }} if ls_active else {}),
             **{f"final_{k}": v for k, v in last_metrics.items()},
         }
         self.history.append(result)

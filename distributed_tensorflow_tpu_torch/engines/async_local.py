@@ -19,6 +19,21 @@ averaged.  Whether a step syncs is a host-side int, so no device sync.
 all-reduce): local SGD goes on from the unaveraged copies, as JAX's
 ``eval_params`` returns a new tree.  The gradient codecs on the parameter
 exchange are not ported (``grad_compression`` raises in ``Engine``).
+
+Precision: the bf16 policies apply; ``fp16-f32master`` raises, as in JAX
+(this engine does not multiply its loss by a scale).  The mean replaces
+the STORED parameters, exactly as JAX's ``pmean`` of ``params`` does, and
+a master policy's f32 master is never averaged: the next step's
+``MasterWeights`` writes ``cast(master')`` of each rank's own master back
+into the parameters, so the average is lost there, as it is in the JAX
+engine (JAX ``precision.py:261-265``).  With 16-bit parameters the mean
+is taken over their f32 widening (one buffer with the f32 metrics) and
+rounded once on the way back.
+
+The drained chunk stays eager (``Engine.many_step``) by design: whether a
+step carries the parameter mean depends on ``step % sync_every``, so the
+place of the collective inside a chunk moves from chunk to chunk, and one
+captured graph per phase is not worth it at one collective per step.
 """
 
 from __future__ import annotations
@@ -34,8 +49,8 @@ from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 
 
 def _pack(model: nn.Module, *extra: torch.Tensor) -> torch.Tensor:
-    """Every parameter of ``model`` and then ``extra`` in one flat f32
-    buffer (a copy)."""
+    """Every parameter of ``model`` and then ``extra`` in one flat buffer
+    (a copy; f32 when ``extra``'s f32 metrics join 16-bit parameters)."""
     parts = [p.detach().reshape(-1) for p in model.parameters()]
     if extra:
         parts.append(torch.stack(extra))
@@ -83,7 +98,7 @@ class AsyncLocalEngine(Engine):
         metrics = coll.all_reduce_(torch.stack([loss, acc]), self.mesh)
         return metrics / self.n_devices
 
-    def step(self, state: TrainState, x, y):
+    def _step(self, state: TrainState, x, y):
         """One local step on this rank's rows, then the step's one
         collective.  Updates ``state`` IN PLACE and returns ``(state,
         metrics)``, the metrics the ranks' mean as 0-dim device tensors."""

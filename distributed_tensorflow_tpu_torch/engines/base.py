@@ -7,8 +7,18 @@ state holds the live ``nn.Module`` and ``torch.optim`` optimizer, and a
 step updates them in place.  With a ``mesh`` (``parallel/mesh.py``) the
 ranks of a ``torch.distributed`` group each take their rows of every
 global batch and sum their gradients with one collective; without one the
-engine runs on one device.  The gradient codecs, bucketing,
-mixed-precision policies and the health layer are not ported and raise
+engine runs on one device.
+
+``precision`` (``parallel/precision.py``) is resolved here: ``init_state``
+stores the parameters in the policy's dtype before it builds the
+optimizer, a master policy wraps the optimizer in ``MasterWeights``, and
+under fp16 loss scaling ``step`` adds the scale after the step and the
+skip flag (``loss_scale``, ``ls_skipped``) to the metrics, which stack
+through ``many_step`` like the loss.  On the card an engine that
+captures its drained chunk as a CUDA graph (``captures_chunks``:
+``SyncEngine``) builds the default Adam ``capturable`` (its step counts
+live on the device), so the same update runs eagerly and inside the
+graph; the others keep the plain default.  The gradient codecs, bucketing and the health layer are not ported and raise
 ``NotImplementedError``.
 """
 
@@ -25,21 +35,28 @@ from torch.nn.parameter import is_lazy
 
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
 
 
 @dataclasses.dataclass
 class TrainState:
     """The JAX ``TrainState`` (step, params, opt_state, rng) as live
     objects: ``model`` holds the parameters, ``optimizer`` the optimizer
-    state, ``generator`` the device stream dropout draws from (reseeded
-    each step from ``seed``, the step and the rank).  Engines update it in
-    place."""
+    state (a ``MasterWeights`` under a master policy), ``generator`` the
+    stream on the device that dropout draws from
+    (``Engine.step_generator``).  Engines update it in place."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     seed: int = 0
+
+
+def _seed_of(*words: int) -> int:
+    """A 63-bit generator seed drawn from ``words``."""
+    seq = np.random.SeedSequence(list(words))
+    return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -80,10 +97,20 @@ class Engine:
     ``optimizer`` is a callable ``params -> torch.optim.Optimizer``; the
     default ``torch.optim.Adam(lr=learning_rate)`` is the counterpart of the
     JAX default ``optax.adam(learning_rate)`` (same betas, eps 1e-8 outside
-    the square root, same bias correction; the two round differently).
+    the square root, same bias correction; the two round differently), with
+    ``capturable=True`` on the card where the engine ``captures_chunks``.
+    A master ``precision`` policy builds
+    the optimizer over the f32 master (``MasterWeights``).
     ``mesh`` (``parallel.mesh.create_mesh``) makes this process one rank of
     a data-parallel group and puts the model on the mesh's device;
     without one, ``device=None`` means the CUDA card."""
+
+    # engines whose step multiplies its loss by the dynamic loss scale set
+    # this; the constructor rejects a scaling policy on the others
+    supports_loss_scaling = False
+    # engines that replay their drained chunk as a CUDA graph set this: on
+    # the card their default Adam keeps its step counts on the device
+    captures_chunks = False
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
@@ -95,8 +122,15 @@ class Engine:
         if grad_bucket_mb:
             not_ported("grad_bucket_mb > 0 (bucketed overlap)",
                        "remaining engines")
-        if precision != "f32":
-            not_ported(f"precision={precision!r}", "mixed precision")
+        self.precision = precisionlib.make_policy(precision)
+        if self.precision.loss_scaling and not self.supports_loss_scaling:
+            raise ValueError(
+                f"precision '{self.precision.name}' needs dynamic loss "
+                f"scaling, which {type(self).__name__} does not thread "
+                f"into its loss — use a bf16 policy (bf16/bf16-f32master: "
+                f"bfloat16 shares f32's exponent range, no scaling "
+                f"needed), or train with a loss-scaling engine "
+                f"(sync/allreduce/fsdp/tensor_parallel)")
         if mesh is not None:
             want = torch.device(mesh.device if device is None else device)
             if (want.type, want.index or mesh.device.index) != (
@@ -110,19 +144,23 @@ class Engine:
         self.n_devices = mesh.world_size if mesh is not None else 1
         self.rank = mesh.rank if mesh is not None else 0
         self.model = model.to(self.device)
-        self.make_optimizer = (optimizer if optimizer is not None else
-                               lambda params: torch.optim.Adam(
-                                   params, lr=learning_rate))
+        capturable = self.device.type == "cuda" and self.captures_chunks
+        self.make_optimizer = self.precision.wrap_optimizer(
+            optimizer if optimizer is not None else
+            lambda params: torch.optim.Adam(params, lr=learning_rate,
+                                            capturable=capturable))
 
     # ---------------------------------------------------------------- init
     def init_state(self, generator: torch.Generator,
                    sample_x=None) -> TrainState:
         """Fresh parameters drawn from ``generator`` (a CPU generator:
-        ``model.reset_parameters``), a fresh optimizer over them, and a
-        dropout seed drawn from ``generator``.  Every rank passes a
-        generator seeded alike, so every rank starts from the same
-        parameters.  A model with lazy layers (MLP, CNN) first takes its
-        input widths from ``sample_x``, as flax's ``init`` does."""
+        ``model.reset_parameters``), stored in the precision policy's
+        dtype, a fresh optimizer over them, and a dropout seed drawn from
+        ``generator`` (on the card it seeds this rank's dropout stream
+        once, ``step_generator``).  Every rank passes a generator seeded alike, so
+        every rank starts from the same parameters.  A model with lazy
+        layers (MLP, CNN) first takes its input widths from ``sample_x``,
+        as flax's ``init`` does."""
         if any(is_lazy(p) for p in self.model.parameters()):
             if sample_x is None:
                 raise ValueError(f"{type(self.model).__name__} infers its "
@@ -130,12 +168,17 @@ class Engine:
             with torch.no_grad():
                 self.model(self._put(np.asarray(sample_x[:1])), train=False)
         self.model.reset_parameters(generator)
+        # the storage cast comes before the optimizer, which (and a master
+        # policy's f32 copy) is built over the parameters the steps train
+        self.precision.cast_params(self.model)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        stream = torch.Generator(device=self.device)
+        if self.device.type == "cuda":
+            stream.manual_seed(_seed_of(seed, self.rank))
         return TrainState(step=0, model=self.model,
                           optimizer=self.make_optimizer(
-                              self.model.parameters()),
-                          generator=torch.Generator(device=self.device),
-                          seed=seed)
+                              list(self.model.parameters())),
+                          generator=stream, seed=seed)
 
     # ------------------------------------------------------------- batches
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -167,27 +210,57 @@ class Engine:
         return put(x), put(y), put(mask)
 
     def step_generator(self, state: TrainState) -> torch.Generator:
-        """This step's dropout stream on this rank, a function of (seed,
-        step, rank): the counterpart of JAX's ``_per_device_rng``."""
-        seq = np.random.SeedSequence([state.seed, state.step, self.rank])
+        """This step's dropout stream on this rank: the counterpart of
+        JAX's ``_per_device_rng``.  On the CPU it is reseeded from (seed,
+        step, rank) every step.  On the card it is the rank's Philox
+        stream, seeded once from (seed, rank) by ``init_state``, and runs
+        on through the steps: a CUDA graph cannot reseed between the steps
+        it replays, but a replay advances the generator registered with it
+        by what its steps draw (``SyncEngine``'s ``_ChunkGraph``), so the
+        steps of an eager chunk and of a replayed one draw the same
+        masks."""
+        if state.generator.device.type == "cuda":
+            return state.generator
         return state.generator.manual_seed(
-            int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+            _seed_of(state.seed, state.step, self.rank))
 
     # ---------------------------------------------------------------- step
     def step(self, state: TrainState, x, y):
+        """One training step (the subclass's ``_step``); under fp16 loss
+        scaling the metrics gain ``loss_scale`` (the scale after the step)
+        and ``ls_skipped`` (1 where non-finite gradients skipped it), read
+        from the device like the loss (JAX ``_precision_wrap``)."""
+        state, metrics = self._step(state, x, y)
+        if self.precision.loss_scaling:
+            metrics.update(precisionlib.scale_stats_from(state.optimizer))
+        return state, metrics
+
+    def _step(self, state: TrainState, x, y):
         raise NotImplementedError
 
     def many_step(self, state: TrainState, xs_seq, ys_seq):
         """``len(xs_seq)`` steps back to back (the chunk of the Trainer's
         drain): returns the state and each metric stacked over the steps
-        on the device, so the host reads the chunk once.  Eager: the JAX
-        package's ``lax.scan`` drain as a Python loop."""
+        on the device, so the host reads the chunk once.  Here eager: the
+        JAX package's ``lax.scan`` drain as a Python loop (``SyncEngine``
+        replays it as a CUDA graph on the card)."""
         per_step = []
         for x, y in zip(xs_seq, ys_seq):
             state, m = self.step(state, x, y)
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step])
                        for k in per_step[0]}
+
+    # --------------------------------------------------------------- bytes
+    def param_bytes_per_device(self, state: TrainState) -> int:
+        """This rank's parameter bytes: what 16-bit storage halves."""
+        return sum(p.numel() * p.element_size()
+                   for p in state.model.parameters())
+
+    def opt_state_bytes_per_device(self, state: TrainState) -> int:
+        """This rank's optimizer-state bytes: a master policy adds the f32
+        copy, the pure ``bf16`` policy halves the moments."""
+        return precisionlib.optimizer_state_bytes(state.optimizer)
 
     # ---------------------------------------------------------------- eval
     def eval_params(self, state: TrainState) -> nn.Module:

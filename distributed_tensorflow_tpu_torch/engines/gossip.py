@@ -9,7 +9,9 @@ the parameters go as one flat buffer through ``collectives.neighbor_mean``
 (``2·degree`` point-to-point exchanges per mix), then the step's loss and
 accuracy through one all-reduce.  Where the neighbourhood covers the ring
 (``2·degree + 1 >= n``, every run on one card included) the mix is the
-full mean, and parameters and metrics share one all-reduce.
+full mean, and parameters and metrics share one all-reduce.  A ring mix
+runs in the stored parameters' dtype, as JAX's does; precision and the
+eager drain as in ``AsyncLocalEngine``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class GossipEngine(AsyncLocalEngine):
         self.degree = degree
         self.mix_every = mix_every
 
-    def step(self, state: TrainState, x, y):
+    def _step(self, state: TrainState, x, y):
         """One local step, then on a mix step the ring mix of the
         parameters; the metrics come out as the ranks' mean."""
         loss, acc = self._local_step(state, x, y)

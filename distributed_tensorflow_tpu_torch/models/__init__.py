@@ -4,9 +4,11 @@
 ``mnist_mlp``, ``fashion_mlp``), the CNN (``cnn``, ``mnist_cnn``), the GPT
 (``gpt``, ``gpt_tiny``) and ResNet-20 (``resnet20``, ``resnet``);
 ``get_model_fn`` is the reference's zero-arg ``model_fn``.  BERT and MoE
-are not ported yet and raise ``NotImplementedError``.  Models keep
-float32 parameters and compute in ``dtype``; ``device=None`` means the
-CUDA card.
+are not ported yet and raise ``NotImplementedError``.  Models are built
+with float32 parameters and compute in ``dtype``; under a precision policy
+(``parallel/precision.py``) the engine stores the parameters in the
+policy's dtype, so the per-call weight casts of ``dtype`` go away.
+``device=None`` means the CUDA card.
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ anything ``numpy.asarray`` reads); nothing here imports jax.  Rules:
 
 The CNN flattens its feature map in flax's NHWC order (``models/cnn.py``),
 so its first Dense kernel needs no permutation of its rows.
+
+The output is f32.  An engine under a precision policy stores 16-bit
+parameters (and a master policy an f32 master): such a state takes the
+converted weights through ``parallel.precision.adopt_f32_state``, which
+makes them the master and their downcast the parameters.
 """
 
 from __future__ import annotations

@@ -82,8 +82,8 @@ def apply_rope(x, pos, base: float = 10000.0):
 def _layer_norm(ln: nn.LayerNorm, x, dtype):
     """flax ``nn.LayerNorm(dtype=...)``: statistics in f32, output in
     ``dtype``."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        LN_EPS).to(dtype)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), LN_EPS).to(dtype)
 
 
 class CausalSelfAttention(nn.Module):

@@ -2,6 +2,11 @@
 initialization, ``nn.Dense(dtype=...)``, ``nn.Dropout`` drawing its mask
 from a passed ``torch.Generator``, and input-width inference for lazy
 layers (flax infers widths from the sample ``Module.init`` sees).
+
+Under a precision policy (``parallel/precision.py``) the parameters are
+stored in the compute dtype, so ``dense``'s casts are no-ops; the
+normalisations widen their 16-bit scale and bias to f32, as flax promotes
+them against its f32 statistics.
 """
 
 from __future__ import annotations

@@ -65,8 +65,8 @@ def conv_same(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, dtype) -> torch.Tensor:
     """flax ``nn.GroupNorm(num_groups=8, dtype=...)``: statistics and affine
     in f32, the result in ``dtype``."""
-    return F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
-                        norm.eps).to(dtype)
+    return F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(dtype)
 
 
 def _norm(width: int, device) -> nn.GroupNorm:

@@ -47,6 +47,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -63,6 +64,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void store(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(float x, __half* dst) {
+  *dst = __float2half_rn(x);
 }
 
 // A score row's 16 column owners are the 16 lanes of one half warp.
@@ -568,6 +573,7 @@ int dispatch(int which, const Ptrs& p, int B, int H, int Lq, int Lk, int D,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)by_head_dim<float>(which, p, dm, st);
   if (dtype == 1) return (int)by_head_dim<__nv_bfloat16>(which, p, dm, st);
+  if (dtype == 2) return (int)by_head_dim<__half>(which, p, dm, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -575,7 +581,8 @@ int dispatch(int which, const Ptrs& p, int B, int H, int Lq, int Lk, int D,
 
 extern "C" {
 
-// q: (B, Lq, H, D), k/v: (B, Lk, H, D), all of `dtype` (0 f32, 1 bf16);
+// q: (B, Lq, H, D), k/v: (B, Lk, H, D), all of `dtype` (0 f32, 1 bf16,
+// 2 fp16);
 // mask: (B, Lk) f32 key validity, or null for all keys valid; lse/delta:
 // (B, H, Lq) f32.  All contiguous and on the current device.  Each launches
 // on `stream` and returns the launch's cudaError_t (0 = launched); none

@@ -1,5 +1,10 @@
 // Exact attention on Hopper's tensor cores: the forward, dQ and dK/dV
-// kernels for bf16 inputs with head_dim a multiple of 16 up to 128.
+// kernels for bf16 and fp16 inputs with head_dim a multiple of 16 up to
+// 128.  Each kernel is a template on the 16-bit element type T: the
+// products are mma.sync m16n8k16 with .bf16 or .f16 operands and f32
+// accumulators, and every rounding to 16 bits (P, dS, the outputs) is to
+// T; ldmatrix and cp.async move 16-bit words and 16-byte chunks alike for
+// both.
 //
 //   flash_fwd_tc_kernel  <- _fwd_kernel (launched by _fwd, the pl.pallas_call
 //                           at distributed_tensorflow_tpu/ops/
@@ -18,7 +23,7 @@
 // scores -inf (weight exactly 0); a row past Lq writes nothing and adds
 // nothing to dK/dV.  Ragged and cross lengths are masked here, not padded.
 // Tensors stay in the model's (B, L, H, D) layout; lse and Delta are
-// (B, H, Lq) f32; O, dQ, dK and dV are written in bf16.
+// (B, H, Lq) f32; O, dQ, dK and dV are written in T.
 //
 // What bounds them on this card: at the training slice's shape (B*H = 64,
 // L = 1024, D = 64, causal) the forward moves about 34 MB and does about
@@ -34,10 +39,10 @@
 // - CTAs of 4 warps; in the forward and dQ a CTA owns 64 query rows and
 //   each warp 16 of them, in dK/dV a CTA owns 64 keys and each warp 16 of
 //   them.
-// - Products are mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
+// - Products are mma.sync.m16n8k16 with T operands and f32 accumulators.
 //   Fragments come from shared memory with ldmatrix (.trans for the
 //   operands whose reduction runs along rows: V in P V, dO and Q in
-//   P^T dO and dS^T Q, K in dS K).  Rows are padded by 8 bf16 (16 bytes),
+//   P^T dO and dS^T Q, K in dS K).  Rows are padded by 8 T (16 bytes),
 //   so the 8 row addresses of one ldmatrix fall in 8 different bank
 //   groups.  Each warp's Q fragments (forward) and, at head_dim <= 64, its
 //   Q and dO fragments (dQ) and its K and V fragments (dK/dV) are read
@@ -48,14 +53,14 @@
 // - The forward keeps the online softmax's max and sum in registers (the
 //   4 lanes of a quad share a row; max reduced with __shfl_xor_sync, the
 //   sum once at the end), works in log2 units with ex2.approx, and rounds
-//   P to bf16 in registers, where it is already laid out as the A fragment
+//   P to T in registers, where it is already laid out as the A fragment
 //   of P V: P never goes through shared memory.  lse is written in natural
 //   log units.  dK/dV recomputes P^T = exp(S^T - lse) and
 //   dS^T = P^T * (dP^T - Delta) * scale in registers and rounds both to
-//   bf16 as the A fragments of dV += P^T dO and dK += dS^T Q.  dQ is the
+//   T as the A fragments of dV += P^T dO and dK += dS^T Q.  dQ is the
 //   forward's loop with the online softmax replaced by the known lse:
 //   P = exp(S - lse), dP = dO V^T and dS = P (dP - Delta) scale in
-//   registers, dS rounded to bf16 as the A fragment of dQ += dS K, over
+//   registers, dS rounded to T as the A fragment of dQ += dS K, over
 //   32-key sub-steps of each key tile (registers).
 // - Occupancy over registers at head_dim <= 64: the forward is held to 128
 //   registers (4 CTAs per SM), dQ to 128 (4 CTAs per SM) and dK/dV to
@@ -66,16 +71,30 @@
 //   tiles crossing the diagonal take the per-element mask; the CTAs with
 //   the most tiles to visit are launched first (the last q tiles in the
 //   forward and dQ, the first k tiles in dK/dV), so the last wave is short.
-// P and dS rounded to bf16 are one rounding more than the SIMT kernels'
-// f32 P; the tests state the tolerance that needs.
+// P and dS rounded to T are one rounding more than the SIMT kernels'
+// f32 P; the tests state the tolerance that needs.  fp16 has three more
+// mantissa bits than bf16 but tops out at 65504 and has no values below
+// 2^-24: a P under 2^-24 rounds to 0 (at most that much weight of a row
+// whose weights sum to >= 1).  dS = P (dP - Delta) scale is not bounded
+// by the outputs: under loss scaling dO carries the scale, and a row of
+// dS can pass 65504 where the dQ or dK it sums to (its terms cancel) is
+// finite.  So under fp16 a row of dS whose largest value is over 2^15 is
+// scaled by a power of two before it is rounded, and the row of the f32
+// accumulator it adds into is scaled alike around the products
+// (fit_rows_f16).  The tests hold the fp16 backward at dO scaled by 2^15,
+// also with V scaled so that the plain version's dS passes 65504.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;   // matches parallel.ring_attention.NEG_INF
 constexpr float kTiny = 1e-30f;
@@ -84,7 +103,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;           // q rows and keys per tile
-constexpr int kPad = 8;             // bf16 of padding per shared-memory row
+constexpr int kPad = 8;             // 16-bit elements of padding per row
 constexpr int kSub = 32;            // q (dK/dV) or key (dQ) columns per
                                     // sub-step
 
@@ -135,31 +154,54 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+// c += a (16x16, row) * b (16x8, col); T in, f32 accumulate
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, f16>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-// two f32 -> one register of two bf16, `lo` in the low half (lower column)
+// two f32 -> one register of two T (round to nearest even), `lo` in the
+// low half (lower column)
+template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same_v<T, f16>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // The A fragment of a 16 x 16 product whose k axis is the n axis of two
 // neighbouring 16 x 8 accumulators (P -> P V, P^T -> P^T dO).
+template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&c0)[4],
                                          const float (&c1)[4]) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
+  a[0] = pack<T>(c0[0], c0[1]);
+  a[1] = pack<T>(c0[2], c0[3]);
+  a[2] = pack<T>(c1[0], c1[1]);
+  a[3] = pack<T>(c1[2], c1[3]);
+}
+
+// two f32 -> two T at `dst` (4 bytes, aligned)
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack<T>(lo, hi);
 }
 
 // 2^x (ex2.approx.ftz: relative error 2^-22, subnormal results flushed to
@@ -180,7 +222,68 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Shared-memory row stride (bf16) and sizes (bytes) of each kernel.
+// fp16 only.  Each row of this lane's dS fragment (rows g and g + 8 of
+// the warp's 16: ds[.][0..1] and ds[.][2..3]; the 4 lanes of a quad hold
+// a row) whose largest |value| over the quad is above 2^15 is multiplied
+// by the power of two 2^-e that brings that value into [2^14, 2^15), so
+// that its fp16 rounding cannot overflow; `up[r]` gets 2^e (1 for a row
+// left as it is).  The caller multiplies the same row of the f32
+// accumulator that dS is multiplied into by 1 / up[r] before the
+// products and by up[r] after them.  Powers of two are exact in f32 and,
+// above fp16's normal minimum, in the rounding to fp16: the scaled row
+// gives the same sums, save that its values under 2^(e-14) round as
+// subnormals, an absolute error of at most 2^-39 of the row's largest
+// value.  The common case, no value of the warp's fragment over 2^15,
+// costs this lane's max and one warp vote.  Returns whether the warp
+// took the scaling path (the same answer in every lane).
+template <int NB>
+__device__ __forceinline__ bool fit_rows_f16(float (&ds)[NB][4],
+                                             float (&up)[2]) {
+  float m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float a = fmaxf(fabsf(ds[0][2 * r]), fabsf(ds[0][2 * r + 1]));
+#pragma unroll
+    for (int nb = 1; nb < NB; ++nb)
+      a = fmaxf(a, fmaxf(fabsf(ds[nb][2 * r]), fabsf(ds[nb][2 * r + 1])));
+    m[r] = a;
+  }
+  up[0] = up[1] = 1.f;
+  if (!__any_sync(0xffffffffu, fmaxf(m[0], m[1]) > 32768.f)) return false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float top = quad_max(m[r]);
+    if (top > 32768.f) {
+      // floor(log2 top) - 14 (top = inf gives 114: the row stays inf)
+      const int e = ((__float_as_int(top) >> 23) & 0xff) - 127 - 14;
+      up[r] = __int_as_float((127 + e) << 23);
+      const float down = __int_as_float((127 - e) << 23);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        ds[nb][2 * r] *= down;
+        ds[nb][2 * r + 1] *= down;
+      }
+    }
+  }
+  return true;
+}
+
+// Multiply rows g (c[0..1]) and g + 8 (c[2..3]) of this lane's 16 x DT
+// accumulator by f0 and f1.
+template <int DB>
+__device__ __forceinline__ void scale_rows(float (&c)[DB][4], float f0,
+                                           float f1) {
+#pragma unroll
+  for (int i = 0; i < DB; ++i) {
+    c[i][0] *= f0;
+    c[i][1] *= f0;
+    c[i][2] *= f1;
+    c[i][3] *= f1;
+  }
+}
+
+// Shared-memory row stride (16-bit elements) and sizes (bytes) of each
+// kernel.
 template <int DT>
 struct Smem {
   static constexpr int LD = DT + kPad;
@@ -193,12 +296,12 @@ struct Smem {
   static constexpr int dq = 2 * tile + 4 * tile + 2 * kTile * 4;
 };
 
-// Stage rows [r0, r0 + kTile) of head (b, h) of a (B, L, H, D) bf16 tensor
+// Stage rows [r0, r0 + kTile) of head (b, h) of a (B, L, H, D) T tensor
 // into shared memory with row stride LD; rows past L and columns past D
 // are zero-filled.  Asynchronous: the caller commits and waits.
-template <int DT>
-__device__ __forceinline__ void load_tile(bf16* dst,
-                                          const bf16* __restrict__ src, int b,
+template <typename T, int DT>
+__device__ __forceinline__ void load_tile(T* dst,
+                                          const T* __restrict__ src, int b,
                                           int h, int r0, int L,
                                           const Dims& dm) {
   constexpr int LD = Smem<DT>::LD;
@@ -207,7 +310,7 @@ __device__ __forceinline__ void load_tile(bf16* dst,
     const int r = i / kChunks, c = (i - r * kChunks) * 8;
     const int row = r0 + r;
     const bool ok = row < L && c < dm.D;
-    const bf16* g =
+    const T* g =
         ok ? src + (((size_t)b * L + row) * dm.H + h) * dm.D + c : src;
     cp_async16(dst + r * LD + c, g, ok);
   }
@@ -215,9 +318,9 @@ __device__ __forceinline__ void load_tile(bf16* dst,
 
 // Write a warp's 16 rows of a tile, already in shared memory at `s` (row
 // stride LD), to rows [r0, r0 + 16) of head (b, h) in 16-byte stores.
-template <int DT>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           const bf16* s, int b, int h, int r0,
+template <typename T, int DT>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const T* s, int b, int h, int r0,
                                            int L, const Dims& dm, int lane) {
   constexpr int LD = Smem<DT>::LD;
   constexpr int kChunks = DT / 8;
@@ -233,18 +336,18 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
 
 // ---------------------------------------------------------------- forward
 // One CTA per (b*h, q tile of 64 rows), looping over the k tiles.
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(kThreads, DT == 64 ? 4 : 1)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ mask,
-                    bf16* __restrict__ out, float* __restrict__ lse, Dims dm) {
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ mask,
+                    T* __restrict__ out, float* __restrict__ lse, Dims dm) {
   constexpr int LD = Smem<DT>::LD;
   constexpr int KD = DT / 16;        // k steps over the head dim
   constexpr int NB = kTile / 8;      // 8-key column blocks of S
   constexpr int DB = DT / 8;         // 8-wide column blocks of O
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = q_s + kTile * LD;                         // [stage][K|V]
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* kv_s = q_s + kTile * LD;                         // [stage][K|V]
   float* m_s = reinterpret_cast<float*>(kv_s + 4 * kTile * LD);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -261,9 +364,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sl2 = dm.scale * kLog2e;
 
   auto load_kv = [&](int j) {
-    bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
-    load_tile<DT>(ks, k, b, h, j * kTile, dm.Lk, dm);
-    load_tile<DT>(ks + kTile * LD, v, b, h, j * kTile, dm.Lk, dm);
+    T* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    load_tile<T, DT>(ks, k, b, h, j * kTile, dm.Lk, dm);
+    load_tile<T, DT>(ks + kTile * LD, v, b, h, j * kTile, dm.Lk, dm);
     if (mask != nullptr && threadIdx.x < kTile) {
       const int kpos = j * kTile + threadIdx.x;
       cp_async4(m_s + (j & 1) * kTile + threadIdx.x,
@@ -272,7 +375,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<DT>(q_s, q, b, h, q0, dm.Lq, dm);
+  load_tile<T, DT>(q_s, q, b, h, q0, dm.Lq, dm);
   load_kv(0);
   cp_async_commit();
 
@@ -295,8 +398,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         ldsm_x4(qf[kd], q_s + (warp * 16 + lane % 16) * LD + kd * 16 +
                             (lane / 16) * 8);
     }
-    const bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
-    const bf16* vs = ks + kTile * LD;
+    const T* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    const T* vs = ks + kTile * LD;
     const float* ms = m_s + (j & 1) * kTile;
     const int k0 = j * kTile;
 
@@ -311,8 +414,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4];
         ldsm_x4(bk, ks + (nb * 8 + lane % 8 + (lane / 16) * 8) * LD +
                         kd * 16 + ((lane / 8) % 2) * 8);
-        mma(s[nb], qf[kd], bk[0], bk[1]);
-        mma(s[nb + 1], qf[kd], bk[2], bk[3]);
+        mma<T>(s[nb], qf[kd], bk[0], bk[1]);
+        mma<T>(s[nb + 1], qf[kd], bk[2], bk[3]);
       }
     }
 
@@ -363,18 +466,18 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[i][3] *= corr[1];
     }
 
-    // O += P V, P rounded to bf16 in registers
+    // O += P V, P rounded to T in registers
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int db = 0; db < DB; db += 2) {
         uint32_t bv[4];
         ldsm_x4_t(bv, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
                           db * 8 + (lane / 16) * 8);
-        mma(o[db], pa, bv[0], bv[1]);
-        mma(o[db + 1], pa, bv[2], bv[3]);
+        mma<T>(o[db], pa, bv[0], bv[1]);
+        mma<T>(o[db + 1], pa, bv[2], bv[3]);
       }
     }
     __syncthreads();                   // this stage may be refilled
@@ -387,17 +490,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[i] = fmaxf(quad_sum(l_r[i]), kTiny);
     inv[i] = 1.f / l_r[i];
   }
-  bf16* os = q_s + warp * 16 * LD;
+  T* os = q_s + warp * 16 * LD;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
     const int c = db * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + c) =
-        __floats2bfloat162_rn(o[db][0] * inv[0], o[db][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + c) =
-        __floats2bfloat162_rn(o[db][2] * inv[1], o[db][3] * inv[1]);
+    store2(os + g * LD + c, o[db][0] * inv[0], o[db][1] * inv[0]);
+    store2(os + (g + 8) * LD + c, o[db][2] * inv[1], o[db][3] * inv[1]);
   }
   __syncwarp();
-  store_rows<DT>(out, os, b, h, wq0, dm.Lq, dm, lane);
+  store_rows<T, DT>(out, os, b, h, wq0, dm.Lq, dm, lane);
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -413,22 +514,22 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // One CTA per (b*h, k tile of 64 keys), looping over the q tiles.  With
 // KREG the warp's K and V fragments are read from shared memory once and
 // kept in registers; without, they are read again for every sub-step.
-template <int DT, bool KREG>
+template <typename T, int DT, bool KREG>
 __global__ void __launch_bounds__(kThreads, DT == 64 ? 3 : 1)
-flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ mask,
-                    const bf16* __restrict__ dout,
+flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ mask,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, Dims dm) {
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, Dims dm) {
   constexpr int LD = Smem<DT>::LD;
   constexpr int KD = DT / 16;
   constexpr int DB = DT / 8;
   constexpr int NB = kSub / 8;       // 8-wide q column blocks per sub-step
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTile * LD;
-  bf16* qd_s = v_s + kTile * LD;                          // [stage][Q|dO]
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + kTile * LD;
+  T* qd_s = v_s + kTile * LD;                          // [stage][Q|dO]
   // [stage][lse|Delta]
   float* st_s = reinterpret_cast<float*>(qd_s + 4 * kTile * LD);
 
@@ -446,9 +547,9 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_q = [&](int i) {
     const int q0 = q_start + i * kTile;
-    bf16* qs = qd_s + (i & 1) * 2 * kTile * LD;
-    load_tile<DT>(qs, q, b, h, q0, dm.Lq, dm);
-    load_tile<DT>(qs + kTile * LD, dout, b, h, q0, dm.Lq, dm);
+    T* qs = qd_s + (i & 1) * 2 * kTile * LD;
+    load_tile<T, DT>(qs, q, b, h, q0, dm.Lq, dm);
+    load_tile<T, DT>(qs + kTile * LD, dout, b, h, q0, dm.Lq, dm);
     float* ss = st_s + (i & 1) * 2 * kTile;
     const int r = threadIdx.x % kTile, row = q0 + r;
     const float* src = threadIdx.x < kTile ? lse : delta;
@@ -456,8 +557,8 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               src + (size_t)bh * dm.Lq + min(row, dm.Lq - 1), row < dm.Lq);
   };
 
-  load_tile<DT>(k_s, k, b, h, k0, dm.Lk, dm);
-  load_tile<DT>(v_s, v, b, h, k0, dm.Lk, dm);
+  load_tile<T, DT>(k_s, k, b, h, k0, dm.Lk, dm);
+  load_tile<T, DT>(v_s, v, b, h, k0, dm.Lk, dm);
   if (n_qt > 0) load_q(0);
   cp_async_commit();
 
@@ -477,8 +578,8 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
-  const bf16* kw = k_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
-  const bf16* vw = v_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const T* kw = k_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const T* vw = v_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
   uint32_t kf[KREG ? KD : 1][4], vf[KREG ? KD : 1][4];
 
   for (int it = 0; it < n_qt; ++it) {
@@ -487,8 +588,8 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();
     __syncthreads();
     const int q0 = q_start + it * kTile;
-    const bf16* qs = qd_s + (it & 1) * 2 * kTile * LD;
-    const bf16* dos = qs + kTile * LD;
+    const T* qs = qd_s + (it & 1) * 2 * kTile * LD;
+    const T* dos = qs + kTile * LD;
     const float* lse_s = st_s + (it & 1) * 2 * kTile;
     const float* dl_s = lse_s + kTile;
     if constexpr (KREG) {
@@ -530,10 +631,10 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t bq[4], bo[4];
           ldsm_x4(bq, qs + off);
           ldsm_x4(bo, dos + off);
-          mma(st[nb], ka, bq[0], bq[1]);
-          mma(st[nb + 1], ka, bq[2], bq[3]);
-          mma(dpt[nb], va, bo[0], bo[1]);
-          mma(dpt[nb + 1], va, bo[2], bo[3]);
+          mma<T>(st[nb], ka, bq[0], bq[1]);
+          mma<T>(st[nb + 1], ka, bq[2], bq[3]);
+          mma<T>(dpt[nb], va, bo[0], bo[1]);
+          mma<T>(dpt[nb + 1], va, bo[2], bo[3]);
         }
       }
 
@@ -565,12 +666,21 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
+      // fp16: rows of dS^T (keys) too large to round, and their rows of
+      // dK, scaled by powers of two around the products
+      float up[2];
+      bool fit = false;
+      if constexpr (std::is_same_v<T, f16>) {
+        fit = fit_rows_f16(dpt, up);
+        if (fit) scale_rows(dk_acc, 1.f / up[0], 1.f / up[1]);
+      }
+
       // dV += P^T dO and dK += dS^T Q over the sub-step's 32 q rows
 #pragma unroll
       for (int kc = 0; kc < kSub / 16; ++kc) {
         uint32_t pa[4], da[4];
-        acc_to_a(pa, st[2 * kc], st[2 * kc + 1]);
-        acc_to_a(da, dpt[2 * kc], dpt[2 * kc + 1]);
+        acc_to_a<T>(pa, st[2 * kc], st[2 * kc + 1]);
+        acc_to_a<T>(da, dpt[2 * kc], dpt[2 * kc + 1]);
         const int row = c0 + kc * 16 + lane % 8 + ((lane / 8) % 2) * 8;
 #pragma unroll
         for (int db = 0; db < DB; db += 2) {
@@ -578,12 +688,13 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t bo[4], bq[4];
           ldsm_x4_t(bo, dos + off);
           ldsm_x4_t(bq, qs + off);
-          mma(dv_acc[db], pa, bo[0], bo[1]);
-          mma(dv_acc[db + 1], pa, bo[2], bo[3]);
-          mma(dk_acc[db], da, bq[0], bq[1]);
-          mma(dk_acc[db + 1], da, bq[2], bq[3]);
+          mma<T>(dv_acc[db], pa, bo[0], bo[1]);
+          mma<T>(dv_acc[db + 1], pa, bo[2], bo[3]);
+          mma<T>(dk_acc[db], da, bq[0], bq[1]);
+          mma<T>(dk_acc[db + 1], da, bq[2], bq[3]);
         }
       }
+      if (fit) scale_rows(dk_acc, up[0], up[1]);
     }
     __syncthreads();                   // this stage may be refilled
   }
@@ -591,23 +702,19 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // dK and dV through the warp's own rows of k_s / v_s, then 16-byte stores
   cp_async_wait<0>();
   __syncthreads();
-  bf16* ks = k_s + warp * 16 * LD;
-  bf16* vs = v_s + warp * 16 * LD;
+  T* ks = k_s + warp * 16 * LD;
+  T* vs = v_s + warp * 16 * LD;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
     const int c = db * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(ks + g * LD + c) =
-        __floats2bfloat162_rn(dk_acc[db][0], dk_acc[db][1]);
-    *reinterpret_cast<__nv_bfloat162*>(ks + (g + 8) * LD + c) =
-        __floats2bfloat162_rn(dk_acc[db][2], dk_acc[db][3]);
-    *reinterpret_cast<__nv_bfloat162*>(vs + g * LD + c) =
-        __floats2bfloat162_rn(dv_acc[db][0], dv_acc[db][1]);
-    *reinterpret_cast<__nv_bfloat162*>(vs + (g + 8) * LD + c) =
-        __floats2bfloat162_rn(dv_acc[db][2], dv_acc[db][3]);
+    store2(ks + g * LD + c, dk_acc[db][0], dk_acc[db][1]);
+    store2(ks + (g + 8) * LD + c, dk_acc[db][2], dk_acc[db][3]);
+    store2(vs + g * LD + c, dv_acc[db][0], dv_acc[db][1]);
+    store2(vs + (g + 8) * LD + c, dv_acc[db][2], dv_acc[db][3]);
   }
   __syncwarp();
-  store_rows<DT>(dk, ks, b, h, wk0, dm.Lk, dm, lane);
-  store_rows<DT>(dv, vs, b, h, wk0, dm.Lk, dm, lane);
+  store_rows<T, DT>(dk, ks, b, h, wk0, dm.Lk, dm, lane);
+  store_rows<T, DT>(dv, vs, b, h, wk0, dm.Lk, dm, lane);
 }
 
 // -------------------------------------------------------------------- dQ
@@ -615,22 +722,22 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // diagonal.  With QREG the warp's Q and dO fragments are read from shared
 // memory once and kept in registers; without, they are read again for
 // every sub-step.
-template <int DT, bool QREG>
+template <typename T, int DT, bool QREG>
 __global__ void __launch_bounds__(kThreads, DT == 64 ? 4 : 1)
-flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float* __restrict__ mask,
-                   const bf16* __restrict__ dout,
+flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ mask,
+                   const T* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   const float* __restrict__ delta, T* __restrict__ dq,
                    Dims dm) {
   constexpr int LD = Smem<DT>::LD;
   constexpr int KD = DT / 16;
   constexpr int DB = DT / 8;
   constexpr int NB = kSub / 8;       // 8-key column blocks per sub-step
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTile * LD;
-  bf16* kv_s = do_s + kTile * LD;                         // [stage][K|V]
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + kTile * LD;
+  T* kv_s = do_s + kTile * LD;                         // [stage][K|V]
   float* m_s = reinterpret_cast<float*>(kv_s + 4 * kTile * LD);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -647,9 +754,9 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sl2 = dm.scale * kLog2e;
 
   auto load_kv = [&](int j) {
-    bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
-    load_tile<DT>(ks, k, b, h, j * kTile, dm.Lk, dm);
-    load_tile<DT>(ks + kTile * LD, v, b, h, j * kTile, dm.Lk, dm);
+    T* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    load_tile<T, DT>(ks, k, b, h, j * kTile, dm.Lk, dm);
+    load_tile<T, DT>(ks + kTile * LD, v, b, h, j * kTile, dm.Lk, dm);
     if (mask != nullptr && threadIdx.x < kTile) {
       const int kpos = j * kTile + threadIdx.x;
       cp_async4(m_s + (j & 1) * kTile + threadIdx.x,
@@ -658,8 +765,8 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  load_tile<DT>(q_s, q, b, h, q0, dm.Lq, dm);
-  load_tile<DT>(do_s, dout, b, h, q0, dm.Lq, dm);
+  load_tile<T, DT>(q_s, q, b, h, q0, dm.Lq, dm);
+  load_tile<T, DT>(do_s, dout, b, h, q0, dm.Lq, dm);
   if (n_kt > 0) load_kv(0);
   cp_async_commit();
 
@@ -681,8 +788,8 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < DB; ++i)
     dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
 
-  const bf16* qw = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
-  const bf16* ow = do_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const T* qw = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const T* ow = do_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
   uint32_t qf[QREG ? KD : 1][4], of[QREG ? KD : 1][4];
 
   for (int j = 0; j < n_kt; ++j) {
@@ -699,8 +806,8 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    const bf16* ks = kv_s + (j & 1) * 2 * kTile * LD;
-    const bf16* vs = ks + kTile * LD;
+    const T* ks = kv_s + (j & 1) * 2 * kTile * LD;
+    const T* vs = ks + kTile * LD;
     const float* ms = m_s + (j & 1) * kTile;
     const int k0 = j * kTile;
 
@@ -733,10 +840,10 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           uint32_t bk[4], bv[4];
           ldsm_x4(bk, ks + off);
           ldsm_x4(bv, vs + off);
-          mma(s[nb], qa, bk[0], bk[1]);
-          mma(s[nb + 1], qa, bk[2], bk[3]);
-          mma(dp[nb], oa, bv[0], bv[1]);
-          mma(dp[nb + 1], oa, bv[2], bv[3]);
+          mma<T>(s[nb], qa, bk[0], bk[1]);
+          mma<T>(s[nb + 1], qa, bk[2], bk[3]);
+          mma<T>(dp[nb], oa, bv[0], bv[1]);
+          mma<T>(dp[nb + 1], oa, bv[2], bv[3]);
         }
       }
 
@@ -769,20 +876,30 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
+      // fp16: rows of dS (q rows) too large to round, and their rows of
+      // dQ, scaled by powers of two around the products
+      float up[2];
+      bool fit = false;
+      if constexpr (std::is_same_v<T, f16>) {
+        fit = fit_rows_f16(dp, up);
+        if (fit) scale_rows(dq_acc, 1.f / up[0], 1.f / up[1]);
+      }
+
       // dQ += dS K over the sub-step's 32 keys
 #pragma unroll
       for (int kc = 0; kc < kSub / 16; ++kc) {
         uint32_t da[4];
-        acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
+        acc_to_a<T>(da, dp[2 * kc], dp[2 * kc + 1]);
         const int row = c0 + kc * 16 + lane % 8 + ((lane / 8) % 2) * 8;
 #pragma unroll
         for (int db = 0; db < DB; db += 2) {
           uint32_t bk[4];
           ldsm_x4_t(bk, ks + row * LD + db * 8 + (lane / 16) * 8);
-          mma(dq_acc[db], da, bk[0], bk[1]);
-          mma(dq_acc[db + 1], da, bk[2], bk[3]);
+          mma<T>(dq_acc[db], da, bk[0], bk[1]);
+          mma<T>(dq_acc[db + 1], da, bk[2], bk[3]);
         }
       }
+      if (fit) scale_rows(dq_acc, up[0], up[1]);
     }
     __syncthreads();                   // this stage may be refilled
   }
@@ -790,17 +907,15 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // dQ through the warp's own rows of q_s, then 16-byte stores
   cp_async_wait<0>();
   __syncthreads();
-  bf16* qs = q_s + warp * 16 * LD;
+  T* qs = q_s + warp * 16 * LD;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
     const int c = db * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(qs + g * LD + c) =
-        __floats2bfloat162_rn(dq_acc[db][0], dq_acc[db][1]);
-    *reinterpret_cast<__nv_bfloat162*>(qs + (g + 8) * LD + c) =
-        __floats2bfloat162_rn(dq_acc[db][2], dq_acc[db][3]);
+    store2(qs + g * LD + c, dq_acc[db][0], dq_acc[db][1]);
+    store2(qs + (g + 8) * LD + c, dq_acc[db][2], dq_acc[db][3]);
   }
   __syncwarp();
-  store_rows<DT>(dq, qs, b, h, wq0, dm.Lq, dm, lane);
+  store_rows<T, DT>(dq, qs, b, h, wq0, dm.Lq, dm, lane);
 }
 
 // --------------------------------------------------------------- launchers
@@ -813,104 +928,111 @@ cudaError_t prepare(Kern kern, int bytes) {
 }
 
 struct Ptrs {
-  const bf16 *q, *k, *v;
+  const void *q, *k, *v;
   const float* mask;
-  const bf16* dout;
+  const void* dout;
   const float *lse_in, *delta;
-  bf16 *out, *dk, *dv;
+  void *out, *dk, *dv;
   float* lse_out;
-  bf16* dq;
+  void* dq;
 };
 
-template <int DT>
+template <typename T, int DT>
 cudaError_t run(int which, const Ptrs& p, const Dims& dm, cudaStream_t st) {
   using S = Smem<DT>;
   const int bh = dm.B * dm.H;
+  auto in = [](const void* x) { return static_cast<const T*>(x); };
+  auto out = [](void* x) { return static_cast<T*>(x); };
   cudaError_t err;
   if (which == 0) {
-    auto kern = flash_fwd_tc_kernel<DT>;
+    auto kern = flash_fwd_tc_kernel<T, DT>;
     if ((err = prepare(kern, S::fwd)) != cudaSuccess) return err;
     const int grid = bh * ((dm.Lq + kTile - 1) / kTile);
-    kern<<<grid, kThreads, S::fwd, st>>>(p.q, p.k, p.v, p.mask, p.out,
-                                          p.lse_out, dm);
+    kern<<<grid, kThreads, S::fwd, st>>>(in(p.q), in(p.k), in(p.v), p.mask,
+                                          out(p.out), p.lse_out, dm);
   } else if (which == 1) {
     // at DT = 128 the dK and dV accumulators leave no registers for K, V
-    auto kern = flash_dkv_tc_kernel<DT, DT == 64>;
+    auto kern = flash_dkv_tc_kernel<T, DT, DT == 64>;
     if ((err = prepare(kern, S::dkv)) != cudaSuccess) return err;
     const int grid = bh * ((dm.Lk + kTile - 1) / kTile);
-    kern<<<grid, kThreads, S::dkv, st>>>(p.q, p.k, p.v, p.mask, p.dout,
-                                          p.lse_in, p.delta, p.dk, p.dv, dm);
+    kern<<<grid, kThreads, S::dkv, st>>>(in(p.q), in(p.k), in(p.v), p.mask,
+                                          in(p.dout), p.lse_in, p.delta,
+                                          out(p.dk), out(p.dv), dm);
   } else {
     // at DT = 128 the dQ accumulators leave no registers for Q, dO
-    auto kern = flash_dq_tc_kernel<DT, DT == 64>;
+    auto kern = flash_dq_tc_kernel<T, DT, DT == 64>;
     if ((err = prepare(kern, S::dq)) != cudaSuccess) return err;
     const int grid = bh * ((dm.Lq + kTile - 1) / kTile);
-    kern<<<grid, kThreads, S::dq, st>>>(p.q, p.k, p.v, p.mask, p.dout,
-                                         p.lse_in, p.delta, p.dq, dm);
+    kern<<<grid, kThreads, S::dq, st>>>(in(p.q), in(p.k), in(p.v), p.mask,
+                                         in(p.dout), p.lse_in, p.delta,
+                                         out(p.dq), dm);
   }
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t by_head_dim(int which, const Ptrs& p, const Dims& dm,
+                        cudaStream_t st) {
+  if (dm.D <= 64) return run<T, 64>(which, p, dm, st);
+  return run<T, 128>(which, p, dm, st);
+}
+
 // Head-dim tiers DT = 64 (D <= 64) and 128; the wrapper's _tiles and
-// smem_bytes mirror this choice.
+// smem_bytes mirror this choice.  dtype 1 = bf16, 2 = fp16.
 int dispatch(int which, const Ptrs& p, int B, int H, int Lq, int Lk, int D,
-             float scale, int causal, void* stream) {
+             float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || D < 16 || D > 128 ||
       D % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Dims dm{B, H, Lq, Lk, D, scale, causal ? 1 : 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return (int)run<64>(which, p, dm, st);
-  return (int)run<128>(which, p, dm, st);
+  if (dtype == 1) return (int)by_head_dim<bf16>(which, p, dm, st);
+  if (dtype == 2) return (int)by_head_dim<f16>(which, p, dm, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (B, Lq, H, D), k/v: (B, Lk, H, D), bf16 with D a multiple of 16 in
-// [16, 128]; mask: (B, Lk) f32 key validity, or null for all keys valid;
-// lse/delta: (B, H, Lq) f32.  All contiguous, 16-byte aligned and on the
-// current device.  Each launches on `stream` and returns the launch's
-// cudaError_t (0 = launched); none synchronizes.
+// q: (B, Lq, H, D), k/v: (B, Lk, H, D), all of `dtype` (1 bf16, 2 fp16)
+// with D a multiple of 16 in [16, 128]; mask: (B, Lk) f32 key validity,
+// or null for all keys valid; lse/delta: (B, H, Lq) f32.  All contiguous,
+// 16-byte aligned and on the current device.  Each launches on `stream`
+// and returns the launch's cudaError_t (0 = launched); none synchronizes.
 
-// out: (B, Lq, H, D) bf16; lse: (B, H, Lq) f32.
+// out: (B, Lq, H, D) of dtype; lse: (B, H, Lq) f32.
 int flash_fwd_tc_launch(const void* q, const void* k, const void* v,
                         const void* mask, void* out, void* lse, int B, int H,
                         int Lq, int Lk, int D, float scale, int causal,
-                        void* stream) {
-  Ptrs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<const float*>(mask),
-         nullptr, nullptr, nullptr, static_cast<bf16*>(out), nullptr,
-         nullptr, static_cast<float*>(lse), nullptr};
-  return dispatch(0, p, B, H, Lq, Lk, D, scale, causal, stream);
+                        int dtype, void* stream) {
+  Ptrs p{q, k, v, static_cast<const float*>(mask), nullptr, nullptr,
+         nullptr, out, nullptr, nullptr, static_cast<float*>(lse), nullptr};
+  return dispatch(0, p, B, H, Lq, Lk, D, scale, causal, dtype, stream);
 }
 
-// dk/dv: (B, Lk, H, D) bf16.
+// dk/dv: (B, Lk, H, D) of dtype.
 int flash_dkv_tc_launch(const void* q, const void* k, const void* v,
                         const void* mask, const void* dout, const void* lse,
                         const void* delta, void* dk, void* dv, int B, int H,
                         int Lq, int Lk, int D, float scale, int causal,
-                        void* stream) {
-  Ptrs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<const float*>(mask),
-         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-         static_cast<const float*>(delta), nullptr, static_cast<bf16*>(dk),
-         static_cast<bf16*>(dv), nullptr, nullptr};
-  return dispatch(1, p, B, H, Lq, Lk, D, scale, causal, stream);
+                        int dtype, void* stream) {
+  Ptrs p{q, k, v, static_cast<const float*>(mask), dout,
+         static_cast<const float*>(lse), static_cast<const float*>(delta),
+         nullptr, dk, dv, nullptr, nullptr};
+  return dispatch(1, p, B, H, Lq, Lk, D, scale, causal, dtype, stream);
 }
 
-// dq: (B, Lq, H, D) bf16.
+// dq: (B, Lq, H, D) of dtype.
 int flash_dq_tc_launch(const void* q, const void* k, const void* v,
                        const void* mask, const void* dout, const void* lse,
                        const void* delta, void* dq, int B, int H, int Lq,
-                       int Lk, int D, float scale, int causal, void* stream) {
-  Ptrs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<const float*>(mask),
-         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-         static_cast<const float*>(delta), nullptr, nullptr, nullptr,
-         nullptr, static_cast<bf16*>(dq)};
-  return dispatch(2, p, B, H, Lq, Lk, D, scale, causal, stream);
+                       int Lk, int D, float scale, int causal, int dtype,
+                       void* stream) {
+  Ptrs p{q, k, v, static_cast<const float*>(mask), dout,
+         static_cast<const float*>(lse), static_cast<const float*>(delta),
+         nullptr, nullptr, nullptr, nullptr, dq};
+  return dispatch(2, p, B, H, Lq, Lk, D, scale, causal, dtype, stream);
 }
 
 }  // extern "C"

@@ -10,12 +10,15 @@ run (the math of the JAX package's ``_fwd_block_ref``/``_bwd_block_ref``,
 in f32).  A CUDA tensor never falls back to a plain version.
 
 Two routes, chosen by ``_route(dtype, head_dim)`` from the inputs alone:
-``"tc"`` for bfloat16 with a head dim that is a multiple of 16 up to 128
-(the GPT training path) runs the forward, dQ and dK/dV on Hopper's tensor
-cores, ``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, and so
+``"tc"`` for bfloat16 or float16 with a head dim that is a multiple of 16
+up to 128 (the GPT training path, under bf16 and fp16 precision policies)
+runs the forward, dQ and dK/dV on Hopper's tensor cores,
+``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, and so
 ``flash_bwd_block``, and other head dims) runs ``csrc/flash_attention.cu``.
-The ``tc`` kernels round P and dS to bf16 for their products: one rounding
-more than the ``simt`` kernels' f32 P.
+The ``tc`` kernels round P and dS to the 16-bit input type for their
+products: one rounding more than the ``simt`` kernels' f32 P.  Both
+routes take all three types: the kernels compute in f32 and write their
+outputs in the input type.
 
 ``flash_attention`` is differentiable through ``_FlashCore``, the
 counterpart of the JAX ``_flash_core`` custom_vjp: the forward saves
@@ -34,8 +37,10 @@ sees its own position).
 
 Launch counts (the main path's proof that it ran the kernels):
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
-over both routes, and ``.fwd_tc_launches``, ``.dq_tc_launches`` and
-``.dkv_tc_launches`` for the ``tc`` route alone.
+over both routes, ``.fwd_tc_launches``, ``.dq_tc_launches`` and
+``.dkv_tc_launches`` for the ``tc`` route alone, and
+``.fwd_f16_launches``, ``.dq_f16_launches`` and ``.dkv_f16_launches`` for
+float16 inputs on either route.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ NEG_INF = -1e30   # matches parallel.ring_attention.NEG_INF
 _TINY = 1e-30
 MAX_HEAD_DIM = 256
 _SMEM_LIMIT = 232_448          # bytes of shared memory one Hopper CTA may use
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # --------------------------------------------------------------------------
@@ -110,6 +115,20 @@ def _term_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
             torch.einsum("bhlm,bmhd->blhd", ds, k.float().abs()))
 
 
+def _cancel_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
+    """``(dk, dq)`` sums in f32 of the magnitudes that cancel in
+    ``dS = P (dP - Δ) scale``: ``Σ_q P (Σ_d |dO||v| + |Δ|) scale |q|`` and
+    the same over k with ``|k|``.  Both sides of that difference carry f32
+    rounding of this size (times 2^-24 per rounding), which passes into dQ
+    and dK where dS cancels to near 0, as on a causal row's first key."""
+    s = _scores(q, k, kv_mask, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float().abs(), v.float().abs())
+    mag = p * (dp + delta.abs()[..., None]) * scale
+    return (torch.einsum("bhlm,blhd->bmhd", mag, q.float().abs()),
+            torch.einsum("bhlm,bmhd->blhd", mag, k.float().abs()))
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
@@ -120,18 +139,17 @@ _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
 @functools.cache
 def _library(route: str = "simt"):
     """The kernel library of ``route``: ``simt`` = ``flash_attention.cu``
-    (fwd, dq, dkv; a dtype argument), ``tc`` = ``flash_attention_sm90.cu``
-    (fwd, dq and dkv, bf16 only)."""
+    (fwd, dq, dkv), ``tc`` = ``flash_attention_sm90.cu`` (fwd, dq and dkv,
+    16-bit types only); each function takes a dtype code (``_DTYPES``)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = _TAIL + [i32, ptr]
     if route == "simt":
         lib = _build.load("flash_attention")
-        tail = _TAIL + [i32, ptr]
         fns = {"fwd": 6, "dq": 8, "dkv": 9}
     else:
         lib = _build.load("flash_attention_sm90")
-        tail = _TAIL + [ptr]
         fns = {"fwd_tc": 6, "dq_tc": 8, "dkv_tc": 9}
     for name, n_ptrs in fns.items():
         fn = getattr(lib, f"flash_{name}_launch")
@@ -148,9 +166,10 @@ def build(route: str | None = None) -> None:
 
 
 def _route(dtype, head_dim: int) -> str:
-    """``"tc"`` where the tensor-core kernels take the inputs (bfloat16, a
-    head dim that is a multiple of 16 up to 128), else ``"simt"``."""
-    if (dtype == torch.bfloat16 and head_dim % 16 == 0
+    """``"tc"`` where the tensor-core kernels take the inputs (bfloat16 or
+    float16, a head dim that is a multiple of 16 up to 128), else
+    ``"simt"``."""
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0
             and 16 <= head_dim <= 128):
         return "tc"
     return "simt"
@@ -183,7 +202,7 @@ def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
         raise ValueError(f"the tc route takes head dims that are multiples "
                          f"of 16 up to 128, not {d}")
     tile, _, dt = _tiles(d, "tc")
-    row = 2 * tile * (dt + 8)              # one bf16 tile, rows padded by 8
+    row = 2 * tile * (dt + 8)              # one 16-bit tile, rows padded by 8
     return {"fwd": row + 4 * row + 2 * tile * 4,
             "dq": 2 * row + 4 * row + 2 * tile * 4,
             "dkv": 2 * row + 4 * row + 4 * tile * 4}
@@ -200,14 +219,12 @@ def _aligned(t):
 
 
 def _launch(name, *tensors, dims, scale, causal, dtype, device):
-    route = "tc" if name.endswith("_tc") else "simt"
-    lib = _library(route)
-    extra = () if route == "tc" else (_DTYPES[dtype],)
+    lib = _library("tc" if name.endswith("_tc") else "simt")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"flash_{name}_launch")(
             *(_ptr(t) for t in tensors), *dims, float(scale), int(causal),
-            *extra, stream)
+            _DTYPES[dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention {name} kernel launch failed "
                            f"with cudaError_t {err}")
@@ -231,6 +248,8 @@ def _fwd_cuda(q, k, v, mask, scale, causal, route=None):
     flash_attention.fwd_launches += 1
     if route == "tc":
         flash_attention.fwd_tc_launches += 1
+    if q.dtype == torch.float16:
+        flash_attention.fwd_f16_launches += 1
     return out, lse
 
 
@@ -246,6 +265,8 @@ def _dq_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
     flash_attention.dq_launches += 1
     if route == "tc":
         flash_attention.dq_tc_launches += 1
+    if q.dtype == torch.float16:
+        flash_attention.dq_f16_launches += 1
     return dq
 
 
@@ -261,6 +282,8 @@ def _dkv_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
     flash_attention.dkv_launches += 1
     if route == "tc":
         flash_attention.dkv_tc_launches += 1
+    if q.dtype == torch.float16:
+        flash_attention.dkv_f16_launches += 1
     return dk, dv
 
 
@@ -306,8 +329,9 @@ def _check(q, k, v, kv_mask, extra=()):
         raise ValueError(f"k and v must be (B={b}, Lk, H={h}, D={d}); got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one dtype among float32 and "
-                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"q, k, v must share one dtype among float32, "
+                        f"bfloat16 and float16; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, k.shape[1]):
         raise ValueError(f"kv_mask must be (B, Lk) = {(b, k.shape[1])}, got "
                          f"{tuple(kv_mask.shape)}")
@@ -357,8 +381,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Memory-efficient exact attention on model-layout tensors.
 
     Args:
-      q: (B, Lq, H, D);  k, v: (B, Lk, H, D); float32 or bfloat16, one
-        dtype for all three; head_dim up to 256.
+      q: (B, Lq, H, D);  k, v: (B, Lk, H, D); float32, bfloat16 or
+        float16, one dtype for all three; head_dim up to 256.
       causal: mask future positions by absolute position.
       scale: softmax scale; defaults to ``head_dim ** -0.5``.
       kv_mask: optional (B, Lk) key-validity mask (>0 == valid).
@@ -383,6 +407,9 @@ flash_attention.dkv_launches = 0
 flash_attention.fwd_tc_launches = 0
 flash_attention.dq_tc_launches = 0
 flash_attention.dkv_tc_launches = 0
+flash_attention.fwd_f16_launches = 0
+flash_attention.dq_f16_launches = 0
+flash_attention.dkv_f16_launches = 0
 
 
 # --------------------------------------------------------------------------

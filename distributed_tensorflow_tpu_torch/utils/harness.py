@@ -10,9 +10,12 @@ and datasets.  The summary's test accuracy is the consensus model's:
 ``Engine.evaluate`` goes through ``eval_params``, the ranks' mean under
 async and gossip.  A run computes the models' f32 math in full f32: TF32
 is off for matmuls and convolutions while it runs (torch's default lets
-cuDNN convolutions use TF32), and mixed precision is not ported.  The JAX
-``ExperimentConfig``'s other fields (schedules, codecs, precision, model
-parallelism, checkpoints, telemetry, sampling, serving) are absent.
+cuDNN convolutions use TF32).  ``precision`` picks the mixed-precision
+policy (``parallel/precision.py``): a non-f32 policy stores the
+parameters in 16 bits and the model computes in the policy's dtype
+(``_resolve_precision``).  The JAX ``ExperimentConfig``'s other fields
+(schedules, codecs, model parallelism, checkpoints, telemetry, sampling,
+serving) are absent.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
     Trainer, check_engine, create_engine)
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
 from distributed_tensorflow_tpu_torch.utils.supervisor import ResultSink
 
 @dataclasses.dataclass
@@ -52,6 +56,10 @@ class ExperimentConfig:
     sync_every: int = 10            # async: parameter-averaging period
     degree: int = 1                 # gossip: ring neighbours on each side
     seed: int = 0
+    precision: str = "f32"          # f32 | bf16 | bf16-f32master |
+                                    # fp16-f32master (parallel/precision.py)
+    dtype: str = "float32"          # model compute dtype; a non-f32
+                                    # precision sets it (_resolve_precision)
     log_every: int = 50
     steps_per_call: int | None = None  # drain chunk (None: auto, 8)
     prefetch: int = 2               # batches staged on the device ahead
@@ -76,16 +84,38 @@ class _Experiment:
 
 
 def _resolve_model(config: ExperimentConfig, num_classes: int, device):
-    """Plug-in ``model_fn`` wins; else the registry with ``model_args``."""
+    """Plug-in ``model_fn`` wins; else the registry with ``model_args``
+    and the config's ``dtype``."""
     if config.model_fn is not None:
         return config.model_fn()
     kw = dict(config.model_args or {})
-    bad = sorted(set(kw) & {"num_classes", "device"})
+    bad = sorted(set(kw) & {"num_classes", "device", "dtype"})
     if bad:
         raise ValueError(f"--model-arg {bad} is set by the harness for "
                          f"--model {config.model}")
     return modellib.create_model(config.model, num_classes=num_classes,
-                                 device=device, **kw)
+                                 device=device, dtype=config.dtype, **kw)
+
+
+def _resolve_precision(config: ExperimentConfig) -> ExperimentConfig:
+    """Validate ``precision`` and resolve the model dtype it implies (JAX
+    ``harness.py:561-597``): under a non-f32 policy the model computes in
+    the policy's compute dtype; ``dtype`` left at float32 follows it, a
+    matching one is fine, and a conflicting one is rejected (f32 compute
+    over 16-bit parameters would widen every weight again).  ``f32``
+    leaves ``dtype`` as it is."""
+    pol = precisionlib.make_policy(config.precision)  # typo: full menu
+    if not pol.active:
+        return config
+    compute = pol.compute_dtype
+    asked = modellib.resolve_dtype(config.dtype)
+    if asked is not torch.float32 and asked is not compute:
+        raise ValueError(
+            f"--dtype {config.dtype} conflicts with --precision "
+            f"{pol.name} (compute dtype {str(compute).split('.')[-1]}): a "
+            f"non-f32 policy owns the model dtype — drop --dtype or make "
+            f"them agree")
+    return dataclasses.replace(config, dtype=str(compute).split(".")[-1])
 
 
 def _load_data(config: ExperimentConfig):
@@ -106,6 +136,7 @@ def _global_batch(config: ExperimentConfig, dp: int) -> int:
 
 def _setup(config: ExperimentConfig) -> _Experiment:
     check_engine(config.engine)
+    config = _resolve_precision(config)
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
     try:
         n = mesh.world_size
@@ -114,7 +145,8 @@ def _setup(config: ExperimentConfig) -> _Experiment:
         # reference -b is the PER-WORKER batch: global batch = b × n
         global_batch = _global_batch(config, n)
         engine_kw: dict[str, Any] = dict(
-            mesh=mesh, learning_rate=config.learning_rate)
+            mesh=mesh, learning_rate=config.learning_rate,
+            precision=config.precision)
         if config.engine == "async":
             engine_kw["sync_every"] = config.sync_every
         elif config.engine == "gossip":
@@ -191,6 +223,7 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                 "data_parallel": ex.n,
                 "global_batch": ex.global_batch,
                 "epochs": config.epochs,
+                "precision": fit["precision"],
                 "steps": fit["steps"],
                 "steps_per_call": fit["steps_per_call"],
                 "prefetch_depth": fit["prefetch_depth"],
@@ -210,6 +243,11 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                     "step_time_p50_s": st.get("steady_p50_s"),
                     "step_time_p95_s": st.get("steady_p95_s"),
                     "step_time_mean_s": st.get("steady_mean_s"),
+                    "precision": fit["precision"],
+                    "param_bytes_per_device": fit["param_bytes_per_device"],
+                    "opt_state_bytes_per_device":
+                        fit["opt_state_bytes_per_device"],
+                    "loss_scale": fit.get("loss_scale"),
                 },
             }
             sink.emit("summary", **summary)

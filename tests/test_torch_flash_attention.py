@@ -289,7 +289,7 @@ def test_term_sums_bound_the_plain_outputs():
 def test_wrapper_rejects_bad_inputs():
     q, k, v = _t(*_qkv(13, 1, 8, 2, 8))
     with pytest.raises(TypeError, match="dtype"):
-        tfa.flash_attention(q.half(), k.half(), v.half())
+        tfa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError, match="dtype"):
         tfa.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match=r"\(B, L, H, D\)"):

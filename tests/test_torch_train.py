@@ -255,7 +255,7 @@ def test_unported_options_raise():
     model = GPTLM(**SMALL, device="cpu")
     for kw, item in ((dict(grad_compression="bf16"), "remaining engines"),
                      (dict(grad_bucket_mb=4.0), "remaining engines"),
-                     (dict(precision="bf16"), "mixed precision")):
+                     (dict(grad_compression="int8"), "remaining engines")):
         with pytest.raises(NotImplementedError, match=f"(?i){item}"):
             SyncEngine(model, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="remaining engines"):
