@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the card, on
              seeded inputs, with the stated tolerances: the paged decode
              kernel (split-key flash-decoding) at the split count it picks
-             and at forced counts 1, 2, 4 and one table entry per split;
+             and at forced counts 1, 2, 4 and one table entry per split,
+             a draft_k = 4 verify (l_q = 5) at the serving shape on bf16
+             and on int8 pools among its cases;
              the flash-attention kernels of both routes — f32 cases on the
              SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
              tensor-core kernels (``tc``), float16 cases on both routes
@@ -29,14 +31,28 @@ Phases (any failure raises and the script exits non-zero):
              table (no paged launch); P, the paged table with the
              zero-copy pool (one kernel launch per layer per decode
              iteration, copy-on-write); Q, window P with int8 pools (every
-             launch on the kernel's int8 route).  Then first-decode-step
+             launch on the kernel's int8 route).  Then three windows of
+             the decode paths beside them: S-self, window M with a draft
+             that is the served model (draft_k 4; the accept rate, and
+             where a stream first leaves M's with the target's top-2
+             logit gap there: a verify runs other GEMM shapes than a
+             decode step, so a bf16 near-tie may flip); S-small, window P
+             with a 1-layer draft of its own seed (draft_k 4, multi_step
+             4: the draft's proposals are fused rounds; accepted +
+             rejected == proposed, the verify launches at l_q = 5); K,
+             window P at multi_step 8, every round in the timed window a
+             CUDA graph replay, whose streams must equal P's bitwise
+             (dispatches, host gap and tokens/s against P).  A seeded
+             0.8-temperature check holds three rounds of 4 (eager,
+             captured, replayed) to 12 single steps.  Then first-decode-step
              logits of the paged fused read against the gather read and
              against the monolithic table, of a warm prefix pool against a
              cold one, the cursor mode (``generate``) against the
              monolithic prefill and ``generate``'s greedy streams against
              the table's, a seeded 0.8-temperature window run twice, and
              where a decode step's device time goes (``torch.profiler``):
-             paged, paged on int8 pools, monolithic;
+             paged, a replayed round of 8 (window K's table), paged on
+             int8 pools, monolithic;
 4b. cnn    — the reference's own training path through ``cli.main``, as a
              user runs it: ``-m c -cs sync -n 1 -b 32 --model cnn --dataset
              mnist`` (BASELINE config 1 at full width: synthetic MNIST,
@@ -87,7 +103,8 @@ Phases (any failure raises and the script exits non-zero):
              event-window time per call with the host's cost
              (``call_ms``); the paged kernel also at a 4096-token context,
              with a sweep of split counts at both shapes, and on int8 pools at
-             the decode shape.  Last, so that
+             the decode shape, and at the verify width (l_q = 5, bf16
+             and int8 pools: row 4v).  Last, so that
              no profiler session precedes the serve and train windows; then
              the spin-queued event time beside the profiler's for the
              paged decode kernel and the tc forward; the float16 ``tc``
@@ -392,8 +409,10 @@ def _paged_timed(tag, q, kp, vp, bt, pos, splits_list, ks=None,
         vals = (vals.float() * vs[bt.long()].reshape(s, mb * blk, h, 1)
                 ).to(q.dtype)
     keys, vals = keys.transpose(1, 2), vals.transpose(1, 2)
+    # query row l of a slot sees keys t <= pos + l
+    rows = pos.long()[:, None] + torch.arange(l_q, device="cuda")[None, :]
     mask = (torch.arange(mb * blk, device="cuda")[None, None, None, :]
-            <= pos.long()[:, None, None, None])
+            <= rows[:, None, :, None])
     qt = q.transpose(1, 2)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
         qt, keys, vals, attn_mask=mask)
@@ -433,6 +452,12 @@ def paged_check_phase() -> dict:
         "head_dim_256_f32": (dict(d=256, h=4, kvh=4, mb=4), F32_TOL),
         # 80 folded rows x head_dim 128: 95 KB of dynamic shared memory
         "large_group_smem_f32": (dict(h=32, kvh=2, l_q=5, d=128), F32_TOL),
+        # a draft_k = 4 verify at the serving shape, on the pools the
+        # served tables hold (windows S-small and, at int8, Q's storage)
+        "verify_lq5_bf16": (dict(q_dtype=torch.bfloat16,
+                                 kv_dtype=torch.bfloat16, l_q=5), BF16_TOL),
+        "verify_lq5_int8": (dict(q_dtype=torch.bfloat16,
+                                 kv_dtype=torch.int8, l_q=5), BF16_TOL),
     }
     errs = {}
     for i, (name, (kw, tol)) in enumerate(cases.items()):
@@ -482,9 +507,22 @@ def paged_timing_phase(errs) -> dict:
         9, q_dtype=torch.bfloat16, kv_dtype=torch.int8)
     i8 = _paged_timed("int8", q, kp, vp, bt, pos, (1, 2, 4, 8), ks, vs)
     del q, kp, vp, bt, pos, ks, vs
+    # row 4v: a draft_k = 4 verify (l_q = 5) at the serving shape, on bf16
+    # and on int8 pools
+    q, kp, vp, bt, pos, _, _ = _paged_case(
+        10, l_q=5, q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16)
+    ver = _paged_timed("verify l_q=5", q, kp, vp, bt, pos, (1, 2, 4, 8))
+    q, kp, vp, bt, pos, ks, vs = _paged_case(
+        11, l_q=5, q_dtype=torch.bfloat16, kv_dtype=torch.int8)
+    ver8 = _paged_timed("verify l_q=5 int8", q, kp, vp, bt, pos,
+                        (1, 2, 4, 8), ks, vs)
+    del q, kp, vp, bt, pos, ks, vs
     for label, t in (("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16", dec),
                      ("decode S=8 H=KVH=8 D=64 blk=8 MB=18 bf16 q, int8 "
                       "pools + f32 scales", i8),
+                     ("verify l_q=5 S=8 H=KVH=8 D=64 blk=8 MB=18 bf16", ver),
+                     ("verify l_q=5 S=8 H=KVH=8 D=64 blk=8 MB=18 bf16 q, "
+                      "int8 pools + f32 scales", ver8),
                      ("long context S=8 H=KVH=8 D=64 blk=16 MB=256 pos "
                       "3584-4095 bf16", lng)):
         print(f"[kernel] {label}: device ms per call: kernel={t['ms']:.5f} "
@@ -512,7 +550,17 @@ def paged_timing_phase(errs) -> dict:
             "int8": {"max_abs_err": errs["decode_int8_bf16"],
                      **{k: i8[k] for k in (
                          "ms", "call_ms", "splits", "bound_ms", "bound_by",
-                         "plain_ms", "library_ms", "sweep")}}}
+                         "plain_ms", "library_ms", "sweep")}},
+            "verify_lq5": {
+                "max_abs_err": errs["verify_lq5_bf16"],
+                **{k: ver[k] for k in (
+                    "ms", "call_ms", "splits", "bound_ms", "bound_by",
+                    "plain_ms", "library_ms", "sweep")},
+                "int8": {"max_abs_err": errs["verify_lq5_int8"],
+                         **{k: ver8[k] for k in (
+                             "ms", "call_ms", "splits", "bound_ms",
+                             "bound_by", "plain_ms", "library_ms",
+                             "sweep")}}}}
 
 
 def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
@@ -942,15 +990,17 @@ SERVE = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
              slots=8, block=8, chunk=16, pool=128)
 
 
-def _serve_model():
+def _serve_model(seed: int = 0, **overrides):
+    """The serve GPT with random weights from ``seed``; ``overrides`` of
+    its size make a draft (``parse_draft_config``)."""
     from distributed_tensorflow_tpu_torch.models import create_model
 
+    size = {k: SERVE[k] for k in ("hidden", "layers", "heads", "ffn")}
+    size.update(overrides)
     model = create_model("gpt", num_classes=SERVE["vocab"],
-                         hidden=SERVE["hidden"], layers=SERVE["layers"],
-                         heads=SERVE["heads"], ffn=SERVE["ffn"],
                          max_len=16 + 64 + 64, dropout_rate=0.0,
-                         dtype="bfloat16")
-    return model.reset_parameters(torch.Generator().manual_seed(0))
+                         dtype="bfloat16", **size)
+    return model.reset_parameters(torch.Generator().manual_seed(seed))
 
 
 def _bench_trace():
@@ -982,28 +1032,40 @@ def _reset_paged_counts() -> None:
 
     pa.paged_attention.launches = 0
     pa.paged_attention.int8_launches = 0
+    pa.paged_attention.verify_launches = 0
 
 
-def _paged_counts() -> tuple[int, int]:
+def _paged_counts() -> tuple[int, int, int]:
     from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
 
-    return pa.paged_attention.launches, pa.paged_attention.int8_launches
+    return (pa.paged_attention.launches, pa.paged_attention.int8_launches,
+            pa.paged_attention.verify_launches)
 
 
-def _serve_window(name, kv, requests, gpu):
+def _serve_window(name, kv, requests, gpu, before_main=None, **batcher_kw):
     """A warm-up window of the first two requests (allocator, library
-    handles; they stay in the prefix pool), then the whole trace with the
-    paged counts set to 0 just before; returns the summary and the counts
-    (all launches, int8-route launches)."""
+    handles, a graph's eager round and capture; they stay in the prefix
+    pool), then the whole trace with the paged counts set to 0 just before
+    (and ``before_main`` called); returns the summary and the counts (all
+    launches, int8-route launches, ``l_q > 1`` launches).  The summary
+    gains ``dispatches`` (forwards of both tables) and ``host_gap_s``
+    (wall time less the target table's forward time) in every window."""
     from distributed_tensorflow_tpu_torch.serving import ContinuousBatcher
 
-    batcher = ContinuousBatcher(kv, prefill_chunk=SERVE["chunk"])
+    batcher = ContinuousBatcher(kv, prefill_chunk=SERVE["chunk"],
+                                **batcher_kw)
     batcher.run(requests[:2])
     torch.cuda.synchronize()
     _reset_paged_counts()
+    if before_main is not None:
+        before_main()
+    disp0 = batcher._dispatches()
     summary = batcher.run(requests)
     torch.cuda.synchronize()
     counts = _paged_counts()
+    summary["dispatches"] = batcher._dispatches() - disp0
+    summary["host_gap_s"] = max(summary["elapsed_s"] - sum(
+        summary["device_phase_s"].values()), 0.0)
     assert summary["completed"] == len(requests), (name, summary["completed"])
     for r in summary["results"]:
         req = requests[r.rid]
@@ -1032,7 +1094,9 @@ def _serve_window(name, kv, requests, gpu):
           f"{summary['serve_prefix_zero_copy_hit_rate']} "
           f"cow_copies={paged.get('cow_copies')} "
           f"kv_bytes_per_slot={summary['serve_kv_bytes_per_slot']} "
-          f"elapsed_s={summary['elapsed_s']:.4f}")
+          f"elapsed_s={summary['elapsed_s']:.4f} "
+          f"dispatches={summary['dispatches']} "
+          f"host_gap_s={summary['host_gap_s']:.4f}")
     print(f"[serve] window {name}: prefix_cache={json.dumps(pool)} "
           f"device_phase_s={json.dumps(summary['device_phase_s'])}")
     return summary, counts
@@ -1052,14 +1116,14 @@ def serve_phase(gpu: str) -> tuple[int, int]:
 
     # M: the default table of bench.py --serve: monolithic, prefix pool
     mono = SlotKVCache(model, None, slots, **pool)
-    m, (launches, _) = _serve_window("M", mono, requests, gpu)
+    m, (launches, _, _) = _serve_window("M", mono, requests, gpu)
     assert launches == 0, launches
     assert m["paged"] is None and m["serve_kv_blocks_in_use"] is None
 
     # P: the same trace on the paged table, the same pool (zero copy)
     kv = SlotKVCache(model, None, slots, kv_layout="paged",
                      paged_block=block, **pool)
-    p, (p_launches, p_int8) = _serve_window("P", kv, requests, gpu)
+    p, (p_launches, p_int8, _) = _serve_window("P", kv, requests, gpu)
     iters = p["decode_iterations"]
     assert p_launches == layers * iters and p_int8 == 0, (p_launches, iters)
     assert p["paged"]["zero_copy_blocks"] == p["prefix_cache"]["hits"]
@@ -1075,7 +1139,7 @@ def serve_phase(gpu: str) -> tuple[int, int]:
     # Q: window P at int8 storage; every launch on the kernel's int8 route
     kv8 = SlotKVCache(model, None, slots, kv_layout="paged",
                       paged_block=block, kv_dtype="int8", **pool)
-    q, (q_launches, q_int8) = _serve_window("Q", kv8, requests, gpu)
+    q, (q_launches, q_int8, _) = _serve_window("Q", kv8, requests, gpu)
     assert q_launches == q_int8 == layers * q["decode_iterations"], (
         q_launches, q_int8, q["decode_iterations"])
     ratio = q["serve_kv_bytes_per_slot"] / p["serve_kv_bytes_per_slot"]
@@ -1087,8 +1151,14 @@ def serve_phase(gpu: str) -> tuple[int, int]:
     print(f"[serve] window Q vs P: kv_bytes_per_slot ratio {ratio:.4f} "
           f"(bound 0.6); greedy tokens equal at {agree}/{total} positions")
 
+    verify_launches, kvk = spec_multi_windows(gpu, model, requests, m, p)
+    _sampled_rounds_check(model, requests)
+
     _fused_vs_gather(model, kv, requests)
     _profile_decode(kv, "paged")
+    for req in requests[:slots]:
+        kvk.insert(req.prompt)
+    _profile_rounds(kvk, "paged, multi_step 8")
     for req in requests[:slots]:
         kv8.insert(req.prompt)
     _profile_decode(kv8, "paged int8")
@@ -1096,7 +1166,185 @@ def serve_phase(gpu: str) -> tuple[int, int]:
     _profile_decode(xcheck, "monolithic")
     _generate_check(model, shared)
     _temperature_check(model, requests)
-    return p_launches + q_launches, q_int8
+    return p_launches + q_launches, q_int8, verify_launches
+
+
+def _streams(summary) -> list[list[int]]:
+    return [r.tokens for r in summary["results"]]
+
+
+def _spec_ledger(name, summary) -> dict:
+    """The speculative ledger's gate (accepted + rejected == proposed, in
+    the run and per request) and its line."""
+    spec = summary["speculative"]
+    assert spec["proposed_tokens"] > 0, (name, spec)
+    assert (spec["accepted_tokens"] + spec["rejected_tokens"]
+            == spec["proposed_tokens"]), (name, spec)
+    assert spec["accepted_tokens"] == sum(
+        r.accepted_tokens for r in summary["results"]), name
+    print(f"[serve] window {name}: serve_accept_rate="
+          f"{summary['serve_accept_rate']:.4f} speculative="
+          f"{json.dumps(spec)}")
+    return spec
+
+
+def _top2(model, prompt, stream, j):
+    """The target's logits for generated token ``j`` of ``stream`` by
+    single decode steps of a fresh monolithic table (whole-prompt prefill,
+    then ``stream[:j]`` fed back): (top-2 gap, the logits)."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    table = SlotKVCache(model, None, SERVE["slots"])
+    slot, _ = table.insert(prompt)
+    table.tokens[slot] = stream[0]
+    for i in range(1, j):
+        table.advance()
+        table.tokens[slot] = stream[i]
+    logits = table.decode_logits()[slot].float()
+    top = logits.topk(2).values
+    return float(top[0] - top[1]), logits
+
+
+def _first_difference(name, model, requests, base, summary) -> None:
+    """Where ``summary``'s greedy streams first leave window M's (``base``):
+    the request, the position, both tokens, and the target's top-2 gap
+    there (``_top2``), or that every stream is equal."""
+    diffs = [(next(j for j, (a, b) in enumerate(zip(x.tokens, y.tokens))
+                   if a != b), x.rid)
+             for x, y in zip(base["results"], summary["results"])
+             if x.tokens != y.tokens]
+    total = sum(len(r.tokens) for r in base["results"])
+    agree = sum(a == b for x, y in zip(base["results"], summary["results"])
+                for a, b in zip(x.tokens, y.tokens))
+    if not diffs:
+        print(f"[serve] window {name} vs M: every stream bitwise equal "
+              f"({total} tokens)")
+        return
+    j, rid = min(diffs)
+    want = base["results"][rid].tokens
+    got = summary["results"][rid].tokens
+    gap, logits = _top2(model, requests[rid].prompt, want, j)
+    print(f"[serve] window {name} vs M: {len(diffs)}/{len(requests)} streams "
+          f"differ, {agree}/{total} tokens equal; first at request {rid} "
+          f"token {j}: M {want[j]}, {name} {got[j]}; the target's top-2 "
+          f"logit gap there {gap:.5f}, logit(M) - logit({name}) "
+          f"{float(logits[want[j]] - logits[got[j]]):.5f} (single decode "
+          f"steps of a fresh table)")
+
+
+def spec_multi_windows(gpu, model, requests, m, p):
+    """Windows S-self (monolithic, draft 'self', draft_k 4), S-small
+    (paged, a 1-layer draft of its own seed, draft_k 4, multi_step 4: the
+    draft's proposals are fused rounds) and K (paged, multi_step 8, rounds
+    replayed as CUDA graphs) on the same trace and pool as M and P;
+    returns the ``l_q > 1`` paged launches of S-small and K's table."""
+    from collections import Counter
+
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+    from distributed_tensorflow_tpu_torch.serving.decode_graph import (
+        RoundGraph)
+    from distributed_tensorflow_tpu_torch.utils.harness import (
+        parse_draft_config)
+
+    layers, slots, block = SERVE["layers"], SERVE["slots"], SERVE["block"]
+    pool = dict(prefix_cache_blocks=SERVE["pool"], prefix_block=block)
+
+    # S-self: the draft is the served model (accept rate 1 in exact
+    # arithmetic); its table is the draft's own, without a pool
+    assert parse_draft_config("self") is None
+    s_self, (launches, _, _) = _serve_window(
+        "S-self", SlotKVCache(model, None, slots, **pool), requests, gpu,
+        draft_kv=SlotKVCache(model, None, slots), draft_k=4)
+    assert launches == 0, launches
+    _spec_ledger("S-self", s_self)
+    _first_difference("S-self", model, requests, m, s_self)
+
+    # S-small: a 1-layer draft of the served widths, weights from seed 1
+    draft = _serve_model(seed=1, **parse_draft_config("layers=1"))
+    kv = SlotKVCache(model, None, slots, kv_layout="paged",
+                     paged_block=block, **pool)
+    widths = Counter()
+    verify = kv.verify_block
+
+    def counted(block_):
+        widths[block_.shape[1]] += 1
+        return verify(block_)
+
+    kv.verify_block = counted
+    small, (launches, _, verify_launches) = _serve_window(
+        "S-small", kv, requests, gpu, before_main=widths.clear,
+        draft_kv=SlotKVCache(draft, None, slots), draft_k=4, multi_step=4)
+    spec = _spec_ledger("S-small", small)
+    assert spec["rejected_tokens"] > 0, spec
+    assert verify_launches == layers * sum(widths.values()), (
+        verify_launches, widths)
+    assert widths[5] > 0, widths
+    single = small["decode_iterations"] - sum(widths.values())
+    assert launches == verify_launches + layers * single, (launches, single)
+    agree = sum(a == b for x, y in zip(p["results"], small["results"])
+                for a, b in zip(x.tokens, y.tokens))
+    print(f"[serve] window S-small: verify rounds by width "
+          f"{dict(sorted(widths.items()))}; paged launches at l_q > 1 "
+          f"{verify_launches}, at l_q = 5 {layers * widths[5]}, at l_q = 1 "
+          f"{launches - verify_launches}; greedy tokens equal to window "
+          f"P's at {agree}/{sum(len(r.tokens) for r in p['results'])} "
+          f"positions")
+
+    # K: fused rounds of 8 steps, pipelined one ahead, each a graph replay
+    kvk = SlotKVCache(model, None, slots, kv_layout="paged",
+                      paged_block=block, **pool)
+    graphs0 = RoundGraph.captures
+    mark = {}
+
+    def before_k():
+        mark["captures"], mark["replays"] = (RoundGraph.captures,
+                                             RoundGraph.replays)
+
+    k, (launches, _, _) = _serve_window("K", kvk, requests, gpu,
+                                        before_main=before_k, multi_step=8)
+    rounds = k["serve_dispatches"] - k["prefill_chunks"]
+    replays = RoundGraph.replays - mark["replays"]
+    assert RoundGraph.captures - graphs0 == 1, RoundGraph.captures - graphs0
+    assert RoundGraph.captures == mark["captures"]
+    assert replays == rounds > 0, (replays, rounds)
+    assert launches == layers * 8 * rounds, (launches, rounds)
+    assert _streams(k) == _streams(p), "window K's streams differ from P's"
+    print(f"[serve] window K vs P ({gpu}): streams bitwise equal; "
+          f"dispatches {k['dispatches']} vs {p['dispatches']}, host_gap_s "
+          f"{k['host_gap_s']:.4f} vs {p['host_gap_s']:.4f}, "
+          f"serve_host_gap_s {k['serve_host_gap_s']:.4f}, tokens/s "
+          f"{k['serve_tokens_per_sec']:.3f} vs "
+          f"{p['serve_tokens_per_sec']:.3f}, decode_iterations "
+          f"{k['decode_iterations']} vs {p['decode_iterations']}; rounds "
+          f"{rounds}, every one a graph replay (1 capture in the warm-up)")
+    return verify_launches, kvk
+
+
+def _sampled_rounds_check(model, requests) -> None:
+    """Temperature 0.8 at a seed on two paged tables holding the trace's
+    first 8 prompts: three rounds of 4 (eager, captured, replayed) draw
+    the tokens of 12 single steps."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+    from distributed_tensorflow_tpu_torch.serving.decode_graph import (
+        RoundGraph)
+
+    def table():
+        kv = SlotKVCache(model, None, SERVE["slots"], kv_layout="paged",
+                         paged_block=SERVE["block"], greedy=False,
+                         temperature=0.8,
+                         generator=torch.Generator("cuda").manual_seed(0))
+        for req in requests[:SERVE["slots"]]:
+            kv.insert(req.prompt)
+        return kv
+
+    single, fused = table(), table()
+    want = np.stack([single.advance() for _ in range(12)])
+    replays = RoundGraph.replays
+    got = np.concatenate([fused.advance_multi(4)[0] for _ in range(3)])
+    assert RoundGraph.replays - replays == 2
+    assert np.array_equal(got, want), "sampled rounds differ from k = 1"
+    print(f"[serve] temperature 0.8, seed 0, paged: 3 rounds of 4 (eager, "
+          f"captured, replayed) equal 12 single steps ({got.size} tokens)")
 
 
 def _fused_vs_gather(model, kv, requests) -> None:
@@ -1919,6 +2167,34 @@ def _profile_decode(kv, label: str, steps: int = 16) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
+def _profile_rounds(kv, label: str, k: int = 8, rounds: int = 2) -> None:
+    """Where a fused round's time goes: ``rounds`` rounds of ``k`` steps
+    (graph replays, each waited for) timed on the host clock, then the
+    same under ``torch.profiler``: per decode step, the wall time, the
+    device's busy time and share, kernels, and the top kernels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        kv.advance_multi(k)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / (rounds * k)
+    rows = _profiled(lambda: [kv.advance_multi(k) for _ in range(rounds)],
+                     rounds * k)
+    busy_us = sum(r[0] for r in rows)
+    if not busy_us:
+        print("[profile] no device time in the trace: not measured")
+        return
+    paged_us = sum(r[0] for r in rows
+                   if re.search(r"paged_(attention|combine)_kernel", r[2]))
+    print(f"[profile] {label} round of {k} (8 active slots), per step: "
+          f"wall_ms={wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
+          f"busy_share={busy_us / wall_us:.4f} "
+          f"paged_attention_ms={paged_us / 1e3:.4f} "
+          f"kernels_per_step={sum(r[1] for r in rows):.1f}")
+    for dev_us, count, key in rows[:8]:
+        print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
+
+
 _MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "half",
             "a": "int8",
             "Lb0E": "false", "Lb1E": "true"}
@@ -1985,7 +2261,7 @@ def main() -> int:
     # before any profiler session: its host times are the measurement
     cnn_phase(gpu)
     local_phase(gpu)
-    launches, int8_launches = serve_phase(gpu)
+    launches, int8_launches, verify_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
     fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
     # the timings last: each profiler session before the serve and train
@@ -1994,6 +2270,8 @@ def main() -> int:
     # windows P and Q; the int8 sub-entry counts Q's int8-route launches
     paged_row["launches"] = launches
     paged_row["int8"]["launches"] = int8_launches
+    # window S-small's verify rounds (l_q > 1)
+    paged_row["verify_lq5"]["launches"] = verify_launches
     flash_rows = flash_timing_phase(flash_errs)
     for row in flash_rows:
         kind = row["name"].rsplit(".", 1)[1]

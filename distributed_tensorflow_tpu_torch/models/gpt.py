@@ -15,8 +15,15 @@ attention (``kv_heads``), weight-tied LM head.  Ported paths:
   (``ops.paged_attention``, the Hopper kernel) or gathered (block table
   gather + masked dense attention, the prefill path and the oracle).
   Monolithic (no ``block_tables``): rows ``{"cached_key", "cached_value"}``
-  of (slots, max_len, KVH, D); the K/V of each (row, position) is written
-  in place and every query attends its row under the mask ``t <= pos``.
+  of (slots, T, KVH, D); the K/V of each (row, position) is written in
+  place and every query attends its row under the mask ``t <= pos``.  A
+  position at or past ``max_len`` is dropped, as the JAX scatter drops it.
+  With ``T = max_len + 1`` (the serving table) the last column is a
+  scratch column: every write lands, those at or past ``max_len`` in that
+  column, at shapes fixed by the input's, so a decode step can be captured
+  in a CUDA graph; the read covers the first ``max_len`` columns.  With
+  ``T = max_len`` the in-table writes are selected on the host
+  (``nonzero``: a data-dependent shape, which a capture cannot hold).
   Under int8 storage each dict also holds f32 scales (``key_scale_pool``/
   ``value_scale_pool`` (N, blk, KVH), or ``key_scale``/``value_scale``
   (slots, max_len, KVH)): K/V are encoded by ``parallel.compression``'s
@@ -168,22 +175,33 @@ class CausalSelfAttention(nn.Module):
 
         ``rows`` holds (B, T, KVH, D) ``cached_key``/``cached_value`` (and
         under int8 the (B, T, KVH) f32 ``key_scale``/``value_scale``).
-        Each (row, position) K/V vector is written in place; ``keep`` is
-        the ``(row, column)`` selection of the positions inside the table
-        (a position at or past ``max_len`` is dropped, as the JAX scatter
-        drops it — the table has no scratch row).  Every query then
-        attends its row's keys ``t <= pos``, its own K/V included."""
+        Each (row, position) K/V vector is written in place.  ``keep`` is
+        None when the table's last column is a scratch column: positions
+        at or past ``T - 1`` are written there.  Otherwise it is the
+        ``(row, column)`` selection of the positions inside the table, and
+        the others are dropped.  Every query then attends its row's real
+        columns ``t <= pos``, its own K/V included."""
         ck, cv = rows["cached_key"], rows["cached_value"]
-        t = ck.shape[1]
-        r, c = keep
         idx = pos.long()
-        enc = self._encode(k[r, c], v[r, c], ck.dtype)
         names = ("cached_key", "cached_value", "key_scale", "value_scale")
+        if keep is None:
+            t = ck.shape[1] - 1
+            r = torch.arange(idx.shape[0], device=idx.device)[:, None]
+            at = idx.clamp(max=t)
+            enc = self._encode(k, v, ck.dtype)
+        else:
+            t = ck.shape[1]
+            r, c = keep
+            at = idx[r, c]
+            enc = self._encode(k[r, c], v[r, c], ck.dtype)
         for name, val in zip(names, enc):
-            rows[name][r, idx[r, c]] = val
+            rows[name][r, at] = val
+        ck, cv = ck[:, :t], cv[:, :t]
         if ck.dtype == torch.int8:
-            keys = int8_channel_decode(ck, rows["key_scale"], self.dtype)
-            vals = int8_channel_decode(cv, rows["value_scale"], self.dtype)
+            keys = int8_channel_decode(ck, rows["key_scale"][:, :t],
+                                       self.dtype)
+            vals = int8_channel_decode(cv, rows["value_scale"][:, :t],
+                                       self.dtype)
         else:
             keys, vals = ck, cv
         valid = (torch.arange(t, device=q.device)[None, None, :]
@@ -427,9 +445,15 @@ class GPTLM(nn.Module):
                                  f"({self.layers}), got {len(pools)}")
             pos = positions
             if block_tables is None:
-                # monolithic rows: the writes that land inside the table,
-                # selected once for every layer
-                keep = (pos < self.max_len).nonzero(as_tuple=True)
+                t = pools[0]["cached_key"].shape[1]
+                if t not in (self.max_len, self.max_len + 1):
+                    raise ValueError(
+                        f"monolithic rows must hold max_len={self.max_len} "
+                        f"columns, or one more (a scratch column); got {t}")
+                if t == self.max_len:
+                    # the writes that land inside the table, selected once
+                    # for every layer
+                    keep = (pos < self.max_len).nonzero(as_tuple=True)
         x = self.token_embed(token_ids).to(self.dtype)
         if self.pos_embed is not None:
             # clamped like the JAX table lookup: a pad position past
@@ -457,12 +481,19 @@ def sample_tokens(logits, *, greedy: bool, temperature: float = 1.0,
     ``softmax(logits / max(temperature, 1e-6))`` per row with
     ``generator`` (on the logits' device).  The sampled stream cannot
     equal the JAX package's: ``jax.random`` and ``torch.Generator`` are
-    different bit generators."""
+    different bit generators.
+
+    The draw is the exponential race ``argmax(p / E)``, ``E ~ Exp(1)``,
+    by which ``torch.multinomial`` draws one sample: the same calls on the
+    same generator, so the same tokens, without multinomial's checks of
+    ``p`` on the host, which wait for the card and cannot be captured in
+    a CUDA graph."""
     if greedy:
         return logits.argmax(-1)
     probs = torch.softmax(logits.float() / max(float(temperature), 1e-6),
                           dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / race).argmax(-1)
 
 
 @torch.no_grad()

@@ -285,8 +285,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
       scale: softmax scale; defaults to ``head_dim ** -0.5``.
 
     Returns (slots, l_q, heads, head_dim) in ``q.dtype``.  Each launch of
-    the CUDA kernel adds one to ``paged_attention.launches``, and one on
-    int8 pools also to ``paged_attention.int8_launches``.
+    the CUDA kernel adds one to ``paged_attention.launches``, one on int8
+    pools also to ``paged_attention.int8_launches``, and one with
+    ``l_q > 1`` (a speculative verify) also to
+    ``paged_attention.verify_launches``.
     """
     _check(q, k_pool, v_pool, block_tables, positions, k_scale, v_scale)
     if q.device.type == "cpu":
@@ -333,8 +335,10 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, positions, *,
                            f"cudaError_t {err}")
     paged_attention.launches += 1
     paged_attention.int8_launches += quantized
+    paged_attention.verify_launches += l_q > 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.verify_launches = 0

@@ -24,15 +24,16 @@ def dense_attention(q, k, v, causal: bool = False, scale: float | None = None,
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     s = torch.einsum("blhd,bmhd->bhlm", q, k) * scale
-    neg = torch.tensor(NEG_INF, dtype=s.dtype, device=s.device)
+    # masked_fill takes the scalar as a kernel argument: no host-to-device
+    # copy, so the read can be captured in a CUDA graph
     if causal:
         lq, lk = s.shape[-2], s.shape[-1]
         qpos = torch.arange(lq, device=s.device)[:, None]
         kpos = torch.arange(lk, device=s.device)[None, :]
-        s = torch.where(qpos >= kpos, s, neg)
+        s = s.masked_fill(qpos < kpos, NEG_INF)
     if kv_mask is not None:
         m = (kv_mask[:, None, :, :] if kv_mask.ndim == 3
              else kv_mask[:, None, None, :])
-        s = torch.where(m > 0, s, neg)
+        s = s.masked_fill(~(m > 0), NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhlm,bmhd->blhd", p, v)

@@ -5,10 +5,13 @@ independent sequences, each with its own length, advanced together by one
 decode step.  Two layouts, selected by ``kv_layout`` as in the JAX package:
 
 * ``SlotKVCache(model, params, slots)`` — monolithic: one
-  ``(slots, max_len, kv_heads, head_dim)`` K/V row per slot and layer,
-  read by masked dense attention.  Decode rows that do not take part write
-  garbage at their own length, invisible under the length-driven mask and
-  overwritten by their next real write.
+  ``(slots, max_len + 1, kv_heads, head_dim)`` K/V row per slot and layer,
+  read by masked dense attention over its first ``max_len`` columns.  The
+  last column is scratch: a write at or past ``max_len`` lands there (the
+  JAX scatter drops it), so every write has a static shape.  Decode rows
+  that do not take part write garbage at their own length, invisible under
+  the length-driven mask and overwritten by their next real write.  The
+  scratch column is not counted in ``kv_bytes_per_slot``.
 * ``SlotKVCache(..., kv_layout="paged")`` builds ``PagedSlotKVCache``: one
   physical KV block pool per layer, shared by every slot, plus host-owned
   per-slot int32 block tables, refcounts and a free list (vLLM
@@ -31,6 +34,22 @@ hit; the paged pool stores block ids with a refcount pin and a hit aliases
 them into the slot's table (zero copy), the write of the last prompt token
 into a shared block going through copy-on-write.
 
+Multi-step decode and speculative verify (JAX ``kv_cache.py:1017-1286``):
+``dispatch_multi(k)`` issues a fused round of ``k`` decode steps with
+token feedback and in-device deactivation (EOS, budget, ``max_len``)
+without waiting for it; ``drain_multi`` waits for the oldest round and
+folds its ``(k, slots)`` token/active stacks into the host mirrors, FIFO;
+``advance_multi`` is the two back to back.  On the card a round is one
+CUDA graph replay (``serving/decode_graph.py``), captured per ``k`` on its
+second use (the first runs eagerly on a side stream); on the CPU the same
+body runs as an eager loop.  The round reads static device buffers that
+the host refreshes only when their value changed (``_dev_cached``), and its
+stacks come back through a pinned buffer of its own behind a CUDA event.
+``verify_block`` scores a ``(slots, width)`` token block in one forward
+(greedy argmaxes); ``commit_block`` and ``rewind`` roll back by length
+bookkeeping alone.  ``dispatch_count`` counts every forward issued: a
+prefill chunk, a decode step, a verify, a fused round.
+
 Differences from the JAX table, all in how work is issued: PyTorch runs
 eagerly, so there are no compiled programs and no power-of-two prefill
 buckets — a chunk of ``n`` prompt tokens is one forward over exactly ``n``
@@ -44,9 +63,9 @@ gather read are the dense math; the fused decode read agrees with them
 within a tolerance, not bitwise; int8 storage is a lossy codec.  Sampled
 streams cannot equal JAX's (``models.gpt.sample_tokens``).
 
-Not ported yet, each raising ``NotImplementedError``: ``advance_multi``,
-speculative verify/commit/rewind, the disaggregated handoff,
-``swap_params``, mesh sharding and the compile/memory ledger.
+Not ported yet, each raising ``NotImplementedError``: mesh sharding and
+the compile/memory ledger; the disaggregated handoff and ``swap_params``
+(the fleet's) are absent.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import sample_tokens
+from distributed_tensorflow_tpu_torch.serving.decode_graph import RoundGraph
 
 
 class SlotOverflow(RuntimeError):
@@ -156,7 +176,45 @@ class SlotKVCache:
         # prefix positions are skipped)
         self.prefill_tokens_computed = 0
         self._phase_s = {"prefill_s": 0.0, "decode_s": 0.0}
+        self._init_multi_state()
         self.cache = self._init_cache()
+
+    def _init_multi_state(self) -> None:
+        """The multi-step decode state (JAX ``kv_cache.py:261-283``).
+        ``eos_tok``/``budget`` arm the fused round's in-device
+        deactivation (-1 = no EOS, 0 = unlimited: the draft table's mode);
+        ``halted`` mirrors slots the device stopped that the scheduler has
+        not evicted yet; ``_inflight`` counts each slot's steps dispatched
+        and not drained.  ``_dev_vecs`` holds the static device buffers of
+        ``_dev_cached`` beside the host value each holds; ``_carry`` the
+        fused round's device state after the last round."""
+        self.eos_tok = np.full(self.slots, -1, np.int32)
+        self.budget = np.zeros(self.slots, np.int32)
+        self.halted = np.zeros(self.slots, np.bool_)
+        self.dispatch_count = 0
+        self._dev_vecs: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
+        # host view at the last dispatch (None: the device carry is not
+        # the last round's)
+        self._multi_snap = None
+        self._multi_pending: list[dict] = []    # in-flight rounds (FIFO)
+        self._inflight = np.zeros(self.slots, np.int32)
+        self._carry = {name: torch.zeros(self.slots, dtype=dtype,
+                                         device=self.device)
+                       for name, dtype in (("tokens", torch.int64),
+                                           ("lengths", torch.int32),
+                                           ("active", torch.bool),
+                                           ("budget", torch.int32))}
+        self._round_out: dict[int, torch.Tensor] = {}   # k → (3, k, slots)
+        self._graphs: dict[int, RoundGraph] = {}
+        self._eager_rounds: set[int] = set()
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured rounds: a graph replays the tensors it was
+        captured on, so any path that rebinds a cache tensor (instead of
+        writing it in place) calls this.  Today only ``_init_cache`` does:
+        the prefix pool's restore and the copy-on-write write in place."""
+        self._graphs.clear()
+        self._eager_rounds.clear()
 
     def _layer_cache(self, lead: tuple, names: tuple) -> dict:
         """One layer's zero KV leaves: (*lead, KVH, D) payload at the
@@ -172,7 +230,9 @@ class SlotKVCache:
         return out
 
     def _init_cache(self) -> list[dict]:
-        return [self._layer_cache((self.slots, self.max_len),
+        # one scratch column past max_len (module docstring)
+        self._drop_graphs()
+        return [self._layer_cache((self.slots, self.max_len + 1),
                                   ("cached_key", "cached_value",
                                    "key_scale", "value_scale"))
                 for _ in range(self.model.layers)]
@@ -208,7 +268,29 @@ class SlotKVCache:
             slot = free[0]
         elif self.active[slot] or self.reserved[slot]:
             raise RuntimeError(f"slot {slot} is active — evict it first")
+        self._reset_multi_slot(slot)
         return prompt, lp, slot
+
+    def _reset_multi_slot(self, slot: int) -> None:
+        """Clear a slot's multi-step state at claim and evict: no EOS,
+        unlimited budget, not halted.  ``_inflight`` is left as it is: it
+        balances dispatch against drain, and a slot reclaimed while a
+        round is out must keep its pending decrement."""
+        self.eos_tok[slot] = -1
+        self.budget[slot] = 0
+        self.halted[slot] = False
+
+    def set_decode_limits(self, slot: int, eos: int | None,
+                          budget: int) -> None:
+        """Arm in-device deactivation for ``slot``: the fused round stops
+        advancing it once it emits ``eos`` (None = never) or has emitted
+        ``budget`` more tokens (0 = unlimited).  Host bookkeeping; the
+        vectors ride the next dispatch."""
+        if budget < 0:
+            raise ValueError(f"budget must be >= 0, got {budget}")
+        self.eos_tok[slot] = -1 if eos is None else int(eos)
+        self.budget[slot] = int(budget)
+        self.halted[slot] = False
 
     def insert(self, prompt, slot: int | None = None) -> tuple[int, int]:
         """Admit a prompt (``begin_insert`` + one uncapped chunk); returns
@@ -269,6 +351,7 @@ class SlotKVCache:
         # while the slot is still pending
         first = int(self._sample(logits[:, -1])[0])
         self._phase_s["prefill_s"] += time.perf_counter() - t0
+        self.dispatch_count += 1
         pend["filled"] = filled + n
         self.lengths[slot] = filled + n
         self.prefill_tokens_computed += n
@@ -312,6 +395,10 @@ class SlotKVCache:
                 f"active slot at length {int(live.max())} would write past "
                 f"max_len={self.max_len}; the scheduler must bound "
                 f"prompt + max_new_tokens at admission")
+        if self._multi_pending:
+            raise RuntimeError(
+                "a fused multi-step round is in flight — drain it before "
+                "a single-step advance (host mirrors lag the device)")
         for slot in np.flatnonzero(mask):
             pos = int(self.lengths[slot])
             self._ensure_writable(int(slot), pos, pos + 1)
@@ -321,16 +408,340 @@ class SlotKVCache:
         """One decode iteration: every ACTIVE slot (or the ``only`` subset)
         consumes its last token and emits the next one; lengths advance by
         one.  Returns the (slots,) token vector — rows that did not take
-        part carry their stale token."""
+        part carry their stale token.  The step's tokens and lengths stay
+        on the device as the next step's inputs (``_dev_learn``), so an
+        uninterrupted decode loop uploads nothing."""
         mask = self.active if only is None else np.asarray(only, np.bool_)
         t0 = time.perf_counter()
         logits = self.decode_logits(mask)
-        nxt = self._sample(logits).cpu().numpy().astype(np.int32)
+        d_nxt = self._sample(logits)
+        nxt = d_nxt.cpu().numpy().astype(np.int32)
         self._phase_s["decode_s"] += time.perf_counter() - t0
+        self.dispatch_count += 1
+        d_mask = self._dev_cached("mask", mask)
+        d_tok = self._dev_cached("tokens", self.tokens)
+        d_len = self._dev_cached("lengths", self.lengths)
         nxt = np.where(mask, nxt, self.tokens)
         self.lengths[mask] += 1
         self.tokens = nxt
+        self._dev_learn("tokens", self.tokens,
+                        torch.where(d_mask, d_nxt, d_tok))
+        self._dev_learn("lengths", self.lengths,
+                        torch.where(d_mask, d_len + 1, d_len))
         return nxt
+
+    # ------------------------------------------------- device slot vectors
+    _DEV_DTYPES = {"tokens": np.int64, "lengths": np.int32,
+                   "mask": np.bool_, "bt": np.int32, "h_tok": np.int64,
+                   "h_len": np.int32, "h_act": np.bool_, "h_bud": np.int32,
+                   "edited": np.bool_, "eos": np.int64}
+
+    def _upload(self, host: np.ndarray, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """Host array → device tensor (into ``out`` when given).  On the
+        card the copy goes through a pinned block of PyTorch's caching
+        host allocator and does not wait: the allocator keeps the block
+        until the copy has run."""
+        src = torch.from_numpy(np.ascontiguousarray(host))
+        if out is None:
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        if self.device.type == "cuda":
+            out.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            out.copy_(src)
+        return out
+
+    def _dev_cached(self, name: str, host) -> torch.Tensor:
+        """The static device buffer of a host slot vector (JAX
+        ``_dev_cached``): written from the host only when the host value
+        differs from the one the buffer holds.  A buffer keeps its address
+        for the table's life, so a captured round reads it; every write
+        to it is ordered on the stream after the work issued before."""
+        host = np.asarray(host, self._DEV_DTYPES[name])
+        hit = self._dev_vecs.get(name)
+        if hit is not None and np.array_equal(hit[0], host):
+            return hit[1]
+        buf = self._upload(host, None if hit is None else hit[1])
+        self._dev_vecs[name] = (host.copy(), buf)
+        return buf
+
+    def _dev_learn(self, name: str, host, dev: torch.Tensor) -> None:
+        """Adopt a device result as the buffer's value (JAX
+        ``_dev_learn``): the caller set the host mirror to the same value,
+        so the next ``_dev_cached`` of it uploads nothing."""
+        host = np.asarray(host, self._DEV_DTYPES[name])
+        buf = self._dev_vecs[name][1]
+        buf.copy_(dev)
+        self._dev_vecs[name] = (host.copy(), buf)
+
+    # ------------------------------------------------- multi-step decode
+    def _round_body(self, k: int) -> None:
+        """One fused round of ``k`` decode steps on the static buffers
+        (JAX ``_multi``): the prologue selects the host edits over the
+        device carry per slot, then each step writes K/V at each slot's
+        length, samples, and takes a slot out of the carried mask once it
+        emits its EOS, spends its budget or reaches ``max_len``.  Writes
+        the ``(3, k, slots)`` int32 stack of tokens, active-at-entry and
+        done flags into ``_round_out[k]`` and the carry back into its
+        buffers.  This is what ``RoundGraph`` captures."""
+        vec, carry = self._dev_vecs, self._carry
+        edited = vec["edited"][1]
+        tokens = torch.where(edited, vec["h_tok"][1], carry["tokens"])
+        lengths = torch.where(edited, vec["h_len"][1], carry["lengths"])
+        active = torch.where(edited, vec["h_act"][1], carry["active"])
+        budget = torch.where(edited, vec["h_bud"][1], carry["budget"])
+        eos = vec["eos"][1]
+        # the paged table's snapshot, staged by ``_multi_prepare``
+        bt = vec["bt"][1] if "bt" in vec else None
+        rows = []
+        for _ in range(k):
+            logits = self._step_forward(tokens[:, None], lengths[:, None],
+                                        bt)[:, -1]
+            nxt = torch.where(active, self._sample(logits), tokens)
+            nlen = torch.where(active, lengths + 1, lengths)
+            armed = budget > 0
+            nbud = torch.where(active & armed, budget - 1, budget)
+            done = active & ((nxt == eos) | (armed & (nbud <= 0))
+                             | (nlen >= self.max_len))
+            rows.append(torch.stack([nxt.int(), active.int(), done.int()]))
+            tokens, lengths, active, budget = (nxt, nlen, active & ~done,
+                                               nbud)
+        self._round_out[k].copy_(torch.stack(rows, dim=1))
+        for name, val in (("tokens", tokens), ("lengths", lengths),
+                          ("active", active), ("budget", budget)):
+            carry[name].copy_(val)
+
+    def _run_round(self, k: int) -> None:
+        """Issue ``_round_body(k)``: eagerly on the CPU; on the card a
+        ``k``'s first round runs eagerly on a side stream (it creates what
+        a capture must find: library handles, workspaces), the second is
+        captured and replayed, every later one replays.  A capture that
+        fails raises; there is no eager fallback."""
+        if k not in self._round_out:
+            self._round_out[k] = torch.zeros((3, k, self.slots),
+                                             dtype=torch.int32,
+                                             device=self.device)
+        if self.device.type != "cuda":
+            self._round_body(k)
+            return
+        graph = self._graphs.get(k)
+        if graph is None:
+            if k not in self._eager_rounds:
+                self._eager_rounds.add(k)
+                here = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(here)
+                with torch.cuda.stream(side):
+                    self._round_body(k)
+                here.wait_stream(side)
+                return
+            graph = self._graphs[k] = RoundGraph(self, k)
+        graph.replay(self)
+
+    def _multi_prepare(self, mask: np.ndarray, k: int) -> None:
+        """Layout hook before a fused dispatch (the paged table covers
+        in-flight growth and stages its block table)."""
+
+    def dispatch_multi(self, k: int) -> dict:
+        """Issue one fused round of ``k`` decode steps without waiting for
+        it (JAX ``dispatch_multi``).  Slots the device already deactivated
+        (``halted``) are left out; host edits since the last dispatch
+        ride as ``edited``-selected uploads.  The round's stacks start
+        their copy to a pinned host buffer behind the round's own event,
+        enqueued before any later round can overwrite them.  Rounds drain
+        in dispatch order."""
+        if k < 1:
+            raise ValueError(f"multi-step k must be >= 1, got {k}")
+        mask = self.active & ~self.halted
+        self._multi_prepare(mask, k)
+        self._inflight[mask] += k
+        h_tok = self.tokens.astype(np.int32)
+        h_len = self.lengths.astype(np.int32)
+        h_act = mask.astype(np.bool_)
+        h_bud = self.budget.astype(np.int32)
+        snap = self._multi_snap
+        if snap is None:
+            edited = np.ones(self.slots, np.bool_)
+        else:
+            # host diverged from the host view at the last dispatch; drain
+            # applies each round's deltas to both, so only scheduler edits
+            # show
+            edited = ((h_tok != snap["tokens"]) | (h_len != snap["lengths"])
+                      | (h_act != snap["mask"]) | (h_bud != snap["budget"]))
+        t0 = time.perf_counter()
+        for name, host in (("h_tok", h_tok), ("h_len", h_len),
+                           ("h_act", h_act), ("h_bud", h_bud),
+                           ("edited", edited), ("eos", self.eos_tok)):
+            self._dev_cached(name, host)
+        self._run_round(k)
+        self.dispatch_count += 1
+        out = self._round_out[k]
+        if self.device.type == "cuda":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = out.clone(), None
+        self._phase_s["decode_s"] += time.perf_counter() - t0
+        self._multi_snap = {"tokens": h_tok.copy(), "lengths": h_len.copy(),
+                            "mask": h_act.copy(), "budget": h_bud.copy()}
+        handle = {"k": int(k), "mask": h_act.copy(), "host": host,
+                  "event": event}
+        self._multi_pending.append(handle)
+        return handle
+
+    def drain_multi(self, handle: dict | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for the oldest round and fold its deltas into the host
+        mirrors (JAX ``drain_multi``): lengths advance by each slot's
+        emitted count, ``tokens`` takes the last emission, spent budgets
+        shrink, deactivated slots set ``halted``; the same deltas land on
+        the dispatch snapshot.  Returns ``(toks, acts)``, (k, slots)
+        stacks of tokens and the active-at-entry mask per step (a
+        contiguous True prefix per slot)."""
+        if not self._multi_pending:
+            raise RuntimeError("no fused round in flight")
+        if handle is not None and handle is not self._multi_pending[0]:
+            raise RuntimeError(
+                "fused rounds drain in dispatch order — this handle is "
+                "not the oldest outstanding round")
+        handle = self._multi_pending.pop(0)
+        k, mask = handle["k"], handle["mask"]
+        t0 = time.perf_counter()
+        if handle["event"] is not None:
+            handle["event"].synchronize()
+        stack = handle["host"].numpy().copy()
+        self._phase_s["decode_s"] += time.perf_counter() - t0
+        toks = stack[0]
+        acts = stack[1].astype(np.bool_)
+        dones = stack[2].astype(np.bool_)
+        self._inflight[mask] -= k
+        emitted = acts.sum(axis=0).astype(np.int32)
+        sel = emitted > 0
+        done_any = dones.any(axis=0)
+        snap = self._multi_snap
+        # a slot evicted and readmitted mid-flight was inactive on the
+        # device for the whole round (the host's finish conditions are
+        # the device's stop conditions), so ``sel`` covers only slots
+        # whose host state still describes this round's stream
+        self.lengths[sel] += emitted[sel]
+        snap["lengths"][sel] += emitted[sel]
+        last = toks[np.maximum(emitted - 1, 0), np.arange(self.slots)]
+        self.tokens[sel] = last[sel]
+        snap["tokens"][sel] = last[sel]
+        bsel = sel & (self.budget > 0)
+        self.budget[bsel] -= emitted[bsel]
+        snap["budget"][bsel] -= emitted[bsel]
+        self.halted |= done_any
+        snap["mask"] &= ~done_any
+        return toks, acts
+
+    def advance_multi(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """``dispatch_multi`` + ``drain_multi`` back to back: one fused
+        round, waited for (the draft's proposal loop uses this)."""
+        self.dispatch_multi(k)
+        return self.drain_multi()
+
+    @property
+    def pending_multi(self) -> int:
+        """Outstanding (dispatched, undrained) fused rounds."""
+        return len(self._multi_pending)
+
+    def abandon_multi(self) -> None:
+        """Drop every outstanding round without folding its tokens into
+        the host mirrors (the batcher's failure cleanup): ``_inflight`` is
+        rebalanced and the device carry forgotten, so the next dispatch
+        uploads from the host mirrors."""
+        for handle in self._multi_pending:
+            self._inflight[handle["mask"]] -= handle["k"]
+        self._multi_pending.clear()
+        self._multi_snap = None
+
+    # ------------------------------------------------- speculative decode
+    def _check_verify(self, block) -> np.ndarray:
+        if not self.greedy:
+            raise ValueError(
+                "verify_block requires greedy sampling: the exact "
+                "acceptance rule (accept while draft == target argmax) "
+                "only exists for greedy decode")
+        block = np.asarray(block, np.int32)
+        if block.ndim != 2 or block.shape[0] != self.slots:
+            raise ValueError(
+                f"block must be (slots, width) = ({self.slots}, k+1), "
+                f"got {block.shape}")
+        width = int(block.shape[1])
+        live = self.lengths[self.active]
+        if live.size and int(live.max()) + width > self.max_len:
+            raise SlotOverflow(
+                f"verify width {width} at length {int(live.max())} would "
+                f"write past max_len={self.max_len}; the scheduler must "
+                f"cap the draft k by remaining slot capacity")
+        if self._multi_pending:
+            raise RuntimeError(
+                "a fused multi-step round is in flight — drain it before "
+                "a verify (host mirrors lag the device)")
+        return block
+
+    def verify_logits(self, block) -> torch.Tensor:
+        """The verify forward without the argmax: (slots, width, vocab)
+        f32 logits on the device (``verify_block``)."""
+        block = self._check_verify(block)
+        width = int(block.shape[1])
+        for slot in np.flatnonzero(self.active):
+            pos = int(self.lengths[slot])
+            self._ensure_writable(int(slot), pos, pos + width)
+        d_len = self._dev_cached("lengths", self.lengths)
+        positions = d_len[:, None] + torch.arange(
+            width, dtype=torch.int32, device=self.device)[None, :]
+        return self._step_forward(self._upload(block.astype(np.int64)),
+                                  positions, self._decode_bt(self.active))
+
+    def verify_block(self, block) -> np.ndarray:
+        """Score a (slots, width) token block in one forward and return
+        the (slots, width) greedy argmaxes (JAX ``verify_block``).  Per
+        slot ``block[s] = [pending, d_1, .., d_{width-1}]`` enters at
+        positions ``length .. length+width-1``, each query masked to the
+        positions up to its own; ``g[s, j]`` is the target's token after
+        ``block[s, :j+1]``.  Host lengths and tokens are not touched: the
+        scheduler commits, and rejected positions are invalidated by
+        length bookkeeping alone.  Greedy only."""
+        t0 = time.perf_counter()
+        g = self.verify_logits(block).argmax(-1).cpu().numpy()
+        self._phase_s["decode_s"] += time.perf_counter() - t0
+        self.dispatch_count += 1
+        return g.astype(np.int32)
+
+    def commit_block(self, slot: int, n: int, last_token: int) -> None:
+        """Commit ``n`` verified positions of the last ``verify_block``
+        into ``slot``: its length advances by ``n`` and ``last_token`` (the
+        target's own token at the acceptance point) becomes its pending
+        token.  The rejected tail stays in the table, past the length."""
+        if not self.active[slot]:
+            raise RuntimeError(f"slot {slot} is not active")
+        if n < 1:
+            raise ValueError(f"commit_block needs n >= 1, got {n}")
+        if int(self.lengths[slot]) + n > self.max_len:
+            raise SlotOverflow(
+                f"committing {n} positions at length "
+                f"{int(self.lengths[slot])} exceeds max_len={self.max_len}")
+        self.lengths[slot] += n
+        self.tokens[slot] = int(last_token)
+
+    def rewind(self, slot: int, length: int, token: int) -> None:
+        """Set a slot's length back to ``length`` and its pending token
+        (the draft table's resync after a verify round): positions past
+        ``length`` were speculative writes.  A rewind never extends
+        validity, and clears ``halted``."""
+        if not self.active[slot]:
+            raise RuntimeError(f"slot {slot} is not active")
+        if length > int(self.lengths[slot]):
+            raise ValueError(
+                f"rewind cannot extend validity: slot {slot} is at "
+                f"{int(self.lengths[slot])}, asked for {length}")
+        self.lengths[slot] = int(length)
+        self.tokens[slot] = int(token)
+        self.halted[slot] = False
 
     def evict(self, slot: int) -> None:
         """Free a slot.  Monolithic: host bookkeeping only — stale K/V is
@@ -341,6 +752,7 @@ class SlotKVCache:
         self.active[slot] = False
         self.lengths[slot] = 0
         self.tokens[slot] = 0
+        self._reset_multi_slot(slot)
 
     def phase_times(self) -> dict[str, float]:
         """Cumulative host-observed seconds in prefill and decode forwards
@@ -351,14 +763,28 @@ class SlotKVCache:
     # ------------------------------------------------------------ forwards
     def _forward(self, tokens: np.ndarray, positions: np.ndarray, kv,
                  **kw) -> torch.Tensor:
-        """One model forward over (B, L) tokens at (B, L) positions,
+        """One model forward over (B, L) host tokens at (B, L) positions,
         writing ``kv`` in place; returns the logits."""
         with torch.no_grad():
-            return self.model(
-                torch.from_numpy(tokens.astype(np.int64)).to(self.device),
-                positions=torch.from_numpy(
-                    positions.astype(np.int32)).to(self.device),
-                pools=kv, **kw)
+            return self.model(self._upload(tokens.astype(np.int64)),
+                              positions=self._upload(
+                                  positions.astype(np.int32)),
+                              pools=kv, **kw)
+
+    def _step_forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                      bt) -> torch.Tensor:
+        """A decode or verify forward of every slot over (slots, L) device
+        tokens at (slots, L) int32 positions (``bt``: the paged table's
+        masked block tables, None for the monolithic table)."""
+        kw = ({} if bt is None
+              else dict(block_tables=bt, paged_fused=self.paged_fused))
+        with torch.no_grad():
+            return self.model(tokens, positions=positions, pools=self.cache,
+                              **kw)
+
+    def _decode_bt(self, mask):
+        """The block tables of a forward of ``mask`` (None: monolithic)."""
+        return None
 
     def _rows(self, slot: int) -> list[dict]:
         """Every layer's leaves restricted to one slot's row (views)."""
@@ -373,8 +799,11 @@ class SlotKVCache:
         return self._forward(tokens, positions, self._rows(slot))
 
     def _decode_forward(self, mask) -> torch.Tensor:
-        return self._forward(self.tokens[:, None], self.lengths[:, None],
-                             self.cache)
+        """One decode step's forward over the device slot vectors."""
+        return self._step_forward(
+            self._dev_cached("tokens", self.tokens)[:, None],
+            self._dev_cached("lengths", self.lengths)[:, None],
+            self._decode_bt(mask))
 
     # --------------------------------------------------------- prefix pool
     def _prefix_keys(self, prompt: np.ndarray, n_blocks: int) -> list[bytes]:
@@ -468,8 +897,10 @@ class SlotKVCache:
 
     def kv_bytes_per_slot(self) -> int:
         """Stored KV-table bytes per slot: every leaf (K/V and, under
-        int8, the f32 scales) over the slot count."""
-        return self._leaf_bytes() // self.slots
+        int8, the f32 scales) over the slot count, the scratch column
+        left out."""
+        return (self._leaf_bytes() * self.max_len // (self.max_len + 1)
+                // self.slots)
 
 
 class PagedSlotKVCache(SlotKVCache):
@@ -529,9 +960,9 @@ class PagedSlotKVCache(SlotKVCache):
         self._slot_need = np.zeros(self.slots, np.int32)
         self._paged_counters = {"zero_copy_hits": 0, "zero_copy_blocks": 0,
                                 "zero_copy_tokens": 0, "cow_copies": 0}
-        self._bt_cache: tuple[np.ndarray, torch.Tensor] | None = None
 
     def _init_cache(self) -> list[dict]:
+        self._drop_graphs()
         return [self._layer_cache((self.num_blocks + 1, self.paged_block),
                                   ("key_pool", "value_pool",
                                    "key_scale_pool", "value_scale_pool"))
@@ -600,16 +1031,26 @@ class PagedSlotKVCache(SlotKVCache):
 
     def _masked_bt(self, mask) -> torch.Tensor:
         """Device block-table snapshot with non-participating rows routed
-        wholly to scratch.  An unchanged table is not uploaded again."""
+        wholly to scratch, in one static buffer (``_dev_cached``: an
+        unchanged table is not uploaded again)."""
         bt = np.where(np.asarray(mask, np.bool_)[:, None],
                       self.block_tables_np, np.int32(self._scratch))
-        bt = bt.astype(np.int32)
-        if self._bt_cache is not None and np.array_equal(self._bt_cache[0],
-                                                         bt):
-            return self._bt_cache[1]
-        dev = torch.from_numpy(bt).to(self.device)
-        self._bt_cache = (bt, dev)
-        return dev
+        return self._dev_cached("bt", bt)
+
+    _decode_bt = _masked_bt
+
+    def _multi_prepare(self, mask: np.ndarray, k: int) -> None:
+        """Cover every masked slot's growth in flight — undrained rounds
+        (``_inflight``) plus this round's ``k`` — so that no fused write
+        lands outside the slot's own blocks, then stage the masked block
+        table (JAX ``kv_cache.py:2040-2050``).  A slot the device stops
+        mid-round keeps writing at its frozen length: into its own
+        covered block, or past the snapshot's coverage into scratch."""
+        for slot in np.flatnonzero(mask):
+            start = int(self.lengths[slot])
+            end = min(start + int(self._inflight[slot]) + k, self.max_len)
+            self._ensure_writable(int(slot), start, end)
+        self._masked_bt(mask)
 
     # ------------------------------------------------- admission budgets
     def _block_need(self, total_len: int) -> int:
@@ -637,17 +1078,9 @@ class PagedSlotKVCache(SlotKVCache):
     # ------------------------------------------------------------ forwards
     def _prefill_forward(self, slot, tokens, positions) -> torch.Tensor:
         """The gather read over the slot's own block table row."""
-        bt_row = torch.from_numpy(
-            self.block_tables_np[slot:slot + 1].copy()).to(self.device)
+        bt_row = self._upload(self.block_tables_np[slot:slot + 1])
         return self._forward(tokens, positions, self.cache,
                              block_tables=bt_row, paged_fused=False)
-
-    def _decode_forward(self, mask) -> torch.Tensor:
-        """The fused read (or the gather read with ``paged_fused=False``)
-        over the masked block tables."""
-        return self._forward(self.tokens[:, None], self.lengths[:, None],
-                             self.cache, block_tables=self._masked_bt(mask),
-                             paged_fused=self.paged_fused)
 
     def abort_insert(self, slot: int) -> None:
         super().abort_insert(slot)

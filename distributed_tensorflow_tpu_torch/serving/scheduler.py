@@ -14,14 +14,28 @@ first token (queue wait included), ITL the gap between consecutive token
 deliveries, both as p50/p95/p99.  Clocks are injectable: ``WallClock``
 (real time) or ``VirtualClock`` (time = decode iterations, deterministic).
 
-All host-side: this module is the JAX package's scheduler with the
-single-token decode loop only, over either table layout (the paged pool's
-admission gate and ledger are used when the table has them).  The summary
-carries the prefix pool's hit rate and ledger, and under the paged layout
-the zero-copy hit rate.  Speculative decoding (``draft_kv``),
-``multi_step``, disaggregated roles/handoff, the roofline, the timeline
-sampler and SLO monitors are not ported yet and raise
-``NotImplementedError``.
+All host-side: this module is the JAX package's scheduler over either
+table layout (the paged pool's admission gate and ledger are used when the
+table has them).  The summary carries the prefix pool's hit rate and
+ledger, and under the paged layout the zero-copy hit rate.
+
+* ``draft_kv`` / ``draft_k``: greedy speculative decoding (draft-k →
+  verify-1).  A draft table in slot lockstep proposes ``k`` tokens per
+  live slot, the target scores all ``k + 1`` positions in one verify
+  forward, and each slot accepts the longest draft prefix matching the
+  target's argmaxes plus the target's own next token: the stream is
+  bitwise the non-speculative one.  Rejected positions roll back by
+  length bookkeeping alone (``rewind``).
+* ``multi_step=K``: decode runs as fused K-step rounds
+  (``SlotKVCache.dispatch_multi``; on the card one CUDA graph replay
+  each), pipelined one round ahead: round i+1 is dispatched before round
+  i is drained, so admissions wait at most one round.  The stack is
+  delivered level by level, as K single iterations would deliver it.
+  With a draft attached the outer loop stays per verify round, and the
+  draft's proposal loop is one fused round.
+
+Disaggregated roles/handoff, the roofline, the timeline sampler and SLO
+monitors are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +52,8 @@ from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.observability.metrics import (
     MetricsRegistry, exact_percentile)
 from distributed_tensorflow_tpu_torch.observability.trace import NULL_TRACER
-from distributed_tensorflow_tpu_torch.serving.kv_cache import SlotKVCache
+from distributed_tensorflow_tpu_torch.serving.kv_cache import (
+    SlotKVCache, SlotOverflow)
 
 
 # ------------------------------------------------------------------ clocks
@@ -197,6 +212,10 @@ class RequestResult:
     itl_s: list[float] = dataclasses.field(default_factory=list)
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
+    # speculative decoding (zeros without a draft): draft tokens proposed
+    # for this request and accepted by the target's verify
+    proposed_tokens: int = 0
+    accepted_tokens: int = 0
 
     @property
     def ttft_s(self) -> float:
@@ -232,8 +251,8 @@ class ContinuousBatcher:
                  clock=None, mode: str = "continuous",
                  prefill_chunk: int = 0, metrics=None, slo=None,
                  queue_cap: int = 0, should_stop=None,
-                 draft_kv: SlotKVCache | None = None, timeline=None,
-                 role: str | None = None, handoff_out=None,
+                 draft_kv: SlotKVCache | None = None, draft_k: int = 4,
+                 timeline=None, role: str | None = None, handoff_out=None,
                  roofline=None, multi_step: int | None = None):
         if mode not in ("continuous", "static"):
             raise ValueError(f"mode must be continuous|static, got {mode}")
@@ -246,17 +265,37 @@ class ContinuousBatcher:
                 f"queue_cap must be >= 0 (0 = unbounded admission), got "
                 f"{queue_cap}")
         if draft_kv is not None:
-            not_ported("speculative decoding (draft_kv)",
-                        "speculative verify and advance_multi")
-        if multi_step is not None:
-            not_ported("multi_step decode",
-                        "speculative verify and advance_multi")
+            if draft_k < 1:
+                raise ValueError(
+                    f"draft_k must be >= 1 (draft tokens proposed per "
+                    f"verify round), got {draft_k}")
+            if not (kv.greedy and draft_kv.greedy):
+                raise ValueError(
+                    "speculative decoding requires greedy sampling on "
+                    "both the target and the draft: the exact acceptance "
+                    "rule only exists for greedy decode")
+            if draft_kv.slots != kv.slots:
+                raise ValueError(
+                    f"draft slot table ({draft_kv.slots}) must match the "
+                    f"target's ({kv.slots}): slots run in lockstep")
+            if draft_kv.max_len < kv.max_len:
+                raise ValueError(
+                    f"draft max_len ({draft_kv.max_len}) must cover the "
+                    f"target's ({kv.max_len}): the draft mirrors every "
+                    f"slot position")
+        if multi_step is not None and int(multi_step) < 1:
+            raise ValueError(
+                f"multi_step must be >= 1 fused decode iterations per "
+                f"dispatch, got {multi_step}")
         if role is not None or handoff_out is not None:
             not_ported("disaggregated roles / KV handoff", "fleet")
         if slo is not None or timeline is not None or roofline is not None:
             not_ported("SLO monitors, the timeline and the roofline",
                         "rest of observability")
         self.kv = kv
+        self.draft_kv = draft_kv
+        self.draft_k = int(draft_k)
+        self.multi_step = None if multi_step is None else int(multi_step)
         self.tracer = tracer
         self.clock = clock if clock is not None else WallClock()
         self.mode = mode
@@ -302,6 +341,8 @@ class ContinuousBatcher:
         dec_span = tracer.span("decode", rid=req.rid, slot=slot)
         dec_span.__enter__()
         live[slot] = _Live(req, result, req_span, dec_span, now, req_attrs)
+        self._arm_multi(slot, live[slot])
+        self._draft_admit(req.prompt, slot, first)
         if self._finished(live[slot]):
             # the prefill's token was the whole continuation
             self._finish(slot, live)
@@ -338,8 +379,28 @@ class ContinuousBatcher:
         dec_span.__enter__()
         live[slot] = _Live(req, result, pend["span"], dec_span, now,
                            pend["attrs"])
+        self._arm_multi(slot, live[slot])
+        self._draft_admit(req.prompt, slot, first)
         if self._finished(live[slot]):
             self._finish(slot, live)
+
+    def _arm_multi(self, slot: int, lv: _Live) -> None:
+        """Arm the table's in-device deactivation for a newly live slot
+        (``multi_step`` only): the fused rounds stop it once it emits its
+        EOS or the tokens it still owes after the prefill's first."""
+        if self.multi_step is None:
+            return
+        remaining = lv.req.max_new_tokens - len(lv.result.tokens)
+        self.kv.set_decode_limits(slot, lv.req.eos_id, max(remaining, 0))
+
+    def _draft_admit(self, prompt, slot: int, first: int) -> None:
+        """Admit the same prompt into the draft table's same slot (slot
+        lockstep).  The draft's own first token is dropped: the pending
+        token is the target's."""
+        if self.draft_kv is None:
+            return
+        self.draft_kv.insert(prompt, slot=slot)
+        self.draft_kv.tokens[slot] = int(first)
 
     def _finished(self, lv: _Live) -> bool:
         if len(lv.result.tokens) >= lv.req.max_new_tokens:
@@ -363,6 +424,8 @@ class ContinuousBatcher:
         lv.dec_span.__exit__(None, None, None)
         lv.req_span.__exit__(None, None, None)
         self.kv.evict(slot)
+        if self.draft_kv is not None and self.draft_kv.active[slot]:
+            self.draft_kv.evict(slot)
         self._results.append(lv.result)
 
     def _shed(self, req: Request, depth: int) -> None:
@@ -407,7 +470,10 @@ class ContinuousBatcher:
                on_token: Callable[[int, int], None] | None,
                ) -> tuple[int, int, int]:
         """The iteration loop; returns (decode_iterations, prefills,
-        prefill_chunks)."""
+        prefill_chunks).  With ``multi_step`` and no draft, the pipelined
+        ``_serve_multi`` instead."""
+        if self.multi_step is not None and self.draft_kv is None:
+            return self._serve_multi(queue, live, pending, on_token)
         clock = self.clock
         decode_iterations = 0
         prefills = 0
@@ -435,15 +501,20 @@ class ContinuousBatcher:
             now = clock.now()
             for slot in sorted(live):
                 lv = live[slot]
-                tok = emitted[slot]
-                lv.result.tokens.append(tok)
-                lv.result.itl_s.append(now - lv.last_t)
-                lv.last_t = now
-                self._decode_tokens += 1
-                if on_token is not None:
-                    on_token(lv.req.rid, tok)
-                if self._finished(lv):
-                    self._finish(slot, live)
+                for j, tok in enumerate(emitted[slot]):
+                    lv.result.tokens.append(tok)
+                    # ITL per emitted token: a verify round delivers its
+                    # accepted tokens at one instant, so the round's first
+                    # token carries the gap and the others 0
+                    lv.result.itl_s.append((now - lv.last_t) if j == 0
+                                           else 0.0)
+                    lv.last_t = now
+                    self._decode_tokens += 1
+                    if on_token is not None:
+                        on_token(lv.req.rid, tok)
+                    if self._finished(lv):
+                        self._finish(slot, live)
+                        break
         return decode_iterations, prefills, chunks
 
     def _admission_pass(self, queue: RequestQueue, live: dict[int, _Live],
@@ -511,11 +582,177 @@ class ContinuousBatcher:
             on_token(pend["req"].rid, first)
         return 1, 1
 
-    def _decode_round(self, live: dict[int, _Live]) -> dict[int, int]:
-        """One decode iteration → each live slot's emitted token."""
-        with self.tracer.span("decode_step", active=len(live)):
-            toks = self.kv.advance()
-        return {slot: int(toks[slot]) for slot in live}
+    # ------------------------------------------------- multi-step pipeline
+    def _serve_multi(self, queue: RequestQueue, live: dict[int, _Live],
+                     pending: dict[int, dict],
+                     on_token: Callable[[int, int], None] | None,
+                     ) -> tuple[int, int, int]:
+        """The ``multi_step`` loop (JAX ``_serve_multi``): each pass runs
+        the admission, shed and chunk passes, DISPATCHES the next fused
+        round and only then DRAINS the previous one, so the card decodes
+        round i+1 while the host delivers round i.  One round is in flight
+        at a time; an admission seen between a dispatch and its drain
+        joins the next round."""
+        kv, tracer, clock = self.kv, self.tracer, self.clock
+        k = self.multi_step
+        decode_iterations = 0
+        prefills = 0
+        chunks = 0
+        inflight = None
+        while len(queue) or live or pending or inflight is not None:
+            self._check_preempt(decode_iterations, queue)
+            if self._preempted is not None \
+                    and not (live or pending or inflight is not None):
+                break
+            prefills += self._admission_pass(queue, live, pending, on_token)
+            self._shed_pass(queue)
+            self._registry.record("queue_depth", queue.depth(clock.now()))
+            dc, dp = self._chunk_pass(live, pending, on_token)
+            chunks += dc
+            prefills += dp
+            handle = None
+            # slots the device halted (EOS/budget mid-round) never
+            # dispatch again: they finish at this round's drain
+            if live and any(not kv.halted[s] for s in live):
+                with tracer.span("decode_dispatch", active=len(live), k=k):
+                    handle = kv.dispatch_multi(k)
+            if inflight is not None:
+                toks, acts = kv.drain_multi(inflight)
+                inflight = None
+                decode_iterations += self._deliver_multi(live, toks, acts,
+                                                         on_token)
+                # a live slot still halted after delivery met the device's
+                # stop conditions without ``_finished`` agreeing: only the
+                # table's end (length == max_len) does that
+                for slot in sorted(live):
+                    if kv.halted[slot]:
+                        raise SlotOverflow(
+                            f"slot {slot} reached max_len={kv.max_len} "
+                            f"mid-round with "
+                            f"{live[slot].req.max_new_tokens} tokens "
+                            "requested — admission must bound "
+                            "prompt+max_new_tokens to max_len")
+            if handle is not None:
+                inflight = handle
+                continue
+            if live or pending:
+                continue
+            if queue.next_arrival() is None:
+                break
+            self._idle_wait(queue, decode_iterations)
+        return decode_iterations, prefills, chunks
+
+    def _deliver_multi(self, live: dict[int, _Live], toks: np.ndarray,
+                       acts: np.ndarray,
+                       on_token: Callable[[int, int], None] | None) -> int:
+        """Replay a drained (k, slots) stack level by level as if each
+        level were one decode iteration → the iterations delivered.  Each
+        non-empty level advances the clock once and stamps each of its
+        tokens with ``now - last_t``: under ``VirtualClock`` the k = 1
+        attribution exactly.  Levels where every slot had stopped deliver
+        nothing and are not counted."""
+        clock = self.clock
+        iterations = 0
+        for j in range(acts.shape[0]):
+            if not acts[j].any():
+                continue
+            clock.on_decode_iteration()
+            now = clock.now()
+            iterations += 1
+            for slot in np.flatnonzero(acts[j]):
+                slot = int(slot)
+                if slot not in live:
+                    continue
+                lv = live[slot]
+                tok = int(toks[j, slot])
+                lv.result.tokens.append(tok)
+                lv.result.itl_s.append(now - lv.last_t)
+                lv.last_t = now
+                self._decode_tokens += 1
+                if on_token is not None:
+                    on_token(lv.req.rid, tok)
+                if self._finished(lv):
+                    self._finish(slot, live)
+        return iterations
+
+    # ------------------------------------------------- speculative decode
+    def _decode_round(self, live: dict[int, _Live]) -> dict[int, list[int]]:
+        """One target decode iteration → each live slot's emitted tokens:
+        one from ``advance``, or, with a draft that can help this round,
+        up to ``draft_k + 1`` from a draft-k → verify-1 round."""
+        k_eff = self._spec_k(live) if self.draft_kv is not None else 0
+        if k_eff < 1:
+            with self.tracer.span("decode_step", active=len(live)):
+                toks = self.kv.advance()
+            return {slot: [int(toks[slot])] for slot in live}
+        return self._spec_round(live, k_eff)
+
+    def _spec_k(self, live: dict[int, _Live]) -> int:
+        """This round's draft budget: ``draft_k`` capped by the room left
+        in every live slot (all k + 1 verify positions must fit) and by
+        the longest remaining request (one round emits at most k + 1)."""
+        kv = self.kv
+        cap = min(kv.max_len - int(kv.lengths[s]) for s in live) - 1
+        needed = max(lv.req.max_new_tokens - len(lv.result.tokens)
+                     for lv in live.values()) - 1
+        return min(self.draft_k, cap, needed)
+
+    def _spec_round(self, live: dict[int, _Live],
+                    k_eff: int) -> dict[int, list[int]]:
+        """Draft-k → verify-1 (JAX ``_spec_round``): the draft proposes
+        ``k_eff`` tokens for every live slot (one fused round with
+        ``multi_step`` and ``k_eff > 1``, else ``k_eff`` single steps),
+        the target scores all ``k_eff + 1`` positions in one verify, and
+        each slot accepts the longest draft prefix matching the target's
+        argmaxes plus the target's own next token.  The draft resyncs by
+        ``rewind``; a fully accepted slot never consumed its last
+        proposal, so it takes one masked catch-up step."""
+        kv, draft, tracer = self.kv, self.draft_kv, self.tracer
+        slots = sorted(live)
+        base = {s: int(kv.lengths[s]) for s in slots}
+        block = np.zeros((kv.slots, k_eff + 1), np.int32)
+        block[:, 0] = kv.tokens
+        with tracer.span("draft_propose", active=len(live), k=k_eff):
+            if self.multi_step is not None and k_eff > 1:
+                stack, _ = draft.advance_multi(k_eff)
+                block[:, 1:] = stack.T
+                self._draft_iterations += k_eff
+            else:
+                for j in range(k_eff):
+                    block[:, j + 1] = draft.advance()
+                    self._draft_iterations += 1
+        with tracer.span("decode_step", active=len(live),
+                         verify_width=k_eff + 1):
+            g = kv.verify_block(block)
+        emitted: dict[int, list[int]] = {}
+        full = np.zeros(kv.slots, np.bool_)
+        for s in slots:
+            a = 0
+            while a < k_eff and block[s, a + 1] == g[s, a]:
+                a += 1
+            emitted[s] = [int(t) for t in g[s, :a + 1]]
+            lv = live[s]
+            lv.result.proposed_tokens += k_eff
+            lv.result.accepted_tokens += a
+            self._proposed += k_eff
+            self._accepted += a
+            kv.commit_block(s, a + 1, int(g[s, a]))
+            if a < k_eff:
+                # the draft's positions base..base+a already hold the
+                # committed tokens' K/V: drop the rest by length
+                draft.rewind(s, base[s] + a + 1, int(g[s, a]))
+            else:
+                full[s] = True
+        if full.any():
+            # one masked draft step writes the last proposal's K/V (the
+            # draft's pending token), then the target's bonus token
+            # becomes the pending one
+            draft.advance(only=full)
+            self._draft_catchup += 1
+            for s in slots:
+                if full[s]:
+                    draft.tokens[s] = emitted[s][-1]
+        return emitted
 
     def run(self, requests: Iterable[Request] | RequestQueue,
             on_token: Callable[[int, int], None] | None = None,
@@ -534,6 +771,12 @@ class ContinuousBatcher:
         self._shed_rids: list[int] = []
         self._block_deferrals = 0
         self._preempted: str | None = None
+        # speculative ledger (zeros without a draft): accepted + rejected
+        # == proposed exactly
+        self._proposed = 0
+        self._accepted = 0
+        self._draft_iterations = 0
+        self._draft_catchup = 0
         live: dict[int, _Live] = {}
         pending: dict[int, dict] = {}
         prefix_before = self.kv.prefix_cache_stats()
@@ -542,21 +785,34 @@ class ContinuousBatcher:
         # cumulative pool counters: the summary reports deltas over this run
         paged_before = (self.kv.paged_stats()
                         if hasattr(self.kv, "paged_stats") else None)
+        # forwards issued (both tables) as a delta over this run, and the
+        # real wall time: the host gap that fused rounds shrink is wall
+        # time outside the tables' forwards, whatever the clock
+        disp_before = self._dispatches()
         with queue.claim():
             self.clock.start()
             t_start = self.clock.now()
+            wall0 = time.perf_counter()
             try:
                 decode_iterations, prefills, chunks = self._serve(
                     queue, live, pending, on_token)
             except BaseException:
+                # a torn fused round first: its host mirrors lag the
+                # device, and evict() below edits them
+                self.kv.abandon_multi()
+                if self.draft_kv is not None:
+                    self.draft_kv.abandon_multi()
                 # a failed window must not poison the slot table: free the
-                # in-flight slots (decoding and mid-prefill) and close
-                # their spans
+                # in-flight slots (decoding and mid-prefill, and their
+                # draft slots) and close their spans
                 for slot in sorted(live):
                     lv = live.pop(slot)
                     lv.dec_span.__exit__(None, None, None)
                     lv.req_span.__exit__(None, None, None)
                     self.kv.evict(slot)
+                    if (self.draft_kv is not None
+                            and self.draft_kv.active[slot]):
+                        self.draft_kv.evict(slot)
                 for slot in sorted(pending):
                     pend = pending.pop(slot)
                     pend["span"].__exit__(None, None, None)
@@ -565,6 +821,7 @@ class ContinuousBatcher:
                     elif self.kv.active[slot]:
                         self.kv.evict(slot)
                 raise
+            wall_elapsed = time.perf_counter() - wall0
             elapsed = self.clock.now() - t_start
         results = sorted(self._results, key=lambda r: r.rid)
         ttfts = [r.ttft_s for r in results]
@@ -608,7 +865,9 @@ class ContinuousBatcher:
         def rate(n):
             return n / elapsed if elapsed > 0 else None
 
-        return {
+        device_phase = {k: phases_after[k] - phases_before.get(k, 0.0)
+                        for k in phases_after}
+        summary = {
             "mode": self.mode,
             "requests": len(results),
             "completed": len(results),
@@ -622,6 +881,19 @@ class ContinuousBatcher:
             "serve_prefix_zero_copy_hit_rate": zero_copy_rate,
             "serve_kv_block_deferrals": self._block_deferrals,
             "paged": paged_sec,
+            # speculative decoding: the accept rate over this run's
+            # proposals (None without a draft) and the ledger
+            "serve_accept_rate": (self._accepted / self._proposed
+                                  if self._proposed else None),
+            "speculative": (None if self.draft_kv is None else {
+                "draft_k": self.draft_k,
+                "proposed_tokens": self._proposed,
+                "accepted_tokens": self._accepted,
+                "rejected_tokens": self._proposed - self._accepted,
+                "draft_iterations": self._draft_iterations,
+                "draft_catchup_steps": self._draft_catchup,
+                "draft_kv_dtype": self.draft_kv.kv_dtype,
+            }),
             "decode_iterations": decode_iterations,
             "prefills": prefills,
             "prefill_chunk": self.prefill_chunk,
@@ -659,8 +931,21 @@ class ContinuousBatcher:
                                 if offered else 0.0),
             "preempted": self._preempted,
             "histograms": self._registry.snapshot(),
-            "device_phase_s": {
-                k: phases_after[k] - phases_before.get(k, 0.0)
-                for k in phases_after},
+            "device_phase_s": device_phase,
             "results": results,
         }
+        if self.multi_step is not None:
+            # only with the option set (the key set without it is the
+            # single-step one): forwards issued, and wall time less the
+            # tables' host-observed forward time — scheduling, uploads,
+            # the waits for tokens
+            summary["serve_multi_step"] = self.multi_step
+            summary["serve_dispatches"] = self._dispatches() - disp_before
+            summary["serve_host_gap_s"] = max(
+                wall_elapsed - device_phase.get("prefill_s", 0.0)
+                - device_phase.get("decode_s", 0.0), 0.0)
+        return summary
+
+    def _dispatches(self) -> int:
+        return self.kv.dispatch_count + (
+            self.draft_kv.dispatch_count if self.draft_kv is not None else 0)

@@ -15,7 +15,8 @@ policy (``parallel/precision.py``): a non-f32 policy stores the
 parameters in 16 bits and the model computes in the policy's dtype
 (``_resolve_precision``).  The JAX ``ExperimentConfig``'s other fields
 (schedules, codecs, model parallelism, checkpoints, telemetry, sampling,
-serving) are absent.
+serving) are absent.  ``parse_draft_config`` reads a serving draft's
+size, as the JAX harness's ``--serve-draft-config`` does.
 """
 
 from __future__ import annotations
@@ -289,3 +290,38 @@ def steps_to_accuracy(config: ExperimentConfig, target: float,
         }
     finally:
         ex.mesh.close()
+
+
+def parse_draft_config(spec: str) -> dict[str, int] | None:
+    """A speculative draft's size (JAX ``parse_draft_config``): the
+    literal ``'self'`` → None (the draft is the served model with its
+    weights, accept rate 1), or ``'key=int,...'`` GPT size overrides of
+    hidden/layers/heads/ffn/kv_heads.  Vocabulary and max_len always come
+    from the served model: proposals must be target tokens, and the draft
+    mirrors every slot position."""
+    if spec == "self":
+        return None
+    allowed = ("ffn", "heads", "hidden", "kv_heads", "layers")
+    out: dict[str, int] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, eq, val = part.partition("=")
+        key = key.strip()
+        if not eq or key not in allowed:
+            raise ValueError(
+                f"--serve-draft-config entries must be key=int with key "
+                f"in {allowed} (or the literal 'self'); got '{part}' — "
+                f"vocab/max_len inherit from the served model")
+        try:
+            out[key] = int(val)
+        except ValueError:
+            raise ValueError(
+                f"--serve-draft-config value for '{key}' must be an "
+                f"int, got '{val.strip()}'") from None
+    if not out:
+        raise ValueError(
+            "--serve-draft-config needs at least one key=int override "
+            "(or the literal 'self')")
+    return out

@@ -464,10 +464,11 @@ def test_unported_serving_options_raise(models):
     assert isinstance(kv, PagedSlotKVCache)
     assert not isinstance(_port_kv(sd, layout="monolithic"),
                           PagedSlotKVCache)
-    for kw in (dict(multi_step=2), dict(draft_kv=kv),
-               dict(role="prefill", handoff_out=print)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousBatcher(kv, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousBatcher(kv, role="prefill", handoff_out=print)
+    # ported since: speculative decoding and multi-step rounds
+    ContinuousBatcher(kv, multi_step=2)
+    ContinuousBatcher(kv, draft_kv=_port_kv(sd), draft_k=8)
     # options of features the port lacks are not accepted and ignored
     for layout in ("monolithic", "paged"):
         with pytest.raises(TypeError):
@@ -478,6 +479,5 @@ def test_unported_serving_options_raise(models):
                     prefix_cache_blocks=4, prefix_block=4, paged_block=8)
     with pytest.raises(ValueError, match="only apply"):
         SlotKVCache(tm, sd, 2, device="cpu", paged_block=4)
-    for kw in (dict(draft_k=8), dict(timeline_tag=1)):
-        with pytest.raises(TypeError):
-            ContinuousBatcher(kv, **kw)
+    with pytest.raises(TypeError):
+        ContinuousBatcher(kv, timeline_tag=1)
