@@ -95,6 +95,23 @@ Phases (any failure raises and the script exits non-zero):
              captured and replayed graph; params == cast(master) after),
              evaluated; then 4 steps under ``fp16-f32master``, every
              flash launch on the float16 ``tc`` kernels;
+5c. bert   — BASELINE config 5 through ``cli.main``: ``-m c -cs sync -n 1
+             -b 32 --model bert_tiny --dataset glue_synth --attention
+             flash`` (BERT-tiny at its published widths: 2 layers, hidden
+             128, 2 heads of 64, FFN 512; synthetic GLUE, 4096/1024 rows
+             of 128 tokens; 128 steps at steps_per_call 8) over a 1-rank
+             NCCL group, at f32 (every flash launch on the SIMT kernels)
+             and under ``--precision bf16-f32master`` (every one on
+             ``tc``): test accuracy at least the CPU rehearsal's less
+             0.05; flash launches of layers × (steps + eval batches)
+             forwards and layers × steps dQ and dK/dV; one all-reduce per
+             step (two under the master policy) and the evaluation's; 1
+             capture and 15 replays.  With the kernel checks before it:
+             BERT flash against dense with the same weights on a padded
+             32 × 128 batch with an all-padding row, at f32 and bf16, and
+             the flash kernels at BERT's shape under that batch's key mask
+             against their plain versions on both routes (the
+             all-padding row the mean of V over its 128 keys);
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -111,7 +128,19 @@ Phases (any failure raises and the script exits non-zero):
              kernels' rows; then the step profiles: the GPT step under
              ``bf16-f32master`` beside the f32-param one (copy kernels by
              kind and by copied shape), and replayed-graph chunks of the
-             CNN and the GPT (wall, device busy, busy share).
+             CNN, the GPT and config 5 at f32 and bf16-f32master (wall,
+             device busy, busy share).  Among the kernel rows: the flash
+             kernels at BERT's shape (B=32, L=128, H=2, D=64, key mask) on
+             each route, and the SIMT kernels at f32 at the slice's shape,
+             bound by the f32 (non-tensor) peak, beside SDPA (under a
+             boolean key mask at BERT's shape);
+7. remat   — the train window's GPT with remat off and on: eager steps
+             with equal losses, forward launches 16 per step against 8
+             (dQ and dK/dV 8), each step's peak memory and device time;
+             two 8-step ``bf16-f32master`` chunks under remat, the second
+             captured and replayed as a CUDA graph, against eager chunks;
+             BERT-tiny (dropout 0.1) under remat, a replayed chunk against
+             the one without remat.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -128,6 +157,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -587,12 +617,14 @@ def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
     return q, k, v, do, mask
 
 
-def _flash_bound_ms(kind, q, k, causal) -> tuple[float, str]:
+def _flash_bound_ms(kind, q, k, causal, mask=None) -> tuple[float, str]:
     """Least time for one kernel's work on these inputs: each input read
     once and each output written once at the HBM rate, against the products
     of the unmasked (causal) pairs at the peak rate for the input type —
     QKᵀ and PV (fwd: 4·D per pair), QKᵀ, dO·Vᵀ and dS·K (dq: 6·D), QKᵀ,
-    dO·Vᵀ, Pᵀ·dO and dSᵀ·Q (dkv: 8·D).  The larger of the two bounds it."""
+    dO·Vᵀ, Pᵀ·dO and dSᵀ·Q (dkv: 8·D).  The larger of the two bounds it.
+    A (B, Lk) f32 key ``mask`` (non-causal) is one more input, and only its
+    valid keys' pairs count."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     tensor = q.numel() * q.element_size()       # q, k, v, dO alike (Lq=Lk)
@@ -603,6 +635,10 @@ def _flash_bound_ms(kind, q, k, causal) -> tuple[float, str]:
     qpos = np.arange(lq)
     pairs = b * h * float((np.minimum(qpos + 1, lk) if causal
                            else np.full(lq, lk)).sum())
+    if mask is not None:
+        assert not causal
+        nbytes += mask.numel() * mask.element_size()
+        pairs = h * lq * float((mask > 0).sum())
     flops = float(per_pair * d) * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
@@ -759,7 +795,9 @@ def _sdpa_backend(dtype=torch.bfloat16):
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION):
         try:
-            with sdpa_kernel(backend):
+            # a backend that refuses the inputs warns why, then raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
                 torch.nn.functional.scaled_dot_product_attention(
                     q, q, q, is_causal=True)
             torch.cuda.synchronize()
@@ -925,65 +963,11 @@ def flash_f16_timing_phase(errs) -> list[dict]:
     """The float16 tensor-core kernels (the fp16-f32master GPT's) timed at
     the training slice's shape beside their bounds, the plain versions and
     float16 SDPA; returns their rows (launches filled in by ``main``)."""
-    from torch.nn.attention import sdpa_kernel
-
-    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
-
     f16 = torch.float16
     q, k, v, do, _ = _flash_case(7, b=8, lq=1024, h=8, d=64, dtype=f16)
-    scale = 64 ** -0.5
-    out, lse = fa._fwd_cuda(q, k, v, None, scale, True)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, None, do, lse, delta, scale, True)
-    timed = {"fwd": lambda: fa._fwd_cuda(q, k, v, None, scale, True),
-             "dq": lambda: fa._dq_cuda(*args),
-             "dkv": lambda: fa._dkv_cuda(*args)}
-    dev = {n: _device_ms(fn, label=f"flash {n} f16")
-           for n, fn in timed.items()}
-    call = {n: _time_windows(fn, iters=50, warmup=5)[0]
-            for n, fn in timed.items()}
-    plain_fwd = lambda: fa._fwd_reference(q, k, v, None, scale, True)  # noqa: E731,E501
-    plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
-    plain = {"fwd": _device_ms(plain_fwd, iters=10, warmup=2,
-                               label="flash fwd f16 plain"),
-             "bwd": _device_ms(plain_bwd, iters=10, warmup=2,
-                               label="flash bwd f16 plain")}
-    backend = _sdpa_backend(f16)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
-    with sdpa_kernel(backend):
-        lib_fwd = _device_ms(lib_fwd_fn, label="flash fwd f16 SDPA")
-        o = sdpa(qt, kt, vt, is_causal=True)
-    lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
-        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
-    lib_bwd = _device_ms(lib_bwd_fn, label="flash bwd f16 SDPA")
-    src = "distributed_tensorflow_tpu_torch/ops/csrc/flash_attention_sm90.cu"
-    replaces = {"fwd": 170, "dq": 281, "dkv": 299}
-    e = errs["slice_f16_causal_tc"]
-    rows = []
-    for kind in ("fwd", "dq", "dkv"):
-        bound_ms, bound_by = _flash_bound_ms(kind, q, k, True)
-        err = {"fwd": e["out"], "dq": e["dq"],
-               "dkv": max(e["dk"], e["dv"])}[kind]
-        rows.append({
-            "name": f"flash_attention.{kind}_f16", "route": "cuda",
-            "variant": "tc", "source": src,
-            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
-                        f"{replaces[kind]}",
-            "max_abs_err": err, "ms": dev[kind], "call_ms": call[kind],
-            "plain_ms": plain["fwd" if kind == "fwd" else "bwd"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / dev[kind],
-            "library_ms": lib_fwd if kind == "fwd" else lib_bwd,
-            "library_backend": backend.name})
-        print(f"[flash] slice B=8 L=1024 H=8 D=64 float16 causal: {kind} "
-              f"device {dev[kind]:.5f} ms, call {call[kind]:.5f} ms; plain "
-              f"{rows[-1]['plain_ms']:.5f}; SDPA {backend.name} "
-              f"{rows[-1]['library_ms']:.5f}; bound {bound_ms:.6f} "
-              f"({bound_by})")
-    return rows
+    return _flash_rows("f16", "tc", q, k, v, do, None, True,
+                       errs["slice_f16_causal_tc"], _sdpa_backend(f16),
+                       "float16")
 
 
 SERVE = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
@@ -1789,13 +1773,15 @@ def _lm_data(rows: int):
     return tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
 
 
-def _lm_model(attention_impl: str, dtype: str = "bfloat16"):
+def _lm_model(attention_impl: str, dtype: str = "bfloat16",
+              remat: bool = False):
     from distributed_tensorflow_tpu_torch.models import create_model
 
     return create_model("gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
                         layers=LM["layers"], heads=LM["heads"],
                         ffn=LM["ffn"], max_len=LM["seq"], dropout_rate=0.0,
-                        dtype=dtype, attention_impl=attention_impl)
+                        dtype=dtype, attention_impl=attention_impl,
+                        remat=remat)
 
 
 _FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
@@ -2195,6 +2181,378 @@ def _profile_rounds(kv, label: str, k: int = 8, rounds: int = 2) -> None:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
+# ------------------------------------------------- BERT-tiny and remat
+
+BERT_ARGV = ["-m", "c", "-cs", "sync", "-n", "1", "-b", "32", "--model",
+             "bert_tiny", "--dataset", "glue_synth", "--attention", "flash",
+             "--log-every", "0"]
+# config 5 (glue_synth: 4096 train rows, 1024 test rows, L = 128, vocab
+# 1024) at batch 32: 128 steps; the harness evaluates in batches of 100
+BERT = dict(layers=2, steps=4096 // 32, eval_batches=-(-1024 // 100),
+            batch=32, seq=128, heads=2, head_dim=64, vocab=1024)
+# test accuracy of the same command on the CPU (``--device cpu``), f32 and
+# under bf16-f32master alike: 1.0.  The card sums in other orders and draws
+# other dropout masks; the gate allows 0.05 below it, as config 3's does
+BERT_MIN_ACCURACY = 1.0 - 0.05
+# BERT flash against dense with the same weights, no dropout: at f32 the
+# kernels' online softmax sums in another order than one dense pass
+# (FLASH_GRAD_TOL's reassociation), through two layers, LayerNorms and the
+# pooler; at bf16 the dense path rounds scores, probabilities and P·V to
+# bf16 where the kernels keep f32: a few bf16 roundings (2^-8) of logits of
+# order 1
+BERT_LOGITS_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+                   "bfloat16": dict(rtol=0.0, atol=5e-2)}
+
+
+def _bert_ids(seed: int, rows: int = 32):
+    """A seeded rows × 128 batch of token ids whose rows have padded tails
+    of random length, the last row all padding."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, BERT["vocab"], (rows, BERT["seq"]))
+    for r in range(rows - 1):
+        ids[r, rng.integers(1, BERT["seq"] + 1):] = 0
+    ids[-1] = 0
+    return ids
+
+
+def bert_phase(gpu: str) -> dict:
+    """BASELINE config 5 through ``cli.main`` on a 1-rank NCCL group: at
+    f32 (every flash launch on the SIMT kernels) and under
+    ``bf16-f32master`` (every one on ``tc``).  Returns each policy's flash
+    launches (fit and evaluation)."""
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    layers, steps = BERT["layers"], BERT["steps"]
+    fwd = layers * (steps + BERT["eval_batches"])
+    bwd = layers * steps
+    out = {}
+    for policy in ("f32", "bf16-f32master"):
+        _reset_flash_counts()
+        coll.all_reduce_.launches = coll.all_reduce_.nccl_launches = 0
+        graphs = _ChunkGraph.captures, _ChunkGraph.replays
+        summary, _ = _cli(BERT_ARGV + ["--precision", policy])
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+        nccl = coll.all_reduce_.nccl_launches
+        graphs = (_ChunkGraph.captures - graphs[0],
+                  _ChunkGraph.replays - graphs[1])
+        tc = int(policy != "f32")
+        assert SUMMARY_KEYS <= set(summary), summary
+        assert (summary["model"], summary["steps"], summary["precision"],
+                summary["steps_per_call"]) == ("bert_tiny", steps, policy,
+                                               8), summary
+        # fit: one forward, dQ and dK/dV per layer per step; evaluation:
+        # one forward per layer per batch; all on the policy's route
+        assert counts == {"fwd": fwd, "dq": bwd, "dkv": bwd,
+                          "fwd_tc": fwd * tc, "dq_tc": bwd * tc,
+                          "dkv_tc": bwd * tc}, (policy, counts)
+        # one all-reduce per step (two under a 16-bit policy: the 16-bit
+        # gradients, then the f32 metrics) and one of the eval totals
+        assert nccl == (1 + tc) * steps + 1, (policy, nccl)
+        assert graphs == (1, steps // 8 - 1), (policy, graphs)
+        acc = summary["test_accuracy"]
+        assert acc >= BERT_MIN_ACCURACY, (policy, acc)
+        rr = summary["run_report"]
+        print(f"[bert] {gpu}: config 5 (BERT-tiny, glue_synth, B=32, "
+              f"L=128) {policy}: test_accuracy={acc:.6f} "
+              f"test_loss={summary['test_loss']:.6f} steps={steps} "
+              f"examples_per_sec={summary['examples_per_sec']:.1f} "
+              f"step_ms_p50={rr['step_time_p50_s'] * 1e3:.4f} "
+              f"first_chunk_s={rr['compile_s']:.3f} "
+              f"graphs={graphs[0]}/{graphs[1]} nccl_all_reduces={nccl} "
+              f"flash_launches={json.dumps(counts)}")
+        out[policy] = counts
+    return out
+
+
+def bert_mask_check() -> dict:
+    """BERT ``flash`` against BERT ``dense`` with the same weights on a
+    padded batch (a row all padding among them), at f32 and bf16; the
+    flash kernels at BERT's shape under that batch's key mask against
+    their plain versions on each route, the all-padding row the mean of V
+    over its 128 keys.  Returns the kernel checks' errors."""
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(_bert_ids(40)).cuda()
+    for dtype, tol in BERT_LOGITS_TOL.items():
+        logits = {}
+        for impl in ("dense", "flash"):
+            model = create_model("bert_tiny", num_classes=2,
+                                 vocab_size=BERT["vocab"],
+                                 attention_impl=impl, dtype=dtype)
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                logits[impl] = model(ids)
+        err = float((logits["flash"] - logits["dense"]).abs().max())
+        torch.testing.assert_close(logits["flash"], logits["dense"], **tol)
+        print(f"[bert] flash vs dense logits, {dtype}, padded 32 x 128 "
+              f"batch with an all-padding row: max_abs_err={err:.3e} "
+              f"(tolerance {tol}) ok")
+    mask = (ids > 0).float()
+    shape = dict(b=BERT["batch"], lq=BERT["seq"], h=BERT["heads"],
+                 d=BERT["head_dim"])
+    errs = {}
+    for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "tc")):
+        q, k, v, do, _ = _flash_case(41, dtype=dtype, **shape)
+        name = f"bert_padded_{route}"
+        errs[route] = _check_flash(name, (q, k, v, do, mask), False, route)
+        out = fa.flash_attention(q, k, v, kv_mask=mask)
+        mean_v = v[-1].float().mean(0, keepdim=True).expand_as(out[-1])
+        if route == "tc":
+            _close_tc(f"{name} mean of V", out[-1], mean_v,
+                      v[-1].float().abs().mean(0, keepdim=True))
+        else:
+            torch.testing.assert_close(out[-1], mean_v, **F32_TOL)
+        print(f"[bert] {name}: the all-padding row is the mean of V over "
+              f"its {BERT['seq']} keys ok")
+    return errs
+
+
+def _sdpa_masked_backend(dtype):
+    """The first SDPA backend that takes BERT's shape in ``dtype`` under a
+    boolean (B, 1, 1, L) key mask, in the order flash, cuDNN,
+    memory-efficient, math."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q = torch.zeros(2, BERT["heads"], BERT["seq"], BERT["head_dim"],
+                    device="cuda", dtype=dtype, requires_grad=True)
+    mask = torch.ones(2, 1, 1, BERT["seq"], device="cuda", dtype=torch.bool)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that refuses the inputs warns why, then raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, q, q, attn_mask=mask).sum().backward()
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes BERT's masked shape")
+
+
+def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
+                sdpa_backend, dtype_name):
+    """Kernel rows of the flash forward, dQ and dK/dV on ``variant`` at
+    these inputs: device ms, the event-window ms per call (host cost
+    included), bound, the plain versions and one SDPA call (with the
+    boolean key mask where there is one) under ``sdpa_backend``."""
+    from torch.nn.attention import sdpa_kernel
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=variant)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, do, lse, delta, scale, causal)
+    timed = {"fwd": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
+                                         route=variant),
+             "dq": lambda: fa._dq_cuda(*args, route=variant),
+             "dkv": lambda: fa._dkv_cuda(*args, route=variant)}
+    dev = {n: _device_ms(fn, label=f"flash {n} {tag}")
+           for n, fn in timed.items()}
+    call = {n: _time_windows(fn, iters=50, warmup=5)[0]
+            for n, fn in timed.items()}
+    plain_fwd = lambda: fa._fwd_reference(q, k, v, mask, scale, causal)  # noqa: E731,E501
+    plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
+    plain = {"fwd": _device_ms(plain_fwd, iters=10, warmup=2,
+                               label=f"flash fwd {tag} plain"),
+             "bwd": _device_ms(plain_bwd, iters=10, warmup=2,
+                               label=f"flash bwd {tag} plain")}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    lib_fwd_fn = lambda: sdpa(qt, kt, vt, attn_mask=attn_mask,  # noqa: E731
+                              is_causal=causal)
+    with sdpa_kernel(sdpa_backend):
+        lib_fwd = _device_ms(lib_fwd_fn, label=f"flash fwd {tag} SDPA")
+        o = lib_fwd_fn()
+    lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
+        o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    lib_bwd = _device_ms(lib_bwd_fn, label=f"flash bwd {tag} SDPA")
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/" + (
+        "flash_attention_sm90.cu" if variant == "tc" else "flash_attention.cu")
+    replaces = {"fwd": 170, "dq": 281, "dkv": 299}
+    b, lq, h, d = q.shape
+    rows = []
+    for kind in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by = _flash_bound_ms(kind, q, k, causal, mask)
+        rows.append({
+            "name": f"flash_attention.{kind}_{tag}", "route": "cuda",
+            "variant": variant, "source": src,
+            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
+                        f"{replaces[kind]}",
+            "shape": f"B={b} L={lq} H={h} D={d} {dtype_name} "
+                     + ("causal" if causal else "key mask"),
+            "max_abs_err": {"fwd": errs["out"], "dq": errs["dq"],
+                            "dkv": max(errs["dk"], errs["dv"])}[kind],
+            "ms": dev[kind], "call_ms": call[kind],
+            "plain_ms": plain["fwd" if kind == "fwd" else "bwd"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / dev[kind],
+            "library_ms": lib_fwd if kind == "fwd" else lib_bwd,
+            "library_backend": sdpa_backend.name})
+        print(f"[flash] {tag} ({variant}) B={b} L={lq} H={h} D={d} "
+              f"{dtype_name} {'causal' if causal else 'key mask'}: {kind} "
+              f"device {dev[kind]:.5f} ms, call {call[kind]:.5f} ms; plain "
+              f"{rows[-1]['plain_ms']:.5f}; SDPA {sdpa_backend.name} "
+              f"{rows[-1]['library_ms']:.5f}; bound {bound_ms:.6f} "
+              f"({bound_by})")
+    return rows
+
+
+def bert_timing_phase(bert_errs) -> list[dict]:
+    """The flash kernels at BERT's shape (B=32, L=128, H=2, D=64,
+    non-causal, config 5's all-valid key mask) on each route, and the SIMT
+    kernels at f32 at the training slice's shape (B=8, L=1024, H=8, D=64,
+    causal), beside their bounds (f32 at the non-tensor peak), the plain
+    versions and SDPA; returns their rows (launches filled in by
+    ``main``)."""
+    print(f"[flash] f32 rows are bound by the H100's f32 (non-tensor) "
+          f"peak of {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s (data "
+          f"sheet, SXM, 700 W); bf16 by {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
+          f" TFLOP/s; bytes by {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    rows = []
+    shape = dict(b=BERT["batch"], lq=BERT["seq"], h=BERT["heads"],
+                 d=BERT["head_dim"])
+    mask = torch.ones(BERT["batch"], BERT["seq"], device="cuda")
+    for dtype, variant, name in ((torch.float32, "simt", "float32"),
+                                 (torch.bfloat16, "tc", "bfloat16")):
+        q, k, v, do, _ = _flash_case(42, dtype=dtype, **shape)
+        rows += _flash_rows(f"bert_{variant}", variant, q, k, v, do, mask,
+                            False, bert_errs[variant],
+                            _sdpa_masked_backend(dtype), name)
+    case = _flash_case(43, b=8, lq=1024, h=8, d=64)
+    errs = _check_flash("slice_f32_causal", case, True, "simt")
+    rows += _flash_rows("slice_f32", "simt", *case[:4], None, True, errs,
+                        _sdpa_backend(torch.float32), "float32")
+    return rows
+
+
+def remat_phase(gpu: str) -> None:
+    """The train window's GPT (bf16, flash, B=8, L=1024) with remat off
+    and on: eager steps (the same losses; the forward launches double,
+    the backward's do not), each step's peak memory and device time; an
+    8-step ``bf16-f32master`` chunk replayed as a CUDA graph under remat
+    against its eager chunk; BERT-tiny under remat, a replayed chunk
+    against the chunk without remat."""
+    from distributed_tensorflow_tpu_torch.engines import Engine, SyncEngine
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
+
+    layers, batch = LM["layers"], LM["batch"]
+    x, y = _lm_data(batch * 8)
+    stats = {}
+    for remat in (False, True):
+        eng = SyncEngine(_lm_model("flash", remat=remat))
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        batches = [eng.shard_batch(x[batch * i:batch * (i + 1)],
+                                   y[batch * i:batch * (i + 1)])
+                   for i in range(4)]
+        eng.step(state, *batches[0])         # the optimizer's state, warm
+        torch.cuda.synchronize()
+        _reset_flash_counts()
+        losses, peaks = [], []
+        for xs, ys in batches[1:]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            state, m = eng.step(state, xs, ys)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_allocated() - before))
+        counts = _flash_counts()
+        n = layers * len(losses)
+        # the recompute runs each layer's forward again in the backward
+        assert counts == {"fwd": 2 * n if remat else n, "dq": n, "dkv": n,
+                          "fwd_tc": 2 * n if remat else n, "dq_tc": n,
+                          "dkv_tc": n}, (remat, counts)
+        ms = _device_ms(lambda: eng.step(state, *batches[1]), iters=4,
+                        warmup=1, label=f"GPT step remat={remat}")
+        stats[remat] = losses
+        print(f"[remat] {gpu}: GPT (B=8, L=1024, bf16, flash, 8 layers) "
+              f"remat={remat}: losses {' '.join(f'{v:.6f}' for v in losses)}"
+              f" peak_allocated_bytes={max(p[0] for p in peaks)} "
+              f"step_peak_above_entry_bytes={max(p[1] for p in peaks)} "
+              f"step_device_ms={ms:.4f} fwd_tc_per_step="
+              f"{counts['fwd_tc'] / len(losses):.1f} dq_tc_per_step="
+              f"{counts['dq_tc'] / len(losses):.1f} dkv_tc_per_step="
+              f"{counts['dkv_tc'] / len(losses):.1f}")
+        del eng, state, batches
+        torch.cuda.empty_cache()
+    # the same kernels on the same values: the losses agree bit for bit
+    assert stats[False] == stats[True], stats
+
+    def chunks(model, precision, xs_all, ys_all, graph, k=8):
+        eng = SyncEngine(model, precision=precision)
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        drain = eng.many_step if graph else functools.partial(
+            Engine.many_step, eng)
+        losses = []
+        for c in range(2):
+            xs, ys = zip(*(eng.shard_batch(xs_all[i], ys_all[i])
+                           for i in range(c * k, (c + 1) * k)))
+            state, m = drain(state, list(xs), list(ys))
+            losses.append(m["loss"].cpu())
+        return torch.cat(losses)
+
+    lm_x = [x[batch * (i % 8):batch * (i % 8 + 1)] for i in range(16)]
+    lm_y = [y[batch * (i % 8):batch * (i % 8 + 1)] for i in range(16)]
+    graphs = _ChunkGraph.captures
+    runs = {g: chunks(_lm_model("flash", remat=True), "bf16-f32master",
+                      lm_x, lm_y, g) for g in (False, True)}
+    assert _ChunkGraph.captures - graphs == 1
+    assert torch.equal(runs[False], runs[True]), runs
+    print(f"[remat] GPT bf16-f32master under remat, 8-step chunks: eager "
+          f"then captured and replayed, losses equal to the eager chunks' "
+          f"bit for bit: {' '.join(f'{v:.5f}' for v in runs[True].tolist())}")
+
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    ds = load_dataset("glue_synth")
+    bx = [ds.x[32 * i:32 * (i + 1)] for i in range(16)]
+    by = [ds.y[32 * i:32 * (i + 1)] for i in range(16)]
+    graphs = _ChunkGraph.captures
+    bert = {remat: chunks(create_model(
+        "bert_tiny", num_classes=2, attention_impl="flash", remat=remat),
+        "f32", bx, by, True) for remat in (False, True)}
+    assert _ChunkGraph.captures - graphs == 2
+    assert torch.equal(bert[False], bert[True]), bert
+    print(f"[remat] BERT-tiny f32 (dropout 0.1) under remat, a replayed "
+          f"8-step chunk: losses equal to the chunk without remat bit for "
+          f"bit: {' '.join(f'{v:.5f}' for v in bert[True].tolist())}")
+
+
+def _profile_bert_chunk(policy: str) -> None:
+    """Config 5's step (B=32, L=128, 1-rank NCCL) as a replayed chunk of
+    8, under ``policy``."""
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.engines import create_engine
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+
+    ds = load_dataset("glue_synth")
+    dtype = "float32" if policy == "f32" else "bfloat16"
+    mesh = create_mesh(1)
+    try:
+        eng = create_engine("sync", create_model(
+            "bert_tiny", num_classes=2, attention_impl="flash", dtype=dtype),
+            mesh=mesh, precision=policy)
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        xs, ys = zip(*(eng.shard_batch(ds.x[32 * i:32 * i + 32],
+                                       ds.y[32 * i:32 * i + 32])
+                       for i in range(8)))
+        _profile_chunk(f"BERT-tiny train step (B=32, L=128, {policy}, "
+                       f"1-rank NCCL)", eng, state, list(xs), list(ys))
+    finally:
+        mesh.close()
+
+
 _MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "half",
             "a": "int8",
             "Lb0E": "false", "Lb1E": "true"}
@@ -2258,12 +2616,14 @@ def main() -> int:
     build_phase()
     paged_errs = paged_check_phase()
     flash_errs = flash_check_phase()
+    bert_errs = bert_mask_check()
     # before any profiler session: its host times are the measurement
     cnn_phase(gpu)
     local_phase(gpu)
     launches, int8_launches, verify_launches = serve_phase(gpu)
     fit, evaluate, steps = train_phase(gpu)
     fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
+    bert_launches = bert_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -2292,6 +2652,20 @@ def main() -> int:
     for row in f16_rows:
         # the fp16-f32master window's launches of this float16 kernel
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
+    bert_rows = bert_timing_phase(bert_errs)
+    simt = {k: bert_launches["f32"][k] - bert_launches["f32"][f"{k}_tc"]
+            for k in ("fwd", "dq", "dkv")}
+    for row in bert_rows:
+        kind = row["name"].rsplit(".", 1)[1].split("_")[0]
+        if row["variant"] == "tc":
+            # config 5 under bf16-f32master: every launch at this shape
+            row["launches"] = bert_launches["bf16-f32master"][f"{kind}_tc"]
+        else:
+            # config 5 at f32: the SIMT kernels' launches, all at BERT's
+            # shape (none at the slice's: the GPT trains in 16 bits)
+            row["launches"] = simt[kind]
+            row["launches_at_this_shape"] = (
+                simt[kind] if row["name"].endswith("_bert_simt") else 0)
     timing_cross_check()
     _profile_step("CNN train step", "sync", "cnn", "mnist")
     _profile_cnn_chunk()
@@ -2303,11 +2677,15 @@ def main() -> int:
                    chunks=2)
     _profile_step("ResNet-20 async train step", "async", "resnet20",
                   "cifar10")
+    for policy in ("f32", "bf16-f32master"):
+        _profile_bert_chunk(policy)
+    remat_phase(gpu)
     print(f"[timing] device times from queued CUDA events, where the "
           f"profiler saw no device time: {len(EVENT_TIMED)} "
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
-    print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows]}))
+    print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
+                                  *bert_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

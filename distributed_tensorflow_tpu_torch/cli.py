@@ -111,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
                    const=True, default=False,
                    help="accepted for compatibility; no-op")
     p.add_argument("--model", default="mlp", help="registered model name "
-                   "(mlp|cnn|resnet20|gpt)")
+                   "(mlp|cnn|resnet20|gpt|bert_tiny)")
     p.add_argument("--dataset", default="mnist",
                    help="mnist|fashion_mnist|cifar10|synthetic|glue_synth|"
                         "lm_synth")
@@ -126,6 +126,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "commented-out -d flag, initializer.py:90-92)")
     p.add_argument("--num-processes", type=int, default=None,
                    help="multi-machine: total process count")
+    p.add_argument("--attention", default="ring",
+                   choices=["ring", "ring_flash", "ulysses", "ulysses_flash",
+                            "flash"],
+                   help="attention strategy: ring/ring_flash/ulysses/"
+                        "ulysses_flash shard the sequence over -sp devices "
+                        "(the *_flash variants run the flash kernels as the "
+                        "local math inside the ring / Ulysses schedule); "
+                        "flash = the single-device flash kernels (sequence "
+                        "models).  Without sequence parallelism (not ported) "
+                        "the *_flash values run the flash kernels and ring/"
+                        "ulysses leave the model dense")
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing: store each transformer "
+                        "block's input only, recompute the block in "
+                        "backward (~K x less activation memory for ~1/3 "
+                        "more FLOPs).  The long-context memory lever.  "
+                        "Sequence models only")
     p.add_argument("--model-arg", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="extra model constructor field (repeatable)")
@@ -227,7 +244,7 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         epochs=args.epochs, learning_rate=args.lr,
         grad_accum=args.grad_accum, sync_every=args.sync_every,
         degree=args.degree, seed=args.seed, precision=args.precision,
-        dtype=args.dtype,
+        dtype=args.dtype, attention_impl=args.attention, remat=args.remat,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,

@@ -2,12 +2,13 @@
 
 ``create_model`` builds the ported models: the MLP (``mlp``,
 ``mnist_mlp``, ``fashion_mlp``), the CNN (``cnn``, ``mnist_cnn``), the GPT
-(``gpt``, ``gpt_tiny``) and ResNet-20 (``resnet20``, ``resnet``);
-``get_model_fn`` is the reference's zero-arg ``model_fn``.  BERT and MoE
-are not ported yet and raise ``NotImplementedError``.  Models are built
-with float32 parameters and compute in ``dtype``; under a precision policy
-(``parallel/precision.py``) the engine stores the parameters in the
-policy's dtype, so the per-call weight casts of ``dtype`` go away.
+(``gpt``, ``gpt_tiny``), ResNet-20 (``resnet20``, ``resnet``) and BERT-tiny
+(``bert_tiny``, ``bert``); ``get_model_fn`` is the reference's zero-arg
+``model_fn``.  MoE is not ported yet and raises ``NotImplementedError``.
+Models are built with float32 parameters and compute in ``dtype``; under
+a precision policy (``parallel/precision.py``) the engine stores the
+parameters in the policy's dtype, so the per-call weight casts of
+``dtype`` go away.
 ``device=None`` means the CUDA card.
 """
 
@@ -18,6 +19,7 @@ from typing import Callable
 import torch
 
 from distributed_tensorflow_tpu_torch import not_ported
+from distributed_tensorflow_tpu_torch.models.bert import BertTinyClassifier
 from distributed_tensorflow_tpu_torch.models.cnn import CNN
 from distributed_tensorflow_tpu_torch.models.mlp import MLP
 from distributed_tensorflow_tpu_torch.models.resnet import ResNet20
@@ -28,15 +30,12 @@ _DTYPES = {
     "float16": torch.float16, "f16": torch.float16, "fp16": torch.float16,
 }
 
-_BERT = "BERT and remat"
-_LATER = {
-    "bert_tiny": _BERT, "bert": _BERT,
-    "moe": "remaining engines", "moe_mlp": "remaining engines",
-}
+_LATER = {"moe": "remaining engines", "moe_mlp": "remaining engines"}
 _REGISTRY: dict[str, Callable[..., torch.nn.Module]] = {
     "mlp": MLP, "mnist_mlp": MLP, "fashion_mlp": MLP,
     "cnn": CNN, "mnist_cnn": CNN,
     "resnet20": ResNet20, "resnet": ResNet20,
+    "bert_tiny": BertTinyClassifier, "bert": BertTinyClassifier,
 }
 
 
@@ -65,7 +64,7 @@ def create_model(name: str, num_classes: int = 10, **kw):
         not_ported(f"model '{name}'", _LATER[name])
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)} "
-                       f"+ gpt, bert_tiny, moe")
+                       f"+ gpt, moe")
     return _REGISTRY[name](num_classes=num_classes, **kw)
 
 

@@ -134,3 +134,46 @@ def resnet_state_dict(params: dict) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unrecognized ResNet param {name}")
     return out
+
+
+# flax TransformerLayer children → the port's TransformerLayer
+_BERT_LAYER_CHILDREN = {
+    "LayerNorm_0": "ln1", "Dense_0": "fc1", "Dense_1": "fc2",
+    "LayerNorm_1": "ln2", "SelfAttention_0": "attn",
+}
+_BERT_TOP = {
+    "BertEmbeddings_0": ("embeddings", {"Embed_0": "token_embed",
+                                        "Embed_1": "pos_embed",
+                                        "LayerNorm_0": "ln"}),
+    "BertPooler_0": ("pooler", {"Dense_0": "dense",
+                                "Dense_1": "classifier"}),
+}
+
+
+def bert_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``BertTinyClassifier`` params (``BertEmbeddings_0``,
+    ``TransformerLayer_i``, ``BertPooler_0``) →
+    ``BertTinyClassifier.state_dict()`` (f32).  The tree is the same with
+    and without ``remat`` (flax pins the layers' names)."""
+    out: dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        m = re.fullmatch(r"TransformerLayer_(\d+)", name)
+        if m:
+            for child, tree in sub.items():
+                if child not in _BERT_LAYER_CHILDREN:
+                    raise KeyError(f"unrecognized BERT layer child {child}")
+                prefix = f"blocks.{m.group(1)}.{_BERT_LAYER_CHILDREN[child]}"
+                if child == "SelfAttention_0":
+                    for proj in ("query", "key", "value", "out"):
+                        _module(tree[proj], f"{prefix}.{proj}", out)
+                else:
+                    _module(tree, prefix, out)
+        elif name in _BERT_TOP:
+            top, children = _BERT_TOP[name]
+            for child, tree in sub.items():
+                if child not in children:
+                    raise KeyError(f"unrecognized BERT {name} child {child}")
+                _module(tree, f"{top}.{children[child]}", out)
+        else:
+            raise KeyError(f"unrecognized BERT param {name}")
+    return out

@@ -43,16 +43,16 @@ param tree onto this module's ``state_dict``.
 
 Dropout draws its keep masks from the ``generator`` the caller passes to
 ``forward`` (the engine's ``TrainState`` generator); it cannot reproduce
-flax's random bits.
+flax's random bits.  ``remat=True`` checkpoints each ``GPTBlock`` in the
+training/eval mode (``models.layers.remat``, flax ``nn.remat``): the same
+parameters, the block's forward run again in the backward pass.
 
-Not ported here (each raises ``NotImplementedError``): MoE blocks, remat,
+Not ported here (each raises ``NotImplementedError``): MoE blocks,
 sequence-parallel attention, tensor-parallel partitioning and
 ``generate(mesh=...)``.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -60,13 +60,13 @@ from torch import nn
 
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.models.layers import (
-    dense as _dense, dropout as _dropout, lecun_normal_)
+    LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
+    layer_norm as _layer_norm, remat as _remat)
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention)
 
-LN_EPS = 1e-6   # flax nn.LayerNorm default (torch's is 1e-5)
 _SEQ_PARALLEL = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 
@@ -84,13 +84,6 @@ def apply_rope(x, pos, base: float = 10000.0):
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
-
-
-def _layer_norm(ln: nn.LayerNorm, x, dtype):
-    """flax ``nn.LayerNorm(dtype=...)``: statistics in f32, output in
-    ``dtype``."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), LN_EPS).to(dtype)
 
 
 class CausalSelfAttention(nn.Module):
@@ -331,10 +324,14 @@ class GPTLM(nn.Module):
                  remat: bool = False, partition_model: bool = False,
                  decode: bool = False, device=None):
         super().__init__()
+        if remat and moe_experts:
+            raise ValueError(
+                "remat + MoE blocks is unsupported: the router's sown "
+                "intermediates (aux_loss/z_loss/overflow) would be re-sown "
+                "during backward recompute, double-counting the balance "
+                "losses; train MoE blocks without --remat")
         if moe_experts:
             not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
-        if remat:
-            not_ported("remat", "BERT and remat")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
         if attention_impl in _SEQ_PARALLEL:
@@ -353,6 +350,7 @@ class GPTLM(nn.Module):
         self.kv_heads = kv_heads if kv_heads is not None else heads
         self.dropout_rate = dropout_rate
         self.attention_impl = attention_impl
+        self.remat = remat
         self.decode = bool(decode)
         self.positional = positional
         self.tie_embeddings = tie_embeddings
@@ -372,25 +370,9 @@ class GPTLM(nn.Module):
     def head_dim(self) -> int:
         return self.hidden // self.heads
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """Flax's initializers, drawn from ``generator`` on the CPU and
-        copied to the model's device: Dense kernels lecun-normal
-        (truncated at ±2σ), biases zero, embeddings normal with std
-        ``hidden ** -0.5``, LayerNorm scale 1 and bias 0."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                lecun_normal_(mod.weight, mod.in_features, generator)
-                mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                host = torch.empty(mod.weight.shape, dtype=torch.float32)
-                host.normal_(0.0, math.sqrt(1.0 / mod.embedding_dim),
-                             generator=generator)
-                mod.weight.copy_(host)
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-        return self
+        """Flax's initializers, drawn from ``generator`` (``flax_init_``)."""
+        return flax_init_(self, generator)
 
     def init_cache(self, batch: int) -> list[dict]:
         """Zero cursor-decode state for ``batch`` sequences on the model's
@@ -462,9 +444,12 @@ class GPTLM(nn.Module):
                 pos.long().clamp(max=self.max_len - 1)).to(self.dtype)
         x = _dropout(x, self.dropout_rate, train, generator)
         for i, block in enumerate(self.blocks):
-            x = block(x, train, pos, None if pools is None else pools[i],
-                      block_tables, paged_fused, generator,
-                      None if cache is None else cache[i], keep)
+            if self.remat and pools is None and cache is None:
+                x = _remat(block, x, train, pos, generator=generator)
+            else:
+                x = block(x, train, pos, None if pools is None else pools[i],
+                          block_tables, paged_fused, generator,
+                          None if cache is None else cache[i], keep)
         x = _layer_norm(self.ln_f, x, self.dtype)
         if self.tie_embeddings:
             logits = F.linear(x, self.token_embed.weight.to(self.dtype))

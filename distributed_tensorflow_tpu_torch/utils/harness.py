@@ -13,10 +13,12 @@ is off for matmuls and convolutions while it runs (torch's default lets
 cuDNN convolutions use TF32).  ``precision`` picks the mixed-precision
 policy (``parallel/precision.py``): a non-f32 policy stores the
 parameters in 16 bits and the model computes in the policy's dtype
-(``_resolve_precision``).  The JAX ``ExperimentConfig``'s other fields
-(schedules, codecs, model parallelism, checkpoints, telemetry, sampling,
-serving) are absent.  ``parse_draft_config`` reads a serving draft's
-size, as the JAX harness's ``--serve-draft-config`` does.
+(``_resolve_precision``).  ``attention_impl`` and ``remat`` reach the
+sequence models (BERT, GPT) as in the JAX harness (``_resolve_model``).
+The JAX ``ExperimentConfig``'s other fields (schedules, codecs, model
+parallelism, checkpoints, telemetry, sampling, serving) are absent.
+``parse_draft_config`` reads a serving draft's size, as the JAX
+harness's ``--serve-draft-config`` does.
 """
 
 from __future__ import annotations
@@ -67,8 +69,19 @@ class ExperimentConfig:
     eval_batch: int = 100           # the reference's test batch
     result_path: str | None = None  # JSONL event sink
     supervisor_address: str | None = None  # the reference's port-4000 channel
+    attention_impl: str = "ring"    # ring | ring_flash | ulysses |
+                                    # ulysses_flash | flash: on the data-
+                                    # parallel path the *flash values give
+                                    # a sequence model the flash kernels,
+                                    # the others leave it dense
+    remat: bool = False             # activation checkpointing: store block
+                                    # inputs only, recompute in backward
+                                    # (sequence models)
     model_args: dict | None = None  # extra model constructor fields
     device: str | None = None       # None: the CUDA card; 'cpu' for tests
+
+
+_SEQUENCE_MODELS = ("bert_tiny", "bert", "gpt", "gpt_tiny")
 
 
 @dataclasses.dataclass
@@ -86,14 +99,31 @@ class _Experiment:
 
 def _resolve_model(config: ExperimentConfig, num_classes: int, device):
     """Plug-in ``model_fn`` wins; else the registry with ``model_args``
-    and the config's ``dtype``."""
+    and the config's ``dtype`` (JAX ``harness.py:826-855``): ``remat``
+    reaches a sequence model and is rejected for any other; ``flash``,
+    ``ring_flash`` and ``ulysses_flash`` give a sequence model the flash
+    kernels (without a sequence mesh the ring schedule around them is a
+    no-op), while ``ring`` (the flag's default) and ``ulysses`` leave it
+    dense, as they need the sequence mesh this path does not build."""
     if config.model_fn is not None:
         return config.model_fn()
     kw = dict(config.model_args or {})
-    bad = sorted(set(kw) & {"num_classes", "device", "dtype"})
+    forced = {}
+    if config.remat:
+        if config.model not in _SEQUENCE_MODELS:
+            raise ValueError(
+                f"--remat checkpoints transformer blocks; --model "
+                f"{config.model} has none (sequence models: "
+                f"{'/'.join(_SEQUENCE_MODELS)})")
+        forced["remat"] = True
+    bad = sorted(set(kw) & {"num_classes", "device", "dtype", *forced})
     if bad:
         raise ValueError(f"--model-arg {bad} is set by the harness for "
                          f"--model {config.model}")
+    kw.update(forced)
+    if config.model in _SEQUENCE_MODELS and config.attention_impl in (
+            "flash", "ring_flash", "ulysses_flash"):
+        kw["attention_impl"] = "flash"
     return modellib.create_model(config.model, num_classes=num_classes,
                                  device=device, dtype=config.dtype, **kw)
 

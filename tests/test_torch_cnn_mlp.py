@@ -481,10 +481,10 @@ def test_reference_flag_surface_accepted():
 @pytest.mark.parametrize("argv,exc,match", [
     (["-m", "d", "-ds", "fsdp"], NotImplementedError, "remaining engines"),
     (["--model", "moe"], NotImplementedError, "remaining engines"),
-    (["--model", "bert_tiny", "--dataset", "glue_synth"],
-     NotImplementedError, "BERT and remat"),
-    (["--model", "gpt", "--dataset", "lm_synth", "--model-arg",
-      "remat=true"], NotImplementedError, "BERT and remat"),
+    (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
+      "attention_impl=ulysses"], NotImplementedError, "sequence parallelism"),
+    (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
+      "moe_experts=2"], NotImplementedError, "remaining engines"),
     # the local engines decouple the optimizer cadence themselves (JAX
     # harness.py:712-716)
     (["-m", "c", "-cs", "async", "--grad-accum", "2"], ValueError,

@@ -378,8 +378,7 @@ def test_monolithic_write_drops_positions_past_the_table():
 
 
 def test_unported_options_raise():
-    for kw in (dict(moe_experts=2), dict(remat=True),
-               dict(partition_model=True),
+    for kw in (dict(moe_experts=2), dict(partition_model=True),
                dict(attention_impl="ring_flash"), dict(attention_impl="ring"),
                dict(attention_impl="ulysses"),
                dict(attention_impl="ulysses_flash")):
@@ -389,8 +388,8 @@ def test_unported_options_raise():
         GPTLM(**SMALL, attention_impl="ring_flash", device="cpu")
     with pytest.raises(ValueError, match="unknown attention_impl"):
         GPTLM(**SMALL, attention_impl="sparse", device="cpu")
-    with pytest.raises(NotImplementedError, match="BERT and remat"):
-        create_model("bert_tiny", device="cpu")
+    with pytest.raises(ValueError, match="remat \\+ MoE blocks"):
+        GPTLM(**SMALL, remat=True, moe_experts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate(GPTLM(**SMALL, device="cpu"), None,
                  np.zeros((1, 4), np.int32), 2, device="cpu", mesh=object())

@@ -282,8 +282,8 @@ def test_unported_options_raise():
             trainer.fit(ds, batch_size=8, **kw)
     with pytest.raises(NotImplementedError, match="native"):
         ds.batches(8, native=True)
-    with pytest.raises(NotImplementedError, match="BERT and remat"):
-        create_model("bert", device="cpu")
+    with pytest.raises(NotImplementedError, match="remaining engines"):
+        create_model("moe", device="cpu")
     with pytest.raises(KeyError):
         tloaders.load_dataset("nope")
 
