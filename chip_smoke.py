@@ -8,19 +8,24 @@ Phases (any failure raises and the script exits non-zero):
 2. build   — nvcc builds every kernel from the sources in this checkout
              (``ops/csrc/*.cu``), one nvcc per source, all started together,
              and prints ptxas's registers and spills of the tensor-core
-             flash kernels and the paged kernels;
+             flash kernels (16-bit and f32) and the paged kernels;
 3. kernels — each kernel against its plain PyTorch version on the card, on
              seeded inputs, with the stated tolerances: the paged decode
              kernel (split-key flash-decoding) at the split count it picks
              and at forced counts 1, 2, 4 and one table entry per split,
              a draft_k = 4 verify (l_q = 5) at the serving shape on bf16
              and on int8 pools among its cases;
-             the flash-attention kernels of both routes — f32 cases on the
+             the flash-attention kernels of every route — f32 cases on the
              SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
              tensor-core kernels (``tc``), float16 cases on both routes
              (dO scaled by the fp16 loss scale 2^15 among them, once with
-             V scaled so that dS passes float16's range) — and the block
-             primitives;
+             V scaled so that dS passes float16's range), the f32 dQ and
+             dK/dV on the 3xTF32 tensor-core kernels (``tc32``: the slice,
+             ragged L = 1000, a key mask, cross lengths, head dim 128, a
+             row with no valid key, and BERT's shape in phase 5c's mask
+             check; at the f32 gradient tolerance, bitwise equal when run
+             again, and their largest difference from the SIMT kernels'
+             printed) — and the block primitives;
 4. serve   — the GPT server at the full width of the repo's serve bench
              (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048, max_len
              144, bf16, 8 slots), random weights from a seed, answering
@@ -33,13 +38,13 @@ Phases (any failure raises and the script exits non-zero):
              iteration, copy-on-write); Q, window P with int8 pools (every
              launch on the kernel's int8 route).  Then three windows of
              the decode paths beside them: S-self, window M with a draft
-             that is the served model (draft_k 4; the accept rate, and
-             where a stream first leaves M's with the target's top-2
-             logit gap there: a verify runs other GEMM shapes than a
-             decode step, so a bf16 near-tie may flip); S-small, window P
-             with a 1-layer draft of its own seed (draft_k 4, multi_step
-             4: the draft's proposals are fused rounds; accepted +
-             rejected == proposed, the verify launches at l_q = 5); K,
+             that is the served model (draft_k 4; the accept rate; its
+             streams must be bitwise M's: the verify runs its GEMMs and
+             attention reads one query column at a time, at a decode
+             step's shapes); S-small, window P with a 1-layer draft of its
+             own seed (draft_k 4, multi_step 4: the draft's proposals are
+             fused rounds; accepted + rejected == proposed, every paged
+             launch at l_q = 1; its streams must be bitwise P's); K,
              window P at multi_step 8, every round in the timed window a
              CUDA graph replay, whose streams must equal P's bitwise
              (dispatches, host gap and tokens/s against P).  A seeded
@@ -49,7 +54,9 @@ Phases (any failure raises and the script exits non-zero):
              against the monolithic table, of a warm prefix pool against a
              cold one, the cursor mode (``generate``) against the
              monolithic prefill and ``generate``'s greedy streams against
-             the table's, a seeded 0.8-temperature window run twice, and
+             the table's; chunked prefill at chunks 16 and 8, warm pool
+             against cold and cursor against the table, bitwise; a
+             seeded 0.8-temperature window run twice, and
              where a decode step's device time goes (``torch.profiler``):
              paged, a replayed round of 8 (window K's table), paged on
              int8 pools, monolithic;
@@ -100,9 +107,10 @@ Phases (any failure raises and the script exits non-zero):
              flash`` (BERT-tiny at its published widths: 2 layers, hidden
              128, 2 heads of 64, FFN 512; synthetic GLUE, 4096/1024 rows
              of 128 tokens; 128 steps at steps_per_call 8) over a 1-rank
-             NCCL group, at f32 (every flash launch on the SIMT kernels)
-             and under ``--precision bf16-f32master`` (every one on
-             ``tc``): test accuracy at least the CPU rehearsal's less
+             NCCL group, at f32 (every forward on the SIMT kernel, every
+             dQ and dK/dV on ``tc32``) and under ``--precision
+             bf16-f32master`` (every launch on ``tc``): test accuracy at
+             least the CPU rehearsal's less
              0.05; flash launches of layers × (steps + eval batches)
              forwards and layers × steps dQ and dK/dV; one all-reduce per
              step (two under the master policy) and the evaluation's; 1
@@ -110,8 +118,14 @@ Phases (any failure raises and the script exits non-zero):
              BERT flash against dense with the same weights on a padded
              32 × 128 batch with an all-padding row, at f32 and bf16, and
              the flash kernels at BERT's shape under that batch's key mask
-             against their plain versions on both routes (the
+             against their plain versions on every route (the
              all-padding row the mean of V over its 128 keys);
+5d. repeat — one seed gives one run: configs 1 (the CNN window), 3 and 5
+             (f32) through ``cli.main`` twice each, their per-step losses,
+             final parameters (one flat f32 buffer) and test accuracy and
+             loss bitwise equal; then once with cuDNN at torch's defaults,
+             for the examples/s that its deterministic algorithms cost
+             (a failure is raised after the timings);
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -132,8 +146,13 @@ Phases (any failure raises and the script exits non-zero):
              device busy, busy share).  Among the kernel rows: the flash
              kernels at BERT's shape (B=32, L=128, H=2, D=64, key mask) on
              each route, and the SIMT kernels at f32 at the slice's shape,
-             bound by the f32 (non-tensor) peak, beside SDPA (under a
-             boolean key mask at BERT's shape);
+             bound by the f32 (non-tensor) peak, and the tc32 dQ and dK/dV
+             at both shapes, bound by three TF32 products per f32 product
+             at the TF32 peak, with the SIMT kernels' times beside them,
+             beside SDPA (under a boolean key mask at BERT's shape; its
+             backward kernels named); last, a draft_k = 4 verify's device
+             time by column beside one forward over its 40 rows and a
+             decode step, on both layouts;
 7. remat   — the train window's GPT with remat off and on: eager steps
              with equal losses, forward launches 16 per step against 8
              (dQ and dK/dV 8), each step's peak memory and device time;
@@ -208,6 +227,10 @@ TRAIN_GRAD_RTOL = 1e-1
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float16: 989e12}
+# the tc32 kernels run each f32 product as three TF32 products at the
+# dense TF32 peak (data sheet, SXM): ~165 TFLOP/s of f32 products
+TF32_FLOPS = 494.7e12
+TC32_FLOPS = TF32_FLOPS / 3
 LM = dict(vocab=16384, hidden=512, layers=8, heads=8, ffn=2048,
           seq=1024, batch=8)
 
@@ -617,14 +640,16 @@ def _flash_case(seed, *, b, lq, h, d, dtype=torch.float32, lk=None,
     return q, k, v, do, mask
 
 
-def _flash_bound_ms(kind, q, k, causal, mask=None) -> tuple[float, str]:
+def _flash_bound_ms(kind, q, k, causal, mask=None,
+                    peak=None) -> tuple[float, str]:
     """Least time for one kernel's work on these inputs: each input read
     once and each output written once at the HBM rate, against the products
     of the unmasked (causal) pairs at the peak rate for the input type —
     QKᵀ and PV (fwd: 4·D per pair), QKᵀ, dO·Vᵀ and dS·K (dq: 6·D), QKᵀ,
     dO·Vᵀ, Pᵀ·dO and dSᵀ·Q (dkv: 8·D).  The larger of the two bounds it.
     A (B, Lk) f32 key ``mask`` (non-causal) is one more input, and only its
-    valid keys' pairs count."""
+    valid keys' pairs count.  ``peak``: the FLOP/s of the products (default
+    the type's peak; ``TC32_FLOPS`` for the 3xTF32 kernels)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     tensor = q.numel() * q.element_size()       # q, k, v, dO alike (Lq=Lk)
@@ -641,7 +666,7 @@ def _flash_bound_ms(kind, q, k, causal, mask=None) -> tuple[float, str]:
         pairs = h * lq * float((mask > 0).sum())
     flops = float(per_pair * d) * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[q.dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -678,16 +703,19 @@ def _close_tc(name, got, want, terms, cancel=None):
 def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
     """Forward, dQ and dK/dV kernels against the plain versions; the
     backward gets the plain forward's lse and Δ = rowsum(dO·O).  The
-    launch counters show the kernels of ``route`` ran."""
+    launch counters show the kernels of ``route`` ran (``tc32``: the SIMT
+    forward and the tc32 dQ and dK/dV, which must also repeat bitwise;
+    their largest difference from the SIMT kernels' is printed)."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, mask = case
     scale = q.shape[-1] ** -0.5
     # a case runs on its inputs' route, or on simt where it is forced there
-    assert route == "simt" or fa._route(q.dtype, q.shape[-1]) == route, (
-        name, route)
-    before = _flash_counts()
-    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=route)
+    assert route == "simt" or fa._route(q.dtype, q.shape[-1],
+                                        "dq") == route, (name, route)
+    fwd_route = "simt" if route == "tc32" else route
+    before, before32 = _flash_counts(), _tc32_counts()
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=fwd_route)
     ref_out, ref_lse = fa._fwd_reference(q, k, v, mask, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
@@ -695,12 +723,14 @@ def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
     grads = (fa._dq_cuda(*bwd, route=route),
              *fa._dkv_cuda(*bwd, route=route))
     torch.cuda.synchronize()
-    tc = int(route == "tc")
+    tc, tc32 = int(route == "tc"), int(route == "tc32")
     assert _flash_counts() == {
         "fwd": before["fwd"] + 1, "dq": before["dq"] + 1,
         "dkv": before["dkv"] + 1, "fwd_tc": before["fwd_tc"] + tc,
         "dq_tc": before["dq_tc"] + tc,
         "dkv_tc": before["dkv_tc"] + tc}, (name, route)
+    assert _tc32_counts() == {n: c + tc32 for n, c in before32.items()}, (
+        name, route)
     refs = fa._bwd_reference(q, k, v, mask, do, ref_lse, delta, scale,
                              causal)
     if v_scale > 1.0:
@@ -742,6 +772,15 @@ def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
                 g, w = g[keep], w[keep]
             torch.testing.assert_close(g, w, msg=f"{name} {n}", **tol)
             errs[n] = float((g - w).abs().max())
+    if route == "tc32":
+        again = (fa._dq_cuda(*bwd, route=route),
+                 *fa._dkv_cuda(*bwd, route=route))
+        simt = (fa._dq_cuda(*bwd, route="simt"),
+                *fa._dkv_cuda(*bwd, route="simt"))
+        torch.cuda.synchronize()
+        for n, g, a, w in zip(("dq", "dk", "dv"), grads, again, simt):
+            assert torch.equal(g, a), (name, n, "not bitwise repeatable")
+            errs[f"{n}_vs_simt"] = float((g - w).abs().max())
     print(f"[flash] {name} ({route}): " + " ".join(
         f"{n}_{'rel' if n.endswith('frobenius') else 'max_abs_err'}={e:.3e}"
         for n, e in errs.items()) + " ok")
@@ -845,9 +884,24 @@ def flash_check_phase() -> dict:
             ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
                                       dead_row=True), False)):
         cases[f"{name}_f16"] = (dict(kw, dtype=f16), causal, "tc")
+    # the f32 backward on the 3xTF32 tensor-core kernels (tc32), on seeds
+    # of their own: the slice, and the SIMT cases at head dims it takes
+    tc32 = {"slice_f32_causal_tc32": (dict(b=8, lq=1024, h=8, d=64), True,
+                                      "tc32")}
+    for name, kw, causal in (
+            ("ragged_l1000", dict(b=2, lq=1000, h=4, d=64), True),
+            ("key_mask", dict(b=2, lq=512, h=4, d=64, masked=True), False),
+            ("cross_96x160", dict(b=2, lq=96, lk=160, h=4, d=64), False),
+            ("head_dim_128", dict(b=1, lq=384, h=2, d=128), True),
+            ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
+                                      dead_row=True), False)):
+        tc32[f"{name}_tc32"] = (kw, causal, "tc32")
+    seeds = {name: 20 + i for i, name in enumerate(cases)}
+    seeds.update({name: 60 + i for i, name in enumerate(tc32)})
+    cases.update(tc32)
     errs = {}
-    for i, (name, (kw, causal, route)) in enumerate(cases.items()):
-        case = _flash_case(20 + i, **kw)
+    for name, (kw, causal, route) in cases.items():
+        case = _flash_case(seeds[name], **kw)
         errs[name] = _check_flash(name, case, causal, route,
                                   kw.get("v_scale", 1.0))
         if kw.get("dead_row"):
@@ -1147,6 +1201,7 @@ def serve_phase(gpu: str) -> tuple[int, int]:
         kv8.insert(req.prompt)
     _profile_decode(kv8, "paged int8")
     xcheck = _cross_checks(model, requests)
+    _prefill_parity(model, requests)
     _profile_decode(xcheck, "monolithic")
     _generate_check(model, shared)
     _temperature_check(model, requests)
@@ -1189,10 +1244,11 @@ def _top2(model, prompt, stream, j):
     return float(top[0] - top[1]), logits
 
 
-def _first_difference(name, model, requests, base, summary) -> None:
-    """Where ``summary``'s greedy streams first leave window M's (``base``):
-    the request, the position, both tokens, and the target's top-2 gap
-    there (``_top2``), or that every stream is equal."""
+def _first_difference(name, model, requests, base, summary,
+                      base_name="M") -> bool:
+    """Whether ``summary``'s greedy streams are bitwise ``base``'s; where
+    they are not, where they first leave them: the request, the position,
+    both tokens, and the target's top-2 gap there (``_top2``)."""
     diffs = [(next(j for j, (a, b) in enumerate(zip(x.tokens, y.tokens))
                    if a != b), x.rid)
              for x, y in zip(base["results"], summary["results"])
@@ -1201,19 +1257,21 @@ def _first_difference(name, model, requests, base, summary) -> None:
     agree = sum(a == b for x, y in zip(base["results"], summary["results"])
                 for a, b in zip(x.tokens, y.tokens))
     if not diffs:
-        print(f"[serve] window {name} vs M: every stream bitwise equal "
-              f"({total} tokens)")
-        return
+        print(f"[serve] window {name} vs {base_name}: every stream bitwise "
+              f"equal ({total}/{total} tokens)")
+        return True
     j, rid = min(diffs)
     want = base["results"][rid].tokens
     got = summary["results"][rid].tokens
     gap, logits = _top2(model, requests[rid].prompt, want, j)
-    print(f"[serve] window {name} vs M: {len(diffs)}/{len(requests)} streams "
-          f"differ, {agree}/{total} tokens equal; first at request {rid} "
-          f"token {j}: M {want[j]}, {name} {got[j]}; the target's top-2 "
-          f"logit gap there {gap:.5f}, logit(M) - logit({name}) "
+    print(f"[serve] window {name} vs {base_name}: {len(diffs)}/"
+          f"{len(requests)} streams differ, {agree}/{total} tokens equal; "
+          f"first at request {rid} token {j}: {base_name} {want[j]}, {name} "
+          f"{got[j]}; the target's top-2 logit gap there {gap:.5f}, "
+          f"logit({base_name}) - logit({name}) "
           f"{float(logits[want[j]] - logits[got[j]]):.5f} (single decode "
           f"steps of a fresh table)")
+    return False
 
 
 def spec_multi_windows(gpu, model, requests, m, p):
@@ -1241,7 +1299,10 @@ def spec_multi_windows(gpu, model, requests, m, p):
         draft_kv=SlotKVCache(model, None, slots), draft_k=4)
     assert launches == 0, launches
     _spec_ledger("S-self", s_self)
-    _first_difference("S-self", model, requests, m, s_self)
+    # the verify's columns are bitwise decode steps (by_column), so the
+    # speculative streams are bitwise the plain ones
+    assert _first_difference("S-self", model, requests, m, s_self), (
+        "window S-self's streams differ from M's")
 
     # S-small: a 1-layer draft of the served widths, weights from seed 1
     draft = _serve_model(seed=1, **parse_draft_config("layers=1"))
@@ -1260,19 +1321,20 @@ def spec_multi_windows(gpu, model, requests, m, p):
         draft_kv=SlotKVCache(draft, None, slots), draft_k=4, multi_step=4)
     spec = _spec_ledger("S-small", small)
     assert spec["rejected_tokens"] > 0, spec
-    assert verify_launches == layers * sum(widths.values()), (
-        verify_launches, widths)
+    # a verify of width w reads the pool one query column at a time: w
+    # launches per layer at l_q = 1, none at l_q > 1
+    assert verify_launches == 0, verify_launches
     assert widths[5] > 0, widths
     single = small["decode_iterations"] - sum(widths.values())
-    assert launches == verify_launches + layers * single, (launches, single)
-    agree = sum(a == b for x, y in zip(p["results"], small["results"])
-                for a, b in zip(x.tokens, y.tokens))
+    columns = sum(w * n for w, n in widths.items())
+    assert launches == layers * (columns + single), (launches, single)
     print(f"[serve] window S-small: verify rounds by width "
-          f"{dict(sorted(widths.items()))}; paged launches at l_q > 1 "
-          f"{verify_launches}, at l_q = 5 {layers * widths[5]}, at l_q = 1 "
-          f"{launches - verify_launches}; greedy tokens equal to window "
-          f"P's at {agree}/{sum(len(r.tokens) for r in p['results'])} "
-          f"positions")
+          f"{dict(sorted(widths.items()))}; paged launches {launches}: "
+          f"{layers * columns} in verify columns, {layers * single} in "
+          f"single steps, all at l_q = 1")
+    assert _first_difference("S-small", model, requests, p, small,
+                             base_name="P"), (
+        "window S-small's streams differ from P's")
 
     # K: fused rounds of 8 steps, pipelined one ahead, each a graph replay
     kvk = SlotKVCache(model, None, slots, kv_layout="paged",
@@ -1329,6 +1391,121 @@ def _sampled_rounds_check(model, requests) -> None:
     assert np.array_equal(got, want), "sampled rounds differ from k = 1"
     print(f"[serve] temperature 0.8, seed 0, paged: 3 rounds of 4 (eager, "
           f"captured, replayed) equal 12 single steps ({got.size} tokens)")
+
+
+def _verify_cost(model, requests) -> None:
+    """Device ms of a draft_k = 4 verify (width 5) on each layout, the
+    trace's first 8 prompts in the table: by query column (the served
+    verify, bitwise decode steps) beside one forward over all 40 rows (the
+    verify before: other GEMM and paged-kernel shapes than a decode step),
+    and one decode step; and how many of the one-forward verify's logits
+    equal the column verify's bitwise."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    slots = SERVE["slots"]
+    width = 5
+    rng = np.random.default_rng(5)
+    for layout in ("monolithic", "paged"):
+        kv = SlotKVCache(model, None, slots, kv_layout=layout,
+                         **({"paged_block": SERVE["block"]}
+                            if layout == "paged" else {}))
+        for req in requests[:slots]:
+            kv.insert(req.prompt)
+        block = rng.integers(0, SERVE["vocab"], (slots, width)).astype(
+            np.int32)
+        block[:, 0] = kv.tokens
+
+        def one_forward():
+            d_len = kv._dev_cached("lengths", kv.lengths)
+            pos = d_len[:, None] + torch.arange(
+                width, dtype=torch.int32, device=kv.device)[None, :]
+            return kv._step_forward(kv._upload(block.astype(np.int64)), pos,
+                                    kv._decode_bt(kv.active))
+
+        fns = {"by column": lambda: kv.verify_logits(block),
+               "one forward": one_forward,
+               "decode step": kv.decode_logits}
+        dev = {n: _device_ms(fn, iters=20, warmup=3,
+                             label=f"verify {layout} {n}")
+               for n, fn in fns.items()}
+        wall = {n: _time_windows(fn, iters=20, warmup=3)[0]
+                for n, fn in fns.items()}
+        cols, whole = kv.verify_logits(block), one_forward()
+        same = int((cols == whole).all(-1).sum())
+        print(f"[serve] verify cost, {layout}, draft_k 4 (width 5, 8 "
+              f"slots): device ms by column {dev['by column']:.4f} (call "
+              f"{wall['by column']:.4f}), one forward "
+              f"{dev['one forward']:.4f} (call {wall['one forward']:.4f}), "
+              f"a decode step {dev['decode step']:.4f} (call "
+              f"{wall['decode step']:.4f}); one forward's logit rows "
+              f"bitwise the columns' at {same}/{slots * width}")
+
+
+def _prefill_parity(model, requests) -> None:
+    """Chunked prefill at the smoke's chunk and at a second size, on the
+    monolithic table, held bitwise: the first decode step's logits after a
+    warm admission (the prefix pool restores its blocks, the rest is
+    prefilled in chunks) against the cold one, and the cursor mode's
+    logits at the last prompt position (8 equal-length prompts, one
+    forward per chunk for all 8) against the table's chunked prefill of
+    each prompt."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    slots, block = SERVE["slots"], SERVE["block"]
+    prompts = [r.prompt for r in requests[:slots]]
+    shared = requests[0].prompt[:16]
+    rng = np.random.default_rng(3)
+    equal = np.stack([np.concatenate([shared, rng.integers(
+        0, SERVE["vocab"], 21).astype(np.int32)]) for _ in range(slots)])
+    lp = equal.shape[1]
+    for chunk in (SERVE["chunk"], 8):
+        pooled = SlotKVCache(model, None, slots,
+                             prefix_cache_blocks=SERVE["pool"],
+                             prefix_block=block)
+
+        def admit(table, ps):
+            for p in ps:
+                slot, _ = table.begin_insert(p)
+                while table.prefill_chunk(slot, chunk) is None:
+                    pass
+
+        admit(pooled, prompts)
+        cold = pooled.decode_logits().clone()
+        hits = pooled.prefix_cache_stats()["hits"]
+        for s in range(slots):
+            pooled.evict(s)
+        admit(pooled, prompts)
+        assert pooled.prefix_cache_stats()["hits"] > hits
+        warm = pooled.decode_logits()
+
+        cache = model.init_cache(slots)
+        ids = torch.from_numpy(equal).to(cache[0]["cached_key"].device)
+        with torch.no_grad():
+            for c0 in range(0, lp, chunk):
+                cursor, cache = model(ids[:, c0:c0 + chunk], cache=cache)
+        table = SlotKVCache(model, None, slots)
+        last = []
+        for p in equal:
+            slot, _ = table.begin_insert(p)
+            filled = 0
+            while filled < lp:
+                n = min(chunk, lp - filled)
+                logits = table._prefill_forward(
+                    slot, p[None, filled:filled + n],
+                    np.arange(filled, filled + n, dtype=np.int32)[None])
+                filled += n
+            last.append(logits[0, -1])
+            table.abort_insert(slot)
+        torch.cuda.synchronize()
+        for what, got, want in (("warm vs cold pool", warm, cold),
+                                ("cursor vs monolithic prefill",
+                                 cursor[:, -1], torch.stack(last))):
+            same = int((got == want).all(-1).sum())
+            err = float((got - want).abs().max())
+            print(f"[serve] chunked prefill at chunk {chunk}: {what}: "
+                  f"{same}/{slots} logit rows bitwise equal, max abs "
+                  f"difference {err:.4e}")
+            assert same == slots, (chunk, what, same, err)
 
 
 def _fused_vs_gather(model, kv, requests) -> None:
@@ -1484,6 +1661,94 @@ def _cli(argv):
     lines = out.getvalue().splitlines()
     assert json.loads(lines[-1]) == summary
     return summary, [line for line in lines[:-1] if line.startswith("step ")]
+
+
+def _recorded_cli(argv, *, cudnn_default: bool = False) -> dict:
+    """``_cli(argv)`` that also keeps the run's per-step losses (every
+    chunk's, in step order) and its final parameters and buffers as one
+    flat f32 buffer.  ``cudnn_default``: the run with cuDNN at torch's
+    defaults (deterministic off; TF32 still off), as ``harness.run`` ran
+    before it held cuDNN deterministic."""
+    from distributed_tensorflow_tpu_torch import cli
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    kept = {"losses": []}
+
+    class Recorder(harness.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            kept["trainer"] = self
+            chunk = self.engine.many_step
+
+            def many_step(*a, **k):
+                state, metrics = chunk(*a, **k)
+                kept["losses"].append(metrics["loss"].detach().reshape(-1)
+                                      .clone())
+                return state, metrics
+
+            self.engine.many_step = many_step
+
+    def default_cudnn_run(config):
+        m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+        saved = m.allow_tf32, c.allow_tf32, c.deterministic, c.benchmark
+        m.allow_tf32 = c.allow_tf32 = c.deterministic = c.benchmark = False
+        try:
+            return harness.run.__wrapped__(config)
+        finally:
+            m.allow_tf32, c.allow_tf32, c.deterministic, c.benchmark = saved
+
+    trainer = harness.Trainer
+    harness.Trainer = Recorder
+    if cudnn_default:
+        cli.run = default_cudnn_run
+    try:
+        summary, _ = _cli(argv)
+    finally:
+        harness.Trainer, cli.run = trainer, harness.run
+    state = kept["trainer"].state
+    assert summary["steps_per_call"] == 8, summary
+    params = torch.cat([t.detach().float().reshape(-1)
+                        for t in state.model.state_dict().values()])
+    losses = torch.cat(kept["losses"])
+    assert losses.numel() == summary["steps"], (losses.shape, summary)
+    return {"summary": summary, "losses": losses, "params": params}
+
+
+def repeat_phase(gpu: str) -> list[str]:
+    """One seed gives one run: configs 1 (the CNN window), 3 and 5 at f32
+    through ``cli.main`` twice each, whose per-step losses, final
+    parameters (one flat f32 buffer of the state dict) and test accuracy
+    and loss must be bitwise equal; then once with cuDNN at torch's
+    defaults, for the examples/s the deterministic algorithms cost.
+    Returns the failures (raised by ``main`` after the timings)."""
+    failures = []
+    for name, argv in (("config 1 (CNN, sync)", CNN_ARGV),
+                       ("config 3 (ResNet-20, async)", C3_ARGV),
+                       ("config 5 (BERT-tiny, f32, flash)", BERT_ARGV)):
+        a, b = _recorded_cli(argv), _recorded_cli(argv)
+        free = _recorded_cli(argv, cudnn_default=True)
+        sa, sb, sf = a["summary"], b["summary"], free["summary"]
+        checks = {
+            "losses": torch.equal(a["losses"], b["losses"]),
+            "params": torch.equal(a["params"], b["params"]),
+            "test_accuracy": sa["test_accuracy"] == sb["test_accuracy"],
+            "test_loss": sa["test_loss"] == sb["test_loss"]}
+        diff = (a["losses"] != b["losses"]).nonzero()
+        first = int(diff[0]) if len(diff) else None
+        default_same = (torch.equal(a["losses"], free["losses"])
+                        and torch.equal(a["params"], free["params"]))
+        print(f"[repeat] {gpu}: {name}, {sa['steps']} steps, seed 0, "
+              f"twice: bitwise equal {json.dumps(checks)} (first differing "
+              f"step {first}); test_accuracy {sa['test_accuracy']:.6f} / "
+              f"{sb['test_accuracy']:.6f}; examples_per_sec "
+              f"{sa['examples_per_sec']:.1f} / {sb['examples_per_sec']:.1f}"
+              f" deterministic, {sf['examples_per_sec']:.1f} with cuDNN "
+              f"at its defaults (test_accuracy {sf['test_accuracy']:.6f}, "
+              f"losses and params bitwise the deterministic run's: "
+              f"{default_same})")
+        if not all(checks.values()):
+            failures.append(f"{name}: {checks}")
+    return failures
 
 
 def cnn_phase(gpu: str) -> dict:
@@ -1786,6 +2051,7 @@ def _lm_model(attention_impl: str, dtype: str = "bfloat16",
 
 _FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
 _F16_COUNTS = ("fwd_f16", "dq_f16", "dkv_f16")
+_TC32_COUNTS = ("dq_tc32", "dkv_tc32")
 
 
 def _flash_counts() -> dict:
@@ -1799,8 +2065,16 @@ def _flash_counts() -> dict:
 def _reset_flash_counts() -> None:
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    for n in _FLASH_COUNTS + _F16_COUNTS:
+    for n in _FLASH_COUNTS + _F16_COUNTS + _TC32_COUNTS:
         setattr(fa.flash_attention, f"{n}_launches", 0)
+
+
+def _tc32_counts() -> dict:
+    """Launches of the tc32 (f32 tensor-core) dQ and dK/dV kernels."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    return {n: getattr(fa.flash_attention, f"{n}_launches")
+            for n in _TC32_COUNTS}
 
 
 def _f16_counts() -> dict:
@@ -2217,9 +2491,9 @@ def _bert_ids(seed: int, rows: int = 32):
 
 def bert_phase(gpu: str) -> dict:
     """BASELINE config 5 through ``cli.main`` on a 1-rank NCCL group: at
-    f32 (every flash launch on the SIMT kernels) and under
-    ``bf16-f32master`` (every one on ``tc``).  Returns each policy's flash
-    launches (fit and evaluation)."""
+    f32 (every forward on the SIMT kernel, every dQ and dK/dV on tc32) and
+    under ``bf16-f32master`` (every launch on ``tc``).  Returns each
+    policy's flash launches (fit and evaluation)."""
     from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
     from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 
@@ -2234,6 +2508,7 @@ def bert_phase(gpu: str) -> dict:
         summary, _ = _cli(BERT_ARGV + ["--precision", policy])
         torch.cuda.synchronize()
         counts = _flash_counts()
+        tc32 = _tc32_counts()
         nccl = coll.all_reduce_.nccl_launches
         graphs = (_ChunkGraph.captures - graphs[0],
                   _ChunkGraph.replays - graphs[1])
@@ -2247,6 +2522,9 @@ def bert_phase(gpu: str) -> dict:
         assert counts == {"fwd": fwd, "dq": bwd, "dkv": bwd,
                           "fwd_tc": fwd * tc, "dq_tc": bwd * tc,
                           "dkv_tc": bwd * tc}, (policy, counts)
+        # at f32 the backward on the 3xTF32 tensor-core kernels
+        assert tc32 == {"dq_tc32": bwd * (1 - tc),
+                        "dkv_tc32": bwd * (1 - tc)}, (policy, tc32)
         # one all-reduce per step (two under a 16-bit policy: the 16-bit
         # gradients, then the f32 metrics) and one of the eval totals
         assert nccl == (1 + tc) * steps + 1, (policy, nccl)
@@ -2261,8 +2539,8 @@ def bert_phase(gpu: str) -> dict:
               f"step_ms_p50={rr['step_time_p50_s'] * 1e3:.4f} "
               f"first_chunk_s={rr['compile_s']:.3f} "
               f"graphs={graphs[0]}/{graphs[1]} nccl_all_reduces={nccl} "
-              f"flash_launches={json.dumps(counts)}")
-        out[policy] = counts
+              f"flash_launches={json.dumps({**counts, **tc32})}")
+        out[policy] = {**counts, **tc32}
     return out
 
 
@@ -2294,7 +2572,8 @@ def bert_mask_check() -> dict:
     shape = dict(b=BERT["batch"], lq=BERT["seq"], h=BERT["heads"],
                  d=BERT["head_dim"])
     errs = {}
-    for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "tc")):
+    for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "tc"),
+                         (torch.float32, "tc32")):
         q, k, v, do, _ = _flash_case(41, dtype=dtype, **shape)
         name = f"bert_padded_{route}"
         errs[route] = _check_flash(name, (q, k, v, do, mask), False, route)
@@ -2334,34 +2613,58 @@ def _sdpa_masked_backend(dtype):
     raise RuntimeError("no SDPA backend takes BERT's masked shape")
 
 
+def _kernel_names(fn, calls: int = 10) -> list[str]:
+    """The device kernels ``fn`` launches, largest device time first
+    (``torch.profiler`` over ``calls`` calls), or ``["not recorded"]``
+    where the profiler saw none."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    run()
+    torch.cuda.synchronize()
+    return [name for _, _, name in _profiled(run, calls)] or ["not recorded"]
+
+
 def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
                 sdpa_backend, dtype_name):
     """Kernel rows of the flash forward, dQ and dK/dV on ``variant`` at
-    these inputs: device ms, the event-window ms per call (host cost
-    included), bound, the plain versions and one SDPA call (with the
-    boolean key mask where there is one) under ``sdpa_backend``."""
+    these inputs (``tc32``: dQ and dK/dV alone, with the SIMT kernels'
+    device ms beside them and the 67 TFLOP/s f32 bound beside the 3xTF32
+    one): device ms, the event-window ms per call (host cost included),
+    bound, the plain versions and one SDPA call (with the boolean key mask
+    where there is one) under ``sdpa_backend``, whose backward kernels are
+    named."""
     from torch.nn.attention import sdpa_kernel
 
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
-    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=variant)
+    kinds = ("dq", "dkv") if variant == "tc32" else ("fwd", "dq", "dkv")
+    fwd_route = "simt" if variant == "tc32" else variant
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=fwd_route)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, mask, do, lse, delta, scale, causal)
     timed = {"fwd": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
-                                         route=variant),
+                                         route=fwd_route),
              "dq": lambda: fa._dq_cuda(*args, route=variant),
              "dkv": lambda: fa._dkv_cuda(*args, route=variant)}
+    if variant == "tc32":
+        # the SIMT kernels the tc32 route replaced on this path
+        timed = {"dq": timed["dq"], "dkv": timed["dkv"],
+                 "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
+                 "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
     dev = {n: _device_ms(fn, label=f"flash {n} {tag}")
            for n, fn in timed.items()}
     call = {n: _time_windows(fn, iters=50, warmup=5)[0]
             for n, fn in timed.items()}
     plain_fwd = lambda: fa._fwd_reference(q, k, v, mask, scale, causal)  # noqa: E731,E501
     plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
-    plain = {"fwd": _device_ms(plain_fwd, iters=10, warmup=2,
-                               label=f"flash fwd {tag} plain"),
-             "bwd": _device_ms(plain_bwd, iters=10, warmup=2,
+    plain = {"bwd": _device_ms(plain_bwd, iters=10, warmup=2,
                                label=f"flash bwd {tag} plain")}
+    if "fwd" in kinds:
+        plain["fwd"] = _device_ms(plain_fwd, iters=10, warmup=2,
+                                  label=f"flash fwd {tag} plain")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -2374,14 +2677,20 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
     lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
         o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
     lib_bwd = _device_ms(lib_bwd_fn, label=f"flash bwd {tag} SDPA")
-    src = "distributed_tensorflow_tpu_torch/ops/csrc/" + (
-        "flash_attention_sm90.cu" if variant == "tc" else "flash_attention.cu")
+    lib_kernels = _kernel_names(lib_bwd_fn)
+    print(f"[flash] {tag}: SDPA {sdpa_backend.name} backward kernels, "
+          f"largest first: {lib_kernels}")
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/" + {
+        "tc": "flash_attention_sm90.cu", "tc32": "flash_attention_f32_sm90.cu",
+        "simt": "flash_attention.cu"}[variant]
     replaces = {"fwd": 170, "dq": 281, "dkv": 299}
     b, lq, h, d = q.shape
     rows = []
-    for kind in ("fwd", "dq", "dkv"):
-        bound_ms, bound_by = _flash_bound_ms(kind, q, k, causal, mask)
-        rows.append({
+    for kind in kinds:
+        bound_ms, bound_by = _flash_bound_ms(
+            kind, q, k, causal, mask,
+            peak=TC32_FLOPS if variant == "tc32" else None)
+        row = {
             "name": f"flash_attention.{kind}_{tag}", "route": "cuda",
             "variant": variant, "source": src,
             "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
@@ -2395,33 +2704,55 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / dev[kind],
             "library_ms": lib_fwd if kind == "fwd" else lib_bwd,
-            "library_backend": sdpa_backend.name})
+            "library_backend": sdpa_backend.name,
+            "library_kernel": None if kind == "fwd" else lib_kernels[0]}
+        if variant == "tc32":
+            row["bound_f32_cuda_cores_ms"] = _flash_bound_ms(
+                kind, q, k, causal, mask)[0]
+            row["simt_ms"] = dev[f"{kind}_simt"]
+            row["simt_call_ms"] = call[f"{kind}_simt"]
+            row["max_abs_err_vs_simt"] = (
+                errs["dq_vs_simt"] if kind == "dq"
+                else max(errs["dk_vs_simt"], errs["dv_vs_simt"]))
+        rows.append(row)
         print(f"[flash] {tag} ({variant}) B={b} L={lq} H={h} D={d} "
               f"{dtype_name} {'causal' if causal else 'key mask'}: {kind} "
               f"device {dev[kind]:.5f} ms, call {call[kind]:.5f} ms; plain "
-              f"{rows[-1]['plain_ms']:.5f}; SDPA {sdpa_backend.name} "
-              f"{rows[-1]['library_ms']:.5f}; bound {bound_ms:.6f} "
-              f"({bound_by})")
+              f"{row['plain_ms']:.5f}; SDPA {sdpa_backend.name} "
+              f"{row['library_ms']:.5f}; bound {bound_ms:.6f} "
+              f"({bound_by})" + (
+                  f"; SIMT {row['simt_ms']:.5f}; f32 CUDA-core bound "
+                  f"{row['bound_f32_cuda_cores_ms']:.6f}"
+                  if variant == "tc32" else ""))
+    if variant == "tc32":
+        print(f"[flash] {tag}: dq+dkv tc32 {dev['dq'] + dev['dkv']:.5f} ms "
+              f"(SIMT {dev['dq_simt'] + dev['dkv_simt']:.5f}) against the "
+              f"SDPA f32 backward {lib_bwd:.5f} ms (device)")
     return rows
 
 
 def bert_timing_phase(bert_errs) -> list[dict]:
     """The flash kernels at BERT's shape (B=32, L=128, H=2, D=64,
-    non-causal, config 5's all-valid key mask) on each route, and the SIMT
-    kernels at f32 at the training slice's shape (B=8, L=1024, H=8, D=64,
-    causal), beside their bounds (f32 at the non-tensor peak), the plain
+    non-causal, config 5's all-valid key mask) on each route, and the f32
+    kernels at the training slice's shape (B=8, L=1024, H=8, D=64,
+    causal): the SIMT forward, dQ and dK/dV bound by the f32 (non-tensor)
+    peak, and the tc32 dQ and dK/dV by the 3xTF32 rate, beside the plain
     versions and SDPA; returns their rows (launches filled in by
     ``main``)."""
     print(f"[flash] f32 rows are bound by the H100's f32 (non-tensor) "
           f"peak of {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s (data "
-          f"sheet, SXM, 700 W); bf16 by {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f}"
-          f" TFLOP/s; bytes by {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+          f"sheet, SXM, 700 W), tc32 rows by three TF32 products per f32 "
+          f"product at {TF32_FLOPS / 1e12:.1f} TFLOP/s "
+          f"({TC32_FLOPS / 1e12:.1f}); bf16 by "
+          f"{PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s; bytes by "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     rows = []
     shape = dict(b=BERT["batch"], lq=BERT["seq"], h=BERT["heads"],
                  d=BERT["head_dim"])
     mask = torch.ones(BERT["batch"], BERT["seq"], device="cuda")
     for dtype, variant, name in ((torch.float32, "simt", "float32"),
-                                 (torch.bfloat16, "tc", "bfloat16")):
+                                 (torch.bfloat16, "tc", "bfloat16"),
+                                 (torch.float32, "tc32", "float32")):
         q, k, v, do, _ = _flash_case(42, dtype=dtype, **shape)
         rows += _flash_rows(f"bert_{variant}", variant, q, k, v, do, mask,
                             False, bert_errs[variant],
@@ -2429,6 +2760,9 @@ def bert_timing_phase(bert_errs) -> list[dict]:
     case = _flash_case(43, b=8, lq=1024, h=8, d=64)
     errs = _check_flash("slice_f32_causal", case, True, "simt")
     rows += _flash_rows("slice_f32", "simt", *case[:4], None, True, errs,
+                        _sdpa_backend(torch.float32), "float32")
+    errs = _check_flash("slice_f32_causal_tc32", case, True, "tc32")
+    rows += _flash_rows("slice_tc32", "tc32", *case[:4], None, True, errs,
                         _sdpa_backend(torch.float32), "float32")
     return rows
 
@@ -2586,7 +2920,8 @@ def build_phase() -> None:
 
     jobs = {"paged_attention": pa.build,
             "flash_attention": functools.partial(fa.build, "simt"),
-            "flash_attention_sm90": functools.partial(fa.build, "tc")}
+            "flash_attention_sm90": functools.partial(fa.build, "tc"),
+            "flash_attention_f32_sm90": functools.partial(fa.build, "tc32")}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         for fut in [pool.submit(fn) for fn in jobs.values()]:
@@ -2595,12 +2930,15 @@ def build_phase() -> None:
         print(f"[build] {name}.cu built in "
               f"{_build.build_seconds[name]:.2f}s")
     print(f"[build] phase {time.perf_counter() - t0:.2f}s")
-    for lib in ("flash_attention_sm90", "paged_attention"):
+    for lib in ("flash_attention_sm90", "flash_attention_f32_sm90",
+                "paged_attention"):
         for line in _ptxas_lines(_build.build_logs[lib]):
             print(f"[build] ptxas {line}")
     for d in (64, 128):
         print(f"[build] tc dynamic shared memory at head_dim {d}: "
-              f"{fa.smem_bytes(d, 'tc')}")
+              f"{fa.smem_bytes(d, 'tc')}; tc32 at 64 and 32 rows: "
+              f"{fa.smem_bytes(d, 'tc32', 64)}, "
+              f"{fa.smem_bytes(d, 'tc32', 32)}")
 
 
 def main() -> int:
@@ -2624,6 +2962,7 @@ def main() -> int:
     fit, evaluate, steps = train_phase(gpu)
     fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
     bert_launches = bert_phase(gpu)
+    repeat_failures = repeat_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -2653,7 +2992,8 @@ def main() -> int:
         # the fp16-f32master window's launches of this float16 kernel
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     bert_rows = bert_timing_phase(bert_errs)
-    simt = {k: bert_launches["f32"][k] - bert_launches["f32"][f"{k}_tc"]
+    f32 = bert_launches["f32"]
+    simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
     for row in bert_rows:
         kind = row["name"].rsplit(".", 1)[1].split("_")[0]
@@ -2661,11 +3001,14 @@ def main() -> int:
             # config 5 under bf16-f32master: every launch at this shape
             row["launches"] = bert_launches["bf16-f32master"][f"{kind}_tc"]
         else:
-            # config 5 at f32: the SIMT kernels' launches, all at BERT's
-            # shape (none at the slice's: the GPT trains in 16 bits)
-            row["launches"] = simt[kind]
+            # config 5 at f32: the SIMT forward's and the tc32 dQ and
+            # dK/dV launches, all at BERT's shape (none at the slice's:
+            # the GPT trains in 16 bits); the SIMT dQ and dK/dV have none
+            n = (f32[f"{kind}_tc32"] if row["variant"] == "tc32"
+                 else simt[kind])
+            row["launches"] = n
             row["launches_at_this_shape"] = (
-                simt[kind] if row["name"].endswith("_bert_simt") else 0)
+                n if "_bert_" in row["name"] else 0)
     timing_cross_check()
     _profile_step("CNN train step", "sync", "cnn", "mnist")
     _profile_cnn_chunk()
@@ -2680,6 +3023,8 @@ def main() -> int:
     for policy in ("f32", "bf16-f32master"):
         _profile_bert_chunk(policy)
     remat_phase(gpu)
+    _verify_cost(_serve_model(), _bench_trace()[1])
+    assert not repeat_failures, repeat_failures
     print(f"[timing] device times from queued CUDA events, where the "
           f"profiler saw no device time: {len(EVENT_TIMED)} "
           f"({', '.join(EVENT_TIMED) or 'none'})")

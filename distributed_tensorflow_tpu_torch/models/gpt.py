@@ -34,6 +34,15 @@ attention (``kv_heads``), weight-tied LM head.  Ported paths:
   written in place; the returned dicts carry the advanced cursors and the
   sticky overflow flag (the dicts passed in are not changed).
 
+Slot decode with ``by_column=True`` (the speculative verify) runs every
+op whose arithmetic depends on the number of query rows -- the GEMMs of
+the q/k/v/out projections, the FFN and the head, and the attention read --
+once per query column, at the shape of a one-token decode step
+(``_by_column``): cuBLAS, and the paged kernel, pick their summation order
+by the row count, so a verify over ``slots x width`` rows would round
+otherwise than the decode step it must equal.  Each verify column is then
+bitwise the decode step at its prefix.
+
 Flax's numerics are kept: parameters are stored in float32 and Dense/Embed
 compute in the model ``dtype``; LayerNorm has epsilon 1e-6 and normalizes
 in float32; GELU is the tanh approximation; logits are returned in f32.
@@ -68,6 +77,24 @@ from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention)
 
 _SEQ_PARALLEL = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+
+
+def _by_column(fn, *xs):
+    """``fn`` of each query column ``(x[:, j:j+1] for x in xs)`` on its
+    own, as contiguous (B, 1, ...) tensors, joined along dim 1: the shapes
+    and layouts of a one-token decode step."""
+    return torch.cat([fn(*(x[:, j:j + 1].contiguous() for x in xs))
+                      for j in range(xs[0].shape[1])], dim=1)
+
+
+def _dense_by(lin, x, dtype, by_column: bool):
+    """``dense``, or with ``by_column`` one ``F.linear`` per query column
+    over the weights cast once."""
+    if not by_column:
+        return _dense(lin, x, dtype)
+    w = lin.weight.to(dtype)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return _by_column(lambda c: F.linear(c.to(dtype), w, bias), x)
 
 
 def apply_rope(x, pos, base: float = 10000.0):
@@ -115,15 +142,16 @@ class CausalSelfAttention(nn.Module):
         return t.repeat_interleave(self.heads // self.kv_heads, dim=2)
 
     def forward(self, x, pos=None, pool=None, block_tables=None,
-                paged_fused: bool = True, cache=None, keep=None):
+                paged_fused: bool = True, cache=None, keep=None,
+                by_column: bool = False):
         if self.rope and pos is None:
             raise ValueError("rope=True needs the caller to pass positions")
         b, lq, _ = x.shape
-        q = _dense(self.query, x, self.dtype).reshape(
+        q = _dense_by(self.query, x, self.dtype, by_column).reshape(
             b, lq, self.heads, self.head_dim)
-        k = _dense(self.key, x, self.dtype).reshape(
+        k = _dense_by(self.key, x, self.dtype, by_column).reshape(
             b, lq, self.kv_heads, self.head_dim)
-        v = _dense(self.value, x, self.dtype).reshape(
+        v = _dense_by(self.value, x, self.dtype, by_column).reshape(
             b, lq, self.kv_heads, self.head_dim)
         if self.rope:
             q, k = apply_rope(q, pos), apply_rope(k, pos)
@@ -131,9 +159,9 @@ class CausalSelfAttention(nn.Module):
             out = self._cursor_attend(q, k, v, cache)
         elif pool is not None and block_tables is not None:
             out = self._paged_attend(q, k, v, pos, pool, block_tables,
-                                     paged_fused)
+                                     paged_fused, by_column)
         elif pool is not None:
-            out = self._slot_attend(q, k, v, pos, pool, keep)
+            out = self._slot_attend(q, k, v, pos, pool, keep, by_column)
         elif self.attention_impl == "flash":
             from distributed_tensorflow_tpu_torch.ops.flash_attention import (
                 flash_attention)
@@ -143,7 +171,14 @@ class CausalSelfAttention(nn.Module):
             out = dense_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
         out = out.reshape(b, lq, self.heads * self.head_dim)
-        return _dense(self.out, out, self.dtype)
+        return _dense_by(self.out, out, self.dtype, by_column)
+
+    def _read(self, q, keys, vals, valid, by_column):
+        """``_masked_read``, by query column with ``by_column``."""
+        if not by_column:
+            return self._masked_read(q, keys, vals, valid)
+        return _by_column(
+            lambda qc, vc: self._masked_read(qc, keys, vals, vc), q, valid)
 
     def _masked_read(self, q, keys, vals, valid):
         """Dense attention of ``q`` over (B, T, KVH, D) keys/values under
@@ -163,7 +198,7 @@ class CausalSelfAttention(nn.Module):
             return qk, qv, sk, sv
         return k.to(store), v.to(store)
 
-    def _slot_attend(self, q, k, v, pos, rows, keep):
+    def _slot_attend(self, q, k, v, pos, rows, keep, by_column=False):
         """Monolithic slot decode: write, then masked dense read.
 
         ``rows`` holds (B, T, KVH, D) ``cached_key``/``cached_value`` (and
@@ -199,7 +234,7 @@ class CausalSelfAttention(nn.Module):
             keys, vals = ck, cv
         valid = (torch.arange(t, device=q.device)[None, None, :]
                  <= idx[:, :, None])
-        return self._masked_read(q, keys, vals, valid)
+        return self._read(q, keys, vals, valid, by_column)
 
     def _cursor_attend(self, q, k, v, cache):
         """Cursor decode (``generate``): write this call's L K/V vectors at
@@ -221,7 +256,8 @@ class CausalSelfAttention(nn.Module):
                  <= (i + steps)[None, :, None]).expand(q.shape[0], -1, -1)
         return self._masked_read(q, ck, cv, valid)
 
-    def _paged_attend(self, q, k, v, pos, pool, block_tables, fused):
+    def _paged_attend(self, q, k, v, pos, pool, block_tables, fused,
+                      by_column=False):
         """Paged KV write, then read (fused kernel or gather + dense).
 
         Writes scatter each (row, position) K/V vector into
@@ -252,10 +288,14 @@ class CausalSelfAttention(nn.Module):
         if fused:
             from distributed_tensorflow_tpu_torch.ops.paged_attention import (
                 paged_attention)
-            return paged_attention(
-                q.contiguous(), kp, vp, block_tables,
-                pos[:, 0].to(torch.int32).contiguous(), k_scale=ksp,
-                v_scale=vsp).to(self.dtype)
+
+            def read(qc, pc):
+                return paged_attention(
+                    qc.contiguous(), kp, vp, block_tables,
+                    pc[:, 0].to(torch.int32).contiguous(), k_scale=ksp,
+                    v_scale=vsp).to(self.dtype)
+
+            return _by_column(read, q, pos) if by_column else read(q, pos)
         # gather the logical table back through the block table and run
         # masked dense attention; rows from unmapped entries sit past the
         # validity mask
@@ -270,7 +310,7 @@ class CausalSelfAttention(nn.Module):
                                        self.dtype)
         valid = (torch.arange(t, device=q.device)[None, None, :]
                  <= idx[:, :, None])
-        return self._masked_read(q, keys, vals, valid)
+        return self._read(q, keys, vals, valid, by_column)
 
 
 class GPTBlock(nn.Module):
@@ -292,13 +332,14 @@ class GPTBlock(nn.Module):
 
     def forward(self, x, train: bool = False, pos=None, pool=None,
                 block_tables=None, paged_fused: bool = True, generator=None,
-                cache=None, keep=None):
+                cache=None, keep=None, by_column: bool = False):
         y = self.attn(_layer_norm(self.ln1, x, self.dtype), pos, pool,
-                      block_tables, paged_fused, cache, keep)
+                      block_tables, paged_fused, cache, keep, by_column)
         x = x + _dropout(y, self.dropout_rate, train, generator)
         y = _layer_norm(self.ln2, x, self.dtype)
-        y = F.gelu(_dense(self.fc1, y, self.dtype), approximate="tanh")
-        y = _dense(self.fc2, y, self.dtype)
+        y = F.gelu(_dense_by(self.fc1, y, self.dtype, by_column),
+                   approximate="tanh")
+        y = _dense_by(self.fc2, y, self.dtype, by_column)
         return x + _dropout(y, self.dropout_rate, train, generator)
 
 
@@ -311,8 +352,10 @@ class GPTLM(nn.Module):
     positions=..., pools=...)`` is slot decode: ``pools`` holds one KV
     dict per layer, written in place — paged pools with ``block_tables``
     (``paged_fused`` picks the kernel read or the gather read), monolithic
-    rows without.  ``forward(ids, cache=...)`` is cursor decode and
-    returns ``(logits, cache)`` (module docstring).  ``decode=True`` marks
+    rows without; ``by_column`` runs the row-count-dependent ops one
+    query column at a time (the verify; module docstring).
+    ``forward(ids, cache=...)`` is cursor decode and returns ``(logits,
+    cache)`` (module docstring).  ``decode=True`` marks
     a model that only decodes: its forward needs ``cache=``."""
 
     def __init__(self, vocab_size: int = 256, hidden: int = 128,
@@ -391,8 +434,11 @@ class GPTLM(nn.Module):
 
     def forward(self, token_ids, train: bool = False, positions=None,
                 block_tables=None, pools=None, paged_fused: bool = True,
-                generator=None, cache=None):
+                generator=None, cache=None, by_column: bool = False):
         lq = token_ids.shape[1]
+        if by_column and pools is None:
+            raise ValueError("by_column is a slot-decode option (pass "
+                             "pools)")
         keep = None
         if cache is not None:
             if pools is not None or positions is not None:
@@ -449,12 +495,15 @@ class GPTLM(nn.Module):
             else:
                 x = block(x, train, pos, None if pools is None else pools[i],
                           block_tables, paged_fused, generator,
-                          None if cache is None else cache[i], keep)
+                          None if cache is None else cache[i], keep,
+                          by_column)
         x = _layer_norm(self.ln_f, x, self.dtype)
         if self.tie_embeddings:
-            logits = F.linear(x, self.token_embed.weight.to(self.dtype))
+            head = self.token_embed.weight.to(self.dtype)
+            logits = (_by_column(lambda c: F.linear(c, head), x)
+                      if by_column else F.linear(x, head))
         else:
-            logits = _dense(self.lm_head, x, self.dtype)
+            logits = _dense_by(self.lm_head, x, self.dtype, by_column)
         if cache is not None:
             return logits.float(), cache
         return logits.float()

@@ -9,16 +9,20 @@ tensors the plain PyTorch versions ``_fwd_reference``/``_bwd_reference``
 run (the math of the JAX package's ``_fwd_block_ref``/``_bwd_block_ref``,
 in f32).  A CUDA tensor never falls back to a plain version.
 
-Two routes, chosen by ``_route(dtype, head_dim)`` from the inputs alone:
-``"tc"`` for bfloat16 or float16 with a head dim that is a multiple of 16
-up to 128 (the GPT training path, under bf16 and fp16 precision policies)
-runs the forward, dQ and dK/dV on Hopper's tensor cores,
-``csrc/flash_attention_sm90.cu``; ``"simt"`` (float32, and so
-``flash_bwd_block``, and other head dims) runs ``csrc/flash_attention.cu``.
-The ``tc`` kernels round P and dS to the 16-bit input type for their
-products: one rounding more than the ``simt`` kernels' f32 P.  Both
-routes take all three types: the kernels compute in f32 and write their
-outputs in the input type.
+Three routes, chosen by ``_route(dtype, head_dim, op)`` from the inputs
+and the kernel alone (nothing is chosen by failure): ``"tc"`` for bfloat16
+or float16 with a head dim that is a multiple of 16 up to 128 (the GPT
+training path, under bf16 and fp16 precision policies) runs the forward,
+dQ and dK/dV on Hopper's tensor cores, ``csrc/flash_attention_sm90.cu``;
+``"tc32"`` for float32 dQ and dK/dV at those head dims (config 5 at f32,
+and ``flash_bwd_block``, which casts to f32) runs them on the tensor cores
+as 3xTF32, ``csrc/flash_attention_f32_sm90.cu``; ``"simt"`` (the f32
+forward, and other head dims) runs ``csrc/flash_attention.cu``.  The
+``tc`` kernels round P and dS to the 16-bit input type for their products:
+one rounding more than the ``simt`` kernels' f32 P; the ``tc32`` kernels
+keep about 21 bits of each f32 product (three TF32 products).  ``simt``
+takes all three types: the kernels compute in f32 and write their outputs
+in the input type.
 
 ``flash_attention`` is differentiable through ``_FlashCore``, the
 counterpart of the JAX ``_flash_core`` custom_vjp: the forward saves
@@ -37,8 +41,9 @@ sees its own position).
 
 Launch counts (the main path's proof that it ran the kernels):
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
-over both routes, ``.fwd_tc_launches``, ``.dq_tc_launches`` and
-``.dkv_tc_launches`` for the ``tc`` route alone, and
+over every route, ``.fwd_tc_launches``, ``.dq_tc_launches`` and
+``.dkv_tc_launches`` for the ``tc`` route alone, ``.dq_tc32_launches`` and
+``.dkv_tc32_launches`` for the ``tc32`` route alone, and
 ``.fwd_f16_launches``, ``.dq_f16_launches`` and ``.dkv_f16_launches`` for
 float16 inputs on either route.
 """
@@ -54,6 +59,7 @@ NEG_INF = -1e30   # matches parallel.ring_attention.NEG_INF
 _TINY = 1e-30
 MAX_HEAD_DIM = 256
 _SMEM_LIMIT = 232_448          # bytes of shared memory one Hopper CTA may use
+_WAVE = 2 * 132                # two waves of one CTA on each of 132 SMs
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -134,23 +140,28 @@ def _cancel_sums(q, k, v, kv_mask, do, lse, delta, scale, causal):
 # --------------------------------------------------------------------------
 
 _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
+# each route's source and its functions' pointer counts
+_SOURCES = {"simt": ("flash_attention", {"fwd": 6, "dq": 8, "dkv": 9}),
+            "tc": ("flash_attention_sm90",
+                   {"fwd_tc": 6, "dq_tc": 8, "dkv_tc": 9}),
+            "tc32": ("flash_attention_f32_sm90",
+                     {"dq_tc32": 8, "dkv_tc32": 9})}
+_SUFFIX = {"simt": "", "tc": "_tc", "tc32": "_tc32"}
 
 
 @functools.cache
 def _library(route: str = "simt"):
     """The kernel library of ``route``: ``simt`` = ``flash_attention.cu``
     (fwd, dq, dkv), ``tc`` = ``flash_attention_sm90.cu`` (fwd, dq and dkv,
-    16-bit types only); each function takes a dtype code (``_DTYPES``)."""
+    16-bit types only), ``tc32`` = ``flash_attention_f32_sm90.cu`` (dq and
+    dkv, f32 only).  ``simt`` and ``tc`` functions take a dtype code
+    (``_DTYPES``), ``tc32`` ones the rows per CTA (``_tc32_rows``)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = _TAIL + [i32, ptr]
-    if route == "simt":
-        lib = _build.load("flash_attention")
-        fns = {"fwd": 6, "dq": 8, "dkv": 9}
-    else:
-        lib = _build.load("flash_attention_sm90")
-        fns = {"fwd_tc": 6, "dq_tc": 8, "dkv_tc": 9}
+    source, fns = _SOURCES[route]
+    lib = _build.load(source)
     for name, n_ptrs in fns.items():
         fn = getattr(lib, f"flash_{name}_launch")
         fn.argtypes = [ptr] * n_ptrs + tail
@@ -160,25 +171,39 @@ def _library(route: str = "simt"):
 
 def build(route: str | None = None) -> None:
     """Build (or load the already-built) kernel library of ``route``, or
-    of both routes."""
-    for r in ((route,) if route else ("simt", "tc")):
+    of every route."""
+    for r in ((route,) if route else tuple(_SOURCES)):
         _library(r)
 
 
-def _route(dtype, head_dim: int) -> str:
-    """``"tc"`` where the tensor-core kernels take the inputs (bfloat16 or
-    float16, a head dim that is a multiple of 16 up to 128), else
-    ``"simt"``."""
-    if (dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0
-            and 16 <= head_dim <= 128):
+def _route(dtype, head_dim: int, op: str = "fwd") -> str:
+    """The route of kernel ``op`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for
+    inputs of ``dtype`` and ``head_dim``: ``"tc"`` for bfloat16 or float16
+    at a head dim that is a multiple of 16 up to 128, ``"tc32"`` for
+    float32 dQ and dK/dV at those head dims, else ``"simt"``."""
+    if op not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"op must be fwd, dq or dkv, got {op!r}")
+    tensor = head_dim % 16 == 0 and 16 <= head_dim <= 128
+    if tensor and dtype in (torch.bfloat16, torch.float16):
         return "tc"
+    if tensor and dtype == torch.float32 and op != "fwd":
+        return "tc32"
     return "simt"
+
+
+def _tc32_rows(bh: int, length: int) -> int:
+    """Rows per CTA of the ``tc32`` kernels (q rows of dQ, keys of dK/dV,
+    ``length`` of them in each of ``bh`` heads): 64 (one warp per slab of
+    16), or 32 (two warps per slab, each taking half of every staged tile)
+    where 64-row CTAs would make fewer than ``_WAVE``."""
+    return 64 if bh * -(-length // 64) >= _WAVE else 32
 
 
 def _tiles(d: int, route: str = "simt") -> tuple[int, int, int]:
     """(BQ, BK, DT) the kernels of ``route`` use for head dim ``d``
-    (mirrors ``by_head_dim`` / ``dispatch`` in the CUDA sources)."""
-    if route == "tc":
+    (mirrors ``by_head_dim`` / ``dispatch`` in the CUDA sources; ``tc32``
+    CTAs hold ``_tc32_rows`` rows and stage 64 at a time)."""
+    if route in ("tc", "tc32"):
         return 64, 64, (64 if d <= 64 else 128)
     if d <= 64:
         return 64, 64, 64
@@ -187,9 +212,10 @@ def _tiles(d: int, route: str = "simt") -> tuple[int, int, int]:
     return 32, 32, 256
 
 
-def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
+def smem_bytes(d: int, route: str = "simt", rows: int = 64) -> dict[str, int]:
     """Dynamic shared memory each kernel of ``route`` needs per CTA at head
-    dim ``d`` (mirrors ``Smem`` in the CUDA sources)."""
+    dim ``d`` (mirrors ``Smem`` in the CUDA sources; ``rows``: the ``tc32``
+    CTA's rows, 64 or 32)."""
     bq, bk, dt = _tiles(d)
     ld, ldp = dt + 1, bk + 1
     simt = {"fwd": 4 * (bq * ld + 2 * bk * ld + bq * ldp + bk),
@@ -198,6 +224,16 @@ def smem_bytes(d: int, route: str = "simt") -> dict[str, int]:
                         + 2 * bq)}
     if route == "simt":
         return simt
+    if route == "tc32":
+        if _route(torch.float32, d, "dq") != "tc32" or rows not in (32, 64):
+            raise ValueError(f"the tc32 route takes head dims that are "
+                             f"multiples of 16 up to 128 and 32 or 64 rows, "
+                             f"not {d} and {rows}")
+        _, staged, dt = _tiles(d, "tc32")
+        ld = dt + 4                            # f32 rows padded by 4
+        tiles = 2 * rows * ld + 4 * staged * ld
+        return {"dq": 4 * (tiles + 2 * staged),
+                "dkv": 4 * (tiles + 4 * staged)}
     if _route(torch.bfloat16, d) != "tc":
         raise ValueError(f"the tc route takes head dims that are multiples "
                          f"of 16 up to 128, not {d}")
@@ -214,17 +250,17 @@ def _ptr(t):
 
 def _aligned(t):
     """``t``, or a copy of it where its data is not 16-byte aligned (the
-    ``tc`` kernels copy 16 bytes at a time)."""
+    ``tc`` and ``tc32`` kernels copy 16 bytes at a time)."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(name, *tensors, dims, scale, causal, dtype, device):
-    lib = _library("tc" if name.endswith("_tc") else "simt")
+def _launch(kind, route, *tensors, dims, scale, causal, code, device):
+    name = kind + _SUFFIX[route]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"flash_{name}_launch")(
+        err = getattr(_library(route), f"flash_{name}_launch")(
             *(_ptr(t) for t in tensors), *dims, float(scale), int(causal),
-            _DTYPES[dtype], stream)
+            code, stream)
     if err:
         raise RuntimeError(f"flash_attention {name} kernel launch failed "
                            f"with cudaError_t {err}")
@@ -234,56 +270,66 @@ def _dims(q, k):
     return q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3]
 
 
+def _code(route, q, length):
+    """The launch's last int: the dtype code, or for ``tc32`` the rows per
+    CTA over ``length`` rows (which takes float32 alone)."""
+    if route != "tc32":
+        return _DTYPES[q.dtype]
+    if q.dtype != torch.float32:
+        raise TypeError(f"the tc32 kernels take float32 inputs, got "
+                        f"{q.dtype}")
+    return _tc32_rows(q.shape[0] * q.shape[2], length)
+
+
+def _count(kind, route, dtype):
+    f = flash_attention
+    setattr(f, f"{kind}_launches", getattr(f, f"{kind}_launches") + 1)
+    if route != "simt":
+        counter = f"{kind}{_SUFFIX[route]}_launches"
+        setattr(f, counter, getattr(f, counter) + 1)
+    if dtype == torch.float16:
+        counter = f"{kind}_f16_launches"
+        setattr(f, counter, getattr(f, counter) + 1)
+
+
 def _fwd_cuda(q, k, v, mask, scale, causal, route=None):
     """The forward kernel of ``route`` (default: ``_route`` of the inputs)."""
-    route = route or _route(q.dtype, q.shape[-1])
+    route = route or _route(q.dtype, q.shape[-1], "fwd")
     b, lq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if route == "tc":
         q, k, v = (_aligned(x) for x in (q, k, v))
-    _launch("fwd_tc" if route == "tc" else "fwd", q, k, v, mask, out, lse,
-            dims=_dims(q, k), scale=scale, causal=causal, dtype=q.dtype,
+    _launch("fwd", route, q, k, v, mask, out, lse, dims=_dims(q, k),
+            scale=scale, causal=causal, code=_code(route, q, lq),
             device=q.device)
-    flash_attention.fwd_launches += 1
-    if route == "tc":
-        flash_attention.fwd_tc_launches += 1
-    if q.dtype == torch.float16:
-        flash_attention.fwd_f16_launches += 1
+    _count("fwd", route, q.dtype)
     return out, lse
 
 
 def _dq_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
     """The dQ kernel of ``route`` (default: ``_route`` of the inputs)."""
-    route = route or _route(q.dtype, q.shape[-1])
+    route = route or _route(q.dtype, q.shape[-1], "dq")
     dq = torch.empty_like(q)
-    if route == "tc":
+    if route != "simt":
         q, k, v, do = (_aligned(x) for x in (q, k, v, do))
-    _launch("dq_tc" if route == "tc" else "dq", q, k, v, mask, do, lse,
-            delta, dq, dims=_dims(q, k), scale=scale, causal=causal,
-            dtype=q.dtype, device=q.device)
-    flash_attention.dq_launches += 1
-    if route == "tc":
-        flash_attention.dq_tc_launches += 1
-    if q.dtype == torch.float16:
-        flash_attention.dq_f16_launches += 1
+    _launch("dq", route, q, k, v, mask, do, lse, delta, dq,
+            dims=_dims(q, k), scale=scale, causal=causal,
+            code=_code(route, q, q.shape[1]), device=q.device)
+    _count("dq", route, q.dtype)
     return dq
 
 
 def _dkv_cuda(q, k, v, mask, do, lse, delta, scale, causal, route=None):
     """The dK/dV kernel of ``route`` (default: ``_route`` of the inputs)."""
-    route = route or _route(q.dtype, q.shape[-1])
+    route = route or _route(q.dtype, q.shape[-1], "dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if route == "tc":
+    if route != "simt":
         q, k, v, do = (_aligned(x) for x in (q, k, v, do))
-    _launch("dkv_tc" if route == "tc" else "dkv", q, k, v, mask, do, lse,
-            delta, dk, dv, dims=_dims(q, k), scale=scale, causal=causal,
-            dtype=q.dtype, device=q.device)
-    flash_attention.dkv_launches += 1
-    if route == "tc":
-        flash_attention.dkv_tc_launches += 1
-    if q.dtype == torch.float16:
-        flash_attention.dkv_f16_launches += 1
+    _launch("dkv", route, q, k, v, mask, do, lse, delta, dk, dv,
+            dims=_dims(q, k), scale=scale, causal=causal,
+            code=_code(route, q, k.shape[1]), device=q.device)
+    _count("dkv", route, q.dtype)
     return dk, dv
 
 
@@ -338,7 +384,8 @@ def _check(q, k, v, kv_mask, extra=()):
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim={d} exceeds the kernels' maximum "
                          f"{MAX_HEAD_DIM}")
-    need = max(smem_bytes(d, _route(q.dtype, d)).values())
+    need = max(max(smem_bytes(d, _route(q.dtype, d, op)).values())
+               for op in ("fwd", "dq", "dkv"))
     if need > _SMEM_LIMIT:
         raise ValueError(f"flash attention needs {need} bytes of shared "
                          f"memory per CTA at head_dim {d}; the card allows "
@@ -407,6 +454,8 @@ flash_attention.dkv_launches = 0
 flash_attention.fwd_tc_launches = 0
 flash_attention.dq_tc_launches = 0
 flash_attention.dkv_tc_launches = 0
+flash_attention.dq_tc32_launches = 0
+flash_attention.dkv_tc32_launches = 0
 flash_attention.fwd_f16_launches = 0
 flash_attention.dq_f16_launches = 0
 flash_attention.dkv_f16_launches = 0

@@ -46,8 +46,10 @@ body runs as an eager loop.  The round reads static device buffers that
 the host refreshes only when their value changed (``_dev_cached``), and its
 stacks come back through a pinned buffer of its own behind a CUDA event.
 ``verify_block`` scores a ``(slots, width)`` token block in one forward
-(greedy argmaxes); ``commit_block`` and ``rewind`` roll back by length
-bookkeeping alone.  ``dispatch_count`` counts every forward issued: a
+(greedy argmaxes), whose GEMMs and attention reads run one query column at
+a time, so that each column is bitwise the decode step at its prefix
+(``GPTLM.forward(by_column=True)``); ``commit_block`` and ``rewind`` roll
+back by length bookkeeping alone.  ``dispatch_count`` counts every forward issued: a
 prefill chunk, a decode step, a verify, a fused round.
 
 Differences from the JAX table, all in how work is issued: PyTorch runs
@@ -694,8 +696,11 @@ class SlotKVCache:
         d_len = self._dev_cached("lengths", self.lengths)
         positions = d_len[:, None] + torch.arange(
             width, dtype=torch.int32, device=self.device)[None, :]
+        # by query column: each column is bitwise the decode step at its
+        # prefix (models/gpt.py, ``by_column``)
         return self._step_forward(self._upload(block.astype(np.int64)),
-                                  positions, self._decode_bt(self.active))
+                                  positions, self._decode_bt(self.active),
+                                  by_column=True)
 
     def verify_block(self, block) -> np.ndarray:
         """Score a (slots, width) token block in one forward and return
@@ -772,15 +777,16 @@ class SlotKVCache:
                               pools=kv, **kw)
 
     def _step_forward(self, tokens: torch.Tensor, positions: torch.Tensor,
-                      bt) -> torch.Tensor:
+                      bt, by_column: bool = False) -> torch.Tensor:
         """A decode or verify forward of every slot over (slots, L) device
         tokens at (slots, L) int32 positions (``bt``: the paged table's
-        masked block tables, None for the monolithic table)."""
+        masked block tables, None for the monolithic table; ``by_column``:
+        the model's verify mode)."""
         kw = ({} if bt is None
               else dict(block_tables=bt, paged_fused=self.paged_fused))
         with torch.no_grad():
             return self.model(tokens, positions=positions, pools=self.cache,
-                              **kw)
+                              by_column=by_column, **kw)
 
     def _decode_bt(self, mask):
         """The block tables of a forward of ``mask`` (None: monolithic)."""

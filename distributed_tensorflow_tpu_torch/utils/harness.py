@@ -10,7 +10,10 @@ and datasets.  The summary's test accuracy is the consensus model's:
 ``Engine.evaluate`` goes through ``eval_params``, the ranks' mean under
 async and gossip.  A run computes the models' f32 math in full f32: TF32
 is off for matmuls and convolutions while it runs (torch's default lets
-cuDNN convolutions use TF32).  ``precision`` picks the mixed-precision
+cuDNN convolutions use TF32), and cuDNN is held to deterministic
+algorithms with its autotuner off, so that one seed gives the same run
+bitwise on the card, as it does under XLA (``_repeatable_math``).
+``precision`` picks the mixed-precision
 policy (``parallel/precision.py``): a non-f32 policy stores the
 parameters in 16 bits and the model computes in the policy's dtype
 (``_resolve_precision``).  ``attention_impl`` and ``remat`` reach the
@@ -27,6 +30,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -98,14 +102,20 @@ class _Experiment:
 
 
 def _resolve_model(config: ExperimentConfig, num_classes: int, device):
-    """Plug-in ``model_fn`` wins; else the registry with ``model_args``
-    and the config's ``dtype`` (JAX ``harness.py:826-855``): ``remat``
+    """Plug-in ``model_fn`` wins (and owns its dtype: a non-f32 ``dtype``
+    is ignored, with a warning, as in JAX ``harness.py:820-828``); else
+    the registry with ``model_args`` and the config's ``dtype`` (JAX
+    ``harness.py:826-855``): ``remat``
     reaches a sequence model and is rejected for any other; ``flash``,
     ``ring_flash`` and ``ulysses_flash`` give a sequence model the flash
     kernels (without a sequence mesh the ring schedule around them is a
     no-op), while ``ring`` (the flag's default) and ``ulysses`` leave it
     dense, as they need the sequence mesh this path does not build."""
     if config.model_fn is not None:
+        if modellib.resolve_dtype(config.dtype) is not torch.float32:
+            warnings.warn(
+                f"--dtype {config.dtype} is ignored for plug-in model_fn "
+                f"models; the model_fn owns its dtype", stacklevel=2)
         return config.model_fn()
     kw = dict(config.model_args or {})
     forced = {}
@@ -207,18 +217,24 @@ def _quiet(_line: str) -> None:
 
 
 @contextlib.contextmanager
-def _f32_math():
-    """TF32 off for matmuls and convolutions, restored on exit."""
+def _repeatable_math():
+    """For the run: TF32 off for matmuls and convolutions (full f32), and
+    cuDNN on deterministic algorithms with its autotuner off (the default
+    heuristics may pick weight-gradient algorithms that sum with atomics,
+    in another order each run).  All four flags are restored on exit."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = matmul.allow_tf32, cudnn.allow_tf32
+    saved = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic,
+             cudnn.benchmark)
     matmul.allow_tf32 = cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
     try:
         yield
     finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
+        (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = saved
 
 
-@_f32_math()
+@_repeatable_math()
 def run(config: ExperimentConfig) -> dict[str, Any]:
     """Run one experiment on this rank; returns the summary dict.  Rank 0
     alone logs heartbeats, writes ``result_path`` and reports the
@@ -289,7 +305,7 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
         ex.mesh.close()
 
 
-@_f32_math()
+@_repeatable_math()
 def steps_to_accuracy(config: ExperimentConfig, target: float,
                       max_steps: int = 10_000,
                       eval_every: int = 50) -> dict[str, Any]:

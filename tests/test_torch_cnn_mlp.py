@@ -29,9 +29,11 @@ drain, prefetch and early stop, ``utils/{wire,supervisor,harness}.py`` and
 * the wire bytes and the supervisor's event triple against JAX's.
 """
 
+import dataclasses
 import pickle
 import socket
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -53,6 +55,7 @@ from distributed_tensorflow_tpu.parallel.mesh import create_mesh as jax_mesh
 from distributed_tensorflow_tpu.utils import supervisor as jsupervisor
 from distributed_tensorflow_tpu.utils import wire as jwire
 from distributed_tensorflow_tpu_torch import cli as tcli
+from distributed_tensorflow_tpu_torch import models as tmodels
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.data.device_prefetch import (
     DevicePrefetch)
@@ -63,6 +66,7 @@ from distributed_tensorflow_tpu_torch.models.convert import (
     cnn_state_dict, mlp_state_dict)
 from distributed_tensorflow_tpu_torch.models.mlp import MLP, dropout
 from distributed_tensorflow_tpu_torch.parallel import mesh as tmesh
+from distributed_tensorflow_tpu_torch.utils import harness as tharness
 from distributed_tensorflow_tpu_torch.utils import supervisor as tsupervisor
 from distributed_tensorflow_tpu_torch.utils import wire as twire
 from distributed_tensorflow_tpu_torch.utils.harness import (
@@ -562,6 +566,62 @@ def test_run_turns_tf32_off_and_restores_it(monkeypatch, capsys):
     assert seen == [(False, False)] * 2
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == (True, True)
+
+
+@pytest.mark.parametrize("entry", ["run", "steps_to_accuracy"])
+def test_run_holds_cudnn_deterministic_and_restores_it(monkeypatch, entry):
+    """One seed gives one run on the card: cuDNN takes deterministic
+    algorithms and its autotuner is off while a run sets up and trains,
+    and the caller's flags come back after it (also on the way out of a
+    run that raises)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    seen = []
+
+    def data(batch_size, type="train"):
+        seen.append((torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark))
+        return _port_small(batch_size, type)
+
+    config = tharness.ExperimentConfig(
+        engine="sync", model="mlp", n_devices=1, batch_size=16,
+        log_every=0, device="cpu", dataset_fn=data)
+    if entry == "run":
+        tharness.run(config)
+    else:
+        tharness.steps_to_accuracy(config, target=2.0, max_steps=2,
+                                   eval_every=1)
+    assert seen and set(seen) == {(True, False)}
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == (False, True)
+
+    def broken(batch_size, type="train"):
+        raise RuntimeError("no data")
+
+    with pytest.raises(RuntimeError, match="no data"):
+        tharness.run(dataclasses.replace(config, dataset_fn=broken))
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == (False, True)
+
+
+def test_plugin_model_fn_warns_that_a_non_f32_dtype_is_ignored():
+    """As the JAX harness: a plug-in ``model_fn`` owns its dtype, so a
+    non-f32 ``dtype`` is ignored with a warning (and f32 warns nothing)."""
+    def model_fn():
+        return tmodels.create_model("mlp", num_classes=10, device="cpu")
+
+    for dtype in ("bfloat16", "float16"):
+        config = tharness.ExperimentConfig(model_fn=model_fn, dtype=dtype)
+        with pytest.warns(UserWarning) as caught:
+            model = tharness._resolve_model(config, 10, "cpu")
+        assert [str(w.message) for w in caught] == [
+            f"--dtype {dtype} is ignored for plug-in model_fn models; the "
+            f"model_fn owns its dtype"]
+        assert next(model.parameters()).dtype == torch.float32
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tharness._resolve_model(
+            tharness.ExperimentConfig(model_fn=model_fn), 10, "cpu")
 
 
 # ------------------------------------------------------- wire/supervisor

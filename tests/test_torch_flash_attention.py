@@ -329,3 +329,72 @@ def test_tc_shared_memory_is_refused_outside_its_head_dims():
     for d in (8, 72, 144, 256):
         with pytest.raises(ValueError, match="multiples of 16"):
             tfa.smem_bytes(d, "tc")
+
+
+@pytest.mark.parametrize("dtype, d, op, route", [
+    # float32: dQ and dK/dV on the 3xTF32 tensor-core kernels at head dims
+    # that are multiples of 16 up to 128; the forward stays on SIMT
+    (torch.float32, 16, "dq", "tc32"), (torch.float32, 64, "dq", "tc32"),
+    (torch.float32, 128, "dq", "tc32"), (torch.float32, 16, "dkv", "tc32"),
+    (torch.float32, 64, "dkv", "tc32"), (torch.float32, 128, "dkv", "tc32"),
+    (torch.float32, 64, "fwd", "simt"), (torch.float32, 128, "fwd", "simt"),
+    (torch.float32, 8, "dq", "simt"), (torch.float32, 24, "dkv", "simt"),
+    (torch.float32, 256, "dq", "simt"), (torch.float32, 256, "dkv", "simt"),
+    # 16-bit routing is the same for every kernel
+    (torch.bfloat16, 64, "fwd", "tc"), (torch.bfloat16, 64, "dq", "tc"),
+    (torch.bfloat16, 64, "dkv", "tc"), (torch.float16, 128, "dkv", "tc"),
+    (torch.bfloat16, 24, "dq", "simt"), (torch.float16, 256, "dkv",
+                                         "simt")])
+def test_route_is_a_function_of_dtype_head_dim_and_kernel(dtype, d, op,
+                                                          route):
+    assert tfa._route(dtype, d, op) == route
+
+
+def test_route_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="fwd, dq or dkv"):
+        tfa._route(torch.float32, 64, "bwd")
+
+
+@pytest.mark.parametrize("bh, length, rows", [
+    (64, 1024, 64),     # the training slice: 1024 CTAs of 64 rows
+    (64, 128, 32),      # BERT-tiny's shape: 128 CTAs of 64 would be < 1 wave
+    (2, 1000, 32), (264, 64, 64), (263, 64, 32), (132, 65, 64)])
+def test_tc32_rows_halve_where_64_row_ctas_make_under_two_waves(bh, length,
+                                                                rows):
+    assert tfa._tc32_rows(bh, length) == rows
+
+
+@pytest.mark.parametrize("d, rows", [(16, 64), (64, 64), (64, 32),
+                                     (80, 64), (128, 64), (128, 32)])
+def test_tc32_shared_memory_fits_and_mirrors_the_kernels(d, rows):
+    got = tfa.smem_bytes(d, "tc32", rows)
+    dt = 64 if d <= 64 else 128
+    ld = dt + 4                    # f32 rows padded by 4 floats
+    tiles = 2 * rows * ld + 4 * 64 * ld
+    # own rows (Q, dO or K, V); 2 stages of 64 staged rows of two tensors;
+    # 2 stages of the key mask (dQ) or of lse and Delta (dK/dV)
+    assert got == {"dq": 4 * (tiles + 2 * 64), "dkv": 4 * (tiles + 4 * 64)}
+    assert max(got.values()) <= tfa._SMEM_LIMIT
+    assert tfa._tiles(d, "tc32") == (64, 64, dt)
+
+
+def test_tc32_shared_memory_is_refused_outside_its_head_dims_and_rows():
+    for d, rows in ((8, 64), (72, 64), (256, 64), (64, 16)):
+        with pytest.raises(ValueError, match="tc32"):
+            tfa.smem_bytes(d, "tc32", rows)
+
+
+def test_cpu_tensors_of_the_tc32_route_run_the_plain_backward():
+    """f32 at head_dim 16 takes the tc32 dQ and dK/dV on the card; on the
+    CPU the plain versions run and no launch is counted."""
+    q, k, v = _t(*_qkv(17, 2, 24, 2, 16))
+    assert tfa._route(q.dtype, 16, "dq") == "tc32"
+    before = _launch_counts()
+    tc32 = (tfa.flash_attention.dq_tc32_launches,
+            tfa.flash_attention.dkv_tc32_launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*leaves, causal=True).sum().backward()
+    assert before == _launch_counts()
+    assert tc32 == (tfa.flash_attention.dq_tc32_launches,
+                    tfa.flash_attention.dkv_tc32_launches)
+    assert all(x.grad is not None for x in leaves)

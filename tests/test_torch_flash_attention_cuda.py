@@ -7,7 +7,10 @@ card, with no JAX installed there:
 
 bf16 inputs with a head dim that is a multiple of 16 up to 128 take the
 tensor-core route (``csrc/flash_attention_sm90.cu``: forward, dQ and
-dK/dV); f32 inputs and other head dims take the SIMT route
+dK/dV); f32 dQ and dK/dV at those head dims the 3xTF32 tensor-core route
+(``tc32``, ``csrc/flash_attention_f32_sm90.cu``), held to the plain
+backward at the f32 gradient tolerance and bitwise to itself run again;
+the f32 forward and other head dims take the SIMT route
 (``csrc/flash_attention.cu``).
 
 Tolerances: f32 outputs and lse ``rtol=1e-5, atol=2e-5``, f32 gradients
@@ -77,7 +80,7 @@ def test_kernels_match_plain_versions_f32(cuda_device, b, lq, lk, h, d,
     before = _counts()
     out, lse = tfa._fwd_cuda(q, k, v, mask, scale, causal)
     torch.cuda.synchronize()
-    assert _counts() == _moved(before, fwd=1)         # the simt route
+    assert _counts() == _moved(before, fwd=1)         # the simt forward
     ref_out, ref_lse = tfa._fwd_reference(q, k, v, mask, scale, causal)
     torch.testing.assert_close(out, ref_out, **F32)
     torch.testing.assert_close(lse, ref_lse, **F32)
@@ -89,6 +92,7 @@ def test_kernels_match_plain_versions_f32(cuda_device, b, lq, lk, h, d,
                               causal)
     for g, w, name in zip(got, want, "qkv"):
         torch.testing.assert_close(g, w, msg=f"d{name}", **GRAD)
+    # dQ and dK/dV on tc32 at head dims that are multiples of 16, else simt
     assert _counts() == _moved(before, fwd=1, dq=1, dkv=1)
 
 
@@ -231,3 +235,80 @@ def test_row_with_no_valid_key_and_block_primitives(cuda_device):
                               0.25, False)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **GRAD)
+
+
+def _tc32_counts():
+    f = tfa.flash_attention
+    return f.dq_tc32_launches, f.dkv_tc32_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, lq, lk, h, d, causal, mask_kind", [
+    (8, 1024, 1024, 8, 64, True, None),     # the training slice's shape
+    (2, 1000, 1000, 4, 64, True, None),     # ragged L=1000, causal
+    (2, 512, 512, 4, 64, False, "random"),  # key mask
+    (2, 96, 160, 2, 32, False, None),       # cross lengths 96 x 160
+    (1, 384, 384, 2, 128, True, None),      # head_dim 128
+    (2, 256, 256, 2, 64, False, "dead"),    # a row with no valid key
+    (2, 200, 200, 2, 16, True, "random"),   # head_dim 16, causal and mask
+    (32, 128, 128, 2, 64, False, "ones"),   # BERT-tiny's shape (32 rows)
+])
+def test_tc32_backward_matches_plain_version_and_repeats_bitwise(
+        cuda_device, b, lq, lk, h, d, causal, mask_kind):
+    q, k, v, do, mask = _inputs(5, b, lq, lk, h, d, torch.float32,
+                                mask_kind == "random", cuda_device)
+    if mask_kind in ("dead", "ones"):
+        mask = torch.ones(b, lk, device=cuda_device)
+        if mask_kind == "dead":
+            mask[-1] = 0.0
+    scale = d ** -0.5
+    assert tfa._route(q.dtype, d, "dq") == "tc32"
+    assert tfa._route(q.dtype, d, "dkv") == "tc32"
+    ref_out, ref_lse = tfa._fwd_reference(q, k, v, mask, scale, causal)
+    delta = (do * ref_out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, do, ref_lse.contiguous(), delta, scale, causal)
+    before, before32 = _counts(), _tc32_counts()
+    runs = [(tfa._dq_cuda(*args), *tfa._dkv_cuda(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _counts() == _moved(before, dq=2, dkv=2)
+    assert _tc32_counts() == (before32[0] + 2, before32[1] + 2)
+    want = tfa._bwd_reference(*args)
+    simt = (tfa._dq_cuda(*args, route="simt"),
+            *tfa._dkv_cuda(*args, route="simt"))
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = runs[0][i]
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want[i], msg=name, **GRAD)
+        assert torch.equal(got, runs[1][i]), f"{name} not repeatable"
+        # the SIMT kernels' f32 sums stand within the same tolerance
+        torch.testing.assert_close(got, simt[i], msg=f"{name} vs simt",
+                                   **GRAD)
+
+
+@pytest.mark.cuda
+def test_f32_autograd_takes_tc32_for_the_backward(cuda_device):
+    q, k, v, do, _ = _inputs(6, 2, 256, 256, 4, 64, torch.float32, False,
+                             cuda_device)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before, before32 = _counts(), _tc32_counts()
+    out = tfa.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    # the SIMT forward, the tc32 dQ and dK/dV
+    assert _counts() == _moved(before, fwd=1, dq=1, dkv=1)
+    assert _tc32_counts() == (before32[0] + 1, before32[1] + 1)
+    ref_out, ref_lse = tfa._fwd_reference(q, k, v, None, 64 ** -0.5, True)
+    delta = (do * out.detach()).sum(-1).transpose(1, 2)
+    want = tfa._bwd_reference(q, k, v, None, do, ref_lse, delta, 64 ** -0.5,
+                              True)
+    for leaf, w, name in zip(leaves, want, "qkv"):
+        torch.testing.assert_close(leaf.grad, w, msg=f"d{name}", **GRAD)
+
+
+@pytest.mark.cuda
+def test_tc32_refuses_16_bit_inputs(cuda_device):
+    q, k, v, do, _ = _inputs(7, 1, 64, 64, 2, 64, torch.bfloat16, False,
+                             cuda_device)
+    lse = torch.zeros(1, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        tfa._dq_cuda(q, k, v, None, do, lse, lse, 0.125, True, route="tc32")

@@ -18,7 +18,9 @@ no JAX installed there:
   int8 pools at the serving shape (8 slots, 8 heads and kv heads, head
   dim 64, 8-token blocks, 18 table entries) against its plain version,
   bf16 tolerance ``rtol=atol=8e-3`` (both accumulate in f32 and round
-  once to bf16); a paged table's verify launches it at that width.
+  once to bf16); a paged table's verify launches it once per query
+  column at ``l_q = 1``, as a decode step does (the verify's columns are
+  bitwise decode steps).
 * ``sample_tokens`` draws what ``torch.multinomial`` draws on the card.
 """
 
@@ -172,7 +174,8 @@ def test_paged_kernel_at_verify_width(cuda_device, int8):
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
 def test_paged_verify_launches_the_kernel(cuda_device, kv_dtype):
     """A paged table's verify of width 5 launches the kernel once per
-    layer at ``l_q = 5``, and its logits match the gather read's."""
+    layer and query column, all at ``l_q = 1`` (the shape of a decode
+    step), and its logits match the gather read's."""
     def table(fused):
         kv = SlotKVCache(_model(), None, 4,
                          kv_layout="paged", paged_block=8, device="cuda",
@@ -187,8 +190,10 @@ def test_paged_verify_launches_the_kernel(cuda_device, kv_dtype):
         np.int32)
     block[:, 0] = fused.tokens
     before = tpa.paged_attention.launches
+    wide = tpa.paged_attention.verify_launches
     got = fused.verify_logits(block)
-    assert tpa.paged_attention.launches == before + SMALL["layers"]
+    assert tpa.paged_attention.launches == before + 5 * SMALL["layers"]
+    assert tpa.paged_attention.verify_launches == wide
     want = gather.verify_logits(block)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
