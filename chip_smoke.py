@@ -19,13 +19,16 @@ Phases (any failure raises and the script exits non-zero):
              SIMT kernels (forward, dQ, dK/dV), their bf16 twins on the
              tensor-core kernels (``tc``), float16 cases on both routes
              (dO scaled by the fp16 loss scale 2^15 among them, once with
-             V scaled so that dS passes float16's range), the f32 dQ and
-             dK/dV on the 3xTF32 tensor-core kernels (``tc32``: the slice,
-             ragged L = 1000, a key mask, cross lengths, head dim 128, a
-             row with no valid key, and BERT's shape in phase 5c's mask
-             check; at the f32 gradient tolerance, bitwise equal when run
-             again, and their largest difference from the SIMT kernels'
-             printed) — and the block primitives;
+             V scaled so that dS passes float16's range), the f32
+             forward, dQ and dK/dV on the 3xTF32 tensor-core kernels
+             (``tc32``: the slice, ragged L = 1000, a key mask, cross
+             lengths 96 x 160 and, causal, 96 x 160 and 160 x 96, head
+             dims 16 and 128, a row with no valid key, and BERT's shape
+             in phase 5c's mask check; out and lse at the f32 tolerance,
+             the gradients at the f32 gradient tolerance, bitwise equal
+             when run again, and their largest difference from the SIMT
+             kernels' printed) — and the block primitives (a two-block
+             split, and causal diagonal blocks with Lq != Lk);
 4. serve   — the GPT server at the full width of the repo's serve bench
              (vocab 16384, hidden 512, 8 layers, 8 heads, ffn 2048, max_len
              144, bf16, 8 slots), random weights from a seed, answering
@@ -107,8 +110,8 @@ Phases (any failure raises and the script exits non-zero):
              flash`` (BERT-tiny at its published widths: 2 layers, hidden
              128, 2 heads of 64, FFN 512; synthetic GLUE, 4096/1024 rows
              of 128 tokens; 128 steps at steps_per_call 8) over a 1-rank
-             NCCL group, at f32 (every forward on the SIMT kernel, every
-             dQ and dK/dV on ``tc32``) and under ``--precision
+             NCCL group, at f32 (every forward, dQ and dK/dV on
+             ``tc32``) and under ``--precision
              bf16-f32master`` (every launch on ``tc``): test accuracy at
              least the CPU rehearsal's less
              0.05; flash launches of layers × (steps + eval batches)
@@ -126,11 +129,19 @@ Phases (any failure raises and the script exits non-zero):
              loss bitwise equal; then once with cuDNN at torch's defaults,
              for the examples/s that its deterministic algorithms cost
              (a failure is raised after the timings);
+5e. train-f32 — the GPT of phase 5 at ``dtype float32`` (the JAX
+             package's default), 4 steps through ``Trainer.fit`` at one
+             step per call: every flash forward, dQ and dK/dV on ``tc32``
+             at the slice's shape (8 of each a step); one step against a
+             dense-attention twin at the f32 tolerance; where an f32 step's
+             device time goes (the flash forward's share among it);
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
              sees no device time is run again, and then CUDA events around
-             launches queued behind a device-side spin measure it) and the
+             launches queued behind a device-side spin measure it, as they
+             do where a session counts fewer kernels per call than were
+             launched) and the
              event-window time per call with the host's cost
              (``call_ms``); the paged kernel also at a 4096-token context,
              with a sweep of split counts at both shapes, and on int8 pools at
@@ -146,9 +157,10 @@ Phases (any failure raises and the script exits non-zero):
              device busy, busy share).  Among the kernel rows: the flash
              kernels at BERT's shape (B=32, L=128, H=2, D=64, key mask) on
              each route, and the SIMT kernels at f32 at the slice's shape,
-             bound by the f32 (non-tensor) peak, and the tc32 dQ and dK/dV
-             at both shapes, bound by three TF32 products per f32 product
-             at the TF32 peak, with the SIMT kernels' times beside them,
+             bound by the f32 (non-tensor) peak, and the tc32 forward, dQ
+             and dK/dV at both shapes, bound by three TF32 products per f32
+             product at the TF32 peak, with the SIMT kernels' times beside
+             them,
              beside SDPA (under a boolean key mask at BERT's shape; its
              backward kernels named); last, a draft_k = 4 verify's device
              time by column beside one forward over its 40 rows and a
@@ -224,6 +236,14 @@ F16_MAX, F16_OVERFLOW, LOSS_SCALE = 65504.0, 65520.0, 2.0 ** 15
 # so both sides hold rounding noise.
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_RTOL = 1e-1
+# the same step of the f32 GPT: the dense twin runs f32 scores, softmax and
+# P·V (TF32 off) where the tc32 kernels keep about 21 bits of each product
+# and sum in another order, so each attention output moves by a few f32
+# roundings (~1e-6 relative), and through 8 layers' forward and backward a
+# few times that.  Loss: 1e-5 relative; each parameter's gradient: 1e-3
+# relative (Frobenius norm), a hundredth of the bf16 bounds' 1e-1.
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float16: 989e12}
@@ -264,8 +284,8 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-# device times that torch.profiler did not see and queued CUDA events
-# measured instead (``_device_ms``)
+# device times that torch.profiler did not see (or of which it dropped
+# kernel records) and queued CUDA events measured instead (``_device_ms``)
 EVENT_TIMED: list[str] = []
 _SLEEP_CYCLES_PER_MS: list[float] = []
 
@@ -318,15 +338,20 @@ def _queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str) -> float:
+def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str,
+               whole: bool = False) -> float:
     """Device time per call of ``fn``: the self device time of every
     kernel ``iters`` calls launch, from ``torch.profiler``, over ``iters``
     (the host's cost between launches is not in it).  Two sessions are
     taken and the one that recorded more kernel launches stands: CUPTI
     has, in one run on the card, handed a session half of a kernel's
-    launches (device time half the call's wall time).  Where the profiler
-    sees no device time, ``_queued_ms`` measures it, and ``label`` goes
-    into ``EVENT_TIMED``."""
+    launches (device time half the call's wall time).  ``whole``: ``fn``
+    launches the same kernels every call and never waits for the card, so
+    a count of kernels per call that is not a whole number (0.96: fewer
+    than were launched) shows dropped records, and that reading is
+    refused.  Then, and where the profiler sees no device time,
+    ``_queued_ms`` measures it, ``label`` goes into ``EVENT_TIMED``, and
+    which reading stands is printed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -341,14 +366,19 @@ def _device_ms(fn, iters: int = 50, warmup: int = 5, *, label: str) -> float:
         print(f"[timing] {label}: the two profiler sessions recorded "
               f"{counts[0]:.2f} and {counts[1]:.2f} kernels per call; the "
               f"larger stands")
-    us = sum(r[0] for r in max(sessions,
-                               key=lambda rows: sum(r[1] for r in rows)))
-    if us:
+    best = max(sessions, key=lambda rows: sum(r[1] for r in rows))
+    us, per_call = sum(r[0] for r in best), max(counts)
+    dropped = whole and abs(per_call - round(per_call)) > 1e-6
+    if us and not dropped:
         return us / 1e3
     EVENT_TIMED.append(label)
     ms = _queued_ms(fn, iters)
-    print(f"[timing] {label}: the profiler saw no device time; queued "
-          f"CUDA events: {ms:.5f} ms per call")
+    why = ("saw no device time" if not us else
+           f"recorded {counts[0]:.2f} and {counts[1]:.2f} kernels per call "
+           f"(records dropped)")
+    print(f"[timing] {label}: the profiler {why}; the queued CUDA events' "
+          f"reading stands: {ms:.5f} ms per call"
+          + (f" (profiler {us / 1e3:.5f})" if us else ""))
     return ms
 
 
@@ -703,9 +733,9 @@ def _close_tc(name, got, want, terms, cancel=None):
 def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
     """Forward, dQ and dK/dV kernels against the plain versions; the
     backward gets the plain forward's lse and Δ = rowsum(dO·O).  The
-    launch counters show the kernels of ``route`` ran (``tc32``: the SIMT
-    forward and the tc32 dQ and dK/dV, which must also repeat bitwise;
-    their largest difference from the SIMT kernels' is printed)."""
+    launch counters show the kernels of ``route`` ran (``tc32``: the
+    forward, dQ and dK/dV, which must also repeat bitwise; their largest
+    difference from the SIMT kernels' is printed)."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, mask = case
@@ -713,9 +743,8 @@ def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
     # a case runs on its inputs' route, or on simt where it is forced there
     assert route == "simt" or fa._route(q.dtype, q.shape[-1],
                                         "dq") == route, (name, route)
-    fwd_route = "simt" if route == "tc32" else route
     before, before32 = _flash_counts(), _tc32_counts()
-    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=fwd_route)
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=route)
     ref_out, ref_lse = fa._fwd_reference(q, k, v, mask, scale, causal)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
@@ -773,12 +802,15 @@ def _check_flash(name, case, causal, route, v_scale=1.0) -> dict:
             torch.testing.assert_close(g, w, msg=f"{name} {n}", **tol)
             errs[n] = float((g - w).abs().max())
     if route == "tc32":
-        again = (fa._dq_cuda(*bwd, route=route),
+        again = (*fa._fwd_cuda(q, k, v, mask, scale, causal, route=route),
+                 fa._dq_cuda(*bwd, route=route),
                  *fa._dkv_cuda(*bwd, route=route))
-        simt = (fa._dq_cuda(*bwd, route="simt"),
+        simt = (*fa._fwd_cuda(q, k, v, mask, scale, causal, route="simt"),
+                fa._dq_cuda(*bwd, route="simt"),
                 *fa._dkv_cuda(*bwd, route="simt"))
         torch.cuda.synchronize()
-        for n, g, a, w in zip(("dq", "dk", "dv"), grads, again, simt):
+        for n, g, a, w in zip(("out", "lse", "dq", "dk", "dv"),
+                              (out, lse, *grads), again, simt):
             assert torch.equal(g, a), (name, n, "not bitwise repeatable")
             errs[f"{n}_vs_simt"] = float((g - w).abs().max())
     print(f"[flash] {name} ({route}): " + " ".join(
@@ -820,9 +852,29 @@ def _check_flash_blocks() -> None:
     torch.testing.assert_close(merged, full_out, **F32_TOL)
     for g, w in zip((dq, torch.cat(dks, 1), torch.cat(dvs, 1)), full):
         torch.testing.assert_close(g, w, **FLASH_GRAD_TOL)
+    # causal diagonal blocks with Lq != Lk (the mask by absolute position)
+    worst = 0.0
+    for lq in (200, 448):
+        qb, dob = q[:, :lq].contiguous(), do[:, :lq].contiguous()
+        kb, vb = k[:, :320].contiguous(), v[:, :320].contiguous()
+        mask = torch.ones(2, 320, device="cuda")
+        out_b, lse_b = fa.flash_fwd_block(qb, kb, vb, mask, scale=scale,
+                                          causal=True)
+        want_out, want_lse = fa._fwd_reference(qb, kb, vb, mask, scale, True)
+        torch.testing.assert_close(out_b, want_out, **F32_TOL)
+        torch.testing.assert_close(lse_b, want_lse, **F32_TOL)
+        delta_b = (dob * want_out).sum(-1).transpose(1, 2).contiguous()
+        grads = fa.flash_bwd_block(qb, kb, vb, mask, dob, want_lse, delta_b,
+                                   scale=scale, causal=True)
+        want = fa._bwd_reference(qb, kb, vb, mask, dob, want_lse, delta_b,
+                                 scale, True)
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, **FLASH_GRAD_TOL)
+        worst = max(worst, float((out_b - want_out).abs().max()))
     print(f"[flash] block primitives, two-block split: merged out "
           f"max_abs_err={float((merged - full_out).abs().max()):.3e}, "
-          f"dq {float((dq - full[0]).abs().max()):.3e} ok")
+          f"dq {float((dq - full[0]).abs().max()):.3e}; causal diagonal "
+          f"blocks 200x320 and 448x320: out max_abs_err={worst:.3e} ok")
 
 
 def _sdpa_backend(dtype=torch.bfloat16):
@@ -884,8 +936,9 @@ def flash_check_phase() -> dict:
             ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
                                       dead_row=True), False)):
         cases[f"{name}_f16"] = (dict(kw, dtype=f16), causal, "tc")
-    # the f32 backward on the 3xTF32 tensor-core kernels (tc32), on seeds
-    # of their own: the slice, and the SIMT cases at head dims it takes
+    # the f32 kernels on the 3xTF32 tensor-core route (tc32: forward, dQ
+    # and dK/dV), on seeds of their own: the slice, and the SIMT cases at
+    # head dims it takes, cross lengths also causal, and head dim 16
     tc32 = {"slice_f32_causal_tc32": (dict(b=8, lq=1024, h=8, d=64), True,
                                       "tc32")}
     for name, kw, causal in (
@@ -894,7 +947,13 @@ def flash_check_phase() -> dict:
             ("cross_96x160", dict(b=2, lq=96, lk=160, h=4, d=64), False),
             ("head_dim_128", dict(b=1, lq=384, h=2, d=128), True),
             ("no_valid_key_row", dict(b=2, lq=256, h=2, d=64,
-                                      dead_row=True), False)):
+                                      dead_row=True), False),
+            ("cross_96x160_causal", dict(b=2, lq=96, lk=160, h=4, d=64),
+             True),
+            ("cross_160x96_causal", dict(b=2, lq=160, lk=96, h=4, d=64),
+             True),
+            ("head_dim_16", dict(b=2, lq=200, h=2, d=16, masked=True),
+             True)):
         tc32[f"{name}_tc32"] = (kw, causal, "tc32")
     seeds = {name: 20 + i for i, name in enumerate(cases)}
     seeds.update({name: 60 + i for i, name in enumerate(tc32)})
@@ -943,17 +1002,18 @@ def flash_timing_phase(errs) -> list[dict]:
                                          route="simt"),
         "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
         "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
-    dev = {n: _device_ms(fn, label=f"flash {n}") for n, fn in timed.items()}
+    dev = {n: _device_ms(fn, label=f"flash {n}", whole=True)
+           for n, fn in timed.items()}
     call = {n: _time_windows(fn, iters=50, warmup=5) for n, fn in timed.items()}
     plain_fwd = lambda: fa._fwd_reference(q, k, v, None, scale, True)  # noqa: E731,E501
     # the plain backward computes dq, dk and dv in one function: its time
     # stands in both backward rows
     plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
     plain = {"fwd": (_device_ms(plain_fwd, iters=10, warmup=2,
-                                label="flash fwd plain"),
+                                label="flash fwd plain", whole=True),
                      _time_windows(plain_fwd, iters=10, warmup=2)[0]),
              "bwd": (_device_ms(plain_bwd, iters=10, warmup=2,
-                                label="flash bwd plain"),
+                                label="flash bwd plain", whole=True),
                      _time_windows(plain_bwd, iters=10, warmup=2)[0])}
     # library yardstick, used nowhere in the port: one SDPA call under a
     # named backend, and the autograd backward of that call (dq, dk, dv)
@@ -964,12 +1024,13 @@ def flash_timing_phase(errs) -> list[dict]:
     dot = do.transpose(1, 2)
     lib_fwd_fn = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
     with sdpa_kernel(backend):
-        lib_fwd = (_device_ms(lib_fwd_fn, label="flash fwd SDPA"),
+        lib_fwd = (_device_ms(lib_fwd_fn, label="flash fwd SDPA",
+                              whole=True),
                    *_time_windows(lib_fwd_fn, iters=50, warmup=5))
         o = sdpa(qt, kt, vt, is_causal=True)
     lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
         o, (qt, kt, vt), dot, retain_graph=True)
-    lib_bwd = (_device_ms(lib_bwd_fn, label="flash bwd SDPA"),
+    lib_bwd = (_device_ms(lib_bwd_fn, label="flash bwd SDPA", whole=True),
                *_time_windows(lib_bwd_fn, iters=50, warmup=5))
     print(f"[flash] library yardstick: SDPA backend {backend.name}: "
           f"fwd device {lib_fwd[0]:.5f} ms, call {lib_fwd[1]:.5f} ms "
@@ -2051,7 +2112,7 @@ def _lm_model(attention_impl: str, dtype: str = "bfloat16",
 
 _FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
 _F16_COUNTS = ("fwd_f16", "dq_f16", "dkv_f16")
-_TC32_COUNTS = ("dq_tc32", "dkv_tc32")
+_TC32_COUNTS = ("fwd_tc32", "dq_tc32", "dkv_tc32")
 
 
 def _flash_counts() -> dict:
@@ -2070,7 +2131,7 @@ def _reset_flash_counts() -> None:
 
 
 def _tc32_counts() -> dict:
-    """Launches of the tc32 (f32 tensor-core) dQ and dK/dV kernels."""
+    """Launches of the tc32 (f32 tensor-core) kernels."""
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     return {n: getattr(fa.flash_attention, f"{n}_launches")
@@ -2279,15 +2340,65 @@ def train_phase(gpu: str):
     return fit, evaluate, steps
 
 
-def _flash_vs_dense_step(x, y) -> None:
+def f32_train_phase(gpu: str):
+    """The GPT of ``bench.py --lm`` at ``dtype float32`` (the JAX package's
+    default for the GPT) for 4 steps through ``Trainer.fit`` at one step
+    per call: every flash forward, dQ and dK/dV on the 3xTF32 ``tc32``
+    kernels at the training slice's shape (8 of each a step); one step held
+    against a dense-attention twin at the f32 tolerance; then where an f32
+    step's device time goes.  Returns the fit's flash launches (tc32
+    counters included) and the steps."""
+    from distributed_tensorflow_tpu_torch.data import Dataset
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine, Trainer
+
+    layers, batch = LM["layers"], LM["batch"]
+    x, y = _lm_data(4 * batch)
+    train_ds = Dataset(x=x, y=y, num_classes=LM["vocab"], name="lm_bench")
+    model = _lm_model("flash", dtype="float32")
+    trainer = Trainer(model, engine=SyncEngine(model), seed=0)
+    beats = []
+    _reset_flash_counts()
+    result = trainer.fit(train_ds, epochs=1, batch_size=batch, log_every=1,
+                         steps_per_call=1,
+                         log_fn=lambda line: beats.append(
+                             (time.perf_counter(), line)))
+    torch.cuda.synchronize()
+    fit = {**_flash_counts(), **_tc32_counts()}
+    steps = result["steps"]
+    losses = [float(line.split()[3]) for _, line in beats]
+    assert steps == 4 and len(losses) == 4, (steps, len(losses))
+    assert all(np.isfinite(losses)), losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    n = layers * steps
+    assert fit == {"fwd": n, "dq": n, "dkv": n, "fwd_tc": 0, "dq_tc": 0,
+                   "dkv_tc": 0, "fwd_tc32": n, "dq_tc32": n,
+                   "dkv_tc32": n}, fit
+    gaps = np.diff([t for t, _ in beats])
+    print(f"[train-f32] {gpu}: GPT bench --lm at float32: steps={steps} "
+          f"losses {' '.join(f'{v:.4f}' for v in losses)} "
+          f"step_ms_p50={np.median(gaps) * 1e3:.3f} "
+          f"steady_tokens_per_sec="
+          f"{batch * LM['seq'] * len(gaps) / gaps.sum():.1f} "
+          f"flash_launches_fit={json.dumps(fit)}")
+    _flash_vs_dense_step(x[:batch], y[:batch], "float32")
+    _profile_train(trainer.engine, trainer.state, x[:batch], y[:batch],
+                   label="f32 params", compute="f32")
+    return fit, steps
+
+
+def _flash_vs_dense_step(x, y, dtype: str = "bfloat16") -> None:
     """One SyncEngine step of the flash model and of a dense-attention twin
     from the same fresh weights on the same batch: loss and every
-    parameter's gradient (left in ``.grad`` by the step)."""
+    parameter's gradient (left in ``.grad`` by the step), to TRAIN_* (bf16)
+    or TRAIN_F32_* (f32)."""
     from distributed_tensorflow_tpu_torch.engines import SyncEngine
 
+    loss_rtol, grad_rtol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)
+                            if dtype == "bfloat16"
+                            else (TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_RTOL))
     losses, grads = {}, {}
     for impl in ("flash", "dense"):
-        eng = SyncEngine(_lm_model(impl))
+        eng = SyncEngine(_lm_model(impl, dtype))
         state = eng.init_state(torch.Generator().manual_seed(0))
         state, m = eng.step(state, *eng.shard_batch(x, y))
         losses[impl] = float(m["loss"])
@@ -2301,12 +2412,12 @@ def _flash_vs_dense_step(x, y) -> None:
         if rel > worst:
             worst, worst_name = rel, name
     rel_loss = abs(losses["flash"] - losses["dense"]) / abs(losses["dense"])
-    print(f"[train] one step flash vs dense twin: loss {losses['flash']:.6f}"
-          f" vs {losses['dense']:.6f} (rel {rel_loss:.2e}, bound "
-          f"{TRAIN_LOSS_RTOL}); worst gradient rel err {worst:.3e} at "
-          f"{worst_name} (bound {TRAIN_GRAD_RTOL})")
-    assert rel_loss <= TRAIN_LOSS_RTOL, rel_loss
-    assert worst <= TRAIN_GRAD_RTOL, (worst, worst_name)
+    print(f"[train] one {dtype} step flash vs dense twin: loss "
+          f"{losses['flash']:.6f} vs {losses['dense']:.6f} (rel "
+          f"{rel_loss:.2e}, bound {loss_rtol}); worst gradient rel err "
+          f"{worst:.3e} at {worst_name} (bound {grad_rtol})")
+    assert rel_loss <= loss_rtol, rel_loss
+    assert worst <= grad_rtol, (worst, worst_name)
 
 
 def _device_rows(prof, steps):
@@ -2343,7 +2454,7 @@ def _copy_ops(engine, state, xs, ys, steps: int, top: int = 6):
 
 
 def _profile_train(engine, state, x, y, steps: int = 4,
-                   label: str = "f32 params") -> None:
+                   label: str = "f32 params", compute: str = "bf16") -> None:
     """Where a train step's time goes: ``steps`` SyncEngine steps timed on
     the host clock, then the same under ``torch.profiler``: the device's
     busy share of an unprofiled step, the flash kernels' share of device
@@ -2363,16 +2474,18 @@ def _profile_train(engine, state, x, y, steps: int = 4,
     if not busy_us:
         print("[profile] no device time in the trace: not measured")
         return
-    # flash_{kind}_kernel (SIMT) or flash_{kind}_tc_kernel (tensor cores)
+    # flash_{kind}_kernel (SIMT), flash_{kind}_tc_kernel (16-bit tensor
+    # cores) or flash_{kind}_tc32_kernel (f32 tensor cores)
     flash_us = {kind: sum(r[0] for r in rows
-                          if re.search(rf"flash_{kind}(_tc)?_kernel", r[2]))
+                          if re.search(rf"flash_{kind}(_tc32|_tc)?_kernel",
+                                       r[2]))
                 for kind in ("fwd", "dq", "dkv")}
     names = sorted({m.group(0) for r in rows
-                    if (m := re.search(r"flash_(fwd|dq|dkv)(_tc)?_kernel",
-                                       r[2]))})
+                    if (m := re.search(
+                        r"flash_(fwd|dq|dkv)(_tc32|_tc)?_kernel", r[2]))})
     total_flash = sum(flash_us.values())
     copies = [r for r in rows if "copy" in r[2].lower()]
-    print(f"[profile] train step (B=8, L=1024, bf16 compute, {label}): "
+    print(f"[profile] train step (B=8, L=1024, {compute} compute, {label}): "
           f"copy_kernels_per_step={sum(r[1] for r in copies):.1f} "
           f"copy_ms={sum(r[0] for r in copies) / 1e3:.4f}")
     # by kernel: the vectorized bfloat16_copy_kernel is the f32→bf16 cast
@@ -2385,11 +2498,12 @@ def _profile_train(engine, state, x, y, steps: int = 4,
     for dev_us, count, shapes in _copy_ops(engine, state, xs, ys, steps):
         print(f"[profile]   aten::copy_ {dev_us:9.2f} us/step "
               f"x{count:<6.1f} {shapes}")
-    print(f"[profile] train step (B=8, L=1024, bf16, {label}): wall_ms="
+    print(f"[profile] train step (B=8, L=1024, {compute}, {label}): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
           f"flash_ms={total_flash / 1e3:.4f} "
           f"flash_share_of_device={total_flash / busy_us:.4f} "
+          f"flash_fwd_share_of_device={flash_us['fwd'] / busy_us:.4f} "
           + " ".join(f"flash_{k}_ms={v / 1e3:.4f}"
                      for k, v in flash_us.items())
           + f" kernels_per_step={sum(r[1] for r in rows):.1f} "
@@ -2491,8 +2605,8 @@ def _bert_ids(seed: int, rows: int = 32):
 
 def bert_phase(gpu: str) -> dict:
     """BASELINE config 5 through ``cli.main`` on a 1-rank NCCL group: at
-    f32 (every forward on the SIMT kernel, every dQ and dK/dV on tc32) and
-    under ``bf16-f32master`` (every launch on ``tc``).  Returns each
+    f32 (every forward, dQ and dK/dV on tc32) and under ``bf16-f32master``
+    (every launch on ``tc``).  Returns each
     policy's flash launches (fit and evaluation)."""
     from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
     from distributed_tensorflow_tpu_torch.parallel import collectives as coll
@@ -2522,8 +2636,9 @@ def bert_phase(gpu: str) -> dict:
         assert counts == {"fwd": fwd, "dq": bwd, "dkv": bwd,
                           "fwd_tc": fwd * tc, "dq_tc": bwd * tc,
                           "dkv_tc": bwd * tc}, (policy, counts)
-        # at f32 the backward on the 3xTF32 tensor-core kernels
-        assert tc32 == {"dq_tc32": bwd * (1 - tc),
+        # at f32 every launch on the 3xTF32 tensor-core kernels
+        assert tc32 == {"fwd_tc32": fwd * (1 - tc),
+                        "dq_tc32": bwd * (1 - tc),
                         "dkv_tc32": bwd * (1 - tc)}, (policy, tc32)
         # one all-reduce per step (two under a 16-bit policy: the 16-bit
         # gradients, then the f32 metrics) and one of the eval totals
@@ -2629,9 +2744,10 @@ def _kernel_names(fn, calls: int = 10) -> list[str]:
 def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
                 sdpa_backend, dtype_name):
     """Kernel rows of the flash forward, dQ and dK/dV on ``variant`` at
-    these inputs (``tc32``: dQ and dK/dV alone, with the SIMT kernels'
-    device ms beside them and the 67 TFLOP/s f32 bound beside the 3xTF32
-    one): device ms, the event-window ms per call (host cost included),
+    these inputs (``tc32``: with the SIMT kernels' device ms beside them
+    and the 67 TFLOP/s f32 bound beside the 3xTF32 one): device ms (each
+    call launches one kernel), the event-window ms per call (host cost
+    included),
     bound, the plain versions and one SDPA call (with the boolean key mask
     where there is one) under ``sdpa_backend``, whose backward kernels are
     named."""
@@ -2640,31 +2756,30 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
-    kinds = ("dq", "dkv") if variant == "tc32" else ("fwd", "dq", "dkv")
-    fwd_route = "simt" if variant == "tc32" else variant
-    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=fwd_route)
+    out, lse = fa._fwd_cuda(q, k, v, mask, scale, causal, route=variant)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, mask, do, lse, delta, scale, causal)
     timed = {"fwd": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
-                                         route=fwd_route),
+                                         route=variant),
              "dq": lambda: fa._dq_cuda(*args, route=variant),
              "dkv": lambda: fa._dkv_cuda(*args, route=variant)}
     if variant == "tc32":
         # the SIMT kernels the tc32 route replaced on this path
-        timed = {"dq": timed["dq"], "dkv": timed["dkv"],
-                 "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
-                 "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")}
-    dev = {n: _device_ms(fn, label=f"flash {n} {tag}")
+        timed.update({
+            "fwd_simt": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
+                                             route="simt"),
+            "dq_simt": lambda: fa._dq_cuda(*args, route="simt"),
+            "dkv_simt": lambda: fa._dkv_cuda(*args, route="simt")})
+    dev = {n: _device_ms(fn, label=f"flash {n} {tag}", whole=True)
            for n, fn in timed.items()}
     call = {n: _time_windows(fn, iters=50, warmup=5)[0]
             for n, fn in timed.items()}
     plain_fwd = lambda: fa._fwd_reference(q, k, v, mask, scale, causal)  # noqa: E731,E501
     plain_bwd = lambda: fa._bwd_reference(*args)  # noqa: E731
     plain = {"bwd": _device_ms(plain_bwd, iters=10, warmup=2,
-                               label=f"flash bwd {tag} plain")}
-    if "fwd" in kinds:
-        plain["fwd"] = _device_ms(plain_fwd, iters=10, warmup=2,
-                                  label=f"flash fwd {tag} plain")
+                               label=f"flash bwd {tag} plain", whole=True),
+             "fwd": _device_ms(plain_fwd, iters=10, warmup=2,
+                               label=f"flash fwd {tag} plain", whole=True)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -2672,11 +2787,13 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
     lib_fwd_fn = lambda: sdpa(qt, kt, vt, attn_mask=attn_mask,  # noqa: E731
                               is_causal=causal)
     with sdpa_kernel(sdpa_backend):
-        lib_fwd = _device_ms(lib_fwd_fn, label=f"flash fwd {tag} SDPA")
+        lib_fwd = _device_ms(lib_fwd_fn, label=f"flash fwd {tag} SDPA",
+                             whole=True)
         o = lib_fwd_fn()
     lib_bwd_fn = lambda: torch.autograd.grad(  # noqa: E731
         o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
-    lib_bwd = _device_ms(lib_bwd_fn, label=f"flash bwd {tag} SDPA")
+    lib_bwd = _device_ms(lib_bwd_fn, label=f"flash bwd {tag} SDPA",
+                         whole=True)
     lib_kernels = _kernel_names(lib_bwd_fn)
     print(f"[flash] {tag}: SDPA {sdpa_backend.name} backward kernels, "
           f"largest first: {lib_kernels}")
@@ -2686,7 +2803,7 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
     replaces = {"fwd": 170, "dq": 281, "dkv": 299}
     b, lq, h, d = q.shape
     rows = []
-    for kind in kinds:
+    for kind in ("fwd", "dq", "dkv"):
         bound_ms, bound_by = _flash_bound_ms(
             kind, q, k, causal, mask,
             peak=TC32_FLOPS if variant == "tc32" else None)
@@ -2711,20 +2828,23 @@ def _flash_rows(tag, variant, q, k, v, do, mask, causal, errs,
                 kind, q, k, causal, mask)[0]
             row["simt_ms"] = dev[f"{kind}_simt"]
             row["simt_call_ms"] = call[f"{kind}_simt"]
-            row["max_abs_err_vs_simt"] = (
-                errs["dq_vs_simt"] if kind == "dq"
-                else max(errs["dk_vs_simt"], errs["dv_vs_simt"]))
+            row["max_abs_err_vs_simt"] = {
+                "fwd": errs["out_vs_simt"], "dq": errs["dq_vs_simt"],
+                "dkv": max(errs["dk_vs_simt"], errs["dv_vs_simt"])}[kind]
         rows.append(row)
         print(f"[flash] {tag} ({variant}) B={b} L={lq} H={h} D={d} "
               f"{dtype_name} {'causal' if causal else 'key mask'}: {kind} "
               f"device {dev[kind]:.5f} ms, call {call[kind]:.5f} ms; plain "
               f"{row['plain_ms']:.5f}; SDPA {sdpa_backend.name} "
               f"{row['library_ms']:.5f}; bound {bound_ms:.6f} "
-              f"({bound_by})" + (
+              f"({bound_by}), share {row['bound_share']:.3f}" + (
                   f"; SIMT {row['simt_ms']:.5f}; f32 CUDA-core bound "
                   f"{row['bound_f32_cuda_cores_ms']:.6f}"
                   if variant == "tc32" else ""))
     if variant == "tc32":
+        print(f"[flash] {tag}: fwd tc32 {dev['fwd']:.5f} ms (SIMT "
+              f"{dev['fwd_simt']:.5f}) against the SDPA f32 forward "
+              f"{lib_fwd:.5f} ms (device)")
         print(f"[flash] {tag}: dq+dkv tc32 {dev['dq'] + dev['dkv']:.5f} ms "
               f"(SIMT {dev['dq_simt'] + dev['dkv_simt']:.5f}) against the "
               f"SDPA f32 backward {lib_bwd:.5f} ms (device)")
@@ -2736,7 +2856,8 @@ def bert_timing_phase(bert_errs) -> list[dict]:
     non-causal, config 5's all-valid key mask) on each route, and the f32
     kernels at the training slice's shape (B=8, L=1024, H=8, D=64,
     causal): the SIMT forward, dQ and dK/dV bound by the f32 (non-tensor)
-    peak, and the tc32 dQ and dK/dV by the 3xTF32 rate, beside the plain
+    peak, and the tc32 forward, dQ and dK/dV by the 3xTF32 rate, beside
+    the plain
     versions and SDPA; returns their rows (launches filled in by
     ``main``)."""
     print(f"[flash] f32 rows are bound by the H100's f32 (non-tensor) "
@@ -2963,6 +3084,7 @@ def main() -> int:
     fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
     bert_launches = bert_phase(gpu)
     repeat_failures = repeat_phase(gpu)
+    fit32, steps32 = f32_train_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -3000,15 +3122,20 @@ def main() -> int:
         if row["variant"] == "tc":
             # config 5 under bf16-f32master: every launch at this shape
             row["launches"] = bert_launches["bf16-f32master"][f"{kind}_tc"]
-        else:
-            # config 5 at f32: the SIMT forward's and the tc32 dQ and
-            # dK/dV launches, all at BERT's shape (none at the slice's:
-            # the GPT trains in 16 bits); the SIMT dQ and dK/dV have none
-            n = (f32[f"{kind}_tc32"] if row["variant"] == "tc32"
-                 else simt[kind])
-            row["launches"] = n
+        elif row["variant"] == "tc32":
+            # config 5 at f32 (BERT's shape) and the f32 GPT window (the
+            # slice's shape): every f32 launch is on tc32
+            bert, gpt = f32[f"{kind}_tc32"], fit32[f"{kind}_tc32"]
+            row["launches"] = bert + gpt
             row["launches_at_this_shape"] = (
-                n if "_bert_" in row["name"] else 0)
+                bert if "_bert_" in row["name"] else gpt)
+            row["launches_per_f32_gpt_step"] = gpt / steps32
+        else:
+            # the SIMT kernels: config 5's f32 launches left on them (none:
+            # the f32 GPT window's are all tc32, as it asserts)
+            row["launches"] = simt[kind]
+            row["launches_at_this_shape"] = (
+                simt[kind] if "_bert_" in row["name"] else 0)
     timing_cross_check()
     _profile_step("CNN train step", "sync", "cnn", "mnist")
     _profile_cnn_chunk()
@@ -3026,7 +3153,8 @@ def main() -> int:
     _verify_cost(_serve_model(), _bench_trace()[1])
     assert not repeat_failures, repeat_failures
     print(f"[timing] device times from queued CUDA events, where the "
-          f"profiler saw no device time: {len(EVENT_TIMED)} "
+          f"profiler saw no device time or dropped a kernel's records: "
+          f"{len(EVENT_TIMED)} "
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,

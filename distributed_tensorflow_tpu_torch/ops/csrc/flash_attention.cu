@@ -40,10 +40,14 @@
 // (rows x cols) micro-tile of the score tile and of the output
 // accumulators; q/k/v/dO tiles staged in shared memory as f32 with a padded
 // row stride (conflict-free column reads); P kept in f32 for P V and
-// P^T dO as on the TPU.  It will sit far above the bound (the f32 CUDA-core
-// peak is 67 TFLOP/s and shared-memory reads feed the FMAs); tensor-core
-// products (mma.sync / wgmma), TMA staging and a fused Delta pre-pass are
-// later work.
+// P^T dO as on the TPU.  It sits far above the bound (the f32 CUDA-core
+// peak is 67 TFLOP/s and shared-memory reads feed the FMAs).
+//
+// Which inputs still run here: the tensor-core routes took every head dim
+// that is a multiple of 16 up to 128 -- bf16 and fp16 on
+// flash_attention_sm90.cu, and f32 (forward, dQ and dK/dV, as 3xTF32) on
+// flash_attention_f32_sm90.cu.  These kernels run the other head dims, in
+// all three types, and are the yardstick the smoke holds those routes to.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,24 +1,31 @@
-// Exact attention's backward in float32 on Hopper's tensor cores: the dQ
-// and dK/dV kernels for f32 inputs with head_dim a multiple of 16 up to
-// 128 (the wrapper's "tc32" route; the f32 forward stays on
-// flash_attention.cu).
+// Exact attention in float32 on Hopper's tensor cores: the forward, dQ and
+// dK/dV kernels for f32 inputs with head_dim a multiple of 16 up to 128
+// (the wrapper's "tc32" route; other f32 head dims run flash_attention.cu).
 //
-//   flash_dq_tc32_kernel   <- _dq_kernel  (launched by _bwd, the pl.pallas_call
-//                             at distributed_tensorflow_tpu/ops/
+//   flash_fwd_tc32_kernel  <- _fwd_kernel (launched by _fwd, the
+//                             pl.pallas_call at distributed_tensorflow_tpu/
+//                             ops/flash_attention.py:170)
+//   flash_dq_tc32_kernel   <- _dq_kernel  (launched by _bwd,
 //                             flash_attention.py:281)
 //   flash_dkv_tc32_kernel  <- _dkv_kernel (launched by _bwd,
 //                             flash_attention.py:299)
 //
-// They compute the function of flash_attention.cu's flash_dq_kernel and
-// flash_dkv_kernel: S = scale * Q K^T; a causal mask by absolute position
-// and a key-validity mask score NEG_INF = -1e30, never -inf; a key past Lk
-// has weight exactly 0; P = exp(S - lse), dP = dO V^T,
-// dS = P * (dP - Delta) * scale with lse and Delta = rowsum(dO * O) from
-// the caller, (B, H, Lq) f32; dQ = dS K, dV = P^T dO, dK = dS^T Q, written
-// in f32.  Tensors stay in the model's (B, L, H, D) layout; ragged and
-// cross lengths are masked here, not padded.  As on the TPU, dQ has one CTA
-// per q tile looping over the k tiles and dK/dV one CTA per k tile looping
-// over the q tiles: no atomics, so the results are bitwise repeatable.
+// They compute the function of flash_attention.cu's kernels.  All three:
+// S = scale * Q K^T; a causal mask by absolute position and a key-validity
+// mask score NEG_INF = -1e30, never -inf; a key past Lk has weight exactly
+// 0.  The forward keeps an online softmax with f32 m, l and acc and writes
+// O = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) in natural-log
+// units, (B, H, Lq) f32, as the backward reads it.  It stages the keys 64
+// at a time and visits exactly the key tiles flash_fwd_kernel visits, so a
+// row with no valid key gets the same answer: m stays NEG_INF and each
+// visited key below Lk has weight 1 (the mean of V over them).  The
+// backward takes P = exp(S - lse), dP = dO V^T, dS = P * (dP - Delta) *
+// scale with lse and Delta = rowsum(dO * O) from the caller, and writes
+// dQ = dS K, dV = P^T dO, dK = dS^T Q in f32.  Tensors stay in the model's
+// (B, L, H, D) layout; ragged and cross lengths are masked here, not
+// padded.  As on the TPU, the forward and dQ have one CTA per q tile
+// looping over the k tiles and dK/dV one CTA per k tile looping over the q
+// tiles: no atomics, so the results are bitwise repeatable.
 //
 // Precision.  Every product runs on the tensor cores as 3xTF32
 // (mma.sync.m16n8k8 .tf32 with f32 accumulators): each f32 operand x is
@@ -26,36 +33,39 @@
 // and small = x - big (exact in f32, of which the tensor core reads the
 // TF32 part), and each product is big*big + big*small + small*big, summed
 // in f32 -- about 21 bits of each product against f32's 24, the split
-// CUTLASS calls OpMultiplyAddFastF32.  This is not "TF32 on": the harness turns TF32 off
-// so that f32 math keeps f32 accuracy (utils/harness.py), and these kernels
-// keep it; plain TF32 would keep 11 bits.
+// CUTLASS calls OpMultiplyAddFastF32.  This is not "TF32 on": the harness
+// turns TF32 off so that f32 math keeps f32 accuracy (utils/harness.py),
+// and these kernels keep it; plain TF32 would keep 11 bits.
 //
 // What bounds them on this card: at the training slice's shape (B*H = 64,
-// L = 1024, D = 64, causal) dQ does about 12.9 GFLOP of f32 products and
-// dK/dV about 17.2; three TF32 products per f32 product at the 494.7
-// TFLOP/s dense TF32 peak is about 165 TFLOP/s, so ~0.078 and ~0.104 ms
-// (the SIMT kernels of flash_attention.cu are bound by the 67 TFLOP/s f32
-// CUDA-core peak: 0.19 and 0.26 ms).  At BERT-tiny's shape (B*H = 64,
-// L = 128, key mask) they are as small as 0.002-0.003 ms, where the bytes
-// and the number of CTAs bound them.
+// L = 1024, D = 64, causal) the forward does about 8.6 GFLOP of f32
+// products, dQ about 12.9 and dK/dV about 17.2; three TF32 products per f32
+// product at the 494.7 TFLOP/s dense TF32 peak is about 165 TFLOP/s, so
+// ~0.052, ~0.078 and ~0.104 ms (the SIMT kernels of flash_attention.cu are
+// bound by the 67 TFLOP/s f32 CUDA-core peak: 0.13, 0.19 and 0.26 ms).  At
+// BERT-tiny's shape (B*H = 64, L = 128, key mask) they are as small as
+// 0.002-0.004 ms, where the bytes and the number of CTAs bound them.
 //
 // What the design does about it (FlashAttention-2's structure on mma.sync,
 // as flash_attention_sm90.cu's 16-bit kernels):
-// - CTAs of 4 warps.  A CTA owns 64 rows (q rows of dQ, keys of dK/dV),
-//   16 per warp, or, where 64-row CTAs would make fewer than two waves on
-//   the card's 132 SMs (BERT-tiny's shape: 128 CTAs), 32 rows with two
-//   warps on each slab of 16; the wrapper picks the rows and passes them.
-//   The other side is staged 64 rows (keys of dQ, q rows of dK/dV) at a
-//   time and taken in two sub-steps of 32: both by the slab's one warp, or
-//   one by each of its two, whose partial sums are then added in a fixed
-//   order through shared memory.  So a short kernel keeps two warps on
-//   each scheduler instead of one, and stays bitwise repeatable.
-// - S and dP live in the mma accumulators; P and dS are computed there and
-//   split into big and small in registers as the A operands of dQ += dS K,
-//   dV += P^T dO and dK += dS^T Q: an accumulator holds columns 2t, 2t+1 of
-//   its rows, so the reduction index t of the A fragment stands for column
-//   2t and t + 4 for 2t + 1, and the B fragment reads rows 2t and 2t + 1.
-//   Nothing goes through shared memory on the way.
+// - CTAs of 4 warps.  A CTA owns 64 rows (q rows of the forward and dQ,
+//   keys of dK/dV), 16 per warp, or, where 64-row CTAs would make fewer
+//   than two waves on the card's 132 SMs (BERT-tiny's shape: 128 CTAs), 32
+//   rows with two warps on each slab of 16; the wrapper picks the rows and
+//   passes them.  The other side is staged 64 rows (keys of the forward and
+//   dQ, q rows of dK/dV) at a time and taken in two sub-steps of 32: both
+//   by the slab's one warp, or one by each of its two, whose partial sums
+//   (in the forward, softmax states (m, l, acc)) are then merged in a
+//   fixed order through shared memory.  So a short kernel keeps two warps
+//   on each scheduler instead of one, and stays bitwise repeatable.
+// - S and dP live in the mma accumulators.  The forward's online softmax
+//   (the row max and sum over the lane quad that holds a row, the rescale
+//   of O) and P and dS are computed there and split into big and small in
+//   registers as the A operands of O += P V, dQ += dS K, dV += P^T dO and
+//   dK += dS^T Q: an accumulator holds columns 2t, 2t+1 of its rows, so the
+//   reduction index t of the A fragment stands for column 2t and t + 4 for
+//   2t + 1, and the B fragment reads rows 2t and 2t + 1.  Nothing goes
+//   through shared memory on the way.
 // - Fragments are plain 32-bit ld.shared loads (ldmatrix moves 16-bit
 //   words): rows are padded by 4 floats (row stride = 4 mod 32 banks), so
 //   a warp's fragment loads -- (row g, column t) and (row 2t, column g)
@@ -65,7 +75,10 @@
 //   j + 1 is in flight while tile j is consumed.
 // - Under the causal mask, tiles wholly in the future are skipped, and the
 //   CTAs with the most tiles to visit are launched first (the last q tiles
-//   of dQ, the first k tiles of dK/dV).
+//   of the forward and dQ, the first k tiles of dK/dV).  Without a key
+//   mask the forward also skips a warp's sub-step wholly in its rows'
+//   future: every row has a valid key (key 0) in its CTA's first sub-step,
+//   so each weight of such a sub-step would be exactly 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +87,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // matches parallel.ring_attention.NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBT = 64;             // staged rows: keys of dQ, q rows of dK/dV
+constexpr float kTiny = 1e-30f;
+constexpr int kBT = 64;             // staged rows: keys of fwd and dQ, q rows
+                                    // of dK/dV
 constexpr int kSub = 32;            // columns of S per sub-step
 constexpr int kPad = 4;             // floats of padding per shared row
 constexpr int kWarps = 4;
@@ -204,6 +219,8 @@ template <int DT, int R>
 struct Smem {
   static constexpr int LD = DT + kPad;
   static constexpr int tiles = 2 * 16 * R * LD + 4 * kBT * LD;
+  // Q; 2 stages of (K, V); 2 stages of the key mask
+  static constexpr int fwd = 4 * (16 * R * LD + 4 * kBT * LD + 2 * kBT);
   // Q, dO; 2 stages of (K, V); 2 stages of the key mask
   static constexpr int dq = 4 * (tiles + 2 * kBT);
   // K, V; 2 stages of (Q, dO); 2 stages of (lse, Delta)
@@ -280,6 +297,249 @@ __device__ __forceinline__ void reduce_splits(float (&c)[DB][4], float* red,
           for (int e = 0; e < 4; ++e) c[i][e] += src[(i * 4 + e) * 32];
       }
     }
+  }
+}
+
+// Merge the S split warps' softmax states (m, l, acc) of each row slab
+// into split 0's, in split order (bitwise repeatable), through `red`
+// (shared memory no longer in use; (S - 1) * R * (DB + 1) * 4 * 32
+// floats).  m and l are each lane's copies of its rows g and g + 8, l
+// already summed over the quad.  Every thread of the CTA calls it.
+template <int S, int R, int DB>
+__device__ __forceinline__ void merge_softmax(float (&m)[2], float (&l)[2],
+                                              float (&c)[DB][4], float* red,
+                                              int rw, int sw, int lane) {
+  if constexpr (S > 1) {
+    constexpr int kSlab = (DB + 1) * 4 * 32;
+    __syncthreads();                   // every warp is done with `red`
+    if (sw > 0) {
+      float* dst = red + ((sw - 1) * R + rw) * kSlab + lane;
+#pragma unroll
+      for (int i = 0; i < DB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[(i * 4 + e) * 32] = c[i][e];
+      dst[(DB * 4 + 0) * 32] = m[0];
+      dst[(DB * 4 + 1) * 32] = m[1];
+      dst[(DB * 4 + 2) * 32] = l[0];
+      dst[(DB * 4 + 3) * 32] = l[1];
+    }
+    __syncthreads();
+    if (sw == 0) {
+#pragma unroll 1
+      for (int s = 1; s < S; ++s) {
+        const float* src = red + ((s - 1) * R + rw) * kSlab + lane;
+        float a[2], o[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mo = src[(DB * 4 + r) * 32];
+          const float mn = fmaxf(m[r], mo);
+          a[r] = exp2_approx((m[r] - mn) * kLog2e);
+          o[r] = exp2_approx((mo - mn) * kLog2e);
+          l[r] = l[r] * a[r] + src[(DB * 4 + 2 + r) * 32] * o[r];
+          m[r] = mn;
+        }
+#pragma unroll
+        for (int i = 0; i < DB; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            c[i][e] = c[i][e] * a[e >> 1] + src[(i * 4 + e) * 32] * o[e >> 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// One CTA of 4 warps per (b*h, q tile of 16 R rows), looping over the k
+// tiles up to the diagonal; warp (rw, sw) owns rows [16 rw, 16 rw + 16)
+// and sub-steps sw, sw + S, ... of each k tile (S = 4 / R), with an online
+// softmax of its own, merged with its slab's other warps' at the end.
+template <int DT, int R>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask,
+                      float* __restrict__ out, float* __restrict__ lse,
+                      Dims dm) {
+  constexpr int NT = kThreads, S = kWarps / R, ROWS = 16 * R;
+  constexpr int LD = Smem<DT, R>::LD;
+  constexpr int KD = DT / 8;         // k steps of 8 over the head dim
+  constexpr int DB = DT / 8;         // 8-wide column blocks of O
+  constexpr int NB = kSub / 8;       // 8-key column blocks per sub-step
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* kv_s = q_s + ROWS * LD;                       // [stage][K|V]
+  float* m_s = kv_s + 4 * kBT * LD;                    // [stage] key mask
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % R, sw = warp / R;
+  const int g = lane / 4, t = lane % 4;
+  const int bhn = dm.B * dm.H;
+  const int n_qt = (dm.Lq + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x % bhn;
+  const int q0 = (n_qt - 1 - blockIdx.x / bhn) * ROWS;   // longest first
+  const int b = bh / dm.H, h = bh - b * dm.H;
+  const int wq0 = q0 + rw * 16;
+  // the key tiles flash_attention.cu's forward visits (64-row q tiles)
+  const int q_last = min(q0 + ROWS, dm.Lq) - 1;
+  const int k_end = dm.causal ? min(dm.Lk, q_last + 1) : dm.Lk;
+  const int n_kt = (k_end + kBT - 1) / kBT;
+
+  auto load_kv = [&](int j) {
+    float* ks = kv_s + (j & 1) * 2 * kBT * LD;
+    load_tile<kBT, DT, NT>(ks, k, b, h, j * kBT, dm.Lk, dm);
+    load_tile<kBT, DT, NT>(ks + kBT * LD, v, b, h, j * kBT, dm.Lk, dm);
+    if (mask != nullptr) {
+      for (int c = threadIdx.x; c < kBT; c += NT) {
+        const int kpos = j * kBT + c;
+        cp_async4(m_s + (j & 1) * kBT + c,
+                  mask + (size_t)b * dm.Lk + min(kpos, dm.Lk - 1),
+                  kpos < dm.Lk);
+      }
+    }
+  };
+
+  load_tile<ROWS, DT, NT>(q_s, q, b, h, q0, dm.Lq, dm);
+  if (n_kt > 0) load_kv(0);
+  cp_async_commit();
+
+  // per lane: rows g and g + 8 of the warp's 16: the running max, the sum
+  // of this lane's weights (its columns), O's accumulators
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const float* qw = q_s + rw * 16 * LD;
+  // a causal warp with every row past key 0 may skip its future sub-steps
+  const bool skip_future = dm.causal && mask == nullptr;
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) load_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = kv_s + (j & 1) * 2 * kBT * LD;
+    const float* vs = ks + kBT * LD;
+    const float* ms = m_s + (j & 1) * kBT;
+    const int k0 = j * kBT;
+
+#pragma unroll 1
+    for (int sub = sw; sub < kBT / kSub; sub += S) {
+      const int c0 = sub * kSub;        // first key column of the sub-step
+      const int kc0 = k0 + c0;
+      if (skip_future && kc0 > wq0 + 15) continue;
+      // S = Q K^T: the warp's 16 rows x 32 keys
+      float s[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qb[4], qsm[4];
+        frag_a<LD>(qb, qsm, qw + kd * 8, g, t);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          uint32_t kb[2], ksm[2];
+          frag_bt<LD>(kb, ksm, ks + (c0 + nb * 8) * LD + kd * 8, g, t);
+          mma3(s[nb], qb, qsm, kb, ksm);
+        }
+      }
+
+      // scale and mask (NEG_INF; a key past Lk -inf, weight 0), row max
+      const bool edge = (dm.causal && kc0 + kSub - 1 > wq0) ||
+                        kc0 + kSub > dm.Lk || mask != nullptr;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[nb][e] * dm.scale;
+          if (edge) {
+            const int col = c0 + nb * 8 + 2 * t + (e & 1);
+            const int kpos = k0 + col, qpos = wq0 + g + 8 * r;
+            if (kpos >= dm.Lk)
+              x = __int_as_float(0xff800000);
+            else if ((dm.causal && qpos < kpos) ||
+                     (mask != nullptr && !(ms[col] > 0.f)))
+              x = kNegInf;
+          }
+          s[nb][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      // the quad of lanes 4g .. 4g + 3 holds a row; rescale by the new max
+      // (m - max is exactly 0 on a row that has seen only masked keys, so
+      // its weights are exactly 1)
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2_approx((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DB; ++i) {
+        acc[i][0] *= corr[0];
+        acc[i][1] *= corr[0];
+        acc[i][2] *= corr[1];
+        acc[i][3] *= corr[1];
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = exp2_approx((s[nb][e] - m[r]) * kLog2e);
+          s[nb][e] = p;
+          l[r] += p;
+        }
+      }
+
+      // O += P V over the sub-step's 32 keys
+#pragma unroll
+      for (int kc = 0; kc < NB; ++kc) {
+        uint32_t pb[4], psm[4];
+        acc_a(pb, psm, s[kc]);
+        const float* vr = vs + (c0 + kc * 8) * LD;
+#pragma unroll
+        for (int db = 0; db < DB; ++db) {
+          uint32_t vb[2], vsm[2];
+          frag_bz<LD>(vb, vsm, vr + db * 8, g, t);
+          mma3(acc[db], pb, psm, vb, vsm);
+        }
+      }
+    }
+    __syncthreads();                   // this stage may be refilled
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  merge_softmax<S, R, DB>(m, l, acc, kv_s, rw, sw, lane);
+  if (sw == 0) {
+    float l_safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_safe[r] = fmaxf(l[r], kTiny);
+      const int row = wq0 + g + 8 * r;
+      if (t == 0 && row < dm.Lq)
+        lse[(size_t)bh * dm.Lq + row] = m[r] + logf(l_safe[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < DB; ++i) {
+      acc[i][0] /= l_safe[0];
+      acc[i][1] /= l_safe[0];
+      acc[i][2] /= l_safe[1];
+      acc[i][3] /= l_safe[1];
+    }
+    store_acc<DB>(out, acc, b, h, wq0, dm.Lq, dm, g, t);
   }
 }
 
@@ -629,7 +889,7 @@ cudaError_t prepare(Kern kern, int bytes) {
 
 struct Ptrs {
   const float *q, *k, *v, *mask, *dout, *lse, *delta;
-  float *dq, *dk, *dv;
+  float *dq, *dk, *dv, *out, *lse_out;
 };
 
 template <int DT, int R>
@@ -638,7 +898,13 @@ cudaError_t run(int which, const Ptrs& p, const Dims& dm, cudaStream_t st) {
   constexpr int ROWS = 16 * R;
   const int bh = dm.B * dm.H;
   cudaError_t err;
-  if (which == 1) {
+  if (which == 2) {
+    auto kern = flash_fwd_tc32_kernel<DT, R>;
+    if ((err = prepare(kern, S::fwd)) != cudaSuccess) return err;
+    const int grid = bh * ((dm.Lq + ROWS - 1) / ROWS);
+    kern<<<grid, kThreads, S::fwd, st>>>(p.q, p.k, p.v, p.mask, p.out,
+                                        p.lse_out, dm);
+  } else if (which == 1) {
     auto kern = flash_dkv_tc32_kernel<DT, R>;
     if ((err = prepare(kern, S::dkv)) != cudaSuccess) return err;
     const int grid = bh * ((dm.Lk + ROWS - 1) / ROWS);
@@ -684,6 +950,17 @@ extern "C" {
 // 16-byte aligned and on the current device.  Each launches on `stream`
 // and returns the launch's cudaError_t (0 = launched); none synchronizes.
 
+// out: (B, Lq, H, D) f32; lse: (B, H, Lq) f32 (written).
+int flash_fwd_tc32_launch(const void* q, const void* k, const void* v,
+                          const void* mask, void* out, void* lse, int B,
+                          int H, int Lq, int Lk, int D, float scale,
+                          int causal, int rows, void* stream) {
+  auto f = [](const void* x) { return static_cast<const float*>(x); };
+  Ptrs p{f(q), f(k), f(v), f(mask), nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, static_cast<float*>(out), static_cast<float*>(lse)};
+  return dispatch(2, p, B, H, Lq, Lk, D, scale, causal, rows, stream);
+}
+
 // dq: (B, Lq, H, D) f32.
 int flash_dq_tc32_launch(const void* q, const void* k, const void* v,
                          const void* mask, const void* dout, const void* lse,
@@ -692,7 +969,7 @@ int flash_dq_tc32_launch(const void* q, const void* k, const void* v,
                          void* stream) {
   auto f = [](const void* x) { return static_cast<const float*>(x); };
   Ptrs p{f(q), f(k), f(v), f(mask), f(dout), f(lse), f(delta),
-         static_cast<float*>(dq), nullptr, nullptr};
+         static_cast<float*>(dq), nullptr, nullptr, nullptr, nullptr};
   return dispatch(0, p, B, H, Lq, Lk, D, scale, causal, rows, stream);
 }
 
@@ -704,7 +981,7 @@ int flash_dkv_tc32_launch(const void* q, const void* k, const void* v,
                           float scale, int causal, int rows, void* stream) {
   auto f = [](const void* x) { return static_cast<const float*>(x); };
   Ptrs p{f(q), f(k), f(v), f(mask), f(dout), f(lse), f(delta), nullptr,
-         static_cast<float*>(dk), static_cast<float*>(dv)};
+         static_cast<float*>(dk), static_cast<float*>(dv), nullptr, nullptr};
   return dispatch(1, p, B, H, Lq, Lk, D, scale, causal, rows, stream);
 }
 

@@ -14,15 +14,15 @@ and the kernel alone (nothing is chosen by failure): ``"tc"`` for bfloat16
 or float16 with a head dim that is a multiple of 16 up to 128 (the GPT
 training path, under bf16 and fp16 precision policies) runs the forward,
 dQ and dK/dV on Hopper's tensor cores, ``csrc/flash_attention_sm90.cu``;
-``"tc32"`` for float32 dQ and dK/dV at those head dims (config 5 at f32,
-and ``flash_bwd_block``, which casts to f32) runs them on the tensor cores
-as 3xTF32, ``csrc/flash_attention_f32_sm90.cu``; ``"simt"`` (the f32
-forward, and other head dims) runs ``csrc/flash_attention.cu``.  The
-``tc`` kernels round P and dS to the 16-bit input type for their products:
-one rounding more than the ``simt`` kernels' f32 P; the ``tc32`` kernels
-keep about 21 bits of each f32 product (three TF32 products).  ``simt``
-takes all three types: the kernels compute in f32 and write their outputs
-in the input type.
+``"tc32"`` for float32 at those head dims (config 5 at f32, the f32 GPT,
+and ``flash_bwd_block``, which casts to f32) runs all three on the tensor
+cores as 3xTF32, ``csrc/flash_attention_f32_sm90.cu``; ``"simt"`` (other
+head dims) runs ``csrc/flash_attention.cu``.  The ``tc`` kernels round P
+and dS to the 16-bit input type for their products: one rounding more
+than the ``simt`` kernels' f32 P; the ``tc32`` kernels keep about 21 bits
+of each f32 product (three TF32 products).  ``simt`` takes all three
+types: the kernels compute in f32 and write their outputs in the input
+type.
 
 ``flash_attention`` is differentiable through ``_FlashCore``, the
 counterpart of the JAX ``_flash_core`` custom_vjp: the forward saves
@@ -42,8 +42,9 @@ sees its own position).
 Launch counts (the main path's proof that it ran the kernels):
 ``flash_attention.fwd_launches``, ``.dq_launches`` and ``.dkv_launches``
 over every route, ``.fwd_tc_launches``, ``.dq_tc_launches`` and
-``.dkv_tc_launches`` for the ``tc`` route alone, ``.dq_tc32_launches`` and
-``.dkv_tc32_launches`` for the ``tc32`` route alone, and
+``.dkv_tc_launches`` for the ``tc`` route alone, ``.fwd_tc32_launches``,
+``.dq_tc32_launches`` and ``.dkv_tc32_launches`` for the ``tc32`` route
+alone, and
 ``.fwd_f16_launches``, ``.dq_f16_launches`` and ``.dkv_f16_launches`` for
 float16 inputs on either route.
 """
@@ -145,7 +146,7 @@ _SOURCES = {"simt": ("flash_attention", {"fwd": 6, "dq": 8, "dkv": 9}),
             "tc": ("flash_attention_sm90",
                    {"fwd_tc": 6, "dq_tc": 8, "dkv_tc": 9}),
             "tc32": ("flash_attention_f32_sm90",
-                     {"dq_tc32": 8, "dkv_tc32": 9})}
+                     {"fwd_tc32": 6, "dq_tc32": 8, "dkv_tc32": 9})}
 _SUFFIX = {"simt": "", "tc": "_tc", "tc32": "_tc32"}
 
 
@@ -153,8 +154,8 @@ _SUFFIX = {"simt": "", "tc": "_tc", "tc32": "_tc32"}
 def _library(route: str = "simt"):
     """The kernel library of ``route``: ``simt`` = ``flash_attention.cu``
     (fwd, dq, dkv), ``tc`` = ``flash_attention_sm90.cu`` (fwd, dq and dkv,
-    16-bit types only), ``tc32`` = ``flash_attention_f32_sm90.cu`` (dq and
-    dkv, f32 only).  ``simt`` and ``tc`` functions take a dtype code
+    16-bit types only), ``tc32`` = ``flash_attention_f32_sm90.cu`` (fwd, dq
+    and dkv, f32 only).  ``simt`` and ``tc`` functions take a dtype code
     (``_DTYPES``), ``tc32`` ones the rows per CTA (``_tc32_rows``)."""
     from distributed_tensorflow_tpu_torch.ops import _build
 
@@ -180,22 +181,22 @@ def _route(dtype, head_dim: int, op: str = "fwd") -> str:
     """The route of kernel ``op`` (``"fwd"``, ``"dq"`` or ``"dkv"``) for
     inputs of ``dtype`` and ``head_dim``: ``"tc"`` for bfloat16 or float16
     at a head dim that is a multiple of 16 up to 128, ``"tc32"`` for
-    float32 dQ and dK/dV at those head dims, else ``"simt"``."""
+    float32 at those head dims, else ``"simt"``."""
     if op not in ("fwd", "dq", "dkv"):
         raise ValueError(f"op must be fwd, dq or dkv, got {op!r}")
     tensor = head_dim % 16 == 0 and 16 <= head_dim <= 128
     if tensor and dtype in (torch.bfloat16, torch.float16):
         return "tc"
-    if tensor and dtype == torch.float32 and op != "fwd":
+    if tensor and dtype == torch.float32:
         return "tc32"
     return "simt"
 
 
 def _tc32_rows(bh: int, length: int) -> int:
-    """Rows per CTA of the ``tc32`` kernels (q rows of dQ, keys of dK/dV,
-    ``length`` of them in each of ``bh`` heads): 64 (one warp per slab of
-    16), or 32 (two warps per slab, each taking half of every staged tile)
-    where 64-row CTAs would make fewer than ``_WAVE``."""
+    """Rows per CTA of the ``tc32`` kernels (q rows of the forward and dQ,
+    keys of dK/dV, ``length`` of them in each of ``bh`` heads): 64 (one
+    warp per slab of 16), or 32 (two warps per slab, each taking half of
+    every staged tile) where 64-row CTAs would make fewer than ``_WAVE``."""
     return 64 if bh * -(-length // 64) >= _WAVE else 32
 
 
@@ -232,7 +233,8 @@ def smem_bytes(d: int, route: str = "simt", rows: int = 64) -> dict[str, int]:
         _, staged, dt = _tiles(d, "tc32")
         ld = dt + 4                            # f32 rows padded by 4
         tiles = 2 * rows * ld + 4 * staged * ld
-        return {"dq": 4 * (tiles + 2 * staged),
+        return {"fwd": 4 * (rows * ld + 4 * staged * ld + 2 * staged),
+                "dq": 4 * (tiles + 2 * staged),
                 "dkv": 4 * (tiles + 4 * staged)}
     if _route(torch.bfloat16, d) != "tc":
         raise ValueError(f"the tc route takes head dims that are multiples "
@@ -298,7 +300,7 @@ def _fwd_cuda(q, k, v, mask, scale, causal, route=None):
     b, lq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    if route == "tc":
+    if route != "simt":
         q, k, v = (_aligned(x) for x in (q, k, v))
     _launch("fwd", route, q, k, v, mask, out, lse, dims=_dims(q, k),
             scale=scale, causal=causal, code=_code(route, q, lq),
@@ -454,6 +456,7 @@ flash_attention.dkv_launches = 0
 flash_attention.fwd_tc_launches = 0
 flash_attention.dq_tc_launches = 0
 flash_attention.dkv_tc_launches = 0
+flash_attention.fwd_tc32_launches = 0
 flash_attention.dq_tc32_launches = 0
 flash_attention.dkv_tc32_launches = 0
 flash_attention.fwd_f16_launches = 0

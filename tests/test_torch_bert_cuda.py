@@ -6,9 +6,9 @@ CPU mode).  On the card, with no JAX installed there:
 
 * BERT ``flash`` against BERT ``dense`` with the same weights on a seeded
   32 × 128 batch whose rows have padded tails of random length, plus one
-  row that is all padding: at f32 every flash launch is on the SIMT
-  kernels (``csrc/flash_attention.cu``), at bf16 on the tensor-core
-  kernels (``tc``).  Logits: f32 within ``rtol=1e-4, atol=1e-4`` (the
+  row that is all padding: at f32 every flash launch is on the 3xTF32
+  tensor-core kernels (``tc32``, ``csrc/flash_attention_f32_sm90.cu``), at
+  bf16 on the 16-bit tensor-core kernels (``tc``).  Logits: f32 within ``rtol=1e-4, atol=1e-4`` (the
   kernels' online softmax sums in another order than one dense pass, as
   ``tests/test_flash_attention.py`` allows, through two layers, a pooler
   and LayerNorms); bf16 within ``atol=5e-2`` (the dense path rounds

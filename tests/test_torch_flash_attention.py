@@ -245,7 +245,7 @@ def test_grads_come_back_in_input_dtypes_and_count_no_cpu_launches():
     (torch.bfloat16, 16, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 8, "simt"),
     (torch.bfloat16, 72, "simt"), (torch.bfloat16, 256, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 8, "simt"),
+    (torch.float32, 64, "tc32"), (torch.float32, 8, "simt"),
     (torch.float32, 256, "simt")])
 def test_route_takes_tensor_cores_for_bf16_at_multiples_of_16(dtype, d,
                                                                route):
@@ -332,12 +332,14 @@ def test_tc_shared_memory_is_refused_outside_its_head_dims():
 
 
 @pytest.mark.parametrize("dtype, d, op, route", [
-    # float32: dQ and dK/dV on the 3xTF32 tensor-core kernels at head dims
-    # that are multiples of 16 up to 128; the forward stays on SIMT
+    # float32: the forward, dQ and dK/dV on the 3xTF32 tensor-core kernels
+    # at head dims that are multiples of 16 up to 128, else on SIMT
     (torch.float32, 16, "dq", "tc32"), (torch.float32, 64, "dq", "tc32"),
     (torch.float32, 128, "dq", "tc32"), (torch.float32, 16, "dkv", "tc32"),
     (torch.float32, 64, "dkv", "tc32"), (torch.float32, 128, "dkv", "tc32"),
-    (torch.float32, 64, "fwd", "simt"), (torch.float32, 128, "fwd", "simt"),
+    (torch.float32, 64, "fwd", "tc32"), (torch.float32, 128, "fwd", "tc32"),
+    (torch.float32, 16, "fwd", "tc32"), (torch.float32, 8, "fwd", "simt"),
+    (torch.float32, 24, "fwd", "simt"), (torch.float32, 256, "fwd", "simt"),
     (torch.float32, 8, "dq", "simt"), (torch.float32, 24, "dkv", "simt"),
     (torch.float32, 256, "dq", "simt"), (torch.float32, 256, "dkv", "simt"),
     # 16-bit routing is the same for every kernel
@@ -365,15 +367,18 @@ def test_tc32_rows_halve_where_64_row_ctas_make_under_two_waves(bh, length,
 
 
 @pytest.mark.parametrize("d, rows", [(16, 64), (64, 64), (64, 32),
-                                     (80, 64), (128, 64), (128, 32)])
+                                     (80, 64), (128, 64), (128, 32),
+                                     (16, 32)])
 def test_tc32_shared_memory_fits_and_mirrors_the_kernels(d, rows):
     got = tfa.smem_bytes(d, "tc32", rows)
     dt = 64 if d <= 64 else 128
     ld = dt + 4                    # f32 rows padded by 4 floats
     tiles = 2 * rows * ld + 4 * 64 * ld
-    # own rows (Q, dO or K, V); 2 stages of 64 staged rows of two tensors;
-    # 2 stages of the key mask (dQ) or of lse and Delta (dK/dV)
-    assert got == {"dq": 4 * (tiles + 2 * 64), "dkv": 4 * (tiles + 4 * 64)}
+    # own rows (Q, or Q and dO, or K and V); 2 stages of 64 staged rows of
+    # two tensors; 2 stages of the key mask (forward, dQ) or of lse and
+    # Delta (dK/dV)
+    assert got == {"fwd": 4 * (rows * ld + 4 * 64 * ld + 2 * 64),
+                   "dq": 4 * (tiles + 2 * 64), "dkv": 4 * (tiles + 4 * 64)}
     assert max(got.values()) <= tfa._SMEM_LIMIT
     assert tfa._tiles(d, "tc32") == (64, 64, dt)
 
@@ -398,3 +403,24 @@ def test_cpu_tensors_of_the_tc32_route_run_the_plain_backward():
     assert tc32 == (tfa.flash_attention.dq_tc32_launches,
                     tfa.flash_attention.dkv_tc32_launches)
     assert all(x.grad is not None for x in leaves)
+
+
+def test_cpu_tensors_of_the_tc32_route_run_the_plain_forward():
+    """f32 at head_dim 16 takes the tc32 forward on the card; on the CPU
+    ``_fwd_reference`` runs and no launch is counted."""
+    q, k, v = _t(*_qkv(18, 2, 24, 2, 16, lk=40))
+    mask = torch.ones(2, 40)
+    mask[1, 30:] = 0.0
+    assert tfa._route(q.dtype, 16, "fwd") == "tc32"
+    f = tfa.flash_attention
+    before = (_launch_counts(), f.fwd_tc32_launches, f.dq_tc32_launches,
+              f.dkv_tc32_launches)
+    out = tfa.flash_attention(q, k, v, kv_mask=mask)
+    b_out, b_lse = tfa.flash_fwd_block(q, k, v, mask, scale=0.25,
+                                       causal=True)
+    assert before == (_launch_counts(), f.fwd_tc32_launches,
+                      f.dq_tc32_launches, f.dkv_tc32_launches)
+    want, _ = tfa._fwd_reference(q, k, v, mask, 0.25, False)
+    assert torch.equal(out, want)
+    want_out, want_lse = tfa._fwd_reference(q, k, v, mask, 0.25, True)
+    assert torch.equal(b_out, want_out) and torch.equal(b_lse, want_lse)

@@ -7,15 +7,20 @@ card, with no JAX installed there:
 
 bf16 inputs with a head dim that is a multiple of 16 up to 128 take the
 tensor-core route (``csrc/flash_attention_sm90.cu``: forward, dQ and
-dK/dV); f32 dQ and dK/dV at those head dims the 3xTF32 tensor-core route
-(``tc32``, ``csrc/flash_attention_f32_sm90.cu``), held to the plain
-backward at the f32 gradient tolerance and bitwise to itself run again;
-the f32 forward and other head dims take the SIMT route
+dK/dV); f32 inputs at those head dims the 3xTF32 tensor-core route
+(``tc32``, ``csrc/flash_attention_f32_sm90.cu``: forward, dQ and dK/dV),
+held to the plain versions at the f32 tolerances and bitwise to itself
+run again; other head dims take the SIMT route
 (``csrc/flash_attention.cu``).
 
 Tolerances: f32 outputs and lse ``rtol=1e-5, atol=2e-5``, f32 gradients
 ``rtol=atol=1e-4`` (the bounds of ``tests/test_flash_attention.py``:
 online-softmax and tile-order reassociation against one dense pass).  The
+``tc32`` kernels' 3xTF32 products keep about 21 bits (a relative error
+near 2^-21 = 5e-7 per product, against f32's 6e-8), so a score
+``scale·q·k`` over D = 64 terms of unit size moves by about 1e-6, each
+weight by that relative amount, and an output (a weighted mean of unit
+values) by about 1e-6: the f32 output bound holds them with room.  The
 tensor-core kernels round each P (and dS) to bf16 before
 their products and the result to bf16 again: two bf16 roundings.  Each
 rounding of a term moves an output by at most 2^-9 (bf16's unit roundoff)
@@ -80,7 +85,8 @@ def test_kernels_match_plain_versions_f32(cuda_device, b, lq, lk, h, d,
     before = _counts()
     out, lse = tfa._fwd_cuda(q, k, v, mask, scale, causal)
     torch.cuda.synchronize()
-    assert _counts() == _moved(before, fwd=1)         # the simt forward
+    # the forward: tc32 at head dims that are multiples of 16, else simt
+    assert _counts() == _moved(before, fwd=1)
     ref_out, ref_lse = tfa._fwd_reference(q, k, v, mask, scale, causal)
     torch.testing.assert_close(out, ref_out, **F32)
     torch.testing.assert_close(lse, ref_lse, **F32)
@@ -239,7 +245,7 @@ def test_row_with_no_valid_key_and_block_primitives(cuda_device):
 
 def _tc32_counts():
     f = tfa.flash_attention
-    return f.dq_tc32_launches, f.dkv_tc32_launches
+    return f.fwd_tc32_launches, f.dq_tc32_launches, f.dkv_tc32_launches
 
 
 @pytest.mark.cuda
@@ -271,7 +277,7 @@ def test_tc32_backward_matches_plain_version_and_repeats_bitwise(
     runs = [(tfa._dq_cuda(*args), *tfa._dkv_cuda(*args)) for _ in range(2)]
     torch.cuda.synchronize()
     assert _counts() == _moved(before, dq=2, dkv=2)
-    assert _tc32_counts() == (before32[0] + 2, before32[1] + 2)
+    assert _tc32_counts() == (before32[0], before32[1] + 2, before32[2] + 2)
     want = tfa._bwd_reference(*args)
     simt = (tfa._dq_cuda(*args, route="simt"),
             *tfa._dkv_cuda(*args, route="simt"))
@@ -294,9 +300,9 @@ def test_f32_autograd_takes_tc32_for_the_backward(cuda_device):
     out = tfa.flash_attention(*leaves, causal=True)
     out.backward(do)
     torch.cuda.synchronize()
-    # the SIMT forward, the tc32 dQ and dK/dV
+    # the tc32 forward, dQ and dK/dV
     assert _counts() == _moved(before, fwd=1, dq=1, dkv=1)
-    assert _tc32_counts() == (before32[0] + 1, before32[1] + 1)
+    assert _tc32_counts() == tuple(n + 1 for n in before32)
     ref_out, ref_lse = tfa._fwd_reference(q, k, v, None, 64 ** -0.5, True)
     delta = (do * out.detach()).sum(-1).transpose(1, 2)
     want = tfa._bwd_reference(q, k, v, None, do, ref_lse, delta, 64 ** -0.5,
@@ -312,3 +318,75 @@ def test_tc32_refuses_16_bit_inputs(cuda_device):
     lse = torch.zeros(1, 2, 64, device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
         tfa._dq_cuda(q, k, v, None, do, lse, lse, 0.125, True, route="tc32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, lq, lk, h, d, causal, mask_kind", [
+    (8, 1024, 1024, 8, 64, True, None),     # the training slice's shape
+    (2, 1000, 1000, 4, 64, True, None),     # ragged L=1000, causal
+    (2, 512, 512, 4, 64, False, "random"),  # key mask
+    (2, 96, 160, 2, 64, False, None),       # cross lengths 96 x 160
+    (2, 96, 160, 2, 64, True, None),        # cross lengths, causal
+    (2, 160, 96, 2, 64, True, None),        # Lq > Lk, causal
+    (2, 200, 200, 2, 16, True, "random"),   # head_dim 16, causal and mask
+    (1, 384, 384, 2, 128, True, None),      # head_dim 128
+    (2, 256, 256, 2, 64, False, "dead"),    # a row with no valid key
+    (32, 128, 128, 2, 64, False, "ones"),   # BERT-tiny's shape (32 rows)
+])
+def test_tc32_forward_matches_plain_version_and_repeats_bitwise(
+        cuda_device, b, lq, lk, h, d, causal, mask_kind):
+    q, k, v, _, mask = _inputs(8, b, lq, lk, h, d, torch.float32,
+                               mask_kind == "random", cuda_device)
+    if mask_kind in ("dead", "ones"):
+        mask = torch.ones(b, lk, device=cuda_device)
+        if mask_kind == "dead":
+            mask[-1] = 0.0
+    scale = d ** -0.5
+    assert tfa._route(q.dtype, d, "fwd") == "tc32"
+    before, before32 = _counts(), _tc32_counts()
+    runs = [tfa._fwd_cuda(q, k, v, mask, scale, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _counts() == _moved(before, fwd=2)
+    assert _tc32_counts() == (before32[0] + 2, *before32[1:])
+    (out, lse), (out2, lse2) = runs
+    want_out, want_lse = tfa._fwd_reference(q, k, v, mask, scale, causal)
+    assert out.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(out, want_out, msg="out", **F32)
+    torch.testing.assert_close(lse, want_lse, msg="lse", **F32)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2), \
+        "not bitwise repeatable"
+    if mask_kind == "dead":
+        mean_v = v[-1].mean(0, keepdim=True).expand_as(out[-1])
+        torch.testing.assert_close(out[-1], mean_v, **F32)
+    simt_out, simt_lse = tfa._fwd_cuda(q, k, v, mask, scale, causal,
+                                       route="simt")
+    torch.cuda.synchronize()
+    print(f"tc32 forward vs SIMT: out "
+          f"{float((out - simt_out).abs().max()):.3e}, lse "
+          f"{float((lse - simt_lse).abs().max()):.3e}")
+    torch.testing.assert_close(out, simt_out, msg="out vs simt", **F32)
+    torch.testing.assert_close(lse, simt_lse, msg="lse vs simt", **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_q", [130, 1000])
+def test_tc32_forward_causal_row_with_no_valid_key_visits_simts_tiles(
+        cuda_device, rows_q):
+    """Under the causal mask a row with no valid key averages V over the
+    keys of the 64-key tiles visited for its q tile (the kernels' answer,
+    not the plain version's mean over all Lk): the tc32 forward visits the
+    same tiles as the SIMT kernel, at 32 rows per CTA and at 64."""
+    q, k, v, _, _ = _inputs(9, 2, rows_q, rows_q, 2, 64, torch.float32,
+                            False, cuda_device)
+    mask = torch.ones(2, rows_q, device=cuda_device)
+    mask[-1, :100] = 0.0                 # rows 0..99 of batch 1: no key
+    scale = 0.125
+    out, lse = tfa._fwd_cuda(q, k, v, mask, scale, True)
+    simt_out, simt_lse = tfa._fwd_cuda(q, k, v, mask, scale, True,
+                                       route="simt")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, simt_out, **F32)
+    torch.testing.assert_close(lse, simt_lse, **F32)
+    for r in (0, 63, 64, 99):
+        seen = min(rows_q, -(-min(r // 64 * 64 + 64, rows_q) // 64) * 64)
+        torch.testing.assert_close(out[-1, r], v[-1, :seen].mean(0), **F32)

@@ -1,19 +1,20 @@
-"""Device time of the f32 flash backward on each route, on the card.
+"""Device time of the f32 flash kernels on each route, on the card.
 
     python3 tools/flash_f32_timing.py [--iters 50]
 
-Times the f32 dQ and dK/dV kernels of ``ops/flash_attention.py`` on both
-of their routes -- ``tc32`` (3xTF32 on the tensor cores,
+Times the f32 forward, dQ and dK/dV kernels of ``ops/flash_attention.py``
+on both of their routes -- ``tc32`` (3xTF32 on the tensor cores,
 ``csrc/flash_attention_f32_sm90.cu``) and ``simt`` (CUDA cores,
 ``csrc/flash_attention.cu``) -- and PyTorch's f32
-``scaled_dot_product_attention`` backward (dQ, dK and dV in one call) on
-the same inputs, at the two shapes the port runs them at: the training
+``scaled_dot_product_attention`` forward and backward (dQ, dK and dV in
+one call) under its EFFICIENT backend on the same inputs, at the two
+shapes the port runs them at: the training
 slice (B=8, L=1024, H=8, D=64, causal) and BERT-tiny's (B=32, L=128, H=2,
 D=64, all-valid key mask).  Each time is CUDA events around ``--iters``
 calls queued behind a device-side spin (``torch.cuda._sleep``) that
 outlasts their enqueueing, so that the card runs them back to back and
 the host's launch cost stays out of the window; the routes are timed in
-the order tc32, simt, SDPA, SDPA, simt, tc32 (the mean of each pair is
+the order of ``fns`` and then backwards (the mean of each pair is
 reported), so that the card's clock and neighbours weigh on each alike.
 One JSON line per shape; the line before the last is the card's name and
 power limit, the last ``{"ok": true}``.  Needs the card;
@@ -83,11 +84,20 @@ def time_shape(b, lq, h, d, causal, masked, iters):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     attn = None if mask is None else (mask > 0)[:, None, None, :]
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn, is_causal=causal)
+
+    def sdpa_fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn, is_causal=causal)
+
+    o = sdpa_fwd()
     dot = do.transpose(1, 2)
     fns = {
+        "tc32_fwd": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
+                                         route="tc32"),
+        "simt_fwd": lambda: fa._fwd_cuda(q, k, v, mask, scale, causal,
+                                         route="simt"),
+        "sdpa_efficient_fwd": sdpa_fwd,
         "tc32": lambda: (fa._dq_cuda(*args, route="tc32"),
                          fa._dkv_cuda(*args, route="tc32")),
         "tc32_dq": lambda: fa._dq_cuda(*args, route="tc32"),
