@@ -135,6 +135,32 @@ Phases (any failure raises and the script exits non-zero):
              at the slice's shape (8 of each a step); one step against a
              dense-attention twin at the f32 tolerance; where an f32 step's
              device time goes (the flash forward's share among it);
+5f. cli-lm — the GPT at ``bench.py --lm``'s widths (hidden 512, 8 layers,
+             8 heads, ffn 2048, max_len 512) on ``lm_synth`` (vocabulary
+             128, L = 128; 512 steps at -b 8, seed 0, flash attention),
+             trained, greedy-sampled and served through ``cli.main`` as a
+             user runs it, each window with every launch count set to 0
+             just before it.  L1, f32 (the CLI's default), with the
+             optimizer recipe (cosine schedule, 32 warmup steps, weight
+             decay 0.1, clip 1.0), ``--sample 32`` and the README's serve
+             command on the paged table (32 requests, 8 slots, 32 new
+             tokens, prefill chunk 16, a 128-block pool of 8-token blocks,
+             a 16-token shared prefix): every flash launch on ``tc32``, as
+             many as predicted from the code before the run (8 layers ×
+             (512 steps + 11 eval batches) forwards, 8 × 512 dQ and
+             dK/dV), 8 paged launches per decode iteration, all on f32
+             pools; test loss <= 3.85; the samples bitwise ``generate``'s
+             on the trained module and the served streams bitwise a direct
+             ``SlotKVCache(paged)`` + ``ContinuousBatcher`` window; the
+             serve section with ``serve_goodput_under_slo`` and ``slo``;
+             the recipe's ``ScheduledAdamW`` in the engine.  L2, under
+             ``bf16-f32master`` with a linear schedule, rope and
+             ``--kv-heads 2``, served at ``--serve-multi-step 8``, twice:
+             at steps_per_call 8 (replayed chunks) and 1 (eager), per-step
+             losses, the flat f32 master and test loss bitwise equal;
+             every flash launch on ``tc``, every paged launch on bf16
+             pools with 2 kv heads (8 × 8 per round), RoundGraph replays,
+             and the streams bitwise a direct ``multi_step=8`` window;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -164,7 +190,11 @@ Phases (any failure raises and the script exits non-zero):
              beside SDPA (under a boolean key mask at BERT's shape; its
              backward kernels named); last, a draft_k = 4 verify's device
              time by column beside one forward over its 40 rows and a
-             decode step, on both layouts;
+             decode step, on both layouts; and phase 5f's kernels at its
+             shapes (the flash kernels at B=8, L=128, H=8, D=64, causal,
+             on tc32 and tc; the paged kernel on f32 pools and on bf16
+             pools with 2 kv heads, 64-entry tables), each held against
+             its plain version first;
 7. remat   — the train window's GPT with remat off and on: eager steps
              with equal losses, forward launches 16 per step against 8
              (dQ and dK/dV 8), each step's peak memory and device time;
@@ -483,15 +513,18 @@ def _paged_timed(tag, q, kp, vp, bt, pos, splits_list, ks=None,
     plain = lambda: pa.paged_attention_reference(  # noqa: E731
         q, kp, vp, bt, pos, **sc)
     # library yardstick: one scaled_dot_product_attention call over the
-    # table gathered (and dequantized) beforehand, not in the timed call
-    keys = kp[bt.long()].reshape(s, mb * blk, h, d)
-    vals = vp[bt.long()].reshape(s, mb * blk, h, d)
+    # table gathered (and dequantized, and widened to the query heads
+    # under GQA) beforehand, not in the timed call
+    kvh = kp.shape[2]
+    keys = kp[bt.long()].reshape(s, mb * blk, kvh, d)
+    vals = vp[bt.long()].reshape(s, mb * blk, kvh, d)
     if ks is not None:
-        keys = (keys.float() * ks[bt.long()].reshape(s, mb * blk, h, 1)
+        keys = (keys.float() * ks[bt.long()].reshape(s, mb * blk, kvh, 1)
                 ).to(q.dtype)
-        vals = (vals.float() * vs[bt.long()].reshape(s, mb * blk, h, 1)
+        vals = (vals.float() * vs[bt.long()].reshape(s, mb * blk, kvh, 1)
                 ).to(q.dtype)
-    keys, vals = keys.transpose(1, 2), vals.transpose(1, 2)
+    keys = keys.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+    vals = vals.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
     # query row l of a slot sees keys t <= pos + l
     rows = pos.long()[:, None] + torch.arange(l_q, device="cuda")[None, :]
     mask = (torch.arange(mb * blk, device="cuda")[None, None, None, :]
@@ -1724,30 +1757,51 @@ def _cli(argv):
     return summary, [line for line in lines[:-1] if line.startswith("step ")]
 
 
-def _recorded_cli(argv, *, cudnn_default: bool = False) -> dict:
+def _recorded_cli(argv, *, cudnn_default: bool = False,
+                  steps_per_call: int = 8) -> dict:
     """``_cli(argv)`` that also keeps the run's per-step losses (every
-    chunk's, in step order) and its final parameters and buffers as one
-    flat f32 buffer.  ``cudnn_default``: the run with cuDNN at torch's
-    defaults (deterministic off; TF32 still off), as ``harness.run`` ran
-    before it held cuDNN deterministic."""
-    from distributed_tensorflow_tpu_torch import cli
+    chunk's, in step order), its final parameters and buffers as one
+    flat f32 buffer, its trainer and the summary of its serve window
+    (``serve_summary``, with the per-request results that the serve
+    section drops; None without one).  ``cudnn_default``: the run with
+    cuDNN at torch's defaults (deterministic off; TF32 still off), as
+    ``harness.run`` ran before it held cuDNN deterministic."""
+    from distributed_tensorflow_tpu_torch import cli, serving
     from distributed_tensorflow_tpu_torch.utils import harness
 
-    kept = {"losses": []}
+    kept = {"losses": [], "serve": None}
+
+    class Served(serving.ContinuousBatcher):
+        def run(self, *args, **kw):
+            kept["serve"] = summary = super().run(*args, **kw)
+            return summary
 
     class Recorder(harness.Trainer):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             kept["trainer"] = self
-            chunk = self.engine.many_step
+            chunk, single = self.engine.many_step, self.engine.step
+            inside = []
 
             def many_step(*a, **k):
-                state, metrics = chunk(*a, **k)
+                inside.append(True)
+                try:
+                    state, metrics = chunk(*a, **k)
+                finally:
+                    inside.pop()
                 kept["losses"].append(metrics["loss"].detach().reshape(-1)
                                       .clone())
                 return state, metrics
 
-            self.engine.many_step = many_step
+            def step(*a, **k):
+                # a step of its own (steps_per_call 1), not one of a chunk
+                state, metrics = single(*a, **k)
+                if not inside:
+                    kept["losses"].append(metrics["loss"].detach()
+                                          .reshape(-1).clone())
+                return state, metrics
+
+            self.engine.many_step, self.engine.step = many_step, step
 
     def default_cudnn_run(config):
         m, c = torch.backends.cuda.matmul, torch.backends.cudnn
@@ -1758,21 +1812,23 @@ def _recorded_cli(argv, *, cudnn_default: bool = False) -> dict:
         finally:
             m.allow_tf32, c.allow_tf32, c.deterministic, c.benchmark = saved
 
-    trainer = harness.Trainer
-    harness.Trainer = Recorder
+    trainer, batcher = harness.Trainer, serving.ContinuousBatcher
+    harness.Trainer, serving.ContinuousBatcher = Recorder, Served
     if cudnn_default:
         cli.run = default_cudnn_run
     try:
         summary, _ = _cli(argv)
     finally:
         harness.Trainer, cli.run = trainer, harness.run
+        serving.ContinuousBatcher = batcher
     state = kept["trainer"].state
-    assert summary["steps_per_call"] == 8, summary
+    assert summary["steps_per_call"] == steps_per_call, summary
     params = torch.cat([t.detach().float().reshape(-1)
                         for t in state.model.state_dict().values()])
     losses = torch.cat(kept["losses"])
     assert losses.numel() == summary["steps"], (losses.shape, summary)
-    return {"summary": summary, "losses": losses, "params": params}
+    return {"summary": summary, "losses": losses, "params": params,
+            "trainer": kept["trainer"], "serve_summary": kept["serve"]}
 
 
 def repeat_phase(gpu: str) -> list[str]:
@@ -3013,6 +3069,301 @@ _MANGLED = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "half",
             "Lb0E": "false", "Lb1E": "true"}
 
 
+# phase cli-lm: the GPT at bench.py --lm's widths on lm_synth (vocabulary
+# 128, L = 128, 4096 train and 1024 test rows), trained, sampled and
+# served through cli.main
+CLI_LM = dict(layers=8, heads=8, head_dim=64, batch=8, seq=128, vocab=128,
+              slots=8, block=8, max_len=512)
+CLI_LM_ARGV = ["-m", "c", "-cs", "sync", "-n", "1", "-b", "8", "-e", "1",
+               "--model", "gpt", "--dataset", "lm_synth", "--attention",
+               "flash", "--model-arg", "hidden=512", "--model-arg",
+               "layers=8", "--model-arg", "heads=8", "--model-arg",
+               "ffn=2048", "--seed", "0", "--log-every", "0"]
+# L1, the CLI's default precision (f32): the README's serve command on the
+# paged table, with the optimizer recipe and --sample
+CLI_L1_ARGV = CLI_LM_ARGV + [
+    "--lr-schedule", "cosine", "--warmup-steps", "32", "--weight-decay",
+    "0.1", "--clip-norm", "1.0", "--sample", "32", "--serve", "32",
+    "--serve-slots", "8", "--serve-max-new", "32", "--serve-prefill-chunk",
+    "16", "--serve-prefix-cache", "128", "--serve-prefix-block", "8",
+    "--serve-shared-prefix", "16", "--serve-kv-layout", "paged"]
+# L2: bf16-f32master, rope, GQA (kv_heads 2) and multi-step rounds
+CLI_L2_ARGV = CLI_LM_ARGV + [
+    "--precision", "bf16-f32master", "--lr-schedule", "linear",
+    "--warmup-steps", "32", "--weight-decay", "0.1", "--clip-norm", "1.0",
+    "--positional", "rope", "--kv-heads", "2", "--serve", "32",
+    "--serve-slots", "8", "--serve-max-new", "32", "--serve-prefix-block",
+    "8", "--serve-kv-layout", "paged", "--serve-multi-step", "8"]
+CLI_LM_TEST_LOSS = 3.85    # one nat under chance, ln 128 = 4.852
+
+
+@contextlib.contextmanager
+def _paged_pools(seen: set):
+    """Record (pool dtype, kv heads, query heads) of every paged-kernel
+    launch made from Python (eager steps and graph captures; a replay
+    repeats its capture's) while the block runs: the wrapper's launch
+    function is wrapped, its counters stay where they are."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    launch = pa._paged_cuda
+
+    def recording(q, kp, *args, **kw):
+        seen.add((kp.dtype, kp.shape[2], q.shape[2]))
+        return launch(q, kp, *args, **kw)
+
+    pa._paged_cuda = recording
+    try:
+        yield
+    finally:
+        pa._paged_cuda = launch
+
+
+def _cli_lm_requests(shared: int):
+    """The serve window's requests as ``harness._serve_from_state`` builds
+    them for this phase's flags: test rows' first 8 tokens behind a
+    ``shared``-token prefix from ``default_rng(seed 0)``, 32 new tokens,
+    every arrival at 0."""
+    from distributed_tensorflow_tpu_torch.data import loaders
+    from distributed_tensorflow_tpu_torch.serving import Request
+
+    rows = loaders.load_dataset("lm_synth", split="test").x
+    head = np.random.default_rng(0).integers(
+        0, CLI_LM["vocab"], shared).astype(np.int32)
+    return [Request(i, np.concatenate([head, rows[i % len(rows), :8]]), 32,
+                    0.0) for i in range(32)]
+
+
+def _cli_lm_window(name, argv, gpu, steps_per_call, pool_kind):
+    """One run of ``cli.main(argv)`` with every launch count set to 0 just
+    before it and read just after; returns the record, the flash and paged
+    counts, the pools the paged kernel read, and the RoundGraph replays."""
+    from distributed_tensorflow_tpu_torch.serving.decode_graph import (
+        RoundGraph)
+
+    pools: set = set()
+    _reset_flash_counts()
+    _reset_paged_counts()
+    replays = RoundGraph.replays
+    with _paged_pools(pools):
+        rec = _recorded_cli(argv, steps_per_call=steps_per_call)
+    torch.cuda.synchronize()
+    counts = {**_flash_counts(), **_tc32_counts()}
+    paged, int8, verify = _paged_counts()
+    replays = RoundGraph.replays - replays
+    sm, sv = rec["summary"], rec["summary"]["serve"]
+    rr = sm["run_report"]
+    print(f"[cli-lm] window {name} ({gpu}): steps={sm['steps']} "
+          f"steps_per_call={sm['steps_per_call']} precision="
+          f"{sm['precision']} test_loss={sm['test_loss']:.6f} "
+          f"test_perplexity={sm['test_perplexity']:.4f} "
+          f"examples_per_sec={sm['examples_per_sec']:.1f} "
+          f"step_ms_p50={rr['step_time_p50_s'] * 1e3:.4f} serve: "
+          f"completed={sv['completed']} decode_iterations="
+          f"{sv['decode_iterations']} tokens_per_sec="
+          f"{sv['serve_tokens_per_sec']:.2f} ttft_p50_s="
+          f"{sv['serve_ttft_p50_s']:.5f} itl_p50_s="
+          f"{sv['serve_itl_p50_s']:.6f} goodput_under_slo="
+          f"{sv['serve_goodput_under_slo']} kv_layout={sv['serve_kv_layout']}"
+          f" kv_dtype={sv['serve_kv_dtype']}; flash launches "
+          f"{json.dumps(counts)}; paged launches {paged} (int8 {int8}, "
+          f"l_q > 1 {verify}) on pools {sorted(map(str, pools))}; "
+          f"RoundGraph replays {replays}")
+    assert pools == {pool_kind}, (name, pools)
+    assert int8 == verify == 0, (name, int8, verify)
+    assert "serve_goodput_under_slo" in sv and sv["slo"]["requests"] == 32
+    assert sv["completed"] == 32 and sm["serve_exit_policy"] == 0, sv
+    return rec, counts, paged, replays
+
+
+def cli_lm_phase(gpu: str) -> dict:
+    """Phase cli-lm (module docstring): windows L1 and L2 through
+    ``cli.main``; returns each window's launches of the kernels it ran
+    (the kernel rows at its shapes take them)."""
+    from distributed_tensorflow_tpu_torch.data import loaders
+    from distributed_tensorflow_tpu_torch.models.gpt import generate
+    from distributed_tensorflow_tpu_torch.parallel.precision import (
+        strip_master)
+    from distributed_tensorflow_tpu_torch.serving import (
+        ContinuousBatcher, SlotKVCache)
+    from distributed_tensorflow_tpu_torch.utils.optim import ScheduledAdamW
+
+    layers = CLI_LM["layers"]
+    train = loaders.load_dataset("lm_synth", split="train")
+    test = loaders.load_dataset("lm_synth", split="test")
+    steps = len(train) // CLI_LM["batch"]
+    evals = -(-len(test) // 100)                 # eval batch 100, padded
+    want_fwd, want_bwd = layers * (steps + evals), layers * steps
+    print(f"[cli-lm] predicted flash launches per window: forward "
+          f"{layers} layers x ({steps} steps + {evals} eval batches) = "
+          f"{want_fwd}, dQ and dK/dV {layers} x {steps} = {want_bwd}; "
+          f"paged launches {layers} x decode iterations (L1: one forward "
+          f"a decode iteration, prefill reads by gather) and {layers} x 8 "
+          f"x rounds (L2: rounds = dispatches - prefills)")
+
+    # L1: f32, every flash launch on tc32, f32 pools
+    rec, counts, paged, _ = _cli_lm_window(
+        "L1 (f32)", CLI_L1_ARGV, gpu, 8,
+        (torch.float32, CLI_LM["heads"], CLI_LM["heads"]))
+    sm, sv = rec["summary"], rec["summary"]["serve"]
+    assert counts == {"fwd": want_fwd, "dq": want_bwd, "dkv": want_bwd,
+                      "fwd_tc": 0, "dq_tc": 0, "dkv_tc": 0,
+                      "fwd_tc32": want_fwd, "dq_tc32": want_bwd,
+                      "dkv_tc32": want_bwd}, counts
+    assert paged == layers * sv["decode_iterations"], (
+        paged, sv["decode_iterations"])
+    assert sm["steps"] == steps and sm["test_loss"] <= CLI_LM_TEST_LOSS, sm
+    trainer = rec["trainer"]
+    model = trainer.state.model
+    assert isinstance(strip_master(trainer.state.optimizer),
+                      ScheduledAdamW), type(trainer.state.optimizer)
+    prompts = test.x[:1, :8]
+    direct = generate(model, None, prompts, 32, greedy=True).cpu().tolist()
+    assert sm["sample_prompts"] == prompts.tolist()
+    assert sm["samples"] == direct, (sm["samples"], direct)
+    kv = SlotKVCache(model, None, CLI_LM["slots"], kv_layout="paged",
+                     prefix_cache_blocks=128, prefix_block=CLI_LM["block"])
+    base = ContinuousBatcher(kv, prefill_chunk=16).run(
+        _cli_lm_requests(16))
+    assert _streams(rec["serve_summary"]) == _streams(base), (
+        "window L1's serve streams differ from the direct window's")
+    print(f"[cli-lm] window L1: test_loss {sm['test_loss']:.6f} <= "
+          f"{CLI_LM_TEST_LOSS}; samples bitwise generate(greedy) on the "
+          f"trained module; serve streams bitwise a direct SlotKVCache("
+          f"paged) + ContinuousBatcher window; optimizer "
+          f"{type(strip_master(trainer.state.optimizer)).__name__}; flash "
+          f"and paged launches as predicted")
+    l1 = {"fwd_tc32": counts["fwd_tc32"], "dq_tc32": counts["dq_tc32"],
+          "dkv_tc32": counts["dkv_tc32"], "paged_f32": paged}
+    del rec, model, kv, base
+
+    # L2: bf16-f32master, replayed chunks against eager ones
+    graph, counts, paged, replays = _cli_lm_window(
+        "L2 (bf16-f32master, steps_per_call 8)", CLI_L2_ARGV
+        + ["--steps-per-call", "8"], gpu, 8,
+        (torch.bfloat16, 2, CLI_LM["heads"]))
+    eager, _, _, _ = _cli_lm_window(
+        "L2 (bf16-f32master, steps_per_call 1)", CLI_L2_ARGV
+        + ["--steps-per-call", "1"], gpu, 1,
+        (torch.bfloat16, 2, CLI_LM["heads"]))
+    sv = graph["summary"]["serve"]
+    assert counts == {"fwd": want_fwd, "dq": want_bwd, "dkv": want_bwd,
+                      "fwd_tc": want_fwd, "dq_tc": want_bwd,
+                      "dkv_tc": want_bwd, "fwd_tc32": 0, "dq_tc32": 0,
+                      "dkv_tc32": 0}, counts
+    rounds = sv["serve_dispatches"] - sv["prefills"]
+    assert replays > 0 and paged == layers * 8 * rounds, (
+        replays, paged, rounds)
+    masters = [r["trainer"].state.optimizer.master for r in (graph, eager)]
+    checks = {
+        "losses": torch.equal(graph["losses"], eager["losses"]),
+        "master": torch.equal(*masters),
+        "test_loss": (graph["summary"]["test_loss"]
+                      == eager["summary"]["test_loss"])}
+    assert all(checks.values()), checks
+    model = graph["trainer"].state.model
+    assert isinstance(strip_master(graph["trainer"].state.optimizer),
+                      ScheduledAdamW)
+    kv = SlotKVCache(model, None, CLI_LM["slots"], kv_layout="paged",
+                     prefix_block=CLI_LM["block"])
+    base = ContinuousBatcher(kv, multi_step=8).run(_cli_lm_requests(0))
+    assert _streams(graph["serve_summary"]) == _streams(base), (
+        "window L2's serve streams differ from the direct multi_step "
+        "window's")
+    print(f"[cli-lm] window L2 ({gpu}): steps_per_call 8 (replayed chunks) "
+          f"against 1 (eager), bitwise {json.dumps(checks)}; test_loss "
+          f"{graph['summary']['test_loss']:.6f}; serve rounds {rounds}, "
+          f"RoundGraph replays {replays}; streams bitwise a direct "
+          f"multi_step=8 window; examples_per_sec "
+          f"{graph['summary']['examples_per_sec']:.1f} (graph) / "
+          f"{eager['summary']['examples_per_sec']:.1f} (eager)")
+    l2 = {"fwd_tc": counts["fwd_tc"], "dq_tc": counts["dq_tc"],
+          "dkv_tc": counts["dkv_tc"], "paged_bf16_gqa": paged}
+    # where a replayed step of each window goes (after every window: a
+    # profiler session before one would be in its host times); the
+    # profiled chunks train the states on
+    batch = CLI_LM["batch"]
+    for label, tr in (("cli-lm L1 step (B=8, L=128, f32)", trainer),
+                      ("cli-lm L2 step (B=8, L=128, bf16-f32master)",
+                       graph["trainer"])):
+        xs, ys = zip(*(tr.engine.shard_batch(
+            train.x[batch * i:batch * (i + 1)],
+            train.y[batch * i:batch * (i + 1)]) for i in range(8)))
+        _profile_chunk(label, tr.engine, tr.state, list(xs), list(ys),
+                       chunks=2)
+    del trainer, graph, eager, model, kv, base, masters
+    torch.cuda.empty_cache()
+    return {"L1": l1, "L2": l2}
+
+
+def cli_lm_timing_phase(launches: dict) -> list[dict]:
+    """The kernels of phase cli-lm at its shapes, held against their plain
+    versions and timed beside their bounds, the plain versions and SDPA:
+    the flash forward, dQ and dK/dV at B=8, L=128, H=8, D=64, causal on
+    ``tc32`` (f32, window L1) and ``tc`` (bf16, window L2), and the paged
+    kernel over f32 pools (H = KVH = 8, window L1) and bf16 GQA pools
+    (H=8, KVH=2, window L2), 8 slots, 8-token blocks, 64-entry tables
+    (max_len 512), at the windows' contexts; returns their rows with the
+    windows' launches."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    b, lq, h, d = (CLI_LM["batch"], CLI_LM["seq"], CLI_LM["heads"],
+                   CLI_LM["head_dim"])
+    rows = []
+    for dtype, variant, name, seed in ((torch.float32, "tc32", "float32", 46),
+                                       (torch.bfloat16, "tc", "bfloat16",
+                                        47)):
+        case = _flash_case(seed, b=b, lq=lq, h=h, d=d, dtype=dtype)
+        errs = _check_flash(f"cli_lm_{variant}", case, True, variant)
+        got = _flash_rows(f"cli_lm_{variant}", variant, *case[:4], None,
+                          True, errs, _sdpa_backend(dtype), name)
+        window = launches["L1" if variant == "tc32" else "L2"]
+        for row in got:
+            kind = row["name"].rsplit(".", 1)[1].split("_")[0]
+            row["launches"] = window[f"{kind}_{variant}"]
+        rows += got
+    mb = CLI_LM["max_len"] // CLI_LM["block"]
+    for tag, kvh, dtype, tol, lo, window, key in (
+            ("f32", h, torch.float32, F32_TOL, 24, "L1", "paged_f32"),
+            ("bf16_gqa", 2, torch.bfloat16, BF16_TOL, 8, "L2",
+             "paged_bf16_gqa")):
+        # the windows' contexts: a 16-token prefix (L1) and 8 prompt
+        # tokens, then up to 32 new ones
+        pos = np.random.default_rng(12).integers(lo, lo + 32, b)
+        q, kp, vp, bt, pos, _, _ = _paged_case(
+            48, s=b, h=h, kvh=kvh, d=d, blk=CLI_LM["block"], mb=mb,
+            q_dtype=dtype, kv_dtype=dtype, pos=pos)
+        ref = pa.paged_attention_reference(q, kp, vp, bt, pos)
+        err = 0.0
+        for sp in (None, 1, 2, 4, mb):
+            out = pa._paged_cuda(q, kp, vp, bt, pos, splits=sp)
+            torch.testing.assert_close(out.float(), ref.float(), **tol,
+                                       msg=f"cli_lm paged {tag} splits={sp}")
+            err = max(err, float((out.float() - ref.float()).abs().max()))
+        t = _paged_timed(f"cli_lm {tag}", q, kp, vp, bt, pos, (1, 2, 4, 8))
+        row = {"name": f"paged_attention_cli_lm_{tag}", "route": "cuda",
+               "source": "distributed_tensorflow_tpu_torch/ops/csrc/"
+                         "paged_attention.cu",
+               "replaces": "distributed_tensorflow_tpu/ops/"
+                           "paged_attention.py:257",
+               "shape": f"S={b} H={h} KVH={kvh} D={d} "
+                        f"blk={CLI_LM['block']} MB={mb} {tag} pools, pos "
+                        f"{lo}-{lo + 31}",
+               "launches": launches[window][key], "max_abs_err": err,
+               **{k: t[k] for k in ("ms", "call_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "splits")},
+               "bound_share": t["bound_ms"] / t["ms"],
+               "split_sweep": t["sweep"]}
+        rows.append(row)
+        print(f"[kernel] cli-lm paged {row['shape']}: max_abs_err "
+              f"{err:.3e}; device ms kernel={t['ms']:.5f} (splits "
+              f"{t['splits']}) plain={t['plain_ms']:.5f} SDPA="
+              f"{t['library_ms']:.5f}; bound {t['bound_ms']:.6f} "
+              f"({t['bound_by']}); launches in window {window} "
+              f"{row['launches']}")
+    return rows
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -3085,6 +3436,7 @@ def main() -> int:
     bert_launches = bert_phase(gpu)
     repeat_failures = repeat_phase(gpu)
     fit32, steps32 = f32_train_phase(gpu)
+    cli_lm_launches = cli_lm_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -3114,6 +3466,7 @@ def main() -> int:
         # the fp16-f32master window's launches of this float16 kernel
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     bert_rows = bert_timing_phase(bert_errs)
+    cli_lm_rows = cli_lm_timing_phase(cli_lm_launches)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
@@ -3158,7 +3511,7 @@ def main() -> int:
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
-                                  *bert_rows]}))
+                                  *bert_rows, *cli_lm_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

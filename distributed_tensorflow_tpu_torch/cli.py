@@ -30,9 +30,17 @@ the default is the CUDA card, and without one the run raises.  Only rank
 0 prints the summary and reports to the supervisor.  The models' f32 math
 runs in full f32 (the harness turns TF32 off for the run); ``--precision``
 picks a mixed-precision policy (``parallel/precision.py``).
+``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
+build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
+and after training a GPT ``--sample N`` decodes test prompts and ``--serve
+N`` serves a window of requests (``--serve-*``); the fleet's serve flags
+parse and raise.
 
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 32 \\
         --model cnn --dataset mnist
+    python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 8 \\
+        --model gpt --dataset lm_synth --attention flash --sample 8 \\
+        --serve 8 --serve-kv-layout paged
 """
 
 from __future__ import annotations
@@ -117,6 +125,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "lm_synth")
     p.add_argument("-e", "--epochs", type=int, default=1)
     p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "cosine", "linear"],
+                   help="LR schedule over epochs × steps-per-epoch; combine "
+                        "with --warmup-steps for a linear ramp from 0")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="linear LR warmup steps (0 disables)")
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help=">0: AdamW decoupled weight decay (matmul kernels "
+                        "only: no biases, norms or embedding tables)")
+    p.add_argument("--clip-norm", type=float, default=0.0,
+                   help=">0: clip gradients to this global norm before the "
+                        "update")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches accumulated per optimizer step")
     p.add_argument("--sync-every", type=int, default=10,
@@ -137,12 +157,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "models).  Without sequence parallelism (not ported) "
                         "the *_flash values run the flash kernels and ring/"
                         "ulysses leave the model dense")
+    p.add_argument("--positional", default="learned",
+                   choices=["learned", "rope"],
+                   help="GPT position encoding: learned table | RoPE "
+                        "(rotary, no table: q/k rotated by position)")
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="GPT grouped-query attention: K/V head count "
+                        "(< heads; 1 = multi-query).  Shrinks the decode "
+                        "KV cache by heads/kv_heads")
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing: store each transformer "
                         "block's input only, recompute the block in "
                         "backward (~K x less activation memory for ~1/3 "
                         "more FLOPs).  The long-context memory lever.  "
                         "Sequence models only")
+    _serve_flags(p)
     p.add_argument("--model-arg", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="extra model constructor field (repeatable)")
@@ -175,6 +204,120 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (NCCL) or cpu (gloo)")
     return p
+
+
+def _serve_flags(p: argparse.ArgumentParser) -> None:
+    """--sample and the --serve window's flags (the JAX CLI's).  The
+    fleet's flags parse, and raise NotImplementedError at any value but
+    their default (ROADMAP Queue 1: fleet)."""
+    p.add_argument("--sample", type=int, default=0, metavar="N",
+                   help="after training a GPT LM, greedy-decode N tokens "
+                        "per prompt from the final parameters (KV-cache "
+                        "sampler) and record prompts and continuations "
+                        "in the summary")
+    p.add_argument("--sample-prompt-len", type=int, default=8,
+                   help="prompt tokens taken from the test split per "
+                        "sampled row (--sample)")
+    p.add_argument("--serve", type=int, default=0, metavar="N",
+                   help="after training a GPT LM, serve N requests through "
+                        "the slot KV cache and the continuous batcher "
+                        "(serving/); the summary gains a 'serve' section "
+                        "(requests/s per chip, TTFT/ITL percentiles, "
+                        "goodput under the SLO)")
+    p.add_argument("--serve-slots", type=int, default=4,
+                   help="--serve: KV slot table size (requests decoded "
+                        "at once)")
+    p.add_argument("--serve-max-new", type=int, default=16,
+                   help="--serve: tokens generated per request")
+    p.add_argument("--serve-prompt-len", type=int, default=8,
+                   help="--serve: prompt tokens taken from the test split "
+                        "per request")
+    p.add_argument("--serve-kv-dtype", default=None,
+                   choices=["float32", "f32", "bfloat16", "bf16", "int8"],
+                   help="--serve: KV table storage dtype (default: the "
+                        "model's dtype).  bfloat16 halves the KV bytes "
+                        "per slot; int8 halves them again (int8 K/V with "
+                        "one f32 scale per written vector)")
+    p.add_argument("--serve-draft-config", default=None, metavar="SPEC",
+                   help="--serve: speculative decoding with a draft GPT "
+                        "proposing --serve-draft-k tokens per live slot; "
+                        "greedy acceptance keeps the streams those of "
+                        "plain decode.  SPEC is 'self' (the served model) "
+                        "or 'hidden=64,layers=1,...' GPT size overrides "
+                        "(vocab/max_len inherited, weights drawn from "
+                        "--seed)")
+    p.add_argument("--serve-draft-k", type=int, default=4, metavar="K",
+                   help="--serve-draft-config: draft tokens proposed per "
+                        "verify round")
+    p.add_argument("--serve-prefill-chunk", type=int, default=0,
+                   metavar="T",
+                   help="--serve: chunked prefill token budget: admissions "
+                        "prefill in chunks of at most T tokens, one chunk "
+                        "per decode iteration.  0 = monolithic prefill")
+    p.add_argument("--serve-prefix-cache", type=int, default=0,
+                   metavar="BLOCKS",
+                   help="--serve: prefix-cache pool capacity in KV blocks "
+                        "(block-granular prompt prefix reuse, LRU).  "
+                        "0 = off")
+    p.add_argument("--serve-prefix-block", type=int, default=16,
+                   metavar="T",
+                   help="--serve: tokens per prefix-cache block")
+    p.add_argument("--serve-kv-layout", default="monolithic",
+                   choices=["monolithic", "paged"],
+                   help="--serve: KV storage layout.  'paged': one "
+                        "refcounted physical block pool with per-slot "
+                        "block tables (prefix hits alias blocks, "
+                        "copy-on-write) read by the paged attention "
+                        "kernel at every decode step")
+    p.add_argument("--serve-paged-block", type=int, default=0,
+                   metavar="T",
+                   help="--serve-kv-layout paged: tokens per physical "
+                        "block.  0 inherits --serve-prefix-block; with "
+                        "the prefix pool on the two must agree")
+    p.add_argument("--serve-paged-blocks", type=int, default=0,
+                   metavar="N",
+                   help="--serve-kv-layout paged: block pool capacity.  "
+                        "0 sizes it so that it never runs out; a smaller "
+                        "pool defers admissions")
+    p.add_argument("--serve-shared-prefix", type=int, default=0,
+                   metavar="T",
+                   help="--serve: prepend a fixed T-token synthetic system "
+                        "prompt to every request (seeded by --seed)")
+    p.add_argument("--serve-slo-ttft", type=float, default=2.0,
+                   metavar="S",
+                   help="--serve: TTFT SLO target in seconds; a request is "
+                        "goodput only when it meets this and the ITL "
+                        "target (serve_goodput_under_slo)")
+    p.add_argument("--serve-slo-itl", type=float, default=0.5,
+                   metavar="S",
+                   help="--serve: inter-token-latency SLO target in "
+                        "seconds, judged at each request's own p99 gap")
+    p.add_argument("--serve-queue-cap", type=int, default=0, metavar="N",
+                   help="--serve: bounded admission: cap the arrived but "
+                        "unadmitted backlog at N requests and shed the "
+                        "excess (0 = admit everything)")
+    p.add_argument("--serve-multi-step", type=int, default=None,
+                   metavar="K",
+                   help="--serve: fuse K decode iterations into one "
+                        "dispatch (one CUDA graph replay on the card), "
+                        "pipelined one round ahead; greedy streams are "
+                        "those of K = 1")
+    fleet = " (serving fleet: not ported, raises)"
+    p.add_argument("--serve-replicas", type=int, default=1, metavar="N",
+                   help="--serve: replicas behind a router" + fleet)
+    p.add_argument("--serve-fault-spec", default=None, metavar="SPEC",
+                   help="--serve: seeded fault injection" + fleet)
+    p.add_argument("--serve-watchdog", type=float, default=0.0,
+                   metavar="S", help="--serve: replica watchdog" + fleet)
+    p.add_argument("--serve-hot-swap", action="store_true",
+                   help="--serve: weight hot-swap drill" + fleet)
+    p.add_argument("--serve-disaggregate", default=None, metavar="P:D",
+                   help="--serve: prefill/decode replicas" + fleet)
+    p.add_argument("--serve-routing", default="least-loaded",
+                   choices=("least-loaded", "affinity"),
+                   help="--serve: fleet routing policy" + fleet)
+    p.add_argument("--serve-autoscale", default=None, metavar="MIN:MAX",
+                   help="--serve: replica autoscaling" + fleet)
 
 
 def select_engine(args: argparse.Namespace) -> str:
@@ -242,13 +385,41 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         model_fn=model_fn, dataset_fn=dataset_fn,
         n_devices=args.number_nodes, batch_size=args.batch_size,
         epochs=args.epochs, learning_rate=args.lr,
+        lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+        weight_decay=args.weight_decay, clip_norm=args.clip_norm,
         grad_accum=args.grad_accum, sync_every=args.sync_every,
         degree=args.degree, seed=args.seed, precision=args.precision,
         dtype=args.dtype, attention_impl=args.attention, remat=args.remat,
+        positional=args.positional, kv_heads=args.kv_heads,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,
-        device=device)
+        device=device, sample_tokens=args.sample,
+        sample_prompt_len=args.sample_prompt_len,
+        serve_requests=args.serve, serve_slots=args.serve_slots,
+        serve_max_new=args.serve_max_new,
+        serve_prompt_len=args.serve_prompt_len,
+        serve_kv_dtype=args.serve_kv_dtype,
+        serve_prefill_chunk=args.serve_prefill_chunk,
+        serve_prefix_cache=args.serve_prefix_cache,
+        serve_prefix_block=args.serve_prefix_block,
+        serve_shared_prefix=args.serve_shared_prefix,
+        serve_slo_ttft=args.serve_slo_ttft,
+        serve_slo_itl=args.serve_slo_itl,
+        serve_queue_cap=args.serve_queue_cap,
+        serve_draft_config=args.serve_draft_config,
+        serve_draft_k=args.serve_draft_k,
+        serve_replicas=args.serve_replicas,
+        serve_fault_spec=args.serve_fault_spec,
+        serve_hot_swap=args.serve_hot_swap,
+        serve_watchdog_s=args.serve_watchdog,
+        serve_kv_layout=args.serve_kv_layout,
+        serve_paged_block=args.serve_paged_block,
+        serve_paged_blocks=args.serve_paged_blocks,
+        serve_disaggregate=args.serve_disaggregate,
+        serve_routing=args.serve_routing,
+        serve_autoscale=args.serve_autoscale,
+        serve_multi_step=args.serve_multi_step)
     if args.task_type is not None:
         # one process per machine in the group; rank 0 is the server
         if args.num_processes is None:

@@ -34,8 +34,14 @@ ledger, and under the paged layout the zero-copy hit rate.
   With a draft attached the outer loop stays per verify round, and the
   draft's proposal loop is one fused round.
 
-Disaggregated roles/handoff, the roofline, the timeline sampler and SLO
-monitors are not ported yet and raise ``NotImplementedError``.
+* ``slo`` (``observability.SLOMonitor``): every completed request is
+  judged against the TTFT and ITL targets, every shed one counts as shed,
+  the monitor is reset per window, and the summary carries
+  ``serve_goodput_under_slo`` and the monitor's ``slo`` section (both
+  None without a monitor).
+
+Disaggregated roles/handoff, the roofline and the timeline sampler are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -212,6 +218,7 @@ class RequestResult:
     itl_s: list[float] = dataclasses.field(default_factory=list)
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
+    slo_met: bool | None = None   # None: no SLOMonitor attached
     # speculative decoding (zeros without a draft): draft tokens proposed
     # for this request and accepted by the target's verify
     proposed_tokens: int = 0
@@ -289,9 +296,9 @@ class ContinuousBatcher:
                 f"dispatch, got {multi_step}")
         if role is not None or handoff_out is not None:
             not_ported("disaggregated roles / KV handoff", "fleet")
-        if slo is not None or timeline is not None or roofline is not None:
-            not_ported("SLO monitors, the timeline and the roofline",
-                        "rest of observability")
+        if timeline is not None or roofline is not None:
+            not_ported("the timeline and the roofline",
+                       "rest of observability")
         self.kv = kv
         self.draft_kv = draft_kv
         self.draft_k = int(draft_k)
@@ -301,6 +308,7 @@ class ContinuousBatcher:
         self.mode = mode
         self.prefill_chunk = int(prefill_chunk)
         self.metrics = metrics
+        self.slo = slo
         self.queue_cap = int(queue_cap)
         self.should_stop = should_stop
         self.idle_polls = 0
@@ -418,9 +426,12 @@ class ContinuousBatcher:
         reg.record("prefill", r.prefill_s)
         for gap in r.itl_s:
             reg.record("itl", gap)
+        if self.slo is not None:
+            r.slo_met = self.slo.observe(r.ttft_s, r.itl_s)
         lv.req_attrs.update(
             queue_wait_s=r.queue_wait_s, prefill_s=r.prefill_s,
-            decode_s=r.decode_s, ttft_s=r.ttft_s, tokens=len(r.tokens))
+            decode_s=r.decode_s, ttft_s=r.ttft_s, tokens=len(r.tokens),
+            **({} if r.slo_met is None else {"slo_met": r.slo_met}))
         lv.dec_span.__exit__(None, None, None)
         lv.req_span.__exit__(None, None, None)
         self.kv.evict(slot)
@@ -437,6 +448,8 @@ class ContinuousBatcher:
                           queue_cap=self.queue_cap,
                           arrival_s=req.arrival_s)
         self.tracer.counter("shed_requests")
+        if self.slo is not None:
+            self.slo.shed()
 
     def _check_preempt(self, iters: int, queue: RequestQueue) -> bool:
         """Consult the lease-drain hook once (sticky)."""
@@ -777,6 +790,8 @@ class ContinuousBatcher:
         self._accepted = 0
         self._draft_iterations = 0
         self._draft_catchup = 0
+        if self.slo is not None:
+            self.slo.reset()   # one monitor measures one window
         live: dict[int, _Live] = {}
         pending: dict[int, dict] = {}
         prefix_before = self.kv.prefix_cache_stats()
@@ -828,6 +843,8 @@ class ContinuousBatcher:
         itls = [g for r in results for g in r.itl_s]
         queue_waits = [r.queue_wait_s for r in results]
         tokens = sum(len(r.tokens) for r in results)
+        slo_sec = (self.slo.summary(elapsed) if self.slo is not None
+                   else None)
         if self.metrics is not None:
             self.metrics.merge(self._registry)
         phases_after = self.kv.phase_times()
@@ -930,6 +947,12 @@ class ContinuousBatcher:
             "serve_shed_rate": (self._shed_count / offered
                                 if offered else 0.0),
             "preempted": self._preempted,
+            # goodput under the SLO (requests/sec meeting both targets;
+            # None without a monitor) and the monitor's section
+            "serve_goodput_under_slo": (
+                slo_sec.get("goodput_requests_per_sec")
+                if slo_sec else None),
+            "slo": slo_sec,
             "histograms": self._registry.snapshot(),
             "device_phase_s": device_phase,
             "results": results,

@@ -17,11 +17,31 @@ bitwise on the card, as it does under XLA (``_repeatable_math``).
 policy (``parallel/precision.py``): a non-f32 policy stores the
 parameters in 16 bits and the model computes in the policy's dtype
 (``_resolve_precision``).  ``attention_impl`` and ``remat`` reach the
-sequence models (BERT, GPT) as in the JAX harness (``_resolve_model``).
-The JAX ``ExperimentConfig``'s other fields (schedules, codecs, model
-parallelism, checkpoints, telemetry, sampling, serving) are absent.
-``parse_draft_config`` reads a serving draft's size, as the JAX
-harness's ``--serve-draft-config`` does.
+sequence models (BERT, GPT) as in the JAX harness (``_resolve_model``),
+and ``positional``/``kv_heads`` the GPT (``_lm_model_kw``).
+
+The optimizer recipe is the JAX harness's (``make_lr_schedule``,
+``_make_optimizer``, ``_decay_mask``): a constant, cosine or linear
+learning-rate schedule with a linear warmup, AdamW's decoupled weight
+decay on the matmul kernels only, and global-norm clipping before Adam,
+as ``utils/optim.ScheduledAdamW``, whose schedule, clip and mask run on
+the device (a chunk replayed as a CUDA graph reads the schedule at every
+step).  With none of them set the engine keeps its stock Adam.
+
+After training an LM, ``sample_tokens`` greedy-decodes continuations of
+test prompts (``_sample_from_state``) and ``serve_requests`` runs a
+continuous-batching window over the trained module
+(``_serve_from_state``: ``SlotKVCache`` + ``ContinuousBatcher`` under an
+``SLOMonitor``); every argument of either that can fail is checked before
+training (``_validate_sampling``, ``_validate_serving``).  The summary of
+an LM gains ``test_perplexity``.
+
+The JAX ``ExperimentConfig``'s other fields (codecs, model parallelism,
+checkpoints, telemetry) are absent; the fleet's serve fields
+(``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
+``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
+``serve_autoscale``) raise ``NotImplementedError`` at any value but their
+default.
 """
 
 from __future__ import annotations
@@ -29,19 +49,24 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 import time
 import warnings
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch import models as modellib
+from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
     Trainer, check_engine, create_engine)
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
+from distributed_tensorflow_tpu_torch.utils import optim
 from distributed_tensorflow_tpu_torch.utils.supervisor import ResultSink
+
 
 @dataclasses.dataclass
 class ExperimentConfig:
@@ -59,6 +84,16 @@ class ExperimentConfig:
     batch_size: int = 32            # per-worker (-b): global batch = b × n
     epochs: int = 1
     learning_rate: float = 1e-3
+    lr_schedule: str = "constant"   # constant | cosine | linear (each with
+                                    # optional linear warmup); horizon =
+                                    # epochs × steps-per-epoch
+    warmup_steps: int = 0           # linear LR warmup from 0 over this many
+                                    # steps (0 disables)
+    schedule_horizon_steps: int | None = None  # decay horizon override
+                                    # (steps_to_accuracy sets max_steps)
+    weight_decay: float = 0.0       # >0: AdamW decoupled weight decay
+    clip_norm: float = 0.0          # >0: clip gradients to this global norm
+                                    # before the optimizer update
     grad_accum: int = 1             # microbatches per optimizer step
     sync_every: int = 10            # async: parameter-averaging period
     degree: int = 1                 # gossip: ring neighbours on each side
@@ -81,11 +116,52 @@ class ExperimentConfig:
     remat: bool = False             # activation checkpointing: store block
                                     # inputs only, recompute in backward
                                     # (sequence models)
+    positional: str = "learned"     # GPT positions: learned | rope
+    kv_heads: int | None = None     # GPT GQA: K/V heads < query heads
     model_args: dict | None = None  # extra model constructor fields
     device: str | None = None       # None: the CUDA card; 'cpu' for tests
+    sample_tokens: int = 0          # >0: after training an LM, greedy-decode
+                                    # this many tokens per prompt
+    sample_prompt_len: int = 8      # prompt tokens per sampled test row
+    serve_requests: int = 0         # >0: after training an LM, serve this
+                                    # many requests (continuous batching)
+    serve_slots: int = 4            # KV slot table size
+    serve_max_new: int = 16         # tokens generated per request
+    serve_prompt_len: int = 8       # prompt tokens per request (test rows)
+    serve_kv_dtype: str | None = None  # KV storage: float32 | bfloat16 |
+                                    # int8 (None: the model's dtype)
+    serve_prefill_chunk: int = 0    # >0: chunked prefill token budget
+    serve_prefix_cache: int = 0     # >0: prefix-pool capacity in blocks
+    serve_prefix_block: int = 16    # tokens per prefix-pool block
+    serve_shared_prefix: int = 0    # >0: a seeded N-token system prompt
+                                    # prepended to every request
+    serve_slo_ttft: float = 2.0     # TTFT SLO target (seconds)
+    serve_slo_itl: float = 0.5      # ITL SLO target (seconds, per-request
+                                    # p99 gap)
+    serve_queue_cap: int = 0        # >0: bounded admission (sheds excess)
+    serve_draft_config: str | None = None  # speculative draft: 'self' or
+                                    # 'key=int,...' GPT size overrides
+    serve_draft_k: int = 4          # draft tokens proposed per verify
+    serve_replicas: int = 1         # fleet (not ported)
+    serve_fault_spec: str | None = None    # fleet (not ported)
+    serve_watchdog_s: float = 0.0   # fleet (not ported)
+    serve_hot_swap: bool = False    # fleet (not ported)
+    serve_kv_layout: str = "monolithic"    # monolithic | paged
+    serve_paged_block: int = 0      # paged block tokens (0: prefix block)
+    serve_paged_blocks: int = 0     # paged pool capacity (0: auto-size)
+    serve_disaggregate: str | None = None  # fleet (not ported)
+    serve_routing: str = "least-loaded"    # fleet (not ported)
+    serve_autoscale: str | None = None     # fleet (not ported)
+    serve_multi_step: int | None = None    # k: fused k-step decode rounds
 
 
 _SEQUENCE_MODELS = ("bert_tiny", "bert", "gpt", "gpt_tiny")
+_LM_MODELS = ("gpt", "gpt_tiny")  # causal LMs: (B, L) next-token targets
+# the fleet's serve fields (ROADMAP Queue 1: fleet) and their defaults
+_FLEET_DEFAULTS = {"serve_replicas": 1, "serve_fault_spec": None,
+                   "serve_watchdog_s": 0.0, "serve_hot_swap": False,
+                   "serve_disaggregate": None,
+                   "serve_routing": "least-loaded", "serve_autoscale": None}
 
 
 @dataclasses.dataclass
@@ -101,11 +177,23 @@ class _Experiment:
     name: str
 
 
+def _lm_model_kw(config: ExperimentConfig) -> dict[str, Any]:
+    """GPT-only model kwargs (``positional``/``kv_heads``), passed only
+    when not the default, so that the other models never see them."""
+    kw: dict[str, Any] = {}
+    if config.model in _LM_MODELS:
+        if config.positional != "learned":
+            kw["positional"] = config.positional
+        if config.kv_heads is not None:
+            kw["kv_heads"] = config.kv_heads
+    return kw
+
+
 def _resolve_model(config: ExperimentConfig, num_classes: int, device):
     """Plug-in ``model_fn`` wins (and owns its dtype: a non-f32 ``dtype``
     is ignored, with a warning, as in JAX ``harness.py:820-828``); else
-    the registry with ``model_args`` and the config's ``dtype`` (JAX
-    ``harness.py:826-855``): ``remat``
+    the registry with ``model_args``, the config's ``dtype`` and the GPT's
+    ``_lm_model_kw`` (JAX ``harness.py:826-855``): ``remat``
     reaches a sequence model and is rejected for any other; ``flash``,
     ``ring_flash`` and ``ulysses_flash`` give a sequence model the flash
     kernels (without a sequence mesh the ring schedule around them is a
@@ -118,7 +206,7 @@ def _resolve_model(config: ExperimentConfig, num_classes: int, device):
                 f"models; the model_fn owns its dtype", stacklevel=2)
         return config.model_fn()
     kw = dict(config.model_args or {})
-    forced = {}
+    forced = _lm_model_kw(config)
     if config.remat:
         if config.model not in _SEQUENCE_MODELS:
             raise ValueError(
@@ -175,9 +263,106 @@ def _global_batch(config: ExperimentConfig, dp: int) -> int:
     return max(config.batch_size * dp, dp)
 
 
+def make_lr_schedule(config: ExperimentConfig, total_steps: int):
+    """Learning-rate schedule from ``lr_schedule``/``warmup_steps`` (JAX
+    ``make_lr_schedule``), or None for the default (constant, no warmup):
+    a function of the optimizer's count, a float32 tensor, whose first
+    update reads count 0.  The decay horizon is ``total_steps``; warmup
+    ramps linearly from 0 and the decay joins at ``warmup_steps``."""
+    lr, warm = config.learning_rate, max(config.warmup_steps, 0)
+    if config.lr_schedule not in ("constant", "cosine", "linear"):
+        raise ValueError(
+            f"unknown lr_schedule '{config.lr_schedule}'; "
+            f"known: constant, cosine, linear")
+    if config.lr_schedule == "constant" and warm == 0:
+        return None
+    total = max(total_steps, warm + 1)
+    decay = max(total - warm, 1)
+    if config.lr_schedule == "cosine":
+        return optim.warmup_cosine_decay_schedule(
+            init_value=0.0 if warm else lr, peak_value=lr,
+            warmup_steps=warm, decay_steps=total)
+    if config.lr_schedule == "linear":
+        main = optim.linear_schedule(lr, 0.0, decay)
+    else:  # constant after warmup
+        main = optim.constant_schedule(lr)
+    if warm == 0:
+        return main
+    return optim.join_schedules(
+        [optim.linear_schedule(0.0, lr, warm), main], [warm])
+
+
+def _make_optimizer(config: ExperimentConfig, train_ds, global_batch: int,
+                    model: torch.nn.Module):
+    """The recipe's optimizer factory (``params -> ScheduledAdamW``) over
+    the run's schedule, or None: the engine's stock Adam (JAX
+    ``_make_optimizer``, which returns an optax chain).  ``model`` gives
+    the decay mask.  The factory serves both layouts an engine builds the
+    optimizer over: the model's parameters themselves, or a master
+    policy's one flat f32 master (``MasterWeights``), whose mask is the
+    parameters' masks laid end to end in the same order.
+
+    The horizon counts global steps: ``epochs × (len(train) //
+    global_batch)``, every rank loading the whole train split (a
+    process-sharded dataset scales by its process count, as in JAX)."""
+    if config.schedule_horizon_steps is not None:
+        total = config.schedule_horizon_steps
+    else:
+        shard = getattr(train_ds, "process_shard", None)
+        n_global = len(train_ds) * (shard[1] if shard else 1)
+        total = config.epochs * max(n_global // max(global_batch, 1), 1)
+    sched = make_lr_schedule(config, total)
+    if sched is None and not config.weight_decay and not config.clip_norm:
+        return None
+    lr = sched if sched is not None else config.learning_rate
+    wd, clip = config.weight_decay, config.clip_norm
+
+    def factory(params):
+        params = list(params)
+        named = list(model.named_parameters())
+        keep = _decay_mask(model)
+        if (len(params) == len(named)
+                and all(p is q for p, (_, q) in zip(params, named))):
+            mask = [keep[name] for name, _ in named]
+        elif (len(params) == 1
+              and params[0].numel() == sum(q.numel() for _, q in named)):
+            flat = params[0]
+            mask = [torch.cat([
+                torch.full((q.numel(),), float(keep[name]),
+                           dtype=flat.dtype, device=flat.device)
+                for name, q in named])]
+        else:
+            raise ValueError(
+                "the recipe's optimizer is built over the model's "
+                "parameters or over one flat master of them")
+        return optim.ScheduledAdamW(params, lr, weight_decay=wd,
+                                    decay_mask=mask, clip_norm=clip)
+
+    return factory
+
+
+def _decay_mask(model: torch.nn.Module) -> dict[str, bool]:
+    """The standard transformer decay mask (JAX ``_decay_mask``), by
+    parameter name: weight-decay matmul kernels only.  Biases and
+    LayerNorm/GroupNorm scales (ndim < 2) and embedding tables (the
+    ``nn.Embedding`` weights, which flax names ``embedding``; the tied
+    head shares the token table) are left out."""
+    tables = {id(m.weight) for m in model.modules()
+              if isinstance(m, torch.nn.Embedding)}
+    return {name: p.ndim >= 2 and id(p) not in tables
+            for name, p in model.named_parameters()}
+
+
 def _setup(config: ExperimentConfig) -> _Experiment:
     check_engine(config.engine)
     config = _resolve_precision(config)
+    if config.sample_tokens:
+        # family checks only here; shapes are checked post-setup in
+        # _validate_sampling
+        if config.model_fn is None and config.model not in _LM_MODELS:
+            raise ValueError(
+                f"--sample decodes autoregressively and needs a causal LM "
+                f"({'/'.join(_LM_MODELS)}), got --model {config.model}")
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
     try:
         n = mesh.world_size
@@ -187,6 +372,8 @@ def _setup(config: ExperimentConfig) -> _Experiment:
         global_batch = _global_batch(config, n)
         engine_kw: dict[str, Any] = dict(
             mesh=mesh, learning_rate=config.learning_rate,
+            optimizer=_make_optimizer(config, train_ds, global_batch,
+                                      model),
             precision=config.precision)
         if config.engine == "async":
             engine_kw["sync_every"] = config.sync_every
@@ -239,9 +426,20 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
     """Run one experiment on this rank; returns the summary dict.  Rank 0
     alone logs heartbeats, writes ``result_path`` and reports the
     start/done/results triple to the supervisor; every rank returns the
-    same summary (its numbers are all-reduced)."""
+    same summary (its numbers are all-reduced).  After the evaluation an
+    LM's summary gains ``test_perplexity``, ``sample_tokens`` adds
+    ``sample_prompts``/``samples`` and ``serve_requests`` the ``serve``
+    section with ``serve_exit_policy`` (1, with a warning, when a request
+    went unserved)."""
+    _reject_fleet(config)
     ex = _setup(config)
     try:
+        if config.sample_tokens:
+            _validate_sampling(config, ex, ex.test_ds)
+        if config.serve_requests:
+            # like sampling: every argument that can fail is checked
+            # before the run spends its training budget
+            _validate_serving(config, ex, ex.test_ds)
         rank0 = ex.mesh.rank == 0
         sink = ResultSink(
             config.result_path if rank0 else None,
@@ -279,6 +477,10 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                 "examples_per_sec_per_device": fit["examples_per_sec"] / ex.n,
                 "test_accuracy": ev["accuracy"],
                 "test_loss": ev["loss"],
+                # next-token cross-entropy exponentiated: the LM quality
+                # number (exp of a classification loss means nothing)
+                **({"test_perplexity": math.exp(min(ev["loss"], 80.0))}
+                   if config.model in _LM_MODELS else {}),
                 # the JAX run report's keys that this fit measures
                 "run_report": {
                     "steps": fit["steps"], "elapsed_s": fit["elapsed"],
@@ -297,6 +499,24 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                     "loss_scale": fit.get("loss_scale"),
                 },
             }
+            if config.sample_tokens:
+                summary.update(_sample_from_state(config, ex, trainer.state,
+                                                  ex.test_ds))
+            if config.serve_requests:
+                serve_sec = _serve_from_state(config, ex, trainer.state,
+                                              ex.test_ds)
+                summary["serve"] = serve_sec
+                # a window that lost requests must not bury it in the
+                # summary: a warning and a flag to gate on (0 = clean)
+                unserved = serve_sec.get("unserved_requests")
+                summary["serve_exit_policy"] = 1 if unserved else 0
+                if unserved:
+                    reasons = [f"unserved_requests={unserved}"]
+                    sink.emit("serve_warning", reasons=reasons,
+                              preempted=serve_sec.get("preempted"))
+                    print(f"warning: serve window degraded "
+                          f"({', '.join(reasons)}); serve_exit_policy=1",
+                          file=sys.stderr)
             sink.emit("summary", **summary)
             return summary
         finally:
@@ -312,7 +532,11 @@ def steps_to_accuracy(config: ExperimentConfig, target: float,
     """Steps-to-target (the north star: steps-to-97%), counted in GLOBAL
     batches, through ``Trainer.fit`` with its adaptive eval cadence (every
     ``eval_every`` steps far from the target, every ≤ 10 within 0.05 of
-    it)."""
+    it).  A schedule's horizon is ``max_steps`` unless the config sets
+    one: the loop runs far past ``epochs``."""
+    if config.schedule_horizon_steps is None:
+        config = dataclasses.replace(config,
+                                     schedule_horizon_steps=max_steps)
     ex = _setup(config)
     try:
         trainer = Trainer(None, engine=ex.engine, seed=config.seed)
@@ -371,3 +595,254 @@ def parse_draft_config(spec: str) -> dict[str, int] | None:
             "--serve-draft-config needs at least one key=int override "
             "(or the literal 'self')")
     return out
+
+
+def _reject_fleet(config: ExperimentConfig) -> None:
+    """The fleet's serve fields at any value but their default raise
+    (ROADMAP Queue 1: fleet), before anything is set up."""
+    for name, default in _FLEET_DEFAULTS.items():
+        if getattr(config, name) != default:
+            not_ported(f"--{name.replace('_', '-').removesuffix('-s')} "
+                       f"(serving fleet)", "fleet")
+
+
+def _gpt_model(ex: _Experiment):
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    model = ex.engine.model
+    return model if isinstance(model, GPTLM) else None
+
+
+def _validate_sampling(config: ExperimentConfig, ex: _Experiment,
+                       test_ds) -> None:
+    """Every ``sample_tokens`` failure that can be known is raised before
+    training (JAX ``_validate_sampling``): a raise after it would waste
+    the run."""
+    if config.sample_tokens < 0:
+        raise ValueError(
+            f"--sample must be positive, got {config.sample_tokens}")
+    model = _gpt_model(ex)
+    if model is None:
+        raise ValueError(
+            f"--sample requires the GPT causal LM; the resolved model "
+            f"is {type(ex.engine.model).__name__}")
+    max_len = model.max_len
+    plen = config.sample_prompt_len
+    if plen < 1 or plen > test_ds.x.shape[1]:
+        raise ValueError(
+            f"--sample-prompt-len {plen} outside the test sequences' "
+            f"length {test_ds.x.shape[1]}")
+    if plen + config.sample_tokens > max_len:
+        raise ValueError(
+            f"--sample-prompt-len {plen} + --sample {config.sample_tokens} "
+            f"exceeds the model's capacity max_len={max_len}")
+    n_prompts = ex.n
+    if len(test_ds.x) < n_prompts:
+        raise ValueError(
+            f"--sample takes one prompt per data shard ({n_prompts}), but "
+            f"the test split has only {len(test_ds.x)} rows")
+
+
+def _sample_from_state(config: ExperimentConfig, ex: _Experiment, state,
+                       test_ds) -> dict[str, Any]:
+    """``sample_tokens`` N: greedy-decode N tokens per prompt from the
+    trained model (``models.gpt.generate``, the KV-cache sampler), one
+    prompt of ``sample_prompt_len`` test tokens per rank, as JAX takes
+    one per data shard.  JAX decodes them over its mesh; here every rank
+    decodes all of them from its own copy of the parameters (they are
+    equal on every rank, the consensus ``eval_params`` under async and
+    gossip).  Greedy, so the continuation is a function of the
+    parameters.  Arguments were checked before training."""
+    from distributed_tensorflow_tpu_torch.models.gpt import generate
+
+    prompts = np.asarray(test_ds.x[:ex.n, :config.sample_prompt_len],
+                         dtype=np.int32)
+    toks = generate(ex.engine.eval_params(state), None, prompts,
+                    config.sample_tokens, greedy=True,
+                    device=ex.engine.device)
+    return {"sample_prompts": prompts.tolist(),
+            "samples": toks.cpu().tolist()}
+
+
+def _resolve_serve_kv_dtype(name: str):
+    """``serve_kv_dtype``: a float dtype name (``models.resolve_dtype``)
+    or ``'int8'``, the quantized table."""
+    if name == "int8":
+        return "int8"
+    try:
+        return modellib.resolve_dtype(name)
+    except KeyError:
+        raise ValueError(
+            f"--serve-kv-dtype '{name}' unknown: float32/bfloat16/"
+            f"float16 (and aliases) or int8") from None
+
+
+def _validate_serving(config: ExperimentConfig, ex: _Experiment,
+                      test_ds) -> None:
+    """Every ``serve_requests`` failure that can be known is raised before
+    training (JAX ``_validate_serving``; its fleet checks are ``run``'s
+    ``_reject_fleet`` here)."""
+    if config.serve_requests < 0:
+        raise ValueError(
+            f"--serve must be positive, got {config.serve_requests}")
+    if config.serve_slots < 1:
+        raise ValueError(
+            f"--serve-slots must be positive, got {config.serve_slots}")
+    if config.serve_max_new < 1:
+        raise ValueError(
+            f"--serve-max-new must be positive, got {config.serve_max_new}")
+    model = _gpt_model(ex)
+    if model is None:
+        raise ValueError(
+            f"--serve requires the GPT causal LM; the resolved model is "
+            f"{type(ex.engine.model).__name__}")
+    if config.serve_prefill_chunk < 0:
+        raise ValueError(
+            f"--serve-prefill-chunk must be >= 0 (0 = monolithic "
+            f"prefill), got {config.serve_prefill_chunk}")
+    if config.serve_prefix_cache < 0:
+        raise ValueError(
+            f"--serve-prefix-cache must be >= 0 (0 = off), got "
+            f"{config.serve_prefix_cache}")
+    if config.serve_prefix_block < 1:
+        raise ValueError(
+            f"--serve-prefix-block must be positive, got "
+            f"{config.serve_prefix_block}")
+    if config.serve_shared_prefix < 0:
+        raise ValueError(
+            f"--serve-shared-prefix must be >= 0, got "
+            f"{config.serve_shared_prefix}")
+    if config.serve_slo_ttft <= 0 or config.serve_slo_itl <= 0:
+        raise ValueError(
+            f"--serve-slo-ttft/--serve-slo-itl must be positive seconds, "
+            f"got {config.serve_slo_ttft}/{config.serve_slo_itl}")
+    if config.serve_queue_cap < 0:
+        raise ValueError(
+            f"--serve-queue-cap must be >= 0 (0 = unbounded admission), "
+            f"got {config.serve_queue_cap}")
+    if config.serve_draft_k < 1:
+        raise ValueError(
+            f"--serve-draft-k must be positive, got "
+            f"{config.serve_draft_k}")
+    if config.serve_draft_config is not None:
+        parse_draft_config(config.serve_draft_config)
+    if config.serve_kv_dtype:
+        _resolve_serve_kv_dtype(config.serve_kv_dtype)
+    if config.serve_kv_layout not in ("monolithic", "paged"):
+        raise ValueError(
+            f"--serve-kv-layout must be 'monolithic' or 'paged', got "
+            f"{config.serve_kv_layout!r}")
+    if config.serve_paged_block < 0 or config.serve_paged_blocks < 0:
+        raise ValueError(
+            f"--serve-paged-block/--serve-paged-blocks must be >= 0, got "
+            f"{config.serve_paged_block}/{config.serve_paged_blocks}")
+    if config.serve_kv_layout != "paged" and (config.serve_paged_block
+                                              or config.serve_paged_blocks):
+        raise ValueError(
+            "--serve-paged-block/--serve-paged-blocks need "
+            "--serve-kv-layout paged")
+    if config.serve_kv_layout == "paged":
+        # the block must tile max_len, and with the prefix pool on it
+        # must be the pool's block (hits alias physical blocks)
+        block = config.serve_paged_block or config.serve_prefix_block
+        if model.max_len % block:
+            raise ValueError(
+                f"--serve-paged-block {block} must divide the model's "
+                f"max_len={model.max_len}")
+        if (config.serve_prefix_cache and config.serve_paged_block
+                and config.serve_paged_block != config.serve_prefix_block):
+            raise ValueError(
+                f"--serve-paged-block ({config.serve_paged_block}) must "
+                f"equal --serve-prefix-block "
+                f"({config.serve_prefix_block}) when the prefix pool is "
+                f"on: pool hits alias physical blocks")
+    if config.serve_multi_step is not None and config.serve_multi_step < 1:
+        raise ValueError(
+            f"--serve-multi-step must be >= 1 fused decode iterations "
+            f"per dispatch, got {config.serve_multi_step}")
+    plen = config.serve_prompt_len
+    if plen < 1 or plen > test_ds.x.shape[1]:
+        raise ValueError(
+            f"--serve-prompt-len {plen} outside the test sequences' "
+            f"length {test_ds.x.shape[1]}")
+    total_prompt = plen + config.serve_shared_prefix
+    if total_prompt + config.serve_max_new > model.max_len:
+        raise ValueError(
+            f"--serve-shared-prefix {config.serve_shared_prefix} + "
+            f"--serve-prompt-len {plen} + --serve-max-new "
+            f"{config.serve_max_new} exceeds the model's capacity "
+            f"max_len={model.max_len}")
+
+
+def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
+                      test_ds) -> dict[str, Any]:
+    """``serve_requests`` N: a continuous-batching window over the trained
+    model (``SlotKVCache`` + ``ContinuousBatcher``, JAX
+    ``_serve_from_state``); returns the run report's ``serve`` section
+    (``observability.serve_section``).
+
+    The table is built over the trained module itself (the consensus
+    ``eval_params`` under async and gossip), whose decode runs without
+    dropout; it serves on this rank's device, replicated, as JAX does
+    when its mesh does not shard the table.  Prompts are test rows
+    (``serve_prompt_len`` tokens each, wrapping past the split), behind a
+    seeded shared prefix of ``serve_shared_prefix`` tokens; every arrival
+    is at 0, so the queue drains as slots free.  Greedy decode on the wall
+    clock, under an ``SLOMonitor`` (``serve_slo_ttft``/``serve_slo_itl``),
+    so the section carries ``serve_goodput_under_slo`` and ``slo``.  A
+    draft of ``'key=int,...'`` sizes is a fresh GPT drawn from
+    ``torch.Generator().manual_seed(seed)``: flax's initialization cannot
+    be reproduced, so its accept rate is the port's own, while greedy
+    acceptance keeps the streams those of plain decode."""
+    from distributed_tensorflow_tpu_torch.observability import (
+        SLOMonitor, serve_section)
+    from distributed_tensorflow_tpu_torch.serving import (
+        ContinuousBatcher, Request, SlotKVCache)
+
+    model = ex.engine.eval_params(state)
+    device = ex.engine.device
+    kv_kwargs: dict[str, Any] = dict(
+        kv_dtype=(_resolve_serve_kv_dtype(config.serve_kv_dtype)
+                  if config.serve_kv_dtype else None),
+        prefix_cache_blocks=config.serve_prefix_cache,
+        prefix_block=config.serve_prefix_block, device=device)
+    if config.serve_kv_layout == "paged":
+        kv_kwargs.update(kv_layout="paged",
+                         paged_blocks=config.serve_paged_blocks,
+                         paged_block=config.serve_paged_block)
+    kv = SlotKVCache(model, None, config.serve_slots, **kv_kwargs)
+    draft_kv = None
+    if config.serve_draft_config:
+        overrides = parse_draft_config(config.serve_draft_config)
+        if overrides is None:
+            draft = model
+        else:
+            draft = modellib.create_model(
+                "gpt", num_classes=int(model.vocab_size),
+                max_len=int(model.max_len), dropout_rate=0.0,
+                dtype=model.dtype, device=device, **overrides)
+            draft.reset_parameters(
+                torch.Generator().manual_seed(config.seed))
+        draft_kv = SlotKVCache(draft, None, config.serve_slots,
+                               device=device)
+    rows = np.asarray(test_ds.x, np.int32)
+    plen = config.serve_prompt_len
+    shared = np.zeros(0, np.int32)
+    if config.serve_shared_prefix:
+        shared = np.random.default_rng(config.seed).integers(
+            0, int(model.vocab_size),
+            config.serve_shared_prefix).astype(np.int32)
+    requests = [
+        Request(rid=i,
+                prompt=np.concatenate([shared, rows[i % len(rows), :plen]]),
+                max_new_tokens=config.serve_max_new, arrival_s=0.0)
+        for i in range(config.serve_requests)]
+    batcher_kwargs: dict[str, Any] = {}
+    if config.serve_multi_step is not None:
+        batcher_kwargs.update(multi_step=config.serve_multi_step)
+    summary = ContinuousBatcher(
+        kv, prefill_chunk=config.serve_prefill_chunk,
+        slo=SLOMonitor(config.serve_slo_ttft, config.serve_slo_itl),
+        queue_cap=config.serve_queue_cap, draft_kv=draft_kv,
+        draft_k=config.serve_draft_k, **batcher_kwargs).run(requests)
+    return serve_section(summary, ex.n)
