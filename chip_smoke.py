@@ -161,6 +161,29 @@ Phases (any failure raises and the script exits non-zero):
              every flash launch on ``tc``, every paged launch on bf16
              pools with 2 kv heads (8 × 8 per round), RoundGraph replays,
              and the streams bitwise a direct ``multi_step=8`` window;
+5g. sp    — sequence parallelism on the card, where one GPU makes a (1, 1)
+             (data, seq) NCCL mesh: the ``bench.py --lm`` GPT (hidden 512,
+             8 layers, 8 heads, ffn 2048, vocab 16384, B = 8, L = 1024)
+             under ``SeqParallelEngine`` for 4 eager steps each,
+             ``ring_flash`` at f32 and under ``bf16-f32master`` and
+             ``ulysses_flash`` at f32, against ``SyncEngine`` with the
+             flash attention from the same weights, batches and Adam: the
+             f32 ring's first loss within 1e-6 relative (its bitwise
+             equality printed) and the rest within 1e-4, ``ulysses_flash``
+             bitwise the flash GPT, the bf16 ring within the bf16 train
+             tolerance; the ring's block kernels launched 8 forwards (tc32
+             at f32, tc under bf16), 8 dQ and 8 dK/dV (tc32 in both: the
+             block backward casts to f32) a step, no SIMT launch.  Then the
+             virtual-rank ring: the ring's own per-block functions for n
+             ranks in one process against the whole sequence's block
+             kernels, causal at n = 4 (B=2, L=4096: blocks of 1024, H=8,
+             D=64, f32 and bf16; 10 forward, dQ and dK/dV launches) and
+             under BERT's key mask at n = 2 (B=32, L=128, H=2, f32).  With
+             the timings: the block kernels at the SP GPT's block shape
+             (rows ``flash_fwd_block.*``/``flash_bwd_block.*``), the bf16
+             block backward's price of its f32 casts against the tc dQ and
+             dK/dV, the eager steps, and the virtual cases' device ms
+             beside the whole sequence's;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -3364,6 +3387,362 @@ def cli_lm_timing_phase(launches: dict) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 5g: sequence parallelism on the card (sp = 1) and the virtual ring
+# --------------------------------------------------------------------------
+
+SP_STEPS = 4
+# f32 ring_flash against the flash GPT at sp = 1: the forward is the same
+# kernel, merged with weight exactly 1 (logaddexp(-1e30, lse) == lse), and
+# a key mask of ones leaves every score as it is; the backward runs the
+# same tc32 dQ and dK/dV from the same lse and delta.  So every loss is
+# held bitwise (on the H100 all 4 were).  Under bf16-f32master the forward
+# is the same tc kernel (first loss bitwise), but the ring's backward runs
+# the f32 tc32 kernels where the flash GPT runs the bf16 tc ones: each
+# later loss is held within SP_BF16_DROP_SHARE of the flash GPT's drop
+# from its first loss (about 0.04 a step; the H100 read under 1%), a
+# bound that a wrong attention backward would not meet where 2e-3 of the
+# whole loss (over half a step's drop) could
+SP_BF16_DROP_SHARE = 0.05
+# the virtual-rank ring's shapes: (a) causal, blocks of 1024 (the slice's
+# block), (b) BERT's key-masked shape
+SP_VIRTUAL = (dict(n=4, causal=True, b=2, l=4096, h=8),
+              dict(n=2, causal=False, b=32, l=128, h=2))
+
+
+def _sp_window(impl: str, dtype: str, policy: str, mesh, x, y) -> dict:
+    """SP_STEPS eager steps of the ``bench.py --lm`` GPT from the seed-0
+    weights: ``SyncEngine`` for ``flash``, else ``SeqParallelEngine`` on
+    the (1, 1) mesh; both with the same (non-capturable) Adam.  Every
+    launch count is set to 0 just before the steps and read just after."""
+    from distributed_tensorflow_tpu_torch.engines import (
+        SeqParallelEngine, SyncEngine)
+
+    model = _lm_model(impl, dtype)
+    cls = SyncEngine if impl == "flash" else SeqParallelEngine
+    eng = cls(model, mesh=mesh, precision=policy,
+              optimizer=lambda p: torch.optim.Adam(p, lr=1e-3))
+    state = eng.init_state(torch.Generator().manual_seed(0))
+    batch = LM["batch"]
+    batches = [eng.shard_batch(x[i * batch:(i + 1) * batch],
+                               y[i * batch:(i + 1) * batch])
+               for i in range(SP_STEPS)]
+    torch.cuda.synchronize()
+    _reset_flash_counts()
+    losses, step_ms = [], []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        state, m = eng.step(state, xb, yb)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {**_flash_counts(), **_tc32_counts()}
+    assert all(np.isfinite(losses)), (impl, policy, losses)
+    del state, eng, model
+    return {"losses": losses, "step_ms": step_ms, "counts": counts}
+
+
+def _sp_counts_ok(label, counts, fwd_route) -> None:
+    """Per step: 8 forwards (on ``fwd_route``), 8 dQ and 8 dK/dV on tc32,
+    and no SIMT launch."""
+    n = LM["layers"] * SP_STEPS
+    want = {"fwd": n, "dq": n, "dkv": n, "fwd_tc": 0, "dq_tc": 0,
+            "dkv_tc": 0, "fwd_tc32": 0, "dq_tc32": n, "dkv_tc32": n}
+    want[f"fwd_{fwd_route}"] = n
+    assert counts == want, (label, counts, want)
+
+
+def _sp_virtual_check(case: dict, dtype) -> dict:
+    """One virtual-rank case on the card against the whole sequence:
+    f32 out and lse within F32_TOL of ``flash_fwd_block`` over the whole
+    sequence, gradients within FLASH_GRAD_TOL of ``flash_bwd_block`` over
+    it; bf16 out within the tc bound of the plain version (``_close_tc``),
+    lse within F32_TOL, and the gradients within FLASH_GRAD_TOL of the
+    whole sequence's f32 backward from the ring's lse and Δ (the blocks'
+    dQ and dK/dV are f32 tc32 kernels).  Launches gated: one forward, dQ
+    and dK/dV per pairing that is not entirely future."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel import ring_attention as ra
+
+    n, causal = case["n"], case["causal"]
+    q, k, v, do, mask = _flash_case(70 + n, b=case["b"], lq=case["l"],
+                                    h=case["h"], d=64, dtype=dtype,
+                                    masked=not causal)
+    if mask is None:
+        mask = torch.ones(case["b"], case["l"], device="cuda")
+    scale = 64 ** -0.5
+    before = _flash_counts()
+    got = ra.virtual_ring(q, k, v, mask, do, n, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    launched = {c: _flash_counts()[c] - before[c] for c in ("fwd", "dq",
+                                                           "dkv")}
+    pairs = n * (n + 1) // 2 if causal else n * n
+    assert launched == {"fwd": pairs, "dq": pairs, "dkv": pairs}, launched
+    out, lse, dq, dk, dv = got
+    w_out, w_lse = fa.flash_fwd_block(q, k, v, mask, scale=scale,
+                                      causal=causal)
+    if dtype == torch.float32:
+        delta = (do * w_out).sum(-1).transpose(1, 2).contiguous()
+        want = fa.flash_bwd_block(q, k, v, mask, do, w_lse, delta,
+                                  scale=scale, causal=causal)
+        torch.testing.assert_close(out, w_out, **F32_TOL)
+        out_err = float((out - w_out).abs().max())
+    else:
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        want = fa.flash_bwd_block(q, k, v, mask, do, lse,
+                                  delta.contiguous(), scale=scale,
+                                  causal=causal)
+        plain, _ = fa._fwd_reference(q, k, v, mask, scale, causal)
+        terms = fa._term_sums(q, k, v, mask, do, lse, delta.contiguous(),
+                              scale, causal)[0]
+        out_err, _ = _close_tc("virtual ring bf16 out", out, plain.float(),
+                               terms)
+    torch.testing.assert_close(lse, w_lse, **F32_TOL)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, **FLASH_GRAD_TOL)
+    grad_err = max(float((g - w).abs().max())
+                   for g, w in zip((dq, dk, dv), want))
+    return {"n": n, "causal": causal, "dtype": str(dtype).split(".")[-1],
+            "shape": f"B={case['b']} L={case['l']} H={case['h']} D=64",
+            "launches": launched, "out_max_abs_err": out_err,
+            "grad_max_abs_err": grad_err,
+            "inputs": (q, k, v, mask, do, scale)}
+
+
+def sp_phase(gpu: str) -> dict:
+    """Phase 5g: the ``bench.py --lm`` GPT under ``SeqParallelEngine`` on
+    a (1, 1) NCCL mesh, 4 steps each: ``ring_flash`` at f32 and under
+    ``bf16-f32master`` and ``ulysses_flash`` at f32, each against
+    ``SyncEngine`` with the flash attention from the same weights and
+    batches; then the virtual-rank ring.  Returns the windows and the
+    virtual cases."""
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    x, y = _lm_data(SP_STEPS * LM["batch"])
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "seq"))
+    try:
+        runs = {}
+        for label, impl, dtype, policy in (
+                ("flash_f32", "flash", "float32", "f32"),
+                ("ring_flash_f32", "ring_flash", "float32", "f32"),
+                ("ulysses_flash_f32", "ulysses_flash", "float32", "f32"),
+                ("flash_bf16", "flash", "bfloat16", "bf16-f32master"),
+                ("ring_flash_bf16", "ring_flash", "bfloat16",
+                 "bf16-f32master")):
+            runs[label] = _sp_window(impl, dtype, policy, mesh, x, y)
+    finally:
+        mesh.close()
+    base, ring = runs["flash_f32"]["losses"], runs["ring_flash_f32"]["losses"]
+    assert ring == base, ("f32 ring_flash not bitwise the flash GPT", ring,
+                          base)
+    assert runs["ulysses_flash_f32"]["losses"] == base, (
+        runs["ulysses_flash_f32"]["losses"], base)
+    base16 = runs["flash_bf16"]["losses"]
+    ring16 = runs["ring_flash_bf16"]["losses"]
+    assert ring16[0] == base16[0], ("bf16 ring_flash first loss", ring16,
+                                    base16)
+    drop_share = max(abs(r - b) / abs(b - base16[0])
+                     for r, b in zip(ring16[1:], base16[1:]))
+    assert drop_share <= SP_BF16_DROP_SHARE, (drop_share, ring16, base16)
+    _sp_counts_ok("ring_flash f32", runs["ring_flash_f32"]["counts"], "tc32")
+    _sp_counts_ok("ring_flash bf16", runs["ring_flash_bf16"]["counts"], "tc")
+    _sp_counts_ok("ulysses_flash f32", runs["ulysses_flash_f32"]["counts"],
+                  "tc32")
+    for label, run in runs.items():
+        steady = float(np.median(run["step_ms"][1:]))
+        print(f"[sp] {gpu}: {label}: losses "
+              f"{' '.join(repr(v) for v in run['losses'])} eager step ms "
+              f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (median of "
+              f"steps 2-4 {steady:.3f}) flash_launches="
+              f"{json.dumps(run['counts'])}")
+    print(f"[sp] f32 ring_flash and ulysses_flash losses bitwise the "
+          f"flash GPT's over {SP_STEPS} steps; bf16 ring_flash first loss "
+          f"bitwise, later ones within {drop_share:.3e} of the bf16 flash "
+          f"GPT's drop (bound {SP_BF16_DROP_SHARE}); launches as counted "
+          f"in all three SP windows")
+    cases = []
+    for case, dtype in ((SP_VIRTUAL[0], torch.float32),
+                        (SP_VIRTUAL[0], torch.bfloat16),
+                        (SP_VIRTUAL[1], torch.float32)):
+        res = _sp_virtual_check(case, dtype)
+        cases.append(res)
+        print(f"[sp] virtual ring n={res['n']} {res['shape']} "
+              f"{res['dtype']} {'causal' if res['causal'] else 'key mask'}:"
+              f" launches {json.dumps(res['launches'])}, out max_abs_err "
+              f"{res['out_max_abs_err']:.3e}, grads max_abs_err "
+              f"{res['grad_max_abs_err']:.3e} ok")
+    return {"runs": runs, "cases": cases}
+
+
+def sp_timing_phase(sp: dict) -> list[dict]:
+    """The ring's block kernels at the SP GPT's block shape (B=8, L=1024,
+    H=8, D=64, the diagonal pairing, key mask of ones) beside their
+    bounds, plain versions and SDPA: the f32 forward (tc32), the bf16
+    forward (tc), and the f32 dQ and dK/dV (tc32) that ``flash_bwd_block``
+    runs under both; then the bf16 backward's price of the f32 casts (the
+    block backward on bf16 inputs against the tc dQ and dK/dV), and each
+    virtual-rank case's device ms beside the whole sequence's kernels.
+    Each kernel's row is held to its plain version on the same inputs
+    before it is timed (f32 out and lse within F32_TOL, bf16 out within
+    the tc bound, dQ and dK/dV within FLASH_GRAD_TOL).  Launches: the sp
+    windows' counts."""
+    from torch.nn.attention import sdpa_kernel
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel import ring_attention as ra
+
+    runs = sp["runs"]
+    f32c, bf16c = runs["ring_flash_f32"]["counts"], \
+        runs["ring_flash_bf16"]["counts"]
+    b, lq, h, d = LM["batch"], LM["seq"], LM["heads"], 64
+    scale = d ** -0.5
+    mask = torch.ones(b, lq, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    cases = {torch.float32: _flash_case(80, b=b, lq=lq, h=h, d=d),
+             torch.bfloat16: _flash_case(80, b=b, lq=lq, h=h, d=d,
+                                         dtype=torch.bfloat16)}
+    lib = {}
+    for dtype, (q, k, v, do, _) in cases.items():
+        backend = _sdpa_backend(dtype)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        with sdpa_kernel(backend):
+            lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+            fwd_ms = _device_ms(lib_fwd, label=f"sp SDPA fwd {dtype}",
+                                whole=True)
+            o = lib_fwd()
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+        lib[dtype] = (fwd_ms, _device_ms(lib_bwd, label=f"sp SDPA bwd "
+                                         f"{dtype}", whole=True),
+                      backend.name)
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/"
+    # the f32 backward's inputs: what flash_bwd_block hands its kernels
+    q, k, v, do, _ = cases[torch.float32]
+    out, lse = fa._fwd_reference(q, k, v, mask, scale, True)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    plain_bwd = fa._bwd_reference(q, k, v, mask, do, lse, delta, scale, True)
+    plain_bwd_ms = _device_ms(
+        lambda: fa._bwd_reference(q, k, v, mask, do, lse, delta, scale,
+                                  True), iters=5, warmup=1,
+        label="sp plain bwd", whole=True)
+    for name, kind, dtype, route, launches in (
+            ("flash_fwd_block.ring_tc32", "fwd", torch.float32, "tc32",
+             f32c["fwd_tc32"]),
+            ("flash_fwd_block.ring_tc", "fwd", torch.bfloat16, "tc",
+             bf16c["fwd_tc"]),
+            ("flash_bwd_block.dq_ring_tc32", "dq", torch.float32, "tc32",
+             f32c["dq_tc32"] + bf16c["dq_tc32"]),
+            ("flash_bwd_block.dkv_ring_tc32", "dkv", torch.float32, "tc32",
+             f32c["dkv_tc32"] + bf16c["dkv_tc32"])):
+        qc, kc, vc, doc, _ = cases[dtype]
+        if kind == "fwd":
+            fn = lambda qc=qc, kc=kc, vc=vc: fa.flash_fwd_block(  # noqa: E731
+                qc, kc, vc, mask, scale=scale, causal=True)
+            got, got_lse = fn()
+            want, want_lse = fa._fwd_reference(qc, kc, vc, mask, scale, True)
+            plain_ms = _device_ms(
+                lambda qc=qc, kc=kc, vc=vc: fa._fwd_reference(
+                    qc, kc, vc, mask, scale, True), iters=5, warmup=1,
+                label=f"sp plain fwd {dtype}", whole=True)
+            # gated before it is timed: f32 within F32_TOL, bf16 within the
+            # tc bound of the plain version; lse f32 on both routes
+            torch.testing.assert_close(got_lse, want_lse, msg=name,
+                                       **F32_TOL)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, msg=name, **F32_TOL)
+                err = float((got - want).abs().max())
+            else:
+                delta_c = (doc.float() * want.float()).sum(-1).transpose(1, 2)
+                terms = fa._term_sums(qc, kc, vc, mask, doc, want_lse,
+                                      delta_c.contiguous(), scale, True)[0]
+                err, _ = _close_tc(name, got, want, terms)
+            lib_ms = lib[dtype][0]
+        else:
+            cuda_fn = fa._dq_cuda if kind == "dq" else fa._dkv_cuda
+            fn = lambda cuda_fn=cuda_fn: cuda_fn(  # noqa: E731
+                q, k, v, mask, do, lse, delta, scale, True)
+            got = fn()
+            got = (got,) if kind == "dq" else got
+            want = plain_bwd[:1] if kind == "dq" else plain_bwd[1:]
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, msg=name, **FLASH_GRAD_TOL)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            plain_ms, lib_ms = plain_bwd_ms, lib[dtype][1]
+        ms = _device_ms(fn, label=f"sp {name}", whole=True)
+        bound_ms, bound_by = _flash_bound_ms(
+            kind, qc, kc, True, None,
+            peak=TC32_FLOPS if route == "tc32" else None)
+        rows.append({
+            "name": name, "route": "cuda", "variant": route,
+            "source": src + ("flash_attention_f32_sm90.cu" if route == "tc32"
+                             else "flash_attention_sm90.cu"),
+            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
+                        + {"fwd": "170", "dq": "281", "dkv": "299"}[kind],
+            "shape": f"B={b} L={lq} H={h} D={d} "
+                     f"{str(dtype).split('.')[-1]} ring diagonal block",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "library_backend": lib[dtype][2]})
+        print(f"[sp] {name} ({route}) at the SP GPT's block: device "
+              f"{ms:.5f} ms, plain {plain_ms:.5f}, SDPA {lib[dtype][2]} "
+              f"{lib_ms:.5f}, bound {bound_ms:.6f} ({bound_by}), share "
+              f"{bound_ms / ms:.3f}, launches {launches}, max_abs_err "
+              f"{err:.3e}")
+    # the price of the f32 casts under bf16: the block backward (casts +
+    # tc32 dQ and dK/dV) against the tc dQ and dK/dV on the same inputs
+    q16, k16, v16, do16, _ = cases[torch.bfloat16]
+    out16, lse16 = fa._fwd_cuda(q16, k16, v16, mask, scale, True)
+    delta16 = (do16.float() * out16.float()).sum(-1).transpose(1, 2)
+    delta16 = delta16.contiguous()
+    block_ms = _device_ms(lambda: fa.flash_bwd_block(
+        q16, k16, v16, mask, do16, lse16, delta16, scale=scale,
+        causal=True), label="sp bf16 block bwd (f32 casts + tc32)")
+    tc_ms = _device_ms(lambda: (
+        fa._dq_cuda(q16, k16, v16, mask, do16, lse16, delta16, scale, True,
+                    route="tc"),
+        fa._dkv_cuda(q16, k16, v16, mask, do16, lse16, delta16, scale,
+                     True, route="tc")), label="sp bf16 tc dq+dkv")
+    print(f"[sp] bf16 ring backward per layer at B={b} L={lq} H={h} D={d}: "
+          f"flash_bwd_block (f32 casts + tc32 dQ and dK/dV) {block_ms:.5f} "
+          f"ms device against the tc dQ + dK/dV {tc_ms:.5f} ms: the casts' "
+          f"route costs {block_ms - tc_ms:.5f} ms a layer, "
+          f"{LM['layers'] * (block_ms - tc_ms):.4f} ms a step of "
+          f"{LM['layers']} layers")
+    eager = {label: float(np.median(run["step_ms"][1:]))
+             for label, run in runs.items()}
+    print(f"[sp] eager step ms (median of steps 2-4): ring_flash f32 "
+          f"{eager['ring_flash_f32']:.3f} vs flash f32 "
+          f"{eager['flash_f32']:.3f}; ring_flash bf16-f32master "
+          f"{eager['ring_flash_bf16']:.3f} vs flash "
+          f"{eager['flash_bf16']:.3f}; ulysses_flash f32 "
+          f"{eager['ulysses_flash_f32']:.3f}")
+    for res in sp["cases"]:
+        q, k, v, mask_v, do, scale_v = res["inputs"]
+        n, causal = res["n"], res["causal"]
+
+        def whole(q=q, k=k, v=v, m=mask_v, do=do, s=scale_v, c=causal):
+            out, lse = fa.flash_fwd_block(q, k, v, m, scale=s, causal=c)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+            return fa.flash_bwd_block(q, k, v, m, do, lse,
+                                      delta.contiguous(), scale=s, causal=c)
+
+        virtual_ms = _device_ms(
+            lambda q=q, k=k, v=v, m=mask_v, do=do, s=scale_v, c=causal,
+            n=n: ra.virtual_ring(q, k, v, m, do, n, causal=c, scale=s),
+            iters=10, warmup=2, label=f"sp virtual ring n={n}")
+        whole_ms = _device_ms(whole, iters=10, warmup=2,
+                              label=f"sp whole sequence n={n}")
+        res["virtual_ms"], res["whole_ms"] = virtual_ms, whole_ms
+        print(f"[sp] virtual ring n={n} {res['shape']} {res['dtype']} "
+              f"{'causal' if causal else 'key mask'}: forward + backward "
+              f"{virtual_ms:.5f} ms device (all pairings, merges and casts) "
+              f"against the whole sequence's block kernels "
+              f"{whole_ms:.5f} ms")
+    return rows
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -3437,6 +3816,7 @@ def main() -> int:
     repeat_failures = repeat_phase(gpu)
     fit32, steps32 = f32_train_phase(gpu)
     cli_lm_launches = cli_lm_phase(gpu)
+    sp = sp_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -3467,6 +3847,7 @@ def main() -> int:
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     bert_rows = bert_timing_phase(bert_errs)
     cli_lm_rows = cli_lm_timing_phase(cli_lm_launches)
+    sp_rows = sp_timing_phase(sp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
@@ -3511,7 +3892,7 @@ def main() -> int:
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
-                                  *bert_rows, *cli_lm_rows]}))
+                                  *bert_rows, *cli_lm_rows, *sp_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,6 +30,9 @@ the default is the CUDA card, and without one the run raises.  Only rank
 0 prints the summary and reports to the supervisor.  The models' f32 math
 runs in full f32 (the harness turns TF32 off for the run); ``--precision``
 picks a mixed-precision policy (``parallel/precision.py``).
+``-sp S`` shards each sequence over S of the ranks (a (data, seq) mesh
+of (N / S, S) ranks; ``--attention ring|ring_flash|ulysses|ulysses_flash``
+picks the schedule); ``-tp``/``-pp``/``-ep`` parse and raise above 1.
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
@@ -41,6 +44,8 @@ parse and raise.
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 8 \\
         --model gpt --dataset lm_synth --attention flash --sample 8 \\
         --serve 8 --serve-kv-layout paged
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 4 -sp 2 \\
+        -b 4 --model gpt_tiny --dataset lm_synth --attention ring_flash
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ import torch
 from distributed_tensorflow_tpu_torch.engines import check_engine
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.utils.harness import (
-    ExperimentConfig, run)
+    ExperimentConfig, _reject_flash_under_sp, run)
 
 def parse_model_args(pairs: list[str]) -> dict:
     """KEY=VALUE list → kwargs dict with literal-ish value parsing."""
@@ -146,6 +151,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "commented-out -d flag, initializer.py:90-92)")
     p.add_argument("--num-processes", type=int, default=None,
                    help="multi-machine: total process count")
+    p.add_argument("-sp", "--seq-parallel", type=int, default=1,
+                   help="shard sequences over this many of the -n ranks "
+                        "(long-context mode; requires a sequence model, "
+                        "e.g. --model bert_tiny or gpt)")
+    p.add_argument("-tp", "--tensor-parallel", type=int, default=1,
+                   help="tensor parallelism (not ported: raises above 1)")
+    p.add_argument("-pp", "--pipeline-parallel", type=int, default=1,
+                   help="pipeline parallelism (not ported: raises above 1)")
+    p.add_argument("-ep", "--expert-parallel", type=int, default=1,
+                   help="expert parallelism (not ported: raises above 1)")
     p.add_argument("--attention", default="ring",
                    choices=["ring", "ring_flash", "ulysses", "ulysses_flash",
                             "flash"],
@@ -154,9 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the *_flash variants run the flash kernels as the "
                         "local math inside the ring / Ulysses schedule); "
                         "flash = the single-device flash kernels (sequence "
-                        "models).  Without sequence parallelism (not ported) "
-                        "the *_flash values run the flash kernels and ring/"
-                        "ulysses leave the model dense")
+                        "models).  Without -sp the *_flash values run the "
+                        "flash kernels and ring/ulysses leave the model "
+                        "dense")
     p.add_argument("--positional", default="learned",
                    choices=["learned", "rope"],
                    help="GPT position encoding: learned table | RoPE "
@@ -384,6 +399,10 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         engine=engine, model=args.model, dataset=args.dataset,
         model_fn=model_fn, dataset_fn=dataset_fn,
         n_devices=args.number_nodes, batch_size=args.batch_size,
+        seq_parallel=args.seq_parallel,
+        tensor_parallel=args.tensor_parallel,
+        pipeline_parallel=args.pipeline_parallel,
+        expert_parallel=args.expert_parallel,
         epochs=args.epochs, learning_rate=args.lr,
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
         weight_decay=args.weight_decay, clip_norm=args.clip_norm,
@@ -420,6 +439,8 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         serve_routing=args.serve_routing,
         serve_autoscale=args.serve_autoscale,
         serve_multi_step=args.serve_multi_step)
+    if config.seq_parallel > 1:
+        _reject_flash_under_sp(config)   # before any rank is spawned
     if args.task_type is not None:
         # one process per machine in the group; rank 0 is the server
         if args.num_processes is None:

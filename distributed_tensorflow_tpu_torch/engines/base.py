@@ -36,6 +36,7 @@ from torch.nn.parameter import is_lazy
 from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
+from distributed_tensorflow_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 @dataclasses.dataclass
@@ -141,14 +142,22 @@ class Engine:
         else:
             self.device = resolve_device(device)
         self.mesh = mesh
-        self.n_devices = mesh.world_size if mesh is not None else 1
-        self.rank = mesh.rank if mesh is not None else 0
+        # the data axis: its size and this rank's index on it (the whole
+        # group on a 1-D mesh)
+        self.n_devices = mesh.axis_size(DATA_AXIS) if mesh is not None else 1
+        self.rank = mesh.axis_index(DATA_AXIS) if mesh is not None else 0
         self.model = model.to(self.device)
         capturable = self.device.type == "cuda" and self.captures_chunks
         self.make_optimizer = self.precision.wrap_optimizer(
             optimizer if optimizer is not None else
             lambda params: torch.optim.Adam(params, lr=learning_rate,
                                             capturable=capturable))
+
+    @property
+    def stream_words(self) -> tuple[int, ...]:
+        """What this rank's dropout stream is seeded from, beside the seed
+        (and the step on the CPU): its data index."""
+        return (self.rank,)
 
     # ---------------------------------------------------------------- init
     def init_state(self, generator: torch.Generator,
@@ -174,7 +183,7 @@ class Engine:
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         stream = torch.Generator(device=self.device)
         if self.device.type == "cuda":
-            stream.manual_seed(_seed_of(seed, self.rank))
+            stream.manual_seed(_seed_of(seed, *self.stream_words))
         return TrainState(step=0, model=self.model,
                           optimizer=self.make_optimizer(
                               list(self.model.parameters())),
@@ -222,7 +231,7 @@ class Engine:
         if state.generator.device.type == "cuda":
             return state.generator
         return state.generator.manual_seed(
-            _seed_of(state.seed, state.step, self.rank))
+            _seed_of(state.seed, state.step, *self.stream_words))
 
     # ---------------------------------------------------------------- step
     def step(self, state: TrainState, x, y):
@@ -267,6 +276,11 @@ class Engine:
         """The module to evaluate with (one device: the trained one)."""
         return state.model
 
+    def _reduce_totals(self, totals: torch.Tensor) -> None:
+        """Sum the evaluation's (correct, loss, count) over the ranks, in
+        place."""
+        coll.all_reduce_(totals, self.mesh)
+
     @torch.no_grad()
     def evaluate(self, state: TrainState, dataset,
                  batch_size: int = 100) -> dict:
@@ -287,7 +301,7 @@ class Engine:
             count = count + w.sum()
         totals = torch.stack([correct, loss_sum, count])
         if self.mesh is not None:
-            coll.all_reduce_(totals, self.mesh)
+            self._reduce_totals(totals)
         tot_correct, tot_loss, tot_count = totals.tolist()
         return {
             "accuracy": tot_correct / max(tot_count, 1.0),

@@ -109,6 +109,8 @@ class SyncEngine(Engine):
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         super().__init__(*args, **kw)
         self.grad_accum = grad_accum
+        # the ranks whose summed gradients make the global-batch mean
+        self.reduce_n = self.n_devices
         self._graphs: dict[tuple, _ChunkGraph] = {}
         self._eager_chunks: set[tuple] = set()
 
@@ -127,7 +129,7 @@ class SyncEngine(Engine):
         does; ``metrics`` holds the global batch's mean ``loss`` and
         ``accuracy`` as 0-dim device tensors, so no host sync happens
         here."""
-        k, n = self.grad_accum, self.n_devices
+        k, n = self.grad_accum, self.reduce_n
         if x.shape[0] % k:
             raise ValueError(f"per-device batch {x.shape[0]} not divisible "
                              f"by grad_accum {k}")

@@ -18,7 +18,14 @@ query's attention.  ``attention_impl``:
   non-causal key-masked route (no probability dropout, as in JAX).  A row
   whose keys are all padding gets the mean of V over the row's keys
   (the JAX kernels' answer, ``ops/flash_attention.py``), where ``dense``
-  gives the mean over all keys too: every score is ``-1e30``.
+  gives the mean over all keys too: every score is ``-1e30``;
+* ``ring``, ``ring_flash``, ``ulysses``, ``ulysses_flash``: the sequence
+  is sharded over the ``seq`` axis of the mesh ``SeqParallelEngine`` binds
+  (``parallel.ring_attention``, no probability dropout): the input is this
+  rank's token block, positions are global, the key mask travels with the
+  keys, and the ``[CLS]`` row, which only seq rank 0 holds, is broadcast
+  from it before the pooler (``broadcast_from``, whose backward sums the
+  pooler's cotangents back onto rank 0; JAX ``bert.py:233-271``).
 
 Flax's numerics are kept: f32 parameters, Dense and Embed computing in
 ``dtype``, LayerNorm epsilon 1e-6 normalised in f32, tanh GELU, logits in
@@ -28,9 +35,8 @@ f32.  Dropout draws its masks from the ``generator`` passed to
 again in the backward pass.  ``models/convert.py`` ``bert_state_dict``
 maps a flax param tree onto this module's ``state_dict``.
 
-Not ported here (each raises ``NotImplementedError``): the sequence-
-parallel attentions (ring, ring_flash, ulysses, ulysses_flash), MoE
-layers, tensor-parallel partitioning and the pipeline stages
+Not ported here (each raises ``NotImplementedError``): MoE layers,
+tensor-parallel partitioning and the pipeline stages
 (``bert_pipeline_stages``).
 """
 
@@ -44,14 +50,16 @@ from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
     layer_norm as _layer_norm, remat as _remat)
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
-    dense_attention)
-
-_SEQ_PARALLEL = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+    SEQ_PARALLEL, block_span, dense_attention, seq_parallel_attention)
 
 
 class SelfAttention(nn.Module):
     """Bidirectional multi-head attention under a (B, L) key mask."""
+
+    seq_mesh = None   # the mesh of a sequence-parallel model (bind_seq_mesh)
 
     def __init__(self, hidden: int, heads: int, attention_impl: str,
                  dropout_rate: float, dtype, device):
@@ -75,6 +83,9 @@ class SelfAttention(nn.Module):
             from distributed_tensorflow_tpu_torch.ops.flash_attention import (
                 flash_attention)
             out = flash_attention(q, k, v, kv_mask=pad_mask)
+        elif self.attention_impl in SEQ_PARALLEL:
+            out = seq_parallel_attention(self.attention_impl, q, k, v,
+                                         self.seq_mesh, kv_mask=pad_mask)
         else:
             prob_fn = None
             if self.dropout_rate > 0.0:
@@ -145,7 +156,11 @@ class BertTinyClassifier(nn.Module):
 
     ``forward(ids, train=..., generator=...)``: ``generator`` feeds the
     dropout of the embeddings, the FFN outputs and (``dense`` only) the
-    attention probabilities when ``train``."""
+    attention probabilities when ``train``.  Under a sequence-parallel
+    ``attention_impl`` the ids are this rank's token block (module
+    docstring)."""
+
+    seq_mesh = None   # the mesh of a sequence-parallel model
 
     def __init__(self, num_classes: int = 2, vocab_size: int = 8192,
                  hidden: int = 128, layers: int = 2, heads: int = 2,
@@ -163,13 +178,10 @@ class BertTinyClassifier(nn.Module):
             not_ported("moe_experts > 0 (MoE layers)", "remaining engines")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
-        if attention_impl in _SEQ_PARALLEL:
-            not_ported(f"attention_impl={attention_impl!r}",
-                       "sequence parallelism")
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
-                             f"dense | flash (ported), or one of "
-                             f"{_SEQ_PARALLEL}")
+                             f"dense | flash, or one of "
+                             f"{tuple(SEQ_PARALLEL)}")
         device = resolve_device(device)
         self.num_classes, self.vocab_size = num_classes, vocab_size
         self.hidden, self.layers, self.heads = hidden, layers, heads
@@ -192,14 +204,15 @@ class BertTinyClassifier(nn.Module):
 
     def forward(self, token_ids, train: bool = False, generator=None):
         lq = token_ids.shape[1]
+        offset, total = block_span(self.attention_impl, self.seq_mesh, lq)
         # an embedding lookup past the table would fail on the card with a
         # device assert; fail here, as the JAX model does
-        if lq > self.max_len:
+        if total > self.max_len:
             raise ValueError(
-                f"sequence length {lq} exceeds max_len={self.max_len}; "
+                f"sequence length {total} exceeds max_len={self.max_len}; "
                 f"raise max_len or shorten the input")
         pad_mask = (token_ids > 0).to(self.dtype)
-        pos = torch.arange(lq, device=token_ids.device)[None, :]
+        pos = offset + torch.arange(lq, device=token_ids.device)[None, :]
         x = self.embeddings(token_ids, pos)
         x = _dropout(x, self.dropout_rate, train, generator)
         for block in self.blocks:
@@ -207,4 +220,10 @@ class BertTinyClassifier(nn.Module):
                 x = _remat(block, x, pad_mask, train, generator=generator)
             else:
                 x = block(x, pad_mask, train, generator)
-        return self.pooler(x[:, 0])        # [CLS]: position 0
+        cls = x[:, 0]                      # [CLS]: global position 0
+        if self.attention_impl in SEQ_PARALLEL:
+            # only seq rank 0 holds the real [CLS]: every rank's head
+            # computes from its copy
+            cls = coll.broadcast_from(cls, self.seq_mesh, src=0,
+                                      axis=SEQ_AXIS)
+        return self.pooler(cls)

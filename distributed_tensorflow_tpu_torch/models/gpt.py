@@ -6,7 +6,13 @@ attention (``kv_heads``), weight-tied LM head.  Ported paths:
 * training/eval mode: causal attention over the whole sequence, dense
   (``attention_impl="dense"``) or through the flash kernels
   (``attention_impl="flash"``: ``ops.flash_attention``, the Hopper ports
-  of the Pallas forward, dQ and dK/dV kernels);
+  of the Pallas forward, dQ and dK/dV kernels); or over a sequence sharded
+  on the ``seq`` axis of a mesh (``ring``, ``ring_flash``, ``ulysses``,
+  ``ulysses_flash``: ``parallel.ring_attention``), where the input is this
+  rank's token block, positions are global (the block starts at
+  ``axis_index(seq) · L``), K/V are widened to the query heads before the
+  schedule, and the mesh is the one ``SeqParallelEngine`` binds
+  (``models.layers.bind_seq_mesh``);
 * slot decode (the serving path, ``serving/kv_cache.py``): the caller
   passes per-slot ``positions`` (B, L) and one KV dict per layer in
   ``pools``, written in place.  Paged (``block_tables`` given): pools
@@ -56,9 +62,13 @@ flax's random bits.  ``remat=True`` checkpoints each ``GPTBlock`` in the
 training/eval mode (``models.layers.remat``, flax ``nn.remat``): the same
 parameters, the block's forward run again in the backward pass.
 
+A sequence-parallel model does not decode in ``decode=True`` mode (JAX's
+refusal: a one-token step has no sequence to shard); the cursor and slot
+decode paths attend the cache densely whatever ``attention_impl`` is, as
+JAX's ``generate`` and tables clone the model to dense attention.
+
 Not ported here (each raises ``NotImplementedError``): MoE blocks,
-sequence-parallel attention, tensor-parallel partitioning and
-``generate(mesh=...)``.
+tensor-parallel partitioning and ``generate(mesh=...)``.
 """
 
 from __future__ import annotations
@@ -74,9 +84,7 @@ from distributed_tensorflow_tpu_torch.models.layers import (
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
-    dense_attention)
-
-_SEQ_PARALLEL = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+    SEQ_PARALLEL, block_span, dense_attention, seq_parallel_attention)
 
 
 def _by_column(fn, *xs):
@@ -114,8 +122,10 @@ def apply_rope(x, pos, base: float = 10000.0):
 
 
 class CausalSelfAttention(nn.Module):
-    """Multi-head causal self-attention: dense or flash (training/eval) or
-    paged decode."""
+    """Multi-head causal self-attention: dense, flash or sequence-parallel
+    (training/eval), or slot/cursor decode."""
+
+    seq_mesh = None   # the mesh of a sequence-parallel model (bind_seq_mesh)
 
     def __init__(self, hidden: int, heads: int, kv_heads: int | None = None,
                  rope: bool = False, dtype=torch.float32, device=None,
@@ -167,6 +177,10 @@ class CausalSelfAttention(nn.Module):
                 flash_attention)
             out = flash_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
+        elif self.attention_impl in SEQ_PARALLEL:
+            out = seq_parallel_attention(self.attention_impl, q,
+                                         self._widen(k), self._widen(v),
+                                         self.seq_mesh, causal=True)
         else:
             out = dense_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
@@ -356,7 +370,12 @@ class GPTLM(nn.Module):
     query column at a time (the verify; module docstring).
     ``forward(ids, cache=...)`` is cursor decode and returns ``(logits,
     cache)`` (module docstring).  ``decode=True`` marks
-    a model that only decodes: its forward needs ``cache=``."""
+    a model that only decodes: its forward needs ``cache=``.  Under a
+    sequence-parallel ``attention_impl`` the training/eval mode takes this
+    rank's token block of the sequence (module docstring)."""
+
+    causal_lm = True   # (B, L) next-token targets: engines read it
+    seq_mesh = None    # the mesh of a sequence-parallel model
 
     def __init__(self, vocab_size: int = 256, hidden: int = 128,
                  layers: int = 2, heads: int = 4, ffn: int = 512,
@@ -377,13 +396,19 @@ class GPTLM(nn.Module):
             not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
-        if attention_impl in _SEQ_PARALLEL:
-            not_ported(f"attention_impl={attention_impl!r}",
-                        "sequence parallelism")
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
-                             f"dense | flash (ported), or one of "
-                             f"{_SEQ_PARALLEL}")
+                             f"dense | flash, or one of "
+                             f"{tuple(SEQ_PARALLEL)}")
+        if decode and attention_impl in SEQ_PARALLEL:
+            # JAX gpt.py:655-669, less its last sentence, which points at
+            # partition_model decode: not ported here (raised above)
+            raise ValueError(
+                "decode mode is incompatible with sequence-parallel "
+                "attention (ring/ring_flash/ulysses run in shard_map "
+                "over 'seq'; a 1-token step has no sequence to shard); "
+                "clone with attention_impl='dense' — `generate` does "
+                "this.")
         if positional not in ("learned", "rope"):
             raise ValueError(
                 f"unknown positional '{positional}'; learned | rope")
@@ -432,6 +457,18 @@ class GPTLM(nn.Module):
                  "overflow": torch.zeros((), dtype=torch.bool, device=dev)}
                 for _ in range(self.layers)]
 
+    def _train_positions(self, lq: int, device):
+        """(1, lq) positions of the training/eval mode: 0.. for a whole
+        sequence; under sequence parallelism this rank's block's global
+        positions (``block_span``), with the global length held to
+        ``max_len``."""
+        offset, total = block_span(self.attention_impl, self.seq_mesh, lq)
+        if total > self.max_len:
+            raise ValueError(
+                f"sequence length {total} exceeds max_len={self.max_len}; "
+                f"raise max_len or shorten the input")
+        return offset + torch.arange(lq, device=device)[None, :]
+
     def forward(self, token_ids, train: bool = False, positions=None,
                 block_tables=None, pools=None, paged_fused: bool = True,
                 generator=None, cache=None, by_column: bool = False):
@@ -458,11 +495,7 @@ class GPTLM(nn.Module):
                 raise ValueError(
                     "positions/block_tables are only accepted in slot "
                     "decode (pass pools)")
-            if lq > self.max_len:
-                raise ValueError(
-                    f"sequence length {lq} exceeds max_len={self.max_len}; "
-                    f"raise max_len or shorten the input")
-            pos = torch.arange(lq, device=token_ids.device)[None, :]
+            pos = self._train_positions(lq, token_ids.device)
         else:
             if positions is None or positions.shape != token_ids.shape:
                 raise ValueError(
@@ -540,9 +573,11 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
 
     ``params``, when given, is a ``state_dict`` loaded into ``model``, which
     is moved to ``device`` (``None`` = the CUDA card).  Cursor decode
-    (dense cache attention, dropout off): one forward prefills every
-    prompt token but the last, then each new token is one single-token
-    step.  ``greedy=True`` takes the argmax; otherwise tokens draw from
+    (dense cache attention, dropout off, whatever the model's
+    ``attention_impl``: the JAX ``generate`` clones the model to dense
+    attention): one forward prefills every prompt token but the last, then
+    each new token is one single-token step.  ``greedy=True`` takes the
+    argmax; otherwise tokens draw from
     ``softmax(logits / temperature)`` with ``generator`` (default: a
     generator on the device seeded 0) — a stream that cannot equal the
     JAX package's (``sample_tokens``)."""

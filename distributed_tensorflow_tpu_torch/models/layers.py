@@ -132,3 +132,14 @@ def remat(block: nn.Module, x: torch.Tensor, *args,
 
     return checkpoint(run, x, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def bind_seq_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give every module of ``model`` that runs sequence-parallel
+    attention (those with a ``seq_mesh`` attribute) the mesh whose ``seq``
+    axis it shards over: ``SeqParallelEngine`` binds its mesh, as JAX's
+    ``shard_map`` names the axis.  Returns ``model``."""
+    for mod in model.modules():
+        if hasattr(mod, "seq_mesh"):
+            mod.seq_mesh = mesh
+    return model

@@ -7,6 +7,16 @@ function takes a tensor or a dict of tensors (nested dicts too) and
 returns new tensors; the inputs are left as they are.  A mean is a sum
 divided by the size (``ReduceOp.AVG`` is not on every gloo build).
 
+Each collective takes ``axis=``, a name of the mesh's axes: it runs over
+this rank's sub-group along that axis (``Mesh.group``).  The default,
+None, is the world group: the data axis of a 1-D mesh, every rank of a
+(data, seq) one.  ``ring_shift``, ``all_to_all`` and ``broadcast_from``
+are differentiable (``torch.autograd.Function``), as the dense ``ring``
+and ``ulysses`` attentions differentiate through them: a shift's
+transpose is the shift by ``-shift``, a tiled all-to-all's is the
+all-to-all with its split and concat axes swapped, and a broadcast's is
+the sum of every rank's cotangent on ``src`` (zeros elsewhere).
+
 ``all_reduce_`` is the in-place sum the engines reduce their flat gradient
 (or parameter) buffer with; it counts its calls in
 ``all_reduce_.launches`` (and the NCCL ones in
@@ -29,23 +39,47 @@ Tree = Any
 def _map(fn: Callable, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 
-def axis_size(mesh) -> int:
-    return mesh.world_size
+def _leaves(tree: Tree) -> list:
+    out: list = []
+    _map(out.append, tree)
+    return out
 
 
-def axis_index(mesh) -> int:
-    return mesh.rank
+def _rebuild(tree: Tree, leaves) -> Tree:
+    it = iter(leaves)
+    return _map(lambda _: next(it), tree)
 
 
-def all_reduce_(x: torch.Tensor, mesh) -> torch.Tensor:
+def axis_size(mesh, axis: str | None = None) -> int:
+    return mesh.world_size if axis is None else mesh.axis_size(axis)
+
+
+def axis_index(mesh, axis: str | None = None) -> int:
+    return mesh.rank if axis is None else mesh.axis_index(axis)
+
+
+def _group(mesh, axis):
+    return None if axis is None else mesh.group(axis)
+
+
+def _global(mesh, axis, index: int) -> int:
+    """The global rank of ``index`` along ``axis`` (point-to-point ops and
+    a broadcast's source take global ranks, whatever the group)."""
+    return index if axis is None else mesh.global_rank(axis, index)
+
+
+def all_reduce_(x: torch.Tensor, mesh, axis: str | None = None
+                ) -> torch.Tensor:
     """Sum ``x`` over the ranks, in place; returns ``x``."""
     all_reduce_.launches += 1
     if mesh.backend == "nccl":
         all_reduce_.nccl_launches += 1
-    dist.all_reduce(x, op=dist.ReduceOp.SUM)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_group(mesh, axis))
     return x
 
 
@@ -53,68 +87,125 @@ all_reduce_.launches = 0
 all_reduce_.nccl_launches = 0
 
 
-def all_reduce_sum(tree: Tree, mesh) -> Tree:
+def all_reduce_sum(tree: Tree, mesh, axis: str | None = None) -> Tree:
     """Sum across the ranks (the RING allreduce)."""
-    return _map(lambda x: all_reduce_(x.clone(), mesh), tree)
+    return _map(lambda x: all_reduce_(x.clone(), mesh, axis), tree)
 
 
-def all_reduce_mean(tree: Tree, mesh) -> Tree:
+def all_reduce_mean(tree: Tree, mesh, axis: str | None = None) -> Tree:
     """Mean across the ranks: the gradient combine of sync DP."""
-    n = mesh.world_size
-    return _map(lambda x: all_reduce_(x.clone(), mesh) / n, tree)
+    n = axis_size(mesh, axis)
+    return _map(lambda x: all_reduce_(x.clone(), mesh, axis) / n, tree)
 
 
-def all_gather(x: torch.Tensor, mesh, *, tiled: bool = False) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, *, tiled: bool = False,
+               axis: str | None = None, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x``: stacked on a new leading axis, or concatenated
-    along the leading axis when ``tiled``."""
-    parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts) if tiled else torch.stack(parts)
+    along ``dim`` when ``tiled``.  Not differentiable."""
+    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(parts, x.contiguous(), group=_group(mesh, axis))
+    return torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
 
 
-def reduce_scatter_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+def reduce_scatter_sum(x: torch.Tensor, mesh,
+                       axis: str | None = None) -> torch.Tensor:
     """Sum across the ranks, then rank r keeps the r-th of n equal slices
     of the leading dim (``psum_scatter(tiled=True)``)."""
-    n = mesh.world_size
+    n = axis_size(mesh, axis)
     if x.shape[0] % n:
         raise ValueError(f"leading dim {x.shape[0]} not divisible by {n}")
     parts = [p.contiguous() for p in x.chunk(n)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM)
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM,
+                        group=_group(mesh, axis))
     return out
 
 
-def all_to_all(x: torch.Tensor, mesh, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """Split ``x`` into n chunks along ``split_axis``, send chunk j to rank
-    j, and concatenate what arrives along ``concat_axis`` in rank order
-    (``lax.all_to_all(tiled=True)``)."""
-    n = mesh.world_size
-    if x.shape[split_axis] % n:
-        raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} "
-                         f"not divisible by {n}")
+def _all_to_all(x, mesh, axis, split_axis, concat_axis):
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x.clone()
     send = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
     recv = [torch.empty_like(c) for c in send]
-    dist.all_to_all(recv, send)
+    dist.all_to_all(recv, send, group=_group(mesh, axis))
     return torch.cat(recv, dim=concat_axis)
 
 
-def _shift(x: torch.Tensor, mesh, shift: int) -> torch.Tensor:
-    n, r = mesh.world_size, mesh.rank
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all; its transpose swaps the split and concat axes."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, concat_axis, split_axis)
+        return _all_to_all(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, split_axis: int, concat_axis: int,
+               axis: str | None = None) -> torch.Tensor:
+    """Split ``x`` into n chunks along ``split_axis``, send chunk j to rank
+    j, and concatenate what arrives along ``concat_axis`` in rank order
+    (``lax.all_to_all(tiled=True)``)."""
+    n = axis_size(mesh, axis)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} "
+                         f"not divisible by {n}")
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def _shift_all(xs, mesh, shift: int, axis=None) -> list:
+    """Each tensor of ``xs`` from the rank ``shift`` places back along
+    ``axis``, in one batch of point-to-point ops."""
+    n, r = axis_size(mesh, axis), axis_index(mesh, axis)
     if shift % n == 0:
-        return x.clone()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), (r + shift) % n),
-           dist.P2POp(dist.irecv, out, (r - shift) % n)]
+        return [x.clone() for x in xs]
+    to = _global(mesh, axis, (r + shift) % n)
+    frm = _global(mesh, axis, (r - shift) % n)
+    group = _group(mesh, axis)
+    xs = [x.contiguous() for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    ops = []
+    for x, out in zip(xs, outs):
+        ops += [dist.P2POp(dist.isend, x, to, group),
+                dist.P2POp(dist.irecv, out, frm, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out
+    return outs
 
 
-def ring_shift(tree: Tree, mesh, shift: int = 1) -> Tree:
+def _shift(x: torch.Tensor, mesh, shift: int, axis=None) -> torch.Tensor:
+    return _shift_all([x], mesh, shift, axis)[0]
+
+
+class _Shift(torch.autograd.Function):
+    """A ring shift of several tensors; its transpose is the shift back.
+    Only the cotangents of inputs that need them travel back."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, shift, *xs):
+        ctx.args = (mesh, axis, shift)
+        return tuple(_shift_all(list(xs), mesh, shift, axis))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axis, shift = ctx.args
+        need = [i for i, n in enumerate(ctx.needs_input_grad[3:]) if n]
+        back = _shift_all([gs[i] for i in need], mesh, -shift, axis)
+        out = [None] * len(gs)
+        for i, g in zip(need, back):
+            out[i] = g
+        return (None, None, None, *out)
+
+
+def ring_shift(tree: Tree, mesh, shift: int = 1,
+               axis: str | None = None) -> Tree:
     """Rotate values around the ring by ``shift``: rank i receives the
-    value of rank (i - shift) mod n."""
-    return _map(lambda x: _shift(x, mesh, shift), tree)
+    value of rank (i - shift) mod n.  Every tensor of the tree moves in
+    one batch of point-to-point ops."""
+    return _rebuild(tree, _Shift.apply(mesh, axis, shift, *_leaves(tree)))
 
 
 def neighbor_mean(tree: Tree, mesh, degree: int = 1) -> Tree:
@@ -142,11 +233,32 @@ def neighbor_mean(tree: Tree, mesh, degree: int = 1) -> Tree:
 neighbor_mean.launches = 0
 
 
-def broadcast_from(tree: Tree, mesh, src: int = 0) -> Tree:
-    """Rank ``src``'s value on every rank."""
-    def bcast(x):
+class _Broadcast(torch.autograd.Function):
+    """``src``'s value on every rank; the transpose sums every rank's
+    cotangent onto ``src`` and gives the others zeros."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src):
+        ctx.args = (mesh, axis, src)
         out = x.clone()
-        dist.broadcast(out, src)
+        if axis_size(mesh, axis) > 1:
+            dist.broadcast(out, _global(mesh, axis, src),
+                           group=_group(mesh, axis))
         return out
 
-    return _map(bcast, tree)
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, src = ctx.args
+        g = g.contiguous().clone()
+        if axis_size(mesh, axis) > 1:
+            dist.reduce(g, _global(mesh, axis, src), op=dist.ReduceOp.SUM,
+                        group=_group(mesh, axis))
+            if axis_index(mesh, axis) != src:
+                g.zero_()
+        return g, None, None, None
+
+
+def broadcast_from(tree: Tree, mesh, src: int = 0,
+                   axis: str | None = None) -> Tree:
+    """Rank ``src``'s value (``src`` indexes ``axis``) on every rank."""
+    return _map(lambda x: _Broadcast.apply(x, mesh, axis, src), tree)

@@ -16,7 +16,11 @@ bitwise on the card, as it does under XLA (``_repeatable_math``).
 ``precision`` picks the mixed-precision
 policy (``parallel/precision.py``): a non-f32 policy stores the
 parameters in 16 bits and the model computes in the policy's dtype
-(``_resolve_precision``).  ``attention_impl`` and ``remat`` reach the
+(``_resolve_precision``).  ``seq_parallel`` S > 1 shards the sequence
+over S of the ranks (``_setup_seq_parallel``): a (data, seq) mesh of
+(n / S, S) ranks, a sequence model with ring or Ulysses attention and
+``SeqParallelEngine``, named ``seq_parallel[<attention>]``.
+``attention_impl`` and ``remat`` reach the
 sequence models (BERT, GPT) as in the JAX harness (``_resolve_model``),
 and ``positional``/``kv_heads`` the GPT (``_lm_model_kw``).
 
@@ -36,8 +40,10 @@ continuous-batching window over the trained module
 training (``_validate_sampling``, ``_validate_serving``).  The summary of
 an LM gains ``test_perplexity``.
 
-The JAX ``ExperimentConfig``'s other fields (codecs, model parallelism,
-checkpoints, telemetry) are absent; the fleet's serve fields
+The JAX ``ExperimentConfig``'s other fields (codecs, checkpoints,
+telemetry) are absent; ``tensor_parallel``, ``pipeline_parallel`` and
+``expert_parallel`` raise ``NotImplementedError`` above 1, and the fleet's
+serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -64,6 +70,8 @@ from distributed_tensorflow_tpu_torch.engines import (
     Trainer, check_engine, create_engine)
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+    SEQ_PARALLEL)
 from distributed_tensorflow_tpu_torch.utils import optim
 from distributed_tensorflow_tpu_torch.utils.supervisor import ResultSink
 
@@ -108,11 +116,18 @@ class ExperimentConfig:
     eval_batch: int = 100           # the reference's test batch
     result_path: str | None = None  # JSONL event sink
     supervisor_address: str | None = None  # the reference's port-4000 channel
+    seq_parallel: int = 1           # >1: shard sequences over this many
+                                    # of the ranks (a 'seq' mesh axis)
+    tensor_parallel: int = 1        # model parallelism (not ported above 1)
+    pipeline_parallel: int = 1
+    expert_parallel: int = 1
     attention_impl: str = "ring"    # ring | ring_flash | ulysses |
-                                    # ulysses_flash | flash: on the data-
-                                    # parallel path the *flash values give
-                                    # a sequence model the flash kernels,
-                                    # the others leave it dense
+                                    # ulysses_flash (the schedules over
+                                    # 'seq' when seq_parallel > 1) | flash:
+                                    # on the data-parallel path the *flash
+                                    # values give a sequence model the
+                                    # flash kernels, the others leave it
+                                    # dense
     remat: bool = False             # activation checkpointing: store block
                                     # inputs only, recompute in backward
                                     # (sequence models)
@@ -189,16 +204,20 @@ def _lm_model_kw(config: ExperimentConfig) -> dict[str, Any]:
     return kw
 
 
-def _resolve_model(config: ExperimentConfig, num_classes: int, device):
+def _resolve_model(config: ExperimentConfig, num_classes: int, device,
+                   attention_impl: str | None = None):
     """Plug-in ``model_fn`` wins (and owns its dtype: a non-f32 ``dtype``
     is ignored, with a warning, as in JAX ``harness.py:820-828``); else
     the registry with ``model_args``, the config's ``dtype`` and the GPT's
     ``_lm_model_kw`` (JAX ``harness.py:826-855``): ``remat``
-    reaches a sequence model and is rejected for any other; ``flash``,
-    ``ring_flash`` and ``ulysses_flash`` give a sequence model the flash
-    kernels (without a sequence mesh the ring schedule around them is a
-    no-op), while ``ring`` (the flag's default) and ``ulysses`` leave it
-    dense, as they need the sequence mesh this path does not build."""
+    reaches a sequence model and is rejected for any other.  On this
+    data-parallel path (``seq_parallel`` 1) ``flash``, ``ring_flash`` and
+    ``ulysses_flash`` give a sequence model the flash kernels (without a
+    sequence axis the schedule around them is a no-op), while ``ring``
+    (the flag's default) and ``ulysses`` leave it dense; with
+    ``seq_parallel`` > 1 ``ring`` and ``ulysses`` (and their flash twins)
+    get the (data, seq) mesh, through ``_setup_seq_parallel``.
+    ``attention_impl``, when given, is the model's as it is."""
     if config.model_fn is not None:
         if modellib.resolve_dtype(config.dtype) is not torch.float32:
             warnings.warn(
@@ -219,7 +238,15 @@ def _resolve_model(config: ExperimentConfig, num_classes: int, device):
         raise ValueError(f"--model-arg {bad} is set by the harness for "
                          f"--model {config.model}")
     kw.update(forced)
-    if config.model in _SEQUENCE_MODELS and config.attention_impl in (
+    if attention_impl is not None:
+        kw["attention_impl"] = attention_impl
+    elif kw.get("attention_impl") in SEQ_PARALLEL:
+        raise ValueError(
+            f"--model-arg attention_impl={kw['attention_impl']} shards the "
+            f"sequence over a 'seq' mesh axis, which a data-parallel run "
+            f"does not build: pass -sp > 1 with --attention "
+            f"{kw['attention_impl']}")
+    elif config.model in _SEQUENCE_MODELS and config.attention_impl in (
             "flash", "ring_flash", "ulysses_flash"):
         kw["attention_impl"] = "flash"
     return modellib.create_model(config.model, num_classes=num_classes,
@@ -353,6 +380,109 @@ def _decay_mask(model: torch.nn.Module) -> dict[str, bool]:
             for name, p in model.named_parameters()}
 
 
+def _reject_flash_under_sp(config: ExperimentConfig) -> None:
+    """The sequence-sharded modes take ring / ring_flash / ulysses /
+    ulysses_flash; 'flash' is the single-device kernel (JAX
+    ``harness.py:518-527``)."""
+    if config.attention_impl == "flash":
+        raise ValueError(
+            "--attention flash is the single-device Pallas kernel; with "
+            "--seq-parallel use ring, ring_flash, ulysses or ulysses_flash")
+
+
+def _split_mesh(config: ExperimentConfig, factor: int, factor_name: str,
+                second_axis: str, grad_accum_ok: bool = False):
+    """The (data, <second_axis>) mesh over this run's ranks: ``factor`` of
+    them take the second axis, the rest shard data (JAX ``_split_mesh``,
+    for one model-parallel factor).  Returns (mesh, data size)."""
+    if config.engine not in ("sync", "allreduce"):
+        raise ValueError(
+            f"{factor_name} supports sync/allreduce semantics only, got "
+            f"engine='{config.engine}'")
+    if config.grad_accum > 1 and not grad_accum_ok:
+        raise ValueError(f"grad_accum does not compose with {factor_name}")
+    total = config.n_devices or (torch.distributed.get_world_size()
+                                 if torch.distributed.is_initialized()
+                                 else 1)
+    if total % factor != 0:
+        raise ValueError(
+            f"n_devices {total} not divisible by {factor_name} {factor}")
+    dp = total // factor
+    mesh = meshlib.create_mesh(total, device=config.device,
+                               shape=(dp, factor),
+                               axis_names=(meshlib.DATA_AXIS, second_axis))
+    return mesh, dp
+
+
+def _require_token_data(train_ds, config: ExperimentConfig,
+                        mode: str) -> None:
+    if not np.issubdtype(train_ds.x.dtype, np.integer):
+        hint = "lm_synth" if config.model in _LM_MODELS else "glue_synth"
+        raise ValueError(
+            f"{mode} with a sequence model needs a token dataset (integer "
+            f"ids), got --dataset {config.dataset} with dtype "
+            f"{train_ds.x.dtype}; use --dataset {hint}")
+    if config.model in _LM_MODELS and train_ds.y.ndim < 2:
+        raise ValueError(
+            f"--model {config.model} is a causal LM and needs per-token "
+            f"(B, L) targets, got labels of shape {train_ds.y.shape} from "
+            f"--dataset {config.dataset}; use --dataset lm_synth")
+
+
+def _sequence_model(config: ExperimentConfig, train_ds, mode: str, device,
+                    attention_impl: str):
+    """A sequence model for a model-parallel mode (JAX
+    ``_sequence_model``): a plug-in ``model_fn`` as it is; a registered
+    sequence model (token data required) with the mode's attention; any
+    other model is an error."""
+    if config.model_fn is not None:
+        return _resolve_model(config, train_ds.num_classes, device)
+    if config.model not in _SEQUENCE_MODELS:
+        raise ValueError(
+            f"{mode} needs a sequence model "
+            f"({'/'.join(_SEQUENCE_MODELS)}), got --model {config.model}; "
+            f"pass model_fn for a custom model")
+    _require_token_data(train_ds, config, mode)
+    if "attention_impl" in (config.model_args or {}):
+        raise ValueError(f"--model-arg ['attention_impl'] is set by the "
+                         f"harness for {mode}")
+    return _resolve_model(config, train_ds.num_classes, device,
+                          attention_impl=attention_impl)
+
+
+def _setup_seq_parallel(config: ExperimentConfig) -> _Experiment:
+    """Long-context mode (JAX ``harness.py:960-990``): a (data, seq) mesh
+    of (n / seq_parallel, seq_parallel) ranks, a sequence model with the
+    configured ring or Ulysses attention, and ``SeqParallelEngine``.
+    ``n_devices`` is still the reference's -n: the ranks in all."""
+    from distributed_tensorflow_tpu_torch.engines.seq_parallel import (
+        SeqParallelEngine)
+
+    _reject_flash_under_sp(config)
+    mesh, dp = _split_mesh(config, config.seq_parallel, "seq_parallel",
+                           meshlib.SEQ_AXIS, grad_accum_ok=True)
+    try:
+        train_ds, test_ds = _load_data(config)
+        model = _sequence_model(config, train_ds, "seq_parallel",
+                                mesh.device, config.attention_impl)
+        global_batch = _global_batch(config, dp)
+        if config.grad_accum > 1 and (global_batch // dp) % config.grad_accum:
+            raise ValueError(
+                f"seq_parallel: per-data-shard batch {global_batch // dp} "
+                f"not divisible by grad_accum {config.grad_accum}")
+        engine = SeqParallelEngine(
+            model, mesh=mesh, learning_rate=config.learning_rate,
+            optimizer=_make_optimizer(config, train_ds, global_batch,
+                                      model),
+            grad_accum=config.grad_accum, precision=config.precision)
+    except BaseException:
+        mesh.close()
+        raise
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch,
+                       name=f"seq_parallel[{config.attention_impl}]")
+
+
 def _setup(config: ExperimentConfig) -> _Experiment:
     check_engine(config.engine)
     config = _resolve_precision(config)
@@ -363,6 +493,14 @@ def _setup(config: ExperimentConfig) -> _Experiment:
             raise ValueError(
                 f"--sample decodes autoregressively and needs a causal LM "
                 f"({'/'.join(_LM_MODELS)}), got --model {config.model}")
+    multi = [f for f in ("seq_parallel", "tensor_parallel",
+                         "pipeline_parallel", "expert_parallel")
+             if getattr(config, f) > 1]
+    if multi and multi != ["seq_parallel"]:
+        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
+                   "remaining engines")
+    if config.seq_parallel > 1:
+        return _setup_seq_parallel(config)
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
     try:
         n = mesh.world_size
@@ -464,8 +602,9 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                 "model": model_name,
                 "dataset": ex.train_ds.name,
                 "synthetic_data": ex.train_ds.synthetic,
-                "n_devices": ex.n,
+                "n_devices": ex.n * config.seq_parallel,
                 "data_parallel": ex.n,
+                "seq_parallel": config.seq_parallel,
                 "global_batch": ex.global_batch,
                 "epochs": config.epochs,
                 "precision": fit["precision"],

@@ -170,16 +170,16 @@ def test_embedding_and_options_checks():
     tm = BertTinyClassifier(**SMALL, device="cpu")
     with pytest.raises(ValueError, match="exceeds max_len=32"):
         tm(torch.ones((1, 33), dtype=torch.int64))
-    for kw, item in ((dict(attention_impl="ring"), "sequence parallelism"),
-                     (dict(attention_impl="ring_flash"),
-                      "sequence parallelism"),
-                     (dict(attention_impl="ulysses"), "sequence parallelism"),
-                     (dict(attention_impl="ulysses_flash"),
-                      "sequence parallelism"),
-                     (dict(moe_experts=2), "remaining engines"),
+    for kw, item in ((dict(moe_experts=2), "remaining engines"),
                      (dict(partition_model=True), "remaining engines")):
         with pytest.raises(NotImplementedError, match=item):
             BertTinyClassifier(**SMALL, **kw, device="cpu")
+    # the sequence-parallel attentions are ported: they need the mesh
+    # SeqParallelEngine binds
+    for impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
+        with pytest.raises(ValueError, match="no mesh bound"):
+            BertTinyClassifier(**SMALL, attention_impl=impl, device="cpu")(
+                torch.ones((1, 4), dtype=torch.int64))
     with pytest.raises(ValueError, match="unknown attention_impl"):
         BertTinyClassifier(**SMALL, attention_impl="sparse", device="cpu")
     with pytest.raises(ValueError, match="remat \\+ MoE layers"):

@@ -486,7 +486,7 @@ def test_reference_flag_surface_accepted():
     (["-m", "d", "-ds", "fsdp"], NotImplementedError, "remaining engines"),
     (["--model", "moe"], NotImplementedError, "remaining engines"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
-      "attention_impl=ulysses"], NotImplementedError, "sequence parallelism"),
+      "attention_impl=ulysses"], ValueError, "pass -sp > 1"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
       "moe_experts=2"], NotImplementedError, "remaining engines"),
     # the local engines decouple the optimizer cadence themselves (JAX

@@ -378,14 +378,15 @@ def test_monolithic_write_drops_positions_past_the_table():
 
 
 def test_unported_options_raise():
-    for kw in (dict(moe_experts=2), dict(partition_model=True),
-               dict(attention_impl="ring_flash"), dict(attention_impl="ring"),
-               dict(attention_impl="ulysses"),
-               dict(attention_impl="ulysses_flash")):
+    for kw in (dict(moe_experts=2), dict(partition_model=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTLM(**SMALL, **kw, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        GPTLM(**SMALL, attention_impl="ring_flash", device="cpu")
+    # the sequence-parallel attentions are ported: they need the mesh
+    # SeqParallelEngine binds
+    for impl in ("ring_flash", "ring", "ulysses", "ulysses_flash"):
+        with pytest.raises(ValueError, match="no mesh bound"):
+            GPTLM(**SMALL, attention_impl=impl, device="cpu")(
+                torch.zeros((1, 4), dtype=torch.int64))
     with pytest.raises(ValueError, match="unknown attention_impl"):
         GPTLM(**SMALL, attention_impl="sparse", device="cpu")
     with pytest.raises(ValueError, match="remat \\+ MoE blocks"):
