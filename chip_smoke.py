@@ -184,6 +184,33 @@ Phases (any failure raises and the script exits non-zero):
              block backward's price of its f32 casts against the tc dQ and
              dK/dV, the eager steps, and the virtual cases' device ms
              beside the whole sequence's;
+5h. moe   — the ``bench.py --moe`` GPT (``bench_moe``): the ``bench.py
+             --lm`` GPT (B = 8, L = 1024, vocab 16384, hidden 512, 8
+             layers, 8 heads, ffn 2048, bf16, flash, dropout 0) with every
+             FFN swapped for 8 routed experts (top-1, capacity factor
+             1.25: 8 groups of 1024 tokens, 160 slots, printed and gated),
+             and its dense twin, under ``SyncEngine`` on a 1-rank NCCL
+             mesh through bench_moe's protocol on the graph path: chunks
+             of 3 and 13 steps replayed as CUDA graphs, the step time
+             (t13 - t3) / 10, 3 repeats, median and spread; it prints
+             ``dense_tokens_per_sec_per_chip``,
+             ``moe_tokens_per_sec_per_chip``, their spreads and
+             ``moe_vs_dense`` beside the card's name and power limit.
+             Gates: losses finite and falling over the first 16 steps; the
+             replayed chunk's losses bitwise a twin's eager chunk from the
+             seed; overflow in [0, 1]; 8 flash forwards, dQ and dK/dV a
+             step, all on ``tc``; block 0's MoE layer on its full-width
+             input (8192 × 512, bf16) on the card against the CPU:
+             dispatch and overflow equal (a router tie is the one
+             difference allowed, printed), outputs within
+             ``MOE_LAYER_TOL``.  Printed: each step's device time split
+             into attention, expert GEMMs, dispatch/combine GEMMs, the
+             router's GEMM and the rest, beside the dense step's.  Then
+             ``ExpertParallelEngine`` on a (1, 1) NCCL mesh: the
+             MoEClassifier (8 experts, synthetic data), top-1 and top-2,
+             32 steps: the task loss falls, ``total_loss - loss`` is the
+             weighted router terms within 1e-6, overflow in [0, 1], and
+             the first task loss is ``SyncEngine``'s within 1e-5;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -3743,6 +3770,368 @@ def sp_timing_phase(sp: dict) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ phase moe
+# bench.py --moe (bench_moe, bench.py:1101-1160): the bench --lm GPT with
+# every FFN swapped for 8 routed experts (top-1, capacity factor 1.25),
+# against the dense twin at the same widths and seed: both bf16 compute
+# over f32 parameters, flash attention, dropout 0, SyncEngine on a 1-rank
+# NCCL mesh.  8192 tokens a step route in _moe_group_size(8192) = 8 groups
+# of 1024 with int(1.25·1024/8 + 0.999999) = 160 slots per expert.
+MOE_GPT = dict(experts=8, top_k=1, capacity_factor=1.25, groups=8,
+               group=1024, capacity=160)
+# bench_moe's protocol on the graph path: replayed chunks of 3 and 13
+# steps, the step time (t13 - t3) / 10, repeated
+MOE_CHUNKS, MOE_REPEATS = (3, 13), 3
+# the MoE layer on the card against the CPU at bf16: each of its four
+# einsums rounds its output to bf16 (relative 2^-8) on both sides, with
+# f32 sums in other orders, so an output may differ by a few roundings of
+# the terms before it: element-wise within MOE_LAYER_TOL, and a relative
+# Frobenius error under TC_FROBENIUS.  The router runs in f32 on both
+# sides from the same bf16 input: a token whose two largest router
+# probabilities lie within MOE_TIE_GAP is a tie, the one difference of
+# dispatch allowed (its group is then left out of the comparison)
+MOE_LAYER_TOL = dict(rtol=2e-2, atol=2e-2)
+MOE_TIE_GAP = 1e-5
+# ExpertParallelEngine on the (1, 1) mesh: MoEClassifier at the JAX CLI
+# test's setting (8 experts, synthetic 28×28 data), MOE_EP_STEPS steps of
+# batch 32 each with top-1 and top-2; the f32 engine's first task loss
+# within MOE_EP_RTOL of SyncEngine's on the same model and batch (one
+# rank's routing is the global routing, its all-to-all a copy; the router
+# sums run in another order)
+MOE_EP_STEPS, MOE_EP_RTOL = 32, 1e-5
+
+
+def _moe_gpt(moe: bool):
+    """The bench --moe GPT (``moe``) or its dense twin."""
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    extra = (dict(moe_experts=MOE_GPT["experts"], moe_top_k=MOE_GPT["top_k"],
+                  moe_capacity_factor=MOE_GPT["capacity_factor"])
+             if moe else {})
+    return create_model("gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
+                        layers=LM["layers"], heads=LM["heads"],
+                        ffn=LM["ffn"], max_len=LM["seq"], dropout_rate=0.0,
+                        dtype="bfloat16", attention_impl="flash", **extra)
+
+
+def _moe_window(moe: bool, mesh, x, y) -> dict:
+    """bench_moe's protocol for one model on the graph path: the chunks of
+    3 and 13 steps each run eagerly once, then are captured and replayed;
+    then MOE_REPEATS repeats of (t3, t13) on the host clock around a
+    replay each (synchronized).  Returns the losses of the first chunks in
+    step order, the rates, the flash launches of the whole window, the
+    engine and its state."""
+    from distributed_tensorflow_tpu_torch.engines import SyncEngine
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
+
+    model = _moe_gpt(moe)
+    eng = SyncEngine(model, mesh=mesh)
+    state = eng.init_state(torch.Generator().manual_seed(0))
+    xs, ys = eng.shard_batch(x, y)
+    torch.cuda.synchronize()
+    _reset_flash_counts()
+    captures = _ChunkGraph.captures
+    steps, losses = 0, []
+    for k in MOE_CHUNKS:
+        for _ in range(2):           # eager, then captured and replayed
+            state, m = eng.many_step(state, [xs] * k, [ys] * k)
+            losses += m["loss"].tolist()
+            steps += k
+    assert _ChunkGraph.captures - captures == len(MOE_CHUNKS)
+    rates = []
+    tokens = LM["batch"] * LM["seq"]
+    for _ in range(MOE_REPEATS):
+        t = {}
+        for k in MOE_CHUNKS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = eng.many_step(state, [xs] * k, [ys] * k)
+            torch.cuda.synchronize()
+            t[k] = time.perf_counter() - t0
+            steps += k
+        short, long = MOE_CHUNKS
+        rates.append(tokens * (long - short) / (t[long] - t[short]))
+    counts = {**_flash_counts(), **_tc32_counts()}
+    return {"losses": losses, "rates": rates, "counts": counts,
+            "steps": steps, "engine": eng, "state": state, "model": model,
+            "last_loss": float(m["loss"][-1])}
+
+
+def _median_spread(vals):
+    """(median, spread) as bench.py's ``_median_spread`` for fewer than 5
+    values: (max - min) / median."""
+    med = float(np.median(vals))
+    return med, (max(vals) - min(vals)) / med if med else 0.0
+
+
+def _moe_layer_card_vs_cpu(model, x) -> dict:
+    """Block 0's MoE layer on its input from the trained model's forward
+    (8192 tokens of width 512, bf16): on the card and, with the same
+    parameters, on the CPU; dispatch (the keep mask and slots) and
+    overflow equal, save for a router tie, and the outputs within
+    MOE_LAYER_TOL."""
+    from distributed_tensorflow_tpu_torch.models.moe import (
+        _moe_group_size, moe_ffn)
+
+    layer = model.blocks[0].moe
+    seen = []
+    handle = layer.register_forward_pre_hook(
+        lambda mod, args, kw: seen.append(args[0].detach().clone()),
+        with_kwargs=True)
+    try:
+        with torch.no_grad():
+            model(torch.as_tensor(x, device="cuda").long())
+    finally:
+        handle.remove()
+    tokens = seen[0]                             # (8192, 512) bf16
+    gs = _moe_group_size(tokens.shape[0])
+    assert (gs, layer.capacity(gs)) == (MOE_GPT["group"],
+                                        MOE_GPT["capacity"]), gs
+    g = tokens.shape[0] // gs
+    out = {}
+    cpu_layer = type(layer)(layer.d, layer.num_experts, layer.hidden,
+                            layer.capacity_factor, layer.router_top_k,
+                            dtype=layer.dtype, device="cpu")
+    cpu_layer.load_state_dict({k: v.cpu() for k, v in
+                               layer.state_dict().items()})
+    for dev, lay in (("cuda", layer), ("cpu", cpu_layer)):
+        t0 = time.perf_counter()
+        xt = tokens.to(dev)
+        with torch.no_grad():
+            dispatch, _ = lay.route(xt.reshape(g, gs, -1))
+            y = moe_ffn(lay, xt.reshape(1, *xt.shape))[0]
+        out[dev] = (dispatch.cpu(), float(lay.overflow), y.float().cpu(),
+                    time.perf_counter() - t0)
+    (d1, o1, y1, t1), (d0, o0, y0, t0) = out["cuda"], out["cpu"]
+    with torch.no_grad():
+        probs = torch.softmax(tokens.cpu().float() @ cpu_layer.gate, -1)
+    top = probs.sort(dim=-1).values
+    tie = ((top[:, -1] - top[:, -2]) < MOE_TIE_GAP).reshape(g, gs).any(1)
+    keep = ~tie
+    if tie.any():
+        print(f"[moe] router tie(s) within {MOE_TIE_GAP} in group(s) "
+              f"{tie.nonzero().flatten().tolist()}: left out of the "
+              f"card-vs-CPU comparison")
+    else:
+        assert o1 == o0, (o1, o0)
+    assert torch.equal(d1[keep], d0[keep])
+    y1g, y0g = y1.reshape(g, gs, -1)[keep], y0.reshape(g, gs, -1)[keep]
+    torch.testing.assert_close(y1g, y0g, **MOE_LAYER_TOL)
+    frob = float((y1g - y0g).norm() / y0g.norm())
+    assert frob < TC_FROBENIUS, frob
+    err = float((y1g - y0g).abs().max())
+    print(f"[moe] block 0's MoE layer at full width (8192 x 512 bf16, "
+          f"{g} groups of {gs}, capacity {layer.capacity(gs)}): card vs "
+          f"CPU dispatch equal in {int(keep.sum())}/{g} groups, overflow "
+          f"card {o1!r} CPU {o0!r}, outputs max_abs_err {err:.3e} (tol "
+          f"{MOE_LAYER_TOL}), rel Frobenius {frob:.3e}; "
+          f"card {t1:.3f}s CPU {t0:.3f}s")
+    return {"overflow": o1, "max_abs_err": err, "frobenius": frob,
+            "ties": int(tie.sum())}
+
+
+def _moe_step_split(engine, state, x, y, label: str) -> dict:
+    """Where one step's device time goes (``torch.profiler``, input shapes
+    recorded): the flash kernels by name; the MoE einsums' GEMMs
+    (``aten::bmm``, forward and backward) by their shapes — a matrix side
+    of the expert hidden width (2048) is an expert GEMM, of E·C = 1280 or
+    C = 160 a dispatch/combine einsum, the rest the router's logits — and
+    all other kernels (the router's softmax, argmax, one-hots and cumsums,
+    LayerNorms, the head, Adam) as the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 4
+    xs, ys = engine.shard_batch(x, y)
+    engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            engine.step(state, xs, ys)
+        torch.cuda.synchronize()
+    kernels = [(e.self_device_time_total / steps / 1e3, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation
+               and e.self_device_time_total > 0]
+    busy = sum(ms for ms, _ in kernels)
+    if not busy:
+        print(f"[moe] {label}: no device time in the trace: not measured")
+        return {}
+    flash = sum(ms for ms, key in kernels
+                if re.search(r"flash_(fwd|dq|dkv)(_tc32|_tc)?_kernel", key))
+    split = {"expert_gemm": 0.0, "dispatch_combine": 0.0, "router_gemm": 0.0}
+    ec = MOE_GPT["experts"] * MOE_GPT["capacity"]
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key != "aten::bmm" or not e.device_time_total:
+            continue
+        dims = {d for shape in e.input_shapes for d in shape[1:]}
+        kind = ("expert_gemm" if LM["ffn"] in dims else
+                "dispatch_combine" if dims & {ec, MOE_GPT["capacity"]}
+                else "router_gemm")
+        split[kind] += e.device_time_total / steps / 1e3
+    rest = busy - flash - sum(split.values())
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy, "attention_ms": flash,
+           **{f"{k}_ms": v for k, v in split.items()}, "rest_ms": rest}
+    print(f"[moe] {label} step profile (B=8, L=1024, bf16, eager): "
+          + " ".join(f"{k}={v:.4f}" for k, v in res.items())
+          + f" busy_share={busy / wall_ms:.4f}")
+    for ms, key in sorted(kernels, reverse=True)[:12]:
+        print(f"[moe]   {ms * 1e3:9.2f} us/step {key[:100]}")
+    return res
+
+
+def _moe_ep_window(mesh, k: int, x, y) -> dict:
+    """MoEClassifier (8 experts, top-``k``) for MOE_EP_STEPS steps under
+    ExpertParallelEngine on the (1, 1) mesh with the default router
+    weights and the z-loss on, beside SyncEngine's first step at f32."""
+    from distributed_tensorflow_tpu_torch.engines import (
+        ExpertParallelEngine, SyncEngine)
+    from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
+        router_losses)
+    from distributed_tensorflow_tpu_torch.models import create_model
+
+    first = {}
+    for cls in (SyncEngine, ExpertParallelEngine):
+        model = create_model("moe", router_top_k=k)
+        kw = dict(router_z_weight=1e-3) if cls is ExpertParallelEngine else {}
+        eng = cls(model, mesh=mesh, **kw)
+        state = eng.init_state(torch.Generator().manual_seed(0), x[:1])
+        xs, ys = eng.shard_batch(x[:32], y[:32])
+        state, m = eng.step(state, xs, ys)
+        first[cls.__name__] = float(m["loss"])
+    losses, gaps, overflow = [float(m["loss"])], [], [float(m["overflow"])]
+    for i in range(1, MOE_EP_STEPS):
+        xs, ys = eng.shard_batch(x[32 * i:32 * i + 32],
+                                 y[32 * i:32 * i + 32])
+        state, m = eng.step(state, xs, ys)
+        aux, z, _ = router_losses(model)
+        gaps.append(abs(float(m["total_loss"]) - float(m["loss"])
+                        - (eng.aux_weight * float(aux.detach())
+                           + eng.router_z_weight * float(z.detach()))))
+        losses.append(float(m["loss"]))
+        overflow.append(float(m["overflow"]))
+    rel = (abs(first["ExpertParallelEngine"] - first["SyncEngine"])
+           / abs(first["SyncEngine"]))
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-4:]) < np.mean(losses[:4]), losses
+    assert max(gaps) <= 1e-6, max(gaps)
+    assert all(0.0 <= o <= 1.0 for o in overflow), overflow
+    assert rel <= MOE_EP_RTOL, first
+    print(f"[moe] ExpertParallelEngine (1, 1) NCCL mesh, MoEClassifier "
+          f"top-{k}, {MOE_EP_STEPS} steps of 32: task loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, overflow "
+          f"{min(overflow):.4f}..{max(overflow):.4f}, max |total - task - "
+          f"weighted router terms| {max(gaps):.2e}, first task loss vs "
+          f"SyncEngine rel {rel:.2e} (bound {MOE_EP_RTOL})")
+    return {"losses": losses, "first": first}
+
+
+def moe_phase(gpu: str) -> dict:
+    """Phase moe: the ``bench.py --moe`` GPT and its dense twin through
+    bench_moe's protocol on replayed chunks (the main path: every count
+    set to 0 before the MoE window and read after it), the gates, block
+    0's MoE layer on the card against the CPU, the step profile, then
+    ExpertParallelEngine on a (1, 1) NCCL mesh."""
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+    from distributed_tensorflow_tpu_torch.engines import Engine, SyncEngine
+    from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
+        router_losses)
+    from distributed_tensorflow_tpu_torch.models.moe import _moe_group_size
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    tokens = LM["batch"] * LM["seq"]
+    gs = _moe_group_size(tokens)
+    groups = tokens // gs
+    capacity = int(MOE_GPT["capacity_factor"] * gs / MOE_GPT["experts"]
+                   + 0.999999)
+    print(f"[moe] routing shape: {tokens} tokens, {groups} groups of {gs}, "
+          f"capacity {capacity}")
+    assert (groups, gs, capacity) == (MOE_GPT["groups"], MOE_GPT["group"],
+                                      MOE_GPT["capacity"])
+    x, y = _lm_data(LM["batch"])
+    torch.cuda.empty_cache()
+    mesh = meshlib.create_mesh(1)
+    try:
+        dense = _moe_window(False, mesh, x, y)
+        dense_state = (dense.pop("engine"), dense.pop("state"),
+                       dense.pop("model"))
+        moe = _moe_window(True, mesh, x, y)
+        # the replayed chunk against eager chunks from the same state: a
+        # twin from the seed runs the first two chunks eagerly
+        twin = SyncEngine(_moe_gpt(True), mesh=mesh)
+        tstate = twin.init_state(torch.Generator().manual_seed(0))
+        txs, tys = twin.shard_batch(x, y)
+        eager = []
+        for _ in range(2):
+            tstate, m = Engine.many_step(twin, tstate, [txs] * 3, [tys] * 3)
+            eager += m["loss"].tolist()
+        del twin, tstate
+        _, _, overflow = router_losses(moe["model"])
+        overflow = float(overflow)
+        layer = _moe_layer_card_vs_cpu(moe["model"], x)
+        split = _moe_step_split(moe["engine"], moe["state"], x, y, "MoE")
+        dense_split = _moe_step_split(*dense_state[:2], x, y, "dense")
+        del dense_state
+        moe.pop("engine"), moe.pop("state"), moe.pop("model")
+        torch.cuda.empty_cache()
+        ep = {}
+        ds = load_dataset("synthetic")
+        ep_mesh = meshlib.create_mesh(1, shape=(1, 1),
+                                      axis_names=("data", "expert"))
+        try:
+            for k in (1, 2):
+                ep[k] = _moe_ep_window(ep_mesh, k, ds.x, ds.y)
+        finally:
+            ep_mesh.close()
+    finally:
+        mesh.close()
+    losses = moe["losses"]
+    assert all(np.isfinite(losses[:16])), losses
+    assert losses[15] < losses[0], losses[:16]
+    assert moe["losses"][:6] == eager, (moe["losses"][:6], eager)
+    assert 0.0 <= overflow <= 1.0, overflow
+    # 8 forwards, 8 dQ and 8 dK/dV a step, every one on tc
+    for run in (moe, dense):
+        n = LM["layers"] * run["steps"]
+        want = {"fwd": n, "dq": n, "dkv": n, "fwd_tc": n, "dq_tc": n,
+                "dkv_tc": n, "fwd_tc32": 0, "dq_tc32": 0, "dkv_tc32": 0}
+        assert run["counts"] == want, (run["counts"], want)
+    rows = {}
+    for kind, run in (("dense", dense), ("moe", moe)):
+        med, spread = _median_spread(run["rates"])
+        rows[kind] = (med, spread)
+    result = {
+        "metric": "gpt_moe_sync_tokens_per_sec_per_chip",
+        "dense_tokens_per_sec_per_chip": rows["dense"][0],
+        "dense_spread": rows["dense"][1],
+        "moe_tokens_per_sec_per_chip": rows["moe"][0],
+        "moe_spread": rows["moe"][1],
+        "moe_vs_dense": rows["moe"][0] / rows["dense"][0],
+        "dense_step_ms": tokens / rows["dense"][0] * 1e3,
+        "moe_step_ms": tokens / rows["moe"][0] * 1e3,
+        "moe_rates": moe["rates"], "dense_rates": dense["rates"],
+    }
+    print(f"[moe] {gpu}: bench --moe on replayed chunks of "
+          f"{MOE_CHUNKS[0]} and {MOE_CHUNKS[1]} steps, {MOE_REPEATS} "
+          f"repeats: {json.dumps(result)}")
+    print(f"[moe] losses (first {len(losses)} steps, chunks "
+          f"{MOE_CHUNKS[0]},{MOE_CHUNKS[0]},{MOE_CHUNKS[1]},"
+          f"{MOE_CHUNKS[1]}): {' '.join(f'{v:.4f}' for v in losses)}; "
+          f"replayed chunk bitwise the eager chunk; overflow "
+          f"{overflow!r}; flash launches {json.dumps(moe['counts'])} over "
+          f"{moe['steps']} steps (8 + 8 + 8 a step, all tc)")
+    return {"counts": moe["counts"], "steps": moe["steps"],
+            "result": result, "layer": layer, "split": split,
+            "dense_split": dense_split, "ep": ep}
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -3817,6 +4206,7 @@ def main() -> int:
     fit32, steps32 = f32_train_phase(gpu)
     cli_lm_launches = cli_lm_phase(gpu)
     sp = sp_phase(gpu)
+    moe = moe_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -3832,6 +4222,8 @@ def main() -> int:
         counter = f"{kind}_tc" if row["variant"] == "tc" else kind
         row["launches"] = fit[counter] + evaluate[counter]
         row["launches_bf16_f32master"] = fit_master[counter]
+        # the bench --moe window's launches (all on tc)
+        row["launches_moe"] = moe["counts"][counter]
         print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
               f"shape, device ms: kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} "

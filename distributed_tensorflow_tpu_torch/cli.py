@@ -32,7 +32,11 @@ runs in full f32 (the harness turns TF32 off for the run); ``--precision``
 picks a mixed-precision policy (``parallel/precision.py``).
 ``-sp S`` shards each sequence over S of the ranks (a (data, seq) mesh
 of (N / S, S) ranks; ``--attention ring|ring_flash|ulysses|ulysses_flash``
-picks the schedule); ``-tp``/``-pp``/``-ep`` parse and raise above 1.
+picks the schedule); ``-ep E`` shards the experts of ``--model moe`` over
+E of the ranks (a (data, expert) mesh of (N / E, E) ranks, with
+``--num-experts``, ``--aux-weight``, ``--router-top-k`` and
+``--router-z-weight``); ``-tp``/``-pp`` and the composites parse and
+raise.
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
@@ -46,6 +50,8 @@ parse and raise.
         --serve 8 --serve-kv-layout paged
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 4 -sp 2 \\
         -b 4 --model gpt_tiny --dataset lm_synth --attention ring_flash
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 4 -ep 2 \\
+        --model moe --dataset synthetic
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ import torch
 from distributed_tensorflow_tpu_torch.engines import check_engine
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.utils.harness import (
-    ExperimentConfig, _reject_flash_under_sp, run)
+    ExperimentConfig, _reject_flash_under_sp, check_parallel_factors, run)
 
 def parse_model_args(pairs: list[str]) -> dict:
     """KEY=VALUE list → kwargs dict with literal-ish value parsing."""
@@ -124,7 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
                    const=True, default=False,
                    help="accepted for compatibility; no-op")
     p.add_argument("--model", default="mlp", help="registered model name "
-                   "(mlp|cnn|resnet20|gpt|bert_tiny)")
+                   "(mlp|cnn|resnet20|gpt|bert_tiny|moe)")
     p.add_argument("--dataset", default="mnist",
                    help="mnist|fashion_mnist|cifar10|synthetic|glue_synth|"
                         "lm_synth")
@@ -160,7 +166,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-pp", "--pipeline-parallel", type=int, default=1,
                    help="pipeline parallelism (not ported: raises above 1)")
     p.add_argument("-ep", "--expert-parallel", type=int, default=1,
-                   help="expert parallelism (not ported: raises above 1)")
+                   help="shard MoE experts over this many devices "
+                        "(GShard/Switch-style EP; --model moe)")
+    p.add_argument("--num-experts", type=int, default=8,
+                   help="MoE expert count (must divide by -ep)")
+    p.add_argument("--aux-weight", type=float, default=0.01,
+                   help="MoE load-balance auxiliary loss weight")
+    p.add_argument("--router-top-k", type=int, default=1, choices=[1, 2],
+                   help="MoE routing: 1 = Switch top-1, 2 = GShard top-2 "
+                        "(renormalized gates, priority capacity positions)")
+    p.add_argument("--router-z-weight", type=float, default=0.0,
+                   help="MoE router z-loss weight (0 disables; ~1e-3 "
+                        "stabilizes router logits on long runs)")
     p.add_argument("--attention", default="ring",
                    choices=["ring", "ring_flash", "ulysses", "ulysses_flash",
                             "flash"],
@@ -403,6 +420,9 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         tensor_parallel=args.tensor_parallel,
         pipeline_parallel=args.pipeline_parallel,
         expert_parallel=args.expert_parallel,
+        num_experts=args.num_experts, aux_weight=args.aux_weight,
+        router_top_k=args.router_top_k,
+        router_z_weight=args.router_z_weight,
         epochs=args.epochs, learning_rate=args.lr,
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
         weight_decay=args.weight_decay, clip_norm=args.clip_norm,
@@ -439,8 +459,10 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         serve_routing=args.serve_routing,
         serve_autoscale=args.serve_autoscale,
         serve_multi_step=args.serve_multi_step)
+    # before any rank is spawned
+    check_parallel_factors(config)
     if config.seq_parallel > 1:
-        _reject_flash_under_sp(config)   # before any rank is spawned
+        _reject_flash_under_sp(config)
     if args.task_type is not None:
         # one process per machine in the group; rank 0 is the server
         if args.num_processes is None:

@@ -6,7 +6,9 @@ through the Keras-fit-like ``Trainer``), ``async`` (``AsyncLocalEngine``:
 local SGD with a parameter mean every ``sync_every`` steps) and ``gossip``
 (``GossipEngine``: a ring mix of degree ``degree``), and
 ``SeqParallelEngine`` (data × sequence parallelism over a (data, seq)
-mesh, outside the ``ENGINES`` table as in JAX).  ``fsdp`` raises
+mesh) and ``ExpertParallelEngine`` (data × expert parallelism of MoE
+models over a (data, expert) mesh), both outside the ``ENGINES`` table as
+in JAX.  ``fsdp`` raises
 ``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 
@@ -19,6 +21,8 @@ from distributed_tensorflow_tpu_torch.engines.async_local import (  # noqa: F401
     AsyncLocalEngine)
 from distributed_tensorflow_tpu_torch.engines.base import (  # noqa: F401
     Engine, TrainState)
+from distributed_tensorflow_tpu_torch.engines.expert_parallel import (  # noqa: F401,E501
+    ExpertParallelEngine)
 from distributed_tensorflow_tpu_torch.engines.gossip import (  # noqa: F401
     GossipEngine)
 from distributed_tensorflow_tpu_torch.engines.seq_parallel import (  # noqa: F401

@@ -78,6 +78,30 @@ def token_weights(mask: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return mask.expand(y.shape)
 
 
+def all_reduce_grads_(params: list, mesh, metrics: torch.Tensor | None = None,
+                      axis: str | None = None) -> torch.Tensor | None:
+    """Sum the gradients of ``params`` over ``axis`` of ``mesh`` (None:
+    every rank) with one all-reduce of a flat buffer; each ``.grad`` then
+    becomes a view of its slice.  ``metrics`` (an f32 vector) rides behind
+    f32 gradients, and goes in an f32 all-reduce of its own behind 16-bit
+    ones; returns the summed metrics (None without)."""
+    packed = metrics is not None and all(p.dtype == metrics.dtype
+                                         for p in params)
+    flat = torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1)
+                      for p in params] + ([metrics] if packed else []))
+    coll.all_reduce_(flat, mesh, axis=axis)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+    if metrics is None:
+        return None
+    if packed:
+        return flat[off:]
+    return coll.all_reduce_(metrics, mesh, axis=axis)
+
+
 def make_loss_fn(model: nn.Module) -> Callable:
     """``loss_fn(x, y, generator) -> (mean loss, mean accuracy)`` over every
     label element, with the model in training mode (dropout on)."""
@@ -177,6 +201,7 @@ class Engine:
             with torch.no_grad():
                 self.model(self._put(np.asarray(sample_x[:1])), train=False)
         self.model.reset_parameters(generator)
+        self._own_params(self.model)
         # the storage cast comes before the optimizer, which (and a master
         # policy's f32 copy) is built over the parameters the steps train
         self.precision.cast_params(self.model)
@@ -188,6 +213,11 @@ class Engine:
                           optimizer=self.make_optimizer(
                               list(self.model.parameters())),
                           generator=stream, seed=seed)
+
+    def _own_params(self, model: nn.Module) -> None:
+        """Hook between the fresh parameters and the optimizer: an engine
+        that keeps a slice of them on each rank takes it here (every
+        rank's parameters alike otherwise)."""
 
     # ------------------------------------------------------------- batches
     def _put(self, a: np.ndarray) -> torch.Tensor:

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from distributed_tensorflow_tpu_torch.engines.base import (
-    Engine, TrainState, make_loss_fn)
+    Engine, TrainState, all_reduce_grads_, make_loss_fn)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
 
@@ -154,29 +154,15 @@ class SyncEngine(Engine):
             loss, acc = loss / k, acc / k
         loss, acc = loss.detach(), acc.detach()
         if self.mesh is not None:
-            loss, acc = self._all_reduce(state.model, loss, acc) / n
+            # every gradient summed over the ranks in one collective, the
+            # two metrics with it (f32 gradients) or in an f32 one of their
+            # own (16-bit gradients)
+            loss, acc = all_reduce_grads_(list(state.model.parameters()),
+                                          self.mesh,
+                                          torch.stack([loss, acc])) / n
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss, "accuracy": acc}
-
-    def _all_reduce(self, model, loss, acc) -> torch.Tensor:
-        """Sum every gradient over the ranks with one collective, and the
-        two metrics with it (f32 gradients) or in a second f32 one (16-bit
-        gradients); returns the summed (loss, accuracy)."""
-        params = list(model.parameters())
-        metrics = torch.stack([loss, acc])
-        packed = all(p.dtype == metrics.dtype for p in params)
-        flat = torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).reshape(-1)
-                          for p in params] + ([metrics] if packed else []))
-        coll.all_reduce_(flat, self.mesh)
-        off = 0
-        for p in params:
-            p.grad = flat[off:off + p.numel()].view_as(p)
-            off += p.numel()
-        if packed:
-            return flat[off:]
-        return coll.all_reduce_(metrics, self.mesh)
 
     def many_step(self, state: TrainState, xs_seq, ys_seq):
         """``Engine.many_step``; on the card, for k > 1, as a CUDA graph

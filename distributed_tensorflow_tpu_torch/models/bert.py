@@ -35,9 +35,13 @@ f32.  Dropout draws its masks from the ``generator`` passed to
 again in the backward pass.  ``models/convert.py`` ``bert_state_dict``
 maps a flax param tree onto this module's ``state_dict``.
 
-Not ported here (each raises ``NotImplementedError``): MoE layers,
-tensor-parallel partitioning and the pipeline stages
-(``bert_pipeline_stages``).
+``moe_experts > 0`` swaps each layer's FFN for a routed MoE layer
+(``models/moe.py``, ``moe_ffn``) over the layer's tokens, before the same
+dropout and post-LN; the router's losses are left on the layers
+(``engines.expert_parallel.router_losses``).
+
+Not ported here (each raises ``NotImplementedError``): tensor-parallel
+partitioning and the pipeline stages (``bert_pipeline_stages``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
     layer_norm as _layer_norm, remat as _remat)
+from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
@@ -100,22 +105,33 @@ class TransformerLayer(nn.Module):
     """Post-LN encoder layer: LN(x + attn(x)), then LN(x + dropout(ffn))."""
 
     def __init__(self, hidden: int, heads: int, ffn: int,
-                 dropout_rate: float, attention_impl: str, dtype, device):
+                 dropout_rate: float, attention_impl: str, dtype, device,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.attn = SelfAttention(hidden, heads, attention_impl,
                                   dropout_rate, dtype, device)
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.fc1 = nn.Linear(hidden, ffn, device=device)
-        self.fc2 = nn.Linear(ffn, hidden, device=device)
+        self.moe = None
+        if moe_experts > 0:
+            self.moe = MoELayer(hidden, moe_experts, ffn,
+                                moe_capacity_factor, moe_top_k, dtype=dtype,
+                                device=device)
+        else:
+            self.fc1 = nn.Linear(hidden, ffn, device=device)
+            self.fc2 = nn.Linear(ffn, hidden, device=device)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
 
     def forward(self, x, pad_mask, train: bool = False, generator=None):
         y = self.attn(x, pad_mask, train, generator)
         x = _layer_norm(self.ln1, x + y, self.dtype)
-        y = F.gelu(_dense(self.fc1, x, self.dtype), approximate="tanh")
-        y = _dense(self.fc2, y, self.dtype)
+        if self.moe is not None:
+            y = moe_ffn(self.moe, x)
+        else:
+            y = F.gelu(_dense(self.fc1, x, self.dtype), approximate="tanh")
+            y = _dense(self.fc2, y, self.dtype)
         y = _dropout(y, self.dropout_rate, train, generator)
         return _layer_norm(self.ln2, x + y, self.dtype)
 
@@ -167,15 +183,15 @@ class BertTinyClassifier(nn.Module):
                  ffn: int = 512, max_len: int = 512,
                  dropout_rate: float = 0.1, attention_impl: str = "dense",
                  partition_model: bool = False, remat: bool = False,
-                 moe_experts: int = 0, dtype=torch.float32, device=None):
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25, dtype=torch.float32,
+                 device=None):
         super().__init__()
         if remat and moe_experts:
             raise ValueError(
                 "remat + MoE layers is unsupported: the router's sown "
                 "intermediates would be re-sown during backward recompute "
                 "(see models/gpt.py)")
-        if moe_experts:
-            not_ported("moe_experts > 0 (MoE layers)", "remaining engines")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
@@ -194,7 +210,8 @@ class BertTinyClassifier(nn.Module):
                                          device)
         self.blocks = nn.ModuleList(
             TransformerLayer(hidden, heads, ffn, dropout_rate,
-                             attention_impl, dtype, device)
+                             attention_impl, dtype, device, moe_experts,
+                             moe_top_k, moe_capacity_factor)
             for _ in range(layers))
         self.pooler = BertPooler(num_classes, hidden, dtype, device)
 

@@ -14,6 +14,12 @@ anything ``numpy.asarray`` reads); nothing here imports jax.  Rules:
 The CNN flattens its feature map in flax's NHWC order (``models/cnn.py``),
 so its first Dense kernel needs no permutation of its rows.
 
+A ``MoELayer``'s stacked kernels (``gate (d, E)``, ``w1 (E, d, hidden)``,
+``w2 (E, hidden, d)``) keep their layout, with no transpose: the port's
+layer holds them as plain parameters that feed einsums, not as
+``nn.Linear`` weights (the gate too).  A GPT block or BERT layer with
+experts holds ``MoELayer_0`` in place of ``Dense_0``/``Dense_1``.
+
 The output is f32.  An engine under a precision policy stores 16-bit
 parameters (and a master policy an f32 master): such a state takes the
 converted weights through ``parallel.precision.adopt_f32_state``, which
@@ -33,7 +39,9 @@ _BLOCK_CHILDREN = {
     "Dense_0": "fc1",
     "Dense_1": "fc2",
     "CausalSelfAttention_0": "attn",
+    "MoELayer_0": "moe",
 }
+_MOE_PARAMS = ("gate", "w1", "w2")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,6 +65,9 @@ def _module(tree: dict, prefix: str, out: dict) -> None:
         out[f"{prefix}.bias"] = _tensor(tree["bias"])
     elif "embedding" in tree:
         out[f"{prefix}.weight"] = _tensor(tree["embedding"])
+    elif set(tree) == set(_MOE_PARAMS):
+        for name in _MOE_PARAMS:
+            out[f"{prefix}.{name}"] = _tensor(tree[name])
     else:
         raise KeyError(f"unrecognized flax module at {prefix}: "
                        f"{sorted(tree)}")
@@ -92,6 +103,21 @@ def mlp_state_dict(params: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for i in range(2):
         _module(params[f"Dense_{i}"], f"fc{i + 1}", out)
+    return out
+
+
+def moe_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``MoEClassifier`` params (``Dense_0``, ``MoELayer_i``,
+    ``Dense_1``) → ``MoEClassifier.state_dict()`` (f32)."""
+    out: dict[str, torch.Tensor] = {}
+    for name, sub in params.items():
+        m = re.fullmatch(r"MoELayer_(\d+)", name)
+        if m:
+            _module(sub, f"moe.{m.group(1)}", out)
+        elif name in ("Dense_0", "Dense_1"):
+            _module(sub, {"Dense_0": "embed", "Dense_1": "head"}[name], out)
+        else:
+            raise KeyError(f"unrecognized MoE classifier param {name}")
     return out
 
 
@@ -139,7 +165,7 @@ def resnet_state_dict(params: dict) -> dict[str, torch.Tensor]:
 # flax TransformerLayer children → the port's TransformerLayer
 _BERT_LAYER_CHILDREN = {
     "LayerNorm_0": "ln1", "Dense_0": "fc1", "Dense_1": "fc2",
-    "LayerNorm_1": "ln2", "SelfAttention_0": "attn",
+    "LayerNorm_1": "ln2", "SelfAttention_0": "attn", "MoELayer_0": "moe",
 }
 _BERT_TOP = {
     "BertEmbeddings_0": ("embeddings", {"Embed_0": "token_embed",

@@ -67,8 +67,17 @@ refusal: a one-token step has no sequence to shard); the cursor and slot
 decode paths attend the cache densely whatever ``attention_impl`` is, as
 JAX's ``generate`` and tables clone the model to dense attention.
 
-Not ported here (each raises ``NotImplementedError``): MoE blocks,
-tensor-parallel partitioning and ``generate(mesh=...)``.
+``moe_experts > 0`` swaps every block's FFN for a routed MoE layer
+(``models/moe.py``, ``moe_ffn``) over the block's tokens, with
+``moe_top_k`` and ``moe_capacity_factor``; the router's losses are left on
+the layers (``engines.expert_parallel.router_losses``).  Every mode runs
+it, and routes the tokens of one call together (a verify's ``by_column``
+does not split it), as JAX does; ``generate`` prefills a MoE model's
+prompt one token at a time, as JAX's scan does, since the tokens of one
+call share the experts' capacity.
+
+Not ported here (each raises ``NotImplementedError``): tensor-parallel
+partitioning and ``generate(mesh=...)``.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from distributed_tensorflow_tpu_torch import not_ported, resolve_device
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
     layer_norm as _layer_norm, remat as _remat)
+from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
@@ -333,7 +343,9 @@ class GPTBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dropout_rate: float = 0.1, rope: bool = False,
                  kv_heads: int | None = None, dtype=torch.float32,
-                 device=None, attention_impl: str = "dense"):
+                 device=None, attention_impl: str = "dense",
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
@@ -341,8 +353,14 @@ class GPTBlock(nn.Module):
         self.attn = CausalSelfAttention(hidden, heads, kv_heads, rope, dtype,
                                         device, attention_impl)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.fc1 = nn.Linear(hidden, ffn, device=device)
-        self.fc2 = nn.Linear(ffn, hidden, device=device)
+        self.moe = None
+        if moe_experts > 0:
+            self.moe = MoELayer(hidden, moe_experts, ffn,
+                                moe_capacity_factor, moe_top_k, dtype=dtype,
+                                device=device)
+        else:
+            self.fc1 = nn.Linear(hidden, ffn, device=device)
+            self.fc2 = nn.Linear(ffn, hidden, device=device)
 
     def forward(self, x, train: bool = False, pos=None, pool=None,
                 block_tables=None, paged_fused: bool = True, generator=None,
@@ -351,9 +369,13 @@ class GPTBlock(nn.Module):
                       block_tables, paged_fused, cache, keep, by_column)
         x = x + _dropout(y, self.dropout_rate, train, generator)
         y = _layer_norm(self.ln2, x, self.dtype)
-        y = F.gelu(_dense_by(self.fc1, y, self.dtype, by_column),
-                   approximate="tanh")
-        y = _dense_by(self.fc2, y, self.dtype, by_column)
+        if self.moe is not None:
+            # routed over all the call's tokens, as JAX routes them
+            y = moe_ffn(self.moe, y)
+        else:
+            y = F.gelu(_dense_by(self.fc1, y, self.dtype, by_column),
+                       approximate="tanh")
+            y = _dense_by(self.fc2, y, self.dtype, by_column)
         return x + _dropout(y, self.dropout_rate, train, generator)
 
 
@@ -383,6 +405,7 @@ class GPTLM(nn.Module):
                  attention_impl: str = "dense", positional: str = "learned",
                  kv_heads: int | None = None, tie_embeddings: bool = True,
                  dtype=torch.float32, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
                  remat: bool = False, partition_model: bool = False,
                  decode: bool = False, device=None):
         super().__init__()
@@ -392,8 +415,6 @@ class GPTLM(nn.Module):
                 "intermediates (aux_loss/z_loss/overflow) would be re-sown "
                 "during backward recompute, double-counting the balance "
                 "losses; train MoE blocks without --remat")
-        if moe_experts:
-            not_ported("moe_experts > 0 (MoE blocks)", "remaining engines")
         if partition_model:
             not_ported("partition_model (TP layout)", "remaining engines")
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
@@ -419,6 +440,7 @@ class GPTLM(nn.Module):
         self.dropout_rate = dropout_rate
         self.attention_impl = attention_impl
         self.remat = remat
+        self.moe_experts = moe_experts
         self.decode = bool(decode)
         self.positional = positional
         self.tie_embeddings = tie_embeddings
@@ -429,7 +451,8 @@ class GPTLM(nn.Module):
                           else nn.Embedding(max_len, hidden, device=device))
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, dropout_rate, rope, kv_heads, dtype,
-                     device, attention_impl) for _ in range(layers))
+                     device, attention_impl, moe_experts, moe_top_k,
+                     moe_capacity_factor) for _ in range(layers))
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.lm_head = (None if tie_embeddings
                         else nn.Linear(hidden, vocab_size, device=device))
@@ -597,7 +620,12 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
     if generator is None and not greedy:
         generator = torch.Generator(device=dev).manual_seed(0)
     cache = model.init_cache(b)
-    if lp > 1:
+    if lp > 1 and model.moe_experts:
+        # one token at a time, as JAX prefills: a MoE block routes the
+        # tokens of one call together, against one capacity
+        for j in range(lp - 1):
+            _, cache = model(prompt[:, j:j + 1], cache=cache)
+    elif lp > 1:
         _, cache = model(prompt[:, :-1], cache=cache)
     tok, out = prompt[:, -1], []
     for _ in range(max_new_tokens):

@@ -36,7 +36,8 @@ def flax_init_(model: nn.Module, generator: torch.Generator | None):
     ``model``, drawn from ``generator`` on the CPU and copied to the
     model's device: Dense kernels lecun-normal (truncated at ±2σ), biases
     zero, embeddings normal with std ``features ** -0.5``, LayerNorm scale
-    1 and bias 0.  Returns ``model``."""
+    1 and bias 0; a MoE layer's stacked kernels by its own
+    ``reset_parameters``.  Returns ``model``."""
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
             lecun_normal_(mod.weight, mod.in_features, generator)
@@ -49,6 +50,8 @@ def flax_init_(model: nn.Module, generator: torch.Generator | None):
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif getattr(mod, "stacked_params", False):
+            mod.reset_parameters(generator)   # MoE's stacked kernels
     return model
 
 

@@ -40,9 +40,16 @@ continuous-batching window over the trained module
 training (``_validate_sampling``, ``_validate_serving``).  The summary of
 an LM gains ``test_perplexity``.
 
+``expert_parallel`` E > 1 shards the experts of the MoE classifier over
+E of the ranks (``_setup_expert_parallel``): a (data, expert) mesh of
+(n / E, E) ranks and ``ExpertParallelEngine``, named ``expert_parallel``,
+with ``num_experts``, ``aux_weight``, ``router_top_k`` and
+``router_z_weight``; its summary carries the overflow monitor's report.
+
 The JAX ``ExperimentConfig``'s other fields (codecs, checkpoints,
-telemetry) are absent; ``tensor_parallel``, ``pipeline_parallel`` and
-``expert_parallel`` raise ``NotImplementedError`` above 1, and the fleet's
+telemetry) are absent; ``tensor_parallel`` and ``pipeline_parallel`` raise
+``NotImplementedError`` above 1, as does any composite of the
+model-parallel factors (``check_parallel_factors``), and the fleet's
 serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
@@ -120,7 +127,12 @@ class ExperimentConfig:
                                     # of the ranks (a 'seq' mesh axis)
     tensor_parallel: int = 1        # model parallelism (not ported above 1)
     pipeline_parallel: int = 1
-    expert_parallel: int = 1
+    expert_parallel: int = 1        # >1: shard MoE experts over this many
+                                    # of the ranks (an 'expert' mesh axis)
+    num_experts: int = 8            # MoE expert count
+    aux_weight: float = 0.01        # MoE load-balance loss weight
+    router_top_k: int = 1           # MoE routing: 1 (Switch) | 2 (GShard)
+    router_z_weight: float = 0.0    # MoE router z-loss weight
     attention_impl: str = "ring"    # ring | ring_flash | ulysses |
                                     # ulysses_flash (the schedules over
                                     # 'seq' when seq_parallel > 1) | flash:
@@ -233,6 +245,11 @@ def _resolve_model(config: ExperimentConfig, num_classes: int, device,
                 f"{config.model} has none (sequence models: "
                 f"{'/'.join(_SEQUENCE_MODELS)})")
         forced["remat"] = True
+    if config.model in ("moe", "moe_mlp"):
+        # router_top_k is a model knob: it applies under any engine (a
+        # -ep 1 run still routes); router_z_weight is the expert-parallel
+        # engine's (checked in _setup)
+        forced["router_top_k"] = config.router_top_k
     bad = sorted(set(kw) & {"num_classes", "device", "dtype", *forced})
     if bad:
         raise ValueError(f"--model-arg {bad} is set by the harness for "
@@ -483,6 +500,106 @@ def _setup_seq_parallel(config: ExperimentConfig) -> _Experiment:
                        name=f"seq_parallel[{config.attention_impl}]")
 
 
+def _check_reserved_model_args(config: ExperimentConfig, reserved,
+                               where: str) -> None:
+    """``--model-arg`` keys that a dedicated flag or the mode itself sets
+    are rejected (JAX ``_check_reserved_model_args``)."""
+    bad = sorted(set(config.model_args or {}) & set(reserved))
+    if bad:
+        raise ValueError(
+            f"--model-arg key(s) {bad} are reserved for {where}: they are "
+            f"set by a dedicated flag or by the mode itself (e.g. "
+            f"--num-experts, --dtype, --kv-heads, --positional, "
+            f"--attention); drop them from --model-arg")
+
+
+def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
+    """MoE mode (JAX ``harness.py:1410-1462``, tp = 1): a (data, expert)
+    mesh of (n / expert_parallel, expert_parallel) ranks, the MoE
+    classifier (``--model moe``, ``moe_mlp`` or ``mlp``) or a plug-in
+    ``model_fn``, and ``ExpertParallelEngine``; tokens shard over every
+    rank, so the global batch is ``-b`` × n."""
+    from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
+        ExpertParallelEngine)
+
+    mode = "expert_parallel"
+    if config.clip_norm:
+        # each rank holds other experts: a global norm needs a reduce of
+        # the experts' squared norms that the recipe's optimizer lacks
+        not_ported("--clip-norm under expert parallelism",
+                   "remaining engines")
+    mesh, dp = _split_mesh(config, config.expert_parallel, mode,
+                           meshlib.EXPERT_AXIS, grad_accum_ok=True)
+    try:
+        train_ds, test_ds = _load_data(config)
+        if config.model_fn is not None:
+            model = config.model_fn()
+        elif config.model in ("moe", "moe_mlp", "mlp"):
+            _check_reserved_model_args(
+                config, {"num_classes", "num_experts", "partition_experts",
+                         "partition_model", "router_top_k", "dtype"}, mode)
+            model = modellib.create_model(
+                "moe", num_classes=train_ds.num_classes,
+                **(config.model_args or {}),
+                num_experts=config.num_experts,
+                router_top_k=config.router_top_k, dtype=config.dtype,
+                device=mesh.device)
+        else:
+            raise ValueError(
+                f"{mode} needs the MoE model (got --model {config.model}); "
+                f"custom MoEs pass a model_fn whose experts are "
+                f"models.moe.MoELayer modules")
+        n_token_shards = dp * config.expert_parallel
+        global_batch = _global_batch(config, n_token_shards)
+        if config.grad_accum > 1 and global_batch % config.grad_accum:
+            raise ValueError(
+                f"{mode}: global batch {global_batch} not divisible by "
+                f"grad_accum {config.grad_accum}")
+        engine = ExpertParallelEngine(
+            model, mesh=mesh, learning_rate=config.learning_rate,
+            optimizer=_make_optimizer(config, train_ds, global_batch, model),
+            aux_weight=config.aux_weight,
+            router_z_weight=config.router_z_weight,
+            grad_accum=config.grad_accum, precision=config.precision)
+    except BaseException:
+        mesh.close()
+        raise
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch, name=mode)
+
+
+def check_parallel_factors(config: ExperimentConfig) -> None:
+    """The model-parallel factors above 1: one of ``seq_parallel`` and
+    ``expert_parallel`` is served; tensor and pipeline parallelism and the
+    composites raise ``NotImplementedError``.  ``num_experts`` must split
+    over ``expert_parallel`` (JAX ``harness.py:1428-1431``), and
+    ``router_z_weight`` needs the expert-parallel engine (JAX
+    ``harness.py:611-616``).  The CLI calls it before it spawns ranks."""
+    multi = [f for f in ("seq_parallel", "tensor_parallel",
+                         "pipeline_parallel", "expert_parallel")
+             if getattr(config, f) > 1]
+    if len(multi) > 1 or multi in (["tensor_parallel"],
+                                   ["pipeline_parallel"]):
+        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
+                   "remaining engines")
+    if (config.expert_parallel > 1 and config.model_fn is None
+            and config.model in ("moe", "moe_mlp", "mlp")
+            and config.num_experts % config.expert_parallel):
+        raise ValueError(
+            f"num_experts {config.num_experts} not divisible by "
+            f"expert_parallel {config.expert_parallel}")
+    # the z-loss is applied by the MoE-aware engines: the -ep paths, and
+    # the tp×sp composite when the model carries MoE blocks
+    composite_moe = (config.tensor_parallel > 1 and config.seq_parallel > 1
+                     and bool((config.model_args or {}).get("moe_experts")))
+    if (config.router_z_weight and config.expert_parallel <= 1
+            and not composite_moe):
+        raise ValueError(
+            "--router-z-weight is applied by the MoE-aware engines; "
+            "without --expert-parallel > 1 (or a tp×sp composite with "
+            "--model-arg moe_experts=N) it would be silently ignored")
+
+
 def _setup(config: ExperimentConfig) -> _Experiment:
     check_engine(config.engine)
     config = _resolve_precision(config)
@@ -493,14 +610,11 @@ def _setup(config: ExperimentConfig) -> _Experiment:
             raise ValueError(
                 f"--sample decodes autoregressively and needs a causal LM "
                 f"({'/'.join(_LM_MODELS)}), got --model {config.model}")
-    multi = [f for f in ("seq_parallel", "tensor_parallel",
-                         "pipeline_parallel", "expert_parallel")
-             if getattr(config, f) > 1]
-    if multi and multi != ["seq_parallel"]:
-        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
-                   "remaining engines")
+    check_parallel_factors(config)
     if config.seq_parallel > 1:
         return _setup_seq_parallel(config)
+    if config.expert_parallel > 1:
+        return _setup_expert_parallel(config)
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
     try:
         n = mesh.world_size
@@ -597,14 +711,18 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
             model_name = config.model if config.model_fn is None else getattr(
                 config.model_fn, "__name__", "custom_model_fn")
             st = fit["step_time"]
+            total = ex.n * config.seq_parallel * config.expert_parallel
             summary = {
                 "engine": ex.name,
                 "model": model_name,
                 "dataset": ex.train_ds.name,
                 "synthetic_data": ex.train_ds.synthetic,
-                "n_devices": ex.n * config.seq_parallel,
+                "n_devices": total,
                 "data_parallel": ex.n,
                 "seq_parallel": config.seq_parallel,
+                "expert_parallel": config.expert_parallel,
+                "num_experts": (config.num_experts
+                                if config.expert_parallel > 1 else None),
                 "global_batch": ex.global_batch,
                 "epochs": config.epochs,
                 "precision": fit["precision"],
@@ -613,7 +731,8 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                 "prefetch_depth": fit["prefetch_depth"],
                 "elapsed_s": fit["elapsed"],
                 "examples_per_sec": fit["examples_per_sec"],
-                "examples_per_sec_per_device": fit["examples_per_sec"] / ex.n,
+                "examples_per_sec_per_device":
+                    fit["examples_per_sec"] / total,
                 "test_accuracy": ev["accuracy"],
                 "test_loss": ev["loss"],
                 # next-token cross-entropy exponentiated: the LM quality
@@ -638,6 +757,11 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                     "loss_scale": fit.get("loss_scale"),
                 },
             }
+            # an expert-parallel run reports the router-health watch
+            # (sustained capacity overflow warns during training)
+            monitor = getattr(ex.engine, "overflow_monitor", None)
+            if monitor is not None:
+                summary.update(monitor.report())
             if config.sample_tokens:
                 summary.update(_sample_from_state(config, ex, trainer.state,
                                                   ex.test_ds))

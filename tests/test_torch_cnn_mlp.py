@@ -484,11 +484,14 @@ def test_reference_flag_surface_accepted():
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["-m", "d", "-ds", "fsdp"], NotImplementedError, "remaining engines"),
-    (["--model", "moe"], NotImplementedError, "remaining engines"),
+    # MoE and -ep are ported; their composites are not
+    (["--model", "moe", "-ep", "2", "-tp", "2"], NotImplementedError,
+     "remaining engines"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
       "attention_impl=ulysses"], ValueError, "pass -sp > 1"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
-      "moe_experts=2"], NotImplementedError, "remaining engines"),
+      "moe_experts=2", "-ep", "2", "-sp", "2"], NotImplementedError,
+     "remaining engines"),
     # the local engines decouple the optimizer cadence themselves (JAX
     # harness.py:712-716)
     (["-m", "c", "-cs", "async", "--grad-accum", "2"], ValueError,
