@@ -211,6 +211,34 @@ Phases (any failure raises and the script exits non-zero):
              32 steps: the task loss falls, ``total_loss - loss`` is the
              weighted router terms within 1e-6, overflow in [0, 1], and
              the first task loss is ``SyncEngine``'s within 1e-5;
+5i. ckpt  — checkpoint, resume and failure on the cli-lm GPT (phase 5f's
+             widths: hidden 512, 8 layers, 8 heads, ffn 2048, B = 8, L =
+             128, ``lm_synth``, 512 steps an epoch, constant LR, flash on
+             ``tc32`` at f32 and ``tc`` under ``bf16-f32master``), in a
+             temporary directory removed after: C0, ``harness.run`` for 2
+             epochs at steps_per_call 8 with no checkpoint, the reference
+             trajectory; C1, ``failure.run_with_recovery`` with
+             ``--checkpoint-dir``, ``--checkpoint-every 128`` and the
+             async writer, whose first run trains one epoch and crashes,
+             the restart going through ``elastic_restore``: final
+             parameters and test loss bitwise C0's, one restart, no
+             replayed step, the resumed fit starting at 512, the flash
+             launches those of 512 + 512 steps and both runs' evals; C2,
+             ``Trainer.fit`` under ``bf16-f32master`` with a
+             ``should_stop`` firing at step 300, drained at boundary 304
+             with its final checkpoint, then a fresh engine and Trainer
+             restoring it and finishing the epoch: the bf16 parameters and
+             the f32 master bitwise an uninterrupted fit; C3, the step-256
+             checkpoint of a synchronous-writer run tensor by tensor the
+             async run's, and that f32 checkpoint restored into
+             ``bf16-f32master`` training 8 steps with finite losses; C4,
+             a fit under a 30 s watchdog (beats, no stall) and a 0.2 s
+             watchdog around a one-second device wait (one stall episode,
+             re-armed after).  Printed beside the card's name and power
+             limit: the checkpoint's bytes (parameters, optimizer,
+             master), the synchronous save's wall time, checkpoint_wait_s
+             against checkpoint_overlapped_s for both writers, and the
+             step time with and without checkpoints;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -270,6 +298,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -4132,6 +4161,320 @@ def moe_phase(gpu: str) -> dict:
             "dense_split": dense_split, "ep": ep}
 
 
+# --------------------------------------------------------------------------
+# phase 5i: checkpoint, resume and failure on the cli-lm GPT
+# --------------------------------------------------------------------------
+
+CKPT_STOP_AT = 300       # C2's should_stop fires at the first boundary >=
+CKPT_EVERY = 128
+
+
+def _ckpt_config(**kw):
+    """The ``CLI_LM_ARGV`` run as an ``ExperimentConfig``: the cli-lm GPT
+    on ``lm_synth`` at B = 8, flash attention, the stock Adam at a
+    constant learning rate (so the trajectory does not depend on the
+    epoch count), 2 epochs at steps_per_call 8."""
+    from distributed_tensorflow_tpu_torch.utils.harness import (
+        ExperimentConfig)
+
+    base = dict(engine="sync", model="gpt", dataset="lm_synth",
+                n_devices=1, batch_size=CLI_LM["batch"], epochs=2, seed=0,
+                log_every=0, attention_impl="flash", steps_per_call=8,
+                model_args=dict(hidden=512, layers=CLI_LM["layers"],
+                                heads=CLI_LM["heads"], ffn=2048))
+    base.update(kw)
+    return ExperimentConfig(**base)
+
+
+def _kept_run(config):
+    """``harness.run(config)`` and the Trainer it trained."""
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    kept = {}
+
+    class Keeper(harness.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            kept["trainer"] = self
+
+    saved = harness.Trainer
+    harness.Trainer = Keeper
+    try:
+        summary = harness.run(config)
+    finally:
+        harness.Trainer = saved
+    return summary, kept["trainer"]
+
+
+def _same_state(a, b) -> bool:
+    """Every tensor of two states' checkpoints bitwise equal (and the
+    steps)."""
+    da, db = (s.engine.checkpoint_state(s) for s in (a, b))
+    return da.keys() == db.keys() and all(
+        torch.equal(v, db[k]) if isinstance(v, torch.Tensor) else v == db[k]
+        for k, v in da.items())
+
+
+def _ckpt_bytes(path) -> dict:
+    """Bytes of a checkpoint file's parameters, optimizer and master."""
+    d = torch.load(path, weights_only=True)
+    out = {"params": 0, "optimizer": 0, "master": 0, "other": 0}
+    for k, v in d.items():
+        kind = {"model": "params", "opt": "optimizer", "master": "master"
+                }.get(k.split("/")[0], "other")
+        out[kind] += v.numel() * v.element_size()
+    out["file"] = path.stat().st_size
+    return out
+
+
+def _ckpt_launches(label, counts, steps, evals, route) -> None:
+    """Flash launches of a C window: 8 a step (+ 8 forwards an eval
+    batch), every one on ``route``."""
+    layers = CLI_LM["layers"]
+    fwd, bwd = layers * (steps + evals), layers * steps
+    other = "tc" if route == "tc32" else "tc32"
+    want = {"fwd": fwd, "dq": bwd, "dkv": bwd, f"fwd_{route}": fwd,
+            f"dq_{route}": bwd, f"dkv_{route}": bwd, f"fwd_{other}": 0,
+            f"dq_{other}": 0, f"dkv_{other}": 0}
+    assert counts == want, (label, counts, want)
+
+
+def _c2_window(gpu, tmp):
+    """C2: bf16-f32master, a should_stop drain at 304, a fresh engine's
+    elastic restore, against an uninterrupted fit."""
+    from distributed_tensorflow_tpu_torch.elastic import elastic_restore
+    from distributed_tensorflow_tpu_torch.engines import Trainer
+    from distributed_tensorflow_tpu_torch.utils import harness
+    from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+        AsyncCheckpointManager)
+
+    cfg = _ckpt_config(precision="bf16-f32master")
+
+    def fit(**kw):
+        ex = harness._setup(harness._resolve_precision(cfg))
+        tr = Trainer(None, engine=ex.engine, seed=0)
+        if "restore" in kw:
+            template = ex.engine.init_state(
+                torch.Generator().manual_seed(0), ex.train_ds.x[:1])
+            tr.state, extra = elastic_restore(kw.pop("restore"), ex.engine,
+                                              template)
+            kw["data_state"] = extra["data_state"]
+        with harness._repeatable_math():
+            r = tr.fit(ex.train_ds, epochs=1, batch_size=ex.global_batch,
+                       log_every=0, steps_per_call=8, **kw)
+        torch.cuda.synchronize()
+        ex.mesh.close()
+        return tr, r
+
+    _reset_flash_counts()
+    whole, rw = fit()
+    mgr = AsyncCheckpointManager(f"{tmp}/c2")
+    stopped, rs = fit(checkpoint_manager=mgr, should_stop=lambda s: (
+        "preempt" if s >= CKPT_STOP_AT else None))
+    resumed, rr = fit(restore=mgr)
+    counts = {**_flash_counts(), **_tc32_counts()}
+    mgr.close()
+    steps = rw["steps"]
+    assert rs["preempted"] == "preempt" and rs["steps"] == 304, rs
+    assert mgr.steps() == [304] and rs["data_state"]["batch_index"] == 304
+    assert rr["start_step"] == 304 and rr["steps"] == steps - 304, rr
+    assert rr["resume_replay_steps"] == 0, rr
+    _ckpt_launches("C2", counts, 2 * steps, 0, "tc")
+    checks = {
+        "bf16 params": all(torch.equal(p, q) for p, q in zip(
+            whole.state.model.parameters(), resumed.state.model.parameters())),
+        "f32 master": torch.equal(whole.state.optimizer.master,
+                                  resumed.state.optimizer.master),
+        "whole state": _same_state(whole.state, resumed.state)}
+    assert all(checks.values()), checks
+    nbytes = _ckpt_bytes(mgr.directory / "step_304" / "state.pt")
+    print(f"[ckpt] C2 ({gpu}): bf16-f32master fit, should_stop at "
+          f"{CKPT_STOP_AT} drained at boundary {rs['steps']} with the "
+          f"final checkpoint (data state batch "
+          f"{rs['data_state']['batch_index']}); a fresh engine restored "
+          f"it and trained {rr['steps']} steps: bitwise the uninterrupted "
+          f"fit {json.dumps(checks)}; flash launches {json.dumps(counts)} "
+          f"(all tc); checkpoint bytes {json.dumps(nbytes)}")
+    del whole, stopped, resumed
+    return counts, nbytes
+
+
+def ckpt_phase(gpu: str) -> dict:
+    """Phase 5i (module docstring): C0–C4 on the cli-lm GPT; returns the
+    C windows' flash launches by route."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.data import loaders
+    from distributed_tensorflow_tpu_torch.engines import Trainer
+    from distributed_tensorflow_tpu_torch.parallel import precision as tpl
+    from distributed_tensorflow_tpu_torch.utils import failure, harness
+    from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    train = loaders.load_dataset("lm_synth", split="train")
+    test = loaders.load_dataset("lm_synth", split="test")
+    epoch = len(train) // CLI_LM["batch"]
+    evals = -(-len(test) // 100)
+    print(f"[ckpt] predicted flash launches: C0 {CLI_LM['layers']} x "
+          f"({2 * epoch} steps + {evals} eval batches) forwards, "
+          f"{CLI_LM['layers']} x {2 * epoch} dQ and dK/dV, all tc32; C1 "
+          f"{CLI_LM['layers']} x ({2 * epoch} + {2 * evals}) forwards (two "
+          f"runs' evals), the same backward; C2 {CLI_LM['layers']} x "
+          f"{2 * epoch} (uninterrupted {epoch} + 304 + {epoch - 304}) of "
+          f"each, all tc")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # C0: the reference trajectory, no checkpoint
+        _reset_flash_counts()
+        c0, t0 = _kept_run(_ckpt_config())
+        torch.cuda.synchronize()
+        c0_counts = {**_flash_counts(), **_tc32_counts()}
+        _ckpt_launches("C0", c0_counts, 2 * epoch, evals, "tc32")
+        print(f"[ckpt] C0 ({gpu}): {c0['steps']} steps, test_loss "
+              f"{c0['test_loss']!r}, step_ms_p50 "
+              f"{c0['run_report']['step_time_p50_s'] * 1e3:.4f} (no "
+              f"checkpoint); flash launches {json.dumps(c0_counts)}")
+
+        # C1: crash after the first epoch, recovered from its checkpoint
+        crashed = {}
+
+        def crash_once(config):
+            if not crashed:
+                crashed["summary"], _ = _kept_run(
+                    dataclasses.replace(config, epochs=1))
+                # C3 compares this run's step-256 checkpoint (retention
+                # keeps three steps, so it goes at the end of the epoch)
+                shutil.copytree(f"{tmp}/c1/step_256", f"{tmp}/c1_256")
+                raise RuntimeError("injected crash after epoch 1")
+            crashed["resumed"], crashed["trainer"] = _kept_run(config)
+            return crashed["resumed"]
+
+        _reset_flash_counts()
+        c1 = failure.run_with_recovery(
+            _ckpt_config(checkpoint_dir=f"{tmp}/c1",
+                         checkpoint_every=CKPT_EVERY),
+            max_restarts=1, run_fn=crash_once)
+        torch.cuda.synchronize()
+        c1_counts = {**_flash_counts(), **_tc32_counts()}
+        t1 = crashed["trainer"]
+        fit1 = t1.history[-1]
+        rep = c1["run_report"]
+        checks = {
+            "params": all(torch.equal(a, b) for a, b in zip(
+                t0.state.model.state_dict().values(),
+                t1.state.model.state_dict().values())),
+            "whole state": _same_state(t0.state, t1.state),
+            "test_loss": c1["test_loss"] == c0["test_loss"]}
+        assert all(checks.values()), checks
+        assert c1["restarts"] == 1 and rep["resume_replay_steps"] == 0, rep
+        assert fit1["start_step"] == epoch and c1["steps"] == epoch, fit1
+        assert rep["restored_step"] == epoch, rep
+        _ckpt_launches("C1", c1_counts, 2 * epoch, 2 * evals, "tc32")
+        first = crashed["summary"]["run_report"]
+        print(f"[ckpt] C1 ({gpu}): run_with_recovery, 1 restart through "
+              f"elastic_restore from step {rep['restored_step']} "
+              f"(preemption_lost_s {rep['preemption_lost_s']:.3f}, "
+              f"resume_replay_steps {rep['resume_replay_steps']}, "
+              f"start_step {fit1['start_step']}): bitwise C0 "
+              f"{json.dumps(checks)}; test_loss {c1['test_loss']!r}; flash "
+              f"launches {json.dumps(c1_counts)}")
+        c1_bytes = _ckpt_bytes(Path(tmp) / "c1" / f"step_{2 * epoch}"
+                               / "state.pt")
+        print(f"[ckpt] checkpoint bytes, f32 ({gpu}): "
+              f"{json.dumps(c1_bytes)}")
+
+        # C3: the synchronous writer's step-256 checkpoint, tensor by
+        # tensor the async run's; an f32 checkpoint into bf16-f32master
+        c3, _ = _kept_run(_ckpt_config(
+            epochs=1, checkpoint_dir=f"{tmp}/c3",
+            checkpoint_every=CKPT_EVERY, async_checkpoint=False,
+            watchdog_timeout=30.0))
+        a = torch.load(f"{tmp}/c1_256/state.pt", weights_only=True)
+        b = torch.load(f"{tmp}/c3/step_256/state.pt", weights_only=True)
+        assert a.keys() == b.keys() and all(
+            torch.equal(v, b[k]) for k, v in a.items()), "C3 sync != async"
+        ex = harness._setup(harness._resolve_precision(
+            _ckpt_config(precision="bf16-f32master")))
+        template = ex.engine.init_state(torch.Generator().manual_seed(0),
+                                        ex.train_ds.x[:1])
+        adopted = tpl.restore_into_policy(CheckpointManager(f"{tmp}/c3"),
+                                          template, ex.engine.precision)
+        tr = Trainer(None, engine=ex.engine, seed=0)
+        tr.state = adopted
+        lines = []
+        with harness._repeatable_math():
+            r = tr.fit(ex.train_ds, epochs=1, batch_size=ex.global_batch,
+                       log_every=1, log_fn=lines.append, steps_per_call=8,
+                       max_steps=8)
+        ex.mesh.close()
+        assert r["steps"] == 8 and r["start_step"] == epoch, r
+        losses = [float(line.split()[3]) for line in lines]
+        assert len(losses) == 8 and all(np.isfinite(losses)), lines
+        print(f"[ckpt] C3 ({gpu}): the sync writer's step-256 checkpoint "
+              f"equals the async writer's in all {len(a)} tensors; the f32 "
+              f"checkpoint of step {epoch} adopted into bf16-f32master "
+              f"trained 8 steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}")
+        del tr, adopted, template, ex
+
+        # the save's wall time and the two writers' accounting
+        sync = CheckpointManager(f"{tmp}/timed", max_to_keep=1)
+        walls = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            sync.save(t0.state, step=i)
+            walls.append(time.perf_counter() - ts)
+        c3r = c3["run_report"]
+        print(f"[ckpt] ({gpu}) the synchronous save of the f32 state "
+              f"({c1_bytes['file']} bytes): "
+              f"{' '.join(f'{w:.4f}' for w in walls)} s; "
+              f"at --checkpoint-every {CKPT_EVERY} over {epoch} steps: "
+              f"async checkpoint_wait_s {first['checkpoint_wait_s']:.4f} "
+              f"against checkpoint_overlapped_s "
+              f"{first['checkpoint_overlapped_s']:.4f}, sync "
+              f"{c3r['checkpoint_wait_s']:.4f} against "
+              f"{c3r['checkpoint_overlapped_s']:.4f}; step_ms_p50 without "
+              f"checkpoints {c0['run_report']['step_time_p50_s'] * 1e3:.4f}"
+              f", async {first['step_time_p50_s'] * 1e3:.4f}, sync "
+              f"{c3r['step_time_p50_s'] * 1e3:.4f}; step_ms_mean "
+              f"{c0['run_report']['step_time_mean_s'] * 1e3:.4f} / "
+              f"{first['step_time_mean_s'] * 1e3:.4f} / "
+              f"{c3r['step_time_mean_s'] * 1e3:.4f}")
+
+        # C4: the watchdog
+        wd = c3r["watchdog"]
+        assert wd["beats"] > 0 and wd["stall_episodes"] == 0, wd
+        with failure.Watchdog(timeout=0.2, poll_interval=0.02) as dog:
+            dog.beat()
+            ts = time.perf_counter()
+            torch.cuda._sleep(2_000_000_000)   # ~1 s of device spin
+            torch.cuda.synchronize()
+            waited = time.perf_counter() - ts
+            stalled, episodes = dog.stalled, dog.stall_episodes
+            dog.beat()
+            time.sleep(0.1)
+            rearmed = not dog.stalled
+        assert waited > 0.4 and stalled and episodes == 1 and rearmed, (
+            waited, stalled, episodes, rearmed)
+        print(f"[ckpt] C4 ({gpu}): a fit under a 30 s watchdog: "
+              f"{wd['beats']} beats, {wd['stall_episodes']} stalls "
+              f"(timeout {wd['timeout_s']} s after rescale); a 0.2 s "
+              f"watchdog around a {waited:.3f} s device wait: "
+              f"{episodes} stall episode, re-armed after the next beat")
+        del t0, t1, crashed
+        c2_counts, c2_bytes = _c2_window(gpu, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"tc32": {k: c0_counts[f"{k}_tc32"] + c1_counts[f"{k}_tc32"]
+                     for k in ("fwd", "dq", "dkv")},
+            "tc": {k: c2_counts[f"{k}_tc"] for k in ("fwd", "dq", "dkv")},
+            "bytes_f32": c1_bytes, "bytes_bf16_f32master": c2_bytes}
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -4207,6 +4550,7 @@ def main() -> int:
     cli_lm_launches = cli_lm_phase(gpu)
     sp = sp_phase(gpu)
     moe = moe_phase(gpu)
+    ckpt = ckpt_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -4239,6 +4583,12 @@ def main() -> int:
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     bert_rows = bert_timing_phase(bert_errs)
     cli_lm_rows = cli_lm_timing_phase(cli_lm_launches)
+    for row in cli_lm_rows:
+        if row["name"].startswith("flash"):
+            # phase 5i's C windows run these kernels at this shape
+            kind = row["name"].rsplit(".", 1)[1].split("_")[0]
+            variant = "tc32" if "tc32" in row["name"] else "tc"
+            row["launches_ckpt"] = ckpt[variant][kind]
     sp_rows = sp_timing_phase(sp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)

@@ -41,7 +41,12 @@ raise.
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
 N`` serves a window of requests (``--serve-*``); the fleet's serve flags
-parse and raise.
+parse and raise.  ``--checkpoint-dir D`` writes checkpoints
+(``--checkpoint-every``, ``--async-checkpoint``), ``--resume`` and
+``--elastic-restore`` continue from the latest, ``--watchdog-timeout``
+and ``--watchdog-abort`` watch for stalls, and ``--max-restarts N``
+restarts a crashed run from its latest checkpoint (with ``-n`` > 1 the
+spawn of every rank is relaunched).
 
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 32 \\
         --model cnn --dataset mnist
@@ -52,6 +57,9 @@ parse and raise.
         -b 4 --model gpt_tiny --dataset lm_synth --attention ring_flash
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 4 -ep 2 \\
         --model moe --dataset synthetic
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 1 -e 2 \\
+        --model mlp --dataset synthetic --checkpoint-dir /tmp/ck \\
+        --checkpoint-every 100 --max-restarts 1
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.engines import check_engine
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+from distributed_tensorflow_tpu_torch.utils import failure
 from distributed_tensorflow_tpu_torch.utils.harness import (
     ExperimentConfig, _reject_flash_under_sp, check_parallel_factors, run)
 
@@ -233,6 +242,49 @@ def build_parser() -> argparse.ArgumentParser:
                         "to a supervisor socket (port defaults to 4000)")
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable TrainState checkpointing to this directory")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="steps between checkpoints (0: final only)")
+    p.add_argument("--async-checkpoint", default="on", choices=["on", "off"],
+                   dest="async_checkpoint",
+                   help="'on' (default): checkpoint saves cost the training "
+                        "thread only a snapshot — the device→host copy "
+                        "completes, and the atomic write and retention sweep "
+                        "run, on a background writer thread, overlapped with "
+                        "the next training chunks (at most one save in "
+                        "flight; writer errors re-raise at the next "
+                        "checkpoint).  'off': the synchronous "
+                        "blocking-save path, bit-for-bit — same on-disk "
+                        "format, restorable either way")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint before training")
+    p.add_argument("--elastic-restore", action="store_true",
+                   help="elastic resume (elastic/reshard.py): restore the "
+                        "latest checkpoint onto THIS run's ranks — the "
+                        "engines whose ranks hold one state onto any rank "
+                        "count, local SGD and gossip onto the count that "
+                        "wrote them — continue the exact batch "
+                        "sequence from the checkpoint's data state "
+                        "(exactly-once resume; a checkpoint without one "
+                        "restarts the stream with a resume_replay_steps "
+                        "warning), and report preemption_lost_s / "
+                        "resume_replay_steps in the run report")
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   help=">0: detect a stalled step loop (no progress for this "
+                        "many seconds PER STEP) and emit a 'stall' event — "
+                        "the reference deadlocks silently instead.  Under "
+                        "--steps-per-call k the loop beats once per chunk "
+                        "and the stall budget scales to k × this value")
+    p.add_argument("--watchdog-abort", action="store_true",
+                   help="on stall, exit(75) after reporting so a supervisor "
+                        "can relaunch with --resume (a wedged CUDA runtime "
+                        "cannot be recovered in-process)")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help=">0: on crash, restart from the latest checkpoint up "
+                        "to N times (requires --checkpoint-dir + "
+                        "--checkpoint-every); with -n N > 1 the N ranks are "
+                        "relaunched together")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (NCCL) or cpu (gloo)")
     return p
@@ -384,12 +436,22 @@ def _rank_main(rank: int, world: int, port: int, config: ExperimentConfig,
 
 
 def _spawn(config: ExperimentConfig, n: int) -> dict:
+    """Run ``config`` on ``n`` spawned ranks; returns rank 0's summary.  A
+    rank that diverged (``TrainingDiverged``) raises it here, so crash
+    recovery does not restart into the same NaN; any other failed rank
+    raises the spawn's error."""
     meshlib.check_device_count(n, config.device)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "summary.json")
-        torch.multiprocessing.spawn(
-            _rank_main, args=(n, meshlib.free_port(), config, out_path),
-            nprocs=n, join=True)
+        try:
+            torch.multiprocessing.spawn(
+                _rank_main, args=(n, meshlib.free_port(), config, out_path),
+                nprocs=n, join=True)
+        except torch.multiprocessing.ProcessRaisedException as e:
+            if "TrainingDiverged" in str(e) or "AnomalyDetected" in str(e):
+                raise failure.TrainingDiverged(
+                    f"a rank diverged:\n{e}") from e
+            raise
         with open(out_path) as f:
             return json.load(f)
 
@@ -431,6 +493,12 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         dtype=args.dtype, attention_impl=args.attention, remat=args.remat,
         positional=args.positional, kv_heads=args.kv_heads,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        async_checkpoint=args.async_checkpoint == "on",
+        resume=args.resume, elastic_restore=args.elastic_restore,
+        watchdog_timeout=args.watchdog_timeout,
+        watchdog_abort=args.watchdog_abort, max_restarts=args.max_restarts,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,
         device=device, sample_tokens=args.sample,
@@ -485,7 +553,15 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         n = args.number_nodes or (1 if device == "cpu"
                                   else meshlib.device_count())
         config = dataclasses.replace(config, n_devices=n)
-        summary = _spawn(config, n) if n > 1 else run(config)
+        if n > 1 and config.max_restarts > 0:
+            # recovery wraps the spawn: a crashed rank leaves its peers in
+            # a collective, so every rank is relaunched together
+            summary = failure.run_with_recovery(
+                dataclasses.replace(config, max_restarts=0),
+                max_restarts=config.max_restarts,
+                run_fn=lambda c: _spawn(c, n))
+        else:
+            summary = _spawn(config, n) if n > 1 else run(config)
     print(json.dumps(summary))
     return summary
 

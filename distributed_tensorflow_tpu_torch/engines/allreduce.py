@@ -26,17 +26,27 @@ to 64 of their numbers), read from the per-step ``loss_scale`` and
 ``ls_skipped`` metrics, which the Trainer then reads every step as the
 JAX Trainer does.  A step the scaler skipped does not trip ``nan_guard``:
 the scaler already answered its non-finite gradients (the JAX Trainer
-waives it through its health policy, which the port does not have yet).
-Checkpointing, the watchdog, telemetry sinks, the health policy and the
-elastic hooks are not ported: passing any of them raises
+waives it through its health policy, which the port does not have yet);
+any other NaN/inf metric raises ``utils.failure.TrainingDiverged``, which
+crash recovery never restarts.
+
+``checkpoint_manager`` (``utils/checkpoint.py``) writes a checkpoint at
+the first chunk boundary at or after every ``checkpoint_every`` steps
+and a final one, each with its data state as the elastic sidecar;
+``watchdog`` (``utils/failure.Watchdog``) beats once per dispatch and per
+flush, its per-step budget scaled by k; ``should_stop`` ends the fit at a
+chunk boundary (its reason in ``preempted``) after the final checkpoint;
+``data_state`` (a checkpoint's sidecar) resumes the batch stream exactly
+where the checkpoint left it.  Telemetry sinks, the health policy and the
+straggler detector are not ported: passing any of them raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 import time
+import warnings
 from typing import Callable
 
 import torch
@@ -44,8 +54,10 @@ import torch
 from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.data.device_prefetch import (
     DevicePrefetch)
+from distributed_tensorflow_tpu_torch.elastic.data_state import DataState
 from distributed_tensorflow_tpu_torch.engines.sync import SyncEngine
 from distributed_tensorflow_tpu_torch.observability.trace import NULL_TRACER
+from distributed_tensorflow_tpu_torch.utils.failure import check_finite
 from distributed_tensorflow_tpu_torch.utils.metrics import StepTimer
 
 # steady-state chunk length when no per-step cadence demands step-granular
@@ -57,24 +69,17 @@ MAX_IN_FLIGHT = 4
 
 
 def _check_finite(metrics: dict[str, float], step: int) -> None:
-    """The JAX ``check_finite``: a NaN/inf metric ends the fit, unless the
-    loss scaler skipped the step."""
+    """``failure.check_finite``: a NaN/inf metric raises
+    ``TrainingDiverged``, unless the loss scaler skipped the step."""
     if metrics.get("ls_skipped"):
         return
-    for k, v in metrics.items():
-        if not math.isfinite(v):
-            raise FloatingPointError(f"training diverged: metric '{k}' is "
-                                     f"{v} at step {step}")
+    check_finite(metrics, step)
 
 
 def _reject_unported(**given) -> None:
     items = {
-        "checkpoint_manager": "remaining engines",
-        "checkpoint_every": "remaining engines",
-        "watchdog": "remaining engines",
-        "should_stop": "remaining engines",
-        "data_state": "remaining engines",
-        "straggler_detector": "remaining engines",
+        "straggler_detector": "remaining engines (elastic: lease and "
+                              "stragglers)",
         "metrics_logger": "rest of observability",
         "tracer": "rest of observability",
         "timeline": "rest of observability",
@@ -99,12 +104,19 @@ class Trainer:
     @staticmethod
     def resolve_steps_per_call_with_reason(
             steps_per_call: int | None, *,
-            target_accuracy: float | None = None) -> tuple[int, str | None]:
+            target_accuracy: float | None = None,
+            checkpoint_every: int = 0,
+            checkpoint_async: bool = False) -> tuple[int, str | None]:
         """(k, clamp_reason): an explicit value wins (validated >= 1);
         auto (``None``) is ``DEFAULT_STEPS_PER_CALL`` unless
         ``target_accuracy`` downshifts it to 1 (the ≤ 10-step eval cadence
         is the steps-to-target resolution, and evals need boundary state
-        every step)."""
+        every step) or a ``checkpoint_every`` shorter than the chunk caps
+        it (state exists only at chunk boundaries; the reason says whether
+        each boundary then pays a blocking save, ``checkpoint_sync``, or a
+        snapshot, ``checkpoint_async``).  With an explicit value,
+        checkpoints land on the first chunk boundary at or after each due
+        step."""
         if steps_per_call is not None:
             if steps_per_call < 1:
                 raise ValueError(
@@ -112,6 +124,9 @@ class Trainer:
             return int(steps_per_call), None
         if target_accuracy is not None:
             return 1, "target_accuracy"
+        if 0 < checkpoint_every < DEFAULT_STEPS_PER_CALL:
+            return checkpoint_every, ("checkpoint_async" if checkpoint_async
+                                      else "checkpoint_sync")
         return DEFAULT_STEPS_PER_CALL, None
 
     def fit(self, train_ds, epochs: int = 1, batch_size: int | None = None,
@@ -128,6 +143,23 @@ class Trainer:
         ...}`` (a subset of the JAX Trainer's keys) and appends it to
         ``history``.
 
+        ``checkpoint_manager``/``checkpoint_every``: periodic TrainState
+        checkpoints at the first chunk boundary at or after each due step
+        (+ one final), every one with the elastic sidecar (its data state
+        and save wall time); an async manager pays only the snapshot on
+        this thread and the final save drains it, and the result splits
+        the cost as ``checkpoint_wait_s`` against
+        ``checkpoint_overlapped_s``.  ``watchdog``: beaten after every
+        dispatch and every flush, its budget rescaled to k steps.
+        ``should_stop(steps_done) -> reason | None``: consulted at every
+        chunk boundary (each step at k = 1); a reason finishes the
+        in-flight chunks, writes the final checkpoint and returns with
+        ``result['preempted'] = reason``.  ``data_state`` (a
+        checkpoint's sidecar, possibly ``{}``): a matching state continues
+        the batch stream at its (epoch, batch), ``resume_replay_steps``
+        0; a missing or mismatched one restarts it at epoch 0 and reports
+        ``resume_replay_steps = start_step``.
+
         ``self.state`` is initialized from ``seed`` on the first fit.
         ``batch_size`` is the GLOBAL batch (rounded down to a multiple of
         the ranks); every rank draws the same global batches and keeps its
@@ -137,11 +169,6 @@ class Trainer:
         averages of the non-overlapped wall time between host reads (at
         k = 1, each step's dispatch)."""
         _reject_unported(
-            checkpoint_manager=checkpoint_manager is not None,
-            checkpoint_every=checkpoint_every != 0,
-            watchdog=watchdog is not None,
-            should_stop=should_stop is not None,
-            data_state=data_state is not None,
             straggler_detector=straggler_detector is not None,
             metrics_logger=metrics_logger is not None,
             tracer=tracer is not None and tracer is not NULL_TRACER,
@@ -169,9 +196,95 @@ class Trainer:
         if self.state is None:
             gen = torch.Generator().manual_seed(self.seed)
             self.state = eng.init_state(gen, train_ds.x[:1])
+        # global step offset: nonzero after a resume, so heartbeats and
+        # the checkpoint cadence continue the original numbering
         start_step = self.state.step
+        # exactly-once data resume (elastic/data_state.py): a matching
+        # data state positions the stream at the (epoch, batch) the saved
+        # step had consumed; None keeps the plain resume (stream restarts
+        # at epoch 0, no accounting); a state that does not match this
+        # run's seed/batch/dataset restarts the stream and reports the
+        # unrecoverable positions as resume_replay_steps
+        ds_name = getattr(train_ds, "name", "dataset")
+        start_epoch = start_batch = 0
+        replay_steps = None
+        if data_state is not None:
+            restored_ds = DataState.from_json(data_state)
+            if restored_ds is not None and restored_ds.matches(
+                    seed=self.seed, batch_size=local_bs,
+                    dataset_len=len(train_ds), dataset=ds_name):
+                start_epoch, start_batch = (restored_ds.epoch,
+                                            restored_ds.batch_index)
+                replay_steps = 0
+            else:
+                replay_steps = start_step
+                if start_step:
+                    log_fn(f"elastic resume: checkpoint carries no "
+                           f"matching data state — the batch stream "
+                           f"restarts from epoch 0 "
+                           f"(resume_replay_steps={start_step})")
+        ckpt_async = bool(getattr(checkpoint_manager, "asynchronous", False))
+        ckpt_wait = 0.0        # training-thread seconds in checkpointing
+        ckpt_last_step = None  # skip a final save the cadence already wrote
+        # managers outlive fits: report THIS fit's overlapped seconds
+        ckpt_overlap0 = getattr(checkpoint_manager, "overlapped_s", 0.0)
+        # the batch-stream position of the CURRENT epoch: its stream
+        # started at epoch_offset when the step counter was epoch_base, so
+        # a boundary's position is epoch_offset + (steps - epoch_base) —
+        # the step counter, not the prefetch producer, which is how
+        # read-ahead gets discounted
+        cur_epoch, epoch_base, epoch_offset = start_epoch, 0, start_batch
+        last_data_state = None
+
+        def current_data_state() -> dict:
+            return DataState(
+                epoch=cur_epoch,
+                batch_index=epoch_offset + (steps - epoch_base),
+                seed=self.seed, batch_size=local_bs,
+                dataset_len=len(train_ds), dataset=ds_name).to_json()
+
+        def do_checkpoint(step: int, final: bool = False) -> None:
+            """One boundary checkpoint with its elastic sidecar: the
+            synchronous manager blocks for the write, the async one pays
+            the snapshot (+ any previous-write backpressure) and, on the
+            final save, drains, so fit never returns with a write in
+            flight.  A final boundary the cadence already saved only
+            drains."""
+            nonlocal ckpt_wait, ckpt_last_step, last_data_state
+            t_ck = time.perf_counter()
+            if not (final and step == ckpt_last_step):
+                last_data_state = current_data_state()
+                checkpoint_manager.save(
+                    self.state, step=step,
+                    extra={"data_state": last_data_state,
+                           "wall_time": time.time(), "step": step,
+                           "schema": 1})
+            if final and ckpt_async:
+                checkpoint_manager.wait()
+            ckpt_last_step = step
+            ckpt_wait += time.perf_counter() - t_ck
+
         k, clamp_reason = self.resolve_steps_per_call_with_reason(
-            steps_per_call, target_accuracy=target_accuracy)
+            steps_per_call, target_accuracy=target_accuracy,
+            checkpoint_every=(checkpoint_every
+                              if checkpoint_manager is not None else 0),
+            checkpoint_async=ckpt_async)
+        if clamp_reason == "checkpoint_sync":
+            warnings.warn(
+                f"checkpoint_every={checkpoint_every} caps the "
+                f"steady-state drain at steps_per_call={k} (auto "
+                f"default {DEFAULT_STEPS_PER_CALL}): state exists only "
+                f"at chunk boundaries, so the requested crash-loss "
+                f"window shortens the chunk — and each boundary pays a "
+                f"blocking synchronous save.  Pass an explicit "
+                f"--steps-per-call to keep longer chunks (checkpoints "
+                f"then land on the first boundary at/after each due "
+                f"step), or use the async checkpoint manager to take "
+                f"the save off the critical path.", stacklevel=2)
+        if watchdog is not None:
+            # one beat per dispatch and per flush: the per-step stall
+            # budget becomes a per-beat budget of k × timeout
+            watchdog.rescale(k)
         on_card = eng.device.type == "cuda"
         timer = StepTimer()
         t0 = time.perf_counter()
@@ -180,6 +293,7 @@ class Trainer:
         last_metrics: dict = {}
         eval_acc = 0.0
         reached = stop = False
+        preempted = None     # should_stop's reason once the drain fires
         chunk_sizes: set[int] = set()
         pf_starvation, pf_fill_wait = 0, 0.0
         prev_eval_step = 0   # step of the eval BEFORE the current one
@@ -242,119 +356,189 @@ class Trainer:
                 log_fn(f"step {gstep}  loss {m['loss']:.4f}"
                        f"  acc {m['accuracy']:.4f}")
 
-        for epoch in range(epochs):
-            if stop:
-                break
-            pf = DevicePrefetch(
-                train_ds.batches(local_bs, shuffle=True, seed=self.seed,
-                                 epoch=epoch, drop_remainder=True),
-                place, depth=prefetch, device=eng.device)
-            try:
-                if k == 1:
-                    in_flight: list = []
-                    for xs, ys in pf:
-                        chunk_sizes.add(1)
-                        with timer:  # dispatch + throttle
-                            self.state, metrics = eng.step(self.state, xs, ys)
-                            if on_card:
-                                done = torch.cuda.Event()
-                                done.record()
-                                in_flight.append(done)
-                                if len(in_flight) > MAX_IN_FLIGHT:
-                                    in_flight.pop(0).synchronize()
-                        steps += 1
-                        examples += bs  # global examples per step
-                        floats = functools.cache(
-                            lambda m=metrics: {kk: float(v)
-                                               for kk, v in m.items()})
-                        record_step(start_step + steps, floats)
-                        at_cap = max_steps is not None and steps >= max_steps
-                        if eval_and_maybe_stop(steps - 1, at_cap):
-                            break
-                        if at_cap:
-                            stop = True
-                            break
-                else:
-                    # without a chunk-boundary state consumer (the target
-                    # eval) up to MAX_IN_FLIGHT chunks stay unread
-                    window = MAX_IN_FLIGHT if target_accuracy is None else 0
-                    in_flight_chunks: list = []  # (n_steps, t_disp, stacked)
-                    t_mark = 0.0
-
-                    def flush_chunk():
-                        """Read the oldest dispatched chunk: ONE host sync
-                        for its (k,)-stacked metrics, then its per-step
-                        bookkeeping."""
-                        nonlocal steps, examples, metrics, t_mark
-                        n_chunk, t_disp, stacked = in_flight_chunks.pop(0)
-                        floats = {kk: v.cpu().numpy()
-                                  for kk, v in stacked.items()}
-                        now = time.perf_counter()
-                        dt = (now - max(t_disp, t_mark)) / n_chunk
-                        t_mark = now
-                        timer.times.extend([dt] * n_chunk)
-                        for i in range(n_chunk):
+        # a failed fit (divergence, a raising engine or log_fn) must not
+        # leave a write in flight: the prefetcher closes in its per-epoch
+        # finally, and the except below drains the checkpoint writer
+        # (reraise=False: the cleanup never masks the original error)
+        try:
+            for epoch in range(start_epoch, epochs):
+                if stop:
+                    break
+                # only the FIRST resumed epoch starts at the restored
+                # offset; the shuffle is a function of (seed, epoch)
+                ebatch = start_batch if epoch == start_epoch else 0
+                cur_epoch, epoch_base, epoch_offset = epoch, steps, ebatch
+                pf = DevicePrefetch(
+                    train_ds.batches(local_bs, shuffle=True, seed=self.seed,
+                                     epoch=epoch, drop_remainder=True,
+                                     start_batch=ebatch),
+                    place, depth=prefetch, device=eng.device)
+                try:
+                    if k == 1:
+                        in_flight: list = []
+                        for xs, ys in pf:
+                            chunk_sizes.add(1)
+                            with timer:  # dispatch + throttle
+                                self.state, metrics = eng.step(self.state,
+                                                               xs, ys)
+                                if on_card:
+                                    done = torch.cuda.Event()
+                                    done.record()
+                                    in_flight.append(done)
+                                    if len(in_flight) > MAX_IN_FLIGHT:
+                                        in_flight.pop(0).synchronize()
+                            if watchdog is not None:
+                                # after dispatch + throttle: the throttle
+                                # bounds how far the loop runs ahead of
+                                # the device, so a hung device stops the
+                                # beats within the window
+                                watchdog.beat()
                             steps += 1
-                            examples += bs
-                            m = {kk: float(v[i]) for kk, v in floats.items()}
-                            metrics = m
-                            record_step(start_step + steps, lambda m=m: m)
-
-                    dispatched = steps
-                    next_chunk = pf.take(k if max_steps is None
-                                         else min(k, max_steps - dispatched))
-                    first = not chunk_sizes
-                    while not stop and next_chunk:
-                        chunk = next_chunk
-                        t_disp = time.perf_counter()
-                        self.state, stacked = eng.many_step(
-                            self.state, [c[0] for c in chunk],
-                            [c[1] for c in chunk])
-                        if first:
-                            # the first chunk carries first-call costs
-                            timer.compile_steps = len(chunk)
-                            first = False
-                        chunk_sizes.add(len(chunk))
-                        dispatched += len(chunk)
-                        in_flight_chunks.append((len(chunk), t_disp, stacked))
-                        # stage chunk N+1 while the device runs chunk N
-                        nxt = k if max_steps is None else min(
-                            k, max_steps - dispatched)
-                        next_chunk = pf.take(nxt) if nxt > 0 else []
-                        while len(in_flight_chunks) > window:
-                            chunk_start = steps
-                            flush_chunk()
-                            if window:
-                                continue
+                            gstep = start_step + steps
+                            examples += bs  # global examples per step
+                            floats = functools.cache(
+                                lambda m=metrics: {kk: float(v)
+                                                   for kk, v in m.items()})
+                            record_step(gstep, floats)
+                            if checkpoint_manager is not None and \
+                                    checkpoint_every and \
+                                    gstep % checkpoint_every == 0:
+                                do_checkpoint(gstep)
+                            if should_stop is not None:
+                                # every step is a chunk boundary at k = 1;
+                                # the final checkpoint runs at loop exit
+                                reason = should_stop(steps)
+                                if reason:
+                                    preempted, stop = reason, True
+                                    break
                             at_cap = (max_steps is not None
                                       and steps >= max_steps)
-                            if eval_and_maybe_stop(chunk_start, at_cap):
+                            if eval_and_maybe_stop(steps - 1, at_cap):
                                 break
-                    while in_flight_chunks:
-                        flush_chunk()
-                    if max_steps is not None and steps >= max_steps:
-                        stop = True
-            finally:
-                pf_starvation += pf.starvation
-                pf_fill_wait += pf.fill_wait_s
-                pf.close()
-        if (target_accuracy is not None and not reached and steps
-                and prev_eval_step != steps):
-            # ended by exhausting epochs: finish with a real eval so
-            # eval_accuracy is never stale
-            eval_gap = steps - prev_eval_step
-            eval_acc = self.evaluate(eval_ds, batch_size=eval_batch)[
-                "accuracy"]
-            reached = eval_acc >= target_accuracy
-            if not reached:
-                eval_gap = None
-        if on_card:
-            torch.cuda.synchronize(eng.device)
-        if nan_guard and steps:
-            final = {kk: float(v) for kk, v in metrics.items()}
-            _check_finite(final, start_step + steps)
-            last_metrics = last_metrics or final
-        elapsed = time.perf_counter() - t0
+                            if at_cap:
+                                stop = True
+                                break
+                    else:
+                        # without a chunk-boundary state consumer (a
+                        # checkpoint, the target eval, should_stop) up to
+                        # MAX_IN_FLIGHT chunks stay unread; with one,
+                        # every chunk is read at its boundary
+                        window = (MAX_IN_FLIGHT
+                                  if checkpoint_manager is None
+                                  and target_accuracy is None
+                                  and should_stop is None else 0)
+                        in_flight_chunks: list = []  # (n, t_disp, stacked)
+                        t_mark = 0.0
+
+                        def flush_chunk():
+                            """Read the oldest dispatched chunk: ONE host
+                            sync for its (k,)-stacked metrics, then its
+                            per-step bookkeeping."""
+                            nonlocal steps, examples, metrics, t_mark
+                            n_chunk, t_disp, stacked = in_flight_chunks.pop(0)
+                            floats = {kk: v.cpu().numpy()
+                                      for kk, v in stacked.items()}
+                            now = time.perf_counter()
+                            dt = (now - max(t_disp, t_mark)) / n_chunk
+                            t_mark = now
+                            timer.times.extend([dt] * n_chunk)
+                            if watchdog is not None:
+                                # flush beat: device progress confirmed
+                                watchdog.beat()
+                            for i in range(n_chunk):
+                                steps += 1
+                                examples += bs
+                                m = {kk: float(v[i])
+                                     for kk, v in floats.items()}
+                                metrics = m
+                                record_step(start_step + steps, lambda m=m: m)
+
+                        dispatched = steps
+                        next_chunk = pf.take(
+                            k if max_steps is None
+                            else min(k, max_steps - dispatched))
+                        first = not chunk_sizes
+                        while not stop and next_chunk:
+                            chunk = next_chunk
+                            t_disp = time.perf_counter()
+                            self.state, stacked = eng.many_step(
+                                self.state, [c[0] for c in chunk],
+                                [c[1] for c in chunk])
+                            if first:
+                                # the first chunk carries first-call costs
+                                timer.compile_steps = len(chunk)
+                                first = False
+                            if watchdog is not None:
+                                # a dispatch beat too: it arms the clock
+                                # past the first chunk's builds and capture
+                                # before the first flush
+                                watchdog.beat()
+                            chunk_sizes.add(len(chunk))
+                            dispatched += len(chunk)
+                            in_flight_chunks.append((len(chunk), t_disp,
+                                                     stacked))
+                            # stage chunk N+1 while the device runs chunk N
+                            nxt = k if max_steps is None else min(
+                                k, max_steps - dispatched)
+                            next_chunk = pf.take(nxt) if nxt > 0 else []
+                            while len(in_flight_chunks) > window:
+                                chunk_start = steps
+                                flush_chunk()
+                                if window:
+                                    continue
+                                # the boundary: self.state is the state
+                                # after the chunk just read
+                                if checkpoint_manager is not None and \
+                                        checkpoint_every and \
+                                        (start_step + steps) \
+                                        // checkpoint_every > \
+                                        (start_step + chunk_start) \
+                                        // checkpoint_every:
+                                    # first boundary at/after the due step
+                                    do_checkpoint(start_step + steps)
+                                if should_stop is not None:
+                                    reason = should_stop(steps)
+                                    if reason:
+                                        preempted, stop = reason, True
+                                        break
+                                at_cap = (max_steps is not None
+                                          and steps >= max_steps)
+                                if eval_and_maybe_stop(chunk_start, at_cap):
+                                    break
+                        while in_flight_chunks:
+                            flush_chunk()
+                        if max_steps is not None and steps >= max_steps:
+                            stop = True
+                finally:
+                    pf_starvation += pf.starvation
+                    pf_fill_wait += pf.fill_wait_s
+                    pf.close()
+            if (target_accuracy is not None and not reached and steps
+                    and prev_eval_step != steps):
+                # ended by exhausting epochs: finish with a real eval so
+                # eval_accuracy is never stale
+                eval_gap = steps - prev_eval_step
+                eval_acc = self.evaluate(eval_ds, batch_size=eval_batch)[
+                    "accuracy"]
+                reached = eval_acc >= target_accuracy
+                if not reached:
+                    eval_gap = None
+            if on_card:
+                torch.cuda.synchronize(eng.device)
+            if nan_guard and steps:
+                final = {kk: float(v) for kk, v in metrics.items()}
+                _check_finite(final, start_step + steps)
+                last_metrics = last_metrics or final
+            elapsed = time.perf_counter() - t0
+            if checkpoint_manager is not None:
+                do_checkpoint(start_step + steps, final=True)
+        except BaseException:
+            if checkpoint_manager is not None:
+                try:
+                    checkpoint_manager.wait(reraise=False)
+                except Exception:
+                    pass
+            raise
         result = {
             "elapsed": elapsed, "steps": steps, "epochs": epochs,
             "steps_per_call": k, "prefetch_depth": prefetch,
@@ -364,6 +548,26 @@ class Trainer:
             **({"steps_per_call_clamp": {
                 "requested": DEFAULT_STEPS_PER_CALL, "effective": k,
                 "reason": clamp_reason}} if clamp_reason else {}),
+            # checkpoint cost: training-thread seconds inside save/drain
+            # calls against writer seconds hidden behind training
+            **({"checkpoint_wait_s": ckpt_wait,
+                "checkpoint_overlapped_s": (
+                    getattr(checkpoint_manager, "overlapped_s", 0.0)
+                    - ckpt_overlap0),
+                "checkpoint_async": ckpt_async}
+               if checkpoint_manager is not None else {}),
+            # should_stop's reason when it ended the fit, None otherwise
+            "preempted": preempted,
+            # steps whose data position a resume could not restore (only
+            # when this fit resumed with a data state; 0 = exact)
+            **({"resume_replay_steps": replay_steps}
+               if data_state is not None else {}),
+            # the batch-stream position of the LAST checkpoint written
+            **({"data_state": last_data_state}
+               if last_data_state is not None else {}),
+            **({"watchdog_beats": watchdog.beats,
+                "watchdog_stalls": watchdog.stall_episodes}
+               if watchdog is not None else {}),
             "start_step": start_step, "examples": examples,
             "examples_per_sec": examples / elapsed if elapsed > 0 else 0.0,
             **({"reached_target": reached, "eval_accuracy": eval_acc,

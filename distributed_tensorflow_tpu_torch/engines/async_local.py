@@ -69,6 +69,11 @@ def _unpack(model: nn.Module, flat: torch.Tensor) -> torch.Tensor:
 
 
 class AsyncLocalEngine(Engine):
+    # the ranks' parameters and optimizer states differ between averages:
+    # a checkpoint holds each rank's (JAX saves the per-device stacked
+    # state) and restores onto the rank count that wrote it
+    checkpoint_per_rank = True
+
     def __init__(self, *args, sync_every: int = 10, **kw):
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")

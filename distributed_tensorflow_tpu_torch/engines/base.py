@@ -18,14 +18,21 @@ through ``many_step`` like the loss.  On the card an engine that
 captures its drained chunk as a CUDA graph (``captures_chunks``:
 ``SyncEngine``) builds the default Adam ``capturable`` (its step counts
 live on the device), so the same update runs eagerly and inside the
-graph; the others keep the plain default.  The gradient codecs, bucketing and the health layer are not ported and raise
+graph; the others keep the plain default.  The gradient codecs,
+bucketing and the health layer are not ported and raise
 ``NotImplementedError``.
+
+``checkpoint_state``/``load_checkpoint_state`` turn a ``TrainState`` into
+the flat dict a checkpoint holds (``utils/checkpoint.py``) and back, in
+place: every tensor is copied into the live one (``copy_``), so a CUDA
+graph captured over the state and ``MasterWeights``' flat views stay
+valid.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -52,6 +59,9 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     seed: int = 0
+    # the engine whose init_state built it: a checkpoint manager saves and
+    # restores the state through it
+    engine: Any = dataclasses.field(default=None, repr=False, compare=False)
 
 
 def _seed_of(*words: int) -> int:
@@ -136,6 +146,10 @@ class Engine:
     # engines that replay their drained chunk as a CUDA graph set this: on
     # the card their default Adam keeps its step counts on the device
     captures_chunks = False
+    # engines whose ranks hold different states (local SGD, gossip) set
+    # this: a checkpoint then holds every rank's state, and restores only
+    # onto the rank count that wrote it
+    checkpoint_per_rank = False
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
@@ -212,7 +226,7 @@ class Engine:
         return TrainState(step=0, model=self.model,
                           optimizer=self.make_optimizer(
                               list(self.model.parameters())),
-                          generator=stream, seed=seed)
+                          generator=stream, seed=seed, engine=self)
 
     def _own_params(self, model: nn.Module) -> None:
         """Hook between the fresh parameters and the optimizer: an engine
@@ -289,6 +303,88 @@ class Engine:
             per_step.append(m)
         return state, {k: torch.stack([m[k] for m in per_step])
                        for k in per_step[0]}
+
+    # ---------------------------------------------------------- checkpoint
+    def _checkpoint_entries(self, state: TrainState) -> dict:
+        """The live tensors a checkpoint holds, by name: ``model/<key>``
+        for every parameter and buffer of the module, and the optimizer's
+        state (``precision.optimizer_entries``)."""
+        out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+        out.update(precisionlib.optimizer_entries(state.model,
+                                                  state.optimizer))
+        return out
+
+    def checkpoint_state(self, state: TrainState) -> dict:
+        """``state`` as a checkpoint's flat dict: the live tensors of
+        ``_checkpoint_entries`` (copy them before the next step changes
+        them), ``step``, ``seed``, the policy's name under ``precision``
+        and, on the card, the dropout generator's state under
+        ``generator/<rank>`` (every rank's, one gather).  On the CPU the
+        stream is reseeded from (seed, step, rank) every step, so seed and
+        step are all of it."""
+        d: dict = dict(self._checkpoint_entries(state))
+        if state.generator.device.type == "cuda":
+            gen = state.generator.get_state()
+            if self.mesh is not None and self.mesh.world_size > 1:
+                gens = [None] * self.mesh.world_size
+                torch.distributed.all_gather_object(gens, gen)
+            else:
+                gens = [gen]
+            for r, g in enumerate(gens):
+                d[f"generator/{r}"] = g
+        d.update(step=int(state.step), seed=int(state.seed),
+                 precision=self.precision.name)
+        return d
+
+    @torch.no_grad()
+    def load_checkpoint_state(self, state, d: dict):
+        """Copy a checkpoint's dict ``d`` into ``state`` in place and
+        return it.  Every tensor of the state must be in ``d`` at its
+        shape and dtype, and nothing else: a mismatch raises
+        ``ValueError`` before anything is written.  ``state`` may be a
+        ``precision.F32Template`` (an f32 run's checkpoint adopted into a
+        master policy)."""
+        f32 = isinstance(state, precisionlib.F32Template)
+        target = state.state if f32 else state
+        want = d.get("precision", "f32")
+        if not f32 and want != self.precision.name:
+            raise ValueError(f"checkpoint written under precision "
+                             f"'{want}', this engine runs "
+                             f"'{self.precision.name}'")
+        if f32 and want != "f32":
+            raise ValueError(f"an f32 template reads f32 checkpoints, "
+                             f"this one was written under '{want}'")
+        if any(k.startswith("opt/") for k in d):
+            precisionlib.materialize_optimizer_state(target.optimizer)
+        if f32:
+            layout = precisionlib.f32_layout(target)
+        else:
+            live = self._checkpoint_entries(target)
+            layout = {k: (v.shape, v.dtype) for k, v in live.items()}
+        got = {k for k, v in d.items() if isinstance(v, torch.Tensor)
+               and not k.startswith("generator/")}
+        missing, extra = sorted(set(layout) - got), sorted(got - set(layout))
+        if missing or extra:
+            raise ValueError(f"checkpoint does not match this state's "
+                             f"layout: missing {missing[:8]}, unexpected "
+                             f"{extra[:8]}")
+        for k, (shape, dtype) in layout.items():
+            if d[k].shape != shape or d[k].dtype != dtype:
+                raise ValueError(
+                    f"checkpoint entry {k} is {d[k].dtype} "
+                    f"{tuple(d[k].shape)}, this state's is {dtype} "
+                    f"{tuple(shape)}")
+        if f32:
+            precisionlib.adopt_f32_checkpoint(target, d, self.precision)
+        else:
+            for k, t in live.items():
+                t.copy_(d[k])
+        target.step, target.seed = int(d["step"]), int(d["seed"])
+        rank = self.mesh.rank if self.mesh is not None else 0
+        gen = d.get(f"generator/{rank}")
+        if gen is not None and target.generator.device.type == "cuda":
+            target.generator.set_state(gen)
+        return target
 
     # --------------------------------------------------------------- bytes
     def param_bytes_per_device(self, state: TrainState) -> int:

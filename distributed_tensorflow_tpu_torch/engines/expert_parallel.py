@@ -208,6 +208,40 @@ class ExpertParallelEngine(Engine):
             out[k] = v.detach().clone()
         return out
 
+    # ---------------------------------------------------------- checkpoint
+    def _expert_key(self, key: str) -> bool:
+        """A checkpoint entry cut along the expert axis: an expert
+        weight, its master, or an optimizer entry of its shape."""
+        kind, _, rest = key.partition("/")
+        name = rest.rsplit("/", 1)[0] if kind == "opt" else rest
+        return kind in ("model", "master", "opt") and name in \
+            self.expert_params
+
+    def checkpoint_state(self, state: TrainState) -> dict:
+        """``Engine.checkpoint_state`` of the whole model: every rank's
+        experts gathered along the expert axis, as ``full_state_dict``
+        gathers the parameters (a collective: every rank calls it)."""
+        d = super().checkpoint_state(state)
+        full = self.full_state_dict(state)
+        for k, v in d.items():
+            if not isinstance(v, torch.Tensor) or not self._expert_key(k):
+                continue
+            if k.startswith("model/"):
+                d[k] = full[k[len("model/"):]]
+            elif v.dim() and self.ep > 1:
+                d[k] = coll.all_gather(v.contiguous(), self.mesh,
+                                       tiled=True, axis=meshlib.EXPERT_AXIS)
+        return d
+
+    def load_checkpoint_state(self, state, d: dict):
+        """Load a whole model's checkpoint, keeping this rank's slice of
+        every expert entry (``load_full_state_dict``'s cut)."""
+        d = {k: (self._slice(k.split("/")[1], v)
+                 if isinstance(v, torch.Tensor) and v.dim()
+                 and self._expert_key(k) else v)
+             for k, v in d.items()}
+        return super().load_checkpoint_state(state, d)
+
     # ------------------------------------------------------------- batches
     def shard_batch(self, x, y, mask=None, process_local: bool = False):
         """This rank's token shard of a global batch.  A training batch (no

@@ -47,20 +47,26 @@ of steps runs without a host sync and can be captured as a CUDA graph
 keeps the skip free of syncs on the card).
 
 With 16-bit storage the gradients are 16-bit, so a data-parallel reduce
-of them moves 2 bytes per parameter (``grad_reduce_dtype``).  Restoring a
-checkpoint into a policy (``f32_template``, ``restore_into_policy``)
-waits for the checkpoint module.
+of them moves 2 bytes per parameter (``grad_reduce_dtype``).
+
+A checkpoint (``utils/checkpoint.py``) holds an optimizer's state by
+parameter name (``optimizer_entries``): under a master policy the f32
+master and the inner state are cut per parameter out of their flat
+tensors, so the inner state of a master run and the state of an ``f32``
+run of the same optimizer have the same names.  ``restore_into_policy``
+restores a checkpoint of the same policy directly and adopts one of an
+``f32`` run into a master policy (``f32_template``): the master becomes
+the restored f32 parameters, the stored parameters their downcast, the
+inner state the restored one, and the loss scale starts fresh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch import nn
-
-from distributed_tensorflow_tpu_torch import not_ported
 
 POLICIES = ("f32", "bf16", "bf16-f32master", "fp16-f32master")
 
@@ -324,11 +330,152 @@ def adopt_f32_state(state, state_dict32: dict[str, torch.Tensor],
     return state
 
 
-def f32_template(state):
-    not_ported("restoring an f32 checkpoint into a precision policy "
-               "(f32_template)", "remaining engines")
+# ------------------------------------------------------------ checkpoints
+
+def _flat_offsets(params) -> list[int]:
+    offs, off = [], 0
+    for p in params:
+        offs.append(off)
+        off += p.numel()
+    return offs
 
 
-def restore_into_policy(manager, template, policy):
-    not_ported("restore_into_policy (policy-aware checkpoint restore)",
-               "remaining engines")
+def optimizer_entries(model: nn.Module, optimizer) -> dict[str, torch.Tensor]:
+    """The live tensors of ``optimizer``'s state by parameter name: views
+    a restore copies into.  ``opt/<name>/<key>`` for each state entry of
+    the parameter (the inner optimizer's under a master policy, whose
+    flat entries are cut per parameter and whose scalar entries, Adam's
+    count, appear under every name); a ``MasterWeights`` adds
+    ``master/<name>`` and its four ``scale/*`` fields."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out: dict[str, torch.Tensor] = {}
+    if isinstance(optimizer, MasterWeights):
+        m = optimizer
+        pnames = [names[id(p)] for p in m.params]
+        offs = _flat_offsets(m.params)
+
+        def cut(flat):
+            return {n: flat[o:o + p.numel()].view_as(p)
+                    for n, p, o in zip(pnames, m.params, offs)}
+
+        for n, v in cut(m.master).items():
+            out[f"master/{n}"] = v
+        for key, v in m.inner.state.get(m.master, {}).items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            if v.shape == m.master.shape:
+                for n, piece in cut(v).items():
+                    out[f"opt/{n}/{key}"] = piece
+            else:
+                for n in pnames:
+                    out[f"opt/{n}/{key}"] = v
+        for key in ("loss_scale", "good_steps", "skipped", "last_skipped"):
+            out[f"scale/{key}"] = getattr(m, key)
+        return out
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            for key, v in optimizer.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor):
+                    out[f"opt/{names[id(p)]}/{key}"] = v
+    return out
+
+
+@torch.no_grad()
+def materialize_optimizer_state(optimizer) -> None:
+    """Build the state of an optimizer that builds it lazily (torch's Adam
+    at its first ``step``), so that a restore has tensors to copy into:
+    one step on zero gradients, the parameters (the master) put back as
+    they were.  A no-op where every parameter has its state."""
+    opt = optimizer.inner if isinstance(optimizer, MasterWeights) else \
+        optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    if all(p in opt.state and opt.state[p] for p in params):
+        return
+    saved = [(p.detach().clone(), p.grad) for p in params]
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    for p, (value, grad) in zip(params, saved):
+        p.copy_(value)
+        p.grad = grad
+
+
+@dataclasses.dataclass
+class F32Template:
+    """``f32_template``'s product: the layout an ``f32`` run of the same
+    model and optimizer writes, restored INTO the master-policy ``state``
+    it wraps (``Engine.load_checkpoint_state`` adopts as it loads)."""
+
+    state: Any
+
+    @property
+    def engine(self):
+        return self.state.engine
+
+
+def f32_template(state) -> F32Template:
+    """A restore template for a checkpoint WRITTEN by an f32 run, read
+    into the master-policy ``state``: its floating-point parameters are
+    expected in f32 and its optimizer without the master wrapper."""
+    if not isinstance(state.optimizer, MasterWeights):
+        raise ValueError("f32_template needs a master-policy state (its "
+                         "optimizer a MasterWeights)")
+    return F32Template(state)
+
+
+def f32_layout(state) -> dict[str, tuple[torch.Size, torch.dtype]]:
+    """Names, shapes and dtypes of what an f32 run of ``state``'s model
+    and optimizer checkpoints (``f32_template``'s layout)."""
+    floats = {n for n, p in state.model.named_parameters()
+              if p.is_floating_point()}
+    out = {}
+    for k, v in state.model.state_dict().items():
+        out[f"model/{k}"] = (v.shape, torch.float32 if k in floats
+                             else v.dtype)
+    for k, v in optimizer_entries(state.model, state.optimizer).items():
+        if k.startswith("opt/"):
+            out[k] = (v.shape, v.dtype)
+    return out
+
+
+@torch.no_grad()
+def adopt_f32_checkpoint(state, d: dict, policy: PrecisionPolicy):
+    """Adopt an f32 checkpoint's tensors ``d`` (checked against
+    ``f32_layout``) into the master-policy ``state``: the parameters
+    through ``adopt_f32_state`` (master := the f32 values, stored
+    parameters := their downcast, a fresh loss scale), then the inner
+    optimizer state by name.  Returns ``state``."""
+    floats = {n for n, p in state.model.named_parameters()
+              if p.is_floating_point()}
+    params32 = {k[len("model/"):]: v for k, v in d.items()
+                if k.startswith("model/") and k[len("model/"):] in floats}
+    adopt_f32_state(state, params32, policy)
+    sd = state.model.state_dict()
+    for k, v in d.items():
+        if k.startswith("model/") and k[len("model/"):] not in floats:
+            sd[k[len("model/"):]].copy_(v)
+    live = optimizer_entries(state.model, state.optimizer)
+    for k, v in d.items():
+        if k.startswith("opt/"):
+            live[k].copy_(v)
+    return state
+
+
+def restore_into_policy(manager, template, policy: PrecisionPolicy):
+    """Restore the latest checkpoint into ``template`` (a fresh
+    ``TrainState``), policy-aware: a checkpoint written under the SAME
+    policy restores directly; one written by an f32 run (no master)
+    restores through ``f32_template`` and is adopted as it loads.  Raises
+    the direct-restore error when neither layout matches.  Restores in
+    place (``copy_``); returns the restored state."""
+    try:
+        return manager.restore(template)
+    except Exception as direct_err:
+        if policy.master_dtype is None:
+            raise
+        try:
+            return manager.restore(f32_template(template))
+        except Exception:
+            # neither layout matches: the DIRECT error is the informative
+            # one, the f32 template's is just "also not that layout"
+            raise direct_err

@@ -346,9 +346,18 @@ class SlotKVCache:
         final = filled + n == lp
         self._ensure_writable(slot, filled, filled + n)
         t0 = time.perf_counter()
-        logits = self._prefill_forward(
-            slot, pend["prompt"][None, filled:filled + n],
-            np.arange(filled, filled + n, dtype=np.int32)[None, :])
+        if getattr(self.model, "moe_experts", 0):
+            # one token at a time, as JAX's prefill scan: a MoE block
+            # routes the tokens of one forward together, against one
+            # capacity, so a many-token forward would drop others
+            for j in range(filled, filled + n):
+                logits = self._prefill_forward(
+                    slot, pend["prompt"][None, j:j + 1],
+                    np.full((1, 1), j, dtype=np.int32))
+        else:
+            logits = self._prefill_forward(
+                slot, pend["prompt"][None, filled:filled + n],
+                np.arange(filled, filled + n, dtype=np.int32)[None, :])
         # materialized before host state flips: a device error surfaces
         # while the slot is still pending
         first = int(self._sample(logits[:, -1])[0])

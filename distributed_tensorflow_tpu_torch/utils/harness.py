@@ -46,7 +46,20 @@ E of the ranks (``_setup_expert_parallel``): a (data, expert) mesh of
 with ``num_experts``, ``aux_weight``, ``router_top_k`` and
 ``router_z_weight``; its summary carries the overflow monitor's report.
 
-The JAX ``ExperimentConfig``'s other fields (codecs, checkpoints,
+``checkpoint_dir`` writes checkpoints (``utils/checkpoint.py``; async by
+default, ``async_checkpoint`` False for the synchronous writer) every
+``checkpoint_every`` steps and at the end; ``resume`` restores the latest
+one, policy-aware, and ``elastic_restore`` through ``elastic_restore``
+with its data state, so the batch stream continues exactly once;
+``watchdog_timeout`` arms a stall watchdog (``watchdog_abort``: exit 75
+on a stall); ``max_restarts`` > 0 wraps the run in
+``failure.run_with_recovery``.  Under ``cli -n N`` with N > 1 the CLI
+wraps the spawn of the N ranks instead (a crashed rank leaves its peers
+inside a collective, and a process group cannot be re-created inside a
+rank after a peer died), and ``run`` refuses ``max_restarts`` inside a
+rank of more than one.
+
+The JAX ``ExperimentConfig``'s other fields (codecs, the lease,
 telemetry) are absent; ``tensor_parallel`` and ``pipeline_parallel`` raise
 ``NotImplementedError`` above 1, as does any composite of the
 model-parallel factors (``check_parallel_factors``), and the fleet's
@@ -62,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import sys
 import time
 import warnings
@@ -118,6 +132,16 @@ class ExperimentConfig:
     dtype: str = "float32"          # model compute dtype; a non-f32
                                     # precision sets it (_resolve_precision)
     log_every: int = 50
+    checkpoint_dir: str | None = None   # checkpoints go here (None: none)
+    checkpoint_every: int = 0       # steps between checkpoints (0: final)
+    async_checkpoint: bool = True   # background writer (False: sync)
+    resume: bool = False            # restore the latest checkpoint first
+    elastic_restore: bool = False   # restore through elastic_restore with
+                                    # the data state (exactly-once resume)
+    watchdog_timeout: float = 0.0   # >0: per-step stall budget (seconds)
+    watchdog_abort: bool = False    # on a stall: exit 75 after reporting
+    max_restarts: int = 0           # >0: restart from the latest
+                                    # checkpoint on a crash, this many times
     steps_per_call: int | None = None  # drain chunk (None: auto, 8)
     prefetch: int = 2               # batches staged on the device ahead
     eval_batch: int = 100           # the reference's test batch
@@ -673,6 +697,69 @@ def _repeatable_math():
          cudnn.benchmark) = saved
 
 
+def _check_recovery_config(config: ExperimentConfig) -> None:
+    """The checkpoint, resume and watchdog flags that cannot work
+    together, before anything is set up."""
+    if config.watchdog_abort and config.watchdog_timeout <= 0:
+        raise ValueError("watchdog_abort requires watchdog_timeout > 0 "
+                         "(nothing would ever detect the stall)")
+    if config.resume and not config.checkpoint_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
+    if config.elastic_restore and not config.checkpoint_dir:
+        raise ValueError("--elastic-restore requires --checkpoint-dir")
+    if config.checkpoint_every and not config.checkpoint_dir:
+        raise ValueError("--checkpoint-every requires --checkpoint-dir "
+                         "(no checkpoints would be written otherwise)")
+    if config.checkpoint_every < 0:
+        raise ValueError(f"--checkpoint-every must be >= 0, got "
+                         f"{config.checkpoint_every}")
+
+
+def _restore(config: ExperimentConfig, ex: _Experiment, trainer, ckpt_mgr,
+             sink) -> dict:
+    """``--resume``/``--elastic-restore``: the latest checkpoint into a
+    fresh state of the engine, policy-aware (a checkpoint of the same
+    ``--precision`` restores directly, an f32 one adopts into a master
+    policy); returns the accounting the summary carries."""
+    out = {"data_state": None, "preemption_lost_s": None,
+           "restored_step": None}
+    if ckpt_mgr.latest_step() is None:
+        flag = "--elastic-restore" if config.elastic_restore else "--resume"
+        print(f"warning: {flag} set but no checkpoint found under "
+              f"{config.checkpoint_dir}; training from scratch")
+        return out
+    template = ex.engine.init_state(
+        torch.Generator().manual_seed(config.seed), ex.train_ds.x[:1])
+    try:
+        if config.elastic_restore:
+            # the restore with its sidecar: the data state for the
+            # exactly-once resume ({} when the checkpoint has none →
+            # replay accounting) and the save wall time
+            from distributed_tensorflow_tpu_torch import elastic
+
+            trainer.state, extra = elastic.elastic_restore(
+                ckpt_mgr, ex.engine, template)
+            out["data_state"] = (extra or {}).get("data_state") or {}
+            out["preemption_lost_s"] = elastic.preemption_lost_s(extra)
+        else:
+            trainer.state = precisionlib.restore_into_policy(
+                ckpt_mgr, template, ex.engine.precision)
+    except Exception as e:
+        raise ValueError(
+            f"--resume could not restore the checkpoint under "
+            f"{config.checkpoint_dir} into this run's state layout "
+            f"(--precision {config.precision}).  An f32 checkpoint "
+            f"restores into a master --precision policy automatically; "
+            f"other precision crossings need the original policy.  "
+            f"Original error: {type(e).__name__}: {e}") from e
+    out["restored_step"] = ckpt_mgr.latest_step()
+    sink.emit("resumed", step=out["restored_step"],
+              elastic=config.elastic_restore,
+              **({"preemption_lost_s": out["preemption_lost_s"]}
+                 if config.elastic_restore else {}))
+    return out
+
+
 @_repeatable_math()
 def run(config: ExperimentConfig) -> dict[str, Any]:
     """Run one experiment on this rank; returns the summary dict.  Rank 0
@@ -682,8 +769,33 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
     LM's summary gains ``test_perplexity``, ``sample_tokens`` adds
     ``sample_prompts``/``samples`` and ``serve_requests`` the ``serve``
     section with ``serve_exit_policy`` (1, with a warning, when a request
-    went unserved)."""
+    went unserved).
+
+    With ``max_restarts > 0`` the run is wrapped in checkpoint-resume
+    crash recovery (``failure.run_with_recovery``) — in one process only:
+    inside a rank of a group of more than one it raises (``cli -n N``
+    wraps the spawn)."""
+    if config.max_restarts > 0:
+        import torch.distributed as dist
+
+        from distributed_tensorflow_tpu_torch.utils.failure import (
+            run_with_recovery)
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                "max_restarts inside a rank of a multi-rank group: a "
+                "crashed peer leaves the group unusable, so recovery "
+                "wraps the launch of every rank (cli -n N "
+                "--max-restarts), not each rank's run")
+        return run_with_recovery(
+            dataclasses.replace(config, max_restarts=0),
+            max_restarts=config.max_restarts, run_fn=run)
+    return _run(config)
+
+
+def _run(config: ExperimentConfig) -> dict[str, Any]:
     _reject_fleet(config)
+    _check_recovery_config(config)
     ex = _setup(config)
     try:
         if config.sample_tokens:
@@ -696,15 +808,56 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
         sink = ResultSink(
             config.result_path if rank0 else None,
             supervisor_address=config.supervisor_address if rank0 else None)
+        ckpt_mgr = watchdog = None
         try:
             trainer = Trainer(None, engine=ex.engine, seed=config.seed)
+            resumed = {"data_state": None, "preemption_lost_s": None,
+                       "restored_step": None}
+            if config.checkpoint_dir:
+                from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+                    AsyncCheckpointManager, CheckpointManager)
+
+                # either manager sweeps the tmp_step_* a crashed write
+                # left, so a resume only sees complete checkpoints
+                ckpt_mgr = (AsyncCheckpointManager(config.checkpoint_dir)
+                            if config.async_checkpoint
+                            else CheckpointManager(config.checkpoint_dir))
+                if config.resume or config.elastic_restore:
+                    resumed = _restore(config, ex, trainer, ckpt_mgr, sink)
+            if config.watchdog_timeout > 0:
+                from distributed_tensorflow_tpu_torch.utils.failure import (
+                    Watchdog)
+
+                def _on_stall(elapsed: float) -> None:
+                    sink.emit("stall", elapsed=elapsed)
+                    if config.watchdog_abort:
+                        # the step loop is wedged where no exception
+                        # reaches it: exit so a supervisor relaunches
+                        # with --resume (EX_TEMPFAIL); os._exit skips
+                        # every finally, so close the sink first
+                        sink.close()
+                        os._exit(75)
+
+                watchdog = Watchdog(timeout=config.watchdog_timeout,
+                                    on_stall=_on_stall)
             sink.start()
-            fit = trainer.fit(ex.train_ds, epochs=config.epochs,
-                              batch_size=ex.global_batch,
-                              log_every=config.log_every,
-                              log_fn=print if rank0 else _quiet,
-                              steps_per_call=config.steps_per_call,
-                              prefetch=config.prefetch)
+            try:
+                fit = trainer.fit(ex.train_ds, epochs=config.epochs,
+                                  batch_size=ex.global_batch,
+                                  log_every=config.log_every,
+                                  log_fn=print if rank0 else _quiet,
+                                  checkpoint_manager=ckpt_mgr,
+                                  checkpoint_every=config.checkpoint_every,
+                                  watchdog=watchdog,
+                                  steps_per_call=config.steps_per_call,
+                                  prefetch=config.prefetch,
+                                  data_state=resumed["data_state"])
+            finally:
+                if watchdog is not None:
+                    watchdog.close()
+            if config.elastic_restore:
+                fit["preemption_lost_s"] = resumed["preemption_lost_s"]
+                fit["restored_step"] = resumed["restored_step"]
             sink.done(fit["elapsed"])
             ev = trainer.evaluate(ex.test_ds, batch_size=config.eval_batch)
             sink.results(ev["accuracy"], loss=ev["loss"])
@@ -727,6 +880,7 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                 "epochs": config.epochs,
                 "precision": fit["precision"],
                 "steps": fit["steps"],
+                "preempted": fit.get("preempted"),
                 "steps_per_call": fit["steps_per_call"],
                 "prefetch_depth": fit["prefetch_depth"],
                 "elapsed_s": fit["elapsed"],
@@ -755,6 +909,20 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
                     "opt_state_bytes_per_device":
                         fit["opt_state_bytes_per_device"],
                     "loss_scale": fit.get("loss_scale"),
+                    # checkpoint cost: blocked against overlapped seconds
+                    "checkpoint_wait_s": fit.get("checkpoint_wait_s"),
+                    "checkpoint_overlapped_s":
+                        fit.get("checkpoint_overlapped_s"),
+                    "checkpoint_async": fit.get("checkpoint_async"),
+                    # the resume's accounting (elastic restore)
+                    "preempted": fit.get("preempted"),
+                    "preemption_lost_s": fit.get("preemption_lost_s"),
+                    "resume_replay_steps": fit.get("resume_replay_steps"),
+                    "restored_step": fit.get("restored_step"),
+                    "watchdog": None if watchdog is None else {
+                        "beats": watchdog.beats,
+                        "stall_episodes": watchdog.stall_episodes,
+                        "timeout_s": watchdog.timeout},
                 },
             }
             # an expert-parallel run reports the router-health watch
@@ -783,6 +951,12 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
             sink.emit("summary", **summary)
             return summary
         finally:
+            if ckpt_mgr is not None:
+                # drain + join the writer on ANY exit: a restart must never
+                # begin its restore with a write of this run in flight
+                # (reraise=False: fit's final drain surfaced writer errors,
+                # and an exception path must keep its own error)
+                ckpt_mgr.close(reraise=False)
             sink.close()
     finally:
         ex.mesh.close()

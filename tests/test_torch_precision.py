@@ -263,19 +263,46 @@ def test_first_step_skip_leaves_fresh_adam_state():
     assert float(opt.loss_scale) == 2.0 ** 14 and bool(opt.last_skipped)
 
 
-def test_strip_master_and_the_checkpoint_half_not_ported():
+def test_strip_master_and_the_checkpoint_half_not_ported(tmp_path):
     """``strip_master`` gives the inner optimizer (the f32-era one); the
-    checkpoint adoption waits for the checkpoint module and says so."""
+    checkpoint half, ported since: ``f32_template`` wraps a master-policy
+    state (and refuses another), and ``restore_into_policy`` restores a
+    checkpoint of the same policy and adopts an f32 one."""
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
     params = _two_params(torch.bfloat16)
     opt = tpl.make_policy("bf16-f32master").wrap_optimizer(
         lambda p: torch.optim.SGD(p, lr=0.1))(params)
     assert tpl.strip_master(opt) is opt.inner
     sgd = torch.optim.SGD(_two_params(torch.float32), lr=0.1)
     assert tpl.strip_master(sgd) is sgd
-    for call in (lambda: tpl.f32_template(None),
-                 lambda: tpl.restore_into_policy(None, None, None)):
-        with pytest.raises(NotImplementedError, match="remaining engines"):
-            call()
+
+    def state(precision, seed=0):
+        eng = SyncEngine(create_model("mlp", num_classes=4, hidden=8,
+                                      device="cpu"), device="cpu",
+                         precision=precision)
+        return eng, eng.init_state(torch.Generator().manual_seed(seed),
+                                   np.zeros((1, 6), np.float32))
+
+    eng32, st32 = state("f32")
+    with pytest.raises(ValueError, match="master-policy"):
+        tpl.f32_template(st32)
+    engm, stm = state("bf16-f32master", seed=1)
+    assert tpl.f32_template(stm).state is stm
+    for i, st in enumerate((stm, st32)):
+        CheckpointManager(tmp_path / str(i)).save(st)
+    _, template = state("bf16-f32master", seed=2)
+    same = tpl.restore_into_policy(CheckpointManager(tmp_path / "0"),
+                                   template, engm.precision)
+    assert torch.equal(same.optimizer.master, stm.optimizer.master)
+    _, template = state("bf16-f32master", seed=2)
+    adopted = tpl.restore_into_policy(CheckpointManager(tmp_path / "1"),
+                                      template, engm.precision)
+    want = torch.cat([p.detach().reshape(-1)
+                      for p in st32.model.parameters()])
+    assert torch.equal(adopted.optimizer.master, want)
 
 
 # ---------------------------------------------------------- engine: f32

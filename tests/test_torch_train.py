@@ -18,7 +18,9 @@ L 32, f32, dropout 0, flash attention):
 * ``Trainer.fit`` for two epochs and ``Trainer.evaluate`` against the JAX
   Trainer's;
 * options not ported raise ``NotImplementedError`` naming their ROADMAP
-  item, and the port imports no JAX.
+  item, the ported checkpoint, watchdog, ``should_stop`` and data-state
+  options run, and the port (its checkpoint, failure and elastic modules
+  included) imports no JAX.
 """
 
 import subprocess
@@ -251,7 +253,11 @@ def test_trainer_initializes_state_from_seed():
 
 # ---------------------------------------------------------- not ported
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    from distributed_tensorflow_tpu_torch.utils.failure import Watchdog
+
     model = GPTLM(**SMALL, device="cpu")
     for kw, item in ((dict(grad_compression="bf16"), "remaining engines"),
                      (dict(grad_bucket_mb=4.0), "remaining engines"),
@@ -269,13 +275,28 @@ def test_unported_options_raise():
     x, y = _lm(8)
     ds = tloaders.Dataset(x=x, y=y, num_classes=64)
     trainer = Trainer(model, device="cpu")
-    for kw in (dict(checkpoint_manager=object()), dict(metrics_logger=[]),
-               dict(watchdog=object()), dict(tracer=object()),
-               dict(should_stop=lambda s: None), dict(data_state={}),
+    for kw in (dict(metrics_logger=[]), dict(tracer=object()),
                dict(straggler_detector=object()), dict(timeline=object()),
                dict(roofline=object()), dict(on_anomaly="halt")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trainer.fit(ds, batch_size=8, **kw)
+    # ported since: the checkpoint manager and its cadence, the watchdog,
+    # should_stop and the data state
+    with Watchdog(timeout=30.0) as wd:
+        for kw, key, want in (
+                (dict(checkpoint_manager=CheckpointManager(tmp_path)),
+                 "checkpoint_async", False),
+                (dict(checkpoint_manager=CheckpointManager(tmp_path),
+                      checkpoint_every=1), "checkpoint_async", False),
+                (dict(watchdog=wd), "watchdog_stalls", 0),
+                (dict(should_stop=lambda s: "stop"), "preempted", "stop")):
+            assert trainer.fit(ds, batch_size=8, log_every=0,
+                               max_steps=1, **kw)[key] == want
+    # a data state that does not match: the stream restarts, and the steps
+    # trained before count as replayed
+    r = trainer.fit(ds, batch_size=8, log_every=0, max_steps=1,
+                    data_state={}, log_fn=lambda line: None)
+    assert r["resume_replay_steps"] == r["start_step"] == 4
     for kw in (dict(prefetch=0), dict(steps_per_call=0),
                dict(target_accuracy=0.5)):
         with pytest.raises(ValueError):
@@ -304,6 +325,10 @@ def test_training_path_imports_no_jax():
         "import distributed_tensorflow_tpu_torch.utils.wire\n"
         "import distributed_tensorflow_tpu_torch.utils.supervisor\n"
         "import distributed_tensorflow_tpu_torch.utils.harness\n"
+        "import distributed_tensorflow_tpu_torch.utils.checkpoint\n"
+        "import distributed_tensorflow_tpu_torch.utils.failure\n"
+        "import distributed_tensorflow_tpu_torch.elastic\n"
+        "import distributed_tensorflow_tpu_torch.elastic.reshard\n"
         "import distributed_tensorflow_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'distributed_tensorflow_tpu')]\n"
