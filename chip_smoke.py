@@ -239,6 +239,36 @@ Phases (any failure raises and the script exits non-zero):
              master), the synchronous save's wall time, checkpoint_wait_s
              against checkpoint_overlapped_s for both writers, and the
              step time with and without checkpoints;
+5j. codec — gradient codecs and bucketed overlap on the cli-lm GPT
+             (phase 5i's widths and data, ``cli.main`` on a one-rank NCCL
+             group, 1 epoch of 512 steps, chunks of 8 replayed as graphs):
+             G-base, ``CLI_LM_ARGV`` as it is; G0, + ``--grad-bucket-mb
+             4`` (codec none): losses and final parameters bitwise
+             G-base's; G1, + ``--grad-compression bf16``; G2, + ``int8``;
+             G3, + ``int8 --grad-bucket-mb 4 --grad-accum 2`` (each
+             microbatch's buckets reduced as its backward produces them;
+             ``collective_overlap`` a dict with finite ``exposed_s`` and
+             ``hidden_s``: at n = 1 this shows the probe runs, not an
+             overlap); G4, + ``--precision bf16-f32master --grad-compression
+             int8 --grad-bucket-mb 4`` (the ``tc`` route).  Gates: every
+             test loss ≤ ``CLI_LM_TEST_LOSS``; 8 flash forwards, dQ and
+             dK/dV a microbatch, all ``tc32`` in G-base–G3 and ``tc`` in
+             G4 (the probe's steps left out); ``grad_allreduce_bytes`` the
+             figure computed from the parameters' shapes (f32: 4 B a
+             parameter, bf16 2, int8 1 plus 4 a leaf or a bucket); the
+             NCCL all-reduces, all-to-alls and all-gathers per step those
+             of the plan.  G2's engine for 24 steps in chunks of 8 (the
+             first eager, the second captured, then a replay) against 24
+             single eager steps: heartbeats, parameters and the codec
+             generator's state bitwise (the generator is registered with
+             the graph).  ``AsyncLocalEngine`` (sync every 8) and
+             ``GossipEngine`` (degree 1: at n = 1 the all-reduce branch)
+             under int8 for two chunks each: finite losses, the plan's
+             collectives.  Printed beside the card's name and power limit:
+             each run's wire bytes, step p50 and test loss, the probe's
+             splits, a replayed int8 chunk's device time split into the
+             codec's own kernels (timed alone on the same gradients), NCCL
+             kernels and the rest, and the phase's wall time;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -4475,6 +4505,298 @@ def ckpt_phase(gpu: str) -> dict:
             "bytes_f32": c1_bytes, "bytes_bf16_f32master": c2_bytes}
 
 
+# --------------------------------------------------------------------------
+# phase 5j: gradient codecs and bucketed overlap on the cli-lm GPT
+# --------------------------------------------------------------------------
+
+CODEC_BUCKET_MB = 4
+CODEC_RUNS = {
+    "G-base": [],
+    "G0": ["--grad-bucket-mb", str(CODEC_BUCKET_MB)],
+    "G1": ["--grad-compression", "bf16"],
+    "G2": ["--grad-compression", "int8"],
+    "G3": ["--grad-compression", "int8", "--grad-bucket-mb",
+           str(CODEC_BUCKET_MB), "--grad-accum", "2"],
+    "G4": ["--precision", "bf16-f32master", "--grad-compression", "int8",
+           "--grad-bucket-mb", str(CODEC_BUCKET_MB)],
+}
+
+
+def _codec_counters():
+    """(holder, attribute) of the NCCL collective counters the codec path
+    moves: the all-reduces, the int8 all-to-alls and all-gathers."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+    from distributed_tensorflow_tpu_torch.parallel import compression
+
+    return {"all_reduce": (coll.all_reduce_, "nccl_launches"),
+            "all_to_all": (compression.all_to_all_, "nccl_launches"),
+            "all_gather": (compression.all_gather_, "nccl_launches")}
+
+
+def _codec_counts() -> dict:
+    return {k: getattr(fn, a) for k, (fn, a) in _codec_counters().items()}
+
+
+def _all_counts() -> dict:
+    return {**_flash_counts(), **_tc32_counts(), **_codec_counts()}
+
+
+def _reset_all_counts() -> None:
+    _reset_flash_counts()
+    for fn, a in _codec_counters().values():
+        setattr(fn, a, 0)
+
+
+@contextlib.contextmanager
+def _probe_counts(kept: dict):
+    """Record what the harness's one-time overlap probe launched (its
+    throwaway steps and collectives), so the run's counts can leave it
+    out; ``kept["probe"]`` is the probe's result."""
+    from distributed_tensorflow_tpu_torch.parallel import overlap
+
+    probe = overlap.probe_engine_overlap
+
+    def recorded(*args, **kw):
+        before = _all_counts()
+        try:
+            kept["probe"] = probe(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            after = _all_counts()
+            kept["delta"] = {k: after[k] - before[k] for k in after}
+        return kept["probe"]
+
+    overlap.probe_engine_overlap = recorded
+    try:
+        yield
+    finally:
+        overlap.probe_engine_overlap = probe
+
+
+def _codec_plan(extra: list, numels: list, itemsize: int, steps: int,
+                evals: int) -> tuple[int, dict]:
+    """From the parameters' element counts and storage width alone: the
+    wire bytes of one exchange under the run's flags, and the NCCL
+    collectives of its ``steps`` and ``evals`` (one f32 all-reduce a step
+    for the metrics, packed behind f32 gradients at codec none unbucketed;
+    one an evaluation for its totals)."""
+    flag = dict(zip(extra[::2], extra[1::2]))
+    name = flag.get("--grad-compression", "none")
+    bucket = float(flag.get("--grad-bucket-mb", 0))
+    k = int(flag.get("--grad-accum", 1))
+    total = sum(numels)
+    nb = -(-total * itemsize // int(bucket * (1 << 20))) if bucket else None
+    if name == "int8":
+        wire = total + 4 * (nb if bucket else len(numels))
+        per = {"all_reduce": 1, "all_to_all": k * nb if bucket else 1}
+        per["all_gather"] = 3 * per["all_to_all"]
+    else:
+        width = 2 if name == "bf16" else itemsize
+        wire = total * width
+        per = {"all_reduce": (k * nb + 1 if bucket
+                              else 1 if name == "none" else 2),
+               "all_to_all": 0, "all_gather": 0}
+    counts = {c: n * steps for c, n in per.items()}
+    counts["all_reduce"] += evals
+    return wire, counts
+
+
+def _codec_launches(label, counts, steps, k, evals, route) -> None:
+    """8 flash forwards, dQ and dK/dV a microbatch (+ 8 forwards an eval
+    batch), every one on ``route``."""
+    layers = CLI_LM["layers"]
+    fwd, bwd = layers * (steps * k + evals), layers * steps * k
+    other = "tc" if route == "tc32" else "tc32"
+    want = {"fwd": fwd, "dq": bwd, "dkv": bwd, f"fwd_{route}": fwd,
+            f"dq_{route}": bwd, f"dkv_{route}": bwd, f"fwd_{other}": 0,
+            f"dq_{other}": 0, f"dkv_{other}": 0}
+    got = {key: counts[key] for key in want}
+    assert got == want, (label, got, want)
+
+
+def _codec_twin(gpu) -> dict:
+    """G2's engine: 24 steps in chunks of 8 against 24 single eager
+    steps, bitwise; then where a replayed chunk's device time goes, and
+    the codec's own kernels timed alone on the same gradients."""
+    from distributed_tensorflow_tpu_torch.engines import Trainer
+    from distributed_tensorflow_tpu_torch.engines.sync import _ChunkGraph
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    cfg = _ckpt_config(epochs=1, grad_compression="int8")
+    runs, split = {}, {}
+    for k in (8, 1):
+        ex = harness._setup(harness._resolve_precision(cfg))
+        tr = Trainer(None, engine=ex.engine, seed=0)
+        lines = []
+        replays = _ChunkGraph.replays
+        with harness._repeatable_math():
+            tr.fit(ex.train_ds, epochs=1, batch_size=ex.global_batch,
+                   log_every=1, log_fn=lines.append, steps_per_call=k,
+                   max_steps=24)
+        torch.cuda.synchronize()
+        runs[k] = (lines, [p.detach().clone()
+                           for p in tr.state.model.parameters()],
+                   tr.state.codec_generator.get_state(),
+                   _ChunkGraph.replays - replays)
+        if k == 8:
+            split = _codec_split(ex, tr.state)
+        ex.mesh.close()
+        del tr, ex
+    (l8, p8, g8, replays), (l1, p1, g1, _) = runs[8], runs[1]
+    checks = {"heartbeats": l8 == l1 and len(l8) == 24,
+              "params": all(torch.equal(a, b) for a, b in zip(p8, p1)),
+              "codec generator": torch.equal(g8, g1),
+              "replays": replays == 2}
+    assert all(checks.values()), (checks, l8[-1:], l1[-1:])
+    print(f"[codec] G2 twin ({gpu}): 24 steps in chunks of 8 (eager, "
+          f"captured, replayed) against 24 eager steps: bitwise "
+          f"{json.dumps(checks)}")
+    return split
+
+
+def _codec_split(ex, state) -> dict:
+    """A replayed int8 chunk of 8 steps under ``torch.profiler``: device
+    ms a step, the NCCL kernels' share; and the codec's own kernels (its
+    encode, decode and layout work, NCCL left out) timed alone on the
+    gradients' shapes with the run's generator: their device ms and
+    launches a step."""
+    eng = ex.engine
+    bx, by, _ = next(iter(ex.train_ds.batches(ex.global_batch,
+                                              shuffle=False)))
+    xs, ys = eng.shard_batch(bx, by)
+    step_rows = _profiled(lambda: [eng.many_step(state, [xs] * 8, [ys] * 8)
+                                   for _ in range(2)], 16)
+    grads = [torch.randn_like(p) for p in state.model.parameters()]
+    gen = state.codec_generator
+    codec_rows = _profiled(lambda: [eng.grad_codec.all_reduce_sum(
+        grads, eng.mesh, generator=gen) for _ in range(4)], 4)
+
+    def nccl(rows):
+        return sum(r[0] for r in rows if "nccl" in r[2].lower())
+
+    step_us = sum(r[0] for r in step_rows)
+    out = {"step_ms": step_us / 1e3, "nccl_ms": nccl(step_rows) / 1e3,
+           "codec_ms": (sum(r[0] for r in codec_rows)
+                        - nccl(codec_rows)) / 1e3,
+           "codec_kernels": sum(r[1] for r in codec_rows
+                                if "nccl" not in r[2].lower()),
+           "codec_top": [(round(r[0], 2), round(r[1], 1), r[2][:60])
+                         for r in codec_rows[:6]]}
+    out["rest_ms"] = out["step_ms"] - out["nccl_ms"] - out["codec_ms"]
+    out["codec_share"] = (out["codec_ms"] / out["step_ms"]
+                          if step_us else None)
+    return out
+
+
+def _codec_local(gpu, engine: str, **kw) -> None:
+    """``engine`` (async or gossip) on the cli-lm GPT under int8, two
+    chunks of 8 eager steps: finite losses, the plan's collectives."""
+    from distributed_tensorflow_tpu_torch.engines import Trainer
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    ex = harness._setup(harness._resolve_precision(_ckpt_config(
+        engine=engine, epochs=1, grad_compression="int8", **kw)))
+    try:
+        tr = Trainer(None, engine=ex.engine, seed=0)
+        lines = []
+        _reset_all_counts()
+        with harness._repeatable_math():
+            r = tr.fit(ex.train_ds, epochs=1, batch_size=ex.global_batch,
+                       log_every=1, log_fn=lines.append, steps_per_call=8,
+                       max_steps=16)
+        torch.cuda.synchronize()
+        counts = _codec_counts()
+    finally:
+        ex.mesh.close()
+    losses = [float(line.split()[3]) for line in lines]
+    mixes = 16 // kw["sync_every"] if engine == "async" else 16
+    want = {"all_reduce": 16, "all_to_all": mixes, "all_gather": 3 * mixes}
+    assert len(losses) == 16 and all(np.isfinite(losses)), lines
+    assert counts == want, (engine, counts, want)
+    assert r["grad_compression"] == "int8", r
+    print(f"[codec] {engine} ({gpu}): int8, 16 steps in 2 chunks: losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}, NCCL collectives "
+          f"{json.dumps(counts)} (the plan's), wire bytes "
+          f"{r['grad_allreduce_bytes']} of {r['grad_allreduce_bytes_raw']}")
+
+
+def codec_phase(gpu: str) -> dict:
+    """Phase 5j (module docstring): G-base–G4 through ``cli.main``, the G2
+    twin and split, async and gossip; returns the G runs' flash launches
+    by route."""
+    from distributed_tensorflow_tpu_torch.data import loaders
+
+    t0 = time.perf_counter()
+    train = loaders.load_dataset("lm_synth", split="train")
+    test = loaders.load_dataset("lm_synth", split="test")
+    steps = len(train) // CLI_LM["batch"]
+    evals = -(-len(test) // 100)
+    launches = {"tc32": {"fwd": 0, "dq": 0, "dkv": 0},
+                "tc": {"fwd": 0, "dq": 0, "dkv": 0}}
+    recs = {}
+    for name, extra in CODEC_RUNS.items():
+        kept: dict = {}
+        _reset_all_counts()
+        with _probe_counts(kept):
+            rec = _recorded_cli(CLI_LM_ARGV + extra)
+        torch.cuda.synchronize()
+        counts = {k: v - kept.get("delta", {}).get(k, 0)
+                  for k, v in _all_counts().items()}
+        sm, rr = rec["summary"], rec["summary"]["run_report"]
+        params = list(rec["trainer"].state.model.parameters())
+        itemsize = params[0].element_size()
+        wire, want = _codec_plan(extra, [p.numel() for p in params],
+                                 itemsize, sm["steps"], 1)
+        k = int(dict(zip(extra[::2], extra[1::2])).get("--grad-accum", 1))
+        route = "tc" if "--precision" in extra else "tc32"
+        _codec_launches(name, counts, sm["steps"], k, evals, route)
+        for kind in ("fwd", "dq", "dkv"):
+            launches[route][kind] += counts[f"{kind}_{route}"]
+        got = {c: counts[c] for c in want}
+        assert sm["steps"] == steps, sm
+        assert rr["grad_allreduce_bytes"] == wire, (name, rr, wire)
+        assert got == want, (name, got, want)
+        assert sm["test_loss"] <= CLI_LM_TEST_LOSS, (name, sm["test_loss"])
+        split = rr["collective_overlap"]
+        if "--grad-bucket-mb" in extra:
+            assert isinstance(split, dict) and all(
+                np.isfinite(split[key]) for key in ("exposed_s", "hidden_s")
+            ), (name, split)
+        recs[name] = rec
+        print(f"[codec] {name} ({gpu}): {' '.join(extra) or 'base'}: "
+              f"test_loss={sm['test_loss']!r} step_ms_p50="
+              f"{rr['step_time_p50_s'] * 1e3:.4f} wire_bytes="
+              f"{rr['grad_allreduce_bytes']} raw="
+              f"{rr['grad_allreduce_bytes_raw']} (planned {wire}); NCCL "
+              f"collectives {json.dumps(got)} over {sm['steps']} steps + "
+              f"1 eval; flash launches on {route} "
+              f"{counts[f'fwd_{route}']}/{counts[f'dq_{route}']}/"
+              f"{counts[f'dkv_{route}']}"
+              + (f"; probe split {json.dumps(split)} (probe's own launches "
+                 f"{json.dumps(kept.get('delta'))})" if split else ""))
+    base, g0 = recs["G-base"], recs["G0"]
+    same = {"losses": torch.equal(base["losses"], g0["losses"]),
+            "params": torch.equal(base["params"], g0["params"])}
+    assert all(same.values()), same
+    print(f"[codec] G0 bitwise G-base ({gpu}): {json.dumps(same)}; test "
+          f"loss G1 {recs['G1']['summary']['test_loss']!r}, G2 "
+          f"{recs['G2']['summary']['test_loss']!r} against G-base "
+          f"{base['summary']['test_loss']!r}")
+    del recs, base, g0
+    split = _codec_twin(gpu)
+    print(f"[codec] a replayed int8 chunk ({gpu}), device ms a step: "
+          f"{split['step_ms']:.4f} = NCCL {split['nccl_ms']:.4f} + codec "
+          f"{split['codec_ms']:.4f} ({split['codec_kernels']:.1f} kernels "
+          f"a step, timed alone; share {split['codec_share']:.4f}) + rest "
+          f"{split['rest_ms']:.4f}; codec's largest kernels "
+          f"{json.dumps(split['codec_top'])}")
+    _codec_local(gpu, "async", sync_every=8)
+    _codec_local(gpu, "gossip")
+    torch.cuda.empty_cache()
+    print(f"[codec] phase 5j wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -4551,6 +4873,7 @@ def main() -> int:
     sp = sp_phase(gpu)
     moe = moe_phase(gpu)
     ckpt = ckpt_phase(gpu)
+    codec = codec_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -4589,6 +4912,8 @@ def main() -> int:
             kind = row["name"].rsplit(".", 1)[1].split("_")[0]
             variant = "tc32" if "tc32" in row["name"] else "tc"
             row["launches_ckpt"] = ckpt[variant][kind]
+            # phase 5j's G runs
+            row["launches_codec"] = codec[variant][kind]
     sp_rows = sp_timing_phase(sp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)

@@ -46,7 +46,10 @@ parse and raise.  ``--checkpoint-dir D`` writes checkpoints
 ``--elastic-restore`` continue from the latest, ``--watchdog-timeout``
 and ``--watchdog-abort`` watch for stalls, and ``--max-restarts N``
 restarts a crashed run from its latest checkpoint (with ``-n`` > 1 the
-spawn of every rank is relaunched).
+spawn of every rank is relaunched).  ``--grad-compression
+{none,bf16,int8}`` sends the gradient (async, gossip: parameter) exchange
+through a codec, and ``--grad-bucket-mb MB`` reduces it in ~MB buckets as
+the backward pass produces them (``parallel/overlap.py``).
 
     python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 32 \\
         --model cnn --dataset mnist
@@ -60,6 +63,9 @@ spawn of every rank is relaunched).
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 1 -e 2 \\
         --model mlp --dataset synthetic --checkpoint-dir /tmp/ck \\
         --checkpoint-every 100 --max-restarts 1
+    python -m distributed_tensorflow_tpu_torch.cli -m c -cs sync -n 1 -b 8 \
+        --model gpt --dataset lm_synth --attention flash \
+        --grad-compression int8 --grad-bucket-mb 4
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ from distributed_tensorflow_tpu_torch.engines import check_engine
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.utils import failure
 from distributed_tensorflow_tpu_torch.utils.harness import (
-    ExperimentConfig, _reject_flash_under_sp, check_parallel_factors, run)
+    ExperimentConfig, _reject_flash_under_sp, check_codec_config,
+    check_parallel_factors, run)
 
 def parse_model_args(pairs: list[str]) -> dict:
     """KEY=VALUE list → kwargs dict with literal-ish value parsing."""
@@ -227,6 +234,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "float32 master copy in the optimizer.  "
                         "fp16-f32master: float16 + master + dynamic loss "
                         "scaling (sync/allreduce only)")
+    p.add_argument("--grad-compression", default="none",
+                   choices=["none", "bf16", "int8"],
+                   help="compress the cross-rank gradient/parameter "
+                        "exchange (parallel/compression.py): bf16 halves "
+                        "the collective wire bytes (the exchange runs in "
+                        "bf16, widened after), int8 quarters them "
+                        "(per-leaf scale + stochastic rounding, f32 "
+                        "master values kept); none is the plain exchange. "
+                        " Sync, async, gossip, -sp and -ep (the last two "
+                        "as an encode/decode after the exact all-reduce)")
+    p.add_argument("--grad-bucket-mb", type=float, default=0.0,
+                   metavar="MB",
+                   help="communication/compute overlap: cut the gradients "
+                        "into ~MB buckets in reverse parameter order "
+                        "(parallel/overlap.py) and reduce each, through "
+                        "--grad-compression's codec, as soon as the "
+                        "backward pass has produced it: post-accumulate "
+                        "hooks, on a side stream on the card (no XLA "
+                        "scheduler flags; with --grad-accum K > 1 each "
+                        "microbatch's buckets are reduced as its backward "
+                        "produces them).  ~4 recommended; 0 (default) is "
+                        "the unbucketed exchange.  The run measures and "
+                        "reports the exposed-vs-hidden collective split "
+                        "(grad_collective_exposed_s)")
     p.add_argument("--dtype", default="float32",
                    help="model compute dtype (float32|bfloat16|float16); "
                         "a non-f32 --precision sets it")
@@ -490,6 +521,8 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         weight_decay=args.weight_decay, clip_norm=args.clip_norm,
         grad_accum=args.grad_accum, sync_every=args.sync_every,
         degree=args.degree, seed=args.seed, precision=args.precision,
+        grad_compression=args.grad_compression,
+        grad_bucket_mb=args.grad_bucket_mb,
         dtype=args.dtype, attention_impl=args.attention, remat=args.remat,
         positional=args.positional, kv_heads=args.kv_heads,
         log_every=args.log_every, steps_per_call=args.steps_per_call,
@@ -528,6 +561,7 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         serve_autoscale=args.serve_autoscale,
         serve_multi_step=args.serve_multi_step)
     # before any rank is spawned
+    check_codec_config(config)
     check_parallel_factors(config)
     if config.seq_parallel > 1:
         _reject_flash_under_sp(config)

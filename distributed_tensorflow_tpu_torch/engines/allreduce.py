@@ -20,7 +20,10 @@ eval reaches the target, evaluated every ``eval_every`` steps far from
 it and every ≤ 10 steps within 0.05 of it.
 
 The result names the engine's precision policy and the per-device
-parameter and optimizer bytes; under fp16 loss scaling it also carries a
+parameter and optimizer bytes, and, where the engine exchanges gradients
+or parameters, the wire bytes of one exchange under its codec beside the
+raw figure (``grad_allreduce_bytes``, ``grad_allreduce_bytes_raw``,
+``grad_compression``, ``grad_bucket_mb``); under fp16 loss scaling it also carries a
 ``loss_scale`` section (the final scale, the count of skipped steps and up
 to 64 of their numbers), read from the per-step ``loss_scale`` and
 ``ls_skipped`` metrics, which the Trainer then reads every step as the
@@ -539,6 +542,10 @@ class Trainer:
                 except Exception:
                     pass
             raise
+        # the gradient exchange's payload under the codec and raw (the
+        # tracer's collective_profile event is not ported)
+        grad_bytes = eng.grad_collective_bytes(self.state)
+        codec = eng.grad_codec
         result = {
             "elapsed": elapsed, "steps": steps, "epochs": epochs,
             "steps_per_call": k, "prefetch_depth": prefetch,
@@ -574,6 +581,12 @@ class Trainer:
                 "eval_resolution": eval_gap}
                if target_accuracy is not None else {}),
             "step_time": timer.summary(),
+            **({"grad_allreduce_bytes": grad_bytes,
+                "grad_allreduce_bytes_raw":
+                    eng.grad_collective_bytes_raw(self.state),
+                "grad_compression": codec.name,
+                "grad_bucket_mb": float(getattr(codec, "bucket_mb", 0.0))}
+               if grad_bytes else {}),
             "precision": eng.precision.name,
             "param_bytes_per_device": eng.param_bytes_per_device(self.state),
             "opt_state_bytes_per_device":

@@ -17,8 +17,14 @@ averaged.  Whether a step syncs is a host-side int, so no device sync.
 
 ``eval_params`` returns a separate module holding the ranks' mean (one
 all-reduce): local SGD goes on from the unaveraged copies, as JAX's
-``eval_params`` returns a new tree.  The gradient codecs on the parameter
-exchange are not ported (``grad_compression`` raises in ``Engine``).
+``eval_params`` returns a new tree.
+
+With a codec or bucketing active (``compression.codec_active``) the
+parameter mean of a sync step goes through ``codec.all_reduce_mean`` with
+this rank's codec stream (each rank quantizes its own copy, JAX
+``async_local.py:95-122``), and the loss and accuracy through an f32
+all-reduce of their own.  The wire bytes are those of one copy of the
+parameters.
 
 Precision: the bf16 policies apply; ``fp16-f32master`` raises, as in JAX
 (this engine does not multiply its loss by a scale).  The mean replaces
@@ -46,6 +52,7 @@ from torch import nn
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, make_loss_fn)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel import compression
 
 
 def _pack(model: nn.Module, *extra: torch.Tensor) -> torch.Tensor:
@@ -92,12 +99,24 @@ class AsyncLocalEngine(Engine):
         state.step += 1
         return loss.detach(), acc.detach()
 
-    def _mean_params_and(self, model: nn.Module, loss, acc):
-        """Replace ``model``'s parameters by the ranks' mean, and mean the
-        metrics, with one all-reduce; returns the mean (loss, accuracy)."""
-        flat = coll.all_reduce_(_pack(model, loss, acc), self.mesh)
-        flat /= self.n_devices
-        return _unpack(model, flat)
+    def _mean_params_and(self, state: TrainState, loss, acc):
+        """Replace the state's parameters by the ranks' mean, and mean the
+        metrics: with one all-reduce at the plain codec, else the codec's
+        mean of the parameters and an f32 all-reduce of the metrics;
+        returns the mean (loss, accuracy)."""
+        model = state.model
+        if not compression.codec_active(self.grad_codec):
+            flat = coll.all_reduce_(_pack(model, loss, acc), self.mesh)
+            flat /= self.n_devices
+            return _unpack(model, flat)
+        params = list(model.parameters())
+        mean = self.grad_codec.all_reduce_mean(
+            [p.detach() for p in params], self.mesh,
+            generator=self.codec_step_generator(state))
+        with torch.no_grad():
+            for p, m in zip(params, mean):
+                p.copy_(m)
+        return self._mean_metrics(loss, acc)
 
     def _mean_metrics(self, loss, acc) -> torch.Tensor:
         metrics = coll.all_reduce_(torch.stack([loss, acc]), self.mesh)
@@ -110,7 +129,7 @@ class AsyncLocalEngine(Engine):
         loss, acc = self._local_step(state, x, y)
         if self.mesh is not None:
             if state.step % self.sync_every == 0:
-                loss, acc = self._mean_params_and(state.model, loss, acc)
+                loss, acc = self._mean_params_and(state, loss, acc)
             else:
                 loss, acc = self._mean_metrics(loss, acc)
         return state, {"loss": loss, "accuracy": acc}

@@ -18,9 +18,19 @@ through ``many_step`` like the loss.  On the card an engine that
 captures its drained chunk as a CUDA graph (``captures_chunks``:
 ``SyncEngine``) builds the default Adam ``capturable`` (its step counts
 live on the device), so the same update runs eagerly and inside the
-graph; the others keep the plain default.  The gradient codecs,
-bucketing and the health layer are not ported and raise
-``NotImplementedError``.
+graph; the others keep the plain default.
+
+``grad_compression``/``grad_bucket_mb`` resolve to ``self.grad_codec``
+(``parallel/overlap.make_overlap_codec``): the codec each engine runs its
+exchange through.  Its rounding stream is a second generator,
+``TrainState.codec_generator`` (``codec_step_generator``): on the CPU it
+is reseeded every step from (seed, step, stream words, the codec's tag),
+as the dropout stream is; on the card it is a Philox stream seeded once
+by ``init_state``, registered with every captured chunk beside the
+dropout stream, and checkpointed under ``codec_generator/<rank>``.  It is
+a stream of its own, so a codec leaves the dropout masks as they were.
+``grad_collective_bytes`` and ``grad_collective_bytes_raw`` are the
+payload of one exchange under the codec and without it.
 
 ``checkpoint_state``/``load_checkpoint_state`` turn a ``TrainState`` into
 the flat dict a checkpoint holds (``utils/checkpoint.py``) and back, in
@@ -40,8 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import is_lazy
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import resolve_device
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel import compression
+from distributed_tensorflow_tpu_torch.parallel import overlap
 from distributed_tensorflow_tpu_torch.parallel import precision as precisionlib
 from distributed_tensorflow_tpu_torch.parallel.mesh import DATA_AXIS
 
@@ -52,12 +64,15 @@ class TrainState:
     objects: ``model`` holds the parameters, ``optimizer`` the optimizer
     state (a ``MasterWeights`` under a master policy), ``generator`` the
     stream on the device that dropout draws from
-    (``Engine.step_generator``).  Engines update it in place."""
+    (``Engine.step_generator``), ``codec_generator`` the gradient codec's
+    rounding stream (``Engine.codec_step_generator``).  Engines update it
+    in place."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    codec_generator: torch.Generator | None = None
     seed: int = 0
     # the engine whose init_state built it: a checkpoint manager saves and
     # restores the state through it
@@ -155,12 +170,10 @@ class Engine:
                  learning_rate: float = 1e-3, grad_compression: str = "none",
                  grad_bucket_mb: float = 0.0, precision: str = "f32",
                  device=None):
-        if grad_compression != "none":
-            not_ported(f"grad_compression={grad_compression!r}",
-                       "remaining engines")
-        if grad_bucket_mb:
-            not_ported("grad_bucket_mb > 0 (bucketed overlap)",
-                       "remaining engines")
+        # the exchange's codec: 'none' at bucket 0 keeps every engine's
+        # pre-codec program (compression.codec_active)
+        self.grad_codec = overlap.make_overlap_codec(grad_compression,
+                                                     grad_bucket_mb)
         self.precision = precisionlib.make_policy(precision)
         if self.precision.loss_scaling and not self.supports_loss_scaling:
             raise ValueError(
@@ -197,6 +210,14 @@ class Engine:
         (and the step on the CPU): its data index."""
         return (self.rank,)
 
+    @property
+    def codec_stream_words(self) -> tuple[int, ...]:
+        """What this rank's codec stream is seeded from, beside the seed
+        and the codec's tag: the dropout stream's words, as each rank
+        quantizes its own value.  The engines whose codec quantizes a
+        replicated value return () (one stream for every rank)."""
+        return self.stream_words
+
     # ---------------------------------------------------------------- init
     def init_state(self, generator: torch.Generator,
                    sample_x=None) -> TrainState:
@@ -221,12 +242,16 @@ class Engine:
         self.precision.cast_params(self.model)
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         stream = torch.Generator(device=self.device)
+        codec_stream = torch.Generator(device=self.device)
         if self.device.type == "cuda":
             stream.manual_seed(_seed_of(seed, *self.stream_words))
+            codec_stream.manual_seed(_seed_of(
+                seed, *self.codec_stream_words, compression.RNG_TAG))
         return TrainState(step=0, model=self.model,
                           optimizer=self.make_optimizer(
                               list(self.model.parameters())),
-                          generator=stream, seed=seed, engine=self)
+                          generator=stream, codec_generator=codec_stream,
+                          seed=seed, engine=self)
 
     def _own_params(self, model: nn.Module) -> None:
         """Hook between the fresh parameters and the optimizer: an engine
@@ -277,6 +302,18 @@ class Engine:
         return state.generator.manual_seed(
             _seed_of(state.seed, state.step, *self.stream_words))
 
+    def codec_step_generator(self, state: TrainState) -> torch.Generator:
+        """This step's codec rounding stream (JAX ``codec_rng``): on the
+        CPU reseeded from (seed, step, ``codec_stream_words``, the codec's
+        tag) every step; on the card the Philox stream ``init_state``
+        seeded, run on through the steps as ``step_generator``'s is."""
+        gen = state.codec_generator
+        if gen.device.type == "cuda":
+            return gen
+        return gen.manual_seed(_seed_of(state.seed, state.step,
+                                        *self.codec_stream_words,
+                                        compression.RNG_TAG))
+
     # ---------------------------------------------------------------- step
     def step(self, state: TrainState, x, y):
         """One training step (the subclass's ``_step``); under fp16 loss
@@ -318,20 +355,22 @@ class Engine:
         """``state`` as a checkpoint's flat dict: the live tensors of
         ``_checkpoint_entries`` (copy them before the next step changes
         them), ``step``, ``seed``, the policy's name under ``precision``
-        and, on the card, the dropout generator's state under
-        ``generator/<rank>`` (every rank's, one gather).  On the CPU the
-        stream is reseeded from (seed, step, rank) every step, so seed and
-        step are all of it."""
+        and, on the card, the dropout and codec generators' states under
+        ``generator/<rank>`` and ``codec_generator/<rank>`` (every rank's,
+        one gather).  On the CPU both streams are reseeded from (seed,
+        step, rank) every step, so seed and step are all of them."""
         d: dict = dict(self._checkpoint_entries(state))
         if state.generator.device.type == "cuda":
-            gen = state.generator.get_state()
+            gen = (state.generator.get_state(),
+                   state.codec_generator.get_state())
             if self.mesh is not None and self.mesh.world_size > 1:
                 gens = [None] * self.mesh.world_size
                 torch.distributed.all_gather_object(gens, gen)
             else:
                 gens = [gen]
-            for r, g in enumerate(gens):
+            for r, (g, c) in enumerate(gens):
                 d[f"generator/{r}"] = g
+                d[f"codec_generator/{r}"] = c
         d.update(step=int(state.step), seed=int(state.seed),
                  precision=self.precision.name)
         return d
@@ -362,7 +401,7 @@ class Engine:
             live = self._checkpoint_entries(target)
             layout = {k: (v.shape, v.dtype) for k, v in live.items()}
         got = {k for k, v in d.items() if isinstance(v, torch.Tensor)
-               and not k.startswith("generator/")}
+               and not k.startswith(("generator/", "codec_generator/"))}
         missing, extra = sorted(set(layout) - got), sorted(got - set(layout))
         if missing or extra:
             raise ValueError(f"checkpoint does not match this state's "
@@ -381,12 +420,39 @@ class Engine:
                 t.copy_(d[k])
         target.step, target.seed = int(d["step"]), int(d["seed"])
         rank = self.mesh.rank if self.mesh is not None else 0
-        gen = d.get(f"generator/{rank}")
-        if gen is not None and target.generator.device.type == "cuda":
-            target.generator.set_state(gen)
+        if target.generator.device.type == "cuda":
+            for name in ("generator", "codec_generator"):
+                gen = d.get(f"{name}/{rank}")
+                if gen is not None:
+                    getattr(target, name).set_state(gen)
         return target
 
     # --------------------------------------------------------------- bytes
+    def _exchanged_leaves(self, state: TrainState) -> list:
+        """What one gradient exchange moves, leaf by leaf (anything with
+        ``.shape`` and ``.dtype``): the parameters (gradients share their
+        shapes and dtypes)."""
+        return list(state.model.parameters())
+
+    def grad_collective_bytes_raw(self, state: TrainState) -> int:
+        """Uncompressed bytes of one gradient collective round, from the
+        parameters' real dtypes (0 without a state)."""
+        if state is None:
+            return 0
+        return int(sum(compression._numel(a.shape) * a.dtype.itemsize
+                       for a in self._exchanged_leaves(state)))
+
+    def grad_collective_bytes(self, state: TrainState) -> int:
+        """Wire bytes of one gradient collective round under the codec
+        (bf16 halves the raw figure, int8 is one byte an element plus 4
+        per leaf or per bucket).  On the sync, async and gossip engines it
+        is what the collective moves; on the sequence- and
+        expert-parallel engines, whose all-reduce stays exact and whose
+        codec is a roundtrip, it is the codec's accounting."""
+        if state is None:
+            return 0
+        return self.grad_codec.wire_bytes(self._exchanged_leaves(state))
+
     def param_bytes_per_device(self, state: TrainState) -> int:
         """This rank's parameter bytes: what 16-bit storage halves."""
         return sum(p.numel() * p.element_size()

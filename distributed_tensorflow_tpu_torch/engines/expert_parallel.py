@@ -34,8 +34,16 @@ as JAX reshapes it to (K, B/K): ``shard_batch`` gives each rank its token
 shard of every microbatch, and each microbatch routes on its own.  The
 steps are eager (``Engine.many_step``): no CUDA graph.  Precision: the
 bf16 policies; ``fp16-f32master`` is rejected (the router terms do not
-thread a loss scale), and a gradient codec, an ep×tp ``model`` axis and
-the composites with other model-parallel axes are not ported.
+thread a loss scale), and an ep×tp ``model`` axis and the composites with
+other model-parallel axes are not ported.
+
+A gradient codec (JAX ``expert_parallel.py:203-223``): after the exact
+reduces, ``codec.roundtrip`` encodes and decodes the gradients with a
+rank-invariant stream (``codec_stream_words`` is ()), so the replicas
+stay equal.  JAX's roundtrip sees each stacked expert leaf whole (one
+scale and one draw over every expert); here an expert gradient is first
+gathered along the expert axis, the whole leaf goes through the codec,
+and each rank keeps its slice.
 """
 
 from __future__ import annotations
@@ -132,6 +140,12 @@ class ExpertParallelEngine(Engine):
 
     supports_loss_scaling = False
     captures_chunks = False
+
+    @property
+    def codec_stream_words(self) -> tuple[int, ...]:
+        """One codec stream for every rank: the roundtrip quantizes the
+        reduced, replicated gradients."""
+        return ()
 
     def __init__(self, model, optimizer=None, mesh=None,
                  learning_rate: float = 1e-3, aux_weight: float = 0.01,
@@ -300,12 +314,44 @@ class ExpertParallelEngine(Engine):
         sums = sums / k
         task, acc = self._reduce(model, sums[:2])
         aux, z, overflow = sums[2], sums[3], sums[4]
+        if self.grad_codec.name != "none":
+            self._roundtrip_grads(state)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": task, "accuracy": acc,
                        "total_loss": (task + self.aux_weight * aux
                                       + self.router_z_weight * z),
                        "overflow": overflow}
+
+    def _roundtrip_grads(self, state: TrainState) -> None:
+        """``codec.roundtrip`` of the reduced gradients with the
+        rank-invariant stream, over the whole model's leaves: an expert
+        gradient is gathered along the expert axis first and this rank
+        keeps its slice of the result."""
+        named = [(n, p) for n, p in state.model.named_parameters()
+                 if p.grad is not None]
+        whole = []
+        for name, p in named:
+            g = p.grad
+            if name in self.expert_params and self.ep > 1:
+                g = coll.all_gather(g.contiguous(), self.mesh, tiled=True,
+                                    axis=meshlib.EXPERT_AXIS)
+            whole.append(g)
+        out = self.grad_codec.roundtrip(
+            whole, generator=self.codec_step_generator(state))
+        for (name, p), g in zip(named, out):
+            p.grad = self._slice(name, g)
+
+    def _exchanged_leaves(self, state: TrainState) -> list:
+        """The whole model's parameters (JAX's global leaves): an expert
+        leaf counts at its full (E, ...) shape."""
+        out = []
+        for name, p in state.model.named_parameters():
+            if name in self.expert_params:
+                shape = (p.shape[0] * self.ep, *p.shape[1:])
+                p = torch.empty(shape, dtype=p.dtype, device="meta")
+            out.append(p)
+        return out
 
     def _reduce(self, model: nn.Module, metrics: torch.Tensor):
         """Sum the replicated parameters' gradients over every rank (the

@@ -11,15 +11,21 @@ accuracy through one all-reduce.  Where the neighbourhood covers the ring
 (``2·degree + 1 >= n``, every run on one card included) the mix is the
 full mean, and parameters and metrics share one all-reduce.  A ring mix
 runs in the stored parameters' dtype, as JAX's does; precision and the
-eager drain as in ``AsyncLocalEngine``.
+eager drain as in ``AsyncLocalEngine``.  With a codec or bucketing active
+the mix is ``codec.neighbor_mean`` with this rank's codec stream (JAX
+``gossip.py:37-57``; at a covering neighbourhood the codec's mean), and
+the metrics go in an f32 all-reduce of their own.
 """
 
 from __future__ import annotations
+
+import torch
 
 from distributed_tensorflow_tpu_torch.engines.async_local import (
     AsyncLocalEngine, _pack, _unpack)
 from distributed_tensorflow_tpu_torch.engines.base import TrainState
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+from distributed_tensorflow_tpu_torch.parallel import compression
 
 
 class GossipEngine(AsyncLocalEngine):
@@ -38,8 +44,17 @@ class GossipEngine(AsyncLocalEngine):
         if self.mesh is None:
             return state, {"loss": loss, "accuracy": acc}
         mix = self.degree > 0 and state.step % self.mix_every == 0
-        if mix and 2 * self.degree + 1 >= self.n_devices:
-            loss, acc = self._mean_params_and(state.model, loss, acc)
+        if mix and compression.codec_active(self.grad_codec):
+            params = list(state.model.parameters())
+            mixed = self.grad_codec.neighbor_mean(
+                [p.detach() for p in params], self.mesh, self.degree,
+                generator=self.codec_step_generator(state))
+            with torch.no_grad():
+                for p, m in zip(params, mixed):
+                    p.copy_(m)
+            loss, acc = self._mean_metrics(loss, acc)
+        elif mix and 2 * self.degree + 1 >= self.n_devices:
+            loss, acc = self._mean_params_and(state, loss, acc)
         else:
             if mix:
                 _unpack(state.model, coll.neighbor_mean(

@@ -28,6 +28,15 @@ index), so every token block draws its own masks (JAX ``:122-127``).  The
 step is eager (``Engine.many_step``): its chunks are not captured as CUDA
 graphs.  Precision: the bf16 policies; ``fp16-f32master`` is rejected, as
 JAX's engine does not thread a loss scale.
+
+A gradient codec (JAX ``seq_parallel.py:113-121, 195-200``): the
+gradient is all-reduced exactly, as above, and then ``codec.roundtrip``
+encodes and decodes it with a rank-invariant stream, seeded from (seed,
+step, the codec's tag) without the rank's words (``codec_stream_words``
+is ()), so every rank quantizes the same value alike and the replicas
+stay equal.  Its wire bytes are the codec's accounting, as JAX reports
+them for its compiler-inserted collective.  The engine has no overlap
+probe (JAX's has none).
 """
 
 from __future__ import annotations
@@ -55,6 +64,8 @@ class SeqParallelEngine(SyncEngine):
     seq_axis = meshlib.SEQ_AXIS
     supports_loss_scaling = False
     captures_chunks = False
+    codec_roundtrip = True
+    build_overlap_probe_fns = None
 
     def __init__(self, model, optimizer=None, mesh=None,
                  learning_rate: float = 1e-3, grad_accum: int = 1,
@@ -90,6 +101,12 @@ class SeqParallelEngine(SyncEngine):
         """Dropout streams fold in the data and the seq index: every token
         block draws its own masks."""
         return (self.rank, self.seq_index)
+
+    @property
+    def codec_stream_words(self) -> tuple[int, ...]:
+        """One codec stream for every rank: the reduced gradient is the
+        same on every rank and must be quantized alike."""
+        return ()
 
     def shard_batch(self, x, y, mask=None, process_local: bool = False):
         """This rank's rows (by data index) and token columns (by seq

@@ -59,8 +59,19 @@ inside a collective, and a process group cannot be re-created inside a
 rank after a peer died), and ``run`` refuses ``max_restarts`` inside a
 rank of more than one.
 
-The JAX ``ExperimentConfig``'s other fields (codecs, the lease,
-telemetry) are absent; ``tensor_parallel`` and ``pipeline_parallel`` raise
+``grad_compression`` (none | bf16 | int8) and ``grad_bucket_mb`` reach
+every engine the port builds (``parallel/compression.py``,
+``parallel/overlap.py``); a misspelt codec and a negative bucket are
+refused before setup.  With ``grad_bucket_mb`` > 0 the run measures the
+exposed-against-hidden collective split once before training
+(``_probe_collective_overlap``; every rank of a group together, as the
+probe holds collectives) and reports it as ``fit["collective_overlap"]``
+and the run report's ``grad_collective_exposed_s``/``_hidden_s``.  The
+overlap comes from the engine's gradient hooks and side stream; JAX's
+``enable_overlap_flags`` sets XLA scheduler flags and has no counterpart.
+
+The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
+absent; ``tensor_parallel`` and ``pipeline_parallel`` raise
 ``NotImplementedError`` above 1, as does any composite of the
 model-parallel factors (``check_parallel_factors``), and the fleet's
 serve fields
@@ -124,6 +135,13 @@ class ExperimentConfig:
     clip_norm: float = 0.0          # >0: clip gradients to this global norm
                                     # before the optimizer update
     grad_accum: int = 1             # microbatches per optimizer step
+    grad_compression: str = "none"  # gradient/parameter exchange codec:
+                                    # none | bf16 | int8
+                                    # (parallel/compression.py)
+    grad_bucket_mb: float = 0.0     # >0: bucketed gradient collectives
+                                    # reduced as the backward produces
+                                    # them (parallel/overlap.py); 0: the
+                                    # unbucketed exchange
     sync_every: int = 10            # async: parameter-averaging period
     degree: int = 1                 # gossip: ring neighbours on each side
     seed: int = 0
@@ -515,7 +533,8 @@ def _setup_seq_parallel(config: ExperimentConfig) -> _Experiment:
             model, mesh=mesh, learning_rate=config.learning_rate,
             optimizer=_make_optimizer(config, train_ds, global_batch,
                                       model),
-            grad_accum=config.grad_accum, precision=config.precision)
+            grad_accum=config.grad_accum, precision=config.precision,
+            **_codec_kw(config))
     except BaseException:
         mesh.close()
         raise
@@ -584,12 +603,40 @@ def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
             optimizer=_make_optimizer(config, train_ds, global_batch, model),
             aux_weight=config.aux_weight,
             router_z_weight=config.router_z_weight,
-            grad_accum=config.grad_accum, precision=config.precision)
+            grad_accum=config.grad_accum, precision=config.precision,
+            **_codec_kw(config))
     except BaseException:
         mesh.close()
         raise
     return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
                        engine=engine, global_batch=global_batch, name=mode)
+
+
+def _codec_kw(config: ExperimentConfig) -> dict[str, Any]:
+    """The codec settings every engine takes."""
+    return dict(grad_compression=config.grad_compression,
+                grad_bucket_mb=config.grad_bucket_mb)
+
+
+def _validate_grad_bucket(config: ExperimentConfig) -> None:
+    """Reject a negative ``--grad-bucket-mb`` (JAX ``harness.py:537-558``).
+    JAX also rejects it under the pipeline schedules (``-pp``), which the
+    port does not have yet (ROADMAP Queue 1 8d: ``pipeline_parallel`` > 1
+    raises ``NotImplementedError`` in ``check_parallel_factors``)."""
+    if config.grad_bucket_mb and config.grad_bucket_mb < 0:
+        raise ValueError(
+            f"--grad-bucket-mb must be >= 0 (0 disables bucketing), "
+            f"got {config.grad_bucket_mb}")
+
+
+def check_codec_config(config: ExperimentConfig) -> None:
+    """A misspelt codec fails here, not inside an engine's constructor
+    (JAX ``harness.py:617-621``), and a negative bucket size too."""
+    if config.grad_compression != "none":
+        from distributed_tensorflow_tpu_torch.parallel import compression
+
+        compression.make_codec(config.grad_compression)
+    _validate_grad_bucket(config)
 
 
 def check_parallel_factors(config: ExperimentConfig) -> None:
@@ -626,6 +673,7 @@ def check_parallel_factors(config: ExperimentConfig) -> None:
 
 def _setup(config: ExperimentConfig) -> _Experiment:
     check_engine(config.engine)
+    check_codec_config(config)
     config = _resolve_precision(config)
     if config.sample_tokens:
         # family checks only here; shapes are checked post-setup in
@@ -650,7 +698,7 @@ def _setup(config: ExperimentConfig) -> _Experiment:
             mesh=mesh, learning_rate=config.learning_rate,
             optimizer=_make_optimizer(config, train_ds, global_batch,
                                       model),
-            precision=config.precision)
+            precision=config.precision, **_codec_kw(config))
         if config.engine == "async":
             engine_kw["sync_every"] = config.sync_every
         elif config.engine == "gossip":
@@ -793,6 +841,30 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
     return _run(config)
 
 
+def _probe_collective_overlap(ex: _Experiment) -> dict | None:
+    """The one-time exposed-against-hidden split of a
+    ``--grad-bucket-mb`` run (``overlap.probe_engine_overlap``, JAX
+    ``harness.py:2047-2086``) on the first training batch, or None when
+    the engine has no probe (SP, EP, async and gossip: JAX's have none)
+    or the probe failed; a failed probe never ends the run.  Under ``-n
+    N`` the ranks are processes and the probe holds collectives, so every
+    rank runs it together (JAX skips it only on multi-host jobs)."""
+    from distributed_tensorflow_tpu_torch.parallel import overlap
+
+    try:
+        batch = next(iter(ex.train_ds.batches(ex.global_batch,
+                                              shuffle=False)), None)
+        if batch is None:
+            return None
+        xs, ys = ex.engine.shard_batch(batch[0], batch[1])
+        return overlap.probe_engine_overlap(
+            ex.engine, xs, ys, sample_x=ex.train_ds.x[:1])
+    except Exception as e:
+        print(f"warning: collective overlap probe failed: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return None
+
+
 def _run(config: ExperimentConfig) -> dict[str, Any]:
     _reject_fleet(config)
     _check_recovery_config(config)
@@ -809,6 +881,10 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             config.result_path if rank0 else None,
             supervisor_address=config.supervisor_address if rank0 else None)
         ckpt_mgr = watchdog = None
+        # before any state of the run exists: the probe's throwaway state
+        # reinitializes the engine's module
+        overlap_probe = (_probe_collective_overlap(ex)
+                         if config.grad_bucket_mb else None)
         try:
             trainer = Trainer(None, engine=ex.engine, seed=config.seed)
             resumed = {"data_state": None, "preemption_lost_s": None,
@@ -855,6 +931,10 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             finally:
                 if watchdog is not None:
                     watchdog.close()
+            if config.grad_bucket_mb:
+                # None: the engine has no probe or it failed (not a
+                # measured 0)
+                fit["collective_overlap"] = overlap_probe
             if config.elastic_restore:
                 fit["preemption_lost_s"] = resumed["preemption_lost_s"]
                 fit["restored_step"] = resumed["restored_step"]
@@ -909,6 +989,20 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                     "opt_state_bytes_per_device":
                         fit["opt_state_bytes_per_device"],
                     "loss_scale": fit.get("loss_scale"),
+                    # the gradient exchange: wire against raw bytes, the
+                    # codec, the bucket size and the probe's split
+                    "grad_allreduce_bytes": fit.get("grad_allreduce_bytes"),
+                    "grad_allreduce_bytes_raw":
+                        fit.get("grad_allreduce_bytes_raw"),
+                    "grad_compression": fit.get("grad_compression"),
+                    "grad_bucket_mb": fit.get("grad_bucket_mb"),
+                    "grad_collective_exposed_s": (
+                        fit.get("collective_overlap") or {}).get(
+                            "exposed_s"),
+                    "grad_collective_hidden_s": (
+                        fit.get("collective_overlap") or {}).get(
+                            "hidden_s"),
+                    "collective_overlap": fit.get("collective_overlap"),
                     # checkpoint cost: blocked against overlapped seconds
                     "checkpoint_wait_s": fit.get("checkpoint_wait_s"),
                     "checkpoint_overlapped_s":

@@ -259,11 +259,14 @@ def test_unported_options_raise(tmp_path):
     from distributed_tensorflow_tpu_torch.utils.failure import Watchdog
 
     model = GPTLM(**SMALL, device="cpu")
-    for kw, item in ((dict(grad_compression="bf16"), "remaining engines"),
-                     (dict(grad_bucket_mb=4.0), "remaining engines"),
-                     (dict(grad_compression="int8"), "remaining engines")):
-        with pytest.raises(NotImplementedError, match=f"(?i){item}"):
-            SyncEngine(model, device="cpu", **kw)
+    # ported since: the gradient codecs and bucketing, in every engine
+    for kw, name, bucket_mb in ((dict(grad_compression="bf16"), "bf16", 0),
+                                (dict(grad_bucket_mb=4.0), "none", 4.0),
+                                (dict(grad_compression="int8"), "int8", 0)):
+        for cls in (SyncEngine, AsyncLocalEngine, GossipEngine):
+            codec = cls(model, device="cpu", **kw).grad_codec
+            assert codec.name == name, (cls, kw)
+            assert getattr(codec, "bucket_mb", 0) == bucket_mb, (cls, kw)
     with pytest.raises(NotImplementedError, match="remaining engines"):
         create_engine("fsdp", model, device="cpu")
     for name, cls in (("async", AsyncLocalEngine), ("gossip", GossipEngine)):
@@ -321,6 +324,8 @@ def test_training_path_imports_no_jax():
         "import distributed_tensorflow_tpu_torch.ops.flash_attention\n"
         "import distributed_tensorflow_tpu_torch.parallel.mesh\n"
         "import distributed_tensorflow_tpu_torch.parallel.collectives\n"
+        "import distributed_tensorflow_tpu_torch.parallel.compression\n"
+        "import distributed_tensorflow_tpu_torch.parallel.overlap\n"
         "import distributed_tensorflow_tpu_torch.utils.metrics\n"
         "import distributed_tensorflow_tpu_torch.utils.wire\n"
         "import distributed_tensorflow_tpu_torch.utils.supervisor\n"
