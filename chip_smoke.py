@@ -269,6 +269,28 @@ Phases (any failure raises and the script exits non-zero):
              splits, a replayed int8 chunk's device time split into the
              codec's own kernels (timed alone on the same gradients), NCCL
              kernels and the rest, and the phase's wall time;
+5k. mp    — FSDP and tensor parallelism on one NCCL rank.  F1, window
+             L1's argv (the cli-lm GPT, f32, flash, the optimizer recipe
+             with ``--clip-norm``, ``--sample``, paged ``--serve``) with
+             ``-m d -ds fsdp``: at n = 1 every shard is the whole leaf, so
+             its test loss, samples and served streams are held bitwise
+             to L1's from this run; 8 flash forwards, dQ and dK/dV a step
+             on ``tc32`` (rows 1c–3c), one all-gather and one
+             reduce-scatter a step for every leaf on NCCL, one all-reduce
+             a step (the metrics) and the evaluation's; its
+             ``state_bytes_per_device`` printed.  F2, F1 under
+             ``--precision bf16-f32master``: finite, the test loss within
+             ``MP_BF16_LOSS_ATOL`` of F1's, every flash launch on ``tc``
+             (rows 1d–3d), the f32 master's bytes per device printed.  T,
+             ``TensorParallelEngine`` on a (1, 1) (data, model) mesh over
+             the ``bench.py --lm`` GPT (L = 1024, bf16, flash) with
+             ``partition_model=True`` for 4 eager steps: losses bitwise
+             ``SyncEngine``'s flash GPT from the same weights, batches and
+             Adam; 8 ``tc`` forwards, dQ and dK/dV a step (rows 1–3);
+             2 × 8 + 1 model-axis all-reduces a step forward and as many
+             backward, one logit all-gather, one data-axis all-reduce.
+             Printed on ``[mp]`` lines: each window's step p50 and busy
+             share beside G-base's and the Train window's;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -426,6 +448,9 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 # device times that torch.profiler did not see (or of which it dropped
 # kernel records) and queued CUDA events measured instead (``_device_ms``)
 EVENT_TIMED: list[str] = []
+# what earlier phases measured that phase 5k holds its windows to or
+# prints them beside: L1's outputs, step p50s and busy shares
+SEEN: dict = {}
 _SLEEP_CYCLES_PER_MS: list[float] = []
 
 
@@ -2413,6 +2438,7 @@ def _profile_chunk(label: str, engine, state, xs, ys, chunks: int = 4):
               f"measured); event_ms_per_step={event_ms:.4f} "
               f"wall_ms_per_step={wall_us / 1e3:.4f}")
         return
+    SEEN[label] = {"wall_ms": wall_us / 1e3, "busy_share": busy_us / wall_us}
     print(f"[profile] {label}, replayed CUDA graph of {k} steps: "
           f"wall_ms_per_step={wall_us / 1e3:.4f} event_ms_per_step="
           f"{event_ms:.4f} device_busy_ms={busy_us / 1e3:.4f} "
@@ -2491,6 +2517,7 @@ def train_phase(gpu: str):
     stamps = [t for t, _ in beats]
     gaps = np.diff(stamps)                  # steps 2..16, first excluded
     tokens = batch * LM["seq"]
+    SEEN["train"] = {"step_ms_p50": float(np.median(gaps)) * 1e3}
     print(f"[train] {gpu}: steps={steps} loss first={losses[0]:.4f} "
           f"last={losses[-1]:.4f} "
           f"steady_tokens_per_sec={tokens * len(gaps) / gaps.sum():.1f} "
@@ -2663,6 +2690,8 @@ def _profile_train(engine, state, x, y, steps: int = 4,
     for dev_us, count, shapes in _copy_ops(engine, state, xs, ys, steps):
         print(f"[profile]   aten::copy_ {dev_us:9.2f} us/step "
               f"x{count:<6.1f} {shapes}")
+    SEEN[f"train step {compute} {label}"] = {"wall_ms": wall_us / 1e3,
+                                   "busy_share": busy_us / wall_us}
     print(f"[profile] train step (B=8, L=1024, {compute}, {label}): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
@@ -3335,6 +3364,8 @@ def cli_lm_phase(gpu: str) -> dict:
         _cli_lm_requests(16))
     assert _streams(rec["serve_summary"]) == _streams(base), (
         "window L1's serve streams differ from the direct window's")
+    SEEN["L1"] = {"test_loss": sm["test_loss"], "samples": sm["samples"],
+                  "streams": _streams(rec["serve_summary"])}
     print(f"[cli-lm] window L1: test_loss {sm['test_loss']:.6f} <= "
           f"{CLI_LM_TEST_LOSS}; samples bitwise generate(greedy) on the "
           f"trained module; serve streams bitwise a direct SlotKVCache("
@@ -4763,6 +4794,7 @@ def codec_phase(gpu: str) -> dict:
                 np.isfinite(split[key]) for key in ("exposed_s", "hidden_s")
             ), (name, split)
         recs[name] = rec
+        SEEN.setdefault("codec", {})[name] = rr["step_time_p50_s"] * 1e3
         print(f"[codec] {name} ({gpu}): {' '.join(extra) or 'base'}: "
               f"test_loss={sm['test_loss']!r} step_ms_p50="
               f"{rr['step_time_p50_s'] * 1e3:.4f} wire_bytes="
@@ -4795,6 +4827,265 @@ def codec_phase(gpu: str) -> dict:
     torch.cuda.empty_cache()
     print(f"[codec] phase 5j wall {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 5k: FSDP and tensor parallelism on one NCCL rank
+# --------------------------------------------------------------------------
+
+MP_STEPS = 4
+# F2 (bf16 parameters and compute under an f32 master) against F1 (f32):
+# the test loss after the same 512 steps; phase 5j's bf16 run G1 stays
+# within this of G-base
+MP_BF16_LOSS_ATOL = 0.02
+MP_FSDP_ARGV = ["-m", "d", "-ds", "fsdp"]
+
+
+def _mp_counters():
+    """(holder, attribute) of the NCCL collectives the two engines launch:
+    FSDP's all-gathers and reduce-scatters, TP's model-axis all-reduces
+    (forward: row-parallel outputs and the vocab-parallel embedding;
+    backward: column-parallel inputs and the head's input) and logit
+    all-gathers, and every all-reduce."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    return {"gather": (coll.gather_shards, "nccl_launches"),
+            "scatter": (coll.gather_shards, "nccl_scatter_launches"),
+            "reduce_from_model": (coll.reduce_from_model, "nccl_launches"),
+            "copy_to_model": (coll.copy_to_model, "nccl_launches"),
+            "gather_from_model": (coll.gather_from_model, "nccl_launches"),
+            "all_reduce": (coll.all_reduce_, "nccl_launches")}
+
+
+def _mp_counts() -> dict:
+    return {k: getattr(fn, a) for k, (fn, a) in _mp_counters().items()}
+
+
+def _reset_mp_counts() -> None:
+    for fn, a in _mp_counters().values():
+        setattr(fn, a, 0)
+
+
+def _eager_busy(engine, state, xs, ys, steps: int = 4) -> dict:
+    """``steps`` eager steps on the host clock, then under
+    ``torch.profiler``: wall ms a step and the device's busy share."""
+    engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step(state, xs, ys)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    rows = _profiled(lambda: [engine.step(state, xs, ys)
+                              for _ in range(steps)], steps)
+    busy_us = sum(r[0] for r in rows)
+    return {"wall_ms": wall_us / 1e3,
+            "busy_share": busy_us / wall_us if busy_us else None,
+            "kernels": sum(r[1] for r in rows)}
+
+
+def _fresh_busy(engine: str, precision: str = "f32") -> dict:
+    """``_eager_busy`` of the cli-lm GPT under ``engine`` (window L1's
+    recipe) from a fresh state on a one-rank NCCL group, on its first
+    batch."""
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    ex = harness._setup(harness._resolve_precision(_ckpt_config(
+        engine=engine, precision=precision, lr_schedule="cosine",
+        warmup_steps=32, weight_decay=0.1, clip_norm=1.0)))
+    try:
+        state = ex.engine.init_state(torch.Generator().manual_seed(0),
+                                     ex.train_ds.x[:1])
+        bx, by, _ = next(iter(ex.train_ds.batches(ex.global_batch,
+                                                  shuffle=False)))
+        with harness._repeatable_math():
+            return _eager_busy(ex.engine, state,
+                               *ex.engine.shard_batch(bx, by))
+    finally:
+        ex.mesh.close()
+
+
+def _fmt(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def _fsdp_window(name, extra, gpu, pool_kind, route, steps, evals):
+    """``cli.main`` with window L1's flags under ``-m d -ds fsdp`` (and
+    ``extra``), every count set to 0 just before it: the flash launches
+    of L1 (8 layers a step on ``route`` and a forward an eval batch), one
+    all-gather and one reduce-scatter a step of every leaf's slice (at
+    n = 1 each slice is the whole leaf), one all-reduce a step (the loss
+    and accuracy) and the evaluation's, and no model-axis collective."""
+    from distributed_tensorflow_tpu_torch.engines import FSDPEngine
+
+    layers = CLI_LM["layers"]
+    _reset_mp_counts()
+    rec, counts, paged, _ = _cli_lm_window(
+        name, CLI_L1_ARGV + MP_FSDP_ARGV + extra, gpu, 8, pool_kind)
+    mp = _mp_counts()
+    eng, state = rec["trainer"].engine, rec["trainer"].state
+    assert isinstance(eng, FSDPEngine), type(eng)
+    fwd, bwd = layers * (steps + evals), layers * steps
+    other = "tc" if route == "tc32" else "tc32"
+    assert counts == {"fwd": fwd, "dq": bwd, "dkv": bwd,
+                      f"fwd_{route}": fwd, f"dq_{route}": bwd,
+                      f"dkv_{route}": bwd, f"fwd_{other}": 0,
+                      f"dq_{other}": 0, f"dkv_{other}": 0}, (name, counts)
+    leaves = len(list(state.model.parameters()))
+    assert len(eng.param_specs) == leaves, (leaves, eng.param_specs)
+    want = {"gather": steps, "scatter": steps,
+            "reduce_from_model": 0, "copy_to_model": 0,
+            "gather_from_model": 0, "all_reduce": steps + 1}
+    assert mp == want, (name, mp, want)
+    return rec, counts, paged, mp, leaves
+
+
+def mp_phase(gpu: str) -> dict:
+    """Phase 5k (module docstring): F1 and F2 through ``cli.main``, T on a
+    (1, 1) (data, model) mesh; returns the windows' kernel launches."""
+    from distributed_tensorflow_tpu_torch.data import loaders
+    from distributed_tensorflow_tpu_torch.engines import (
+        SyncEngine, TensorParallelEngine)
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    layers = CLI_LM["layers"]
+    train = loaders.load_dataset("lm_synth", split="train")
+    test = loaders.load_dataset("lm_synth", split="test")
+    steps = len(train) // CLI_LM["batch"]
+    evals = -(-len(test) // 100)
+
+    # F1: FSDP at f32, bitwise window L1
+    rec, counts, paged, mp, leaves = _fsdp_window(
+        "F1 (fsdp, f32)", [], gpu, (torch.float32, CLI_LM["heads"],
+                                    CLI_LM["heads"]), "tc32", steps, evals)
+    sm, l1 = rec["summary"], SEEN["L1"]
+    same = {"test_loss": sm["test_loss"] == l1["test_loss"],
+            "samples": sm["samples"] == l1["samples"],
+            "streams": _streams(rec["serve_summary"]) == l1["streams"]}
+    assert all(same.values()), (same, sm["test_loss"], l1["test_loss"])
+    assert paged == layers * sm["serve"]["decode_iterations"], paged
+    eng, state = rec["trainer"].engine, rec["trainer"].state
+    per, whole = eng.state_bytes_per_device(state)
+    f1 = {"fwd_tc32": counts["fwd_tc32"], "dq_tc32": counts["dq_tc32"],
+          "dkv_tc32": counts["dkv_tc32"], "paged_f32": paged}
+    f1_p50 = sm["run_report"]["step_time_p50_s"] * 1e3
+    f1_loss = sm["test_loss"]
+    print(f"[mp] F1 ({gpu}): FSDP at n = 1 bitwise window L1 "
+          f"{json.dumps(same)}; test_loss {f1_loss!r}; {leaves} leaves, "
+          f"NCCL collectives {json.dumps(mp)} over {steps} steps + 1 eval "
+          f"(planned: one all-gather of the {leaves} slices and one "
+          f"reduce-scatter a step); flash launches on tc32 "
+          f"{counts['fwd_tc32']}/"
+          f"{counts['dq_tc32']}/{counts['dkv_tc32']}; paged {paged}; "
+          f"state_bytes_per_device {per} of {whole} replicated")
+    del rec, eng, state
+
+    # F2: FSDP under bf16-f32master
+    rec, counts, paged2, mp, _ = _fsdp_window(
+        "F2 (fsdp, bf16-f32master)", ["--precision", "bf16-f32master"], gpu,
+        (torch.bfloat16, CLI_LM["heads"], CLI_LM["heads"]), "tc", steps,
+        evals)
+    sm = rec["summary"]
+    assert np.isfinite(sm["test_loss"]), sm["test_loss"]
+    assert abs(sm["test_loss"] - f1_loss) <= MP_BF16_LOSS_ATOL, (
+        sm["test_loss"], f1_loss)
+    eng, state = rec["trainer"].engine, rec["trainer"].state
+    per2, whole2 = eng.state_bytes_per_device(state)
+    master = state.optimizer.master
+    f2 = {"fwd_tc": counts["fwd_tc"], "dq_tc": counts["dq_tc"],
+          "dkv_tc": counts["dkv_tc"], "paged_bf16": paged2}
+    f2_p50 = sm["run_report"]["step_time_p50_s"] * 1e3
+    print(f"[mp] F2 ({gpu}): test_loss {sm['test_loss']!r} within "
+          f"{MP_BF16_LOSS_ATOL} of F1's ({abs(sm['test_loss'] - f1_loss):.6f}"
+          f"); NCCL collectives {json.dumps(mp)}; flash launches on tc "
+          f"{counts['fwd_tc']}/{counts['dq_tc']}/{counts['dkv_tc']}; paged "
+          f"{paged2} (bf16 pools); f32 master bytes per device "
+          f"{master.numel() * master.element_size()}; state_bytes_per_device"
+          f" {per2} of {whole2} replicated")
+    del rec, eng, state, master
+
+    # T: TP on a (1, 1) mesh at the Train window's shape
+    x, y = _lm_data(MP_STEPS * LM["batch"])
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "model"))
+    runs = {}
+    try:
+        for label in ("sync", "tp"):
+            model = create_model(
+                "gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
+                layers=LM["layers"], heads=LM["heads"], ffn=LM["ffn"],
+                max_len=LM["seq"], dropout_rate=0.0, dtype="bfloat16",
+                attention_impl="flash", partition_model=label == "tp")
+            cls = SyncEngine if label == "sync" else TensorParallelEngine
+            # one (non-capturable) Adam for both
+            eng = cls(model, mesh=mesh,
+                      optimizer=lambda p: torch.optim.Adam(p, lr=1e-3))
+            state = eng.init_state(torch.Generator().manual_seed(0))
+            b = LM["batch"]
+            batches = [eng.shard_batch(x[i * b:(i + 1) * b],
+                                       y[i * b:(i + 1) * b])
+                       for i in range(MP_STEPS)]
+            torch.cuda.synchronize()
+            _reset_flash_counts()
+            _reset_mp_counts()
+            losses, step_ms = [], []
+            for xb, yb in batches:
+                ts = time.perf_counter()
+                state, m = eng.step(state, xb, yb)
+                losses.append(float(m["loss"]))     # waits for the step
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+            runs[label] = {"losses": losses, "step_ms": step_ms,
+                           "counts": {**_flash_counts(), **_tc32_counts()},
+                           "mp": _mp_counts(),
+                           "busy": _eager_busy(eng, state, *batches[0])}
+            del eng, state, model
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    tp, sync = runs["tp"], runs["sync"]
+    f1_busy, f2_busy = _fresh_busy("fsdp"), _fresh_busy("fsdp",
+                                                       "bf16-f32master")
+    sync_busy = _fresh_busy("sync")
+    assert tp["losses"] == sync["losses"], (tp["losses"], sync["losses"])
+    n = layers * MP_STEPS
+    assert tp["counts"] == {"fwd": n, "dq": n, "dkv": n, "fwd_tc": n,
+                            "dq_tc": n, "dkv_tc": n, "fwd_tc32": 0,
+                            "dq_tc32": 0, "dkv_tc32": 0}, tp["counts"]
+    pair = MP_STEPS * (2 * layers + 1)
+    want = {"gather": 0, "scatter": 0, "reduce_from_model": pair,
+            "copy_to_model": pair, "gather_from_model": MP_STEPS,
+            "all_reduce": 2 * pair + MP_STEPS}
+    assert tp["mp"] == want, (tp["mp"], want)
+    print(f"[mp] T ({gpu}): TensorParallelEngine on a (1, 1) NCCL mesh, "
+          f"partitioned flash GPT (B=8, L=1024, bf16): losses "
+          f"{' '.join(repr(v) for v in tp['losses'])} bitwise SyncEngine's; "
+          f"flash launches {json.dumps(tp['counts'])}; NCCL collectives "
+          f"{json.dumps(tp['mp'])} ({2 * layers + 1} model-axis all-reduces "
+          f"a step forward and as many backward, one logit all-gather and "
+          f"one data-axis all-reduce)")
+    codec = SEEN.get("codec", {})
+    train = SEEN.get("train", {})
+    l1_busy = SEEN.get("cli-lm L1 step (B=8, L=128, f32)", {})
+    train_busy = SEEN.get("train step bf16 f32 params", {})
+    for name, p50, busy in (
+            ("F1", f1_p50, f1_busy), ("F2", f2_p50, f2_busy),
+            ("T", float(np.median(tp["step_ms"][1:])), tp["busy"]),
+            ("T's sync twin", float(np.median(sync["step_ms"][1:])),
+             sync["busy"]),
+            ("the cli-lm GPT under SyncEngine, eager", None, sync_busy)):
+        print(f"[mp] {name} ({gpu}): step_ms_p50={_fmt(p50)} eager "
+              f"wall_ms={busy['wall_ms']:.4f} busy_share="
+              f"{_fmt(busy['busy_share'])} kernels_per_step="
+              f"{busy['kernels']:.1f}; beside G-base step_ms_p50="
+              f"{_fmt(codec.get('G-base'))} (a replayed L1 step: wall_ms="
+              f"{_fmt(l1_busy.get('wall_ms'))} busy_share="
+              f"{_fmt(l1_busy.get('busy_share'))}) and the Train window's "
+              f"step_ms_p50={_fmt(train.get('step_ms_p50'))} (eager: "
+              f"busy_share={_fmt(train_busy.get('busy_share'))})")
+    torch.cuda.empty_cache()
+    print(f"[mp] phase 5k wall {time.perf_counter() - t0:.1f} s")
+    return {"F1": f1, "F2": f2, "T": tp["counts"]}
 
 
 def _ptxas_lines(log: str):
@@ -4874,6 +5165,7 @@ def main() -> int:
     moe = moe_phase(gpu)
     ckpt = ckpt_phase(gpu)
     codec = codec_phase(gpu)
+    mp = mp_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -4891,6 +5183,8 @@ def main() -> int:
         row["launches_bf16_f32master"] = fit_master[counter]
         # the bench --moe window's launches (all on tc)
         row["launches_moe"] = moe["counts"][counter]
+        # phase 5k's window T (all on tc)
+        row["launches_mp"] = mp["T"][counter]
         print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
               f"shape, device ms: kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} "
@@ -4914,6 +5208,11 @@ def main() -> int:
             row["launches_ckpt"] = ckpt[variant][kind]
             # phase 5j's G runs
             row["launches_codec"] = codec[variant][kind]
+            # phase 5k's FSDP windows: F1 on tc32, F2 on tc
+            row["launches_mp"] = mp["F1" if variant == "tc32" else "F2"][
+                f"{kind}_{variant}"]
+        elif row["name"] == "paged_attention_cli_lm_f32":
+            row["launches_mp"] = mp["F1"]["paged_f32"]
     sp_rows = sp_timing_phase(sp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)

@@ -30,6 +30,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# ROADMAP Queue 1 item 8d's parts still to port: the titles not_ported
+# cites for them
+PIPELINE = "remaining engines: pipeline"
+EP_LEFTOVERS = "remaining engines: EP leftovers"
+COMPOSITES = "remaining engines: composites"
+TP_DECODE = "remaining engines: TP decode"
+
+
 def not_ported(what: str, item: str):
     """Raise for a feature of the JAX package the port does not have yet,
     naming the ROADMAP Queue 1 item that will bring it."""

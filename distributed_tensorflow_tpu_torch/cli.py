@@ -14,7 +14,7 @@ Mapping to engines (``select_engine``, as the JAX CLI maps them):
   -m c  -cs async   → async engine      (ported; --sync-every)
   -m d  -ds graph   → gossip engine     (ported; -d/--degree)
   -m d  -ds custom  → gossip engine     (ported; -d/--degree)
-  -m d  -ds fsdp    → fsdp engine       (not ported: raises)
+  -m d  -ds fsdp    → fsdp engine       (ported: ZeRO-3 sharding)
 
 ``-n N`` runs N ranks, one device each, as the reference runs one process
 per node (reference initializer.py:134-145): N > 1 spawns N processes
@@ -35,8 +35,11 @@ of (N / S, S) ranks; ``--attention ring|ring_flash|ulysses|ulysses_flash``
 picks the schedule); ``-ep E`` shards the experts of ``--model moe`` over
 E of the ranks (a (data, expert) mesh of (N / E, E) ranks, with
 ``--num-experts``, ``--aux-weight``, ``--router-top-k`` and
-``--router-z-weight``); ``-tp``/``-pp`` and the composites parse and
-raise.
+``--router-z-weight``); ``-tp T`` shards the model Megatron-style over T
+of the ranks (a (data, model) mesh of (N / T, T) ranks; the MLP names
+train ``TPMLP``, a sequence model its ``partition_model`` layout with
+dense attention), and under ``-m d -ds fsdp`` makes fsdp × tp; ``-pp``
+and the composites parse and raise.
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
@@ -60,6 +63,8 @@ the backward pass produces them (``parallel/overlap.py``).
         -b 4 --model gpt_tiny --dataset lm_synth --attention ring_flash
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 4 -ep 2 \\
         --model moe --dataset synthetic
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -m d \\
+        -ds fsdp -n 4 -tp 2 --model mlp --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 1 -e 2 \\
         --model mlp --dataset synthetic --checkpoint-dir /tmp/ck \\
         --checkpoint-every 100 --max-restarts 1
@@ -178,7 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(long-context mode; requires a sequence model, "
                         "e.g. --model bert_tiny or gpt)")
     p.add_argument("-tp", "--tensor-parallel", type=int, default=1,
-                   help="tensor parallelism (not ported: raises above 1)")
+                   help="tensor parallelism: shard the model Megatron-style "
+                        "over this many of the -n ranks (a (data, model) "
+                        "mesh); with -m d -ds fsdp, fsdp×tp")
     p.add_argument("-pp", "--pipeline-parallel", type=int, default=1,
                    help="pipeline parallelism (not ported: raises above 1)")
     p.add_argument("-ep", "--expert-parallel", type=int, default=1,
@@ -233,7 +240,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16-f32master: bfloat16 parameters with a "
                         "float32 master copy in the optimizer.  "
                         "fp16-f32master: float16 + master + dynamic loss "
-                        "scaling (sync/allreduce only)")
+                        "scaling (sync/allreduce, fsdp and -tp)")
     p.add_argument("--grad-compression", default="none",
                    choices=["none", "bf16", "int8"],
                    help="compress the cross-rank gradient/parameter "
@@ -242,8 +249,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16, widened after), int8 quarters them "
                         "(per-leaf scale + stochastic rounding, f32 "
                         "master values kept); none is the plain exchange. "
-                        " Sync, async, gossip, -sp and -ep (the last two "
-                        "as an encode/decode after the exact all-reduce)")
+                        " Sync, async, gossip, fsdp, -tp, -sp and -ep (the "
+                        "last four as an encode/decode after the exact "
+                        "reduce)")
     p.add_argument("--grad-bucket-mb", type=float, default=0.0,
                    metavar="MB",
                    help="communication/compute overlap: cut the gradients "

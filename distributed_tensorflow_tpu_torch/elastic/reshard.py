@@ -6,10 +6,10 @@ engine's partition specs, so a checkpoint of the GSPMD engine family
 restores onto another device count or axis layout.  In the port the
 engines whose ranks hold one state (sync/allreduce and sequence
 parallel: every rank's full state is the same) restore onto any rank
-count as they are, and an expert-parallel checkpoint holds the whole
-model (its experts gathered at save) and restores through
-``load_full_state_dict``'s cut onto any expert count that divides the
-experts.  Local SGD and gossip save every rank's state and restore only
+count as they are, and the engines whose ranks hold slices (fsdp, tensor
+parallel and fsdp × tp, expert parallel: ``Engine.param_specs``) write
+whole leaves (gathered at save) and restore by cutting each rank's slice
+onto any rank count whose axes divide the leaves, and under sync.  Local SGD and gossip save every rank's state and restore only
 onto the rank count that wrote them; any other count raises
 :class:`ElasticRestoreError`, as the per-device stacked state does in
 JAX.

@@ -1,20 +1,20 @@
 """Step engines (port of ``distributed_tensorflow_tpu.engines``).
 
-Ported: ``sync`` (``SyncEngine``: one device, or one rank of a
-``torch.distributed`` group), ``allreduce`` (the same engine, driven
-through the Keras-fit-like ``Trainer``), ``async`` (``AsyncLocalEngine``:
-local SGD with a parameter mean every ``sync_every`` steps) and ``gossip``
-(``GossipEngine``: a ring mix of degree ``degree``), and
-``SeqParallelEngine`` (data × sequence parallelism over a (data, seq)
-mesh) and ``ExpertParallelEngine`` (data × expert parallelism of MoE
-models over a (data, expert) mesh), both outside the ``ENGINES`` table as
-in JAX.  ``fsdp`` raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item.
+Every name of the JAX ``ENGINES`` table is ported: ``sync``
+(``SyncEngine``: one device, or one rank of a ``torch.distributed``
+group), ``allreduce`` (the same engine, driven through the Keras-fit-like
+``Trainer``), ``async`` (``AsyncLocalEngine``: local SGD with a parameter
+mean every ``sync_every`` steps), ``gossip`` (``GossipEngine``: a ring mix
+of degree ``degree``) and ``fsdp`` (``FSDPEngine``: ZeRO-3 sharding over
+'data', or fsdp × tp over a (data, model) mesh).  Outside the table, as
+in JAX: ``SeqParallelEngine`` (data × sequence parallelism over a (data,
+seq) mesh), ``ExpertParallelEngine`` (data × expert parallelism of MoE
+models over a (data, expert) mesh) and ``TensorParallelEngine`` (Megatron
+data × model parallelism over a (data, model) mesh, with ``TPMLP``).
 """
 
 from __future__ import annotations
 
-from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.engines.allreduce import (  # noqa: F401
     Trainer)
 from distributed_tensorflow_tpu_torch.engines.async_local import (  # noqa: F401
@@ -23,27 +23,26 @@ from distributed_tensorflow_tpu_torch.engines.base import (  # noqa: F401
     Engine, TrainState)
 from distributed_tensorflow_tpu_torch.engines.expert_parallel import (  # noqa: F401,E501
     ExpertParallelEngine)
+from distributed_tensorflow_tpu_torch.engines.fsdp import (  # noqa: F401
+    FSDPEngine)
 from distributed_tensorflow_tpu_torch.engines.gossip import (  # noqa: F401
     GossipEngine)
 from distributed_tensorflow_tpu_torch.engines.seq_parallel import (  # noqa: F401
     SeqParallelEngine)
 from distributed_tensorflow_tpu_torch.engines.sync import (  # noqa: F401
     SyncEngine)
+from distributed_tensorflow_tpu_torch.engines.tensor_parallel import (  # noqa: F401,E501
+    TPMLP, TensorParallelEngine)
 
 ENGINES = {"sync": SyncEngine, "allreduce": SyncEngine,
-           "async": AsyncLocalEngine, "gossip": GossipEngine}
-_LATER = {"fsdp": "remaining engines"}
+           "async": AsyncLocalEngine, "gossip": GossipEngine,
+           "fsdp": FSDPEngine}
 
 
 def check_engine(name: str) -> None:
-    """Raise unless ``name`` is a ported engine: ``NotImplementedError``
-    naming its ROADMAP item for the JAX registry's others, ``KeyError``
-    for an unknown name."""
-    if name in _LATER:
-        not_ported(f"engine '{name}'", _LATER[name])
+    """Raise ``KeyError`` unless ``name`` is an engine of the table."""
     if name not in ENGINES:
-        raise KeyError(f"unknown engine '{name}'; known: "
-                       f"{sorted(ENGINES) + sorted(_LATER)}")
+        raise KeyError(f"unknown engine '{name}'; known: {sorted(ENGINES)}")
 
 
 def create_engine(name: str, *args, **kw):

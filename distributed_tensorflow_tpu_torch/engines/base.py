@@ -37,6 +37,19 @@ the flat dict a checkpoint holds (``utils/checkpoint.py``) and back, in
 place: every tensor is copied into the live one (``copy_``), so a CUDA
 graph captured over the state and ``MasterWeights``' flat views stay
 valid.
+
+An engine whose ranks hold slices of the parameters (FSDP, TP, EP) sets
+``param_specs``: each parameter's layout over the mesh, by name, a tuple
+with the axis its slice is cut along at each sharded dim (None
+elsewhere; ``()`` replicated).  From it the base class writes a
+checkpoint of whole leaves (gathered, every rank calling it) and
+restores one by cutting each rank's slice, so a checkpoint does not
+depend on the layout (``full_state_dict``/``load_full_state_dict`` do
+the same for a ``state_dict``); the codec's roundtrip sees whole leaves
+(``_roundtrip_whole``), as JAX's sees its global arrays; and the recipe
+optimizer's clip takes the global norm (``_global_norm``): every rank's
+squared norms gathered, a leaf replicated over an axis counted on that
+axis's rank 0 only.
 """
 
 from __future__ import annotations
@@ -140,6 +153,11 @@ def make_loss_fn(model: nn.Module) -> Callable:
     return loss_fn
 
 
+def spec_axes(spec: tuple) -> list[tuple[int, str]]:
+    """(dim, axis) of each sharded dim of a layout ``spec``."""
+    return [(d, a) for d, a in enumerate(spec) if a is not None]
+
+
 class Engine:
     """Base: owns model, optimizer factory, mesh and device; subclasses
     implement ``step``.
@@ -165,6 +183,9 @@ class Engine:
     # this: a checkpoint then holds every rank's state, and restores only
     # onto the rank count that wrote it
     checkpoint_per_rank = False
+    # engines whose ranks hold slices of parameters set each one's layout
+    # (module docstring); empty: every rank holds every parameter whole
+    param_specs: dict = {}
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
@@ -247,9 +268,13 @@ class Engine:
             stream.manual_seed(_seed_of(seed, *self.stream_words))
             codec_stream.manual_seed(_seed_of(
                 seed, *self.codec_stream_words, compression.RNG_TAG))
-        return TrainState(step=0, model=self.model,
-                          optimizer=self.make_optimizer(
-                              list(self.model.parameters())),
+        optimizer = self.make_optimizer(list(self.model.parameters()))
+        inner = precisionlib.strip_master(optimizer)
+        if self.param_specs and hasattr(inner, "global_norm"):
+            # the weights on the device once: a step reads no host value
+            self._norm_w = self._norm_weights()
+            inner.global_norm = self._global_norm
+        return TrainState(step=0, model=self.model, optimizer=optimizer,
                           generator=stream, codec_generator=codec_stream,
                           seed=seed, engine=self)
 
@@ -257,6 +282,98 @@ class Engine:
         """Hook between the fresh parameters and the optimizer: an engine
         that keeps a slice of them on each rank takes it here (every
         rank's parameters alike otherwise)."""
+
+    # -------------------------------------------------------- sharded leaves
+    def _spec(self, name: str) -> tuple:
+        return self.param_specs.get(name, ())
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of which ``t`` (shaped like parameter ``name``'s
+        slice) is this rank's slice: gathered along each sharded dim (a
+        collective: every rank calls it)."""
+        for dim, axis in spec_axes(self._spec(name)):
+            if self.mesh.axis_size(axis) > 1:
+                t = coll.all_gather(t.contiguous(), self.mesh, tiled=True,
+                                    axis=axis, dim=dim)
+        return t
+
+    def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole leaf of parameter ``name``."""
+        for dim, axis in spec_axes(self._spec(name)):
+            n = self.mesh.axis_size(axis)
+            w = t.shape[dim] // n
+            t = t.narrow(dim, self.mesh.axis_index(axis) * w, w)
+        return t
+
+    def _whole_shape(self, name: str, shape) -> tuple:
+        shape = list(shape)
+        for dim, axis in spec_axes(self._spec(name)):
+            shape[dim] *= self.mesh.axis_size(axis)
+        return tuple(shape)
+
+    def full_state_dict(self, state: TrainState) -> dict:
+        """The whole model's ``state_dict`` (a collective where the ranks
+        hold slices: every rank calls it)."""
+        return {k: self._whole(k, v).detach().clone()
+                for k, v in state.model.state_dict().items()}
+
+    def load_full_state_dict(self, state: TrainState, full: dict) -> None:
+        """Load a whole model's ``state_dict`` into this rank's parameters,
+        keeping its slice of each."""
+        state.model.load_state_dict(
+            {k: self._part(k, v) for k, v in full.items()})
+
+    def _entry_param(self, key: str) -> str | None:
+        """The parameter a checkpoint entry belongs to, when it is cut
+        like the parameter (``model/``, ``master/``, ``opt/<name>/<key>``)
+        and the parameter is sharded; else None."""
+        kind, _, rest = key.partition("/")
+        name = rest.rsplit("/", 1)[0] if kind == "opt" else rest
+        if kind in ("model", "master", "opt") and spec_axes(
+                self._spec(name)):
+            return name
+        return None
+
+    def _roundtrip_whole(self, state: TrainState) -> None:
+        """``codec.roundtrip`` of the reduced gradients, with the
+        rank-invariant codec stream, over whole leaves (JAX's global
+        arrays): a sliced gradient is gathered first and this rank keeps
+        its slice of the result."""
+        named = [(n, p) for n, p in state.model.named_parameters()
+                 if p.grad is not None]
+        out = self.grad_codec.roundtrip(
+            [self._whole(n, p.grad) for n, p in named],
+            generator=self.codec_step_generator(state))
+        for (n, p), g in zip(named, out):
+            p.grad = self._part(n, g).contiguous()
+
+    def _norm_weights(self) -> torch.Tensor:
+        """1 for each parameter (in the optimizer's order) whose squared
+        norm this rank adds to the global one: every rank holding a slice
+        of it, and of the ranks holding the same value (those differing
+        along an axis it is not cut along) the one at index 0 there."""
+        coords = dict(zip(self.mesh.axis_names, self.mesh.coords()))
+        out = []
+        for name, _ in self.model.named_parameters():
+            cut = {a for _, a in spec_axes(self._spec(name))}
+            out.append(float(all(i == 0 for a, i in coords.items()
+                                 if a not in cut)))
+        return torch.tensor(out, device=self.device)
+
+    def _global_norm(self, grads: list) -> torch.Tensor:
+        """The recipe clip's norm over the whole model (optax's
+        ``clip_by_global_norm`` under GSPMD): each parameter's gradient
+        norm on this rank (the gradients, or one flat master's cut per
+        parameter), weighted by ``_norm_weights``, gathered from every
+        rank, and the norm of them all."""
+        params = list(self.model.parameters())
+        if len(grads) == 1 and len(params) > 1:
+            grads = list(grads[0].split([p.numel() for p in params]))
+        norms = torch.stack(torch._foreach_norm(grads)).float()
+        norms = norms * self._norm_w
+        if self.mesh.world_size > 1:
+            norms = coll.all_gather(norms, self.mesh)
+        return torch.linalg.vector_norm(norms.reshape(-1))
 
     # ------------------------------------------------------------- batches
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -360,6 +477,10 @@ class Engine:
         one gather).  On the CPU both streams are reseeded from (seed,
         step, rank) every step, so seed and step are all of them."""
         d: dict = dict(self._checkpoint_entries(state))
+        for k, v in d.items():
+            name = self._entry_param(k)
+            if name is not None and v.dim():
+                d[k] = self._whole(name, v)
         if state.generator.device.type == "cuda":
             gen = (state.generator.get_state(),
                    state.codec_generator.get_state())
@@ -382,7 +503,12 @@ class Engine:
         shape and dtype, and nothing else: a mismatch raises
         ``ValueError`` before anything is written.  ``state`` may be a
         ``precision.F32Template`` (an f32 run's checkpoint adopted into a
-        master policy)."""
+        master policy).  Entries of sliced parameters are whole leaves:
+        this rank's slice of each is cut first."""
+        d = {k: (self._part(self._entry_param(k), v)
+                 if isinstance(v, torch.Tensor) and v.dim()
+                 and self._entry_param(k) is not None else v)
+             for k, v in d.items()}
         f32 = isinstance(state, precisionlib.F32Template)
         target = state.state if f32 else state
         want = d.get("precision", "f32")
@@ -431,8 +557,12 @@ class Engine:
     def _exchanged_leaves(self, state: TrainState) -> list:
         """What one gradient exchange moves, leaf by leaf (anything with
         ``.shape`` and ``.dtype``): the parameters (gradients share their
-        shapes and dtypes)."""
-        return list(state.model.parameters())
+        shapes and dtypes), a sliced one at its whole shape (JAX's global
+        leaves)."""
+        return [p if not spec_axes(self._spec(n)) else
+                torch.empty(self._whole_shape(n, p.shape), dtype=p.dtype,
+                            device="meta")
+                for n, p in state.model.named_parameters()]
 
     def grad_collective_bytes_raw(self, state: TrainState) -> int:
         """Uncompressed bytes of one gradient collective round, from the

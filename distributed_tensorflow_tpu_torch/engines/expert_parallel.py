@@ -43,7 +43,10 @@ rank-invariant stream (``codec_stream_words`` is ()), so the replicas
 stay equal.  JAX's roundtrip sees each stacked expert leaf whole (one
 scale and one draw over every expert); here an expert gradient is first
 gathered along the expert axis, the whole leaf goes through the codec,
-and each rank keeps its slice.
+and each rank keeps its slice (``Engine._roundtrip_whole``).  The
+recipe's ``--clip-norm`` takes the global norm (``Engine._global_norm``):
+the experts' squared norms summed over 'expert', the replicated leaves'
+counted once.
 """
 
 from __future__ import annotations
@@ -55,12 +58,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import not_ported
+from distributed_tensorflow_tpu_torch import EP_LEFTOVERS, not_ported
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
 from distributed_tensorflow_tpu_torch.models.moe import (
     MoELayer, bind_expert_mesh)
-from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
 
@@ -134,9 +136,10 @@ class ExpertParallelEngine(Engine):
 
     ``mesh`` must have the axes ('data', 'expert'); tokens shard over the
     whole mesh, the experts of every MoE layer over 'expert' (replicated
-    over 'data').  Parameters are loaded whole and sliced here:
-    ``load_full_state_dict`` and ``full_state_dict`` move a whole model's
-    ``state_dict`` in and out of a state."""
+    over 'data': ``param_specs``).  Parameters are loaded whole and
+    sliced: ``load_full_state_dict`` and ``full_state_dict`` (the base
+    class's) move a whole model's ``state_dict`` in and out of a state,
+    and a checkpoint holds whole leaves."""
 
     supports_loss_scaling = False
     captures_chunks = False
@@ -161,7 +164,7 @@ class ExpertParallelEngine(Engine):
                 "ExpertParallelEngine requires a ('data','expert'[,'model']) "
                 "mesh")
         if "model" in mesh.axis_names:
-            not_ported("a 'model' mesh axis (ep×tp)", "remaining engines")
+            not_ported("a 'model' mesh axis (ep×tp)", EP_LEFTOVERS)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.aux_weight = aux_weight
@@ -187,6 +190,9 @@ class ExpertParallelEngine(Engine):
                     f"expert_parallel {self.ep}")
         self.expert_params = {f"{name}.{p}" for name in self.moe_layers
                               for p in ("w1", "w2")}
+        # the stacked experts are cut along their leading (expert) dim
+        self.param_specs = {name: (meshlib.EXPERT_AXIS, None, None)
+                            for name in self.expert_params}
 
     # ---------------------------------------------------------------- init
     def _own_params(self, model: nn.Module) -> None:
@@ -198,63 +204,6 @@ class ExpertParallelEngine(Engine):
             if m.experts != (lo, lo + per):
                 m.keep_experts(lo, lo + per)
         bind_expert_mesh(model, self.mesh)
-
-    def _slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        if name not in self.expert_params:
-            return t
-        per = t.shape[0] // self.ep
-        return t[self.expert_index * per:(self.expert_index + 1) * per]
-
-    def load_full_state_dict(self, state: TrainState, full: dict) -> None:
-        """Load a whole model's ``state_dict`` (every expert) into this
-        rank's parameters, keeping its slice of the experts."""
-        state.model.load_state_dict(
-            {k: self._slice(k, v) for k, v in full.items()})
-
-    def full_state_dict(self, state: TrainState) -> dict:
-        """The whole model's ``state_dict``: every rank's experts gathered
-        along the expert axis (a collective: every rank calls it)."""
-        out = {}
-        for k, v in state.model.state_dict().items():
-            if k in self.expert_params and self.ep > 1:
-                v = coll.all_gather(v.contiguous(), self.mesh, tiled=True,
-                                    axis=meshlib.EXPERT_AXIS)
-            out[k] = v.detach().clone()
-        return out
-
-    # ---------------------------------------------------------- checkpoint
-    def _expert_key(self, key: str) -> bool:
-        """A checkpoint entry cut along the expert axis: an expert
-        weight, its master, or an optimizer entry of its shape."""
-        kind, _, rest = key.partition("/")
-        name = rest.rsplit("/", 1)[0] if kind == "opt" else rest
-        return kind in ("model", "master", "opt") and name in \
-            self.expert_params
-
-    def checkpoint_state(self, state: TrainState) -> dict:
-        """``Engine.checkpoint_state`` of the whole model: every rank's
-        experts gathered along the expert axis, as ``full_state_dict``
-        gathers the parameters (a collective: every rank calls it)."""
-        d = super().checkpoint_state(state)
-        full = self.full_state_dict(state)
-        for k, v in d.items():
-            if not isinstance(v, torch.Tensor) or not self._expert_key(k):
-                continue
-            if k.startswith("model/"):
-                d[k] = full[k[len("model/"):]]
-            elif v.dim() and self.ep > 1:
-                d[k] = coll.all_gather(v.contiguous(), self.mesh,
-                                       tiled=True, axis=meshlib.EXPERT_AXIS)
-        return d
-
-    def load_checkpoint_state(self, state, d: dict):
-        """Load a whole model's checkpoint, keeping this rank's slice of
-        every expert entry (``load_full_state_dict``'s cut)."""
-        d = {k: (self._slice(k.split("/")[1], v)
-                 if isinstance(v, torch.Tensor) and v.dim()
-                 and self._expert_key(k) else v)
-             for k, v in d.items()}
-        return super().load_checkpoint_state(state, d)
 
     # ------------------------------------------------------------- batches
     def shard_batch(self, x, y, mask=None, process_local: bool = False):
@@ -315,43 +264,13 @@ class ExpertParallelEngine(Engine):
         task, acc = self._reduce(model, sums[:2])
         aux, z, overflow = sums[2], sums[3], sums[4]
         if self.grad_codec.name != "none":
-            self._roundtrip_grads(state)
+            self._roundtrip_whole(state)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": task, "accuracy": acc,
                        "total_loss": (task + self.aux_weight * aux
                                       + self.router_z_weight * z),
                        "overflow": overflow}
-
-    def _roundtrip_grads(self, state: TrainState) -> None:
-        """``codec.roundtrip`` of the reduced gradients with the
-        rank-invariant stream, over the whole model's leaves: an expert
-        gradient is gathered along the expert axis first and this rank
-        keeps its slice of the result."""
-        named = [(n, p) for n, p in state.model.named_parameters()
-                 if p.grad is not None]
-        whole = []
-        for name, p in named:
-            g = p.grad
-            if name in self.expert_params and self.ep > 1:
-                g = coll.all_gather(g.contiguous(), self.mesh, tiled=True,
-                                    axis=meshlib.EXPERT_AXIS)
-            whole.append(g)
-        out = self.grad_codec.roundtrip(
-            whole, generator=self.codec_step_generator(state))
-        for (name, p), g in zip(named, out):
-            p.grad = self._slice(name, g)
-
-    def _exchanged_leaves(self, state: TrainState) -> list:
-        """The whole model's parameters (JAX's global leaves): an expert
-        leaf counts at its full (E, ...) shape."""
-        out = []
-        for name, p in state.model.named_parameters():
-            if name in self.expert_params:
-                shape = (p.shape[0] * self.ep, *p.shape[1:])
-                p = torch.empty(shape, dtype=p.dtype, device="meta")
-            out.append(p)
-        return out
 
     def _reduce(self, model: nn.Module, metrics: torch.Tensor):
         """Sum the replicated parameters' gradients over every rank (the

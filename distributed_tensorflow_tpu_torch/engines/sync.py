@@ -58,7 +58,9 @@ def _launch_counters() -> list[tuple[object, str]]:
 
     return [(fn, name)
             for fn in (coll.all_reduce_, compression.all_to_all_,
-                       compression.all_gather_, fa.flash_attention)
+                       compression.all_gather_, coll.gather_shards,
+                       coll.copy_to_model, coll.reduce_from_model,
+                       coll.gather_from_model, fa.flash_attention)
             for name in sorted(vars(fn)) if name.endswith("launches")]
 
 
@@ -222,6 +224,8 @@ class SyncEngine(Engine):
     # engines whose gradient all-reduce stays exact and whose codec is a
     # roundtrip after it (JAX's compiler-inserted collectives)
     codec_roundtrip = False
+    # the mesh axis the gradients are summed over (None: every rank)
+    grad_axis = None
 
     def __init__(self, *args, grad_accum: int = 1, **kw):
         if grad_accum < 1:
@@ -282,7 +286,8 @@ class SyncEngine(Engine):
             # own (16-bit gradients)
             loss, acc = all_reduce_grads_(list(state.model.parameters()),
                                           self.mesh,
-                                          torch.stack([loss, acc])) / n
+                                          torch.stack([loss, acc]),
+                                          axis=self.grad_axis) / n
         if self.codec_roundtrip and self.grad_codec.name != "none":
             self._roundtrip_grads(state)
         state.optimizer.step()

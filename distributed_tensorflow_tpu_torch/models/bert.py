@@ -40,8 +40,16 @@ maps a flax param tree onto this module's ``state_dict``.
 dropout and post-LN; the router's losses are left on the layers
 (``engines.expert_parallel.router_losses``).
 
-Not ported here (each raises ``NotImplementedError``): tensor-parallel
-partitioning and the pipeline stages (``bert_pipeline_stages``).
+``partition_model=True`` is JAX's Megatron layout (``models/layers.py``
+and ``models/gpt.py``): column-parallel QKV, row-parallel ``out``, the
+column→row FFN and a vocab-parallel token embedding; the position
+embedding, LayerNorms, pooler and classifier stay whole.  Under TP the
+attention-probability dropout (``dense``) draws the whole (B, H, L, L)
+mask and keeps this rank's heads.
+
+Not ported here (each raises ``NotImplementedError``): the pipeline
+stages (``bert_pipeline_stages``) and ``partition_model`` with
+sequence-parallel attention.
 """
 
 from __future__ import annotations
@@ -50,10 +58,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import (
+    COMPOSITES, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
-    LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
-    layer_norm as _layer_norm, remat as _remat)
+    LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    check_divisible, dense as _dense, dropout as _dropout, flax_init_,
+    layer_norm as _layer_norm, remat as _remat, sharded_dropout)
 from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
@@ -65,22 +75,50 @@ class SelfAttention(nn.Module):
     """Bidirectional multi-head attention under a (B, L) key mask."""
 
     seq_mesh = None   # the mesh of a sequence-parallel model (bind_seq_mesh)
+    tp_mesh = None    # the mesh of a tensor-parallel model (bind_tp)
 
     def __init__(self, hidden: int, heads: int, attention_impl: str,
-                 dropout_rate: float, dtype, device):
+                 dropout_rate: float, dtype, device,
+                 partition_model: bool = False):
         super().__init__()
         self.heads, self.head_dim = heads, hidden // heads
         self.attention_impl = attention_impl
         self.dropout_rate = dropout_rate
         self.dtype = dtype
         width = heads * self.head_dim
-        self.query = nn.Linear(hidden, width, device=device)
-        self.key = nn.Linear(hidden, width, device=device)
-        self.value = nn.Linear(hidden, width, device=device)
-        self.out = nn.Linear(width, hidden, device=device)
+        col = ColumnParallelLinear if partition_model else nn.Linear
+        self.query = col(hidden, width, device=device)
+        self.key = col(hidden, width, device=device)
+        self.value = col(hidden, width, device=device)
+        self.out = (RowParallelLinear if partition_model else nn.Linear)(
+            width, hidden, device=device)
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """Column-parallel QKV (``heads/tp`` heads a rank), row-parallel
+        ``out`` (JAX ``bert.py:83-88, 114-117``); a width that does not
+        split raises JAX's error, heads that do not (whose width does)
+        keep the attention whole, as in ``models/gpt.py``."""
+        if not isinstance(self.query, ColumnParallelLinear) or \
+                self.tp_mesh is not None:
+            return
+        tp = mesh.axis_size("model")
+        for name in ("query", "key", "value"):
+            check_divisible(f"{prefix}.{name}.weight",
+                            getattr(self, name).whole["weight"], 0, tp)
+        check_divisible(f"{prefix}.out.weight", self.out.whole["weight"], 1,
+                        tp)
+        if self.heads % tp:
+            return
+        for name in ("query", "key", "value"):
+            getattr(self, name).bind(mesh, f"{prefix}.{name}")
+        self.out.bind(mesh, f"{prefix}.out")
+        self.heads //= tp
+        self.tp_mesh = mesh
 
     def forward(self, x, pad_mask, train: bool = False, generator=None):
         b, lq, _ = x.shape
+        if self.tp_mesh is not None:
+            x = coll.copy_to_model(x, self.tp_mesh)
         q, k, v = (_dense(lin, x, self.dtype).reshape(
             b, lq, self.heads, self.head_dim)
             for lin in (self.query, self.key, self.value))
@@ -94,41 +132,64 @@ class SelfAttention(nn.Module):
         else:
             prob_fn = None
             if self.dropout_rate > 0.0:
+                # (B, H, Lq, Lk): under TP this rank's heads of the mask
                 def prob_fn(p):
-                    return _dropout(p, self.dropout_rate, train, generator)
+                    return sharded_dropout(p, self.dropout_rate, train,
+                                           generator, self.tp_mesh, 1)
             out = dense_attention(q, k, v, kv_mask=pad_mask, prob_fn=prob_fn)
         out = out.reshape(b, lq, self.heads * self.head_dim)
+        if self.tp_mesh is not None:
+            return self.out(out, self.dtype)
         return _dense(self.out, out, self.dtype)
 
 
 class TransformerLayer(nn.Module):
     """Post-LN encoder layer: LN(x + attn(x)), then LN(x + dropout(ffn))."""
 
+    tp_mesh = None    # the mesh of a tensor-parallel FFN (bind_tp)
+
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dropout_rate: float, attention_impl: str, dtype, device,
                  moe_experts: int = 0, moe_top_k: int = 1,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25,
+                 partition_model: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.dtype = dtype
         self.attn = SelfAttention(hidden, heads, attention_impl,
-                                  dropout_rate, dtype, device)
+                                  dropout_rate, dtype, device,
+                                  partition_model)
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.moe = None
         if moe_experts > 0:
             self.moe = MoELayer(hidden, moe_experts, ffn,
                                 moe_capacity_factor, moe_top_k, dtype=dtype,
                                 device=device)
+        elif partition_model:
+            self.fc1 = ColumnParallelLinear(hidden, ffn, device=device)
+            self.fc2 = RowParallelLinear(ffn, hidden, device=device)
         else:
             self.fc1 = nn.Linear(hidden, ffn, device=device)
             self.fc2 = nn.Linear(ffn, hidden, device=device)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """The Megatron FFN (JAX ``bert.py:158-168``); a MoE layer's
+        experts stay whole."""
+        if isinstance(getattr(self, "fc1", None), ColumnParallelLinear):
+            self.fc1.bind(mesh, f"{prefix}.fc1")
+            self.fc2.bind(mesh, f"{prefix}.fc2")
+            self.tp_mesh = mesh
 
     def forward(self, x, pad_mask, train: bool = False, generator=None):
         y = self.attn(x, pad_mask, train, generator)
         x = _layer_norm(self.ln1, x + y, self.dtype)
         if self.moe is not None:
             y = moe_ffn(self.moe, x)
+        elif self.tp_mesh is not None:
+            y = F.gelu(self.fc1(coll.copy_to_model(x, self.tp_mesh),
+                                self.dtype), approximate="tanh")
+            y = self.fc2(y, self.dtype)
         else:
             y = F.gelu(_dense(self.fc1, x, self.dtype), approximate="tanh")
             y = _dense(self.fc2, y, self.dtype)
@@ -140,10 +201,12 @@ class BertEmbeddings(nn.Module):
     """Token + position embeddings → LayerNorm."""
 
     def __init__(self, vocab_size: int, hidden: int, max_len: int, dtype,
-                 device):
+                 device, partition_model: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.token_embed = nn.Embedding(vocab_size, hidden, device=device)
+        self.token_embed = (VocabParallelEmbedding if partition_model
+                            else nn.Embedding)(vocab_size, hidden,
+                                               device=device)
         self.pos_embed = nn.Embedding(max_len, hidden, device=device)
         self.ln = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
 
@@ -151,6 +214,11 @@ class BertEmbeddings(nn.Module):
         x = (self.token_embed(token_ids).to(self.dtype)
              + self.pos_embed(pos).to(self.dtype))
         return _layer_norm(self.ln, x, self.dtype)
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """The vocab-parallel token embedding (JAX ``bert.py:188-192``)."""
+        if isinstance(self.token_embed, VocabParallelEmbedding):
+            self.token_embed.bind(mesh, f"{prefix}.token_embed")
 
 
 class BertPooler(nn.Module):
@@ -192,8 +260,9 @@ class BertTinyClassifier(nn.Module):
                 "remat + MoE layers is unsupported: the router's sown "
                 "intermediates would be re-sown during backward recompute "
                 "(see models/gpt.py)")
-        if partition_model:
-            not_ported("partition_model (TP layout)", "remaining engines")
+        if partition_model and attention_impl in SEQ_PARALLEL:
+            not_ported("partition_model with sequence-parallel attention "
+                       "(the tp×sp composite)", COMPOSITES)
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
                              f"dense | flash, or one of "
@@ -206,12 +275,14 @@ class BertTinyClassifier(nn.Module):
         self.attention_impl = attention_impl
         self.remat = remat
         self.dtype = dtype
+        self.partition_model = partition_model
         self.embeddings = BertEmbeddings(vocab_size, hidden, max_len, dtype,
-                                         device)
+                                         device, partition_model)
         self.blocks = nn.ModuleList(
             TransformerLayer(hidden, heads, ffn, dropout_rate,
                              attention_impl, dtype, device, moe_experts,
-                             moe_top_k, moe_capacity_factor)
+                             moe_top_k, moe_capacity_factor,
+                             partition_model)
             for _ in range(layers))
         self.pooler = BertPooler(num_classes, hidden, dtype, device)
 

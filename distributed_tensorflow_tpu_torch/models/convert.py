@@ -203,3 +203,39 @@ def bert_state_dict(params: dict) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unrecognized BERT param {name}")
     return out
+
+
+def _cut_along(full: dict, specs: dict, axis: str, n: int,
+               index: int) -> dict[str, torch.Tensor]:
+    """``full`` with each entry whose layout (``specs``: name → tuple of
+    axis names and None per dim) names ``axis`` cut to slice ``index`` of
+    ``n`` along that dim; the others as they are."""
+    out = {}
+    for name, t in full.items():
+        spec = specs.get(name, ())
+        if axis in spec:
+            dim = spec.index(axis)
+            w = t.shape[dim] // n
+            t = t.narrow(dim, index * w, w).contiguous()
+        out[name] = t
+    return out
+
+
+def tp_shard_state_dict(full: dict, specs: dict, tp: int,
+                        rank: int) -> dict[str, torch.Tensor]:
+    """A whole model's converted ``state_dict`` cut to tensor-parallel
+    rank ``rank`` of ``tp``: each parameter the Megatron layout shards
+    (``specs``, e.g. ``models.layers.tp_specs`` of a bound model or
+    ``TensorParallelEngine.param_specs``) keeps this rank's slice along
+    its 'model' dim.  JAX's partitioned params arrive boxed
+    (``nn.Partitioned``): unbox them (``flax.linen.unbox``) before
+    converting; ``with_partitioning`` leaves their values as they are."""
+    return _cut_along(full, specs, "model", tp, rank)
+
+
+def fsdp_shard_state_dict(full: dict, specs: dict, n: int,
+                          rank: int) -> dict[str, torch.Tensor]:
+    """A whole (or tensor-parallel rank's) ``state_dict`` cut to FSDP rank
+    ``rank`` of ``n``: each parameter ``specs`` (``FSDPEngine.param_specs``)
+    cuts over 'data' keeps this rank's slice along that dim."""
+    return _cut_along(full, specs, "data", n, rank)

@@ -76,8 +76,25 @@ does not split it), as JAX does; ``generate`` prefills a MoE model's
 prompt one token at a time, as JAX's scan does, since the tokens of one
 call share the experts' capacity.
 
-Not ported here (each raises ``NotImplementedError``): tensor-parallel
-partitioning and ``generate(mesh=...)``.
+``partition_model=True`` lays the model out as JAX's Megatron
+annotations do (JAX ``gpt.py:137-150, 254-260, 549-559, 709-714,
+757-770``): column-parallel query, key and value, row-parallel ``out``,
+column-parallel ``fc1`` and row-parallel ``fc2``, a vocab-parallel token
+embedding and the tied head as its ``attend`` (or a column-parallel
+untied ``lm_head`` with its bias whole), ``models/layers.py``.  Unbound
+the layers are the plain ones; ``TensorParallelEngine`` (or ``FSDPEngine``
+on a (data, model) mesh) binds its mesh (``bind_model_mesh``) and each
+rank keeps its slice: ``heads/tp`` query and ``kv_heads/tp`` K/V heads,
+which run the dense or flash attention on the local heads.  The head's
+vocab-sharded logits are all-gathered (``gather_from_model``) and the
+loss runs on the whole logits.  ``pos_embed``, the LayerNorms and a MoE
+block's experts stay whole.  A packed width that does not split over
+'model' raises JAX's error; heads or kv_heads that do not split (whose
+widths do) keep the attention whole on every rank.
+
+Not ported here (each raises ``NotImplementedError``): decode of a bound
+tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode),
+and ``partition_model`` with sequence-parallel attention (composites).
 """
 
 from __future__ import annotations
@@ -86,10 +103,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import (
+    COMPOSITES, TP_DECODE, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
-    LN_EPS, dense as _dense, dropout as _dropout, flax_init_,
+    LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    check_divisible, dense as _dense, dropout as _dropout, flax_init_,
     layer_norm as _layer_norm, remat as _remat)
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
@@ -136,10 +156,12 @@ class CausalSelfAttention(nn.Module):
     (training/eval), or slot/cursor decode."""
 
     seq_mesh = None   # the mesh of a sequence-parallel model (bind_seq_mesh)
+    tp_mesh = None    # the mesh of a tensor-parallel model (bind_tp)
 
     def __init__(self, hidden: int, heads: int, kv_heads: int | None = None,
                  rope: bool = False, dtype=torch.float32, device=None,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense",
+                 partition_model: bool = False):
         super().__init__()
         kvh = kv_heads if kv_heads is not None else heads
         if kvh < 1 or heads % kvh:
@@ -150,10 +172,38 @@ class CausalSelfAttention(nn.Module):
         self.rope = rope
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.query = nn.Linear(hidden, heads * self.head_dim, device=device)
-        self.key = nn.Linear(hidden, kvh * self.head_dim, device=device)
-        self.value = nn.Linear(hidden, kvh * self.head_dim, device=device)
-        self.out = nn.Linear(heads * self.head_dim, hidden, device=device)
+        col = ColumnParallelLinear if partition_model else nn.Linear
+        self.query = col(hidden, heads * self.head_dim, device=device)
+        self.key = col(hidden, kvh * self.head_dim, device=device)
+        self.value = col(hidden, kvh * self.head_dim, device=device)
+        self.out = (RowParallelLinear if partition_model else nn.Linear)(
+            heads * self.head_dim, hidden, device=device)
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """Column-parallel query, key and value (``heads/tp`` query and
+        ``kv_heads/tp`` K/V heads on each rank), row-parallel ``out``.
+        JAX's refusals come first: a packed projection width that does
+        not split over 'model'.  Where the widths split but the heads do
+        not (GSPMD then cuts a head across ranks and reshards around the
+        attention), the attention stays whole on every rank: its
+        parameters replicated, its work repeated, no collective."""
+        if not isinstance(self.query, ColumnParallelLinear) or \
+                self.tp_mesh is not None:
+            return
+        tp = mesh.axis_size("model")
+        for name in ("query", "key", "value"):
+            lin = getattr(self, name)
+            check_divisible(f"{prefix}.{name}.weight", lin.whole["weight"],
+                            0, tp)
+        check_divisible(f"{prefix}.out.weight", self.out.whole["weight"], 1,
+                        tp)
+        if self.heads % tp or self.kv_heads % tp:
+            return
+        for name in ("query", "key", "value"):
+            getattr(self, name).bind(mesh, f"{prefix}.{name}")
+        self.out.bind(mesh, f"{prefix}.out")
+        self.heads, self.kv_heads = self.heads // tp, self.kv_heads // tp
+        self.tp_mesh = mesh
 
     def _widen(self, t):
         """kv_heads → heads by group broadcast (no-op for MHA)."""
@@ -167,6 +217,8 @@ class CausalSelfAttention(nn.Module):
         if self.rope and pos is None:
             raise ValueError("rope=True needs the caller to pass positions")
         b, lq, _ = x.shape
+        if self.tp_mesh is not None:
+            x = coll.copy_to_model(x, self.tp_mesh)
         q = _dense_by(self.query, x, self.dtype, by_column).reshape(
             b, lq, self.heads, self.head_dim)
         k = _dense_by(self.key, x, self.dtype, by_column).reshape(
@@ -195,6 +247,8 @@ class CausalSelfAttention(nn.Module):
             out = dense_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
         out = out.reshape(b, lq, self.heads * self.head_dim)
+        if self.tp_mesh is not None:
+            return self.out(out, self.dtype)
         return _dense_by(self.out, out, self.dtype, by_column)
 
     def _read(self, q, keys, vals, valid, by_column):
@@ -340,27 +394,43 @@ class CausalSelfAttention(nn.Module):
 class GPTBlock(nn.Module):
     """Pre-LN decoder block: x + attn(LN(x)); x + ffn(LN(x))."""
 
+    tp_mesh = None    # the mesh of a tensor-parallel FFN (bind_tp)
+
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dropout_rate: float = 0.1, rope: bool = False,
                  kv_heads: int | None = None, dtype=torch.float32,
                  device=None, attention_impl: str = "dense",
                  moe_experts: int = 0, moe_top_k: int = 1,
-                 moe_capacity_factor: float = 1.25):
+                 moe_capacity_factor: float = 1.25,
+                 partition_model: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.attn = CausalSelfAttention(hidden, heads, kv_heads, rope, dtype,
-                                        device, attention_impl)
+                                        device, attention_impl,
+                                        partition_model)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.moe = None
         if moe_experts > 0:
             self.moe = MoELayer(hidden, moe_experts, ffn,
                                 moe_capacity_factor, moe_top_k, dtype=dtype,
                                 device=device)
+        elif partition_model:
+            self.fc1 = ColumnParallelLinear(hidden, ffn, device=device)
+            self.fc2 = RowParallelLinear(ffn, hidden, device=device)
         else:
             self.fc1 = nn.Linear(hidden, ffn, device=device)
             self.fc2 = nn.Linear(ffn, hidden, device=device)
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """The Megatron FFN: column-parallel ``fc1``, row-parallel
+        ``fc2``.  A MoE block's experts stay whole on every rank (JAX's
+        MoE layer shards over 'model' only with ``partition_experts``)."""
+        if isinstance(getattr(self, "fc1", None), ColumnParallelLinear):
+            self.fc1.bind(mesh, f"{prefix}.fc1")
+            self.fc2.bind(mesh, f"{prefix}.fc2")
+            self.tp_mesh = mesh
 
     def forward(self, x, train: bool = False, pos=None, pool=None,
                 block_tables=None, paged_fused: bool = True, generator=None,
@@ -372,6 +442,10 @@ class GPTBlock(nn.Module):
         if self.moe is not None:
             # routed over all the call's tokens, as JAX routes them
             y = moe_ffn(self.moe, y)
+        elif self.tp_mesh is not None:
+            y = F.gelu(self.fc1(coll.copy_to_model(y, self.tp_mesh),
+                                self.dtype), approximate="tanh")
+            y = self.fc2(y, self.dtype)
         else:
             y = F.gelu(_dense_by(self.fc1, y, self.dtype, by_column),
                        approximate="tanh")
@@ -398,6 +472,7 @@ class GPTLM(nn.Module):
 
     causal_lm = True   # (B, L) next-token targets: engines read it
     seq_mesh = None    # the mesh of a sequence-parallel model
+    tp_mesh = None     # the mesh of a tensor-parallel model (bind_tp)
 
     def __init__(self, vocab_size: int = 256, hidden: int = 128,
                  layers: int = 2, heads: int = 4, ffn: int = 512,
@@ -415,15 +490,16 @@ class GPTLM(nn.Module):
                 "intermediates (aux_loss/z_loss/overflow) would be re-sown "
                 "during backward recompute, double-counting the balance "
                 "losses; train MoE blocks without --remat")
-        if partition_model:
-            not_ported("partition_model (TP layout)", "remaining engines")
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
                              f"dense | flash, or one of "
                              f"{tuple(SEQ_PARALLEL)}")
+        if partition_model and attention_impl in SEQ_PARALLEL:
+            not_ported("partition_model with sequence-parallel attention "
+                       "(the tp×sp composite)", COMPOSITES)
         if decode and attention_impl in SEQ_PARALLEL:
             # JAX gpt.py:655-669, less its last sentence, which points at
-            # partition_model decode: not ported here (raised above)
+            # partition_model decode: not ported here (TP decode)
             raise ValueError(
                 "decode mode is incompatible with sequence-parallel "
                 "attention (ring/ring_flash/ulysses run in shard_map "
@@ -445,17 +521,36 @@ class GPTLM(nn.Module):
         self.positional = positional
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
+        self.partition_model = partition_model
         rope = positional == "rope"
-        self.token_embed = nn.Embedding(vocab_size, hidden, device=device)
+        self.token_embed = (VocabParallelEmbedding if partition_model
+                            else nn.Embedding)(vocab_size, hidden,
+                                               device=device)
         self.pos_embed = (None if rope
                           else nn.Embedding(max_len, hidden, device=device))
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, dropout_rate, rope, kv_heads, dtype,
                      device, attention_impl, moe_experts, moe_top_k,
-                     moe_capacity_factor) for _ in range(layers))
+                     moe_capacity_factor, partition_model)
+            for _ in range(layers))
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.lm_head = (None if tie_embeddings
-                        else nn.Linear(hidden, vocab_size, device=device))
+        self.lm_head = (
+            None if tie_embeddings
+            else ColumnParallelLinear(hidden, vocab_size, shard_bias=False,
+                                      device=device) if partition_model
+            else nn.Linear(hidden, vocab_size, device=device))
+
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        """The vocab-parallel token embedding and the column-parallel
+        untied head (its bias whole, as JAX leaves it unannotated); the
+        blocks bind their own layers.  ``pos_embed`` and the LayerNorms
+        stay whole."""
+        if not self.partition_model or self.tp_mesh is not None:
+            return
+        self.token_embed.bind(mesh, f"{prefix}.token_embed".lstrip("."))
+        if self.lm_head is not None:
+            self.lm_head.bind(mesh, f"{prefix}.lm_head".lstrip("."))
+        self.tp_mesh = mesh
 
     @property
     def head_dim(self) -> int:
@@ -499,6 +594,9 @@ class GPTLM(nn.Module):
         if by_column and pools is None:
             raise ValueError("by_column is a slot-decode option (pass "
                              "pools)")
+        if self.tp_mesh is not None and (pools is not None
+                                         or cache is not None):
+            not_ported("decode of a tensor-parallel model", TP_DECODE)
         keep = None
         if cache is not None:
             if pools is not None or positions is not None:
@@ -554,7 +652,9 @@ class GPTLM(nn.Module):
                           None if cache is None else cache[i], keep,
                           by_column)
         x = _layer_norm(self.ln_f, x, self.dtype)
-        if self.tie_embeddings:
+        if self.tp_mesh is not None:
+            logits = self._tp_head(x)
+        elif self.tie_embeddings:
             head = self.token_embed.weight.to(self.dtype)
             logits = (_by_column(lambda c: F.linear(c, head), x)
                       if by_column else F.linear(x, head))
@@ -563,6 +663,23 @@ class GPTLM(nn.Module):
         if cache is not None:
             return logits.float(), cache
         return logits.float()
+
+    def _tp_head(self, x):
+        """The head of a tensor-parallel model: this rank's vocabulary
+        columns (the tied ``attend``, or the column-parallel ``lm_head``),
+        all-gathered into whole logits (``gather_from_model``, whose
+        backward keeps this rank's columns), so the loss runs on the
+        whole (B, L, V) logits, replicated over 'model'.  The untied
+        head's whole bias is added after the gather, so every rank takes
+        its whole gradient."""
+        mesh = self.tp_mesh
+        if self.tie_embeddings:
+            return coll.gather_from_model(
+                self.token_embed.attend(x, self.dtype), mesh)
+        head = self.lm_head
+        logits = coll.gather_from_model(
+            head(coll.copy_to_model(x, mesh), self.dtype, bias=False), mesh)
+        return logits + head.bias.to(self.dtype)
 
 
 def sample_tokens(logits, *, greedy: bool, temperature: float = 1.0,
@@ -605,8 +722,7 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
     generator on the device seeded 0) — a stream that cannot equal the
     JAX package's (``sample_tokens``)."""
     if mesh is not None:
-        not_ported("generate(mesh=...) (multi-device decode)",
-                   "remaining engines")
+        not_ported("generate(mesh=...) (multi-device decode)", TP_DECODE)
     dev = resolve_device(device)
     model = model.to(dev)
     if params is not None:

@@ -53,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import (
+    EP_LEFTOVERS, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
     dense, dropout, lecun_normal_)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
@@ -98,7 +99,7 @@ class MoELayer(nn.Module):
     groups of that many (per-group capacity), as GShard's G×S routing."""
 
     expert_mesh = None    # the (data, expert) mesh of ExpertParallelEngine
-    stacked_params = True  # flax_init_ draws them with reset_parameters
+    draws_own_params = True  # flax_init_ calls reset_parameters
 
     def __init__(self, d: int, num_experts: int = 8, hidden: int = 256,
                  capacity_factor: float = 1.25, router_top_k: int = 1,
@@ -111,7 +112,7 @@ class MoELayer(nn.Module):
                 f"router_top_k must be 1 or 2, got {router_top_k}")
         if partition_experts or partition_model:
             not_ported("partition_experts/partition_model (the GSPMD "
-                       "expert layout)", "remaining engines")
+                       "expert layout)", EP_LEFTOVERS)
         device = resolve_device(device)
         self.d, self.num_experts, self.hidden = d, num_experts, hidden
         self.capacity_factor = capacity_factor
@@ -173,7 +174,7 @@ class MoELayer(nn.Module):
         if self.expert_mesh is not None:
             if group_size is not None:
                 not_ported("grouped routing under expert parallelism",
-                           "remaining engines")
+                           EP_LEFTOVERS)
             return self._forward_ep(x)
         tokens, d = x.shape
         gs = group_size

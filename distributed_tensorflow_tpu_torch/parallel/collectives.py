@@ -21,7 +21,16 @@ the sum of every rank's cotangent on ``src`` (zeros elsewhere).
 (or parameter) buffer with; it counts its calls in
 ``all_reduce_.launches`` (and the NCCL ones in
 ``all_reduce_.nccl_launches``), so a run can show its reduce went through
-the process group.  ``neighbor_mean.launches`` counts the gossip mixes
+the process group.
+
+Tensor parallelism's Megatron conjugate pair over the 'model' axis:
+``copy_to_model`` (identity forward, sum of the gradient backward) and
+``reduce_from_model`` (sum forward, identity backward), and
+``gather_from_model`` (all-gather along the last dim, backward keeps this
+rank's slice); FSDP's ``gather_shards`` (one all-gather of every
+parameter slice forward, one reduce-scatter of their gradients backward).
+Each counts its collectives (``.launches``, ``.nccl_launches``;
+``gather_shards.scatter_launches``).  ``neighbor_mean.launches`` counts the gossip mixes
 that went round the ring (point-to-point exchanges); a mix whose
 neighbourhood covers the ring is an all-reduce and counts there.
 """
@@ -262,3 +271,193 @@ def broadcast_from(tree: Tree, mesh, src: int = 0,
                    axis: str | None = None) -> Tree:
     """Rank ``src``'s value (``src`` indexes ``axis``) on every rank."""
     return _map(lambda x: _Broadcast.apply(x, mesh, axis, src), tree)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: the Megatron conjugate pair over the 'model' axis
+# --------------------------------------------------------------------------
+
+
+def _count(fn, mesh) -> None:
+    fn.launches += 1
+    if mesh.backend == "nccl":
+        fn.nccl_launches += 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over ``axis``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        _count(copy_to_model, mesh)
+        return all_reduce_(g.contiguous().clone(), mesh, axis), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh, axis: str = "model"
+                  ) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``axis``: the input
+    of column-parallel layers, which each rank differentiates for its own
+    output columns only (Megatron's f).  ``copy_to_model.launches`` counts
+    the backward all-reduces."""
+    return _CopyToModel.apply(x, mesh, axis)
+
+
+copy_to_model.launches = 0
+copy_to_model.nccl_launches = 0
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over ``axis`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        _count(reduce_from_model, mesh)
+        return all_reduce_(x.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_from_model(x: torch.Tensor, mesh, axis: str = "model"
+                      ) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axis``, whose gradient passes
+    through as it is: the output of row-parallel layers (Megatron's g).
+    ``reduce_from_model.launches`` counts the forward all-reduces."""
+    return _ReduceFromModel.apply(x, mesh, axis)
+
+
+reduce_from_model.launches = 0
+reduce_from_model.nccl_launches = 0
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along the last dim; the backward keeps this rank's
+    slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis, x.shape[-1])
+        _count(gather_from_model, mesh)
+        return all_gather(x, mesh, tiled=True, axis=axis, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, width = ctx.args
+        r = axis_index(mesh, axis)
+        return g.narrow(-1, r * width, width).contiguous(), None, None
+
+
+def gather_from_model(x: torch.Tensor, mesh, axis: str = "model"
+                      ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the last dim, in rank order
+    (the vocab-sharded logits made whole); the backward takes this rank's
+    slice of the cotangent.  ``gather_from_model.launches`` counts the
+    all-gathers."""
+    return _GatherFromModel.apply(x, mesh, axis)
+
+
+gather_from_model.launches = 0
+gather_from_model.nccl_launches = 0
+
+
+# --------------------------------------------------------------------------
+# FSDP: every parameter slice gathered for use, the gradients scattered back
+# --------------------------------------------------------------------------
+
+# each slice starts this many elements into the flat buffer (512 bytes at
+# f32): a gathered leaf on one rank is a view of the buffer as aligned as a
+# tensor of its own
+_ALIGN = 128
+
+
+def _layout(shapes) -> tuple[list[int], int]:
+    """Each slice's offset in the flat buffer (aligned), and its length."""
+    offs, total = [], 0
+    for shape in shapes:
+        offs.append(total)
+        n = int(torch.Size(shape).numel())
+        total += -(-n // _ALIGN) * _ALIGN
+    return offs, total
+
+
+class _GatherShards(torch.autograd.Function):
+    """One all-gather of every slice packed in a flat buffer; backward, one
+    reduce-scatter of the leaves' gradients packed alike."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, *shards):
+        n = axis_size(mesh, axis)
+        shapes = [tuple(t.shape) for t in shards]
+        offs, total = _layout(shapes)
+        pieces = []
+        for t, o, nxt in zip(shards, offs, offs[1:] + [total]):
+            pieces.append(t.reshape(-1))
+            if nxt - o > t.numel():
+                pieces.append(t.new_zeros(nxt - o - t.numel()))
+        flat = torch.cat(pieces)
+        out = flat.new_empty(n * total)
+        _count(gather_shards, mesh)
+        dist.all_gather_into_tensor(out, flat, group=_group(mesh, axis))
+        rows = out.view(n, total)
+        whole = []
+        for shape, dim, o in zip(shapes, dims, offs):
+            size = int(torch.Size(shape).numel())
+            t = rows[:, o:o + size].reshape(n, *shape).movedim(0, dim)
+            full = list(shape)
+            full[dim] *= n
+            whole.append(t.reshape(full))
+        ctx.args = (mesh, axis, dims, shapes, offs, total)
+        return tuple(whole)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, axis, dims, shapes, offs, total = ctx.args
+        n = axis_size(mesh, axis)
+        ref = next(g for g in grads if g is not None)
+        pieces = []
+        for g, shape, dim, o, nxt in zip(grads, shapes, dims, offs,
+                                         offs[1:] + [total]):
+            size = int(torch.Size(shape).numel())
+            if g is None:
+                piece = ref.new_zeros(n, size)
+            else:
+                split = shape[:dim] + (n, shape[dim]) + shape[dim + 1:]
+                piece = g.reshape(split).movedim(dim, 0).reshape(n, size)
+            pieces.append(piece)
+            if nxt - o > size:
+                pieces.append(ref.new_zeros(n, nxt - o - size))
+        packed = torch.cat(pieces, dim=1).reshape(-1)
+        out = packed.new_empty(total)
+        gather_shards.scatter_launches += 1
+        if mesh.backend == "nccl":
+            gather_shards.nccl_scatter_launches += 1
+        dist.reduce_scatter_tensor(out, packed, op=dist.ReduceOp.SUM,
+                                   group=_group(mesh, axis))
+        return (None, None, None, *[
+            out[o:o + int(torch.Size(shape).numel())].view(shape)
+            for shape, o in zip(shapes, offs)])
+
+
+def gather_shards(shards: list, dims: list[int], mesh,
+                  axis: str | None = None) -> tuple:
+    """The whole tensors of which ``shards`` are this rank's slices, each
+    along its dim of ``dims`` (slices in rank order along ``axis``), made
+    by one all-gather of every slice packed in a flat buffer (one dtype);
+    their gradients are summed over the ranks by one reduce-scatter and
+    cut to this rank's slices.  ``gather_shards.launches`` counts the
+    all-gathers and ``.scatter_launches`` the reduce-scatters (with
+    ``nccl_`` twins)."""
+    return _GatherShards.apply(mesh, axis, list(dims), *shards)
+
+
+gather_shards.launches = 0
+gather_shards.nccl_launches = 0
+gather_shards.scatter_launches = 0
+gather_shards.nccl_scatter_launches = 0

@@ -38,6 +38,7 @@ from distributed_tensorflow_tpu_torch import resolve_device
 DATA_AXIS = "data"  # data parallelism (the reference's only axis)
 SEQ_AXIS = "seq"    # sequence (context) parallelism
 EXPERT_AXIS = "expert"  # expert parallelism (MoE experts sharded)
+MODEL_AXIS = "model"    # tensor parallelism (Megatron layers sharded)
 
 
 def device_count() -> int:

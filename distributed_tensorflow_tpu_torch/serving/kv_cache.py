@@ -79,7 +79,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import (
+    TP_DECODE, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.gpt import sample_tokens
 from distributed_tensorflow_tpu_torch.serving.decode_graph import RoundGraph
 
@@ -135,7 +136,7 @@ class SlotKVCache:
             raise ValueError("paged_blocks/paged_block only apply to "
                              "kv_layout='paged'")
         if mesh is not None:
-            not_ported("mesh-sharded slot tables", "remaining engines")
+            not_ported("mesh-sharded slot tables", TP_DECODE)
         if ledger is not None:
             not_ported("the compile/memory ledger", "rest of observability")
         if slots < 1:

@@ -70,11 +70,18 @@ and the run report's ``grad_collective_exposed_s``/``_hidden_s``.  The
 overlap comes from the engine's gradient hooks and side stream; JAX's
 ``enable_overlap_flags`` sets XLA scheduler flags and has no counterpart.
 
+``engine='fsdp'`` (``-m d -ds fsdp``) is ``FSDPEngine`` on the default
+path, with ``grad_accum``.  ``tensor_parallel`` T > 1 makes a (data,
+model) mesh of (n / T, T) ranks (``_setup_tensor_parallel``, named
+``tensor_parallel``; under ``fsdp`` ``_setup_fsdp_tp``, named
+``fsdp_tp[fsdp*tp]``) over ``_tp_model``: ``TPMLP`` for the MLP names,
+else the sequence model with ``partition_model=True`` and dense
+attention.
+
 The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent; ``tensor_parallel`` and ``pipeline_parallel`` raise
-``NotImplementedError`` above 1, as does any composite of the
-model-parallel factors (``check_parallel_factors``), and the fleet's
-serve fields
+absent; ``pipeline_parallel`` raises ``NotImplementedError`` above 1, as
+does any composite of the model-parallel factors
+(``check_parallel_factors``), and the fleet's serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -95,8 +102,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch import (
+    COMPOSITES, PIPELINE, TP_DECODE, not_ported)
 from distributed_tensorflow_tpu_torch import models as modellib
-from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
     Trainer, check_engine, create_engine)
@@ -113,7 +121,8 @@ class ExperimentConfig:
     """What the reference CLI configures (reference initializer.py:72-114),
     plus the knobs this port serves."""
 
-    engine: str = "sync"            # sync | allreduce | async | gossip
+    engine: str = "sync"            # sync | allreduce | async | gossip |
+                                    # fsdp
     model: str = "mlp"
     dataset: str = "mnist"
     model_fn: Callable | None = None       # user plug-in override
@@ -167,7 +176,9 @@ class ExperimentConfig:
     supervisor_address: str | None = None  # the reference's port-4000 channel
     seq_parallel: int = 1           # >1: shard sequences over this many
                                     # of the ranks (a 'seq' mesh axis)
-    tensor_parallel: int = 1        # model parallelism (not ported above 1)
+    tensor_parallel: int = 1        # >1: Megatron-shard the model over this
+                                    # many of the ranks (a 'model' axis;
+                                    # fsdp × tp under engine 'fsdp')
     pipeline_parallel: int = 1
     expert_parallel: int = 1        # >1: shard MoE experts over this many
                                     # of the ranks (an 'expert' mesh axis)
@@ -433,8 +444,11 @@ def _decay_mask(model: torch.nn.Module) -> dict[str, bool]:
     LayerNorm/GroupNorm scales (ndim < 2) and embedding tables (the
     ``nn.Embedding`` weights, which flax names ``embedding``; the tied
     head shares the token table) are left out."""
+    from distributed_tensorflow_tpu_torch.models.layers import (
+        VocabParallelEmbedding)
+
     tables = {id(m.weight) for m in model.modules()
-              if isinstance(m, torch.nn.Embedding)}
+              if isinstance(m, (torch.nn.Embedding, VocabParallelEmbedding))}
     return {name: p.ndim >= 2 and id(p) not in tables
             for name, p in model.named_parameters()}
 
@@ -450,16 +464,33 @@ def _reject_flash_under_sp(config: ExperimentConfig) -> None:
 
 
 def _split_mesh(config: ExperimentConfig, factor: int, factor_name: str,
-                second_axis: str, grad_accum_ok: bool = False):
+                second_axis: str,
+                engines: tuple[str, ...] = ("sync", "allreduce"),
+                grad_accum_ok: bool = False):
     """The (data, <second_axis>) mesh over this run's ranks: ``factor`` of
     them take the second axis, the rest shard data (JAX ``_split_mesh``,
-    for one model-parallel factor).  Returns (mesh, data size)."""
-    if config.engine not in ("sync", "allreduce"):
+    for one model-parallel factor, with its messages).  ``engines`` names
+    the engine semantics the mode supports (fsdp × tp passes ('fsdp',));
+    ``grad_accum_ok`` marks the modes whose engine accumulates
+    microbatches.  Returns (mesh, data size)."""
+    if config.engine not in engines:
+        why = ""
+        if config.engine == "fsdp" and "pipeline" in factor_name:
+            why = (" (fsdp × pipeline is rejected by design: the pipeline "
+                   "schedules own params per 'pipe' stage inside a manual "
+                   "shard_map axis, so ZeRO's gather-per-use collectives "
+                   "cannot cross it; shard the optimizer inside each stage "
+                   "with --engine sync + --grad-accum instead)")
         raise ValueError(
-            f"{factor_name} supports sync/allreduce semantics only, got "
-            f"engine='{config.engine}'")
+            f"{factor_name} supports {'/'.join(engines)} semantics only, "
+            f"got engine='{config.engine}'{why}")
     if config.grad_accum > 1 and not grad_accum_ok:
-        raise ValueError(f"grad_accum does not compose with {factor_name}")
+        raise ValueError(
+            f"grad_accum composes with sync/allreduce/fsdp, tensor_parallel, "
+            f"fsdp×tp, seq_parallel, expert_parallel, and the tp×sp / ep×sp "
+            f"/ ep×tp×sp composites, not with {factor_name}: the pipeline "
+            f"schedules already microbatch — size their chunks with "
+            f"--microbatches")
     total = config.n_devices or (torch.distributed.get_world_size()
                                  if torch.distributed.is_initialized()
                                  else 1)
@@ -489,11 +520,12 @@ def _require_token_data(train_ds, config: ExperimentConfig,
 
 
 def _sequence_model(config: ExperimentConfig, train_ds, mode: str, device,
-                    attention_impl: str):
+                    attention_impl: str, partition_model: bool = False):
     """A sequence model for a model-parallel mode (JAX
     ``_sequence_model``): a plug-in ``model_fn`` as it is; a registered
-    sequence model (token data required) with the mode's attention; any
-    other model is an error."""
+    sequence model (token data required) with the mode's attention (and
+    the Megatron layout with ``partition_model``); any other model is an
+    error."""
     if config.model_fn is not None:
         return _resolve_model(config, train_ds.num_classes, device)
     if config.model not in _SEQUENCE_MODELS:
@@ -502,9 +534,15 @@ def _sequence_model(config: ExperimentConfig, train_ds, mode: str, device,
             f"({'/'.join(_SEQUENCE_MODELS)}), got --model {config.model}; "
             f"pass model_fn for a custom model")
     _require_token_data(train_ds, config, mode)
-    if "attention_impl" in (config.model_args or {}):
-        raise ValueError(f"--model-arg ['attention_impl'] is set by the "
-                         f"harness for {mode}")
+    reserved = {"attention_impl"} | ({"partition_model"} if partition_model
+                                     else set())
+    bad = sorted(reserved & set(config.model_args or {}))
+    if bad:
+        raise ValueError(f"--model-arg {bad} is set by the harness for "
+                         f"{mode}")
+    if partition_model:
+        config = dataclasses.replace(config, model_args={
+            **(config.model_args or {}), "partition_model": True})
     return _resolve_model(config, train_ds.num_classes, device,
                           attention_impl=attention_impl)
 
@@ -543,6 +581,81 @@ def _setup_seq_parallel(config: ExperimentConfig) -> _Experiment:
                        name=f"seq_parallel[{config.attention_impl}]")
 
 
+def _tp_model(config: ExperimentConfig, train_ds, mode: str, device):
+    """The model of the (data, model)-mesh modes (JAX ``_tp_model``): the
+    Megatron MLP (``TPMLP``) for the reference's default model names, or
+    a partitioned sequence model with dense attention."""
+    from distributed_tensorflow_tpu_torch.engines.tensor_parallel import (
+        TPMLP)
+
+    if config.model_fn is None and config.model in ("mlp", "tp_mlp",
+                                                    "mnist_mlp"):
+        return TPMLP(num_classes=train_ds.num_classes,
+                     dtype=modellib.resolve_dtype(config.dtype),
+                     device=device)
+    return _sequence_model(config, train_ds, mode, device, "dense",
+                           partition_model=True)
+
+
+def _check_accum_divides(config: ExperimentConfig, global_batch: int,
+                         mode: str) -> None:
+    if config.grad_accum > 1 and global_batch % config.grad_accum:
+        raise ValueError(
+            f"{mode}: global batch {global_batch} not divisible by "
+            f"grad_accum {config.grad_accum}")
+
+
+def _setup_model_parallel(config: ExperimentConfig, mode: str,
+                          engines: tuple[str, ...], name: str
+                          ) -> _Experiment:
+    """Megatron TP (JAX ``_setup_tensor_parallel``) or fsdp × tp (JAX
+    ``_setup_fsdp_tp``): a (data, model) mesh of (n / tp, tp) ranks, the
+    ``_tp_model`` and ``TensorParallelEngine`` or ``FSDPEngine``.
+    Sampling and serving after training decode the partitioned model,
+    which is not ported (TP decode)."""
+    from distributed_tensorflow_tpu_torch.engines import (
+        FSDPEngine, TensorParallelEngine)
+
+    for flag, value in (("--sample", config.sample_tokens),
+                        ("--serve", config.serve_requests)):
+        if value:
+            not_ported(f"{flag} after {mode} training (decode of a "
+                       f"tensor-parallel model)", TP_DECODE)
+    mesh, dp = _split_mesh(config, config.tensor_parallel, mode,
+                           meshlib.MODEL_AXIS, engines=engines,
+                           grad_accum_ok=True)
+    try:
+        train_ds, test_ds = _load_data(config)
+        model = _tp_model(config, train_ds, mode, mesh.device)
+        global_batch = _global_batch(config, dp)
+        _check_accum_divides(config, global_batch, mode)
+        cls = FSDPEngine if engines == ("fsdp",) else TensorParallelEngine
+        engine = cls(
+            model, mesh=mesh, learning_rate=config.learning_rate,
+            optimizer=_make_optimizer(config, train_ds, global_batch, model),
+            grad_accum=config.grad_accum, precision=config.precision,
+            **_codec_kw(config))
+    except BaseException:
+        mesh.close()
+        raise
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch, name=name)
+
+
+def _setup_tensor_parallel(config: ExperimentConfig) -> _Experiment:
+    """Megatron-style TP over a (data, model) mesh."""
+    return _setup_model_parallel(config, "tensor_parallel",
+                                 ("sync", "allreduce"), "tensor_parallel")
+
+
+def _setup_fsdp_tp(config: ExperimentConfig) -> _Experiment:
+    """fsdp × tp: the model's Megatron slices take their dims, then FSDP
+    cuts each leaf's largest free dim over 'data' (``fsdp_spec`` with
+    ``base``): per-rank state bytes ~1/(dp·tp)."""
+    return _setup_model_parallel(config, "fsdp×tensor_parallel", ("fsdp",),
+                                 "fsdp_tp[fsdp*tp]")
+
+
 def _check_reserved_model_args(config: ExperimentConfig, reserved,
                                where: str) -> None:
     """``--model-arg`` keys that a dedicated flag or the mode itself sets
@@ -566,11 +679,6 @@ def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
         ExpertParallelEngine)
 
     mode = "expert_parallel"
-    if config.clip_norm:
-        # each rank holds other experts: a global norm needs a reduce of
-        # the experts' squared norms that the recipe's optimizer lacks
-        not_ported("--clip-norm under expert parallelism",
-                   "remaining engines")
     mesh, dp = _split_mesh(config, config.expert_parallel, mode,
                            meshlib.EXPERT_AXIS, grad_accum_ok=True)
     try:
@@ -640,19 +748,22 @@ def check_codec_config(config: ExperimentConfig) -> None:
 
 
 def check_parallel_factors(config: ExperimentConfig) -> None:
-    """The model-parallel factors above 1: one of ``seq_parallel`` and
-    ``expert_parallel`` is served; tensor and pipeline parallelism and the
-    composites raise ``NotImplementedError``.  ``num_experts`` must split
-    over ``expert_parallel`` (JAX ``harness.py:1428-1431``), and
+    """The model-parallel factors above 1: one of ``seq_parallel``,
+    ``tensor_parallel`` (under sync/allreduce, or fsdp × tp under
+    ``fsdp``) and ``expert_parallel`` is served; pipeline parallelism and
+    the composites raise ``NotImplementedError``.  ``num_experts`` must
+    split over ``expert_parallel`` (JAX ``harness.py:1428-1431``), and
     ``router_z_weight`` needs the expert-parallel engine (JAX
     ``harness.py:611-616``).  The CLI calls it before it spawns ranks."""
     multi = [f for f in ("seq_parallel", "tensor_parallel",
                          "pipeline_parallel", "expert_parallel")
              if getattr(config, f) > 1]
-    if len(multi) > 1 or multi in (["tensor_parallel"],
-                                   ["pipeline_parallel"]):
+    if "pipeline_parallel" in multi:
         not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
-                   "remaining engines")
+                   PIPELINE)
+    if len(multi) > 1:
+        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
+                   COMPOSITES)
     if (config.expert_parallel > 1 and config.model_fn is None
             and config.model in ("moe", "moe_mlp", "mlp")
             and config.num_experts % config.expert_parallel):
@@ -685,6 +796,10 @@ def _setup(config: ExperimentConfig) -> _Experiment:
     check_parallel_factors(config)
     if config.seq_parallel > 1:
         return _setup_seq_parallel(config)
+    if config.tensor_parallel > 1:
+        if config.engine == "fsdp":
+            return _setup_fsdp_tp(config)
+        return _setup_tensor_parallel(config)
     if config.expert_parallel > 1:
         return _setup_expert_parallel(config)
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
@@ -704,7 +819,7 @@ def _setup(config: ExperimentConfig) -> _Experiment:
         elif config.engine == "gossip":
             engine_kw["degree"] = config.degree
         if config.grad_accum > 1:
-            if config.engine not in ("sync", "allreduce"):
+            if config.engine not in ("sync", "allreduce", "fsdp"):
                 raise ValueError(
                     f"grad_accum is implemented by the sync/allreduce/fsdp "
                     f"engines (got engine='{config.engine}')")
@@ -712,7 +827,7 @@ def _setup(config: ExperimentConfig) -> _Experiment:
                 raise ValueError(
                     f"per-device batch {global_batch // n} not divisible by "
                     f"grad_accum {config.grad_accum}")
-        if config.engine in ("sync", "allreduce"):
+        if config.engine in ("sync", "allreduce", "fsdp"):
             engine_kw["grad_accum"] = config.grad_accum
         engine = create_engine(config.engine, model, **engine_kw)
     except BaseException:
@@ -944,7 +1059,8 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             model_name = config.model if config.model_fn is None else getattr(
                 config.model_fn, "__name__", "custom_model_fn")
             st = fit["step_time"]
-            total = ex.n * config.seq_parallel * config.expert_parallel
+            total = (ex.n * config.seq_parallel * config.tensor_parallel
+                     * config.expert_parallel)
             summary = {
                 "engine": ex.name,
                 "model": model_name,
@@ -953,6 +1069,7 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 "n_devices": total,
                 "data_parallel": ex.n,
                 "seq_parallel": config.seq_parallel,
+                "tensor_parallel": config.tensor_parallel,
                 "expert_parallel": config.expert_parallel,
                 "num_experts": (config.num_experts
                                 if config.expert_parallel > 1 else None),

@@ -124,7 +124,16 @@ class ScheduledAdamW(torch.optim.Optimizer):
     parameters share one device and one dtype.  The state is built here,
     so that it exists before a chunk is captured: ``state[p]`` holds
     ``step`` (a 0-dim f32 count), ``exp_avg`` and ``exp_avg_sq``, as
-    torch's Adam names them."""
+    torch's Adam names them.
+
+    ``global_norm`` (None: the norm of the gradients it holds) is the
+    clip's norm under an engine whose ranks hold slices of the
+    parameters: a callable from the gradients (or the flat master's) to
+    the whole model's norm, which the engine sets
+    (``Engine._global_norm``), as optax's ``clip_by_global_norm`` sees the
+    global arrays under GSPMD."""
+
+    global_norm: Callable | None = None
 
     def __init__(self, params, lr: float | Schedule = 1e-3, *,
                  betas: tuple[float, float] = (0.9, 0.999),
@@ -175,8 +184,9 @@ class ScheduledAdamW(torch.optim.Optimizer):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if self.clip_norm:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)).float())
+            norm = (self.global_norm(grads) if self.global_norm is not None
+                    else torch.linalg.vector_norm(
+                        torch.stack(torch._foreach_norm(grads)).float()))
             keep = norm < self.clip_norm
             one = torch.ones_like(norm)
             grads = torch._foreach_div(grads, torch.where(keep, one, norm)

@@ -483,7 +483,9 @@ def test_reference_flag_surface_accepted():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["-m", "d", "-ds", "fsdp"], NotImplementedError, "remaining engines"),
+    # fsdp and -tp are ported since; the pipeline is not
+    (["-m", "d", "-ds", "fsdp", "-pp", "2"], NotImplementedError,
+     "remaining engines"),
     # MoE and -ep are ported; their composites are not
     (["--model", "moe", "-ep", "2", "-tp", "2"], NotImplementedError,
      "remaining engines"),

@@ -478,9 +478,10 @@ def test_composites_raise_not_ported(field):
     from distributed_tensorflow_tpu_torch.utils import harness
 
     for sp in (1, 2):
-        # -ep alone is ported: its composite with -tp is not
-        extra = ({"tensor_parallel": 2}
-                 if field == "expert_parallel" and sp == 1 else {})
+        # -ep and -tp alone are ported: their composites are not
+        extra = ({"tensor_parallel": 2} if field == "expert_parallel"
+                 and sp == 1 else {"expert_parallel": 2}
+                 if field == "tensor_parallel" and sp == 1 else {})
         config = harness.ExperimentConfig(
             model="gpt_tiny", dataset="lm_synth", seq_parallel=sp,
             device="cpu", **{field: 2}, **extra)

@@ -43,7 +43,8 @@ from distributed_tensorflow_tpu.parallel.mesh import create_mesh
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.data import pipeline as tpipeline
 from distributed_tensorflow_tpu_torch.engines import (
-    AsyncLocalEngine, GossipEngine, SyncEngine, Trainer, create_engine)
+    AsyncLocalEngine, FSDPEngine, GossipEngine, SyncEngine, Trainer,
+    create_engine)
 from distributed_tensorflow_tpu_torch.engines.base import (
     cross_entropy, token_weights)
 from distributed_tensorflow_tpu_torch.models import create_model
@@ -267,9 +268,9 @@ def test_unported_options_raise(tmp_path):
             codec = cls(model, device="cpu", **kw).grad_codec
             assert codec.name == name, (cls, kw)
             assert getattr(codec, "bucket_mb", 0) == bucket_mb, (cls, kw)
-    with pytest.raises(NotImplementedError, match="remaining engines"):
-        create_engine("fsdp", model, device="cpu")
-    for name, cls in (("async", AsyncLocalEngine), ("gossip", GossipEngine)):
+    # ported since: fsdp
+    for name, cls in (("async", AsyncLocalEngine), ("gossip", GossipEngine),
+                      ("fsdp", FSDPEngine)):
         assert type(create_engine(name, model, device="cpu")) is cls
     with pytest.raises(KeyError):
         create_engine("nope", model, device="cpu")
