@@ -291,6 +291,26 @@ Phases (any failure raises and the script exits non-zero):
              backward, one logit all-gather, one data-axis all-reduce.
              Printed on ``[mp]`` lines: each window's step p50 and busy
              share beside G-base's and the Train window's;
+5l. pp    — pipeline parallelism on one NCCL rank: ``PipelineEngine`` on
+             a (1, 1) (data, pipe) mesh over ``gpt_pipeline_stages`` at
+             ``bench.py --lm``'s widths (8 flash layers in the one stage,
+             bf16 compute over f32 parameters), M = 4 microbatches of
+             2 × 1024 of ``_lm_data``, Adam, 4 eager steps from one init
+             in each window: PG (GPipe), P1 (1F1B), PR (GPipe with
+             remat); each first-step loss within ``PP_LOSS_RTOL`` of the
+             sequential forward's cross-entropy over the whole batch, P1's
+             and PR's losses and parameters bitwise PG's; flash launches a
+             step on ``tc`` 32/32/32 (PG) and 64/32/32 (P1, PR: the
+             recompute); the pipe shifts a step (copies at a pipe of one,
+             no point-to-point op) and two NCCL all-reduces a step as
+             planned (``PP_SHIFTS``).  Pgen: ``generate`` from PG's state
+             (32-token prompts of the data, 32 new tokens) against the
+             naive rollout (a first difference must be a tie, within
+             ``PP_TIE``).  Printed on ``[pp]`` lines: each window's step
+             p50, busy share, ``max_memory_allocated`` (reset per window)
+             and flash launches; rows 1p-3p (the flash kernels at the
+             microbatch's shape, B=2, L=1024, H=8, D=64, causal, bf16,
+             ``tc``) join the kernels line;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -5088,6 +5108,260 @@ def mp_phase(gpu: str) -> dict:
     return {"F1": f1, "F2": f2, "T": tp["counts"]}
 
 
+# --------------------------------------------------------------------------
+# phase 5l: pipeline parallelism on one NCCL rank
+# --------------------------------------------------------------------------
+
+PP_STEPS = 4
+PP_MICRO = 4
+# the first step's loss against the cross-entropy of the sequential
+# forward over the whole batch on the same weights: the same kernels at
+# other row counts (B = 8 against 4 microbatches of 2), so cuBLAS may sum
+# a bf16 GEMM's products in another order and round an activation one
+# bf16 step (2^-8) the other way; over 8192 tokens' mean that moves the
+# loss by far less than this share of it
+PP_LOSS_RTOL = 1e-3
+# Pgen against the naive rollout: the rollout runs each prefix at its own
+# length, so its GEMMs see other row counts and its bf16 logits may round
+# otherwise; a first difference is a tie where the naive logits' top two
+# lie within two bf16 roundings of the larger (2 * 2^-8 of its size)
+PP_TIE = 2 * 2 ** -8
+PP_PROMPT = 32
+PP_NEW = 32
+# the (1, 1) mesh's planned collectives a step: the shifts of a pipe of
+# one (copies, no point-to-point op): GPipe 2 (T - 1) with T = M + S - 1
+# ticks, 1F1B 2 (T - 1) with T = 2 (M + S - 1); two all-reduces (the
+# block gradients over 'data', embed, head and metrics over every rank)
+PP_SHIFTS = {"gpipe": 2 * (PP_MICRO - 1), "1f1b": 2 * (2 * PP_MICRO - 1)}
+
+
+def _pp_counters():
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    return {"next_clones": (coll.shift_to_next, "clones"),
+            "prev_clones": (coll.shift_to_prev, "clones"),
+            "next_p2p": (coll.shift_to_next, "launches"),
+            "prev_p2p": (coll.shift_to_prev, "launches"),
+            "all_reduce": (coll.all_reduce_, "launches"),
+            "all_reduce_nccl": (coll.all_reduce_, "nccl_launches")}
+
+
+def _pp_counts() -> dict:
+    return {k: getattr(fn, a) for k, (fn, a) in _pp_counters().items()}
+
+
+def _reset_pp_counts() -> None:
+    for fn, a in _pp_counters().values():
+        setattr(fn, a, 0)
+
+
+def _pp_engine(mesh, schedule: str, remat: bool = False):
+    from distributed_tensorflow_tpu_torch.engines import PipelineEngine
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        gpt_pipeline_stages)
+
+    stages = gpt_pipeline_stages(
+        vocab_size=LM["vocab"], hidden=LM["hidden"], heads=LM["heads"],
+        ffn=LM["ffn"], max_len=LM["seq"], layers_per_stage=LM["layers"],
+        attention_impl="flash", dtype=torch.bfloat16)
+    return PipelineEngine(microbatches=PP_MICRO, mesh=mesh, stages=stages,
+                          schedule=schedule, remat=remat,
+                          optimizer=lambda p: torch.optim.Adam(p, lr=1e-3))
+
+
+def _pp_window(name, mesh, schedule, remat, init, batches) -> dict:
+    """PP_STEPS eager steps of ``PipelineEngine`` from ``init``, every
+    count set to 0 just before them and read just after; the first step's
+    loss against the sequential forward's cross-entropy on ``init``; the
+    window's peak memory (reset before it)."""
+    from distributed_tensorflow_tpu_torch.engines.base import cross_entropy
+
+    eng = _pp_engine(mesh, schedule, remat)
+    state = eng.init_state(torch.Generator().manual_seed(0))
+    state.model.load_state_dict(init)
+    (x0, y0) = batches[0]
+    with torch.no_grad():
+        seq = float(cross_entropy(eng._sequential_logits(
+            eng.eval_params(state), x0), y0).mean())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _reset_flash_counts()
+    _reset_pp_counts()
+    losses, step_ms = [], []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        state, m = eng.step(state, xb, yb)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {**_flash_counts(), **_tc32_counts()}
+    collectives = _pp_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), (name, losses)
+    err = abs(losses[0] - seq)
+    assert err <= PP_LOSS_RTOL * seq, (name, losses[0], seq)
+    params = {k: v.detach().clone()
+              for k, v in state.model.state_dict().items()}
+    return {"eng": eng, "state": state, "losses": losses, "seq_loss": seq,
+            "loss_err": err, "step_ms": step_ms, "counts": counts,
+            "collectives": collectives, "peak": peak, "base_mem": base_mem,
+            "params": params}
+
+
+def _pp_generate(gpu, eng, state, x) -> dict:
+    """Pgen: ``generate`` from PG's final state (32-token prompts of the
+    data, 32 new tokens) against the naive rollout, a loop of
+    ``_sequential_logits`` on the growing prefix with argmax."""
+    prompts = np.asarray(x[:, :PP_PROMPT], np.int32)
+    torch.cuda.synchronize()
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    got = eng.generate(state, prompts, PP_NEW)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    counts = {**_flash_counts(), **_tc32_counts()}
+    model = eng.eval_params(state)
+    toks = torch.as_tensor(prompts, device="cuda").long()
+    with torch.no_grad():
+        for _ in range(PP_NEW):
+            nxt = eng._sequential_logits(model, toks)[:, -1].argmax(-1)
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
+    want = toks.cpu().numpy()
+    assert got.shape == want.shape == (len(prompts), PP_PROMPT + PP_NEW)
+    assert np.array_equal(got[:, :PP_PROMPT], prompts)
+    diff = np.argwhere(got != want)
+    first = None
+    if len(diff):
+        # the earliest position over the rows: the tokens before it agree
+        row, pos = min(diff.tolist(), key=lambda rc: (rc[1], rc[0]))
+        with torch.no_grad():
+            logits = eng._sequential_logits(
+                model, torch.as_tensor(want[row:row + 1, :pos],
+                                       device="cuda").long())[0, -1]
+        top = logits.topk(2).values
+        gap = float(top[0] - top[1])
+        first = {"row": row, "position": pos, "naive": int(want[row, pos]),
+                 "generate": int(got[row, pos]), "top2_gap": gap,
+                 "tie_bound": PP_TIE * abs(float(top[0]))}
+        print(f"[pp] Pgen ({gpu}): generate leaves the naive rollout at row "
+              f"{row} position {pos}: naive {first['naive']}, generate "
+              f"{first['generate']}; the naive logits' top-2 gap there "
+              f"{gap:.6f} (tie bound {first['tie_bound']:.6f})")
+        assert gap <= first["tie_bound"], first
+    n = LM["layers"] * PP_NEW
+    assert counts["fwd_tc"] == counts["fwd"] == n, counts
+    assert counts["dq"] == counts["dkv"] == 0, counts
+    print(f"[pp] Pgen ({gpu}): {len(prompts)} prompts of {PP_PROMPT} "
+          f"tokens + {PP_NEW} new: "
+          + ("bitwise the naive rollout" if first is None else
+             "equal to the naive rollout up to a tie")
+          + f" ({int((got == want).sum())}/{want.size} tokens equal); "
+          f"{gen_ms:.1f} ms; flash forwards on tc {counts['fwd_tc']} "
+          f"({LM['layers']} layers x {PP_NEW} fixed-length forwards)")
+    return {"counts": counts, "first_difference": first, "ms": gen_ms}
+
+
+def pp_phase(gpu: str) -> dict:
+    """Phase 5l (module docstring): ``PipelineEngine`` on a (1, 1) (data,
+    pipe) NCCL mesh over the GPT stages at ``bench.py --lm``'s widths:
+    windows PG, P1, PR from one init on the same batches, then Pgen.
+    Returns each window's flash launches."""
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    x, y = _lm_data(PP_STEPS * LM["batch"])
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "pipe"))
+    runs = {}
+    try:
+        eng = _pp_engine(mesh, "gpipe")
+        init = {k: v.detach().clone() for k, v in eng.init_state(
+            torch.Generator().manual_seed(0)).model.state_dict().items()}
+        b = LM["batch"]
+        batches = [eng.shard_batch(x[i * b:(i + 1) * b],
+                                   y[i * b:(i + 1) * b])
+                   for i in range(PP_STEPS)]
+        del eng
+        for name, schedule, remat in (("PG", "gpipe", False),
+                                      ("P1", "1f1b", False),
+                                      ("PR", "gpipe", True)):
+            run = runs[name] = _pp_window(name, mesh, schedule, remat, init,
+                                          batches)
+            eng, state = run.pop("eng"), run.pop("state")
+            if name == "PG":
+                # from PG's final state, before the busy share's steps
+                gen = _pp_generate(gpu, eng, state, x[:LM["batch"]])
+            run["busy"] = _eager_busy(eng, state, *batches[0])
+            del eng, state
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    n = LM["layers"] * PP_MICRO * PP_STEPS
+    plan = {"PG": (n, n), "P1": (2 * n, n), "PR": (2 * n, n)}
+    for name, (fwd, bwd) in plan.items():
+        want = {"fwd": fwd, "dq": bwd, "dkv": bwd, "fwd_tc": fwd,
+                "dq_tc": bwd, "dkv_tc": bwd, "fwd_tc32": 0, "dq_tc32": 0,
+                "dkv_tc32": 0}
+        assert runs[name]["counts"] == want, (name, runs[name]["counts"])
+        shifts = PP_SHIFTS["1f1b" if name == "P1" else "gpipe"] // 2
+        want = {"next_clones": shifts * PP_STEPS,
+                "prev_clones": shifts * PP_STEPS, "next_p2p": 0,
+                "prev_p2p": 0, "all_reduce": 2 * PP_STEPS,
+                "all_reduce_nccl": 2 * PP_STEPS}
+        assert runs[name]["collectives"] == want, (
+            name, runs[name]["collectives"], want)
+    same = {name: all(torch.equal(runs["PG"]["params"][k], v)
+                      for k, v in runs[name]["params"].items())
+            for name in ("P1", "PR")}
+    assert same == {"P1": True, "PR": True}, same
+    for name in ("P1", "PR"):
+        assert runs[name]["losses"] == runs["PG"]["losses"], (
+            name, runs[name]["losses"], runs["PG"]["losses"])
+    for name, run in runs.items():
+        p50 = float(np.median(run["step_ms"][1:]))
+        SEEN[f"pp {name}"] = p50
+        print(f"[pp] {name} ({gpu}): losses "
+              f"{' '.join(repr(v) for v in run['losses'])}; first-step "
+              f"loss - sequential forward's {run['loss_err']:.3e} (bound "
+              f"{PP_LOSS_RTOL * run['seq_loss']:.3e}); step ms "
+              f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} "
+              f"(p50 of steps 2-4 {p50:.3f}); eager wall_ms="
+              f"{run['busy']['wall_ms']:.4f} busy_share="
+              f"{_fmt(run['busy']['busy_share'])}; max_memory_allocated "
+              f"{run['peak'] / 2**20:.1f} MiB ({run['base_mem'] / 2**20:.1f}"
+              f" MiB before the steps); flash launches "
+              f"{json.dumps(run['counts'])}; collectives "
+              f"{json.dumps(run['collectives'])}")
+    print(f"[pp] P1 and PR parameters after {PP_STEPS} steps bitwise PG's "
+          f"{json.dumps(same)}; peak memory above each window's entry "
+          + ", ".join(f"{k} {(r['peak'] - r['base_mem']) / 2**20:.1f} MiB"
+                      for k, r in runs.items()) + "; order "
+          + " < ".join(sorted(runs, key=lambda k: runs[k]["peak"]
+                              - runs[k]["base_mem"])))
+    torch.cuda.empty_cache()
+    print(f"[pp] phase 5l wall {time.perf_counter() - t0:.1f} s")
+    return {**{name: run["counts"] for name, run in runs.items()},
+            "Pgen": gen["counts"]}
+
+
+def pp_timing_phase(pp: dict) -> list[dict]:
+    """Rows 1p-3p: the flash forward, dQ and dK/dV at phase 5l's
+    microbatch shape (B=2, L=1024, H=8, D=64, causal, bf16, ``tc``),
+    held against their plain versions and timed beside their bounds, the
+    plain versions and SDPA; each row's launches are PG's, P1's and PR's
+    (every training launch of the phase is at this shape)."""
+    h = LM["heads"]
+    b = LM["batch"] // PP_MICRO
+    case = _flash_case(49, b=b, lq=LM["seq"], h=h, d=LM["hidden"] // h,
+                       dtype=torch.bfloat16)
+    errs = _check_flash("pp_tc", case, True, "tc")
+    rows = _flash_rows("pp", "tc", *case[:4], None, True, errs,
+                       _sdpa_backend(torch.bfloat16), "bfloat16")
+    for row in rows:
+        kind = row["name"].rsplit(".", 1)[1].split("_")[0]
+        row["launches"] = sum(pp[w][f"{kind}_tc"] for w in ("PG", "P1",
+                                                            "PR"))
+    return rows
+
+
 def _ptxas_lines(log: str):
     """One line per kernel of a ptxas -v report: registers and spills."""
     for block in log.split("Compiling entry function")[1:]:
@@ -5166,6 +5440,7 @@ def main() -> int:
     ckpt = ckpt_phase(gpu)
     codec = codec_phase(gpu)
     mp = mp_phase(gpu)
+    pp = pp_phase(gpu)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -5185,6 +5460,9 @@ def main() -> int:
         row["launches_moe"] = moe["counts"][counter]
         # phase 5k's window T (all on tc)
         row["launches_mp"] = mp["T"][counter]
+        # phase 5l's windows PG, P1, PR and Pgen (all on tc; the training
+        # windows' at the microbatch's shape, rows 1p-3p)
+        row["launches_pp"] = sum(w[counter] for w in pp.values())
         print(f"[flash] {row['name']} ({row['variant']}) at the slice's "
               f"shape, device ms: kernel={row['ms']:.5f} "
               f"plain={row['plain_ms']:.5f} "
@@ -5214,6 +5492,7 @@ def main() -> int:
         elif row["name"] == "paged_attention_cli_lm_f32":
             row["launches_mp"] = mp["F1"]["paged_f32"]
     sp_rows = sp_timing_phase(sp)
+    pp_rows = pp_timing_phase(pp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
@@ -5258,7 +5537,8 @@ def main() -> int:
           f"({', '.join(EVENT_TIMED) or 'none'})")
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
-                                  *bert_rows, *cli_lm_rows, *sp_rows]}))
+                                  *bert_rows, *cli_lm_rows, *sp_rows,
+                                  *pp_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

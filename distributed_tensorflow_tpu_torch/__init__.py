@@ -32,7 +32,6 @@ def resolve_device(device=None) -> torch.device:
 
 # ROADMAP Queue 1 item 8d's parts still to port: the titles not_ported
 # cites for them
-PIPELINE = "remaining engines: pipeline"
 EP_LEFTOVERS = "remaining engines: EP leftovers"
 COMPOSITES = "remaining engines: composites"
 TP_DECODE = "remaining engines: TP decode"

@@ -38,8 +38,12 @@ E of the ranks (a (data, expert) mesh of (N / E, E) ranks, with
 ``--router-z-weight``); ``-tp T`` shards the model Megatron-style over T
 of the ranks (a (data, model) mesh of (N / T, T) ranks; the MLP names
 train ``TPMLP``, a sequence model its ``partition_model`` layout with
-dense attention), and under ``-m d -ds fsdp`` makes fsdp × tp; ``-pp``
-and the composites parse and raise.
+dense attention), and under ``-m d -ds fsdp`` makes fsdp × tp; ``-pp P``
+pipelines the model over P of the ranks (a (data, pipe) mesh of (N / P,
+P) ranks, ``--microbatches``, ``--pipeline-schedule gpipe|1f1b``, and
+``--pipeline-hidden`` the stages' width: the built-in MLP stages for
+``--model mlp``, the GPT's or BERT's stage families); the composites
+parse and raise.
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
@@ -65,6 +69,8 @@ the backward pass produces them (``parallel/overlap.py``).
         --model moe --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -m d \\
         -ds fsdp -n 4 -tp 2 --model mlp --dataset synthetic
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -pp 2 -n 4 \\
+        --microbatches 2 --model mlp --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 1 -e 2 \\
         --model mlp --dataset synthetic --checkpoint-dir /tmp/ck \\
         --checkpoint-every 100 --max-restarts 1
@@ -187,7 +193,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "over this many of the -n ranks (a (data, model) "
                         "mesh); with -m d -ds fsdp, fsdp×tp")
     p.add_argument("-pp", "--pipeline-parallel", type=int, default=1,
-                   help="pipeline parallelism (not ported: raises above 1)")
+                   help="shard model stages over this many devices "
+                        "(GPipe-style microbatched pipeline)")
+    p.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches per step (bubble = (S-1)/(M+S-1))")
+    p.add_argument("--pipeline-schedule", default="gpipe",
+                   choices=["gpipe", "1f1b"],
+                   help="gpipe: all-fwd-then-all-bwd (AD through the scan); "
+                        "1f1b: interleaved fwd/bwd with a fixed S-slot "
+                        "activation stash (PipeDream-flush)")
+    p.add_argument("--pipeline-hidden", type=int, default=128,
+                   help="pipeline stage hidden width")
     p.add_argument("-ep", "--expert-parallel", type=int, default=1,
                    help="shard MoE experts over this many devices "
                         "(GShard/Switch-style EP; --model moe)")
@@ -520,6 +536,9 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         seq_parallel=args.seq_parallel,
         tensor_parallel=args.tensor_parallel,
         pipeline_parallel=args.pipeline_parallel,
+        microbatches=args.microbatches,
+        pipeline_schedule=args.pipeline_schedule,
+        pipeline_hidden=args.pipeline_hidden,
         expert_parallel=args.expert_parallel,
         num_experts=args.num_experts, aux_weight=args.aux_weight,
         router_top_k=args.router_top_k,

@@ -9,8 +9,9 @@ of degree ``degree``) and ``fsdp`` (``FSDPEngine``: ZeRO-3 sharding over
 'data', or fsdp × tp over a (data, model) mesh).  Outside the table, as
 in JAX: ``SeqParallelEngine`` (data × sequence parallelism over a (data,
 seq) mesh), ``ExpertParallelEngine`` (data × expert parallelism of MoE
-models over a (data, expert) mesh) and ``TensorParallelEngine`` (Megatron
-data × model parallelism over a (data, model) mesh, with ``TPMLP``).
+models over a (data, expert) mesh), ``TensorParallelEngine`` (Megatron
+data × model parallelism over a (data, model) mesh, with ``TPMLP``) and
+``PipelineEngine`` (GPipe and 1F1B over a (data, pipe) mesh).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from distributed_tensorflow_tpu_torch.engines.fsdp import (  # noqa: F401
     FSDPEngine)
 from distributed_tensorflow_tpu_torch.engines.gossip import (  # noqa: F401
     GossipEngine)
+from distributed_tensorflow_tpu_torch.engines.pipeline import (  # noqa: F401
+    PipelineEngine)
 from distributed_tensorflow_tpu_torch.engines.seq_parallel import (  # noqa: F401
     SeqParallelEngine)
 from distributed_tensorflow_tpu_torch.engines.sync import (  # noqa: F401

@@ -41,7 +41,9 @@ valid.
 An engine whose ranks hold slices of the parameters (FSDP, TP, EP) sets
 ``param_specs``: each parameter's layout over the mesh, by name, a tuple
 with the axis its slice is cut along at each sharded dim (None
-elsewhere; ``()`` replicated).  From it the base class writes a
+elsewhere; ``()`` replicated; for a leaf in ``stacked_params``, one
+entry more than its rank: the axis its slices stack over, then None per
+dim).  From it the base class writes a
 checkpoint of whole leaves (gathered, every rank calling it) and
 restores one by cutting each rank's slice, so a checkpoint does not
 depend on the layout (``full_state_dict``/``load_full_state_dict`` do
@@ -186,6 +188,10 @@ class Engine:
     # engines whose ranks hold slices of parameters set each one's layout
     # (module docstring); empty: every rank holds every parameter whole
     param_specs: dict = {}
+    # the parameters whose whole leaf stacks one slice per rank of the
+    # axis its spec names first, along a new leading dim (a pipeline
+    # stage's block)
+    stacked_params: frozenset = frozenset()
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
@@ -290,7 +296,13 @@ class Engine:
     def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The whole leaf of which ``t`` (shaped like parameter ``name``'s
         slice) is this rank's slice: gathered along each sharded dim (a
-        collective: every rank calls it)."""
+        collective: every rank calls it); a stacked leaf's slices are
+        stacked along a new leading dim."""
+        if name in self.stacked_params:
+            axis = self._spec(name)[0]
+            if self.mesh.axis_size(axis) == 1:
+                return t.unsqueeze(0)
+            return coll.all_gather(t.contiguous(), self.mesh, axis=axis)
         for dim, axis in spec_axes(self._spec(name)):
             if self.mesh.axis_size(axis) > 1:
                 t = coll.all_gather(t.contiguous(), self.mesh, tiled=True,
@@ -298,7 +310,17 @@ class Engine:
         return t
 
     def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a whole leaf of parameter ``name``."""
+        """This rank's slice of a whole leaf of parameter ``name`` (of a
+        stacked leaf, its index along the leading dim, which must hold
+        one slice per rank of the axis)."""
+        if name in self.stacked_params:
+            axis = self._spec(name)[0]
+            n = self.mesh.axis_size(axis)
+            if t.shape[0] != n:
+                raise ValueError(
+                    f"{name} is stacked over {t.shape[0]} slices, this "
+                    f"mesh's '{axis}' axis has {n} ranks")
+            return t[self.mesh.axis_index(axis)]
         for dim, axis in spec_axes(self._spec(name)):
             n = self.mesh.axis_size(axis)
             w = t.shape[dim] // n
@@ -306,6 +328,8 @@ class Engine:
         return t
 
     def _whole_shape(self, name: str, shape) -> tuple:
+        if name in self.stacked_params:
+            return (self.mesh.axis_size(self._spec(name)[0]), *shape)
         shape = list(shape)
         for dim, axis in spec_axes(self._spec(name)):
             shape[dim] *= self.mesh.axis_size(axis)

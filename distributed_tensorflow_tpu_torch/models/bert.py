@@ -47,9 +47,14 @@ embedding, LayerNorms, pooler and classifier stay whole.  Under TP the
 attention-probability dropout (``dense``) draws the whole (B, H, L, L)
 mask and keeps this rank's heads.
 
-Not ported here (each raises ``NotImplementedError``): the pipeline
-stages (``bert_pipeline_stages``) and ``partition_model`` with
-sequence-parallel attention.
+``bert_pipeline_stages`` (``BertPipeEmbed``, ``BertPipeBlock``,
+``BertPipeHead``) splits the encoder for ``engines.pipeline``: the
+embeddings, ``layers_per_stage`` dropout-free dense-attention layers a
+stage over the carry ``(hidden, pad_mask)``, and the ``[CLS]`` pooler.
+
+Not ported here (each raises ``NotImplementedError``): ``partition_model``
+with sequence-parallel attention, and the stages' ``partition_model`` and
+``moe_experts`` (composites).
 """
 
 from __future__ import annotations
@@ -315,3 +320,107 @@ class BertTinyClassifier(nn.Module):
             cls = coll.broadcast_from(cls, self.seq_mesh, src=0,
                                       axis=SEQ_AXIS)
         return self.pooler(cls)
+
+
+# --------------------------------------------------------------------------
+# Pipeline stages (``engines.pipeline.PipelineEngine(stages=...)``, JAX
+# ``bert.py:282-395``): embed → S identical stages of ``layers_per_stage``
+# TransformerLayers → the [CLS] pooler.  The carry is ``(hidden,
+# pad_mask)``: later stages never see the token ids, so the mask travels
+# with the activations.  No dropout (the schedules run a stage again in
+# the backward pass).
+# --------------------------------------------------------------------------
+
+
+class BertPipeEmbed(nn.Module):
+    """Input stage: token + position embeddings → LayerNorm, and
+    ``pad_mask = ids > 0`` in ``dtype``: the carry ``(hidden,
+    pad_mask)``."""
+
+    def __init__(self, vocab_size: int = 8192, hidden: int = 128,
+                 max_len: int = 512, dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.max_len, self.dtype = max_len, dtype
+        self.embeddings = BertEmbeddings(vocab_size, hidden, max_len, dtype,
+                                         device)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, token_ids):
+        lq = token_ids.shape[1]
+        if lq > self.max_len:
+            raise ValueError(
+                f"sequence length {lq} exceeds max_len={self.max_len}")
+        pad_mask = (token_ids > 0).to(self.dtype)
+        pos = torch.arange(lq, device=token_ids.device)[None, :]
+        return self.embeddings(token_ids.long(), pos), pad_mask
+
+
+class BertPipeBlock(nn.Module):
+    """One pipeline stage: ``layers_per_stage`` post-LN transformer layers
+    with dense attention and dropout 0, over ``(hidden, pad_mask)``."""
+
+    dropout_rate = 0.0
+
+    def __init__(self, hidden: int = 128, heads: int = 2, ffn: int = 512,
+                 layers_per_stage: int = 1, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.hidden, self.heads, self.ffn = hidden, heads, ffn
+        self.layers_per_stage, self.dtype = layers_per_stage, dtype
+        self.layers = nn.ModuleList(
+            TransformerLayer(hidden, heads, ffn, 0.0, "dense", dtype, device)
+            for _ in range(layers_per_stage))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, carry):
+        x, pad_mask = carry
+        for layer in self.layers:
+            x = layer(x, pad_mask)
+        return x, pad_mask
+
+
+class BertPipeHead(nn.Module):
+    """Output stage: the [CLS] pooler over the carry's activations."""
+
+    def __init__(self, num_classes: int = 2, hidden: int = 128,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.pooler = BertPooler(num_classes, hidden, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, carry):
+        return self.pooler(carry[0][:, 0])
+
+
+def bert_pipeline_stages(num_classes: int = 2, vocab_size: int = 8192,
+                         hidden: int = 128, heads: int = 2, ffn: int = 512,
+                         max_len: int = 512, layers_per_stage: int = 1,
+                         partition_model: bool = False, dtype=torch.float32,
+                         moe_experts: int = 0, moe_top_k: int = 1,
+                         moe_capacity_factor: float = 1.25,
+                         partition_experts: bool = False, device=None):
+    """(embed, block, head) for ``PipelineEngine(stages=...)``: a BERT
+    encoder of depth ``pipe size × layers_per_stage`` (JAX
+    ``bert_pipeline_stages``).  ``partition_model`` and ``moe_experts``
+    belong to the composites and raise ``NotImplementedError``."""
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        _reject_stage_composites)
+
+    _reject_stage_composites(partition_model, moe_experts=moe_experts,
+                             partition_experts=partition_experts)
+    if isinstance(dtype, str):
+        from distributed_tensorflow_tpu_torch.models import resolve_dtype
+        dtype = resolve_dtype(dtype)
+    return (BertPipeEmbed(vocab_size, hidden, max_len, dtype, device),
+            BertPipeBlock(hidden, heads, ffn, layers_per_stage, dtype,
+                          device),
+            BertPipeHead(num_classes, hidden, dtype, device))

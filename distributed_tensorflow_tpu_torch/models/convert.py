@@ -20,6 +20,13 @@ layer holds them as plain parameters that feed einsums, not as
 ``nn.Linear`` weights (the gate too).  A GPT block or BERT layer with
 experts holds ``MoELayer_0`` in place of ``Dense_0``/``Dense_1``.
 
+JAX's ``PipelineEngine`` params ``{"embed", "blocks", "head"}`` hold
+each block leaf stacked over the stages; ``pipeline_state_dicts`` turns
+them into the stage modules' state_dicts (one per stage, the layers of a
+GPT or BERT stage as ``layers.i``), and ``stacked_state_dict`` /
+``unstacked_state_dicts`` move those to and from the stacked layout of a
+pipeline checkpoint.
+
 The output is f32.  An engine under a precision policy stores 16-bit
 parameters (and a master policy an f32 master): such a state takes the
 converted weights through ``parallel.precision.adopt_f32_state``, which
@@ -73,22 +80,26 @@ def _module(tree: dict, prefix: str, out: dict) -> None:
                        f"{sorted(tree)}")
 
 
+def _gpt_block(sub: dict, prefix: str, out: dict) -> None:
+    """One flax ``GPTBlock`` → the port's ``GPTBlock`` keys."""
+    for child, tree in sub.items():
+        if child not in _BLOCK_CHILDREN:
+            raise KeyError(f"unrecognized GPT block child {child}")
+        target = _BLOCK_CHILDREN[child]
+        if target == "attn":
+            for proj in ("query", "key", "value", "out"):
+                _module(tree[proj], f"{prefix}.attn.{proj}", out)
+        else:
+            _module(tree, f"{prefix}.{target}", out)
+
+
 def gpt_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """flax ``GPTLM`` params → ``GPTLM.state_dict()`` of the port (f32)."""
     out: dict[str, torch.Tensor] = {}
     for name, sub in params.items():
         m = re.fullmatch(r"GPTBlock_(\d+)", name)
         if m:
-            i = int(m.group(1))
-            for child, tree in sub.items():
-                if child not in _BLOCK_CHILDREN:
-                    raise KeyError(f"unrecognized GPT block child {child}")
-                target = _BLOCK_CHILDREN[child]
-                if target == "attn":
-                    for proj in ("query", "key", "value", "out"):
-                        _module(tree[proj], f"blocks.{i}.attn.{proj}", out)
-                else:
-                    _module(tree, f"blocks.{i}.{target}", out)
+            _gpt_block(sub, f"blocks.{m.group(1)}", out)
         elif name == "LayerNorm_0":
             _module(sub, "ln_f", out)
         elif name in ("token_embed", "pos_embed", "lm_head"):
@@ -176,6 +187,28 @@ _BERT_TOP = {
 }
 
 
+def _bert_layer(sub: dict, prefix: str, out: dict) -> None:
+    """One flax ``TransformerLayer`` → the port's keys."""
+    for child, tree in sub.items():
+        if child not in _BERT_LAYER_CHILDREN:
+            raise KeyError(f"unrecognized BERT layer child {child}")
+        target = f"{prefix}.{_BERT_LAYER_CHILDREN[child]}"
+        if child == "SelfAttention_0":
+            for proj in ("query", "key", "value", "out"):
+                _module(tree[proj], f"{target}.{proj}", out)
+        else:
+            _module(tree, target, out)
+
+
+def _bert_top(name: str, sub: dict, out: dict) -> None:
+    """``BertEmbeddings_0`` or ``BertPooler_0`` → the port's keys."""
+    top, children = _BERT_TOP[name]
+    for child, tree in sub.items():
+        if child not in children:
+            raise KeyError(f"unrecognized BERT {name} child {child}")
+        _module(tree, f"{top}.{children[child]}", out)
+
+
 def bert_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """flax ``BertTinyClassifier`` params (``BertEmbeddings_0``,
     ``TransformerLayer_i``, ``BertPooler_0``) →
@@ -185,21 +218,9 @@ def bert_state_dict(params: dict) -> dict[str, torch.Tensor]:
     for name, sub in params.items():
         m = re.fullmatch(r"TransformerLayer_(\d+)", name)
         if m:
-            for child, tree in sub.items():
-                if child not in _BERT_LAYER_CHILDREN:
-                    raise KeyError(f"unrecognized BERT layer child {child}")
-                prefix = f"blocks.{m.group(1)}.{_BERT_LAYER_CHILDREN[child]}"
-                if child == "SelfAttention_0":
-                    for proj in ("query", "key", "value", "out"):
-                        _module(tree[proj], f"{prefix}.{proj}", out)
-                else:
-                    _module(tree, prefix, out)
+            _bert_layer(sub, f"blocks.{m.group(1)}", out)
         elif name in _BERT_TOP:
-            top, children = _BERT_TOP[name]
-            for child, tree in sub.items():
-                if child not in children:
-                    raise KeyError(f"unrecognized BERT {name} child {child}")
-                _module(tree, f"{top}.{children[child]}", out)
+            _bert_top(name, sub, out)
         else:
             raise KeyError(f"unrecognized BERT param {name}")
     return out
@@ -239,3 +260,107 @@ def fsdp_shard_state_dict(full: dict, specs: dict, n: int,
     ``rank`` of ``n``: each parameter ``specs`` (``FSDPEngine.param_specs``)
     cuts over 'data' keeps this rank's slice along that dim."""
     return _cut_along(full, specs, "data", n, rank)
+
+
+# --------------------------------------------------------------------------
+# pipeline stages: JAX's {"embed", "blocks" (stacked), "head"} params
+# --------------------------------------------------------------------------
+
+# each stage family's flax leaf modules → the port's (the blocks' layers,
+# GPTBlock_i and TransformerLayer_i, become layers.i)
+_STAGE_MODULES = {
+    "mlp": {"embed": {"Dense_0": "fc"},
+            "block": {"LayerNorm_0": "ln", "Dense_0": "fc1",
+                      "Dense_1": "fc2"},
+            "head": {"LayerNorm_0": "ln", "Dense_0": "fc"}},
+    "gpt": {"embed": {"Embed_0": "token_embed", "Embed_1": "pos_embed"},
+            "block": {}, "head": {"LayerNorm_0": "ln_f",
+                                  "Dense_0": "lm_head"}},
+    "bert": {"embed": {}, "block": {}, "head": {}},
+}
+
+
+def _family(embed: dict) -> str:
+    """The stage family of JAX pipeline params, from the embed's tree."""
+    if "BertEmbeddings_0" in embed:
+        return "bert"
+    if "Embed_0" in embed:
+        return "gpt"
+    if set(embed) == {"Dense_0"}:
+        return "mlp"
+    raise KeyError(f"unrecognized pipeline embed params {sorted(embed)}")
+
+
+def _stage(family: str, part: str, tree: dict) -> dict[str, torch.Tensor]:
+    """One stage module's flax params → its ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        m = re.fullmatch(r"(GPTBlock|TransformerLayer)_(\d+)", name)
+        if part == "block" and m:
+            (_gpt_block if m.group(1) == "GPTBlock" else _bert_layer)(
+                sub, f"layers.{m.group(2)}", out)
+        elif family == "bert" and name in _BERT_TOP:
+            _bert_top(name, sub, out)
+        elif name in _STAGE_MODULES[family][part]:
+            _module(sub, _STAGE_MODULES[family][part][name], out)
+        else:
+            raise KeyError(f"unrecognized {family} {part} stage param "
+                           f"{name}")
+    return out
+
+
+def pipeline_state_dicts(params: dict) -> tuple[dict, list[dict], dict]:
+    """JAX ``PipelineEngine`` params ``{"embed", "blocks", "head"}`` (the
+    blocks' leaves stacked over a leading stage dim) → the port's stage
+    modules' state_dicts: (embed, one per stage, head).  The family (the
+    built-in MLP stages, the GPT or the BERT stages) is read from the
+    embed's tree."""
+    family = _family(params["embed"])
+    n = {np.shape(a)[0] for a in _flat(params["blocks"])}
+    if len(n) != 1:
+        raise ValueError(f"stacked block leaves disagree on the stage "
+                         f"count: {sorted(n)}")
+    stages = n.pop()
+    blocks = [_stage(family, "block",
+                     _map_tree(lambda a, s=s: np.asarray(a)[s],
+                               params["blocks"]))
+              for s in range(stages)]
+    return (_stage(family, "embed", params["embed"]), blocks,
+            _stage(family, "head", params["head"]))
+
+
+def stacked_state_dict(embed: dict, blocks: list[dict],
+                       head: dict) -> dict[str, torch.Tensor]:
+    """Stage state_dicts → the layout a pipeline checkpoint holds (the
+    ``PipelineStages`` keys ``embed.*``, ``block.*``, ``head.*``), each
+    block leaf stacked over the stages, ``(S, ...)``, as JAX's
+    ``params["blocks"]``."""
+    out = {f"embed.{k}": v for k, v in embed.items()}
+    out.update({f"block.{k}": torch.stack([b[k] for b in blocks])
+                for k in blocks[0]})
+    out.update({f"head.{k}": v for k, v in head.items()})
+    return out
+
+
+def unstacked_state_dicts(stacked: dict) -> tuple[dict, list[dict], dict]:
+    """``stacked_state_dict``'s inverse: (embed, one per stage, head)."""
+    parts: dict = {"embed": {}, "block": {}, "head": {}}
+    for key, v in stacked.items():
+        part, _, name = key.partition(".")
+        parts[part][name] = v
+    n = {v.shape[0] for v in parts["block"].values()}
+    blocks = [{k: v[s] for k, v in parts["block"].items()}
+              for s in range(n.pop() if n else 0)]
+    return parts["embed"], blocks, parts["head"]
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _flat(v)]
+    return [tree]
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)

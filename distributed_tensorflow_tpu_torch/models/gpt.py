@@ -92,9 +92,16 @@ block's experts stay whole.  A packed width that does not split over
 'model' raises JAX's error; heads or kv_heads that do not split (whose
 widths do) keep the attention whole on every rank.
 
+``gpt_pipeline_stages`` (``GPTPipeEmbed``, ``GPTPipeBlock``,
+``GPTPipeHead``) splits the decoder for ``engines.pipeline``: token (and
+learned position) embeddings, ``layers_per_stage`` dropout-free blocks a
+stage (dense or flash attention, RoPE rotated inside each block), and a
+final LN with an untied head.
+
 Not ported here (each raises ``NotImplementedError``): decode of a bound
 tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode),
-and ``partition_model`` with sequence-parallel attention (composites).
+and ``partition_model`` with sequence-parallel attention and the stages'
+``partition_model``, ``seq_axis`` and ``moe_experts`` (composites).
 """
 
 from __future__ import annotations
@@ -750,3 +757,153 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
                             temperature=temperature, generator=generator)
         out.append(tok)
     return torch.stack(out, dim=1) if out else prompt[:, :0]
+
+
+# --------------------------------------------------------------------------
+# Pipeline stages (``engines.pipeline.PipelineEngine(stages=...)``, JAX
+# ``gpt.py:918-1092``): embed → S identical stages of ``layers_per_stage``
+# GPTBlocks → final LN and an untied LM head.  The head is untied because
+# each stage's parameters live on its own rank (tying would need the
+# embedding moved to the last stage every step).  The stages hold no
+# dropout: the schedules run a stage again in the backward pass (1F1B's
+# recompute, GPipe's remat), which must see the forward's values.
+# --------------------------------------------------------------------------
+
+
+def _reject_stage_composites(partition_model: bool = False,
+                             seq_axis: str | None = None,
+                             attention_impl: str = "dense",
+                             moe_experts: int = 0,
+                             partition_experts: bool = False) -> None:
+    """The stage options that belong to the pipeline's composites (JAX
+    pp×tp, pp×sp, pp×ep) raise ``not_ported``."""
+    if partition_model:
+        not_ported("partition_model pipeline stages (the pp×tp composite)",
+                   COMPOSITES)
+    if seq_axis is not None or attention_impl in SEQ_PARALLEL:
+        not_ported("sequence-parallel pipeline stages (the pp×sp "
+                   "composite)", COMPOSITES)
+    if moe_experts > 0 or partition_experts:
+        not_ported("MoE pipeline stages (the pp×ep composite)", COMPOSITES)
+
+
+class GPTPipeEmbed(nn.Module):
+    """Input stage: token (+ learned position) embeddings in ``dtype``;
+    under RoPE there is no position table (each block rotates q and k)."""
+
+    def __init__(self, vocab_size: int = 256, hidden: int = 128,
+                 max_len: int = 512, rope: bool = False,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.vocab_size, self.hidden, self.max_len = vocab_size, hidden, max_len
+        self.rope, self.dtype = rope, dtype
+        self.token_embed = nn.Embedding(vocab_size, hidden, device=device)
+        self.pos_embed = (None if rope
+                          else nn.Embedding(max_len, hidden, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, token_ids):
+        lq = token_ids.shape[1]
+        if lq > self.max_len:
+            raise ValueError(
+                f"sequence length {lq} exceeds max_len={self.max_len}")
+        x = self.token_embed(token_ids.long()).to(self.dtype)
+        if self.pos_embed is None:
+            return x
+        pos = torch.arange(lq, device=token_ids.device)[None, :]
+        return x + self.pos_embed(pos).to(self.dtype)
+
+
+class GPTPipeBlock(nn.Module):
+    """One pipeline stage: ``layers_per_stage`` pre-LN decoder blocks
+    (``GPTBlock``, dropout 0) over whole sequences; under RoPE the
+    positions are ``arange(L)``."""
+
+    dropout_rate = 0.0
+
+    def __init__(self, hidden: int = 128, heads: int = 4, ffn: int = 512,
+                 layers_per_stage: int = 1, rope: bool = False,
+                 kv_heads: int | None = None, attention_impl: str = "dense",
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        if attention_impl not in ("dense", "flash"):
+            raise ValueError(f"unknown attention_impl '{attention_impl}' "
+                             f"for pipeline stages; dense | flash")
+        device = resolve_device(device)
+        self.hidden, self.heads, self.ffn = hidden, heads, ffn
+        self.layers_per_stage, self.rope = layers_per_stage, rope
+        self.kv_heads, self.attention_impl = kv_heads, attention_impl
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            GPTBlock(hidden, heads, ffn, 0.0, rope, kv_heads, dtype, device,
+                     attention_impl)
+            for _ in range(layers_per_stage))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, x):
+        pos = (torch.arange(x.shape[1], device=x.device)[None, :]
+               if self.rope else None)
+        for layer in self.layers:
+            x = layer(x, False, pos)
+        return x
+
+
+class GPTPipeHead(nn.Module):
+    """Output stage: final LN → untied LM head in ``dtype``, logits in
+    f32."""
+
+    def __init__(self, vocab_size: int = 256, hidden: int = 128,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.vocab_size, self.dtype = vocab_size, dtype
+        self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.lm_head = nn.Linear(hidden, vocab_size, device=device)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        return flax_init_(self, generator)
+
+    def forward(self, x):
+        x = _layer_norm(self.ln_f, x, self.dtype)
+        return _dense(self.lm_head, x, self.dtype).float()
+
+
+def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
+                        heads: int = 4, ffn: int = 512, max_len: int = 512,
+                        layers_per_stage: int = 1,
+                        partition_model: bool = False,
+                        positional: str = "learned",
+                        kv_heads: int | None = None,
+                        attention_impl: str = "dense",
+                        seq_axis: str | None = None, dtype=torch.float32,
+                        num_classes: int | None = None,
+                        moe_experts: int = 0, moe_top_k: int = 1,
+                        moe_capacity_factor: float = 1.25,
+                        partition_experts: bool = False, device=None):
+    """(embed, block, head) for ``PipelineEngine(stages=...)``: a GPT
+    decoder of depth ``pipe size × layers_per_stage`` (JAX
+    ``gpt_pipeline_stages``).  ``num_classes`` is an alias of
+    ``vocab_size`` (the harness passes it).  ``partition_model``,
+    ``seq_axis`` or a sequence-parallel ``attention_impl``, and
+    ``moe_experts`` belong to the composites and raise
+    ``NotImplementedError``."""
+    _reject_stage_composites(partition_model, seq_axis, attention_impl,
+                             moe_experts, partition_experts)
+    if num_classes is not None:
+        vocab_size = num_classes
+    if positional not in ("learned", "rope"):
+        raise ValueError(
+            f"unknown positional '{positional}'; learned | rope")
+    rope = positional == "rope"
+    if isinstance(dtype, str):
+        from distributed_tensorflow_tpu_torch.models import resolve_dtype
+        dtype = resolve_dtype(dtype)
+    return (GPTPipeEmbed(vocab_size, hidden, max_len, rope, dtype, device),
+            GPTPipeBlock(hidden, heads, ffn, layers_per_stage, rope,
+                         kv_heads, attention_impl, dtype, device),
+            GPTPipeHead(vocab_size, hidden, dtype, device))

@@ -30,7 +30,11 @@ Tensor parallelism's Megatron conjugate pair over the 'model' axis:
 rank's slice); FSDP's ``gather_shards`` (one all-gather of every
 parameter slice forward, one reduce-scatter of their gradients backward).
 Each counts its collectives (``.launches``, ``.nccl_launches``;
-``gather_shards.scatter_launches``).  ``neighbor_mean.launches`` counts the gossip mixes
+``gather_shards.scatter_launches``).  A pipeline's point-to-point
+shifts along 'pipe', ``shift_to_next`` (activations) and
+``shift_to_prev`` (cotangents), run outside autograd and count their
+batches (``.launches``, ``.nccl_launches``) apart from the copies a pipe
+of one makes (``.clones``).  ``neighbor_mean.launches`` counts the gossip mixes
 that went round the ring (point-to-point exchanges); a mix whose
 neighbourhood covers the ring is an all-reduce and counts there.
 """
@@ -215,6 +219,39 @@ def ring_shift(tree: Tree, mesh, shift: int = 1,
     value of rank (i - shift) mod n.  Every tensor of the tree moves in
     one batch of point-to-point ops."""
     return _rebuild(tree, _Shift.apply(mesh, axis, shift, *_leaves(tree)))
+
+
+def _pipe_shift(fn, tree: Tree, mesh, shift: int, axis: str) -> Tree:
+    """``tree`` (no gradient) moved ``shift`` stages along ``axis`` in one
+    batch of point-to-point ops, counted on ``fn``."""
+    if axis_size(mesh, axis) == 1:
+        fn.clones += 1
+    else:
+        _count(fn, mesh)
+    leaves = [t.detach() for t in _leaves(tree)]
+    return _rebuild(tree, _shift_all(leaves, mesh, shift, axis))
+
+
+def shift_to_next(tree: Tree, mesh, axis: str = "pipe") -> Tree:
+    """Send ``tree`` to the next stage along ``axis`` and receive the
+    previous stage's (the last stage's goes to stage 0, as JAX's
+    ``ppermute`` ring sends it): the activations of a pipeline tick.
+    Outside autograd: the schedules send detached values and run each
+    tick's backward themselves.  ``shift_to_next.launches`` counts the
+    batches of point-to-point ops (``.nccl_launches`` those on NCCL) and
+    ``.clones`` the shifts along an axis of one rank, which copy and
+    launch nothing."""
+    return _pipe_shift(shift_to_next, tree, mesh, 1, axis)
+
+
+def shift_to_prev(tree: Tree, mesh, axis: str = "pipe") -> Tree:
+    """``shift_to_next``'s reverse: send to the previous stage, receive
+    the next one's (a pipeline's cotangents); counted alike."""
+    return _pipe_shift(shift_to_prev, tree, mesh, -1, axis)
+
+
+for _fn in (shift_to_next, shift_to_prev):
+    _fn.launches = _fn.nccl_launches = _fn.clones = 0
 
 
 def neighbor_mean(tree: Tree, mesh, degree: int = 1) -> Tree:

@@ -39,6 +39,7 @@ DATA_AXIS = "data"  # data parallelism (the reference's only axis)
 SEQ_AXIS = "seq"    # sequence (context) parallelism
 EXPERT_AXIS = "expert"  # expert parallelism (MoE experts sharded)
 MODEL_AXIS = "model"    # tensor parallelism (Megatron layers sharded)
+PIPE_AXIS = "pipe"      # pipeline parallelism (one stage per rank)
 
 
 def device_count() -> int:

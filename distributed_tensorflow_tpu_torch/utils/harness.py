@@ -78,10 +78,19 @@ model) mesh of (n / T, T) ranks (``_setup_tensor_parallel``, named
 else the sequence model with ``partition_model=True`` and dense
 attention.
 
+``pipeline_parallel`` S > 1 makes a (data, pipe) mesh of (n / S, S)
+ranks and ``PipelineEngine`` (``_setup_pipeline_parallel``, named
+``pipeline_parallel``) with ``microbatches``, ``pipeline_schedule`` and
+``remat``, over the built-in MLP stages (``pipeline_hidden`` wide) or the
+GPT or BERT stage families (``_pipeline_stages``); ``--sample`` then
+decodes through ``PipelineEngine.generate``, and ``--precision``,
+``--grad-compression``, ``--grad-bucket-mb``, ``--grad-accum`` and
+``--serve`` are refused with JAX's messages.
+
 The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent; ``pipeline_parallel`` raises ``NotImplementedError`` above 1, as
-does any composite of the model-parallel factors
-(``check_parallel_factors``), and the fleet's serve fields
+absent; any composite of the model-parallel factors raises
+``NotImplementedError`` (``check_parallel_factors``), and the fleet's
+serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -103,7 +112,7 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch import (
-    COMPOSITES, PIPELINE, TP_DECODE, not_ported)
+    COMPOSITES, TP_DECODE, not_ported)
 from distributed_tensorflow_tpu_torch import models as modellib
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
@@ -179,7 +188,11 @@ class ExperimentConfig:
     tensor_parallel: int = 1        # >1: Megatron-shard the model over this
                                     # many of the ranks (a 'model' axis;
                                     # fsdp × tp under engine 'fsdp')
-    pipeline_parallel: int = 1
+    pipeline_parallel: int = 1      # >1: one stage per rank over this
+                                    # many of the ranks (a 'pipe' axis)
+    microbatches: int = 4           # pipeline microbatches per step
+    pipeline_schedule: str = "gpipe"  # gpipe | 1f1b (bounded stash)
+    pipeline_hidden: int = 128      # the MLP and sequence stages' width
     expert_parallel: int = 1        # >1: shard MoE experts over this many
                                     # of the ranks (an 'expert' mesh axis)
     num_experts: int = 8            # MoE expert count
@@ -329,10 +342,17 @@ def _resolve_precision(config: ExperimentConfig) -> ExperimentConfig:
     the policy's compute dtype; ``dtype`` left at float32 follows it, a
     matching one is fine, and a conflicting one is rejected (f32 compute
     over 16-bit parameters would widen every weight again).  ``f32``
-    leaves ``dtype`` as it is."""
+    leaves ``dtype`` as it is.  The pipeline (``pipeline_parallel`` > 1)
+    runs f32 only (JAX ``harness.py:581-586``)."""
     pol = precisionlib.make_policy(config.precision)  # typo: full menu
     if not pol.active:
         return config
+    if config.pipeline_parallel > 1:
+        raise ValueError(
+            "--precision is implemented for the data-parallel and GSPMD "
+            "engines (sync/async/allreduce/gossip/fsdp, -tp, -sp, -ep and "
+            "their composites); the pipeline schedules (-pp) are not "
+            "supported — drop the flag or train without -pp")
     compute = pol.compute_dtype
     asked = modellib.resolve_dtype(config.dtype)
     if asked is not torch.float32 and asked is not compute:
@@ -397,7 +417,9 @@ def _make_optimizer(config: ExperimentConfig, train_ds, global_batch: int,
     the decay mask.  The factory serves both layouts an engine builds the
     optimizer over: the model's parameters themselves, or a master
     policy's one flat f32 master (``MasterWeights``), whose mask is the
-    parameters' masks laid end to end in the same order.
+    parameters' masks laid end to end in the same order.  ``model`` may
+    be a callable returning the model (an engine that builds its module
+    itself: the pipeline).
 
     The horizon counts global steps: ``epochs × (len(train) //
     global_batch)``, every rank loading the whole train split (a
@@ -416,8 +438,9 @@ def _make_optimizer(config: ExperimentConfig, train_ds, global_batch: int,
 
     def factory(params):
         params = list(params)
-        named = list(model.named_parameters())
-        keep = _decay_mask(model)
+        mod = model if isinstance(model, torch.nn.Module) else model()
+        named = list(mod.named_parameters())
+        keep = _decay_mask(mod)
         if (len(params) == len(named)
                 and all(p is q for p, (_, q) in zip(params, named))):
             mask = [keep[name] for name, _ in named]
@@ -443,13 +466,18 @@ def _decay_mask(model: torch.nn.Module) -> dict[str, bool]:
     parameter name: weight-decay matmul kernels only.  Biases and
     LayerNorm/GroupNorm scales (ndim < 2) and embedding tables (the
     ``nn.Embedding`` weights, which flax names ``embedding``; the tied
-    head shares the token table) are left out."""
+    head shares the token table) are left out.  The rank is the leaf's
+    in JAX's tree: a pipeline stage's block leaf (``stacked_params``) is
+    one slice of a leaf stacked over the stages, one rank more, so its
+    biases and LayerNorm scales, ``(S, d)`` in JAX, are decayed there and
+    here (ROADMAP Queue 3)."""
     from distributed_tensorflow_tpu_torch.models.layers import (
         VocabParallelEmbedding)
 
     tables = {id(m.weight) for m in model.modules()
               if isinstance(m, (torch.nn.Embedding, VocabParallelEmbedding))}
-    return {name: p.ndim >= 2 and id(p) not in tables
+    stacked = getattr(model, "stacked_params", ())
+    return {name: p.ndim + (name in stacked) >= 2 and id(p) not in tables
             for name, p in model.named_parameters()}
 
 
@@ -720,6 +748,108 @@ def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
                        engine=engine, global_batch=global_batch, name=mode)
 
 
+def _reject_model_args(config: ExperimentConfig, mode: str) -> None:
+    """The built-in MLP stages are sized by ``--pipeline-hidden``, not
+    ``--model-arg`` (JAX ``_reject_model_args``)."""
+    if config.model_args:
+        raise ValueError(
+            f"--model-arg does not reach {mode} stage modules; size them "
+            f"with --pipeline-hidden (got {sorted(config.model_args)})")
+
+
+_STAGE_MODEL_ARGS = ("heads", "ffn", "layers_per_stage")
+
+
+def _stage_model_args(config: ExperimentConfig, mode: str) -> dict:
+    """The ``--model-arg`` keys the GPT and BERT stage families take
+    (JAX ``_stage_model_args``, without pp×ep's ``moe_capacity_factor``);
+    the width is ``--pipeline-hidden``."""
+    extra = dict(config.model_args or {})
+    bad = sorted(set(extra) - set(_STAGE_MODEL_ARGS))
+    if bad:
+        raise ValueError(
+            f"--model-arg key(s) {bad} do not reach {mode} stage modules; "
+            f"stages accept {'/'.join(_STAGE_MODEL_ARGS)} via --model-arg, "
+            f"width via --pipeline-hidden, and K/V heads / positional "
+            f"encoding via --kv-heads / --positional")
+    return extra
+
+
+def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
+                     device):
+    """(embed, block, head) of the GPT or BERT stage family (JAX
+    ``_pipeline_stages``, dense attention): ``--pipeline-hidden`` wide,
+    sized by ``--model-arg heads/ffn/layers_per_stage``, ``max_len`` the
+    data's sequence length; the BERT vocabulary covers both splits (an id
+    past the table would fail, where flax's Embed clamps it)."""
+    _require_token_data(train_ds, config, mode)
+    dtype = modellib.resolve_dtype(config.dtype)
+    extra = _stage_model_args(config, mode)
+    if config.model in _LM_MODELS:
+        from distributed_tensorflow_tpu_torch.models.gpt import (
+            gpt_pipeline_stages)
+
+        return gpt_pipeline_stages(
+            vocab_size=train_ds.num_classes, hidden=config.pipeline_hidden,
+            max_len=train_ds.x.shape[1], positional=config.positional,
+            kv_heads=config.kv_heads, dtype=dtype, device=device, **extra)
+    from distributed_tensorflow_tpu_torch.models.bert import (
+        bert_pipeline_stages)
+
+    return bert_pipeline_stages(
+        num_classes=train_ds.num_classes,
+        vocab_size=int(max(train_ds.x.max(), test_ds.x.max())) + 1,
+        hidden=config.pipeline_hidden, max_len=train_ds.x.shape[1],
+        dtype=dtype, device=device, **extra)
+
+
+def _setup_pipeline_parallel(config: ExperimentConfig) -> _Experiment:
+    """GPipe or 1F1B (JAX ``harness.py:1236-1277``): a (data, pipe) mesh
+    of (n / pipeline_parallel, pipeline_parallel) ranks and
+    ``PipelineEngine`` over the built-in MLP stages (``--model mlp``,
+    sized by ``--pipeline-hidden`` alone) or a sequence model's stage
+    family."""
+    from distributed_tensorflow_tpu_torch.engines.pipeline import (
+        PipelineEngine)
+
+    mode = "pipeline_parallel"
+    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
+                           meshlib.PIPE_AXIS)
+    try:
+        train_ds, test_ds = _load_data(config)
+        stages = None
+        if config.model in _SEQUENCE_MODELS and config.model_fn is None:
+            stages = _pipeline_stages(config, train_ds, test_ds, mode,
+                                      mesh.device)
+        elif config.model_fn is not None or config.model not in (
+                "mlp", "mnist_mlp", "pipeline_mlp"):
+            raise ValueError(
+                f"pipeline_parallel ships stages for mlp and "
+                f"{'/'.join(_SEQUENCE_MODELS)} (got --model {config.model}); "
+                f"custom models pass stages=(embed, block, head) to "
+                f"PipelineEngine directly")
+        else:
+            _reject_model_args(config, mode)
+        global_batch = _global_batch(config, dp)
+        if (global_batch // dp) % config.microbatches:
+            raise ValueError(
+                f"per-data-shard batch {global_batch // dp} not "
+                f"divisible by microbatches {config.microbatches}")
+        engine = PipelineEngine(
+            num_classes=train_ds.num_classes, hidden=config.pipeline_hidden,
+            microbatches=config.microbatches, mesh=mesh,
+            learning_rate=config.learning_rate,
+            optimizer=_make_optimizer(config, train_ds, global_batch,
+                                      lambda: engine.model),
+            dtype=modellib.resolve_dtype(config.dtype), stages=stages,
+            schedule=config.pipeline_schedule, remat=config.remat)
+    except BaseException:
+        mesh.close()
+        raise
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch, name=mode)
+
+
 def _codec_kw(config: ExperimentConfig) -> dict[str, Any]:
     """The codec settings every engine takes."""
     return dict(grad_compression=config.grad_compression,
@@ -727,30 +857,45 @@ def _codec_kw(config: ExperimentConfig) -> dict[str, Any]:
 
 
 def _validate_grad_bucket(config: ExperimentConfig) -> None:
-    """Reject a negative ``--grad-bucket-mb`` (JAX ``harness.py:537-558``).
-    JAX also rejects it under the pipeline schedules (``-pp``), which the
-    port does not have yet (ROADMAP Queue 1 8d: ``pipeline_parallel`` > 1
-    raises ``NotImplementedError`` in ``check_parallel_factors``)."""
-    if config.grad_bucket_mb and config.grad_bucket_mb < 0:
+    """Reject a negative ``--grad-bucket-mb``, and any under the pipeline
+    schedules (JAX ``harness.py:537-558``)."""
+    if not config.grad_bucket_mb:
+        return
+    if config.grad_bucket_mb < 0:
         raise ValueError(
             f"--grad-bucket-mb must be >= 0 (0 disables bucketing), "
             f"got {config.grad_bucket_mb}")
+    if config.pipeline_parallel > 1:
+        raise ValueError(
+            "--grad-bucket-mb is implemented for the data-parallel "
+            "and GSPMD engines (sync/async/allreduce/gossip/fsdp, -tp, "
+            "-sp, -ep and their composites); the pipeline schedules "
+            "(-pp) are not supported — drop the flag or train "
+            "without -pp")
 
 
 def check_codec_config(config: ExperimentConfig) -> None:
     """A misspelt codec fails here, not inside an engine's constructor
-    (JAX ``harness.py:617-621``), and a negative bucket size too."""
+    (JAX ``harness.py:617-634``), as does a codec or a bucket size under
+    the pipeline schedules, and a negative bucket size."""
     if config.grad_compression != "none":
         from distributed_tensorflow_tpu_torch.parallel import compression
 
         compression.make_codec(config.grad_compression)
+        if config.pipeline_parallel > 1:
+            raise ValueError(
+                "--grad-compression is implemented for the data-parallel "
+                "and GSPMD engines (sync/async/allreduce/gossip/fsdp, -tp, "
+                "-sp, -ep and their composites); the pipeline schedules "
+                "(-pp) are not supported yet — drop the flag or train "
+                "without -pp")
     _validate_grad_bucket(config)
 
 
 def check_parallel_factors(config: ExperimentConfig) -> None:
     """The model-parallel factors above 1: one of ``seq_parallel``,
     ``tensor_parallel`` (under sync/allreduce, or fsdp × tp under
-    ``fsdp``) and ``expert_parallel`` is served; pipeline parallelism and
+    ``fsdp``), ``pipeline_parallel`` and ``expert_parallel`` is served;
     the composites raise ``NotImplementedError``.  ``num_experts`` must
     split over ``expert_parallel`` (JAX ``harness.py:1428-1431``), and
     ``router_z_weight`` needs the expert-parallel engine (JAX
@@ -758,9 +903,6 @@ def check_parallel_factors(config: ExperimentConfig) -> None:
     multi = [f for f in ("seq_parallel", "tensor_parallel",
                          "pipeline_parallel", "expert_parallel")
              if getattr(config, f) > 1]
-    if "pipeline_parallel" in multi:
-        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
-                   PIPELINE)
     if len(multi) > 1:
         not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
                    COMPOSITES)
@@ -800,6 +942,8 @@ def _setup(config: ExperimentConfig) -> _Experiment:
         if config.engine == "fsdp":
             return _setup_fsdp_tp(config)
         return _setup_tensor_parallel(config)
+    if config.pipeline_parallel > 1:
+        return _setup_pipeline_parallel(config)
     if config.expert_parallel > 1:
         return _setup_expert_parallel(config)
     mesh = meshlib.create_mesh(config.n_devices, device=config.device)
@@ -1060,7 +1204,7 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 config.model_fn, "__name__", "custom_model_fn")
             st = fit["step_time"]
             total = (ex.n * config.seq_parallel * config.tensor_parallel
-                     * config.expert_parallel)
+                     * config.pipeline_parallel * config.expert_parallel)
             summary = {
                 "engine": ex.name,
                 "model": model_name,
@@ -1070,9 +1214,12 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 "data_parallel": ex.n,
                 "seq_parallel": config.seq_parallel,
                 "tensor_parallel": config.tensor_parallel,
+                "pipeline_parallel": config.pipeline_parallel,
                 "expert_parallel": config.expert_parallel,
                 "num_experts": (config.num_experts
                                 if config.expert_parallel > 1 else None),
+                "microbatches": (config.microbatches
+                                 if config.pipeline_parallel > 1 else None),
                 "global_batch": ex.global_batch,
                 "epochs": config.epochs,
                 "precision": fit["precision"],
@@ -1254,6 +1401,15 @@ def _reject_fleet(config: ExperimentConfig) -> None:
                        f"(serving fleet)", "fleet")
 
 
+def _is_pipeline(engine) -> bool:
+    """A pipeline engine has no monolithic model: its samples and serving
+    branch on it (JAX ``_is_pipeline``)."""
+    from distributed_tensorflow_tpu_torch.engines.pipeline import (
+        PipelineEngine)
+
+    return isinstance(engine, PipelineEngine)
+
+
 def _gpt_model(ex: _Experiment):
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 
@@ -1269,12 +1425,32 @@ def _validate_sampling(config: ExperimentConfig, ex: _Experiment,
     if config.sample_tokens < 0:
         raise ValueError(
             f"--sample must be positive, got {config.sample_tokens}")
-    model = _gpt_model(ex)
-    if model is None:
-        raise ValueError(
-            f"--sample requires the GPT causal LM; the resolved model "
-            f"is {type(ex.engine.model).__name__}")
-    max_len = model.max_len
+    if _is_pipeline(ex.engine):
+        # the pipeline samples through its fixed-length decode
+        # (PipelineEngine.generate): GPT stages only
+        from distributed_tensorflow_tpu_torch.models.gpt import GPTPipeEmbed
+
+        if not isinstance(ex.engine.embed, GPTPipeEmbed):
+            raise ValueError(
+                f"--sample under --pipeline-parallel needs GPT decoder "
+                f"stages (vocab-head output); this run's embed stage is "
+                f"{type(ex.engine.embed).__name__}")
+        if ex.engine.moe:
+            raise ValueError(
+                "--sample is unavailable for MoE pipeline stages "
+                "(-pp with --num-experts): expert routing's capacity "
+                "depends on every buffer position, so the fixed-length "
+                "decode would not be the true greedy continuation — "
+                "sample a dense-FFN pipeline run, or train MoE without "
+                "-pp and use the KV-cache sampler")
+        max_len = ex.engine.embed.max_len
+    else:
+        model = _gpt_model(ex)
+        if model is None:
+            raise ValueError(
+                f"--sample requires the GPT causal LM; the resolved model "
+                f"is {type(ex.engine.model).__name__}")
+        max_len = model.max_len
     plen = config.sample_prompt_len
     if plen < 1 or plen > test_ds.x.shape[1]:
         raise ValueError(
@@ -1295,8 +1471,8 @@ def _sample_from_state(config: ExperimentConfig, ex: _Experiment, state,
                        test_ds) -> dict[str, Any]:
     """``sample_tokens`` N: greedy-decode N tokens per prompt from the
     trained model (``models.gpt.generate``, the KV-cache sampler), one
-    prompt of ``sample_prompt_len`` test tokens per rank, as JAX takes
-    one per data shard.  JAX decodes them over its mesh; here every rank
+    prompt of ``sample_prompt_len`` test tokens per data shard, as JAX takes
+    them (a pipeline decodes them through ``PipelineEngine.generate``).  JAX decodes them over its mesh; here every rank
     decodes all of them from its own copy of the parameters (they are
     equal on every rank, the consensus ``eval_params`` under async and
     gossip).  Greedy, so the continuation is a function of the
@@ -1305,6 +1481,12 @@ def _sample_from_state(config: ExperimentConfig, ex: _Experiment, state,
 
     prompts = np.asarray(test_ds.x[:ex.n, :config.sample_prompt_len],
                          dtype=np.int32)
+    if _is_pipeline(ex.engine):
+        # prompt and continuation: kept to the continuation, the samples'
+        # one schema (JAX harness.py:2167-2175)
+        full = ex.engine.generate(state, prompts, config.sample_tokens)
+        return {"sample_prompts": prompts.tolist(),
+                "samples": full[:, config.sample_prompt_len:].tolist()}
     toks = generate(ex.engine.eval_params(state), None, prompts,
                     config.sample_tokens, greedy=True,
                     device=ex.engine.device)
@@ -1339,6 +1521,12 @@ def _validate_serving(config: ExperimentConfig, ex: _Experiment,
     if config.serve_max_new < 1:
         raise ValueError(
             f"--serve-max-new must be positive, got {config.serve_max_new}")
+    if _is_pipeline(ex.engine):
+        raise ValueError(
+            "--serve needs flat GPTLM params for the slot KV cache; a "
+            "pipeline engine's stage params are pipe-stacked — train "
+            "without -pp (or restore the checkpoint into a non-pipeline "
+            "layout) to serve")
     model = _gpt_model(ex)
     if model is None:
         raise ValueError(

@@ -478,8 +478,9 @@ def test_composites_raise_not_ported(field):
     from distributed_tensorflow_tpu_torch.utils import harness
 
     for sp in (1, 2):
-        # -ep and -tp alone are ported: their composites are not
-        extra = ({"tensor_parallel": 2} if field == "expert_parallel"
+        # -ep, -tp and -pp alone are ported: their composites are not
+        extra = ({"tensor_parallel": 2} if field in ("expert_parallel",
+                                                     "pipeline_parallel")
                  and sp == 1 else {"expert_parallel": 2}
                  if field == "tensor_parallel" and sp == 1 else {})
         config = harness.ExperimentConfig(
