@@ -311,6 +311,27 @@ Phases (any failure raises and the script exits non-zero):
              and flash launches; rows 1p-3p (the flash kernels at the
              microbatch's shape, B=2, L=1024, H=8, D=64, causal, bf16,
              ``tc``) join the kernels line;
+5m. composite — the composites without the pipeline on one NCCL rank,
+             every axis of size 1.  X1 (tp×sp): the ``bench.py --lm``
+             GPT at f32 with ``partition_model=True`` and ``ring_flash``
+             under ``CompositeEngine`` on a (1, 1, 1) (data, model, seq)
+             mesh, 4 eager steps from phase 5g's init and batches: losses
+             bitwise phase 5g's f32 ``ring_flash`` window and parameters
+             bitwise its ``SeqParallelEngine`` twin run here; 8 ``tc32``
+             forwards, dQ and dK/dV a step (the ring's block kernels, rows
+             of phase 5g).  X2 (ep×sp): phase 5h's ``bench.py --moe`` GPT
+             with ``ring_flash`` and ``partition_experts=True`` on a (1,
+             1, 1) (data, expert, seq) mesh, 4 eager steps: finite, the
+             first loss within ``COMP_MOE_RTOL`` of the same MoE GPT's
+             with ``flash`` under ``SyncEngine``; 8 ``tc`` forwards and 8
+             ``tc32`` dQ and dK/dV a step.  X3 (ep×tp): phase 5h's
+             ``ExpertParallelEngine`` MoEClassifier (top-2, z-loss on)
+             with ``partition_model=True`` on a (1, 1, 1) (data, expert,
+             model) mesh, ``COMP_EP_STEPS`` steps, losses and parameters
+             bitwise its (1, 1) twin.  Printed on ``[comp]`` lines beside
+             the card's name and power limit: flash launches a step by
+             route, NCCL calls a step, the step p50, the busy share and
+             the peak memory above the window's entry;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -2310,14 +2331,14 @@ def _lm_data(rows: int):
 
 
 def _lm_model(attention_impl: str, dtype: str = "bfloat16",
-              remat: bool = False):
+              remat: bool = False, **kw):
     from distributed_tensorflow_tpu_torch.models import create_model
 
     return create_model("gpt", num_classes=LM["vocab"], hidden=LM["hidden"],
                         layers=LM["layers"], heads=LM["heads"],
                         ffn=LM["ffn"], max_len=LM["seq"], dropout_rate=0.0,
                         dtype=dtype, attention_impl=attention_impl,
-                        remat=remat)
+                        remat=remat, **kw)
 
 
 _FLASH_COUNTS = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
@@ -5342,6 +5363,202 @@ def pp_phase(gpu: str) -> dict:
             "Pgen": gen["counts"]}
 
 
+# --------------------------------------------------------------------------
+# phase 5m: the composites without the pipeline on one NCCL rank
+# --------------------------------------------------------------------------
+
+COMP_STEPS = 4
+# X2's first loss against the flash MoE GPT's under SyncEngine: the same
+# tc forward kernel (a ring of one block merges with weight exactly 1),
+# the same routing, but the composite's experts run as one batched GEMM
+# over every group's buffers where the plain layer batches them by
+# group, so cuBLAS may sum a bf16 product's terms in another order and
+# round an activation one bf16 step the other way; over 8192 tokens'
+# mean that moves the loss by far less than this share of it
+COMP_MOE_RTOL = 1e-5
+COMP_EP_STEPS = 8
+
+
+def _comp_counters():
+    """(holder, attribute) of every NCCL collective a composite step can
+    launch."""
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    return {"all_reduce": (coll.all_reduce_, "nccl_launches"),
+            "copy_to_model": (coll.copy_to_model, "nccl_launches"),
+            "reduce_from_model": (coll.reduce_from_model, "nccl_launches"),
+            "gather_from_model": (coll.gather_from_model, "nccl_launches")}
+
+
+def _comp_window(eng, state, batches) -> dict:
+    """``eng``'s eager steps over ``batches``, every count set to 0 just
+    before them and read just after; the step times, the peak memory
+    above the window's entry, the final parameters."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _reset_flash_counts()
+    for fn, a in _comp_counters().values():
+        setattr(fn, a, 0)
+    losses, step_ms = [], []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        state, m = eng.step(state, xb, yb)
+        losses.append(float(m["loss"]))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {**_flash_counts(), **_tc32_counts()}
+    nccl = {k: getattr(fn, a) for k, (fn, a) in _comp_counters().items()}
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    assert all(np.isfinite(losses)), losses
+    return {"losses": losses, "step_ms": step_ms, "counts": counts,
+            "nccl": nccl, "peak": peak,
+            "params": {k: v.detach().clone()
+                       for k, v in state.model.state_dict().items()}}
+
+
+def _lm_engine(cls, model, mesh, **kw):
+    """``cls`` over ``model`` with phase 5g's Adam, its seed-0 state."""
+    eng = cls(model, mesh=mesh, **kw,
+              optimizer=lambda p: torch.optim.Adam(p, lr=1e-3))
+    return eng, eng.init_state(torch.Generator().manual_seed(0))
+
+
+def composite_phase(gpu: str, sp: dict) -> dict:
+    """Phase 5m (module docstring): X1, X2 and X3 on (1, 1, 1) NCCL
+    meshes.  Returns X1's and X2's flash launches."""
+    from distributed_tensorflow_tpu_torch.engines import (
+        CompositeEngine, ExpertParallelEngine, SeqParallelEngine, SyncEngine)
+    from distributed_tensorflow_tpu_torch.models import create_model
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    x, y = _lm_data(COMP_STEPS * LM["batch"])
+    b = LM["batch"]
+    runs = {}
+    # X1: tp×sp against phase 5g's f32 ring_flash window and its twin
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "seq"))
+    try:
+        eng, state = _lm_engine(SeqParallelEngine,
+                                _lm_model("ring_flash", "float32"), mesh)
+        batches = [eng.shard_batch(x[i * b:(i + 1) * b],
+                                   y[i * b:(i + 1) * b])
+                   for i in range(COMP_STEPS)]
+        twin = _comp_window(eng, state, batches)
+        del eng, state
+    finally:
+        mesh.close()
+    mesh = meshlib.create_mesh(1, shape=(1, 1, 1),
+                               axis_names=("data", "model", "seq"))
+    try:
+        model = _lm_model("ring_flash", "float32", partition_model=True)
+        eng, state = _lm_engine(CompositeEngine, model, mesh)
+        runs["X1"] = _comp_window(eng, state, batches)
+        runs["X1"]["busy"] = _eager_busy(eng, state, *batches[0])
+        del eng, state, model, batches
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    x1 = runs["X1"]
+    assert x1["losses"] == sp["runs"]["ring_flash_f32"]["losses"], (
+        "X1 not bitwise phase 5g", x1["losses"],
+        sp["runs"]["ring_flash_f32"]["losses"])
+    same = [k for k, v in x1["params"].items()
+            if not torch.equal(v, twin["params"][k])]
+    assert not same, ("X1 parameters not bitwise the SP twin", same[:4])
+    # X2: ep×sp, its first loss against the flash MoE GPT under SyncEngine
+    moe_kw = dict(num_classes=LM["vocab"], hidden=LM["hidden"],
+                  layers=LM["layers"], heads=LM["heads"], ffn=LM["ffn"],
+                  max_len=LM["seq"], dropout_rate=0.0, dtype="bfloat16",
+                  moe_experts=MOE_GPT["experts"], moe_top_k=MOE_GPT["top_k"],
+                  moe_capacity_factor=MOE_GPT["capacity_factor"])
+    mesh = meshlib.create_mesh(1)
+    try:
+        eng, state = _lm_engine(SyncEngine, create_model(
+            "gpt", attention_impl="flash", **moe_kw), mesh)
+        _, m = eng.step(state, *eng.shard_batch(x[:b], y[:b]))
+        sync_first = float(m["loss"])
+        del eng, state
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    mesh = meshlib.create_mesh(1, shape=(1, 1, 1),
+                               axis_names=("data", "expert", "seq"))
+    try:
+        eng, state = _lm_engine(CompositeEngine, create_model(
+            "gpt", attention_impl="ring_flash", partition_experts=True,
+            **moe_kw), mesh)
+        batches = [eng.shard_batch(x[i * b:(i + 1) * b],
+                                   y[i * b:(i + 1) * b])
+                   for i in range(COMP_STEPS)]
+        runs["X2"] = _comp_window(eng, state, batches)
+        runs["X2"]["busy"] = _eager_busy(eng, state, *batches[0])
+        del eng, state, batches
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    x2_rel = abs(runs["X2"]["losses"][0] - sync_first) / abs(sync_first)
+    assert x2_rel <= COMP_MOE_RTOL, (runs["X2"]["losses"][0], sync_first)
+    n = LM["layers"] * COMP_STEPS
+    for name, fwd_route in (("X1", "tc32"), ("X2", "tc")):
+        want = {"fwd": n, "dq": n, "dkv": n, "fwd_tc": 0, "dq_tc": 0,
+                "dkv_tc": 0, "fwd_tc32": 0, "dq_tc32": n, "dkv_tc32": n}
+        want[f"fwd_{fwd_route}"] = n
+        assert runs[name]["counts"] == want, (name, runs[name]["counts"])
+    # X3: ep×tp, the 2-D expert layout against its (1, 1) twin
+    from distributed_tensorflow_tpu_torch.data import load_dataset
+
+    ds = load_dataset("synthetic")
+    ep = {}
+    for name, shape, axes, kw in (
+            ("twin", (1, 1), ("data", "expert"), {}),
+            ("X3", (1, 1, 1), ("data", "expert", "model"),
+             dict(partition_experts=True, partition_model=True))):
+        mesh = meshlib.create_mesh(1, shape=shape, axis_names=axes)
+        try:
+            eng = ExpertParallelEngine(create_model("moe", router_top_k=2,
+                                                    **kw),
+                                       mesh=mesh, router_z_weight=1e-3)
+            state = eng.init_state(torch.Generator().manual_seed(0),
+                                   ds.x[:1])
+            batches = [eng.shard_batch(ds.x[32 * i:32 * i + 32],
+                                       ds.y[32 * i:32 * i + 32])
+                       for i in range(COMP_EP_STEPS)]
+            ep[name] = _comp_window(eng, state, batches)
+            del eng, state
+        finally:
+            mesh.close()
+    assert ep["X3"]["losses"] == ep["twin"]["losses"], (
+        ep["X3"]["losses"], ep["twin"]["losses"])
+    same = [k for k, v in ep["X3"]["params"].items()
+            if not torch.equal(v, ep["twin"]["params"][k])]
+    assert not same, ("X3 not bitwise its (1, 1) twin", same[:4])
+    runs["X3"] = ep["X3"]
+    for name, run in runs.items():
+        steps = len(run["step_ms"])
+        p50 = float(np.median(run["step_ms"][1:]))
+        SEEN[f"composite {name}"] = p50
+        busy = run.get("busy", {})
+        per_step = {k: v / steps for k, v in run["counts"].items() if v}
+        nccl = {k: v / steps for k, v in run["nccl"].items()}
+        print(f"[comp] {name} ({gpu}): losses "
+              f"{' '.join(repr(v) for v in run['losses'])}; step ms "
+              f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (p50 of "
+              f"steps 2-{steps} {p50:.3f}); eager wall_ms="
+              f"{_fmt(busy.get('wall_ms'))} busy_share="
+              f"{_fmt(busy.get('busy_share'))}; peak memory above the "
+              f"window's entry {run['peak'] / 2**20:.1f} MiB; flash "
+              f"launches a step {json.dumps(per_step)}; NCCL calls a step "
+              f"{json.dumps(nccl)}")
+    print(f"[comp] X1 losses and parameters bitwise phase 5g's f32 "
+          f"ring_flash window and its SeqParallelEngine twin; X2 first loss "
+          f"{runs['X2']['losses'][0]!r} vs SyncEngine flash MoE GPT "
+          f"{sync_first!r} (rel {x2_rel:.3e}, bound {COMP_MOE_RTOL}); X3 "
+          f"losses and parameters bitwise its (1, 1) twin over "
+          f"{COMP_EP_STEPS} steps")
+    print(f"[comp] phase 5m wall {time.perf_counter() - t0:.1f} s")
+    return {name: runs[name]["counts"] for name in ("X1", "X2")}
+
+
 def pp_timing_phase(pp: dict) -> list[dict]:
     """Rows 1p-3p: the flash forward, dQ and dK/dV at phase 5l's
     microbatch shape (B=2, L=1024, H=8, D=64, causal, bf16, ``tc``),
@@ -5441,6 +5658,7 @@ def main() -> int:
     codec = codec_phase(gpu)
     mp = mp_phase(gpu)
     pp = pp_phase(gpu)
+    comp = composite_phase(gpu, sp)
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -5492,6 +5710,15 @@ def main() -> int:
         elif row["name"] == "paged_attention_cli_lm_f32":
             row["launches_mp"] = mp["F1"]["paged_f32"]
     sp_rows = sp_timing_phase(sp)
+    for row in sp_rows:
+        # phase 5m's windows X1 (f32: tc32) and X2 (bf16: tc forward, tc32
+        # backward) run the ring's block kernels at this shape
+        counter = {"flash_fwd_block.ring_tc32": "fwd_tc32",
+                   "flash_fwd_block.ring_tc": "fwd_tc",
+                   "flash_bwd_block.dq_ring_tc32": "dq_tc32",
+                   "flash_bwd_block.dkv_ring_tc32": "dkv_tc32"}[row["name"]]
+        row["launches_composite"] = sum(c[counter] for c in comp.values())
+        assert row["launches_composite"] > 0, row["name"]
     pp_rows = pp_timing_phase(pp)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)

@@ -32,8 +32,7 @@ def resolve_device(device=None) -> torch.device:
 
 # ROADMAP Queue 1 item 8d's parts still to port: the titles not_ported
 # cites for them
-EP_LEFTOVERS = "remaining engines: EP leftovers"
-COMPOSITES = "remaining engines: composites"
+PIPELINE_COMPOSITES = "remaining engines: pipeline composites"
 TP_DECODE = "remaining engines: TP decode"
 
 

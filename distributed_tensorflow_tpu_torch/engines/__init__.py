@@ -11,7 +11,9 @@ in JAX: ``SeqParallelEngine`` (data × sequence parallelism over a (data,
 seq) mesh), ``ExpertParallelEngine`` (data × expert parallelism of MoE
 models over a (data, expert) mesh), ``TensorParallelEngine`` (Megatron
 data × model parallelism over a (data, model) mesh, with ``TPMLP``) and
-``PipelineEngine`` (GPipe and 1F1B over a (data, pipe) mesh).
+``PipelineEngine`` (GPipe and 1F1B over a (data, pipe) mesh) and
+``CompositeEngine`` (tp×sp, ep×sp and ep×tp×sp over a ('data', 'model',
+'seq'[, 'expert']) mesh).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from distributed_tensorflow_tpu_torch.engines.async_local import (  # noqa: F401
     AsyncLocalEngine)
 from distributed_tensorflow_tpu_torch.engines.base import (  # noqa: F401
     Engine, TrainState)
+from distributed_tensorflow_tpu_torch.engines.composite import (  # noqa: F401
+    CompositeEngine)
 from distributed_tensorflow_tpu_torch.engines.expert_parallel import (  # noqa: F401,E501
     ExpertParallelEngine)
 from distributed_tensorflow_tpu_torch.engines.fsdp import (  # noqa: F401

@@ -119,18 +119,23 @@ def token_weights(mask: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_grads_(params: list, mesh, metrics: torch.Tensor | None = None,
-                      axis: str | None = None) -> torch.Tensor | None:
+                      axis: str | tuple[str, ...] | None = None
+                      ) -> torch.Tensor | None:
     """Sum the gradients of ``params`` over ``axis`` of ``mesh`` (None:
-    every rank) with one all-reduce of a flat buffer; each ``.grad`` then
-    becomes a view of its slice.  ``metrics`` (an f32 vector) rides behind
-    f32 gradients, and goes in an f32 all-reduce of its own behind 16-bit
-    ones; returns the summed metrics (None without)."""
+    every rank; a tuple of axes: each in turn, one of size 1 skipped)
+    with one all-reduce of a flat buffer per axis; each ``.grad`` then
+    becomes a view of its slice.  ``metrics`` (an f32 vector) rides
+    behind f32 gradients, and goes in an f32 all-reduce of its own behind
+    16-bit ones; returns the summed metrics (None without)."""
+    axes = ((axis,) if not isinstance(axis, tuple) else
+            tuple(a for a in axis if mesh.axis_size(a) > 1))
     packed = metrics is not None and all(p.dtype == metrics.dtype
                                          for p in params)
     flat = torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1)
                       for p in params] + ([metrics] if packed else []))
-    coll.all_reduce_(flat, mesh, axis=axis)
+    for a in axes:
+        coll.all_reduce_(flat, mesh, axis=a)
     off = 0
     for p in params:
         p.grad = flat[off:off + p.numel()].view_as(p)
@@ -139,7 +144,9 @@ def all_reduce_grads_(params: list, mesh, metrics: torch.Tensor | None = None,
         return None
     if packed:
         return flat[off:]
-    return coll.all_reduce_(metrics, mesh, axis=axis)
+    for a in axes:
+        metrics = coll.all_reduce_(metrics, mesh, axis=a)
+    return metrics
 
 
 def make_loss_fn(model: nn.Module) -> Callable:
@@ -619,8 +626,15 @@ class Engine:
 
     # ---------------------------------------------------------------- eval
     def eval_params(self, state: TrainState) -> nn.Module:
-        """The module to evaluate with (one device: the trained one)."""
+        """The module to evaluate with (one device: the trained one), and
+        the one sampling and serving decode."""
         return state.model
+
+    def _eval_module(self, state: TrainState) -> nn.Module:
+        """The module ``evaluate`` runs on this rank's rows: the
+        ``eval_params`` one (an engine whose evaluation runs its bound,
+        sliced model returns the state's own)."""
+        return self.eval_params(state)
 
     def _reduce_totals(self, totals: torch.Tensor) -> None:
         """Sum the evaluation's (correct, loss, count) over the ranks, in
@@ -634,7 +648,7 @@ class Engine:
         padded rows of the last batch masked out.  Over a mesh the batch
         rounds down to a multiple of the ranks, each rank evaluates its
         rows, and one collective sums the three totals."""
-        model = self.eval_params(state)
+        model = self._eval_module(state)
         n = self.n_devices
         bs = (max(batch_size, n) // n) * n
         correct = loss_sum = count = torch.zeros((), device=self.device)

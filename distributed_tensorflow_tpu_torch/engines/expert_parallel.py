@@ -34,8 +34,19 @@ as JAX reshapes it to (K, B/K): ``shard_batch`` gives each rank its token
 shard of every microbatch, and each microbatch routes on its own.  The
 steps are eager (``Engine.many_step``): no CUDA graph.  Precision: the
 bf16 policies; ``fp16-f32master`` is rejected (the router terms do not
-thread a loss scale), and an ep×tp ``model`` axis and the composites with
-other model-parallel axes are not ported.
+thread a loss scale).
+
+ep×tp (JAX ``harness.py:1410-1464``): a third mesh axis, 'model', in the
+order (data, expert, model).  Tokens shard over (data, expert) and are
+replicated over 'model', so the n = dp·ep token shards set the task
+loss's scale and ``shard_batch``'s split, and the ranks of a 'model'
+line route alike.  A model built with ``partition_model`` (and
+``partition_experts``) keeps the 2-D expert layout (``models/moe.py``):
+each rank holds its 'model' slice of every expert's hidden width, and
+the Megatron pair sums the partial outputs over 'model'.  The replicated
+parameters' gradients are summed over the token shards only (one
+all-reduce per token axis), the experts' over 'data', and nothing over
+'model', whose ranks hold the same tokens.
 
 A gradient codec (JAX ``expert_parallel.py:203-223``): after the exact
 reduces, ``codec.roundtrip`` encodes and decodes the gradients with a
@@ -58,11 +69,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import EP_LEFTOVERS, not_ported
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
 from distributed_tensorflow_tpu_torch.models.moe import (
-    MoELayer, bind_expert_mesh)
+    MoELayer, bind_expert_mesh, expert_specs, shard_experts)
+from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
 
@@ -134,9 +145,10 @@ def router_losses(model: nn.Module):
 class ExpertParallelEngine(Engine):
     """data × expert parallel sync training.
 
-    ``mesh`` must have the axes ('data', 'expert'); tokens shard over the
-    whole mesh, the experts of every MoE layer over 'expert' (replicated
-    over 'data': ``param_specs``).  Parameters are loaded whole and
+    ``mesh`` must have the axes ('data', 'expert'[, 'model']); tokens
+    shard over ('data', 'expert'), the experts of every MoE layer over
+    'expert' (replicated over 'data'; under the 2-D layout their hidden
+    width over 'model' too: ``param_specs``).  Parameters are loaded whole and
     sliced: ``load_full_state_dict`` and ``full_state_dict`` (the base
     class's) move a whole model's ``state_dict`` in and out of a state,
     and a checkpoint holds whole leaves."""
@@ -158,13 +170,11 @@ class ExpertParallelEngine(Engine):
                  grad_compression: str = "none", grad_bucket_mb: float = 0.0,
                  precision: str = "f32", device=None):
         valid = ({meshlib.DATA_AXIS, meshlib.EXPERT_AXIS},
-                 {meshlib.DATA_AXIS, meshlib.EXPERT_AXIS, "model"})
+                 {meshlib.DATA_AXIS, meshlib.EXPERT_AXIS, meshlib.MODEL_AXIS})
         if mesh is None or set(mesh.axis_names) not in valid:
             raise ValueError(
                 "ExpertParallelEngine requires a ('data','expert'[,'model']) "
                 "mesh")
-        if "model" in mesh.axis_names:
-            not_ported("a 'model' mesh axis (ep×tp)", EP_LEFTOVERS)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.aux_weight = aux_weight
@@ -176,11 +186,14 @@ class ExpertParallelEngine(Engine):
                          grad_compression=grad_compression,
                          grad_bucket_mb=grad_bucket_mb, precision=precision,
                          device=device)
-        # every rank holds a token shard: the batch splits over both axes
-        self.n_devices, self.rank = mesh.world_size, mesh.rank
         self.ep = mesh.axis_size(meshlib.EXPERT_AXIS)
         self.dp = mesh.axis_size(meshlib.DATA_AXIS)
-        self.expert_index = mesh.axis_index(meshlib.EXPERT_AXIS)
+        # the token shards: the batch splits over (data, expert), and a
+        # 'model' axis replicates each shard
+        self.token_axes = (meshlib.DATA_AXIS, meshlib.EXPERT_AXIS)
+        self.n_devices = self.dp * self.ep
+        self.rank = (mesh.axis_index(meshlib.DATA_AXIS) * self.ep
+                     + mesh.axis_index(meshlib.EXPERT_AXIS))
         self.moe_layers = {name: m for name, m in self.model.named_modules()
                            if isinstance(m, MoELayer)}
         for m in self.moe_layers.values():
@@ -190,20 +203,16 @@ class ExpertParallelEngine(Engine):
                     f"expert_parallel {self.ep}")
         self.expert_params = {f"{name}.{p}" for name in self.moe_layers
                               for p in ("w1", "w2")}
-        # the stacked experts are cut along their leading (expert) dim
-        self.param_specs = {name: (meshlib.EXPERT_AXIS, None, None)
-                            for name in self.expert_params}
+        # the stacked experts are cut along their leading (expert) dim,
+        # and under the 2-D layout their hidden width over 'model'
+        self.param_specs = expert_specs(self.model, mesh, every_layer=True)
 
     # ---------------------------------------------------------------- init
     def _own_params(self, model: nn.Module) -> None:
-        """Keep this rank's experts of every layer (once; a later init
-        draws into the slice) and bind the mesh to the layers."""
-        for m in self.moe_layers.values():
-            per = m.num_experts // self.ep
-            lo = self.expert_index * per
-            if m.experts != (lo, lo + per):
-                m.keep_experts(lo, lo + per)
-        bind_expert_mesh(model, self.mesh)
+        """Keep this rank's slice of every layer's experts (once; a later
+        init draws into the slice) and bind the mesh to the layers."""
+        shard_experts(model, self.mesh, every_layer=True)
+        bind_expert_mesh(model, self.mesh, self.token_axes)
 
     # ------------------------------------------------------------- batches
     def shard_batch(self, x, y, mask=None, process_local: bool = False):
@@ -273,13 +282,23 @@ class ExpertParallelEngine(Engine):
                        "overflow": overflow}
 
     def _reduce(self, model: nn.Module, metrics: torch.Tensor):
-        """Sum the replicated parameters' gradients over every rank (the
-        metrics with them) and the experts' over the data axis; returns
-        the summed metrics."""
+        """Sum the replicated parameters' gradients over the token shards
+        (every rank without a 'model' axis; the metrics with them) and
+        the experts' over the data axis; returns the summed metrics."""
         named = list(model.named_parameters())
         shared = [p for name, p in named if name not in self.expert_params]
         experts = [p for name, p in named if name in self.expert_params]
-        summed = all_reduce_grads_(shared, self.mesh, metrics)
+        axes = (None if meshlib.MODEL_AXIS not in self.mesh.axis_names
+                else self.token_axes)
+        summed = all_reduce_grads_(shared, self.mesh, metrics, axis=axes)
         if self.dp > 1 and experts:
             all_reduce_grads_(experts, self.mesh, axis=meshlib.DATA_AXIS)
         return summed
+
+    def _reduce_totals(self, totals: torch.Tensor) -> None:
+        # the ranks of a 'model' line scored the same rows
+        if meshlib.MODEL_AXIS not in self.mesh.axis_names:
+            coll.all_reduce_(totals, self.mesh)
+            return
+        for axis in self.token_axes:
+            coll.all_reduce_(totals, self.mesh, axis=axis)

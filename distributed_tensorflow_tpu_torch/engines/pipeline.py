@@ -83,7 +83,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import COMPOSITES, not_ported
+from distributed_tensorflow_tpu_torch import PIPELINE_COMPOSITES, not_ported
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
 from distributed_tensorflow_tpu_torch.models.layers import (
@@ -269,7 +269,8 @@ class PipelineEngine(Engine):
                                                    meshlib.PIPE_AXIS})
         if composite:
             not_ported(f"PipelineEngine over a mesh with {composite} (the "
-                       f"pipeline's composites)", COMPOSITES)
+                       f"pipeline's composites)",
+                       PIPELINE_COMPOSITES)
         if microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {microbatches}")
         self.schedule = schedule

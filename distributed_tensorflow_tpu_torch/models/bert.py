@@ -52,9 +52,14 @@ mask and keeps this rank's heads.
 embeddings, ``layers_per_stage`` dropout-free dense-attention layers a
 stage over the carry ``(hidden, pad_mask)``, and the ``[CLS]`` pooler.
 
-Not ported here (each raises ``NotImplementedError``): ``partition_model``
-with sequence-parallel attention, and the stages' ``partition_model`` and
-``moe_experts`` (composites).
+Under ``CompositeEngine`` the Megatron layers carry ring or Ulysses
+attention over 'seq' on the rank's local heads (Ulysses needs them to
+split over the 'seq' axis), and ``partition_experts`` (with
+``partition_model``, the 2-D layout) lets the engine cut the MoE layers'
+experts (``models.moe.shard_experts``).
+
+Not ported here (each raises ``NotImplementedError``): the stages'
+``partition_model`` and ``moe_experts`` (the pipeline's composites).
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch import (
-    COMPOSITES, not_ported, resolve_device)
+    resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     check_divisible, dense as _dense, dropout as _dropout, flax_init_,
@@ -157,7 +162,8 @@ class TransformerLayer(nn.Module):
                  dropout_rate: float, attention_impl: str, dtype, device,
                  moe_experts: int = 0, moe_top_k: int = 1,
                  moe_capacity_factor: float = 1.25,
-                 partition_model: bool = False):
+                 partition_model: bool = False,
+                 partition_experts: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.dtype = dtype
@@ -167,9 +173,13 @@ class TransformerLayer(nn.Module):
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.moe = None
         if moe_experts > 0:
+            # the 2-D expert layout needs the expert cut first (JAX
+            # bert.py:148-153)
             self.moe = MoELayer(hidden, moe_experts, ffn,
-                                moe_capacity_factor, moe_top_k, dtype=dtype,
-                                device=device)
+                                moe_capacity_factor, moe_top_k,
+                                partition_experts,
+                                partition_model and partition_experts,
+                                dtype=dtype, device=device)
         elif partition_model:
             self.fc1 = ColumnParallelLinear(hidden, ffn, device=device)
             self.fc2 = RowParallelLinear(ffn, hidden, device=device)
@@ -180,7 +190,7 @@ class TransformerLayer(nn.Module):
 
     def bind_tp(self, mesh, prefix: str = "") -> None:
         """The Megatron FFN (JAX ``bert.py:158-168``); a MoE layer's
-        experts stay whole."""
+        experts are the composite engine's to cut."""
         if isinstance(getattr(self, "fc1", None), ColumnParallelLinear):
             self.fc1.bind(mesh, f"{prefix}.fc1")
             self.fc2.bind(mesh, f"{prefix}.fc2")
@@ -257,7 +267,8 @@ class BertTinyClassifier(nn.Module):
                  dropout_rate: float = 0.1, attention_impl: str = "dense",
                  partition_model: bool = False, remat: bool = False,
                  moe_experts: int = 0, moe_top_k: int = 1,
-                 moe_capacity_factor: float = 1.25, dtype=torch.float32,
+                 moe_capacity_factor: float = 1.25,
+                 partition_experts: bool = False, dtype=torch.float32,
                  device=None):
         super().__init__()
         if remat and moe_experts:
@@ -265,9 +276,6 @@ class BertTinyClassifier(nn.Module):
                 "remat + MoE layers is unsupported: the router's sown "
                 "intermediates would be re-sown during backward recompute "
                 "(see models/gpt.py)")
-        if partition_model and attention_impl in SEQ_PARALLEL:
-            not_ported("partition_model with sequence-parallel attention "
-                       "(the tp×sp composite)", COMPOSITES)
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
                              f"dense | flash, or one of "
@@ -281,13 +289,15 @@ class BertTinyClassifier(nn.Module):
         self.remat = remat
         self.dtype = dtype
         self.partition_model = partition_model
+        self.moe_experts = moe_experts
+        self.partition_experts = partition_experts
         self.embeddings = BertEmbeddings(vocab_size, hidden, max_len, dtype,
                                          device, partition_model)
         self.blocks = nn.ModuleList(
             TransformerLayer(hidden, heads, ffn, dropout_rate,
                              attention_impl, dtype, device, moe_experts,
                              moe_top_k, moe_capacity_factor,
-                             partition_model)
+                             partition_model, partition_experts)
             for _ in range(layers))
         self.pooler = BertPooler(num_classes, hidden, dtype, device)
 

@@ -242,16 +242,21 @@ def _cut_along(full: dict, specs: dict, axis: str, n: int,
     return out
 
 
-def tp_shard_state_dict(full: dict, specs: dict, tp: int,
-                        rank: int) -> dict[str, torch.Tensor]:
+def tp_shard_state_dict(full: dict, specs: dict, tp: int, rank: int,
+                        ep: int = 1, expert_rank: int = 0
+                        ) -> dict[str, torch.Tensor]:
     """A whole model's converted ``state_dict`` cut to tensor-parallel
-    rank ``rank`` of ``tp``: each parameter the Megatron layout shards
-    (``specs``, e.g. ``models.layers.tp_specs`` of a bound model or
-    ``TensorParallelEngine.param_specs``) keeps this rank's slice along
-    its 'model' dim.  JAX's partitioned params arrive boxed
-    (``nn.Partitioned``): unbox them (``flax.linen.unbox``) before
-    converting; ``with_partitioning`` leaves their values as they are."""
-    return _cut_along(full, specs, "model", tp, rank)
+    rank ``rank`` of ``tp`` (and expert rank ``expert_rank`` of ``ep``):
+    each parameter the Megatron layout shards (``specs``, e.g.
+    ``models.layers.tp_specs`` of a bound model, or an engine's
+    ``param_specs``) keeps this rank's slice along its 'model' dim, and
+    each MoE kernel its 'expert' slice, both under the 2-D expert layout
+    (``w1`` as ('expert', None, 'model'), ``w2`` as ('expert', 'model',
+    None)).  JAX's partitioned params arrive boxed (``nn.Partitioned``):
+    unbox them (``flax.linen.unbox``) before converting;
+    ``with_partitioning`` leaves their values as they are."""
+    return _cut_along(_cut_along(full, specs, "model", tp, rank), specs,
+                      "expert", ep, expert_rank)
 
 
 def fsdp_shard_state_dict(full: dict, specs: dict, n: int,

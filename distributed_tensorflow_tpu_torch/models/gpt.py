@@ -87,10 +87,15 @@ on a (data, model) mesh) binds its mesh (``bind_model_mesh``) and each
 rank keeps its slice: ``heads/tp`` query and ``kv_heads/tp`` K/V heads,
 which run the dense or flash attention on the local heads.  The head's
 vocab-sharded logits are all-gathered (``gather_from_model``) and the
-loss runs on the whole logits.  ``pos_embed``, the LayerNorms and a MoE
-block's experts stay whole.  A packed width that does not split over
+loss runs on the whole logits.  ``pos_embed`` and the LayerNorms stay
+whole, as do a MoE block's experts unless ``partition_experts`` lets the
+composite engine cut them (with ``partition_model``, the 2-D expert
+layout, ``models/moe.py``).  A packed width that does not split over
 'model' raises JAX's error; heads or kv_heads that do not split (whose
-widths do) keep the attention whole on every rank.
+widths do) keep the attention whole on every rank.  Under
+``CompositeEngine`` the Megatron layers carry ring or Ulysses attention
+over 'seq' on the rank's local heads (Ulysses needs them to split over
+the 'seq' axis).
 
 ``gpt_pipeline_stages`` (``GPTPipeEmbed``, ``GPTPipeBlock``,
 ``GPTPipeHead``) splits the decoder for ``engines.pipeline``: token (and
@@ -100,8 +105,8 @@ final LN with an untied head.
 
 Not ported here (each raises ``NotImplementedError``): decode of a bound
 tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode),
-and ``partition_model`` with sequence-parallel attention and the stages'
-``partition_model``, ``seq_axis`` and ``moe_experts`` (composites).
+and the stages' ``partition_model``, ``seq_axis`` and ``moe_experts``
+(the pipeline's composites).
 """
 
 from __future__ import annotations
@@ -111,7 +116,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch import (
-    COMPOSITES, TP_DECODE, not_ported, resolve_device)
+    PIPELINE_COMPOSITES, TP_DECODE, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     check_divisible, dense as _dense, dropout as _dropout, flax_init_,
@@ -409,7 +414,8 @@ class GPTBlock(nn.Module):
                  device=None, attention_impl: str = "dense",
                  moe_experts: int = 0, moe_top_k: int = 1,
                  moe_capacity_factor: float = 1.25,
-                 partition_model: bool = False):
+                 partition_model: bool = False,
+                 partition_experts: bool = False):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
@@ -420,9 +426,13 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.moe = None
         if moe_experts > 0:
+            # the 2-D expert layout needs the expert cut first (JAX
+            # gpt.py:540-546)
             self.moe = MoELayer(hidden, moe_experts, ffn,
-                                moe_capacity_factor, moe_top_k, dtype=dtype,
-                                device=device)
+                                moe_capacity_factor, moe_top_k,
+                                partition_experts,
+                                partition_model and partition_experts,
+                                dtype=dtype, device=device)
         elif partition_model:
             self.fc1 = ColumnParallelLinear(hidden, ffn, device=device)
             self.fc2 = RowParallelLinear(ffn, hidden, device=device)
@@ -432,8 +442,9 @@ class GPTBlock(nn.Module):
 
     def bind_tp(self, mesh, prefix: str = "") -> None:
         """The Megatron FFN: column-parallel ``fc1``, row-parallel
-        ``fc2``.  A MoE block's experts stay whole on every rank (JAX's
-        MoE layer shards over 'model' only with ``partition_experts``)."""
+        ``fc2``.  A MoE block's experts are the composite engine's to cut
+        (``models.moe.shard_experts``): whole on every rank unless
+        ``partition_experts``."""
         if isinstance(getattr(self, "fc1", None), ColumnParallelLinear):
             self.fc1.bind(mesh, f"{prefix}.fc1")
             self.fc2.bind(mesh, f"{prefix}.fc2")
@@ -489,7 +500,8 @@ class GPTLM(nn.Module):
                  dtype=torch.float32, moe_experts: int = 0,
                  moe_top_k: int = 1, moe_capacity_factor: float = 1.25,
                  remat: bool = False, partition_model: bool = False,
-                 decode: bool = False, device=None):
+                 partition_experts: bool = False, decode: bool = False,
+                 device=None):
         super().__init__()
         if remat and moe_experts:
             raise ValueError(
@@ -501,9 +513,6 @@ class GPTLM(nn.Module):
             raise ValueError(f"unknown attention_impl '{attention_impl}'; "
                              f"dense | flash, or one of "
                              f"{tuple(SEQ_PARALLEL)}")
-        if partition_model and attention_impl in SEQ_PARALLEL:
-            not_ported("partition_model with sequence-parallel attention "
-                       "(the tp×sp composite)", COMPOSITES)
         if decode and attention_impl in SEQ_PARALLEL:
             # JAX gpt.py:655-669, less its last sentence, which points at
             # partition_model decode: not ported here (TP decode)
@@ -524,6 +533,7 @@ class GPTLM(nn.Module):
         self.attention_impl = attention_impl
         self.remat = remat
         self.moe_experts = moe_experts
+        self.partition_experts = partition_experts
         self.decode = bool(decode)
         self.positional = positional
         self.tie_embeddings = tie_embeddings
@@ -538,7 +548,7 @@ class GPTLM(nn.Module):
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, dropout_rate, rope, kv_heads, dtype,
                      device, attention_impl, moe_experts, moe_top_k,
-                     moe_capacity_factor, partition_model)
+                     moe_capacity_factor, partition_model, partition_experts)
             for _ in range(layers))
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.lm_head = (
@@ -779,12 +789,13 @@ def _reject_stage_composites(partition_model: bool = False,
     pp×tp, pp×sp, pp×ep) raise ``not_ported``."""
     if partition_model:
         not_ported("partition_model pipeline stages (the pp×tp composite)",
-                   COMPOSITES)
+                   PIPELINE_COMPOSITES)
     if seq_axis is not None or attention_impl in SEQ_PARALLEL:
         not_ported("sequence-parallel pipeline stages (the pp×sp "
-                   "composite)", COMPOSITES)
+                   "composite)", PIPELINE_COMPOSITES)
     if moe_experts > 0 or partition_experts:
-        not_ported("MoE pipeline stages (the pp×ep composite)", COMPOSITES)
+        not_ported("MoE pipeline stages (the pp×ep composite)",
+                   PIPELINE_COMPOSITES)
 
 
 class GPTPipeEmbed(nn.Module):

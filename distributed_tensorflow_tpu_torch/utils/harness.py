@@ -46,6 +46,18 @@ E of the ranks (``_setup_expert_parallel``): a (data, expert) mesh of
 with ``num_experts``, ``aux_weight``, ``router_top_k`` and
 ``router_z_weight``; its summary carries the overflow monitor's report.
 
+Two or three of ``tensor_parallel``, ``seq_parallel`` and
+``expert_parallel`` above 1 make a composite (``_COMBOS``, JAX
+``harness.py:637-672``, with JAX's mesh orders and names): tp×sp a
+(data, model, seq) mesh and ``CompositeEngine`` over the partitioned
+sequence model (``composite[dp*tp*sp,<attention>]``); ep×tp a (data,
+expert, model) mesh and ``ExpertParallelEngine`` over the classifier's
+2-D expert layout (``expert_tp[dp*ep*tp]``); ep×sp a (data, expert,
+seq) mesh and ``CompositeEngine`` over a MoE GPT or BERT
+(``expert_sp[dp*ep*sp,<attention>]``), and with tp a (data, expert, seq,
+model) one (``expert_tp_sp[dp*ep*tp*sp,<attention>]``).  Sampling and
+serving after a run with a 'model' axis are not ported (TP decode).
+
 ``checkpoint_dir`` writes checkpoints (``utils/checkpoint.py``; async by
 default, ``async_checkpoint`` False for the synchronous writer) every
 ``checkpoint_every`` steps and at the end; ``resume`` restores the latest
@@ -88,9 +100,8 @@ decodes through ``PipelineEngine.generate``, and ``--precision``,
 ``--serve`` are refused with JAX's messages.
 
 The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent; any composite of the model-parallel factors raises
-``NotImplementedError`` (``check_parallel_factors``), and the fleet's
-serve fields
+absent; the pipeline's composites raise ``NotImplementedError``
+(``check_parallel_factors``), and the fleet's serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -112,7 +123,7 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch import (
-    COMPOSITES, TP_DECODE, not_ported)
+    PIPELINE_COMPOSITES, TP_DECODE, not_ported)
 from distributed_tensorflow_tpu_torch import models as modellib
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
@@ -492,15 +503,15 @@ def _reject_flash_under_sp(config: ExperimentConfig) -> None:
 
 
 def _split_mesh(config: ExperimentConfig, factor: int, factor_name: str,
-                second_axis: str,
+                second_axis: str, *more: tuple[int, str],
                 engines: tuple[str, ...] = ("sync", "allreduce"),
                 grad_accum_ok: bool = False):
-    """The (data, <second_axis>) mesh over this run's ranks: ``factor`` of
-    them take the second axis, the rest shard data (JAX ``_split_mesh``,
-    for one model-parallel factor, with its messages).  ``engines`` names
-    the engine semantics the mode supports (fsdp × tp passes ('fsdp',));
-    ``grad_accum_ok`` marks the modes whose engine accumulates
-    microbatches.  Returns (mesh, data size)."""
+    """The (data, <second_axis>, ...) mesh over this run's ranks: the
+    named factors take their axes, in order, and the remaining ranks
+    shard data (JAX ``_split_mesh``, with its messages).  ``engines``
+    names the engine semantics the mode supports (fsdp × tp passes
+    ('fsdp',)); ``grad_accum_ok`` marks the modes whose engine
+    accumulates microbatches.  Returns (mesh, data size)."""
     if config.engine not in engines:
         why = ""
         if config.engine == "fsdp" and "pipeline" in factor_name:
@@ -519,16 +530,18 @@ def _split_mesh(config: ExperimentConfig, factor: int, factor_name: str,
             f"/ ep×tp×sp composites, not with {factor_name}: the pipeline "
             f"schedules already microbatch — size their chunks with "
             f"--microbatches")
+    factors = [(factor, second_axis), *more]
     total = config.n_devices or (torch.distributed.get_world_size()
                                  if torch.distributed.is_initialized()
                                  else 1)
-    if total % factor != 0:
+    prod = math.prod(f for f, _ in factors)
+    if total % prod != 0:
         raise ValueError(
-            f"n_devices {total} not divisible by {factor_name} {factor}")
-    dp = total // factor
-    mesh = meshlib.create_mesh(total, device=config.device,
-                               shape=(dp, factor),
-                               axis_names=(meshlib.DATA_AXIS, second_axis))
+            f"n_devices {total} not divisible by {factor_name} {prod}")
+    dp = total // prod
+    mesh = meshlib.create_mesh(
+        total, device=config.device, shape=(dp, *[f for f, _ in factors]),
+        axis_names=(meshlib.DATA_AXIS, *[a for _, a in factors]))
     return mesh, dp
 
 
@@ -548,12 +561,14 @@ def _require_token_data(train_ds, config: ExperimentConfig,
 
 
 def _sequence_model(config: ExperimentConfig, train_ds, mode: str, device,
-                    attention_impl: str, partition_model: bool = False):
+                    attention_impl: str, partition_model: bool = False,
+                    **extra):
     """A sequence model for a model-parallel mode (JAX
     ``_sequence_model``): a plug-in ``model_fn`` as it is; a registered
     sequence model (token data required) with the mode's attention (and
-    the Megatron layout with ``partition_model``); any other model is an
-    error."""
+    the Megatron layout with ``partition_model``, the mode's MoE blocks
+    with ``extra``: ``moe_experts``, ``moe_top_k``,
+    ``partition_experts``); any other model is an error."""
     if config.model_fn is not None:
         return _resolve_model(config, train_ds.num_classes, device)
     if config.model not in _SEQUENCE_MODELS:
@@ -562,15 +577,16 @@ def _sequence_model(config: ExperimentConfig, train_ds, mode: str, device,
             f"({'/'.join(_SEQUENCE_MODELS)}), got --model {config.model}; "
             f"pass model_fn for a custom model")
     _require_token_data(train_ds, config, mode)
-    reserved = {"attention_impl"} | ({"partition_model"} if partition_model
-                                     else set())
+    reserved = ({"attention_impl", *extra}
+                | ({"partition_model"} if partition_model else set()))
     bad = sorted(reserved & set(config.model_args or {}))
     if bad:
         raise ValueError(f"--model-arg {bad} is set by the harness for "
                          f"{mode}")
-    if partition_model:
+    if partition_model or extra:
         config = dataclasses.replace(config, model_args={
-            **(config.model_args or {}), "partition_model": True})
+            **(config.model_args or {}), **extra,
+            **({"partition_model": True} if partition_model else {})})
     return _resolve_model(config, train_ds.num_classes, device,
                           attention_impl=attention_impl)
 
@@ -644,11 +660,7 @@ def _setup_model_parallel(config: ExperimentConfig, mode: str,
     from distributed_tensorflow_tpu_torch.engines import (
         FSDPEngine, TensorParallelEngine)
 
-    for flag, value in (("--sample", config.sample_tokens),
-                        ("--serve", config.serve_requests)):
-        if value:
-            not_ported(f"{flag} after {mode} training (decode of a "
-                       f"tensor-parallel model)", TP_DECODE)
+    _reject_tp_decode(config, mode)
     mesh, dp = _split_mesh(config, config.tensor_parallel, mode,
                            meshlib.MODEL_AXIS, engines=engines,
                            grad_accum_ok=True)
@@ -668,6 +680,16 @@ def _setup_model_parallel(config: ExperimentConfig, mode: str,
         raise
     return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
                        engine=engine, global_batch=global_batch, name=name)
+
+
+def _reject_tp_decode(config: ExperimentConfig, mode: str) -> None:
+    """Sampling and serving after a run with a 'model' axis decode the
+    partitioned model, which is not ported (TP decode)."""
+    for flag, value in (("--sample", config.sample_tokens),
+                        ("--serve", config.serve_requests)):
+        if value:
+            not_ported(f"{flag} after {mode} training (decode of a "
+                       f"tensor-parallel model)", TP_DECODE)
 
 
 def _setup_tensor_parallel(config: ExperimentConfig) -> _Experiment:
@@ -697,18 +719,70 @@ def _check_reserved_model_args(config: ExperimentConfig, reserved,
             f"--attention); drop them from --model-arg")
 
 
-def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
-    """MoE mode (JAX ``harness.py:1410-1462``, tp = 1): a (data, expert)
-    mesh of (n / expert_parallel, expert_parallel) ranks, the MoE
-    classifier (``--model moe``, ``moe_mlp`` or ``mlp``) or a plug-in
-    ``model_fn``, and ``ExpertParallelEngine``; tokens shard over every
-    rank, so the global batch is ``-b`` × n."""
+def _composite_engine(config: ExperimentConfig, model, mesh, train_ds,
+                      global_batch: int):
+    """``CompositeEngine`` with the run's optimizer recipe, router
+    weights, accumulation, codec and precision."""
+    from distributed_tensorflow_tpu_torch.engines.composite import (
+        CompositeEngine)
+
+    return CompositeEngine(
+        model, mesh=mesh, learning_rate=config.learning_rate,
+        optimizer=_make_optimizer(config, train_ds, global_batch, model),
+        aux_weight=config.aux_weight,
+        router_z_weight=config.router_z_weight,
+        grad_accum=config.grad_accum, precision=config.precision,
+        **_codec_kw(config))
+
+
+def _setup_composite(config: ExperimentConfig) -> _Experiment:
+    """dp×tp×sp (JAX ``harness.py:1203-1233``): a (data, model, seq) mesh,
+    the sequence model with the Megatron layout and the configured ring or
+    Ulysses attention, and ``CompositeEngine``; a ``--model-arg
+    moe_experts=N`` model makes it MoE-aware (its experts whole on every
+    rank), so the router weights reach the engine."""
+    mode = "tensor_parallel×seq_parallel"
+    _reject_tp_decode(config, mode)
+    mesh, dp = _split_mesh(config, config.tensor_parallel, mode,
+                           meshlib.MODEL_AXIS,
+                           (config.seq_parallel, meshlib.SEQ_AXIS),
+                           grad_accum_ok=True)
+    try:
+        train_ds, test_ds = _load_data(config)
+        model = _sequence_model(config, train_ds, mode, mesh.device,
+                                config.attention_impl, partition_model=True)
+        global_batch = _global_batch(config, dp)
+        _check_accum_divides(config, global_batch, mode)
+        engine = _composite_engine(config, model, mesh, train_ds,
+                                   global_batch)
+    except BaseException:
+        mesh.close()
+        raise
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch,
+                       name=f"composite[dp*tp*sp,{config.attention_impl}]")
+
+
+def _setup_expert_parallel(config: ExperimentConfig,
+                           tp: int = 1) -> _Experiment:
+    """MoE mode (JAX ``harness.py:1410-1464``): a (data, expert) mesh of
+    (n / expert_parallel, expert_parallel) ranks, the MoE classifier
+    (``--model moe``, ``moe_mlp`` or ``mlp``) or a plug-in ``model_fn``,
+    and ``ExpertParallelEngine``; tokens shard over (data, expert), so
+    the global batch is ``-b`` × dp × ep.  ``tp`` > 1 adds a 'model' axis,
+    (data, expert, model): each expert's FFN is also Megatron-split (the
+    classifier's ``partition_model``), and the tokens are replicated over
+    it."""
     from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
         ExpertParallelEngine)
 
-    mode = "expert_parallel"
+    mode = ("expert_parallel×tensor_parallel" if tp > 1
+            else "expert_parallel")
+    if tp > 1:
+        _reject_tp_decode(config, mode)
+    extra = [(tp, meshlib.MODEL_AXIS)] if tp > 1 else []
     mesh, dp = _split_mesh(config, config.expert_parallel, mode,
-                           meshlib.EXPERT_AXIS, grad_accum_ok=True)
+                           meshlib.EXPERT_AXIS, *extra, grad_accum_ok=True)
     try:
         train_ds, test_ds = _load_data(config)
         if config.model_fn is not None:
@@ -720,20 +794,19 @@ def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
             model = modellib.create_model(
                 "moe", num_classes=train_ds.num_classes,
                 **(config.model_args or {}),
-                num_experts=config.num_experts,
-                router_top_k=config.router_top_k, dtype=config.dtype,
-                device=mesh.device)
+                num_experts=config.num_experts, partition_experts=True,
+                partition_model=tp > 1, router_top_k=config.router_top_k,
+                dtype=config.dtype, device=mesh.device)
         else:
             raise ValueError(
                 f"{mode} needs the MoE model (got --model {config.model}); "
                 f"custom MoEs pass a model_fn whose experts are "
                 f"models.moe.MoELayer modules")
+        # a 'model' axis replicates the tokens: the global batch scales
+        # with the token shards only
         n_token_shards = dp * config.expert_parallel
         global_batch = _global_batch(config, n_token_shards)
-        if config.grad_accum > 1 and global_batch % config.grad_accum:
-            raise ValueError(
-                f"{mode}: global batch {global_batch} not divisible by "
-                f"grad_accum {config.grad_accum}")
+        _check_accum_divides(config, global_batch, mode)
         engine = ExpertParallelEngine(
             model, mesh=mesh, learning_rate=config.learning_rate,
             optimizer=_make_optimizer(config, train_ds, global_batch, model),
@@ -745,7 +818,65 @@ def _setup_expert_parallel(config: ExperimentConfig) -> _Experiment:
         mesh.close()
         raise
     return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
-                       engine=engine, global_batch=global_batch, name=mode)
+                       engine=engine, global_batch=global_batch,
+                       name="expert_tp[dp*ep*tp]" if tp > 1 else mode)
+
+
+def _setup_expert_tp(config: ExperimentConfig) -> _Experiment:
+    """dp×ep×tp: ``_setup_expert_parallel(tp=...)``."""
+    return _setup_expert_parallel(config, tp=config.tensor_parallel)
+
+
+def _setup_expert_sp(config: ExperimentConfig, tp: int = 1) -> _Experiment:
+    """dp×ep×sp (JAX ``harness.py:1523-1574``): a (data, expert, seq)
+    mesh, a GPT or BERT with MoE-FFN blocks (``--num-experts``,
+    ``--router-top-k``, ``partition_experts``) and ring or Ulysses
+    attention, under ``CompositeEngine``.  ``tp`` > 1 adds a 'model' axis
+    last, (data, expert, seq, model): the attention and embeddings
+    Megatron-cut and every expert's FFN too (the 2-D layout)."""
+    mode = ("expert_parallel×tensor_parallel×seq_parallel" if tp > 1
+            else "expert_parallel×seq_parallel")
+    if config.model not in _SEQUENCE_MODELS:
+        raise ValueError(
+            f"{mode} routes a transformer's FFN blocks (moe_experts on "
+            f"models/gpt.py or models/bert.py); got --model {config.model} "
+            f"— use --model gpt (--dataset lm_synth) or --model bert_tiny "
+            f"(--dataset glue_synth)")
+    _reject_flash_under_sp(config)
+    if config.num_experts % config.expert_parallel:
+        raise ValueError(
+            f"num_experts {config.num_experts} not divisible by "
+            f"expert_parallel {config.expert_parallel}")
+    if tp > 1:
+        _reject_tp_decode(config, mode)
+    extra = [(tp, meshlib.MODEL_AXIS)] if tp > 1 else []
+    mesh, dp = _split_mesh(config, config.expert_parallel, mode,
+                           meshlib.EXPERT_AXIS,
+                           (config.seq_parallel, meshlib.SEQ_AXIS), *extra,
+                           grad_accum_ok=True)
+    try:
+        train_ds, test_ds = _load_data(config)
+        model = _sequence_model(
+            config, train_ds, mode, mesh.device, config.attention_impl,
+            partition_model=tp > 1, moe_experts=config.num_experts,
+            moe_top_k=config.router_top_k, partition_experts=True)
+        global_batch = _global_batch(config, dp)
+        _check_accum_divides(config, global_batch, mode)
+        engine = _composite_engine(config, model, mesh, train_ds,
+                                   global_batch)
+    except BaseException:
+        mesh.close()
+        raise
+    impl = config.attention_impl
+    return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
+                       engine=engine, global_batch=global_batch,
+                       name=(f"expert_tp_sp[dp*ep*tp*sp,{impl}]" if tp > 1
+                             else f"expert_sp[dp*ep*sp,{impl}]"))
+
+
+def _setup_expert_tp_sp(config: ExperimentConfig) -> _Experiment:
+    """dp×ep×tp×sp: ``_setup_expert_sp(tp=...)``."""
+    return _setup_expert_sp(config, tp=config.tensor_parallel)
 
 
 def _reject_model_args(config: ExperimentConfig, mode: str) -> None:
@@ -892,23 +1023,29 @@ def check_codec_config(config: ExperimentConfig) -> None:
     _validate_grad_bucket(config)
 
 
+def _parallel_factors(config: ExperimentConfig) -> list[str]:
+    return [f for f in ("seq_parallel", "tensor_parallel",
+                        "pipeline_parallel", "expert_parallel")
+            if getattr(config, f) > 1]
+
+
 def check_parallel_factors(config: ExperimentConfig) -> None:
-    """The model-parallel factors above 1: one of ``seq_parallel``,
-    ``tensor_parallel`` (under sync/allreduce, or fsdp × tp under
-    ``fsdp``), ``pipeline_parallel`` and ``expert_parallel`` is served;
-    the composites raise ``NotImplementedError``.  ``num_experts`` must
-    split over ``expert_parallel`` (JAX ``harness.py:1428-1431``), and
-    ``router_z_weight`` needs the expert-parallel engine (JAX
-    ``harness.py:611-616``).  The CLI calls it before it spawns ranks."""
-    multi = [f for f in ("seq_parallel", "tensor_parallel",
-                         "pipeline_parallel", "expert_parallel")
-             if getattr(config, f) > 1]
-    if len(multi) > 1:
+    """The model-parallel factors above 1: each one alone (``tensor_parallel``
+    under sync/allreduce, or fsdp × tp under ``fsdp``) and the composites
+    without the pipeline (tp×sp, ep×tp, ep×sp, ep×tp×sp: ``_COMBOS``) are
+    served; the pipeline's composites raise ``NotImplementedError``.
+    ``num_experts`` must split over ``expert_parallel`` (JAX
+    ``harness.py:1428-1431, 1537-1540``), and ``router_z_weight`` needs a
+    MoE-aware engine (JAX ``harness.py:606-616``).  The CLI calls it
+    before it spawns ranks."""
+    multi = _parallel_factors(config)
+    if len(multi) > 1 and "pipeline_parallel" in multi:
         not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
-                   COMPOSITES)
+                   PIPELINE_COMPOSITES)
+    moe_model = config.model in ("moe", "moe_mlp", "mlp") or (
+        config.model in _SEQUENCE_MODELS and config.seq_parallel > 1)
     if (config.expert_parallel > 1 and config.model_fn is None
-            and config.model in ("moe", "moe_mlp", "mlp")
-            and config.num_experts % config.expert_parallel):
+            and moe_model and config.num_experts % config.expert_parallel):
         raise ValueError(
             f"num_experts {config.num_experts} not divisible by "
             f"expert_parallel {config.expert_parallel}")
@@ -936,6 +1073,9 @@ def _setup(config: ExperimentConfig) -> _Experiment:
                 f"--sample decodes autoregressively and needs a causal LM "
                 f"({'/'.join(_LM_MODELS)}), got --model {config.model}")
     check_parallel_factors(config)
+    multi = frozenset(_parallel_factors(config))
+    if len(multi) > 1:
+        return _COMBOS[multi](config)
     if config.seq_parallel > 1:
         return _setup_seq_parallel(config)
     if config.tensor_parallel > 1:
@@ -980,6 +1120,17 @@ def _setup(config: ExperimentConfig) -> _Experiment:
     return _Experiment(mesh=mesh, n=n, train_ds=train_ds, test_ds=test_ds,
                        engine=engine, global_batch=global_batch,
                        name=config.engine)
+
+
+# the composites of the model-parallel factors without the pipeline (JAX
+# harness.py:637-672; the pipeline's raise in check_parallel_factors)
+_COMBOS = {
+    frozenset({"seq_parallel", "tensor_parallel"}): _setup_composite,
+    frozenset({"expert_parallel", "tensor_parallel"}): _setup_expert_tp,
+    frozenset({"expert_parallel", "seq_parallel"}): _setup_expert_sp,
+    frozenset({"expert_parallel", "tensor_parallel", "seq_parallel"}):
+        _setup_expert_tp_sp,
+}
 
 
 def _quiet(_line: str) -> None:

@@ -171,14 +171,16 @@ def test_embedding_and_options_checks():
     with pytest.raises(ValueError, match="exceeds max_len=32"):
         tm(torch.ones((1, 33), dtype=torch.int64))
     # ported since: the tensor-parallel layout (a MoE layer's experts stay
-    # whole, as in JAX); its composite with sequence parallelism is not
+    # whole, as in JAX, unless partition_experts), and its composite with
+    # sequence parallelism, which needs the mesh CompositeEngine binds
     for kw in (dict(moe_experts=2, partition_model=True),
                dict(partition_model=True)):
         assert BertTinyClassifier(**SMALL, **kw,
                                   device="cpu").partition_model
-    with pytest.raises(NotImplementedError, match="remaining engines"):
+    with pytest.raises(ValueError, match="no mesh bound"):
         BertTinyClassifier(**SMALL, partition_model=True,
-                           attention_impl="ring", device="cpu")
+                           attention_impl="ring", device="cpu")(
+            torch.ones((1, 4), dtype=torch.int64))
     # the sequence-parallel attentions are ported: they need the mesh
     # SeqParallelEngine binds
     for impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):

@@ -486,14 +486,15 @@ def test_reference_flag_surface_accepted():
     # fsdp and the pipeline are ported since; JAX rejects them together
     (["-m", "d", "-ds", "fsdp", "-pp", "2"], ValueError,
      "fsdp × pipeline is rejected by design"),
-    # MoE and -ep are ported; their composites are not
-    (["--model", "moe", "-ep", "2", "-tp", "2"], NotImplementedError,
-     "remaining engines"),
+    # MoE, -ep and the composites without the pipeline are ported; the
+    # pipeline's composites are not
+    (["--model", "moe", "-ep", "2", "-pp", "2"], NotImplementedError,
+     "remaining engines: pipeline composites"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
       "attention_impl=ulysses"], ValueError, "pass -sp > 1"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
-      "moe_experts=2", "-ep", "2", "-sp", "2"], NotImplementedError,
-     "remaining engines"),
+      "moe_experts=2", "-ep", "2", "-sp", "2", "-pp", "2"],
+     NotImplementedError, "remaining engines: pipeline composites"),
     # the local engines decouple the optimizer cadence themselves (JAX
     # harness.py:712-716)
     (["-m", "c", "-cs", "async", "--grad-accum", "2"], ValueError,

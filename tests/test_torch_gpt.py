@@ -379,13 +379,14 @@ def test_monolithic_write_drops_positions_past_the_table():
 
 def test_unported_options_raise():
     # ported since: the tensor-parallel layout (a MoE block's experts stay
-    # whole, as in JAX); its composite with sequence parallelism is not
+    # whole, as in JAX, unless partition_experts), and its composite with
+    # sequence parallelism, which needs the mesh CompositeEngine binds
     for kw in (dict(moe_experts=2, partition_model=True),
                dict(partition_model=True)):
         assert GPTLM(**SMALL, **kw, device="cpu").partition_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no mesh bound"):
         GPTLM(**SMALL, partition_model=True, attention_impl="ring_flash",
-              device="cpu")
+              device="cpu")(torch.zeros((1, 4), dtype=torch.int64))
     # the sequence-parallel attentions are ported: they need the mesh
     # SeqParallelEngine binds
     for impl in ("ring_flash", "ring", "ulysses", "ulysses_flash"):

@@ -435,10 +435,14 @@ def test_errors_match_jax(ep_mesh):
                    "moe", "--num-experts", "3"])
 
 
-@pytest.mark.parametrize("flags", [["-tp", "2"], ["-sp", "2"]])
+# ep×tp and ep×sp are ported since (tests/test_torch_composite.py); their
+# composites with the pipeline still raise
+@pytest.mark.parametrize("flags", [["-tp", "2", "-pp", "2"],
+                                   ["-sp", "2", "-pp", "2"]])
 def test_expert_parallel_composites_still_raise(flags):
-    with pytest.raises(NotImplementedError, match="remaining engines"):
-        tcli.main(["--device", "cpu", "-n", "4", "-ep", "2", *flags,
+    with pytest.raises(NotImplementedError,
+                       match="remaining engines: pipeline composites"):
+        tcli.main(["--device", "cpu", "-n", "8", "-ep", "2", *flags,
                    "--model", "moe"])
 
 

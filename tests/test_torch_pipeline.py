@@ -16,7 +16,8 @@ Tolerances, each with its reason:
 * ``generate`` (greedy, fixed-length decode) after one SGD step: the
   tokens bitwise JAX's, and bitwise the port's own naive rollout;
 * the rejections: JAX's messages word for word, or
-  ``NotImplementedError`` naming "remaining engines: composites".
+  ``NotImplementedError`` naming "remaining engines: pipeline
+  composites".
 """
 
 from __future__ import annotations
@@ -252,7 +253,7 @@ def test_composite_mesh_axes_raise_not_ported(axis):
                             axis_names=("data", "pipe", axis))
     try:
         with pytest.raises(NotImplementedError,
-                           match="remaining engines: composites"):
+                           match="remaining engines: pipeline composites"):
             PipelineEngine(mesh=m)
     finally:
         m.close()
@@ -267,7 +268,7 @@ def test_composite_mesh_axes_raise_not_ported(axis):
     (bert_pipeline_stages, {"moe_experts": 4})])
 def test_stage_composite_options_raise_not_ported(factory, kw):
     with pytest.raises(NotImplementedError,
-                       match="remaining engines: composites"):
+                       match="remaining engines: pipeline composites"):
         factory(**kw, device="cpu")
 
 

@@ -478,15 +478,16 @@ def test_composites_raise_not_ported(field):
     from distributed_tensorflow_tpu_torch.utils import harness
 
     for sp in (1, 2):
-        # -ep, -tp and -pp alone are ported: their composites are not
-        extra = ({"tensor_parallel": 2} if field in ("expert_parallel",
-                                                     "pipeline_parallel")
-                 and sp == 1 else {"expert_parallel": 2}
-                 if field == "tensor_parallel" and sp == 1 else {})
+        # -ep, -tp, -pp and the composites without the pipeline are
+        # ported (tests/test_torch_composite.py): the pipeline's are not
+        extra = ({"tensor_parallel": 2} if field == "pipeline_parallel"
+                 and sp == 1 else {"pipeline_parallel": 2}
+                 if field != "pipeline_parallel" else {})
         config = harness.ExperimentConfig(
             model="gpt_tiny", dataset="lm_synth", seq_parallel=sp,
             device="cpu", **{field: 2}, **extra)
-        with pytest.raises(NotImplementedError, match="remaining engines"):
+        with pytest.raises(NotImplementedError,
+                           match="remaining engines: pipeline composites"):
             harness._setup(config)
 
 

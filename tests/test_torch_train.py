@@ -307,9 +307,12 @@ def test_unported_options_raise(tmp_path):
             trainer.fit(ds, batch_size=8, **kw)
     with pytest.raises(NotImplementedError, match="native"):
         ds.batches(8, native=True)
-    # the MoE classifier is ported; the GSPMD expert layout is not
-    with pytest.raises(NotImplementedError, match="remaining engines"):
-        create_model("moe", partition_experts=True, device="cpu")
+    # the MoE classifier and its expert layouts are ported; the 2-D one
+    # needs the expert cut first, as in JAX
+    assert create_model("moe", partition_experts=True,
+                        device="cpu").moe[0].partition_experts
+    with pytest.raises(ValueError, match="requires partition_experts"):
+        create_model("moe", partition_model=True, device="cpu")
     with pytest.raises(KeyError):
         tloaders.load_dataset("nope")
 
