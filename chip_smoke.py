@@ -332,6 +332,26 @@ Phases (any failure raises and the script exits non-zero):
              the card's name and power limit: flash launches a step by
              route, NCCL calls a step, the step p50, the busy share and
              the peak memory above the window's entry;
+5n. ppc   — the pipeline's dense composites on one NCCL rank, every axis
+             of size 1, from phase 5l's init and batches (its GPT stages:
+             8 layers, bf16 compute over f32 parameters, M = 4
+             microbatches of 2 × 1024, Adam, 4 eager steps a window).
+             C1: pp×tp GPipe, the Megatron stages on a (1, 1, 1) (data,
+             pipe, model) mesh, losses and parameters bitwise PG's; C2:
+             the same under 1F1B, bitwise P1's; C3: pp×sp GPipe,
+             ``ring_flash`` stages on a (1, 1, 1) (data, pipe, seq) mesh,
+             its first loss within ``PPC_SP_RTOL`` of PG's; C3R: C3 with
+             remat, bitwise C3; C4: pp×tp×sp on (1, 1, 1, 1) (data, pipe,
+             seq, model), bitwise C3; Cgen: ``generate`` from C1's final
+             state, bitwise Pgen's tokens.  Flash launches a step by
+             route, the Megatron pair's NCCL calls, gradient all-reduces
+             and pipe shifts a step held to ``_ppc_plan``.  Printed on
+             ``[ppc]`` lines beside the card's name and power limit: each
+             window's step p50, busy share and peak memory above its
+             entry; rows 1p-3p gain C1's and C2's launches
+             (``launches_ppc``), and the ring's block kernels at the
+             microbatch's shape (forward ``tc``, backward ``tc32``) join
+             the kernels line;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -5278,14 +5298,17 @@ def _pp_generate(gpu, eng, state, x) -> dict:
           + f" ({int((got == want).sum())}/{want.size} tokens equal); "
           f"{gen_ms:.1f} ms; flash forwards on tc {counts['fwd_tc']} "
           f"({LM['layers']} layers x {PP_NEW} fixed-length forwards)")
-    return {"counts": counts, "first_difference": first, "ms": gen_ms}
+    return {"counts": counts, "first_difference": first, "ms": gen_ms,
+            "tokens": got, "prompts": prompts}
 
 
-def pp_phase(gpu: str) -> dict:
+def pp_phase(gpu: str) -> tuple[dict, dict]:
     """Phase 5l (module docstring): ``PipelineEngine`` on a (1, 1) (data,
     pipe) NCCL mesh over the GPT stages at ``bench.py --lm``'s widths:
     windows PG, P1, PR from one init on the same batches, then Pgen.
-    Returns each window's flash launches."""
+    Returns each window's flash launches, and what phase 5n starts from
+    and is held to: the init, the batches, PG's and P1's losses and final
+    parameters, Pgen's prompts and tokens."""
     from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
     t0 = time.perf_counter()
@@ -5359,8 +5382,15 @@ def pp_phase(gpu: str) -> dict:
                               - runs[k]["base_mem"])))
     torch.cuda.empty_cache()
     print(f"[pp] phase 5l wall {time.perf_counter() - t0:.1f} s")
-    return {**{name: run["counts"] for name, run in runs.items()},
-            "Pgen": gen["counts"]}
+    ref = {"init": init, "batches": [(x[i * b:(i + 1) * b],
+                                      y[i * b:(i + 1) * b])
+                                     for i in range(PP_STEPS)],
+           "prompts": gen["prompts"], "tokens": gen["tokens"],
+           **{name: {"losses": runs[name]["losses"],
+                     "params": runs[name]["params"]}
+              for name in ("PG", "P1")}}
+    return ({**{name: run["counts"] for name, run in runs.items()},
+             "Pgen": gen["counts"]}, ref)
 
 
 # --------------------------------------------------------------------------
@@ -5559,12 +5589,314 @@ def composite_phase(gpu: str, sp: dict) -> dict:
     return {name: runs[name]["counts"] for name in ("X1", "X2")}
 
 
-def pp_timing_phase(pp: dict) -> list[dict]:
+# --------------------------------------------------------------------------
+# phase 5n: the pipeline's dense composites on one NCCL rank
+# --------------------------------------------------------------------------
+
+# C3's first loss against PG's: the same tc forward kernel (a ring of one
+# block merges with weight exactly 1) on the same weights and batch; the
+# forward is all a first loss sees, so it may differ only where a kernel
+# of the ring path sums in another order
+PPC_SP_RTOL = 1e-5
+# the windows: name, mesh axes, stage options, schedule, remat
+PPC_WINDOWS = (
+    ("C1", ("data", "pipe", "model"), dict(partition_model=True,
+                                           attention_impl="flash"),
+     "gpipe", False),
+    ("C2", ("data", "pipe", "model"), dict(partition_model=True,
+                                           attention_impl="flash"),
+     "1f1b", False),
+    ("C3", ("data", "pipe", "seq"), dict(attention_impl="ring_flash",
+                                         seq_axis="seq"), "gpipe", False),
+    ("C3R", ("data", "pipe", "seq"), dict(attention_impl="ring_flash",
+                                          seq_axis="seq"), "gpipe", True),
+    ("C4", ("data", "pipe", "seq", "model"),
+     dict(partition_model=True, attention_impl="ring_flash",
+          seq_axis="seq"), "gpipe", False),
+)
+
+
+def _ppc_plan(name: str, axes, schedule: str, remat: bool) -> dict:
+    """A window's planned launches a step, written before the run.  Flash
+    (L layers, M microbatches): GPipe L·M forwards, dQ and dK/dV; remat
+    and 1F1B run each block forward twice.  ``flash`` runs every kernel
+    on ``tc``; ``ring_flash`` its block forward on ``tc`` (bf16) and its
+    block backward on ``tc32`` (``flash_bwd_block`` casts to f32).  NCCL
+    on a 'model' axis of one rank (a group of one still launches): per
+    microbatch 2L + 1 forward all-reduces (``reduce_from_model``: each
+    block's attention output and FFN output, the embed's lookup) — twice
+    the block's under remat, the block's and the embed's twice under
+    1F1B (its backward tick runs them again) — 2L + 1 backward all-reduces
+    (``copy_to_model``: each block's attention and FFN input, the head's
+    input) and one logit all-gather; no gradient all-reduce (every data,
+    pipe and seq axis has one rank).  The pipe shifts are copies: T − 1
+    each way, T = M + S − 1 ticks (GPipe) or 2 (M + S − 1) (1F1B)."""
+    n, m = LM["layers"], PP_MICRO
+    twice = remat or schedule == "1f1b"
+    fwd = n * m * (2 if twice else 1)
+    ring = "seq" in axes
+    flash = {"fwd_tc": fwd, "dq_tc": 0 if ring else n * m,
+             "dkv_tc": 0 if ring else n * m, "fwd_tc32": 0,
+             "dq_tc32": n * m if ring else 0,
+             "dkv_tc32": n * m if ring else 0}
+    tp = "model" in axes
+    reduce = m * ((4 * n + 2) if schedule == "1f1b" else
+                  (4 * n + 1) if remat else (2 * n + 1)) if tp else 0
+    copy = m * (2 * n + 1) if tp else 0
+    shifts = PP_SHIFTS[schedule] // 2
+    return {"flash": flash, "nccl": {
+        "reduce_from_model": reduce, "copy_to_model": copy,
+        "gather_from_model": m if tp else 0, "gradient_all_reduce": 0,
+        "next_clones": shifts, "prev_clones": shifts, "next_p2p": 0,
+        "prev_p2p": 0}}
+
+
+def _ppc_counts() -> dict:
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    c = {"reduce_from_model": coll.reduce_from_model.nccl_launches,
+         "copy_to_model": coll.copy_to_model.nccl_launches,
+         "gather_from_model": coll.gather_from_model.nccl_launches,
+         "next_clones": coll.shift_to_next.clones,
+         "prev_clones": coll.shift_to_prev.clones,
+         "next_p2p": coll.shift_to_next.launches,
+         "prev_p2p": coll.shift_to_prev.launches}
+    # every all-reduce but the Megatron pair's is a gradient reduce
+    c["gradient_all_reduce"] = (coll.all_reduce_.nccl_launches
+                                - c["reduce_from_model"]
+                                - c["copy_to_model"])
+    return c
+
+
+def _reset_ppc_counts() -> None:
+    from distributed_tensorflow_tpu_torch.parallel import collectives as coll
+
+    _reset_flash_counts()
+    for fn in (coll.reduce_from_model, coll.copy_to_model,
+               coll.gather_from_model, coll.all_reduce_):
+        fn.nccl_launches = 0
+    for fn in (coll.shift_to_next, coll.shift_to_prev):
+        fn.clones = fn.launches = 0
+
+
+def _ppc_window(name, axes, kw, schedule, remat, init, batches) -> dict:
+    """PP_STEPS eager steps of ``PipelineEngine`` over phase 5l's GPT
+    stages with ``kw`` on a mesh of ``axes``, each of one rank, from
+    phase 5l's ``init`` and batches; every count set to 0 just before the
+    steps and read just after, held to ``_ppc_plan``.  Returns the
+    losses, step times, counts, peak memory above the window's entry and
+    the final parameters, with the engine, its state and its mesh (the
+    caller closes it)."""
+    from distributed_tensorflow_tpu_torch.engines import PipelineEngine
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        gpt_pipeline_stages)
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    mesh = meshlib.create_mesh(1, shape=(1,) * len(axes), axis_names=axes)
+    try:
+        eng = PipelineEngine(
+            microbatches=PP_MICRO, mesh=mesh, schedule=schedule, remat=remat,
+            optimizer=lambda p: torch.optim.Adam(p, lr=1e-3),
+            stages=gpt_pipeline_stages(
+                vocab_size=LM["vocab"], hidden=LM["hidden"],
+                heads=LM["heads"], ffn=LM["ffn"], max_len=LM["seq"],
+                layers_per_stage=LM["layers"], dtype=torch.bfloat16,
+                device=mesh.device, **kw))
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        state.model.load_state_dict(init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _reset_ppc_counts()
+        losses, step_ms = [], []
+        for xb, yb in batches:
+            t0 = time.perf_counter()
+            state, m = eng.step(state, *eng.shard_batch(xb, yb))
+            losses.append(float(m["loss"]))        # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        flash = {k: v for k, v in {**_flash_counts(), **_tc32_counts()}.items()
+                 if "_" in k}
+        nccl = _ppc_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        assert all(np.isfinite(losses)), (name, losses)
+        plan = _ppc_plan(name, axes, schedule, remat)
+        want = {k: v * PP_STEPS for k, v in plan["flash"].items()}
+        assert flash == want, (name, "flash", flash, want)
+        want = {k: v * PP_STEPS for k, v in plan["nccl"].items()}
+        assert nccl == want, (name, "nccl", nccl, want)
+        params = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+    except BaseException:
+        mesh.close()
+        raise
+    return {"losses": losses, "step_ms": step_ms, "flash": flash,
+            "nccl": nccl, "peak": peak, "params": params, "eng": eng,
+            "state": state, "mesh": mesh}
+
+
+def ppc_phase(gpu: str, pp_ref: dict) -> dict:
+    """Phase 5n (module docstring): windows C1, C2, C3, C3R and C4 from
+    phase 5l's init and batches, and Cgen from C1's final state.  Returns
+    each window's flash launches."""
+    t0 = time.perf_counter()
+    runs = {}
+    gen = None
+    for name, axes, kw, schedule, remat in PPC_WINDOWS:
+        run = runs[name] = _ppc_window(name, axes, kw, schedule, remat,
+                                       pp_ref["init"], pp_ref["batches"])
+        eng, state, mesh = run.pop("eng"), run.pop("state"), run.pop("mesh")
+        try:
+            if name == "C1":
+                t1 = time.perf_counter()
+                tokens = eng.generate(state, pp_ref["prompts"], PP_NEW)
+                gen = {"ms": (time.perf_counter() - t1) * 1e3,
+                       "tokens": tokens}
+            # two steps a reading: five windows of ~0.2-0.4 s eager steps
+            run["busy"] = _eager_busy(eng, state, *eng.shard_batch(
+                *pp_ref["batches"][0]), steps=2)
+        finally:
+            del eng, state
+            mesh.close()
+            torch.cuda.empty_cache()
+    pg, p1 = pp_ref["PG"], pp_ref["P1"]
+
+    def same(run, ref) -> bool:
+        return run["losses"] == ref["losses"] and all(
+            torch.equal(run["params"][k], v) for k, v in ref["params"].items())
+
+    gates = {"C1 = PG": same(runs["C1"], pg), "C2 = P1": same(runs["C2"], p1),
+             "C3R = C3": same(runs["C3R"], runs["C3"]),
+             "C4 = C3": same(runs["C4"], runs["C3"]),
+             "Cgen = Pgen": bool(np.array_equal(gen["tokens"],
+                                                pp_ref["tokens"]))}
+    rel = abs(runs["C3"]["losses"][0] - pg["losses"][0]) / pg["losses"][0]
+    gates["C3 first loss"] = rel <= PPC_SP_RTOL
+    for label, run in runs.items():
+        p50 = float(np.median(run["step_ms"][1:]))
+        SEEN[f"ppc {label}"] = p50
+        per_step = {k: v / PP_STEPS for k, v in run["flash"].items() if v}
+        nccl = {k: v / PP_STEPS for k, v in run["nccl"].items() if v}
+        print(f"[ppc] {label} ({gpu}): losses "
+              f"{' '.join(repr(v) for v in run['losses'])}; step ms "
+              f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (p50 of "
+              f"steps 2-{PP_STEPS} {p50:.3f}); eager wall_ms="
+              f"{run['busy']['wall_ms']:.4f} busy_share="
+              f"{_fmt(run['busy']['busy_share'])}; peak memory above the "
+              f"window's entry {run['peak'] / 2**20:.1f} MiB; flash "
+              f"launches a step {json.dumps(per_step)}; NCCL calls and "
+              f"pipe shifts a step {json.dumps(nccl)}")
+    print(f"[ppc] Cgen ({gpu}): generate from C1's state, "
+          f"{len(gen['tokens'])} prompts of {PP_PROMPT} tokens + {PP_NEW} "
+          f"new, {gen['ms']:.1f} ms; C3's first loss "
+          f"{runs['C3']['losses'][0]!r} vs PG's {pg['losses'][0]!r} (rel "
+          f"{rel:.3e}, bound {PPC_SP_RTOL}); gates {json.dumps(gates)}")
+    assert all(gates.values()), gates
+    print(f"[ppc] phase 5n wall {time.perf_counter() - t0:.1f} s")
+    return {name: run["flash"] for name, run in runs.items()}
+
+
+def ppc_timing_phase(ppc: dict) -> list[dict]:
+    """The ring's block kernels at phase 5n's microbatch shape (B=2,
+    L=1024, H=8, D=64, the diagonal pairing, a key mask of ones): the
+    bf16 forward on ``tc`` and the f32 dQ and dK/dV on ``tc32`` that
+    ``flash_bwd_block`` runs, each held against its plain version on the
+    same inputs (bf16 out within the tc bound, lse within F32_TOL, dQ and
+    dK/dV within FLASH_GRAD_TOL) before it is timed beside its bound, the
+    plain version and SDPA.  Launches: C3's, C3R's and C4's."""
+    from torch.nn.attention import sdpa_kernel
+
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    b, lq, h = LM["batch"] // PP_MICRO, LM["seq"], LM["heads"]
+    d = LM["hidden"] // h
+    scale = d ** -0.5
+    mask = torch.ones(b, lq, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "distributed_tensorflow_tpu_torch/ops/csrc/"
+    rows = []
+    for name, kind, dtype, route in (
+            ("flash_fwd_block.ring_tc_pp", "fwd", torch.bfloat16, "tc"),
+            ("flash_bwd_block.dq_ring_tc32_pp", "dq", torch.float32, "tc32"),
+            ("flash_bwd_block.dkv_ring_tc32_pp", "dkv", torch.float32,
+             "tc32")):
+        q, k, v, do, _ = _flash_case(81, b=b, lq=lq, h=h, d=d, dtype=dtype)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        backend = _sdpa_backend(dtype)
+        with sdpa_kernel(backend):
+            lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True)  # noqa: E731
+            o = lib_fwd()
+            if kind == "fwd":
+                lib_ms = _device_ms(lib_fwd, label=f"ppc SDPA fwd {dtype}",
+                                    whole=True)
+        if kind == "fwd":
+            fn = lambda: fa.flash_fwd_block(  # noqa: E731
+                q, k, v, mask, scale=scale, causal=True)
+            got, got_lse = fn()
+            want, want_lse = fa._fwd_reference(q, k, v, mask, scale, True)
+            torch.testing.assert_close(got_lse, want_lse, msg=name,
+                                       **F32_TOL)
+            delta = (do.float() * want.float()).sum(-1).transpose(1, 2)
+            terms = fa._term_sums(q, k, v, mask, do, want_lse,
+                                  delta.contiguous(), scale, True)[0]
+            err, _ = _close_tc(name, got, want, terms)
+            plain_ms = _device_ms(
+                lambda: fa._fwd_reference(q, k, v, mask, scale, True),
+                iters=5, warmup=1, label="ppc plain fwd", whole=True)
+        else:
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+            lib_ms = _device_ms(lib_bwd, label=f"ppc SDPA bwd {dtype}",
+                                whole=True)
+            out, lse = fa._fwd_reference(q, k, v, mask, scale, True)
+            delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, mask, do, lse, delta, scale, True)
+            cuda_fn = fa._dq_cuda if kind == "dq" else fa._dkv_cuda
+            fn = lambda: cuda_fn(*args)  # noqa: E731
+            got = fn()
+            got = (got,) if kind == "dq" else got
+            plain = fa._bwd_reference(*args)
+            want = plain[:1] if kind == "dq" else plain[1:]
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, msg=name, **FLASH_GRAD_TOL)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            plain_ms = _device_ms(lambda: fa._bwd_reference(*args), iters=5,
+                                  warmup=1, label="ppc plain bwd",
+                                  whole=True)
+        ms = _device_ms(fn, label=f"ppc {name}", whole=True)
+        bound_ms, bound_by = _flash_bound_ms(
+            kind, q, k, True, None,
+            peak=TC32_FLOPS if route == "tc32" else None)
+        launches = sum(ppc[w][f"{kind}_{route}"] for w in ("C3", "C3R",
+                                                           "C4"))
+        assert launches > 0, name
+        rows.append({
+            "name": name, "route": "cuda", "variant": route,
+            "source": src + ("flash_attention_f32_sm90.cu" if route == "tc32"
+                             else "flash_attention_sm90.cu"),
+            "replaces": "distributed_tensorflow_tpu/ops/flash_attention.py:"
+                        + {"fwd": "170", "dq": "281", "dkv": "299"}[kind],
+            "shape": f"B={b} L={lq} H={h} D={d} "
+                     f"{str(dtype).split('.')[-1]} ring diagonal block",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "library_backend": backend.name})
+        print(f"[ppc] {name} ({route}) at the microbatch's block: device "
+              f"{ms:.5f} ms, plain {plain_ms:.5f}, SDPA {backend.name} "
+              f"{lib_ms:.5f}, bound {bound_ms:.6f} ({bound_by}), share "
+              f"{bound_ms / ms:.3f}, launches {launches}, max_abs_err "
+              f"{err:.3e}")
+    return rows
+
+
+def pp_timing_phase(pp: dict, ppc: dict) -> list[dict]:
     """Rows 1p-3p: the flash forward, dQ and dK/dV at phase 5l's
     microbatch shape (B=2, L=1024, H=8, D=64, causal, bf16, ``tc``),
     held against their plain versions and timed beside their bounds, the
     plain versions and SDPA; each row's launches are PG's, P1's and PR's
-    (every training launch of the phase is at this shape)."""
+    (every training launch of the phase is at this shape), and phase
+    5n's C1's and C2's (``launches_ppc``)."""
     h = LM["heads"]
     b = LM["batch"] // PP_MICRO
     case = _flash_case(49, b=b, lq=LM["seq"], h=h, d=LM["hidden"] // h,
@@ -5576,6 +5908,9 @@ def pp_timing_phase(pp: dict) -> list[dict]:
         kind = row["name"].rsplit(".", 1)[1].split("_")[0]
         row["launches"] = sum(pp[w][f"{kind}_tc"] for w in ("PG", "P1",
                                                             "PR"))
+        row["launches_ppc"] = sum(ppc[w][f"{kind}_tc"] for w in ("C1",
+                                                                 "C2"))
+        assert row["launches_ppc"] > 0, row["name"]
     return rows
 
 
@@ -5657,8 +5992,10 @@ def main() -> int:
     ckpt = ckpt_phase(gpu)
     codec = codec_phase(gpu)
     mp = mp_phase(gpu)
-    pp = pp_phase(gpu)
+    pp, pp_ref = pp_phase(gpu)
     comp = composite_phase(gpu, sp)
+    ppc = ppc_phase(gpu, pp_ref)
+    del pp_ref
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -5719,7 +6056,8 @@ def main() -> int:
                    "flash_bwd_block.dkv_ring_tc32": "dkv_tc32"}[row["name"]]
         row["launches_composite"] = sum(c[counter] for c in comp.values())
         assert row["launches_composite"] > 0, row["name"]
-    pp_rows = pp_timing_phase(pp)
+    pp_rows = pp_timing_phase(pp, ppc)
+    ppc_rows = ppc_timing_phase(ppc)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
@@ -5765,7 +6103,7 @@ def main() -> int:
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
                                   *bert_rows, *cli_lm_rows, *sp_rows,
-                                  *pp_rows]}))
+                                  *pp_rows, *ppc_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

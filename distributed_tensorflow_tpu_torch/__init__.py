@@ -31,7 +31,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ROADMAP Queue 1 item 8d's parts still to port: the titles not_ported
-# cites for them
+# cites for them (the pipeline composites' MoE stages: pp×ep, pp×ep×tp,
+# pp×ep×sp, pp×ep×tp×sp; then decode of a tensor-parallel model)
 PIPELINE_COMPOSITES = "remaining engines: pipeline composites"
 TP_DECODE = "remaining engines: TP decode"
 

@@ -42,10 +42,11 @@ dense attention), and under ``-m d -ds fsdp`` makes fsdp × tp; ``-pp P``
 pipelines the model over P of the ranks (a (data, pipe) mesh of (N / P,
 P) ranks, ``--microbatches``, ``--pipeline-schedule gpipe|1f1b``, and
 ``--pipeline-hidden`` the stages' width: the built-in MLP stages for
-``--model mlp``, the GPT's or BERT's stage families).  Two or three of
-``-tp``, ``-sp`` and ``-ep`` make a composite (``-tp × -sp``, ``-ep ×
--tp``, ``-ep × -sp``, ``-ep × -tp × -sp``: ``harness._COMBOS``); the
-pipeline's composites parse and raise.
+``--model mlp``, the GPT's or BERT's stage families).  Two or more of
+``-tp``, ``-sp``, ``-ep`` and ``-pp`` make a composite (``-tp × -sp``,
+``-ep × -tp``, ``-ep × -sp``, ``-ep × -tp × -sp``, ``-pp × -tp``, ``-pp
+× -sp``, ``-pp × -tp × -sp``: ``harness._COMBOS``); the pipeline's MoE
+composites (``-pp`` with ``-ep``) parse and raise.
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve

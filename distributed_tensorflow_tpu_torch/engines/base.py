@@ -42,8 +42,8 @@ An engine whose ranks hold slices of the parameters (FSDP, TP, EP) sets
 ``param_specs``: each parameter's layout over the mesh, by name, a tuple
 with the axis its slice is cut along at each sharded dim (None
 elsewhere; ``()`` replicated; for a leaf in ``stacked_params``, one
-entry more than its rank: the axis its slices stack over, then None per
-dim).  From it the base class writes a
+entry more than its rank: the axis its slices stack over, then its own
+layout, e.g. a pipeline stage's Megatron cut).  From it the base class writes a
 checkpoint of whole leaves (gathered, every rank calling it) and
 restores one by cutting each rank's slice, so a checkpoint does not
 depend on the layout (``full_state_dict``/``load_full_state_dict`` do
@@ -304,42 +304,47 @@ class Engine:
         """The whole leaf of which ``t`` (shaped like parameter ``name``'s
         slice) is this rank's slice: gathered along each sharded dim (a
         collective: every rank calls it); a stacked leaf's slices are
+        gathered along the dims its spec cuts after the first, then
         stacked along a new leading dim."""
-        if name in self.stacked_params:
-            axis = self._spec(name)[0]
-            if self.mesh.axis_size(axis) == 1:
-                return t.unsqueeze(0)
-            return coll.all_gather(t.contiguous(), self.mesh, axis=axis)
-        for dim, axis in spec_axes(self._spec(name)):
+        spec = self._spec(name)
+        stacked = name in self.stacked_params
+        for dim, axis in spec_axes(spec[1:] if stacked else spec):
             if self.mesh.axis_size(axis) > 1:
                 t = coll.all_gather(t.contiguous(), self.mesh, tiled=True,
                                     axis=axis, dim=dim)
-        return t
+        if not stacked:
+            return t
+        if self.mesh.axis_size(spec[0]) == 1:
+            return t.unsqueeze(0)
+        return coll.all_gather(t.contiguous(), self.mesh, axis=spec[0])
 
     def _part(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a whole leaf of parameter ``name`` (of a
         stacked leaf, its index along the leading dim, which must hold
-        one slice per rank of the axis)."""
+        one slice per rank of the axis, then cut like a leaf)."""
+        spec = self._spec(name)
         if name in self.stacked_params:
-            axis = self._spec(name)[0]
+            axis, spec = spec[0], spec[1:]
             n = self.mesh.axis_size(axis)
             if t.shape[0] != n:
                 raise ValueError(
                     f"{name} is stacked over {t.shape[0]} slices, this "
                     f"mesh's '{axis}' axis has {n} ranks")
-            return t[self.mesh.axis_index(axis)]
-        for dim, axis in spec_axes(self._spec(name)):
+            t = t[self.mesh.axis_index(axis)]
+        for dim, axis in spec_axes(spec):
             n = self.mesh.axis_size(axis)
             w = t.shape[dim] // n
             t = t.narrow(dim, self.mesh.axis_index(axis) * w, w)
         return t
 
     def _whole_shape(self, name: str, shape) -> tuple:
-        if name in self.stacked_params:
-            return (self.mesh.axis_size(self._spec(name)[0]), *shape)
+        spec = self._spec(name)
+        stacked = name in self.stacked_params
         shape = list(shape)
-        for dim, axis in spec_axes(self._spec(name)):
+        for dim, axis in spec_axes(spec[1:] if stacked else spec):
             shape[dim] *= self.mesh.axis_size(axis)
+        if stacked:
+            shape.insert(0, self.mesh.axis_size(spec[0]))
         return tuple(shape)
 
     def full_state_dict(self, state: TrainState) -> dict:

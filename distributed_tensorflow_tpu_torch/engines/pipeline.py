@@ -45,33 +45,60 @@ deterministic.  JAX's GPipe adds them in reverse (AD through the scan),
 its 1F1B forward; the port's parity with JAX is a tolerance.
 
 The loss of a microbatch is its mean cross-entropy, scaled by
-``1 / (M · n_data)`` (JAX ``pipeline.py:572``), so the sums below are the
-global-batch mean gradient.  After the schedule the block gradients are
-summed over 'data' in one all-reduce of a flat buffer; the embed and head
+``1 / (M · n_data · sp)`` (JAX ``pipeline.py:437-440, 572``), so the sums
+below are the global-batch mean gradient.  After the schedule the block
+gradients are summed over 'data' (and 'seq'); the embed and head
 gradients (nonzero on the first and last stage only) and the metrics
-(the summed microbatch losses and accuracies and their count) over every
-rank in another: the psum JAX's AD inserts at the replicated parameters'
-boundary.  ``loss`` and ``accuracy`` are the sums over the count.
+(the summed microbatch losses and accuracies and their count) over
+'data', 'pipe' (and 'seq'): the psum JAX's AD inserts at the replicated
+parameters' boundary.  On a (data, pipe) mesh these are one all-reduce
+over 'data' and one over every rank; on a composite mesh one per named
+axis larger than 1.  Nothing is summed over 'model', whose ranks hold the
+same tokens: a leaf cut over it holds its own slice's gradient, and a
+replicated one its whole gradient on every rank already.  ``loss`` and
+``accuracy`` are the sums over the count.
+
+The composites (JAX ``:166-170, 227-248, 789-800``): a 'model' axis
+(pp×tp) cuts each stage's Megatron layers (stages built with
+``partition_model``; ``models.layers.bind_model_mesh``), whose conjugate
+collectives run inside the stage's ticks; a 'seq' axis (pp×sp) shards
+the sequence: ``shard_batch`` gives each rank its token columns of a
+training batch, the carry is that token block, and the stages' ring or
+Ulysses attention runs over the 'seq' sub-group
+(``models.layers.bind_seq_mesh``).  The rank layouts are JAX's: (data,
+pipe, model), (data, pipe, seq) and (data, pipe, seq, model).  The
+'model' and 'seq' peers of a stage hold the same stage index, so they
+share its tick pattern: a bubble tick is skipped by all of them alike,
+and the collectives inside a stage meet.  The pipe shifts pair the ranks
+that share their (data, model, seq) coordinates.  1F1B with a 'seq' axis
+is refused in JAX's words (its XLA conditionals cannot hold the ring's
+collectives; the port keeps the refusal), so pp×sp runs GPipe, with or
+without remat.
 
 ``init_state`` draws the embed, then every stage's block whole from the
 seeded generator, keeping this rank's, then the head: a pipeline model
 is the sequential model under the same seed, whatever rank holds which
-stage.  Embed and head are replicated on every rank.  ``param_specs``
-marks each block leaf stacked over 'pipe' (``Engine.stacked_params``): a
-checkpoint holds it whole as JAX's ``params["blocks"]``, ``(S, ...)``,
-gathered over 'pipe' at save, and a restore takes this rank's stage (a
-checkpoint of another stage count raises, as JAX's restore does); the
-recipe's clip counts each stage's block once and embed and head once,
-as optax sees the stacked tree.
+stage.  Embed and head are replicated over 'pipe' (and 'seq').
+``param_specs`` marks each block leaf stacked over 'pipe'
+(``Engine.stacked_params``) and then cut as its layer cuts it over
+'model' (``tp_specs``): a checkpoint holds it whole as JAX's
+``params["blocks"]``, ``(S, ...)``, gathered at save, and a restore
+takes this rank's stage and slice (a checkpoint of another stage count
+raises, as JAX's restore does); the recipe's clip counts each stage's
+block once and embed and head once, as optax sees the stacked tree.
 
-``eval_params`` gathers every stage's block over 'pipe' once into
-``SequentialStages``, the un-pipelined model (JAX ``_sequential_logits``),
-which ``evaluate`` runs on each rank's data shard (the totals summed over
-'data') and ``generate`` decodes with.  The steps are eager: no CUDA
-graph, the Adam not capturable (``Engine.many_step``'s loop).
+``eval_params`` gathers every leaf whole (over 'pipe' and 'model') into
+``SequentialStages`` of the stages' unbound twins (``unbound()``; JAX
+``_oracle_stages``): no Megatron cut, no ``seq_axis``, and the
+whole-sequence attention of a ring or Ulysses stage (``ring_flash`` and
+``ulysses_flash`` keep the flash kernels; JAX's twin is dense
+attention).  ``evaluate`` runs it on each rank's rows, whole sequences
+(the totals summed over 'data'), and ``generate`` decodes with it.  The
+steps are eager: no CUDA graph, the Adam not capturable
+(``Engine.many_step``'s loop).
 
-Not ported here: the mesh axes 'model', 'seq' and 'expert' (the pp×tp,
-pp×sp and pp×ep composites) raise ``NotImplementedError``.
+Not ported here: the mesh axis 'expert' (the pp×ep composites) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -87,9 +114,12 @@ from distributed_tensorflow_tpu_torch import PIPELINE_COMPOSITES, not_ported
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
 from distributed_tensorflow_tpu_torch.models.layers import (
-    LN_EPS, dense, flax_init_, layer_norm)
+    LN_EPS, bind_model_mesh, bind_seq_mesh, dense, flax_init_, layer_norm,
+    tp_specs)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
+    SEQ_PARALLEL)
 
 
 class PipelineEmbed(nn.Module):
@@ -182,12 +212,17 @@ class PipelineStages(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         flax_init_(self.embed, generator)
-        scratch = (copy.deepcopy(self.block) if self.n_stages > 1
-                   else None)
+        kept = None
         for s in range(self.n_stages):
-            flax_init_(self.block if s == self.stage else scratch,
-                       generator)
-        del scratch
+            # every stage's draw lands in this rank's block, whose own is
+            # put back after (a bound block cannot be copied: its mesh
+            # holds process groups)
+            flax_init_(self.block, generator)
+            if s == self.stage and s < self.n_stages - 1:
+                kept = {k: v.clone()
+                        for k, v in self.block.state_dict().items()}
+        if kept is not None:
+            self.block.load_state_dict(kept)
         flax_init_(self.head, generator)
         return self
 
@@ -233,19 +268,19 @@ def _backward(out, grads) -> None:
 
 
 class PipelineEngine(Engine):
-    """data × pipe parallel training of an embed → S blocks → head model
-    (module docstring).
+    """data × pipe parallel training of an embed → S blocks → head model,
+    with 'model' and 'seq' inside the stages (module docstring).
 
-    ``mesh`` must have the axes ('data', 'pipe'); the stage count S is the
-    pipe axis's size.  ``microbatches`` (M) must divide the per-data-shard
-    batch.  ``stages`` plugs in (embed, block, head) modules —
-    ``models.gpt.gpt_pipeline_stages``, ``models.bert.bert_pipeline_stages``
-    — whose contract is JAX's: ``block(carry) -> carry`` with the carry
-    ``embed(x)`` returns (a tensor or a tuple of them), one parameter
-    structure for every stage, and no dropout; without it the built-in MLP
-    stages of ``hidden`` and ``expansion``.  ``schedule`` is 'gpipe' or
-    '1f1b'; ``remat`` applies to 'gpipe' (1F1B recomputes by
-    construction)."""
+    ``mesh`` must have the axes ('data', 'pipe'), and may add 'model' and
+    'seq'; the stage count S is the pipe axis's size.  ``microbatches``
+    (M) must divide the per-data-shard batch.  ``stages`` plugs in
+    (embed, block, head) modules — ``models.gpt.gpt_pipeline_stages``,
+    ``models.bert.bert_pipeline_stages`` — whose contract is JAX's:
+    ``block(carry) -> carry`` with the carry ``embed(x)`` returns (a
+    tensor or a tuple of them), one parameter structure for every stage,
+    and no dropout; without it the built-in MLP stages of ``hidden`` and
+    ``expansion``.  ``schedule`` is 'gpipe' or '1f1b'; ``remat`` applies
+    to 'gpipe' (1F1B recomputes by construction)."""
 
     def __init__(self, num_classes: int = 10, hidden: int = 128,
                  microbatches: int = 4, optimizer=None, mesh=None,
@@ -265,12 +300,16 @@ class PipelineEngine(Engine):
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown schedule '{schedule}'; "
                              f"choose 'gpipe' or '1f1b'")
-        composite = sorted(set(mesh.axis_names) - {meshlib.DATA_AXIS,
-                                                   meshlib.PIPE_AXIS})
-        if composite:
-            not_ported(f"PipelineEngine over a mesh with {composite} (the "
-                       f"pipeline's composites)",
-                       PIPELINE_COMPOSITES)
+        self.sp_n = mesh.shape.get(meshlib.SEQ_AXIS, 1)
+        if self.sp_n > 1 and schedule == "1f1b":
+            # JAX pipeline.py:238-248
+            raise ValueError(
+                "schedule='1f1b' does not compose with a 'seq' mesh axis "
+                "(ring collectives cannot live inside the schedule's "
+                "conditionals); use schedule='gpipe' for pp×sp")
+        if meshlib.EXPERT_AXIS in mesh.axis_names:
+            not_ported("PipelineEngine over a mesh with an 'expert' axis "
+                       "(the pp×ep composites)", PIPELINE_COMPOSITES)
         if microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {microbatches}")
         self.schedule = schedule
@@ -295,29 +334,92 @@ class PipelineEngine(Engine):
                         f"backward pass; {type(mod).__name__} has "
                         f"dropout_rate {mod.dropout_rate}")
         self.moe = getattr(self.block, "moe_experts", 0) > 0
+        self._bind(mesh, stages)
         model = PipelineStages(self.embed, self.block, self.head,
                                self.n_stages, self.stage)
         super().__init__(model, optimizer=optimizer, mesh=mesh,
                          learning_rate=learning_rate, device=device)
         self.stacked_params = model.stacked_params
+        cut = tp_specs(model)
         self.param_specs = {
-            n: (meshlib.PIPE_AXIS,) + (None,) * p.dim()
-            for n, p in model.named_parameters() if n in self.stacked_params}
+            n: ((meshlib.PIPE_AXIS,) + (cut[n] or (None,) * p.dim())
+                if n in self.stacked_params else cut[n])
+            for n, p in model.named_parameters()
+            if n in self.stacked_params or cut[n]}
+        names = mesh.axis_names
+        if set(names) == {meshlib.DATA_AXIS, meshlib.PIPE_AXIS}:
+            # one all-reduce each: 'data', and every rank
+            self._block_axes, self._edge_axes = meshlib.DATA_AXIS, None
+        else:
+            self._block_axes = tuple(a for a in names if a in (
+                meshlib.DATA_AXIS, meshlib.SEQ_AXIS))
+            self._edge_axes = tuple(a for a in names if a in (
+                meshlib.DATA_AXIS, meshlib.PIPE_AXIS, meshlib.SEQ_AXIS))
         self._carry_specs: dict = {}
+
+    def _bind(self, mesh, stages) -> None:
+        """Give the stages the mesh, as ``CompositeEngine`` binds a model:
+        its 'model' axis to the Megatron layers, its 'seq' axis to a
+        sequence-parallel block's attention and to the embed's and
+        block's positions."""
+        if meshlib.MODEL_AXIS in mesh.axis_names:
+            for part in stages:
+                bind_model_mesh(part, mesh)
+        impl = getattr(self.block, "attention_impl", "dense")
+        if impl in SEQ_PARALLEL:
+            if meshlib.SEQ_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"attention_impl '{impl}' runs over a 'seq' mesh axis "
+                    f"(size 1 is fine); this mesh has {mesh.axis_names}")
+            for part in stages:
+                bind_seq_mesh(part, mesh)
+        elif self.sp_n > 1:
+            raise ValueError(
+                f"seq axis size {self.sp_n} needs stages with a seq_axis "
+                f"and attention_impl 'ring', 'ring_flash', 'ulysses' or "
+                f"'ulysses_flash', got '{impl}'")
+
+    # ------------------------------------------------------------- batches
+    def shard_batch(self, x, y, mask=None, process_local: bool = False):
+        """This rank's rows (by data index) and, when 'seq' > 1, token
+        columns (by seq index) of a training batch (JAX ``:309-326``); an
+        LM's (B, L) labels are cut like the inputs.  An evaluation batch
+        (``mask`` given) keeps whole sequences: ``evaluate`` runs the
+        unbound twins."""
+        if self.sp_n > 1:
+            if x.ndim < 2 or x.shape[1] % self.sp_n:
+                raise ValueError(
+                    f"pp×sp needs (batch, seq, ...) input with seq "
+                    f"divisible by the seq axis size {self.sp_n}, got "
+                    f"shape {x.shape}")
+            if mask is None:
+                c = x.shape[1] // self.sp_n
+                i = self.mesh.axis_index(meshlib.SEQ_AXIS)
+                x = x[:, i * c:(i + 1) * c]
+                if y.ndim >= 2:
+                    y = y[:, i * c:(i + 1) * c]
+        return super().shard_batch(x, y, mask, process_local)
 
     # ------------------------------------------------------------- carries
     def _carry_spec(self, x):
         """The carry ``embed`` makes of a microbatch like ``x``: its kind
         (None for a tensor, else the tuple type) and each tensor's (shape,
         dtype), which the shifts send as zeros where a rank has nothing
-        (cached per input shape)."""
+        (cached per input shape).  The GPT and BERT embeds say it without
+        running (their bound lookup is a collective); another embed runs
+        once."""
         key = (tuple(x.shape), x.dtype)
         if key not in self._carry_specs:
-            with torch.no_grad():
-                carry = self.embed(x)
-            kind = type(carry) if isinstance(carry, (tuple, list)) else None
-            self._carry_specs[key] = (kind, [(t.shape, t.dtype)
-                                             for t in _parts(carry)])
+            probe = getattr(self.embed, "carry_spec", None)
+            if probe is not None:
+                self._carry_specs[key] = probe(x)
+            else:
+                with torch.no_grad():
+                    carry = self.embed(x)
+                kind = (type(carry) if isinstance(carry, (tuple, list))
+                        else None)
+                self._carry_specs[key] = (kind, [(t.shape, t.dtype)
+                                                 for t in _parts(carry)])
         return self._carry_specs[key]
 
     def _zero_carry(self, spec):
@@ -448,7 +550,7 @@ class PipelineEngine(Engine):
             raise ValueError(f"per-data-shard batch {x.shape[0]} not "
                              f"divisible by microbatches {M}")
         xs, ys = x.chunk(M), y.chunk(M)
-        scale = 1.0 / (M * self.n_devices)
+        scale = 1.0 / (M * self.n_devices * self.sp_n)
         state.optimizer.zero_grad(set_to_none=True)
         # the last stage's summed microbatch losses, accuracies and count
         sums = torch.zeros(3, device=self.device)
@@ -458,10 +560,10 @@ class PipelineEngine(Engine):
             self._gpipe(xs, ys, scale, sums)
         model = state.model
         all_reduce_grads_(list(model.block.parameters()), self.mesh,
-                          axis=meshlib.DATA_AXIS)
+                          axis=self._block_axes)
         sums = all_reduce_grads_(
             list(model.embed.parameters()) + list(model.head.parameters()),
-            self.mesh, sums)
+            self.mesh, sums, axis=self._edge_axes)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": sums[0] / sums[2],
@@ -470,28 +572,26 @@ class PipelineEngine(Engine):
     # ---------------------------------------------------------------- eval
     @torch.no_grad()
     def eval_params(self, state: TrainState) -> SequentialStages:
-        """The sequential model of every stage: each stage's block
-        gathered over 'pipe' in one all-gather (every rank calls it), this
-        rank's the live one, embed and head the live ones."""
+        """The sequential model of every stage: each leaf gathered whole
+        (``full_state_dict``: a collective, every rank calls it) into the
+        stages' unbound twins (module docstring); the MLP stages, which
+        no mesh binds, are copied."""
+        from distributed_tensorflow_tpu_torch.models.convert import (
+            unstacked_state_dicts)
+
+        embed, blocks, head = unstacked_state_dicts(
+            self.full_state_dict(state))
+
+        def twin(part, sd):
+            out = (part.unbound() if hasattr(part, "unbound")
+                   else copy.deepcopy(part))
+            out.load_state_dict(sd)
+            return out
+
         model = state.model
-        blocks = [model.block]
-        if self.n_stages > 1:
-            params = list(model.block.parameters())
-            flat = torch.cat([p.detach().reshape(-1) for p in params])
-            rows = coll.all_gather(flat, self.mesh, axis=meshlib.PIPE_AXIS)
-            blocks = []
-            for s in range(self.n_stages):
-                if s == self.stage:
-                    blocks.append(model.block)
-                    continue
-                block = copy.deepcopy(model.block)
-                off = 0
-                for p in block.parameters():
-                    p.grad = None
-                    p.copy_(rows[s, off:off + p.numel()].view_as(p))
-                    off += p.numel()
-                blocks.append(block)
-        return SequentialStages(model.embed, blocks, model.head)
+        return SequentialStages(twin(model.embed, embed),
+                                [twin(model.block, b) for b in blocks],
+                                twin(model.head, head))
 
     def _sequential_logits(self, model: SequentialStages, x):
         """The un-pipelined forward (``eval_params``' model): embed, every

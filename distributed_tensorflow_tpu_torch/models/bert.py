@@ -50,7 +50,9 @@ mask and keeps this rank's heads.
 ``bert_pipeline_stages`` (``BertPipeEmbed``, ``BertPipeBlock``,
 ``BertPipeHead``) splits the encoder for ``engines.pipeline``: the
 embeddings, ``layers_per_stage`` dropout-free dense-attention layers a
-stage over the carry ``(hidden, pad_mask)``, and the ``[CLS]`` pooler.
+stage over the carry ``(hidden, pad_mask)``, and the ``[CLS]`` pooler;
+with ``partition_model`` (pp×tp) the embed and layers take the Megatron
+layout and the pooler stays whole.
 
 Under ``CompositeEngine`` the Megatron layers carry ring or Ulysses
 attention over 'seq' on the rank's local heads (Ulysses needs them to
@@ -58,8 +60,8 @@ split over the 'seq' axis), and ``partition_experts`` (with
 ``partition_model``, the 2-D layout) lets the engine cut the MoE layers'
 experts (``models.moe.shard_experts``).
 
-Not ported here (each raises ``NotImplementedError``): the stages'
-``partition_model`` and ``moe_experts`` (the pipeline's composites).
+Not ported here (raises ``NotImplementedError``): the stages'
+``moe_experts`` (the pipeline's MoE composites).
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ from distributed_tensorflow_tpu_torch import (
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     check_divisible, dense as _dense, dropout as _dropout, flax_init_,
-    layer_norm as _layer_norm, remat as _remat, sharded_dropout)
+    layer_norm as _layer_norm, remat as _remat, sharded_dropout,
+    unbound_kw)
 from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
@@ -338,25 +341,40 @@ class BertTinyClassifier(nn.Module):
 # TransformerLayers → the [CLS] pooler.  The carry is ``(hidden,
 # pad_mask)``: later stages never see the token ids, so the mask travels
 # with the activations.  No dropout (the schedules run a stage again in
-# the backward pass).
+# the backward pass).  ``partition_model`` (pp×tp) is the Megatron layout
+# of the embed and the layers; the pooler stays whole, as in JAX.
 # --------------------------------------------------------------------------
 
 
 class BertPipeEmbed(nn.Module):
     """Input stage: token + position embeddings → LayerNorm, and
     ``pad_mask = ids > 0`` in ``dtype``: the carry ``(hidden,
-    pad_mask)``."""
+    pad_mask)``.  ``partition_model``: a vocab-parallel token table."""
 
     def __init__(self, vocab_size: int = 8192, hidden: int = 128,
-                 max_len: int = 512, dtype=torch.float32, device=None):
+                 max_len: int = 512, dtype=torch.float32, device=None,
+                 partition_model: bool = False):
         super().__init__()
         device = resolve_device(device)
-        self.max_len, self.dtype = max_len, dtype
+        self._kw = dict(vocab_size=vocab_size, hidden=hidden,
+                        max_len=max_len, dtype=dtype, device=device,
+                        partition_model=partition_model)
+        self.hidden, self.max_len, self.dtype = hidden, max_len, dtype
         self.embeddings = BertEmbeddings(vocab_size, hidden, max_len, dtype,
-                                         device)
+                                         device, partition_model)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
+
+    def carry_spec(self, x):
+        """The carry of ``x`` without running the embed (whose bound
+        lookup is a collective)."""
+        b, lq = x.shape[:2]
+        return tuple, [((b, lq, self.hidden), self.dtype),
+                       ((b, lq), self.dtype)]
+
+    def unbound(self) -> "BertPipeEmbed":
+        return type(self)(**unbound_kw(self._kw))
 
     def forward(self, token_ids):
         lq = token_ids.shape[1]
@@ -370,23 +388,31 @@ class BertPipeEmbed(nn.Module):
 
 class BertPipeBlock(nn.Module):
     """One pipeline stage: ``layers_per_stage`` post-LN transformer layers
-    with dense attention and dropout 0, over ``(hidden, pad_mask)``."""
+    with dense attention and dropout 0, over ``(hidden, pad_mask)``;
+    ``partition_model``: the Megatron attention and FFN."""
 
     dropout_rate = 0.0
 
     def __init__(self, hidden: int = 128, heads: int = 2, ffn: int = 512,
                  layers_per_stage: int = 1, dtype=torch.float32,
-                 device=None):
+                 device=None, partition_model: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self._kw = dict(hidden=hidden, heads=heads, ffn=ffn,
+                        layers_per_stage=layers_per_stage, dtype=dtype,
+                        device=device, partition_model=partition_model)
         self.hidden, self.heads, self.ffn = hidden, heads, ffn
         self.layers_per_stage, self.dtype = layers_per_stage, dtype
         self.layers = nn.ModuleList(
-            TransformerLayer(hidden, heads, ffn, 0.0, "dense", dtype, device)
+            TransformerLayer(hidden, heads, ffn, 0.0, "dense", dtype, device,
+                             partition_model=partition_model)
             for _ in range(layers_per_stage))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
+
+    def unbound(self) -> "BertPipeBlock":
+        return type(self)(**unbound_kw(self._kw))
 
     def forward(self, carry):
         x, pad_mask = carry
@@ -402,10 +428,15 @@ class BertPipeHead(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         device = resolve_device(device)
+        self._kw = dict(num_classes=num_classes, hidden=hidden, dtype=dtype,
+                        device=device)
         self.pooler = BertPooler(num_classes, hidden, dtype, device)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
+
+    def unbound(self) -> "BertPipeHead":
+        return type(self)(**self._kw)
 
     def forward(self, carry):
         return self.pooler(carry[0][:, 0])
@@ -420,17 +451,18 @@ def bert_pipeline_stages(num_classes: int = 2, vocab_size: int = 8192,
                          partition_experts: bool = False, device=None):
     """(embed, block, head) for ``PipelineEngine(stages=...)``: a BERT
     encoder of depth ``pipe size × layers_per_stage`` (JAX
-    ``bert_pipeline_stages``).  ``partition_model`` and ``moe_experts``
-    belong to the composites and raise ``NotImplementedError``."""
+    ``bert_pipeline_stages``).  ``partition_model`` adds the Megatron
+    layout for pp×tp; ``moe_experts`` belongs to the MoE composites and
+    raises ``NotImplementedError``."""
     from distributed_tensorflow_tpu_torch.models.gpt import (
         _reject_stage_composites)
 
-    _reject_stage_composites(partition_model, moe_experts=moe_experts,
-                             partition_experts=partition_experts)
+    _reject_stage_composites(moe_experts, partition_experts)
     if isinstance(dtype, str):
         from distributed_tensorflow_tpu_torch.models import resolve_dtype
         dtype = resolve_dtype(dtype)
-    return (BertPipeEmbed(vocab_size, hidden, max_len, dtype, device),
+    return (BertPipeEmbed(vocab_size, hidden, max_len, dtype, device,
+                          partition_model),
             BertPipeBlock(hidden, heads, ffn, layers_per_stage, dtype,
-                          device),
+                          device, partition_model),
             BertPipeHead(num_classes, hidden, dtype, device))

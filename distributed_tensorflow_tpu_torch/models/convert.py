@@ -314,12 +314,17 @@ def _stage(family: str, part: str, tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def pipeline_state_dicts(params: dict) -> tuple[dict, list[dict], dict]:
+def pipeline_state_dicts(params: dict, specs: dict | None = None,
+                         tp: int = 1, rank: int = 0
+                         ) -> tuple[dict, list[dict], dict]:
     """JAX ``PipelineEngine`` params ``{"embed", "blocks", "head"}`` (the
     blocks' leaves stacked over a leading stage dim) → the port's stage
     modules' state_dicts: (embed, one per stage, head).  The family (the
     built-in MLP stages, the GPT or the BERT stages) is read from the
-    embed's tree."""
+    embed's tree.  With ``specs`` (a ``PipelineEngine``'s
+    ``param_specs``), each stage is cut to tensor-parallel rank ``rank``
+    of ``tp`` (``tp_shard_state_dict``; a block leaf's layout after its
+    'pipe' entry)."""
     family = _family(params["embed"])
     n = {np.shape(a)[0] for a in _flat(params["blocks"])}
     if len(n) != 1:
@@ -330,8 +335,18 @@ def pipeline_state_dicts(params: dict) -> tuple[dict, list[dict], dict]:
                      _map_tree(lambda a, s=s: np.asarray(a)[s],
                                params["blocks"]))
               for s in range(stages)]
-    return (_stage(family, "embed", params["embed"]), blocks,
-            _stage(family, "head", params["head"]))
+    out = (_stage(family, "embed", params["embed"]), blocks,
+           _stage(family, "head", params["head"]))
+    if not specs:
+        return out
+
+    def cut(part: str, sd: dict) -> dict:
+        own = {k[len(part) + 1:]: v[1:] if part == "block" else v
+               for k, v in specs.items() if k.startswith(f"{part}.")}
+        return tp_shard_state_dict(sd, own, tp, rank)
+
+    return (cut("embed", out[0]), [cut("block", b) for b in out[1]],
+            cut("head", out[2]))
 
 
 def stacked_state_dict(embed: dict, blocks: list[dict],

@@ -101,12 +101,17 @@ the 'seq' axis).
 ``GPTPipeHead``) splits the decoder for ``engines.pipeline``: token (and
 learned position) embeddings, ``layers_per_stage`` dropout-free blocks a
 stage (dense or flash attention, RoPE rotated inside each block), and a
-final LN with an untied head.
+final LN with an untied head.  ``partition_model`` (pp×tp) gives them
+the Megatron layout (a vocab-parallel token table, the blocks' layers,
+a vocab-column-parallel head whose logits are gathered whole); a
+``seq_axis`` with ring or Ulysses attention (pp×sp) makes the carry this
+rank's token block, its positions global.  ``unbound()`` builds a
+stage's whole twin without a mesh, which ``PipelineEngine.eval_params``
+evaluates and decodes with.
 
 Not ported here (each raises ``NotImplementedError``): decode of a bound
 tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode),
-and the stages' ``partition_model``, ``seq_axis`` and ``moe_experts``
-(the pipeline's composites).
+and the stages' ``moe_experts`` (the pipeline's MoE composites).
 """
 
 from __future__ import annotations
@@ -120,11 +125,12 @@ from distributed_tensorflow_tpu_torch import (
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     check_divisible, dense as _dense, dropout as _dropout, flax_init_,
-    layer_norm as _layer_norm, remat as _remat)
+    layer_norm as _layer_norm, remat as _remat, unbound_kw)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
+from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     SEQ_PARALLEL, block_span, dense_attention, seq_parallel_attention)
 
@@ -777,88 +783,147 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
 # embedding moved to the last stage every step).  The stages hold no
 # dropout: the schedules run a stage again in the backward pass (1F1B's
 # recompute, GPipe's remat), which must see the forward's values.
+# ``partition_model`` lays the stages out as JAX's Megatron annotations do
+# (pp×tp); ``seq_axis`` with a sequence-parallel ``attention_impl`` makes
+# the carry this rank's token block of the sequence (pp×sp).  The engine
+# binds its mesh (``bind_model_mesh``, ``bind_seq_mesh``).
 # --------------------------------------------------------------------------
 
 
-def _reject_stage_composites(partition_model: bool = False,
-                             seq_axis: str | None = None,
-                             attention_impl: str = "dense",
-                             moe_experts: int = 0,
+def _reject_stage_composites(moe_experts: int = 0,
                              partition_experts: bool = False) -> None:
-    """The stage options that belong to the pipeline's composites (JAX
-    pp×tp, pp×sp, pp×ep) raise ``not_ported``."""
-    if partition_model:
-        not_ported("partition_model pipeline stages (the pp×tp composite)",
-                   PIPELINE_COMPOSITES)
-    if seq_axis is not None or attention_impl in SEQ_PARALLEL:
-        not_ported("sequence-parallel pipeline stages (the pp×sp "
-                   "composite)", PIPELINE_COMPOSITES)
+    """MoE stage blocks belong to the pipeline's MoE composites (JAX
+    pp×ep) and raise ``not_ported``."""
     if moe_experts > 0 or partition_experts:
         not_ported("MoE pipeline stages (the pp×ep composite)",
                    PIPELINE_COMPOSITES)
 
 
+def _seq_offset(module, lq: int) -> int:
+    """The global position of this rank's first token under a stage's
+    ``seq_axis``: ``seq index × lq`` on the mesh the engine bound."""
+    if module.seq_mesh is None:
+        raise ValueError(
+            f"{type(module).__name__} with seq_axis={module.seq_axis!r} "
+            f"takes this rank's token block of a sequence sharded over the "
+            f"mesh's 'seq' axis, and has no mesh bound: train it with "
+            f"PipelineEngine, which binds its mesh")
+    return module.seq_mesh.axis_index(SEQ_AXIS) * lq
+
+
 class GPTPipeEmbed(nn.Module):
     """Input stage: token (+ learned position) embeddings in ``dtype``;
-    under RoPE there is no position table (each block rotates q and k)."""
+    under RoPE there is no position table (each block rotates q and k).
+    ``partition_model``: a vocab-parallel token table (JAX ``(MODEL,
+    None)``).  ``seq_axis`` (pp×sp): the input is this rank's token block,
+    whose learned positions start at ``seq index × lq`` (JAX
+    ``gpt.py:951-966``)."""
+
+    seq_mesh = None   # the mesh of a sequence-parallel stage (bind_seq_mesh)
 
     def __init__(self, vocab_size: int = 256, hidden: int = 128,
                  max_len: int = 512, rope: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 partition_model: bool = False, seq_axis: str | None = None):
         super().__init__()
         device = resolve_device(device)
+        self._kw = dict(vocab_size=vocab_size, hidden=hidden,
+                        max_len=max_len, rope=rope, dtype=dtype,
+                        device=device, partition_model=partition_model,
+                        seq_axis=seq_axis)
         self.vocab_size, self.hidden, self.max_len = vocab_size, hidden, max_len
-        self.rope, self.dtype = rope, dtype
-        self.token_embed = nn.Embedding(vocab_size, hidden, device=device)
+        self.rope, self.dtype, self.seq_axis = rope, dtype, seq_axis
+        self.token_embed = (VocabParallelEmbedding if partition_model
+                            else nn.Embedding)(vocab_size, hidden,
+                                               device=device)
         self.pos_embed = (None if rope
                           else nn.Embedding(max_len, hidden, device=device))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
 
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        if isinstance(self.token_embed, VocabParallelEmbedding):
+            self.token_embed.bind(mesh, f"{prefix}.token_embed".lstrip("."))
+
+    def carry_spec(self, x):
+        """The carry of ``x`` without running the embed (whose bound
+        lookup is a collective): a (B, L, hidden) tensor in ``dtype``."""
+        return None, [((x.shape[0], x.shape[1], self.hidden), self.dtype)]
+
+    def unbound(self) -> "GPTPipeEmbed":
+        return type(self)(**unbound_kw(self._kw))
+
     def forward(self, token_ids):
         lq = token_ids.shape[1]
-        if lq > self.max_len:
+        sp = self.seq_mesh.axis_size(SEQ_AXIS) if self.seq_axis and \
+            self.seq_mesh is not None else 1
+        if lq * sp > self.max_len:
             raise ValueError(
-                f"sequence length {lq} exceeds max_len={self.max_len}")
+                f"sequence length {lq * sp} exceeds max_len={self.max_len}")
         x = self.token_embed(token_ids.long()).to(self.dtype)
         if self.pos_embed is None:
             return x
-        pos = torch.arange(lq, device=token_ids.device)[None, :]
+        offset = _seq_offset(self, lq) if self.seq_axis else 0
+        pos = offset + torch.arange(lq, device=token_ids.device)[None, :]
         return x + self.pos_embed(pos).to(self.dtype)
 
 
 class GPTPipeBlock(nn.Module):
     """One pipeline stage: ``layers_per_stage`` pre-LN decoder blocks
-    (``GPTBlock``, dropout 0) over whole sequences; under RoPE the
-    positions are ``arange(L)``."""
+    (``GPTBlock``, dropout 0).  Without a ``seq_axis`` the carry holds
+    whole sequences and RoPE positions are ``arange(L)``; with one
+    (pp×sp) it is this rank's token block, attended by a
+    sequence-parallel ``attention_impl`` over the bound mesh's 'seq'
+    axis, with RoPE positions offset to global.  ``partition_model``: the
+    Megatron attention and FFN."""
 
     dropout_rate = 0.0
+    seq_mesh = None   # the mesh of a sequence-parallel stage (bind_seq_mesh)
 
     def __init__(self, hidden: int = 128, heads: int = 4, ffn: int = 512,
                  layers_per_stage: int = 1, rope: bool = False,
                  kv_heads: int | None = None, attention_impl: str = "dense",
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 partition_model: bool = False, seq_axis: str | None = None):
         super().__init__()
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}' "
-                             f"for pipeline stages; dense | flash")
+                             f"for pipeline stages; dense | flash, or one "
+                             f"of {tuple(SEQ_PARALLEL)}")
+        if seq_axis and attention_impl == "dense":
+            # JAX gpt.py:999-1004
+            raise ValueError(
+                "seq_axis set but attention_impl is 'dense' — dense "
+                "attention on a seq-sharded carry attends within local "
+                "blocks only; use ring/ring_flash/ulysses")
         device = resolve_device(device)
+        self._kw = dict(hidden=hidden, heads=heads, ffn=ffn,
+                        layers_per_stage=layers_per_stage, rope=rope,
+                        kv_heads=kv_heads, attention_impl=attention_impl,
+                        dtype=dtype, device=device,
+                        partition_model=partition_model, seq_axis=seq_axis)
         self.hidden, self.heads, self.ffn = hidden, heads, ffn
         self.layers_per_stage, self.rope = layers_per_stage, rope
         self.kv_heads, self.attention_impl = kv_heads, attention_impl
-        self.dtype = dtype
+        self.dtype, self.seq_axis = dtype, seq_axis
         self.layers = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, 0.0, rope, kv_heads, dtype, device,
-                     attention_impl)
+                     attention_impl, partition_model=partition_model)
             for _ in range(layers_per_stage))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
 
+    def unbound(self) -> "GPTPipeBlock":
+        return type(self)(**unbound_kw(self._kw))
+
     def forward(self, x):
-        pos = (torch.arange(x.shape[1], device=x.device)[None, :]
-               if self.rope else None)
+        pos = None
+        if self.rope:
+            lq = x.shape[1]
+            offset = _seq_offset(self, lq) if self.seq_axis else 0
+            pos = offset + torch.arange(lq, device=x.device)[None, :]
         for layer in self.layers:
             x = layer(x, False, pos)
         return x
@@ -866,22 +931,46 @@ class GPTPipeBlock(nn.Module):
 
 class GPTPipeHead(nn.Module):
     """Output stage: final LN → untied LM head in ``dtype``, logits in
-    f32."""
+    f32.  ``partition_model``: the head's vocabulary columns cut over
+    'model' (JAX kernel ``(None, MODEL)``) and all-gathered, so the loss
+    runs on whole logits.  The bias is cut with its columns: each rank's
+    rides in its GEMM, so at tp = 1 the head is the plain one bitwise
+    (JAX leaves it whole; a checkpoint holds it whole either way)."""
+
+    tp_mesh = None    # the mesh of a tensor-parallel head (bind_tp)
 
     def __init__(self, vocab_size: int = 256, hidden: int = 128,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 partition_model: bool = False):
         super().__init__()
         device = resolve_device(device)
+        self._kw = dict(vocab_size=vocab_size, hidden=hidden, dtype=dtype,
+                        device=device, partition_model=partition_model)
         self.vocab_size, self.dtype = vocab_size, dtype
         self.ln_f = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.lm_head = nn.Linear(hidden, vocab_size, device=device)
+        self.lm_head = (ColumnParallelLinear if partition_model
+                        else nn.Linear)(hidden, vocab_size, device=device)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         return flax_init_(self, generator)
 
+    def bind_tp(self, mesh, prefix: str = "") -> None:
+        if isinstance(self.lm_head, ColumnParallelLinear) and \
+                self.tp_mesh is None:
+            self.lm_head.bind(mesh, f"{prefix}.lm_head".lstrip("."))
+            self.tp_mesh = mesh
+
+    def unbound(self) -> "GPTPipeHead":
+        return type(self)(**unbound_kw(self._kw))
+
     def forward(self, x):
         x = _layer_norm(self.ln_f, x, self.dtype)
-        return _dense(self.lm_head, x, self.dtype).float()
+        if self.tp_mesh is None:
+            return _dense(self.lm_head, x, self.dtype).float()
+        mesh = self.tp_mesh
+        return coll.gather_from_model(
+            self.lm_head(coll.copy_to_model(x, mesh), self.dtype),
+            mesh).float()
 
 
 def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
@@ -899,12 +988,12 @@ def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
     """(embed, block, head) for ``PipelineEngine(stages=...)``: a GPT
     decoder of depth ``pipe size × layers_per_stage`` (JAX
     ``gpt_pipeline_stages``).  ``num_classes`` is an alias of
-    ``vocab_size`` (the harness passes it).  ``partition_model``,
-    ``seq_axis`` or a sequence-parallel ``attention_impl``, and
-    ``moe_experts`` belong to the composites and raise
+    ``vocab_size`` (the harness passes it).  ``partition_model`` adds the
+    Megatron layout for pp×tp; ``attention_impl='ring'`` (etc.) with
+    ``seq_axis='seq'`` makes the stages sequence-parallel for pp×sp.
+    ``moe_experts`` belongs to the MoE composites and raises
     ``NotImplementedError``."""
-    _reject_stage_composites(partition_model, seq_axis, attention_impl,
-                             moe_experts, partition_experts)
+    _reject_stage_composites(moe_experts, partition_experts)
     if num_classes is not None:
         vocab_size = num_classes
     if positional not in ("learned", "rope"):
@@ -914,7 +1003,9 @@ def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
     if isinstance(dtype, str):
         from distributed_tensorflow_tpu_torch.models import resolve_dtype
         dtype = resolve_dtype(dtype)
-    return (GPTPipeEmbed(vocab_size, hidden, max_len, rope, dtype, device),
+    return (GPTPipeEmbed(vocab_size, hidden, max_len, rope, dtype, device,
+                         partition_model, seq_axis),
             GPTPipeBlock(hidden, heads, ffn, layers_per_stage, rope,
-                         kv_heads, attention_impl, dtype, device),
-            GPTPipeHead(vocab_size, hidden, dtype, device))
+                         kv_heads, attention_impl, dtype, device,
+                         partition_model, seq_axis),
+            GPTPipeHead(vocab_size, hidden, dtype, device, partition_model))

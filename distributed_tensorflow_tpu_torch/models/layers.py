@@ -363,6 +363,24 @@ class VocabParallelEmbedding(_Partitioned):
         return F.linear(x, self.weight.to(dtype))
 
 
+def unbound_kw(kw: dict) -> dict:
+    """A pipeline stage's constructor arguments for its whole, unbound
+    twin (JAX ``PipelineEngine._oracle_stages``): no Megatron layout, no
+    ``seq_axis``, and the whole-sequence attention of a
+    sequence-parallel ``attention_impl`` (``ring_flash`` and
+    ``ulysses_flash`` keep the flash kernels, the others are dense)."""
+    out = dict(kw)
+    for key, off in (("partition_model", False), ("seq_axis", None)):
+        if key in out:
+            out[key] = off
+    impl = out.get("attention_impl")
+    if impl in ("ring", "ulysses"):
+        out["attention_impl"] = "dense"
+    elif impl in ("ring_flash", "ulysses_flash"):
+        out["attention_impl"] = "flash"
+    return out
+
+
 def bind_model_mesh(model: nn.Module, mesh) -> nn.Module:
     """Give every module of ``model`` with a ``bind_tp`` hook (the
     partitioned attention, FFN, embeddings, TPMLP) the mesh whose

@@ -57,6 +57,14 @@ seq) mesh and ``CompositeEngine`` over a MoE GPT or BERT
 (``expert_sp[dp*ep*sp,<attention>]``), and with tp a (data, expert, seq,
 model) one (``expert_tp_sp[dp*ep*tp*sp,<attention>]``).  Sampling and
 serving after a run with a 'model' axis are not ported (TP decode).
+With the pipeline: pp×tp a (data, pipe, model) mesh and
+``PipelineEngine`` over the GPT or BERT stages with the Megatron layout
+(``pipeline_tp[dp*pp*tp,<schedule>]``); pp×sp a (data, pipe, seq) mesh
+and GPT stages with ring or Ulysses attention over 'seq'
+(``pipeline_sp[dp*pp*sp,<attention>]``), and with tp a (data, pipe, seq,
+model) one (``pipeline_tp_sp[dp*pp*tp*sp,<attention>]``).  ``--sample``
+after them decodes through ``PipelineEngine.generate`` on the gathered
+whole model (not TP decode); ``--serve`` after ``-pp`` is refused.
 
 ``checkpoint_dir`` writes checkpoints (``utils/checkpoint.py``; async by
 default, ``async_checkpoint`` False for the synchronous writer) every
@@ -100,8 +108,9 @@ decodes through ``PipelineEngine.generate``, and ``--precision``,
 ``--serve`` are refused with JAX's messages.
 
 The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent; the pipeline's composites raise ``NotImplementedError``
-(``check_parallel_factors``), and the fleet's serve fields
+absent; the pipeline's MoE composites (``-pp`` with ``-ep``) raise
+``NotImplementedError`` (``check_parallel_factors``), and the fleet's
+serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -907,12 +916,17 @@ def _stage_model_args(config: ExperimentConfig, mode: str) -> dict:
 
 
 def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
-                     device):
+                     device, partition_model: bool = False,
+                     attention_impl: str = "dense",
+                     seq_axis: str | None = None):
     """(embed, block, head) of the GPT or BERT stage family (JAX
-    ``_pipeline_stages``, dense attention): ``--pipeline-hidden`` wide,
-    sized by ``--model-arg heads/ffn/layers_per_stage``, ``max_len`` the
-    data's sequence length; the BERT vocabulary covers both splits (an id
-    past the table would fail, where flax's Embed clamps it)."""
+    ``_pipeline_stages``): ``--pipeline-hidden`` wide, sized by
+    ``--model-arg heads/ffn/layers_per_stage``, ``max_len`` the data's
+    sequence length; the BERT vocabulary covers both splits (an id past
+    the table would fail, where flax's Embed clamps it).
+    ``partition_model`` gives them the Megatron layout (pp×tp);
+    ``attention_impl`` and ``seq_axis`` make the GPT stages
+    sequence-parallel (pp×sp)."""
     _require_token_data(train_ds, config, mode)
     dtype = modellib.resolve_dtype(config.dtype)
     extra = _stage_model_args(config, mode)
@@ -922,8 +936,10 @@ def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
 
         return gpt_pipeline_stages(
             vocab_size=train_ds.num_classes, hidden=config.pipeline_hidden,
-            max_len=train_ds.x.shape[1], positional=config.positional,
-            kv_heads=config.kv_heads, dtype=dtype, device=device, **extra)
+            max_len=train_ds.x.shape[1], partition_model=partition_model,
+            positional=config.positional, kv_heads=config.kv_heads,
+            attention_impl=attention_impl, seq_axis=seq_axis, dtype=dtype,
+            device=device, **extra)
     from distributed_tensorflow_tpu_torch.models.bert import (
         bert_pipeline_stages)
 
@@ -931,36 +947,22 @@ def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
         num_classes=train_ds.num_classes,
         vocab_size=int(max(train_ds.x.max(), test_ds.x.max())) + 1,
         hidden=config.pipeline_hidden, max_len=train_ds.x.shape[1],
-        dtype=dtype, device=device, **extra)
+        partition_model=partition_model, dtype=dtype, device=device,
+        **extra)
 
 
-def _setup_pipeline_parallel(config: ExperimentConfig) -> _Experiment:
-    """GPipe or 1F1B (JAX ``harness.py:1236-1277``): a (data, pipe) mesh
-    of (n / pipeline_parallel, pipeline_parallel) ranks and
-    ``PipelineEngine`` over the built-in MLP stages (``--model mlp``,
-    sized by ``--pipeline-hidden`` alone) or a sequence model's stage
-    family."""
+def _pipeline_experiment(config: ExperimentConfig, name: str, mesh,
+                         dp: int, stages_fn) -> _Experiment:
+    """``PipelineEngine`` on ``mesh`` over ``stages_fn(train_ds,
+    test_ds)`` (None: the built-in MLP stages), with ``microbatches``,
+    ``pipeline_schedule`` and ``remat``; the mesh is closed if anything
+    fails."""
     from distributed_tensorflow_tpu_torch.engines.pipeline import (
         PipelineEngine)
 
-    mode = "pipeline_parallel"
-    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
-                           meshlib.PIPE_AXIS)
     try:
         train_ds, test_ds = _load_data(config)
-        stages = None
-        if config.model in _SEQUENCE_MODELS and config.model_fn is None:
-            stages = _pipeline_stages(config, train_ds, test_ds, mode,
-                                      mesh.device)
-        elif config.model_fn is not None or config.model not in (
-                "mlp", "mnist_mlp", "pipeline_mlp"):
-            raise ValueError(
-                f"pipeline_parallel ships stages for mlp and "
-                f"{'/'.join(_SEQUENCE_MODELS)} (got --model {config.model}); "
-                f"custom models pass stages=(embed, block, head) to "
-                f"PipelineEngine directly")
-        else:
-            _reject_model_args(config, mode)
+        stages = stages_fn(train_ds, test_ds)
         global_batch = _global_batch(config, dp)
         if (global_batch // dp) % config.microbatches:
             raise ValueError(
@@ -978,7 +980,94 @@ def _setup_pipeline_parallel(config: ExperimentConfig) -> _Experiment:
         mesh.close()
         raise
     return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
-                       engine=engine, global_batch=global_batch, name=mode)
+                       engine=engine, global_batch=global_batch, name=name)
+
+
+def _setup_pipeline_parallel(config: ExperimentConfig) -> _Experiment:
+    """GPipe or 1F1B (JAX ``harness.py:1236-1277``): a (data, pipe) mesh
+    of (n / pipeline_parallel, pipeline_parallel) ranks and
+    ``PipelineEngine`` over the built-in MLP stages (``--model mlp``,
+    sized by ``--pipeline-hidden`` alone) or a sequence model's stage
+    family."""
+    mode = "pipeline_parallel"
+    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
+                           meshlib.PIPE_AXIS)
+
+    def stages(train_ds, test_ds):
+        if config.model in _SEQUENCE_MODELS and config.model_fn is None:
+            return _pipeline_stages(config, train_ds, test_ds, mode,
+                                    mesh.device)
+        if config.model_fn is not None or config.model not in (
+                "mlp", "mnist_mlp", "pipeline_mlp"):
+            raise ValueError(
+                f"pipeline_parallel ships stages for mlp and "
+                f"{'/'.join(_SEQUENCE_MODELS)} (got --model {config.model}); "
+                f"custom models pass stages=(embed, block, head) to "
+                f"PipelineEngine directly")
+        _reject_model_args(config, mode)
+        return None
+
+    return _pipeline_experiment(config, mode, mesh, dp, stages)
+
+
+def _setup_pipeline_tp(config: ExperimentConfig) -> _Experiment:
+    """dp×pp×tp (JAX ``harness.py:1280-1315``): a (data, pipe, model)
+    mesh and ``PipelineEngine`` over the GPT or BERT stages with the
+    Megatron layout and dense attention; GPipe or 1F1B."""
+    mode = "pipeline_parallel×tensor_parallel"
+    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
+                           meshlib.PIPE_AXIS,
+                           (config.tensor_parallel, meshlib.MODEL_AXIS))
+
+    def stages(train_ds, test_ds):
+        if config.model not in _SEQUENCE_MODELS or \
+                config.model_fn is not None:
+            raise ValueError(
+                f"pipeline×tensor parallelism ships TP-annotated stages for "
+                f"{'/'.join(_SEQUENCE_MODELS)} (got --model {config.model}); "
+                f"custom models pass stages=(embed, block, head) with "
+                f"with_partitioning('model', ...) annotations to "
+                f"PipelineEngine")
+        return _pipeline_stages(config, train_ds, test_ds, mode, mesh.device,
+                                partition_model=True)
+
+    return _pipeline_experiment(
+        config, f"pipeline_tp[dp*pp*tp,{config.pipeline_schedule}]", mesh,
+        dp, stages)
+
+
+def _setup_pipeline_sp(config: ExperimentConfig, tp: int = 1) -> _Experiment:
+    """dp×pp×sp (JAX ``harness.py:1467-1512``): a (data, pipe, seq) mesh
+    and ``PipelineEngine`` over GPT stages whose ring or Ulysses
+    attention runs over 'seq'.  ``tp`` > 1 adds a 'model' axis last,
+    (data, pipe, seq, model), and the stages' Megatron layout."""
+    mode = ("pipeline_parallel×tensor_parallel×seq_parallel" if tp > 1
+            else "pipeline_parallel×seq_parallel")
+    if config.model not in _LM_MODELS or config.model_fn is not None:
+        raise ValueError(
+            f"{mode} ships GPT decoder stages only "
+            f"(got --model {config.model}); custom models pass seq-aware "
+            f"stages to PipelineEngine directly")
+    _reject_flash_under_sp(config)
+    extra = [(tp, meshlib.MODEL_AXIS)] if tp > 1 else []
+    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
+                           meshlib.PIPE_AXIS,
+                           (config.seq_parallel, meshlib.SEQ_AXIS), *extra)
+    impl = config.attention_impl
+
+    def stages(train_ds, test_ds):
+        return _pipeline_stages(config, train_ds, test_ds, mode, mesh.device,
+                                partition_model=tp > 1, attention_impl=impl,
+                                seq_axis=meshlib.SEQ_AXIS)
+
+    return _pipeline_experiment(
+        config, (f"pipeline_tp_sp[dp*pp*tp*sp,{impl}]" if tp > 1
+                 else f"pipeline_sp[dp*pp*sp,{impl}]"), mesh, dp, stages)
+
+
+def _setup_pipeline_tp_sp(config: ExperimentConfig) -> _Experiment:
+    """dp×pp×tp×sp: ``_setup_pipeline_sp(tp=...)``."""
+    return _setup_pipeline_sp(config, tp=config.tensor_parallel)
 
 
 def _codec_kw(config: ExperimentConfig) -> dict[str, Any]:
@@ -1031,15 +1120,17 @@ def _parallel_factors(config: ExperimentConfig) -> list[str]:
 
 def check_parallel_factors(config: ExperimentConfig) -> None:
     """The model-parallel factors above 1: each one alone (``tensor_parallel``
-    under sync/allreduce, or fsdp × tp under ``fsdp``) and the composites
-    without the pipeline (tp×sp, ep×tp, ep×sp, ep×tp×sp: ``_COMBOS``) are
-    served; the pipeline's composites raise ``NotImplementedError``.
+    under sync/allreduce, or fsdp × tp under ``fsdp``), the composites
+    without the pipeline (tp×sp, ep×tp, ep×sp, ep×tp×sp) and the
+    pipeline's dense ones (pp×tp, pp×sp, pp×tp×sp: ``_COMBOS``) are
+    served; the pipeline's MoE composites (``-pp`` with ``-ep``) raise
+    ``NotImplementedError``.
     ``num_experts`` must split over ``expert_parallel`` (JAX
     ``harness.py:1428-1431, 1537-1540``), and ``router_z_weight`` needs a
     MoE-aware engine (JAX ``harness.py:606-616``).  The CLI calls it
     before it spawns ranks."""
     multi = _parallel_factors(config)
-    if len(multi) > 1 and "pipeline_parallel" in multi:
+    if {"pipeline_parallel", "expert_parallel"} <= set(multi):
         not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
                    PIPELINE_COMPOSITES)
     moe_model = config.model in ("moe", "moe_mlp", "mlp") or (
@@ -1122,10 +1213,14 @@ def _setup(config: ExperimentConfig) -> _Experiment:
                        name=config.engine)
 
 
-# the composites of the model-parallel factors without the pipeline (JAX
-# harness.py:637-672; the pipeline's raise in check_parallel_factors)
+# the composites of the model-parallel factors (JAX harness.py:649-672;
+# the pipeline's MoE ones raise in check_parallel_factors)
 _COMBOS = {
     frozenset({"seq_parallel", "tensor_parallel"}): _setup_composite,
+    frozenset({"pipeline_parallel", "tensor_parallel"}): _setup_pipeline_tp,
+    frozenset({"pipeline_parallel", "seq_parallel"}): _setup_pipeline_sp,
+    frozenset({"pipeline_parallel", "tensor_parallel", "seq_parallel"}):
+        _setup_pipeline_tp_sp,
     frozenset({"expert_parallel", "tensor_parallel"}): _setup_expert_tp,
     frozenset({"expert_parallel", "seq_parallel"}): _setup_expert_sp,
     frozenset({"expert_parallel", "tensor_parallel", "seq_parallel"}):

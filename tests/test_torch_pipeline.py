@@ -249,12 +249,29 @@ def test_engine_rejections_are_jax_word_for_word():
 
 @pytest.mark.parametrize("axis", ["model", "seq", "expert"])
 def test_composite_mesh_axes_raise_not_ported(axis):
+    """An 'expert' axis (the pp×ep composites) cites its title; 'model'
+    and 'seq' compose (pp×tp, pp×sp), and the MLP stages, which neither
+    axis cuts, train over them as on the (1, 1) mesh, bitwise."""
     m = meshlib.create_mesh(1, device="cpu", shape=(1, 1, 1),
                             axis_names=("data", "pipe", axis))
     try:
-        with pytest.raises(NotImplementedError,
-                           match="remaining engines: pipeline composites"):
-            PipelineEngine(mesh=m)
+        if axis == "expert":
+            with pytest.raises(NotImplementedError,
+                               match="remaining engines: pipeline "
+                                     "composites"):
+                PipelineEngine(mesh=m)
+            return
+        twin = meshlib.create_mesh(1, device="cpu", shape=(1, 1),
+                                   axis_names=("data", "pipe"))
+        x, y = _inputs("mlp")
+        runs = []
+        for mm in (m, twin):
+            eng, state = _port_engine("mlp", mm, x)
+            state, met = eng.step(state, *eng.shard_batch(x, y))
+            runs.append((float(met["loss"]), eng.full_state_dict(state)))
+        (loss, got), (want_loss, want) = runs
+        assert loss == want_loss
+        assert all(torch.equal(got[k], v) for k, v in want.items())
     finally:
         m.close()
 
@@ -267,9 +284,39 @@ def test_composite_mesh_axes_raise_not_ported(axis):
     (bert_pipeline_stages, {"partition_model": True}),
     (bert_pipeline_stages, {"moe_experts": 4})])
 def test_stage_composite_options_raise_not_ported(factory, kw):
-    with pytest.raises(NotImplementedError,
-                       match="remaining engines: pipeline composites"):
-        factory(**kw, device="cpu")
+    """MoE stages (the pp×ep composites) cite their title.  The dense
+    options are ported: ``partition_model`` builds the Megatron layers
+    (pp×tp), a ring block builds and refuses to run without a bound mesh,
+    and a ``seq_axis`` with dense attention is refused in JAX's words."""
+    from distributed_tensorflow_tpu_torch.models.layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+    if "moe_experts" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="remaining engines: pipeline composites"):
+            factory(**kw, device="cpu")
+    elif "seq_axis" in kw:
+        jfactory = jgpt_stages
+        _, jblock, _ = jfactory(**GPT, **kw)
+        _messages(lambda: jblock.init(jax.random.key(0),
+                                      jnp.zeros((1, 16, 32))),
+                  lambda: factory(**GPT, **kw, device="cpu"))
+    elif "attention_impl" in kw:
+        _, block, _ = factory(**GPT, **kw, device="cpu")
+        assert block.attention_impl == "ring"
+        with pytest.raises(ValueError, match="no mesh bound"):
+            block(torch.zeros(1, 16, 32))
+    else:
+        base = GPT if factory is gpt_pipeline_stages else BERT
+        embed, block, head = factory(**base, **kw, device="cpu")
+        kinds = {type(m) for m in block.modules()}
+        assert {ColumnParallelLinear, RowParallelLinear} <= kinds
+        assert any(isinstance(m, VocabParallelEmbedding)
+                   for m in embed.modules())
+        plain = factory(**base, device="cpu")
+        for part, twin in zip((embed, block, head), plain):
+            assert {k: v.shape for k, v in part.state_dict().items()} == {
+                k: v.shape for k, v in twin.state_dict().items()}
 
 
 def test_stages_must_hold_no_dropout(mesh):

@@ -475,20 +475,33 @@ def test_generate_decodes_a_seq_parallel_model_densely():
 @pytest.mark.parametrize("field", ["tensor_parallel", "pipeline_parallel",
                                    "expert_parallel"])
 def test_composites_raise_not_ported(field):
+    from distributed_tensorflow_tpu.utils import harness as jharness
     from distributed_tensorflow_tpu_torch.utils import harness
 
     for sp in (1, 2):
-        # -ep, -tp, -pp and the composites without the pipeline are
-        # ported (tests/test_torch_composite.py): the pipeline's are not
+        # every composite is ported but the pipeline's MoE ones (-pp with
+        # -ep); the dense ones (pp×tp, pp×sp, pp×tp×sp:
+        # tests/test_torch_pipeline_composite.py) reach their mesh, which
+        # one process cannot hold: JAX's message for one device
         extra = ({"tensor_parallel": 2} if field == "pipeline_parallel"
                  and sp == 1 else {"pipeline_parallel": 2}
                  if field != "pipeline_parallel" else {})
-        config = harness.ExperimentConfig(
-            model="gpt_tiny", dataset="lm_synth", seq_parallel=sp,
-            device="cpu", **{field: 2}, **extra)
-        with pytest.raises(NotImplementedError,
-                           match="remaining engines: pipeline composites"):
-            harness._setup(config)
+        kw = dict(model="gpt_tiny", dataset="lm_synth", seq_parallel=sp,
+                  **{field: 2}, **extra)
+        config = harness.ExperimentConfig(**kw, device="cpu")
+        if field == "expert_parallel":
+            with pytest.raises(NotImplementedError,
+                               match="remaining engines: pipeline "
+                                     "composites"):
+                harness._setup(config)
+            continue
+        with pytest.raises(ValueError) as want:
+            jharness._setup(jharness.ExperimentConfig(**kw, n_devices=1))
+        with pytest.raises(ValueError) as got:
+            harness._setup(dataclasses.replace(config, n_devices=1))
+        assert str(got.value) == str(want.value)
+        assert "n_devices 1 not divisible by pipeline_parallel×" in str(
+            got.value)
 
 
 def test_mesh_shapes_that_do_not_divide_raise():
