@@ -352,6 +352,27 @@ Phases (any failure raises and the script exits non-zero):
              (``launches_ppc``), and the ring's block kernels at the
              microbatch's shape (forward ``tc``, backward ``tc32``) join
              the kernels line;
+5o. ppe   — the pipeline's MoE composites on one NCCL rank, every axis of
+             size 1, from phase 5l's init with phase 5h's MoE FFN added
+             (``MOE_GPT``: 8 experts, top-1, capacity factor 1.25, drawn
+             on the card from seed 0) and 5l's batches; aux 0.01 and z
+             1e-3, 4 eager steps a window.  E0: the MoE stages on a (1, 1)
+             (data, pipe) mesh, GPipe, ``flash``, its first loss within
+             ``PP_LOSS_RTOL`` of the sequential forward's mean
+             cross-entropy over the microbatches (each routed alone, as a
+             stage routes its call); E1: pp×ep on (1, 1, 1) (data, pipe,
+             expert), bitwise E0 (losses, overflow, parameters); E1R: E1
+             with remat, bitwise E1 (the router terms counted once); E2:
+             pp×ep×tp on (1, 1, 1, 1) with the 2-D expert layout,
+             bitwise E1; E3: pp×ep×sp with ``ring_flash``, its first loss
+             within ``PPC_SP_RTOL`` of E1's; E4: pp×ep×tp×sp on (1, 1, 1,
+             1, 1), bitwise E3; 1F1B with MoE stages refused in JAX's
+             words.  Flash launches a step by route, the expert and
+             Megatron NCCL calls, gradient all-reduces and pipe shifts a
+             step held to ``_ppe_plan``.  Printed on ``[ppe]`` lines
+             beside the card's name and power limit: each window's step
+             p50, busy share, peak memory above its entry and overflow;
+             rows 1p-3p and 1rp-3rp gain ``launches_ppe``;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -405,6 +426,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1714,7 +1736,9 @@ def _verify_cost(model, requests) -> None:
         fns = {"by column": lambda: kv.verify_logits(block),
                "one forward": one_forward,
                "decode step": kv.decode_logits}
-        dev = {n: _device_ms(fn, iters=20, warmup=3,
+        # 5 calls a profiler session: a call is ~400-1000 kernels, and
+        # the sessions' processing, not the calls, set this check's wall
+        dev = {n: _device_ms(fn, iters=5, warmup=3,
                              label=f"verify {layout} {n}")
                for n, fn in fns.items()}
         wall = {n: _time_windows(fn, iters=20, warmup=3)[0]
@@ -4927,9 +4951,11 @@ def _reset_mp_counts() -> None:
         setattr(fn, a, 0)
 
 
-def _eager_busy(engine, state, xs, ys, steps: int = 4) -> dict:
+def _eager_busy(engine, state, xs, ys, steps: int = 2) -> dict:
     """``steps`` eager steps on the host clock, then under
-    ``torch.profiler``: wall ms a step and the device's busy share."""
+    ``torch.profiler``: wall ms a step and the device's busy share (two
+    steps a reading by default: the smoke's wall is near its limit, and
+    the profiler's processing of longer sessions is the cost)."""
     engine.step(state, xs, ys)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5751,9 +5777,8 @@ def ppc_phase(gpu: str, pp_ref: dict) -> dict:
                 tokens = eng.generate(state, pp_ref["prompts"], PP_NEW)
                 gen = {"ms": (time.perf_counter() - t1) * 1e3,
                        "tokens": tokens}
-            # two steps a reading: five windows of ~0.2-0.4 s eager steps
             run["busy"] = _eager_busy(eng, state, *eng.shard_batch(
-                *pp_ref["batches"][0]), steps=2)
+                *pp_ref["batches"][0]))
         finally:
             del eng, state
             mesh.close()
@@ -5795,14 +5820,244 @@ def ppc_phase(gpu: str, pp_ref: dict) -> dict:
     return {name: run["flash"] for name, run in runs.items()}
 
 
-def ppc_timing_phase(ppc: dict) -> list[dict]:
+# --------------------------------------------------------------------------
+# phase 5o: the pipeline's MoE composites on one NCCL rank
+# --------------------------------------------------------------------------
+
+# the router terms of phase 5o's objective (bench --moe's aux weight, the
+# z-loss on)
+PPE_AUX, PPE_Z = 0.01, 1e-3
+# the windows: name, mesh axes, stage options, remat
+PPE_WINDOWS = (
+    ("E0", ("data", "pipe"), dict(attention_impl="flash"), False),
+    ("E1", ("data", "pipe", "expert"), dict(attention_impl="flash"), False),
+    ("E1R", ("data", "pipe", "expert"), dict(attention_impl="flash"), True),
+    ("E2", ("data", "pipe", "expert", "model"),
+     dict(attention_impl="flash", partition_model=True), False),
+    ("E3", ("data", "pipe", "expert", "seq"),
+     dict(attention_impl="ring_flash", seq_axis="seq"), False),
+    ("E4", ("data", "pipe", "expert", "model", "seq"),
+     dict(attention_impl="ring_flash", seq_axis="seq",
+          partition_model=True), False),
+)
+
+
+def _ppe_plan(axes, remat: bool) -> dict:
+    """A window's planned launches a step, written before the run.  Flash
+    (L layers, M microbatches) as ``_ppc_plan`` (GPipe; remat runs each
+    block forward twice).  NCCL on an 'expert' axis of one rank (the
+    layers' ``replicated`` route): per MoE layer call one forward
+    ``reduce_from_model`` (the combine) and, in its backward, two
+    ``copy_to_model`` all-reduces (the router's probabilities and the
+    tokens); on a 'model' axis per layer call the attention's pair and
+    the 2-D expert layout's pair (each one forward reduce and one
+    backward copy), and per microbatch the embed's lookup (a reduce), the
+    head's input (a copy) and one logit all-gather.  The forward reduces
+    of a block count twice under remat.  Gradient all-reduces: two on the
+    (data, pipe) mesh (PR 19's), none on a composite mesh of one-rank
+    axes.  The pipe shifts are copies: M − 1 each way."""
+    n, m = LM["layers"], PP_MICRO
+    fwd = n * m * (2 if remat else 1)
+    ring = "seq" in axes
+    flash = {"fwd_tc": fwd, "dq_tc": 0 if ring else n * m,
+             "dkv_tc": 0 if ring else n * m, "fwd_tc32": 0,
+             "dq_tc32": n * m if ring else 0,
+             "dkv_tc32": n * m if ring else 0}
+    ep, tp = "expert" in axes, "model" in axes
+    reduce = fwd * ((1 if ep else 0) + (2 if tp else 0)) + (m if tp else 0)
+    copy = n * m * ((2 if ep else 0) + (2 if tp else 0)) + (m if tp else 0)
+    shifts = PP_SHIFTS["gpipe"] // 2
+    return {"flash": flash, "nccl": {
+        "reduce_from_model": reduce, "copy_to_model": copy,
+        "gather_from_model": m if tp else 0,
+        "gradient_all_reduce": 2 if axes == ("data", "pipe") else 0,
+        "next_clones": shifts, "prev_clones": shifts, "next_p2p": 0,
+        "prev_p2p": 0}}
+
+
+def _ppe_engine(mesh, kw, remat: bool = False, schedule: str = "gpipe"):
+    """``PipelineEngine`` over phase 5l's GPT stages with phase 5h's MoE
+    FFN (``MOE_GPT``) on ``mesh``, the router terms on."""
+    from distributed_tensorflow_tpu_torch.engines import PipelineEngine
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        gpt_pipeline_stages)
+
+    return PipelineEngine(
+        microbatches=PP_MICRO, mesh=mesh, schedule=schedule, remat=remat,
+        aux_weight=PPE_AUX, router_z_weight=PPE_Z,
+        optimizer=lambda p: torch.optim.Adam(p, lr=1e-3),
+        stages=gpt_pipeline_stages(
+            vocab_size=LM["vocab"], hidden=LM["hidden"], heads=LM["heads"],
+            ffn=LM["ffn"], max_len=LM["seq"], layers_per_stage=LM["layers"],
+            dtype=torch.bfloat16, device=mesh.device,
+            moe_experts=MOE_GPT["experts"], moe_top_k=MOE_GPT["top_k"],
+            moe_capacity_factor=MOE_GPT["capacity_factor"],
+            partition_experts=True, **kw))
+
+
+def _ppe_window(name, axes, kw, remat, init, batches) -> dict:
+    """PP_STEPS eager steps of the MoE pipeline on a mesh of ``axes``,
+    each of one rank, from ``init`` on phase 5l's batches; every count set
+    to 0 just before the steps and read just after, held to
+    ``_ppe_plan``.  E0's first loss is held to the sequential forward's
+    mean cross-entropy over the microbatches, each routed alone (the
+    routing population of a stage's call).  Returns the losses,
+    overflows, step times, counts, peak memory above the window's entry
+    and the final parameters, with the engine, its state and its mesh
+    (the caller closes it)."""
+    from distributed_tensorflow_tpu_torch.engines.base import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    mesh = meshlib.create_mesh(1, shape=(1,) * len(axes), axis_names=axes)
+    try:
+        eng = _ppe_engine(mesh, kw, remat)
+        # ``init`` replaces the seeded draw, which every window would
+        # throw away: the host draws the experts at ~1.3 s a layer
+        eng.model.reset_parameters = lambda generator=None: eng.model
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        state.model.load_state_dict(init)
+        seq = None
+        if name == "E0":
+            model = eng.eval_params(state)
+            with torch.no_grad():
+                seq = float(np.mean([float(cross_entropy(
+                    eng._sequential_logits(model, xm), ym).mean())
+                    for xm, ym in zip(*(t.chunk(PP_MICRO) for t in
+                                        eng.shard_batch(*batches[0])))]))
+            del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _reset_ppc_counts()
+        losses, overflow, step_ms = [], [], []
+        for xb, yb in batches:
+            t0 = time.perf_counter()
+            state, m = eng.step(state, *eng.shard_batch(xb, yb))
+            losses.append(float(m["loss"]))        # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            overflow.append(float(m["overflow"]))
+        flash = {k: v for k, v in {**_flash_counts(), **_tc32_counts()}.items()
+                 if "_" in k}
+        nccl = _ppc_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        assert all(np.isfinite(losses)), (name, losses)
+        assert all(0.0 <= v < 1.0 for v in overflow), (name, overflow)
+        plan = _ppe_plan(axes, remat)
+        want = {k: v * PP_STEPS for k, v in plan["flash"].items()}
+        assert flash == want, (name, "flash", flash, want)
+        want = {k: v * PP_STEPS for k, v in plan["nccl"].items()}
+        assert nccl == want, (name, "nccl", nccl, want)
+        if seq is not None:
+            assert abs(losses[0] - seq) <= PP_LOSS_RTOL * seq, (
+                name, losses[0], seq)
+        params = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+    except BaseException:
+        mesh.close()
+        raise
+    return {"losses": losses, "overflow": overflow, "seq_loss": seq,
+            "step_ms": step_ms, "flash": flash, "nccl": nccl, "peak": peak,
+            "params": params, "eng": eng, "state": state, "mesh": mesh}
+
+
+def ppe_phase(gpu: str, pp_ref: dict) -> dict:
+    """Phase 5o (module docstring): windows E0, E1, E1R, E2, E3 and E4
+    from phase 5l's init with the MoE FFN added and its batches, then
+    1F1B's refusal.  Returns each window's flash launches."""
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    # phase 5l's leaves but its FFN's, and the MoE FFN drawn on the card
+    # from seed 0 at flax's lecun-normal variance (every window loads it;
+    # each layer's whole draw on the host would take ~1.3 s)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d, e, h = LM["hidden"], MOE_GPT["experts"], LM["ffn"]
+    init = {k: v for k, v in pp_ref["init"].items()
+            if ".fc1." not in k and ".fc2." not in k}
+    for i in range(LM["layers"]):
+        for leaf, shape in (("gate", (d, e)), ("w1", (e, d, h)),
+                            ("w2", (e, h, d))):
+            init[f"block.layers.{i}.moe.{leaf}"] = torch.randn(
+                shape, generator=gen, device="cuda") * math.prod(
+                shape[:-1]) ** -0.5
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "pipe"))
+    try:
+        try:
+            _ppe_engine(mesh, dict(attention_impl="flash"),
+                        schedule="1f1b")
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+    finally:
+        mesh.close()
+        torch.cuda.empty_cache()
+    runs = {}
+    for name, axes, kw, remat in PPE_WINDOWS:
+        run = runs[name] = _ppe_window(name, axes, kw, remat, init,
+                                       pp_ref["batches"])
+        eng, state, mesh = run.pop("eng"), run.pop("state"), run.pop("mesh")
+        try:
+            # one step a reading: the profiler's processing of a MoE
+            # step's many routing kernels, more than the steps, sets the
+            # phase's wall
+            run["busy"] = _eager_busy(eng, state, *eng.shard_batch(
+                *pp_ref["batches"][0]), steps=1)
+        finally:
+            del eng, state
+            mesh.close()
+            torch.cuda.empty_cache()
+
+    def same(run, ref) -> bool:
+        return (run["losses"] == ref["losses"]
+                and run["overflow"] == ref["overflow"]
+                and all(torch.equal(run["params"][k], v)
+                        for k, v in ref["params"].items()))
+
+    gates = {"E1 = E0": same(runs["E1"], runs["E0"]),
+             "E1R = E1": same(runs["E1R"], runs["E1"]),
+             "E2 = E1": same(runs["E2"], runs["E1"]),
+             "E4 = E3": same(runs["E4"], runs["E3"])}
+    e1 = runs["E1"]["losses"][0]
+    rel = abs(runs["E3"]["losses"][0] - e1) / e1
+    gates["E3 first loss"] = rel <= PPC_SP_RTOL
+    gates["1F1B refused"] = refusal is not None and refusal.startswith(
+        "schedule='1f1b' does not compose with MoE stage blocks")
+    for label, run in runs.items():
+        p50 = float(np.median(run["step_ms"][1:]))
+        SEEN[f"ppe {label}"] = p50
+        per_step = {k: v / PP_STEPS for k, v in run["flash"].items() if v}
+        nccl = {k: v / PP_STEPS for k, v in run["nccl"].items() if v}
+        print(f"[ppe] {label} ({gpu}): losses "
+              f"{' '.join(repr(v) for v in run['losses'])}; overflow "
+              f"{' '.join(repr(v) for v in run['overflow'])}; step ms "
+              f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (p50 of "
+              f"steps 2-{PP_STEPS} {p50:.3f}); eager wall_ms="
+              f"{run['busy']['wall_ms']:.4f} busy_share="
+              f"{_fmt(run['busy']['busy_share'])}; peak memory above the "
+              f"window's entry {run['peak'] / 2**20:.1f} MiB; flash "
+              f"launches a step {json.dumps(per_step)}; NCCL calls and "
+              f"pipe shifts a step {json.dumps(nccl)}")
+    e0 = runs["E0"]
+    print(f"[ppe] E0's first loss {e0['losses'][0]!r} vs the sequential "
+          f"per-microbatch forward's {e0['seq_loss']!r} (bound "
+          f"{PP_LOSS_RTOL * e0['seq_loss']:.3e}); E3's first loss "
+          f"{runs['E3']['losses'][0]!r} vs E1's {e1!r} (rel {rel:.3e}, "
+          f"bound {PPC_SP_RTOL}); 1F1B: {refusal}; gates "
+          f"{json.dumps(gates)}")
+    assert all(gates.values()), gates
+    print(f"[ppe] phase 5o wall {time.perf_counter() - t0:.1f} s")
+    return {name: run["flash"] for name, run in runs.items()}
+
+
+def ppc_timing_phase(ppc: dict, ppe: dict) -> list[dict]:
     """The ring's block kernels at phase 5n's microbatch shape (B=2,
     L=1024, H=8, D=64, the diagonal pairing, a key mask of ones): the
     bf16 forward on ``tc`` and the f32 dQ and dK/dV on ``tc32`` that
     ``flash_bwd_block`` runs, each held against its plain version on the
     same inputs (bf16 out within the tc bound, lse within F32_TOL, dQ and
     dK/dV within FLASH_GRAD_TOL) before it is timed beside its bound, the
-    plain version and SDPA.  Launches: C3's, C3R's and C4's."""
+    plain version and SDPA.  Launches: C3's, C3R's and C4's, and phase
+    5o's E3's and E4's (``launches_ppe``)."""
     from torch.nn.attention import sdpa_kernel
 
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
@@ -5869,7 +6124,8 @@ def ppc_timing_phase(ppc: dict) -> list[dict]:
             peak=TC32_FLOPS if route == "tc32" else None)
         launches = sum(ppc[w][f"{kind}_{route}"] for w in ("C3", "C3R",
                                                            "C4"))
-        assert launches > 0, name
+        launches_ppe = sum(ppe[w][f"{kind}_{route}"] for w in ("E3", "E4"))
+        assert launches > 0 and launches_ppe > 0, name
         rows.append({
             "name": name, "route": "cuda", "variant": route,
             "source": src + ("flash_attention_f32_sm90.cu" if route == "tc32"
@@ -5878,25 +6134,27 @@ def ppc_timing_phase(ppc: dict) -> list[dict]:
                         + {"fwd": "170", "dq": "281", "dkv": "299"}[kind],
             "shape": f"B={b} L={lq} H={h} D={d} "
                      f"{str(dtype).split('.')[-1]} ring diagonal block",
-            "launches": launches, "max_abs_err": err, "ms": ms,
+            "launches": launches, "launches_ppe": launches_ppe,
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "library_ms": lib_ms,
             "library_backend": backend.name})
         print(f"[ppc] {name} ({route}) at the microbatch's block: device "
               f"{ms:.5f} ms, plain {plain_ms:.5f}, SDPA {backend.name} "
               f"{lib_ms:.5f}, bound {bound_ms:.6f} ({bound_by}), share "
-              f"{bound_ms / ms:.3f}, launches {launches}, max_abs_err "
-              f"{err:.3e}")
+              f"{bound_ms / ms:.3f}, launches {launches} (5o: "
+              f"{launches_ppe}), max_abs_err {err:.3e}")
     return rows
 
 
-def pp_timing_phase(pp: dict, ppc: dict) -> list[dict]:
+def pp_timing_phase(pp: dict, ppc: dict, ppe: dict) -> list[dict]:
     """Rows 1p-3p: the flash forward, dQ and dK/dV at phase 5l's
     microbatch shape (B=2, L=1024, H=8, D=64, causal, bf16, ``tc``),
     held against their plain versions and timed beside their bounds, the
     plain versions and SDPA; each row's launches are PG's, P1's and PR's
-    (every training launch of the phase is at this shape), and phase
-    5n's C1's and C2's (``launches_ppc``)."""
+    (every training launch of the phase is at this shape), phase 5n's
+    C1's and C2's (``launches_ppc``) and phase 5o's E0's, E1's, E1R's and
+    E2's (``launches_ppe``)."""
     h = LM["heads"]
     b = LM["batch"] // PP_MICRO
     case = _flash_case(49, b=b, lq=LM["seq"], h=h, d=LM["hidden"] // h,
@@ -5910,7 +6168,10 @@ def pp_timing_phase(pp: dict, ppc: dict) -> list[dict]:
                                                             "PR"))
         row["launches_ppc"] = sum(ppc[w][f"{kind}_tc"] for w in ("C1",
                                                                  "C2"))
-        assert row["launches_ppc"] > 0, row["name"]
+        row["launches_ppe"] = sum(ppe[w][f"{kind}_tc"] for w in (
+            "E0", "E1", "E1R", "E2"))
+        assert row["launches_ppc"] > 0 and row["launches_ppe"] > 0, \
+            row["name"]
     return rows
 
 
@@ -5995,6 +6256,7 @@ def main() -> int:
     pp, pp_ref = pp_phase(gpu)
     comp = composite_phase(gpu, sp)
     ppc = ppc_phase(gpu, pp_ref)
+    ppe = ppe_phase(gpu, pp_ref)
     del pp_ref
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
@@ -6056,8 +6318,8 @@ def main() -> int:
                    "flash_bwd_block.dkv_ring_tc32": "dkv_tc32"}[row["name"]]
         row["launches_composite"] = sum(c[counter] for c in comp.values())
         assert row["launches_composite"] > 0, row["name"]
-    pp_rows = pp_timing_phase(pp, ppc)
-    ppc_rows = ppc_timing_phase(ppc)
+    pp_rows = pp_timing_phase(pp, ppc, ppe)
+    ppc_rows = ppc_timing_phase(ppc, ppe)
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}

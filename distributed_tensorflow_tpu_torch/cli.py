@@ -45,8 +45,10 @@ P) ranks, ``--microbatches``, ``--pipeline-schedule gpipe|1f1b``, and
 ``--model mlp``, the GPT's or BERT's stage families).  Two or more of
 ``-tp``, ``-sp``, ``-ep`` and ``-pp`` make a composite (``-tp × -sp``,
 ``-ep × -tp``, ``-ep × -sp``, ``-ep × -tp × -sp``, ``-pp × -tp``, ``-pp
-× -sp``, ``-pp × -tp × -sp``: ``harness._COMBOS``); the pipeline's MoE
-composites (``-pp`` with ``-ep``) parse and raise.
+× -sp``, ``-pp × -tp × -sp``, and ``-pp × -ep`` with or without ``-tp``
+and ``-sp``: ``harness._COMBOS``); under ``-pp`` with ``-ep`` the GPT's
+or BERT's stage blocks carry the routed MoE FFN (``--num-experts``,
+``--router-top-k``, ``--aux-weight``, ``--router-z-weight``).
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
@@ -74,6 +76,9 @@ the backward pass produces them (``parallel/overlap.py``).
         -ds fsdp -n 4 -tp 2 --model mlp --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -pp 2 -n 4 \\
         --microbatches 2 --model mlp --dataset synthetic
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 8 -pp 2 \\
+        -ep 2 --microbatches 2 --pipeline-hidden 32 -b 4 --model gpt \\
+        --dataset lm_synth --num-experts 4
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 1 -e 2 \\
         --model mlp --dataset synthetic --checkpoint-dir /tmp/ck \\
         --checkpoint-every 100 --max-restarts 1

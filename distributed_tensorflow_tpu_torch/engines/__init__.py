@@ -12,7 +12,8 @@ seq) mesh), ``ExpertParallelEngine`` (data × expert parallelism of MoE
 models over a (data, expert) mesh), ``TensorParallelEngine`` (Megatron
 data × model parallelism over a (data, model) mesh, with ``TPMLP``) and
 ``PipelineEngine`` (GPipe and 1F1B over a (data, pipe) mesh, with
-'model' and 'seq' inside the stages) and
+'model', 'seq' and, for MoE stages under GPipe, 'expert' inside the
+stages) and
 ``CompositeEngine`` (tp×sp, ep×sp and ep×tp×sp over a ('data', 'model',
 'seq'[, 'expert']) mesh).
 """

@@ -87,18 +87,45 @@ takes this rank's stage and slice (a checkpoint of another stage count
 raises, as JAX's restore does); the recipe's clip counts each stage's
 block once and embed and head once, as optax sees the stacked tree.
 
-``eval_params`` gathers every leaf whole (over 'pipe' and 'model') into
-``SequentialStages`` of the stages' unbound twins (``unbound()``; JAX
-``_oracle_stages``): no Megatron cut, no ``seq_axis``, and the
+The MoE composites (pp×ep, JAX ``:171-172, 255-301, 416-500,
+563-596``): stage blocks whose FFN is a routed MoE (``moe_experts``),
+on a mesh that may add an 'expert' axis after 'pipe', (data, pipe,
+expert[, model][, seq]).  'expert' cuts the experts of the
+``partition_experts`` layers (``models.moe.shard_experts``; under
+'model' too, the 2-D expert layout); the tokens are replicated over it,
+as over 'model', so the ranks of an expert line share the stage's tick
+pattern and the layers' ``replicated`` route sums the combine over
+'expert'.  JAX's pipeline ``shard_map`` is manual over 'data', 'pipe'
+and 'seq' and leaves 'expert' and 'model' to GSPMD, so a stage's router
+sees the tokens of one (data shard, microbatch, seq block): the layers
+are bound with no token axis (``bind_expert_mesh(..., token_axes=())``)
+and take their capacity and groups from that count.  Each real tick
+reads the stage's router terms (``router_losses``) right after its
+block: the objective is ``(Σ task + aux_weight · Σ aux + z_weight · Σ
+z) / (M · dp · sp)``, each stage's router sums over its real ticks (JAX
+masks the bubble ticks; here they do not run), and a backward tick seeds
+its microbatch's scaled router terms together with the carry's
+cotangent in one ``torch.autograd.backward``.  Under remat the forward
+tick runs without a graph, so the differentiated terms come from the
+backward tick's recompute, once; the forward's values feed only the
+``overflow`` metric, the mean over every (stage, microbatch, data
+shard, seq block) router call, which ``step`` feeds to an
+``_OverflowMonitor``.  Expert leaves are summed over 'data' and 'seq'
+like the rest of the block.  1F1B is refused with MoE stages, in JAX's
+words (its hand-scheduled backward carries only the task cotangent).
+
+``eval_params`` gathers every leaf whole (over 'pipe', 'model' and
+'expert') into ``SequentialStages`` of the stages' unbound twins
+(``unbound()``; JAX ``_oracle_stages``): no Megatron cut, no
+``seq_axis``, the MoE FFN whole and routing alone, and the
 whole-sequence attention of a ring or Ulysses stage (``ring_flash`` and
 ``ulysses_flash`` keep the flash kernels; JAX's twin is dense
 attention).  ``evaluate`` runs it on each rank's rows, whole sequences
-(the totals summed over 'data'), and ``generate`` decodes with it.  The
-steps are eager: no CUDA graph, the Adam not capturable
-(``Engine.many_step``'s loop).
-
-Not ported here: the mesh axis 'expert' (the pp×ep composites) raises
-``NotImplementedError``.
+(the totals summed over 'data'), and ``generate`` decodes with it.  MoE
+stages evaluate the whole batch on every rank: JAX's GSPMD evaluation
+routes the global eval batch as one population, which rows cut over
+'data' would split.  The steps are eager: no CUDA graph, the Adam not
+capturable (``Engine.many_step``'s loop).
 """
 
 from __future__ import annotations
@@ -110,12 +137,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import PIPELINE_COMPOSITES, not_ported
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
+from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
+    _OverflowMonitor, router_losses)
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, bind_model_mesh, bind_seq_mesh, dense, flax_init_, layer_norm,
     tp_specs)
+from distributed_tensorflow_tpu_torch.models.moe import (
+    bind_expert_mesh, expert_specs, shard_experts)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
@@ -256,23 +286,26 @@ def _grads(carry) -> list:
             for t in _parts(carry) if t.is_floating_point()]
 
 
-def _backward(out, grads) -> None:
+def _backward(out, grads, extra=None) -> None:
     """``torch.autograd.backward`` of ``out``'s floating tensors that
-    depend on a gradient leaf, with ``grads`` (one per floating
-    tensor)."""
+    depend on a gradient leaf, with ``grads`` (one per floating tensor),
+    and of the scalar ``extra`` (a stage's scaled router terms, seeded
+    with 1) in the same call: they share the block's graph."""
     pairs = [(t, g) for t, g in zip(
         [t for t in _parts(out) if t.is_floating_point()], grads)
         if t.requires_grad]
+    if extra is not None:
+        pairs.append((extra, torch.ones_like(extra)))
     if pairs:
         torch.autograd.backward([t for t, _ in pairs], [g for _, g in pairs])
 
 
 class PipelineEngine(Engine):
     """data × pipe parallel training of an embed → S blocks → head model,
-    with 'model' and 'seq' inside the stages (module docstring).
+    with 'model', 'seq' and 'expert' inside the stages (module docstring).
 
-    ``mesh`` must have the axes ('data', 'pipe'), and may add 'model' and
-    'seq'; the stage count S is the pipe axis's size.  ``microbatches``
+    ``mesh`` must have the axes ('data', 'pipe'), and may add 'expert',
+    'model' and 'seq'; the stage count S is the pipe axis's size.  ``microbatches``
     (M) must divide the per-data-shard batch.  ``stages`` plugs in
     (embed, block, head) modules — ``models.gpt.gpt_pipeline_stages``,
     ``models.bert.bert_pipeline_stages`` — whose contract is JAX's:
@@ -280,13 +313,19 @@ class PipelineEngine(Engine):
     tensor or a tuple of them), one parameter structure for every stage,
     and no dropout; without it the built-in MLP stages of ``hidden`` and
     ``expansion``.  ``schedule`` is 'gpipe' or '1f1b'; ``remat`` applies
-    to 'gpipe' (1F1B recomputes by construction)."""
+    to 'gpipe' (1F1B recomputes by construction).  MoE stage blocks
+    (``moe_experts`` > 0) add ``aux_weight`` and ``router_z_weight`` times
+    their router terms to the objective and watch the overflow
+    (``overflow_warn_threshold``, ``overflow_window``)."""
 
     def __init__(self, num_classes: int = 10, hidden: int = 128,
                  microbatches: int = 4, optimizer=None, mesh=None,
                  learning_rate: float = 1e-3, expansion: int = 2,
                  dtype=torch.float32, stages=None, schedule: str = "gpipe",
-                 remat: bool = False, device=None):
+                 remat: bool = False, aux_weight: float = 0.01,
+                 router_z_weight: float = 0.0,
+                 overflow_warn_threshold: float = 0.25,
+                 overflow_window: int = 50, device=None):
         if mesh is None or not {meshlib.DATA_AXIS,
                                 meshlib.PIPE_AXIS} <= set(mesh.axis_names):
             raise ValueError("PipelineEngine requires a ('data','pipe') mesh")
@@ -307,9 +346,6 @@ class PipelineEngine(Engine):
                 "schedule='1f1b' does not compose with a 'seq' mesh axis "
                 "(ring collectives cannot live inside the schedule's "
                 "conditionals); use schedule='gpipe' for pp×sp")
-        if meshlib.EXPERT_AXIS in mesh.axis_names:
-            not_ported("PipelineEngine over a mesh with an 'expert' axis "
-                       "(the pp×ep composites)", PIPELINE_COMPOSITES)
         if microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got {microbatches}")
         self.schedule = schedule
@@ -334,6 +370,37 @@ class PipelineEngine(Engine):
                         f"backward pass; {type(mod).__name__} has "
                         f"dropout_rate {mod.dropout_rate}")
         self.moe = getattr(self.block, "moe_experts", 0) > 0
+        self.ep_n = mesh.shape.get(meshlib.EXPERT_AXIS, 1)
+        # JAX pipeline.py:255-287, its checks and messages
+        if self.moe and schedule == "1f1b":
+            raise ValueError(
+                "schedule='1f1b' does not compose with MoE stage blocks "
+                "(the hand-scheduled backward carries only the task-loss "
+                "cotangent; router aux losses would silently drop out of "
+                "the objective); use schedule='gpipe' for pp×ep")
+        if self.ep_n > 1:
+            if not self.moe:
+                raise ValueError(
+                    "mesh has an 'expert' axis but the stage block has no "
+                    "MoE FFN (moe_experts == 0); experts would silently "
+                    "replicate")
+            if not getattr(self.block, "partition_experts", False):
+                raise ValueError(
+                    "an 'expert' mesh axis needs partition_experts=True on "
+                    "the stage block — without the "
+                    "with_partitioning('expert') annotations the expert "
+                    "weights replicate and no expert parallelism happens")
+            if getattr(self.block, "moe_experts", 0) % self.ep_n:
+                raise ValueError(
+                    f"moe_experts {self.block.moe_experts} not divisible "
+                    f"by expert axis size {self.ep_n}")
+        self.aux_weight = aux_weight
+        self.router_z_weight = router_z_weight
+        # None on dense pipelines: the harness's summary carries the
+        # router-health fields only where there are routers
+        self.overflow_monitor = (_OverflowMonitor(overflow_warn_threshold,
+                                                  overflow_window)
+                                 if self.moe else None)
         self._bind(mesh, stages)
         model = PipelineStages(self.embed, self.block, self.head,
                                self.n_stages, self.stage)
@@ -341,6 +408,7 @@ class PipelineEngine(Engine):
                          learning_rate=learning_rate, device=device)
         self.stacked_params = model.stacked_params
         cut = tp_specs(model)
+        cut.update(expert_specs(model, mesh))
         self.param_specs = {
             n: ((meshlib.PIPE_AXIS,) + (cut[n] or (None,) * p.dim())
                 if n in self.stacked_params else cut[n])
@@ -361,7 +429,12 @@ class PipelineEngine(Engine):
         """Give the stages the mesh, as ``CompositeEngine`` binds a model:
         its 'model' axis to the Megatron layers, its 'seq' axis to a
         sequence-parallel block's attention and to the embed's and
-        block's positions."""
+        block's positions, and the whole mesh to the MoE layers, which
+        route the tokens of their own call (no token axis) and reach the
+        experts cut over 'expert' by the ``replicated`` route."""
+        if self.moe:
+            bind_expert_mesh(self.block, mesh, token_axes=(),
+                             route="replicated")
         if meshlib.MODEL_AXIS in mesh.axis_names:
             for part in stages:
                 bind_model_mesh(part, mesh)
@@ -379,13 +452,22 @@ class PipelineEngine(Engine):
                 f"and attention_impl 'ring', 'ring_flash', 'ulysses' or "
                 f"'ulysses_flash', got '{impl}'")
 
+    def _own_params(self, model: nn.Module) -> None:
+        """Keep this rank's slice of the ``partition_experts`` layers'
+        experts (once; a later init draws into the slice)."""
+        if self.moe:
+            shard_experts(model, self.mesh)
+
     # ------------------------------------------------------------- batches
     def shard_batch(self, x, y, mask=None, process_local: bool = False):
         """This rank's rows (by data index) and, when 'seq' > 1, token
         columns (by seq index) of a training batch (JAX ``:309-326``); an
         LM's (B, L) labels are cut like the inputs.  An evaluation batch
         (``mask`` given) keeps whole sequences: ``evaluate`` runs the
-        unbound twins."""
+        unbound twins; under MoE stages every rank takes all its rows
+        (one routing population, as JAX's GSPMD evaluation)."""
+        if mask is not None and self.moe:
+            return self._put(x), self._put(y), self._put(mask)
         if self.sp_n > 1:
             if x.ndim < 2 or x.shape[1] % self.sp_n:
                 raise ValueError(
@@ -439,12 +521,22 @@ class PipelineEngine(Engine):
         z = _leaf(h)
         logits = self.head(z)
         loss = cross_entropy(logits, y).mean()
-        sums += torch.stack([loss.detach(),
-                             (logits.argmax(-1) == y).float().mean(),
-                             torch.ones((), device=self.device)])
+        sums[:3] += torch.stack([loss.detach(),
+                                 (logits.argmax(-1) == y).float().mean(),
+                                 torch.ones((), device=self.device)])
         return loss, z
 
     # ----------------------------------------------------------- schedules
+    def _router(self, scale: float):
+        """The stage's router terms of the block call just made, scaled
+        into the objective (``scale · (aux_weight · aux + z_weight · z)``),
+        and its overflow; (None, None) for dense stages."""
+        if not self.moe:
+            return None, None
+        aux, z, overflow = router_losses(self.block)
+        return ((self.aux_weight * aux + self.router_z_weight * z) * scale,
+                overflow)
+
     def _gpipe(self, xs, ys, scale: float, sums) -> None:
         """All forward ticks, then all backward ticks (module
         docstring)."""
@@ -469,6 +561,11 @@ class PipelineEngine(Engine):
                         send = self.block(h_in)
                 else:
                     send = rec["h_out"] = self.block(h_in)
+                # read before the next tick's call overwrites the layers'
+                # terms; under remat only the overflow counts here
+                rec["router"], overflow = self._router(scale)
+                if overflow is not None:
+                    sums[3] += overflow
                 if last:
                     # the head's graph is kept, not recomputed: JAX's remat
                     # wraps the block alone
@@ -488,8 +585,14 @@ class PipelineEngine(Engine):
                     (rec["loss"] * scale).backward()
                     cot = _grads(rec["z"])
                 h_in = rec["h_in"]
-                h_out = self.block(h_in) if self.remat else rec["h_out"]
-                _backward(h_out, cot)
+                if self.remat:
+                    # the recompute's router terms are the differentiated
+                    # ones
+                    h_out = self.block(h_in)
+                    router = self._router(scale)[0]
+                else:
+                    h_out, router = rec["h_out"], rec["router"]
+                _backward(h_out, cot, router)
                 if first:
                     _backward(rec["e"], _grads(h_in))
                 else:
@@ -552,8 +655,9 @@ class PipelineEngine(Engine):
         xs, ys = x.chunk(M), y.chunk(M)
         scale = 1.0 / (M * self.n_devices * self.sp_n)
         state.optimizer.zero_grad(set_to_none=True)
-        # the last stage's summed microbatch losses, accuracies and count
-        sums = torch.zeros(3, device=self.device)
+        # the last stage's summed microbatch losses, accuracies and count,
+        # and under MoE stages every stage's summed router overflow
+        sums = torch.zeros(4 if self.moe else 3, device=self.device)
         if self.schedule == "1f1b":
             self._one_f_one_b(xs, ys, scale, sums)
         else:
@@ -566,8 +670,18 @@ class PipelineEngine(Engine):
             self.mesh, sums, axis=self._edge_axes)
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": sums[0] / sums[2],
-                       "accuracy": sums[1] / sums[2]}
+        metrics = {"loss": sums[0] / sums[2], "accuracy": sums[1] / sums[2]}
+        if self.moe:
+            # the mean over every (stage, microbatch, data shard, seq
+            # block) router call (JAX :591-596); the count is M·dp·sp
+            metrics["overflow"] = sums[3] / (self.n_stages * sums[2])
+        return state, metrics
+
+    def step(self, state: TrainState, x, y):
+        state, metrics = super().step(state, x, y)
+        if self.moe:
+            self.overflow_monitor.observe(metrics["overflow"])
+        return state, metrics
 
     # ---------------------------------------------------------------- eval
     @torch.no_grad()
@@ -600,8 +714,10 @@ class PipelineEngine(Engine):
         return model(x)
 
     def _reduce_totals(self, totals: torch.Tensor) -> None:
-        # every rank of a 'pipe' group evaluated the same rows
-        coll.all_reduce_(totals, self.mesh, axis=meshlib.DATA_AXIS)
+        # every rank of a 'pipe' group evaluated the same rows; under MoE
+        # stages every rank evaluated every row
+        if not self.moe:
+            coll.all_reduce_(totals, self.mesh, axis=meshlib.DATA_AXIS)
 
     # ------------------------------------------------------------ generate
     @torch.no_grad()

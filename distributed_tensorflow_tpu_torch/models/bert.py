@@ -52,16 +52,14 @@ mask and keeps this rank's heads.
 embeddings, ``layers_per_stage`` dropout-free dense-attention layers a
 stage over the carry ``(hidden, pad_mask)``, and the ``[CLS]`` pooler;
 with ``partition_model`` (pp×tp) the embed and layers take the Megatron
-layout and the pooler stays whole.
+layout and the pooler stays whole; with ``moe_experts`` (pp×ep) each
+layer's FFN is the routed MoE.
 
 Under ``CompositeEngine`` the Megatron layers carry ring or Ulysses
 attention over 'seq' on the rank's local heads (Ulysses needs them to
 split over the 'seq' axis), and ``partition_experts`` (with
 ``partition_model``, the 2-D layout) lets the engine cut the MoE layers'
 experts (``models.moe.shard_experts``).
-
-Not ported here (raises ``NotImplementedError``): the stages'
-``moe_experts`` (the pipeline's MoE composites).
 """
 
 from __future__ import annotations
@@ -389,23 +387,34 @@ class BertPipeEmbed(nn.Module):
 class BertPipeBlock(nn.Module):
     """One pipeline stage: ``layers_per_stage`` post-LN transformer layers
     with dense attention and dropout 0, over ``(hidden, pad_mask)``;
-    ``partition_model``: the Megatron attention and FFN."""
+    ``partition_model``: the Megatron attention and FFN; ``moe_experts``
+    > 0 (pp×ep): each layer's FFN a routed MoE (JAX ``bert.py:315-352``),
+    its experts cut over 'expert' under ``partition_experts``."""
 
     dropout_rate = 0.0
 
     def __init__(self, hidden: int = 128, heads: int = 2, ffn: int = 512,
                  layers_per_stage: int = 1, dtype=torch.float32,
-                 device=None, partition_model: bool = False):
+                 device=None, partition_model: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25,
+                 partition_experts: bool = False):
         super().__init__()
         device = resolve_device(device)
         self._kw = dict(hidden=hidden, heads=heads, ffn=ffn,
                         layers_per_stage=layers_per_stage, dtype=dtype,
-                        device=device, partition_model=partition_model)
+                        device=device, partition_model=partition_model,
+                        moe_experts=moe_experts, moe_top_k=moe_top_k,
+                        moe_capacity_factor=moe_capacity_factor,
+                        partition_experts=partition_experts)
         self.hidden, self.heads, self.ffn = hidden, heads, ffn
         self.layers_per_stage, self.dtype = layers_per_stage, dtype
+        self.moe_experts, self.partition_experts = (moe_experts,
+                                                    partition_experts)
         self.layers = nn.ModuleList(
             TransformerLayer(hidden, heads, ffn, 0.0, "dense", dtype, device,
-                             partition_model=partition_model)
+                             moe_experts, moe_top_k, moe_capacity_factor,
+                             partition_model, partition_experts)
             for _ in range(layers_per_stage))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -452,17 +461,15 @@ def bert_pipeline_stages(num_classes: int = 2, vocab_size: int = 8192,
     """(embed, block, head) for ``PipelineEngine(stages=...)``: a BERT
     encoder of depth ``pipe size × layers_per_stage`` (JAX
     ``bert_pipeline_stages``).  ``partition_model`` adds the Megatron
-    layout for pp×tp; ``moe_experts`` belongs to the MoE composites and
-    raises ``NotImplementedError``."""
-    from distributed_tensorflow_tpu_torch.models.gpt import (
-        _reject_stage_composites)
-
-    _reject_stage_composites(moe_experts, partition_experts)
+    layout for pp×tp; ``moe_experts`` > 0 with ``partition_experts`` makes
+    each layer's FFN a routed MoE whose experts cut over an 'expert' axis
+    (pp×ep)."""
     if isinstance(dtype, str):
         from distributed_tensorflow_tpu_torch.models import resolve_dtype
         dtype = resolve_dtype(dtype)
     return (BertPipeEmbed(vocab_size, hidden, max_len, dtype, device,
                           partition_model),
             BertPipeBlock(hidden, heads, ffn, layers_per_stage, dtype,
-                          device, partition_model),
+                          device, partition_model, moe_experts, moe_top_k,
+                          moe_capacity_factor, partition_experts),
             BertPipeHead(num_classes, hidden, dtype, device))

@@ -315,7 +315,8 @@ def _stage(family: str, part: str, tree: dict) -> dict[str, torch.Tensor]:
 
 
 def pipeline_state_dicts(params: dict, specs: dict | None = None,
-                         tp: int = 1, rank: int = 0
+                         tp: int = 1, rank: int = 0, ep: int = 1,
+                         expert_rank: int = 0
                          ) -> tuple[dict, list[dict], dict]:
     """JAX ``PipelineEngine`` params ``{"embed", "blocks", "head"}`` (the
     blocks' leaves stacked over a leading stage dim) → the port's stage
@@ -323,8 +324,9 @@ def pipeline_state_dicts(params: dict, specs: dict | None = None,
     built-in MLP stages, the GPT or the BERT stages) is read from the
     embed's tree.  With ``specs`` (a ``PipelineEngine``'s
     ``param_specs``), each stage is cut to tensor-parallel rank ``rank``
-    of ``tp`` (``tp_shard_state_dict``; a block leaf's layout after its
-    'pipe' entry)."""
+    of ``tp`` and expert rank ``expert_rank`` of ``ep``
+    (``tp_shard_state_dict``; a block leaf's layout after its 'pipe'
+    entry, e.g. a MoE ``w1`` as ('expert', None, 'model'))."""
     family = _family(params["embed"])
     n = {np.shape(a)[0] for a in _flat(params["blocks"])}
     if len(n) != 1:
@@ -343,7 +345,7 @@ def pipeline_state_dicts(params: dict, specs: dict | None = None,
     def cut(part: str, sd: dict) -> dict:
         own = {k[len(part) + 1:]: v[1:] if part == "block" else v
                for k, v in specs.items() if k.startswith(f"{part}.")}
-        return tp_shard_state_dict(sd, own, tp, rank)
+        return tp_shard_state_dict(sd, own, tp, rank, ep, expert_rank)
 
     return (cut("embed", out[0]), [cut("block", b) for b in out[1]],
             cut("head", out[2]))

@@ -105,13 +105,16 @@ final LN with an untied head.  ``partition_model`` (pp×tp) gives them
 the Megatron layout (a vocab-parallel token table, the blocks' layers,
 a vocab-column-parallel head whose logits are gathered whole); a
 ``seq_axis`` with ring or Ulysses attention (pp×sp) makes the carry this
-rank's token block, its positions global.  ``unbound()`` builds a
-stage's whole twin without a mesh, which ``PipelineEngine.eval_params``
+rank's token block, its positions global.  ``moe_experts`` (pp×ep)
+gives every block of a stage the routed MoE FFN (with
+``partition_experts`` its experts cut over 'expert', under
+``partition_model`` the 2-D expert layout), whose router terms the
+engine reads after each tick.  ``unbound()`` builds a stage's whole twin
+without a mesh (its MoE FFN whole), which ``PipelineEngine.eval_params``
 evaluates and decodes with.
 
-Not ported here (each raises ``NotImplementedError``): decode of a bound
-tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode),
-and the stages' ``moe_experts`` (the pipeline's MoE composites).
+Not ported here (raises ``NotImplementedError``): decode of a bound
+tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode).
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_tensorflow_tpu_torch import (
-    PIPELINE_COMPOSITES, TP_DECODE, not_ported, resolve_device)
+    TP_DECODE, not_ported, resolve_device)
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     check_divisible, dense as _dense, dropout as _dropout, flax_init_,
@@ -785,18 +788,11 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
 # recompute, GPipe's remat), which must see the forward's values.
 # ``partition_model`` lays the stages out as JAX's Megatron annotations do
 # (pp×tp); ``seq_axis`` with a sequence-parallel ``attention_impl`` makes
-# the carry this rank's token block of the sequence (pp×sp).  The engine
-# binds its mesh (``bind_model_mesh``, ``bind_seq_mesh``).
+# the carry this rank's token block of the sequence (pp×sp);
+# ``moe_experts`` gives the blocks the routed MoE FFN (pp×ep).  The engine
+# binds its mesh (``bind_model_mesh``, ``bind_seq_mesh``,
+# ``bind_expert_mesh``).
 # --------------------------------------------------------------------------
-
-
-def _reject_stage_composites(moe_experts: int = 0,
-                             partition_experts: bool = False) -> None:
-    """MoE stage blocks belong to the pipeline's MoE composites (JAX
-    pp×ep) and raise ``not_ported``."""
-    if moe_experts > 0 or partition_experts:
-        not_ported("MoE pipeline stages (the pp×ep composite)",
-                   PIPELINE_COMPOSITES)
 
 
 def _seq_offset(module, lq: int) -> int:
@@ -876,7 +872,10 @@ class GPTPipeBlock(nn.Module):
     (pp×sp) it is this rank's token block, attended by a
     sequence-parallel ``attention_impl`` over the bound mesh's 'seq'
     axis, with RoPE positions offset to global.  ``partition_model``: the
-    Megatron attention and FFN."""
+    Megatron attention and FFN.  ``moe_experts`` > 0 (pp×ep): each
+    block's FFN a routed MoE of ``moe_top_k`` and
+    ``moe_capacity_factor``, its experts cut over 'expert' under
+    ``partition_experts`` (JAX ``gpt.py:988-1020``)."""
 
     dropout_rate = 0.0
     seq_mesh = None   # the mesh of a sequence-parallel stage (bind_seq_mesh)
@@ -885,7 +884,10 @@ class GPTPipeBlock(nn.Module):
                  layers_per_stage: int = 1, rope: bool = False,
                  kv_heads: int | None = None, attention_impl: str = "dense",
                  dtype=torch.float32, device=None,
-                 partition_model: bool = False, seq_axis: str | None = None):
+                 partition_model: bool = False, seq_axis: str | None = None,
+                 moe_experts: int = 0, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25,
+                 partition_experts: bool = False):
         super().__init__()
         if attention_impl not in ("dense", "flash", *SEQ_PARALLEL):
             raise ValueError(f"unknown attention_impl '{attention_impl}' "
@@ -902,14 +904,20 @@ class GPTPipeBlock(nn.Module):
                         layers_per_stage=layers_per_stage, rope=rope,
                         kv_heads=kv_heads, attention_impl=attention_impl,
                         dtype=dtype, device=device,
-                        partition_model=partition_model, seq_axis=seq_axis)
+                        partition_model=partition_model, seq_axis=seq_axis,
+                        moe_experts=moe_experts, moe_top_k=moe_top_k,
+                        moe_capacity_factor=moe_capacity_factor,
+                        partition_experts=partition_experts)
         self.hidden, self.heads, self.ffn = hidden, heads, ffn
         self.layers_per_stage, self.rope = layers_per_stage, rope
         self.kv_heads, self.attention_impl = kv_heads, attention_impl
         self.dtype, self.seq_axis = dtype, seq_axis
+        self.moe_experts, self.partition_experts = (moe_experts,
+                                                    partition_experts)
         self.layers = nn.ModuleList(
             GPTBlock(hidden, heads, ffn, 0.0, rope, kv_heads, dtype, device,
-                     attention_impl, partition_model=partition_model)
+                     attention_impl, moe_experts, moe_top_k,
+                     moe_capacity_factor, partition_model, partition_experts)
             for _ in range(layers_per_stage))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -991,9 +999,8 @@ def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
     ``vocab_size`` (the harness passes it).  ``partition_model`` adds the
     Megatron layout for pp×tp; ``attention_impl='ring'`` (etc.) with
     ``seq_axis='seq'`` makes the stages sequence-parallel for pp×sp.
-    ``moe_experts`` belongs to the MoE composites and raises
-    ``NotImplementedError``."""
-    _reject_stage_composites(moe_experts, partition_experts)
+    ``moe_experts`` > 0 with ``partition_experts`` makes each block's FFN
+    a routed MoE whose experts cut over an 'expert' axis (pp×ep)."""
     if num_classes is not None:
         vocab_size = num_classes
     if positional not in ("learned", "rope"):
@@ -1007,5 +1014,6 @@ def gpt_pipeline_stages(vocab_size: int = 256, hidden: int = 128,
                          partition_model, seq_axis),
             GPTPipeBlock(hidden, heads, ffn, layers_per_stage, rope,
                          kv_heads, attention_impl, dtype, device,
-                         partition_model, seq_axis),
+                         partition_model, seq_axis, moe_experts, moe_top_k,
+                         moe_capacity_factor, partition_experts),
             GPTPipeHead(vocab_size, hidden, dtype, device, partition_model))

@@ -62,9 +62,16 @@ With the pipeline: pp×tp a (data, pipe, model) mesh and
 (``pipeline_tp[dp*pp*tp,<schedule>]``); pp×sp a (data, pipe, seq) mesh
 and GPT stages with ring or Ulysses attention over 'seq'
 (``pipeline_sp[dp*pp*sp,<attention>]``), and with tp a (data, pipe, seq,
-model) one (``pipeline_tp_sp[dp*pp*tp*sp,<attention>]``).  ``--sample``
-after them decodes through ``PipelineEngine.generate`` on the gathered
-whole model (not TP decode); ``--serve`` after ``-pp`` is refused.
+model) one (``pipeline_tp_sp[dp*pp*tp*sp,<attention>]``); pp×ep a
+(data, pipe, expert[, model][, seq]) mesh and GPT (or, without 'seq',
+BERT) stages whose blocks carry the routed MoE FFN with its experts cut
+over 'expert' (``pipeline_ep[dp*pp*ep,<schedule>]``,
+``pipeline_ep_tp[dp*pp*ep*tp]``, ``pipeline_ep_sp[dp*pp*ep*sp,
+<attention>]``, ``pipeline_ep_tp_sp[dp*pp*ep*tp*sp,<attention>]``), whose
+summary carries the overflow monitor's report.  ``--sample`` after the
+dense ones decodes through ``PipelineEngine.generate`` on the gathered
+whole model (not TP decode), and is refused after MoE stages;
+``--serve`` after ``-pp`` is refused.
 
 ``checkpoint_dir`` writes checkpoints (``utils/checkpoint.py``; async by
 default, ``async_checkpoint`` False for the synchronous writer) every
@@ -108,9 +115,7 @@ decodes through ``PipelineEngine.generate``, and ``--precision``,
 ``--serve`` are refused with JAX's messages.
 
 The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent; the pipeline's MoE composites (``-pp`` with ``-ep``) raise
-``NotImplementedError`` (``check_parallel_factors``), and the fleet's
-serve fields
+absent, and the fleet's serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -131,8 +136,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import (
-    PIPELINE_COMPOSITES, TP_DECODE, not_ported)
+from distributed_tensorflow_tpu_torch import TP_DECODE, not_ported
 from distributed_tensorflow_tpu_torch import models as modellib
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
@@ -898,18 +902,23 @@ def _reject_model_args(config: ExperimentConfig, mode: str) -> None:
 
 
 _STAGE_MODEL_ARGS = ("heads", "ffn", "layers_per_stage")
+# the overflow monitor's advised remediation must be reachable from the
+# CLI on pp×ep runs
+_STAGE_MOE_ARGS = ("moe_capacity_factor",)
 
 
-def _stage_model_args(config: ExperimentConfig, mode: str) -> dict:
+def _stage_model_args(config: ExperimentConfig, mode: str,
+                      moe: bool = False) -> dict:
     """The ``--model-arg`` keys the GPT and BERT stage families take
-    (JAX ``_stage_model_args``, without pp×ep's ``moe_capacity_factor``);
-    the width is ``--pipeline-hidden``."""
+    (JAX ``_stage_model_args``); MoE stages (pp×ep) take
+    ``moe_capacity_factor`` too.  The width is ``--pipeline-hidden``."""
+    allowed = _STAGE_MODEL_ARGS + (_STAGE_MOE_ARGS if moe else ())
     extra = dict(config.model_args or {})
-    bad = sorted(set(extra) - set(_STAGE_MODEL_ARGS))
+    bad = sorted(set(extra) - set(allowed))
     if bad:
         raise ValueError(
             f"--model-arg key(s) {bad} do not reach {mode} stage modules; "
-            f"stages accept {'/'.join(_STAGE_MODEL_ARGS)} via --model-arg, "
+            f"stages accept {'/'.join(allowed)} via --model-arg, "
             f"width via --pipeline-hidden, and K/V heads / positional "
             f"encoding via --kv-heads / --positional")
     return extra
@@ -918,7 +927,7 @@ def _stage_model_args(config: ExperimentConfig, mode: str) -> dict:
 def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
                      device, partition_model: bool = False,
                      attention_impl: str = "dense",
-                     seq_axis: str | None = None):
+                     seq_axis: str | None = None, moe: bool = False):
     """(embed, block, head) of the GPT or BERT stage family (JAX
     ``_pipeline_stages``): ``--pipeline-hidden`` wide, sized by
     ``--model-arg heads/ffn/layers_per_stage``, ``max_len`` the data's
@@ -926,10 +935,15 @@ def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
     the table would fail, where flax's Embed clamps it).
     ``partition_model`` gives them the Megatron layout (pp×tp);
     ``attention_impl`` and ``seq_axis`` make the GPT stages
-    sequence-parallel (pp×sp)."""
+    sequence-parallel (pp×sp); ``moe`` makes each block's FFN a routed
+    MoE of ``--num-experts`` and ``--router-top-k`` with its experts cut
+    over 'expert' (pp×ep)."""
     _require_token_data(train_ds, config, mode)
     dtype = modellib.resolve_dtype(config.dtype)
-    extra = _stage_model_args(config, mode)
+    extra = _stage_model_args(config, mode, moe=moe)
+    if moe:
+        extra.update(moe_experts=config.num_experts,
+                     moe_top_k=config.router_top_k, partition_experts=True)
     if config.model in _LM_MODELS:
         from distributed_tensorflow_tpu_torch.models.gpt import (
             gpt_pipeline_stages)
@@ -952,11 +966,11 @@ def _pipeline_stages(config: ExperimentConfig, train_ds, test_ds, mode: str,
 
 
 def _pipeline_experiment(config: ExperimentConfig, name: str, mesh,
-                         dp: int, stages_fn) -> _Experiment:
+                         dp: int, stages_fn, **engine_kw) -> _Experiment:
     """``PipelineEngine`` on ``mesh`` over ``stages_fn(train_ds,
     test_ds)`` (None: the built-in MLP stages), with ``microbatches``,
-    ``pipeline_schedule`` and ``remat``; the mesh is closed if anything
-    fails."""
+    ``pipeline_schedule``, ``remat`` and ``engine_kw``; the mesh is closed
+    if anything fails."""
     from distributed_tensorflow_tpu_torch.engines.pipeline import (
         PipelineEngine)
 
@@ -975,7 +989,8 @@ def _pipeline_experiment(config: ExperimentConfig, name: str, mesh,
             optimizer=_make_optimizer(config, train_ds, global_batch,
                                       lambda: engine.model),
             dtype=modellib.resolve_dtype(config.dtype), stages=stages,
-            schedule=config.pipeline_schedule, remat=config.remat)
+            schedule=config.pipeline_schedule, remat=config.remat,
+            **engine_kw)
     except BaseException:
         mesh.close()
         raise
@@ -1070,6 +1085,74 @@ def _setup_pipeline_tp_sp(config: ExperimentConfig) -> _Experiment:
     return _setup_pipeline_sp(config, tp=config.tensor_parallel)
 
 
+def _setup_pipeline_ep(config: ExperimentConfig, tp: int = 1,
+                       sp: int = 1) -> _Experiment:
+    """dp×pp×ep (JAX ``harness.py:1318-1390``): a (data, pipe, expert)
+    mesh and ``PipelineEngine`` (GPipe) over GPT or BERT stages whose
+    blocks carry the routed MoE FFN, its experts cut over 'expert'; the
+    batch shards over 'data' only.  ``tp`` > 1 adds a 'model' axis and
+    the stages' Megatron layout with the 2-D expert layout; ``sp`` > 1 a
+    'seq' axis last and GPT stages with ring or Ulysses attention, (data,
+    pipe, expert[, model], seq).  Dense attention unless sp > 1, as in
+    JAX."""
+    mode = "pipeline_parallel×expert_parallel" + (
+        "×tensor_parallel" if tp > 1 else "") + (
+        "×seq_parallel" if sp > 1 else "")
+    lm_only = sp > 1  # a seq-sharded carry cannot serve a [CLS] head
+    family = _LM_MODELS if lm_only else _SEQUENCE_MODELS
+    if config.model not in family or config.model_fn is not None:
+        raise ValueError(
+            f"{mode} ships MoE-FFN stages for {'/'.join(family)} "
+            f"(got --model {config.model}); custom models pass stages "
+            f"whose block carries moe_experts/partition_experts "
+            f"(models/moe.py MoELayer) to PipelineEngine")
+    if sp > 1:
+        _reject_flash_under_sp(config)
+    if config.num_experts % config.expert_parallel:
+        raise ValueError(
+            f"num_experts {config.num_experts} not divisible by "
+            f"expert_parallel {config.expert_parallel}")
+    extra = [(config.expert_parallel, meshlib.EXPERT_AXIS)]
+    if tp > 1:
+        extra.append((tp, meshlib.MODEL_AXIS))
+    if sp > 1:
+        extra.append((sp, meshlib.SEQ_AXIS))
+    mesh, dp = _split_mesh(config, config.pipeline_parallel, mode,
+                           meshlib.PIPE_AXIS, *extra)
+    impl = config.attention_impl
+
+    def stages(train_ds, test_ds):
+        return _pipeline_stages(
+            config, train_ds, test_ds, mode, mesh.device, moe=True,
+            partition_model=tp > 1,
+            attention_impl=impl if sp > 1 else "dense",
+            seq_axis=meshlib.SEQ_AXIS if sp > 1 else None)
+
+    tag = (f"pipeline_ep_tp_sp[dp*pp*ep*tp*sp,{impl}]" if tp > 1 and sp > 1
+           else "pipeline_ep_tp[dp*pp*ep*tp]" if tp > 1
+           else f"pipeline_ep_sp[dp*pp*ep*sp,{impl}]" if sp > 1
+           else f"pipeline_ep[dp*pp*ep,{config.pipeline_schedule}]")
+    return _pipeline_experiment(config, tag, mesh, dp, stages,
+                                aux_weight=config.aux_weight,
+                                router_z_weight=config.router_z_weight)
+
+
+def _setup_pipeline_ep_tp(config: ExperimentConfig) -> _Experiment:
+    """dp×pp×ep×tp: ``_setup_pipeline_ep(tp=...)``."""
+    return _setup_pipeline_ep(config, tp=config.tensor_parallel)
+
+
+def _setup_pipeline_ep_sp(config: ExperimentConfig) -> _Experiment:
+    """dp×pp×ep×sp: ``_setup_pipeline_ep(sp=...)``."""
+    return _setup_pipeline_ep(config, sp=config.seq_parallel)
+
+
+def _setup_pipeline_ep_tp_sp(config: ExperimentConfig) -> _Experiment:
+    """dp×pp×ep×tp×sp, a 5-D mesh: ``_setup_pipeline_ep(tp=..., sp=...)``."""
+    return _setup_pipeline_ep(config, tp=config.tensor_parallel,
+                              sp=config.seq_parallel)
+
+
 def _codec_kw(config: ExperimentConfig) -> dict[str, Any]:
     """The codec settings every engine takes."""
     return dict(grad_compression=config.grad_compression,
@@ -1119,22 +1202,19 @@ def _parallel_factors(config: ExperimentConfig) -> list[str]:
 
 
 def check_parallel_factors(config: ExperimentConfig) -> None:
-    """The model-parallel factors above 1: each one alone (``tensor_parallel``
-    under sync/allreduce, or fsdp × tp under ``fsdp``), the composites
-    without the pipeline (tp×sp, ep×tp, ep×sp, ep×tp×sp) and the
-    pipeline's dense ones (pp×tp, pp×sp, pp×tp×sp: ``_COMBOS``) are
-    served; the pipeline's MoE composites (``-pp`` with ``-ep``) raise
-    ``NotImplementedError``.
-    ``num_experts`` must split over ``expert_parallel`` (JAX
-    ``harness.py:1428-1431, 1537-1540``), and ``router_z_weight`` needs a
-    MoE-aware engine (JAX ``harness.py:606-616``).  The CLI calls it
-    before it spawns ranks."""
-    multi = _parallel_factors(config)
-    if {"pipeline_parallel", "expert_parallel"} <= set(multi):
-        not_ported(f"--{' × --'.join(m.replace('_', '-') for m in multi)}",
-                   PIPELINE_COMPOSITES)
-    moe_model = config.model in ("moe", "moe_mlp", "mlp") or (
-        config.model in _SEQUENCE_MODELS and config.seq_parallel > 1)
+    """The checks of the model-parallel factors that hold before any rank
+    is spawned (every one alone and every composite of them is served:
+    ``_COMBOS``).  ``num_experts`` must split over ``expert_parallel``
+    (JAX ``harness.py:1340-1343, 1428-1431, 1537-1540``), and
+    ``router_z_weight`` needs a MoE-aware engine, the -ep paths (pp×ep
+    among them) or a MoE tp×sp composite (JAX ``harness.py:606-616``).
+    The CLI calls it before it spawns ranks."""
+    # the models each -ep path routes (the pipeline's MoE stages are the
+    # sequence families'; it refuses the others first, in JAX's words)
+    moe_model = (config.model in ("moe", "moe_mlp", "mlp")
+                 and config.pipeline_parallel <= 1) or (
+        config.model in _SEQUENCE_MODELS and (
+            config.seq_parallel > 1 or config.pipeline_parallel > 1))
     if (config.expert_parallel > 1 and config.model_fn is None
             and moe_model and config.num_experts % config.expert_parallel):
         raise ValueError(
@@ -1213,8 +1293,7 @@ def _setup(config: ExperimentConfig) -> _Experiment:
                        name=config.engine)
 
 
-# the composites of the model-parallel factors (JAX harness.py:649-672;
-# the pipeline's MoE ones raise in check_parallel_factors)
+# the composites of the model-parallel factors (JAX harness.py:649-672)
 _COMBOS = {
     frozenset({"seq_parallel", "tensor_parallel"}): _setup_composite,
     frozenset({"pipeline_parallel", "tensor_parallel"}): _setup_pipeline_tp,
@@ -1225,6 +1304,13 @@ _COMBOS = {
     frozenset({"expert_parallel", "seq_parallel"}): _setup_expert_sp,
     frozenset({"expert_parallel", "tensor_parallel", "seq_parallel"}):
         _setup_expert_tp_sp,
+    frozenset({"pipeline_parallel", "expert_parallel"}): _setup_pipeline_ep,
+    frozenset({"pipeline_parallel", "expert_parallel", "tensor_parallel"}):
+        _setup_pipeline_ep_tp,
+    frozenset({"pipeline_parallel", "expert_parallel", "seq_parallel"}):
+        _setup_pipeline_ep_sp,
+    frozenset({"pipeline_parallel", "expert_parallel", "tensor_parallel",
+               "seq_parallel"}): _setup_pipeline_ep_tp_sp,
 }
 
 

@@ -486,15 +486,17 @@ def test_reference_flag_surface_accepted():
     # fsdp and the pipeline are ported since; JAX rejects them together
     (["-m", "d", "-ds", "fsdp", "-pp", "2"], ValueError,
      "fsdp × pipeline is rejected by design"),
-    # MoE, -ep and the composites without the pipeline are ported; the
-    # pipeline's composites are not
-    (["--model", "moe", "-ep", "2", "-pp", "2"], NotImplementedError,
-     "remaining engines: pipeline composites"),
+    # MoE, -ep and every composite are ported; the pipeline's MoE stages
+    # are the sequence families' (JAX harness.py:1338-1344)
+    (["--model", "moe", "-ep", "2", "-pp", "2"], ValueError,
+     r"pipeline_parallel×expert_parallel ships MoE-FFN stages for "
+     r"\S*gpt\S* \(got --model moe\)"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
       "attention_impl=ulysses"], ValueError, "pass -sp > 1"),
     (["--model", "bert_tiny", "--dataset", "glue_synth", "--model-arg",
       "moe_experts=2", "-ep", "2", "-sp", "2", "-pp", "2"],
-     NotImplementedError, "remaining engines: pipeline composites"),
+     ValueError, r"pipeline_parallel×expert_parallel×seq_parallel ships "
+     r"MoE-FFN stages for \S*gpt\S* \(got --model bert_tiny\)"),
     # the local engines decouple the optimizer cadence themselves (JAX
     # harness.py:712-716)
     (["-m", "c", "-cs", "async", "--grad-accum", "2"], ValueError,

@@ -693,19 +693,15 @@ PIPELINE_COMBOS = [
 @pytest.mark.parametrize("factors", PIPELINE_COMBOS,
                          ids=lambda f: "x".join(sorted(f)))
 def test_pipeline_combos_cite_pipeline_composites(factors):
-    """The pipeline's MoE composites (``-pp`` with ``-ep``) cite their
-    title; the dense ones (pp×tp, pp×sp, pp×tp×sp) are ported
-    (tests/test_torch_pipeline_composite.py) and reach their mesh: on 2
-    devices, JAX's message that 2 do not hold it."""
+    """Every pipeline composite is ported: the dense ones (pp×tp, pp×sp,
+    pp×tp×sp; tests/test_torch_pipeline_composite.py) and the MoE ones
+    (pp×ep with or without tp and sp; tests/test_torch_pipeline_ep.py)
+    reach their mesh: on 2 devices, JAX's message that 2 do not hold
+    it."""
     from distributed_tensorflow_tpu.utils import harness as jharness
     from distributed_tensorflow_tpu_torch.utils import harness
 
     kw = dict(model="gpt", dataset="lm_synth", **factors)
-    if "expert_parallel" in factors:
-        with pytest.raises(NotImplementedError,
-                           match="remaining engines: pipeline composites"):
-            harness._setup(harness.ExperimentConfig(**kw, device="cpu"))
-        return
     msg = _messages(
         lambda: jharness._setup(jharness.ExperimentConfig(**kw,
                                                           n_devices=2)),

@@ -435,15 +435,25 @@ def test_errors_match_jax(ep_mesh):
                    "moe", "--num-experts", "3"])
 
 
-# ep×tp and ep×sp are ported since (tests/test_torch_composite.py); their
-# composites with the pipeline still raise
+# ep×tp and ep×sp are ported (tests/test_torch_composite.py), and their
+# composites with the pipeline (tests/test_torch_pipeline_ep.py), whose
+# MoE stages are the sequence families': the MoE classifier is refused
+# in JAX's words
 @pytest.mark.parametrize("flags", [["-tp", "2", "-pp", "2"],
                                    ["-sp", "2", "-pp", "2"]])
 def test_expert_parallel_composites_still_raise(flags):
-    with pytest.raises(NotImplementedError,
-                       match="remaining engines: pipeline composites"):
-        tcli.main(["--device", "cpu", "-n", "8", "-ep", "2", *flags,
-                   "--model", "moe"])
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    kw = dict(model="moe", n_devices=8, expert_parallel=2,
+              pipeline_parallel=2,
+              **{{"-tp": "tensor_parallel",
+                  "-sp": "seq_parallel"}[flags[0]]: 2})
+    with pytest.raises(ValueError) as want:
+        jharness._setup(jharness.ExperimentConfig(**kw))
+    with pytest.raises(ValueError) as got:
+        harness._setup(harness.ExperimentConfig(**kw, device="cpu"))
+    assert str(got.value) == str(want.value)
+    assert "ships MoE-FFN stages for " in str(got.value)
 
 
 def test_gradient_codec_under_expert_parallel_runs_a_step(ep_mesh):

@@ -249,18 +249,13 @@ def test_engine_rejections_are_jax_word_for_word():
 
 @pytest.mark.parametrize("axis", ["model", "seq", "expert"])
 def test_composite_mesh_axes_raise_not_ported(axis):
-    """An 'expert' axis (the pp×ep composites) cites its title; 'model'
-    and 'seq' compose (pp×tp, pp×sp), and the MLP stages, which neither
-    axis cuts, train over them as on the (1, 1) mesh, bitwise."""
+    """'model', 'seq' and 'expert' compose (pp×tp, pp×sp, pp×ep), and the
+    MLP stages, which no axis cuts, train over them as on the (1, 1) mesh,
+    bitwise (an 'expert' axis of one rank over dense stages is no expert
+    parallelism, which JAX refuses only above one)."""
     m = meshlib.create_mesh(1, device="cpu", shape=(1, 1, 1),
                             axis_names=("data", "pipe", axis))
     try:
-        if axis == "expert":
-            with pytest.raises(NotImplementedError,
-                               match="remaining engines: pipeline "
-                                     "composites"):
-                PipelineEngine(mesh=m)
-            return
         twin = meshlib.create_mesh(1, device="cpu", shape=(1, 1),
                                    axis_names=("data", "pipe"))
         x, y = _inputs("mlp")
@@ -284,17 +279,31 @@ def test_composite_mesh_axes_raise_not_ported(axis):
     (bert_pipeline_stages, {"partition_model": True}),
     (bert_pipeline_stages, {"moe_experts": 4})])
 def test_stage_composite_options_raise_not_ported(factory, kw):
-    """MoE stages (the pp×ep composites) cite their title.  The dense
-    options are ported: ``partition_model`` builds the Megatron layers
-    (pp×tp), a ring block builds and refuses to run without a bound mesh,
-    and a ``seq_axis`` with dense attention is refused in JAX's words."""
+    """Every stage option is ported.  MoE stages (pp×ep) give each block a
+    routed MoE FFN whose parameters are JAX's block's, converted
+    (tests/test_torch_pipeline_ep.py trains them); ``partition_model``
+    builds the Megatron layers (pp×tp), a ring block builds and refuses
+    to run without a bound mesh, and a ``seq_axis`` with dense attention
+    is refused in JAX's words."""
     from distributed_tensorflow_tpu_torch.models.layers import (
         ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    from distributed_tensorflow_tpu_torch.models.moe import MoELayer
 
     if "moe_experts" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="remaining engines: pipeline composites"):
-            factory(**kw, device="cpu")
+        gpt = factory is gpt_pipeline_stages
+        base = GPT if gpt else BERT
+        _, block, _ = factory(**base, **kw, device="cpu")
+        assert block.moe_experts == 4 and all(
+            isinstance(layer.moe, MoELayer) and layer.moe.num_experts == 4
+            for layer in block.layers)
+        _, jblock, _ = (jgpt_stages if gpt else jbert_stages)(**base, **kw)
+        carry = (jnp.zeros((1, 16, 32)) if gpt
+                 else (jnp.zeros((1, 16, 32)), jnp.ones((1, 16))))
+        want = convert._stage("gpt" if gpt else "bert", "block",
+                              jax.device_get(jblock.init(
+                                  jax.random.key(0), carry)["params"]))
+        assert {k: v.shape for k, v in block.state_dict().items()} == {
+            k: v.shape for k, v in want.items()}
     elif "seq_axis" in kw:
         jfactory = jgpt_stages
         _, jblock, _ = jfactory(**GPT, **kw)

@@ -479,22 +479,17 @@ def test_composites_raise_not_ported(field):
     from distributed_tensorflow_tpu_torch.utils import harness
 
     for sp in (1, 2):
-        # every composite is ported but the pipeline's MoE ones (-pp with
-        # -ep); the dense ones (pp×tp, pp×sp, pp×tp×sp:
-        # tests/test_torch_pipeline_composite.py) reach their mesh, which
-        # one process cannot hold: JAX's message for one device
+        # every composite is ported: the pipeline's dense ones (pp×tp,
+        # pp×sp, pp×tp×sp: tests/test_torch_pipeline_composite.py) and its
+        # MoE ones (pp×ep, pp×ep×sp: tests/test_torch_pipeline_ep.py) reach
+        # their mesh, which one process cannot hold: JAX's message for one
+        # device
         extra = ({"tensor_parallel": 2} if field == "pipeline_parallel"
                  and sp == 1 else {"pipeline_parallel": 2}
                  if field != "pipeline_parallel" else {})
         kw = dict(model="gpt_tiny", dataset="lm_synth", seq_parallel=sp,
                   **{field: 2}, **extra)
         config = harness.ExperimentConfig(**kw, device="cpu")
-        if field == "expert_parallel":
-            with pytest.raises(NotImplementedError,
-                               match="remaining engines: pipeline "
-                                     "composites"):
-                harness._setup(config)
-            continue
         with pytest.raises(ValueError) as want:
             jharness._setup(jharness.ExperimentConfig(**kw, n_devices=1))
         with pytest.raises(ValueError) as got:
