@@ -347,8 +347,8 @@ Phases (any failure raises and the script exits non-zero):
              route, the Megatron pair's NCCL calls, gradient all-reduces
              and pipe shifts a step held to ``_ppc_plan``.  Printed on
              ``[ppc]`` lines beside the card's name and power limit: each
-             window's step p50, busy share and peak memory above its
-             entry; rows 1p-3p gain C1's and C2's launches
+             window's step p50 and peak memory above its entry, C1's and
+             C4's busy share; rows 1p-3p gain C1's and C2's launches
              (``launches_ppc``), and the ring's block kernels at the
              microbatch's shape (forward ``tc``, backward ``tc32``) join
              the kernels line;
@@ -371,8 +371,29 @@ Phases (any failure raises and the script exits non-zero):
              Megatron NCCL calls, gradient all-reduces and pipe shifts a
              step held to ``_ppe_plan``.  Printed on ``[ppe]`` lines
              beside the card's name and power limit: each window's step
-             p50, busy share, peak memory above its entry and overflow;
+             p50, peak memory above its entry and overflow, E0's and E4's
+             busy share;
              rows 1p-3p and 1rp-3rp gain ``launches_ppe``;
+5p. tpd   — TP decode on one NCCL rank.  TPL: window L1's flags with
+             ``-tp 1`` through ``cli.main`` (a 'model' axis needs -tp > 1
+             and a serve mesh more than one rank, as in JAX's harness, so
+             this is L1 and reaches no TP table): test loss, samples and
+             serve streams bitwise L1's, the serve table without a mesh,
+             paged launches layers x decode iterations.  TPM, TPP,
+             TPQ: the serve GPT with ``partition_model=True`` bound to a
+             (1, 1) (data, model) NCCL mesh through ``SlotKVCache(mesh=
+             ...)``, monolithic, paged and paged int8, on the bench trace:
+             streams bitwise phase 5's M, P and Q, NCCL calls (2 x layers
+             + 1 model-axis all-reduces and one logit all-gather) a
+             forward, paged launches layers x decode iterations, rounds
+             eager; TPG: ``generate(mesh=...)`` bitwise the unbound
+             model's.  Printed on ``[tpd]`` lines beside the card's name
+             and power limit: each window's ITL p50 beside its twin's and
+             the TP decode step's wall and busy share beside phase 5's;
+             the paged kernel at the per-rank K/V heads of tp 2, 4 and 8
+             (4, 2, 1; bf16 and int8 pools) joins the kernels line, its
+             launches those of TPP and TPQ at that K/V head count
+             (``paged_attention.launches_by_kv_heads``; 0 on one card);
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -402,7 +423,7 @@ Phases (any failure raises and the script exits non-zero):
              beside SDPA (under a boolean key mask at BERT's shape; its
              backward kernels named); last, a draft_k = 4 verify's device
              time by column beside one forward over its 40 rows and a
-             decode step, on both layouts; and phase 5f's kernels at its
+             decode step, on the paged layout; and phase 5f's kernels at its
              shapes (the flash kernels at B=8, L=128, H=8, D=64, causal,
              on tc32 and tc; the paged kernel on f32 pools and on bf16
              pools with 2 kv heads, 64-entry tables), each held against
@@ -1382,6 +1403,7 @@ def _reset_paged_counts() -> None:
     pa.paged_attention.launches = 0
     pa.paged_attention.int8_launches = 0
     pa.paged_attention.verify_launches = 0
+    pa.paged_attention.launches_by_kv_heads.clear()
 
 
 def _paged_counts() -> tuple[int, int, int]:
@@ -1500,6 +1522,9 @@ def serve_phase(gpu: str) -> tuple[int, int]:
     print(f"[serve] window Q vs P: kv_bytes_per_slot ratio {ratio:.4f} "
           f"(bound 0.6); greedy tokens equal at {agree}/{total} positions")
 
+    for name, summary in (("M", m), ("P", p), ("Q", q)):
+        SEEN[f"serve {name}"] = {"streams": _streams(summary),
+                                 "itl_p50_s": summary["serve_itl_p50_s"]}
     verify_launches, kvk = spec_multi_windows(gpu, model, requests, m, p)
     _sampled_rounds_check(model, requests)
 
@@ -1705,18 +1730,19 @@ def _sampled_rounds_check(model, requests) -> None:
 
 
 def _verify_cost(model, requests) -> None:
-    """Device ms of a draft_k = 4 verify (width 5) on each layout, the
-    trace's first 8 prompts in the table: by query column (the served
-    verify, bitwise decode steps) beside one forward over all 40 rows (the
-    verify before: other GEMM and paged-kernel shapes than a decode step),
-    and one decode step; and how many of the one-forward verify's logits
-    equal the column verify's bitwise."""
+    """Device ms of a draft_k = 4 verify (width 5) on the paged table (the
+    kernel's layout; the monolithic one's read is the dense attention, its
+    GEMMs the same), the trace's first 8 prompts in the table: by query
+    column (the served verify, bitwise decode steps) beside one forward
+    over all 40 rows (the verify before: other GEMM and paged-kernel
+    shapes than a decode step), and one decode step; and how many of the
+    one-forward verify's logits equal the column verify's bitwise."""
     from distributed_tensorflow_tpu_torch.serving import SlotKVCache
 
     slots = SERVE["slots"]
     width = 5
     rng = np.random.default_rng(5)
-    for layout in ("monolithic", "paged"):
+    for layout in ("paged",):
         kv = SlotKVCache(model, None, slots, kv_layout=layout,
                          **({"paged_block": SERVE["block"]}
                             if layout == "paged" else {}))
@@ -1993,6 +2019,7 @@ def _recorded_cli(argv, *, cudnn_default: bool = False,
     class Served(serving.ContinuousBatcher):
         def run(self, *args, **kw):
             kept["serve"] = summary = super().run(*args, **kw)
+            kept["serve_kv"] = self.kv
             return summary
 
     class Recorder(harness.Trainer):
@@ -2047,7 +2074,8 @@ def _recorded_cli(argv, *, cudnn_default: bool = False,
     losses = torch.cat(kept["losses"])
     assert losses.numel() == summary["steps"], (losses.shape, summary)
     return {"summary": summary, "losses": losses, "params": params,
-            "trainer": kept["trainer"], "serve_summary": kept["serve"]}
+            "trainer": kept["trainer"], "serve_summary": kept["serve"],
+            "serve_kv": kept.get("serve_kv")}
 
 
 def repeat_phase(gpu: str) -> list[str]:
@@ -2795,7 +2823,8 @@ def _profile_decode(kv, label: str, steps: int = 16) -> None:
     """Where a decode step's time goes: ``steps`` decode iterations of the
     full table timed on the host clock, then the same again under
     ``torch.profiler`` for the device kernels' own time — the device's
-    busy share of an unprofiled step, and the top kernels."""
+    busy share of an unprofiled step, and the top kernels.  The wall and
+    busy share are kept in ``SEEN`` under ``decode <label>``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -2810,6 +2839,8 @@ def _profile_decode(kv, label: str, steps: int = 16) -> None:
     # the split kernel and, with more than one split, the combine kernel
     paged_us = sum(r[0] for r in rows
                    if re.search(r"paged_(attention|combine)_kernel", r[2]))
+    SEEN[f"decode {label}"] = {"wall_ms": wall_us / 1e3,
+                               "busy_share": busy_us / wall_us}
     print(f"[profile] {label} decode step (8 active slots): wall_ms="
           f"{wall_us / 1e3:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
@@ -4951,6 +4982,10 @@ def _reset_mp_counts() -> None:
         setattr(fn, a, 0)
 
 
+# a window whose busy reading the smoke skips (printed "not measured")
+_NOT_READ = {"wall_ms": None, "busy_share": None, "kernels": None}
+
+
 def _eager_busy(engine, state, xs, ys, steps: int = 2) -> dict:
     """``steps`` eager steps on the host clock, then under
     ``torch.profiler``: wall ms a step and the device's busy share (two
@@ -5777,8 +5812,12 @@ def ppc_phase(gpu: str, pp_ref: dict) -> dict:
                 tokens = eng.generate(state, pp_ref["prompts"], PP_NEW)
                 gen = {"ms": (time.perf_counter() - t1) * 1e3,
                        "tokens": tokens}
-            run["busy"] = _eager_busy(eng, state, *eng.shard_batch(
-                *pp_ref["batches"][0]))
+            # busy readings for the first and the widest window only:
+            # the smoke's wall is near its budget, and the profiler's
+            # processing of a session is its cost
+            run["busy"] = (_eager_busy(eng, state, *eng.shard_batch(
+                *pp_ref["batches"][0])) if name in ("C1", "C4")
+                else _NOT_READ)
         finally:
             del eng, state
             mesh.close()
@@ -5805,7 +5844,7 @@ def ppc_phase(gpu: str, pp_ref: dict) -> dict:
               f"{' '.join(repr(v) for v in run['losses'])}; step ms "
               f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (p50 of "
               f"steps 2-{PP_STEPS} {p50:.3f}); eager wall_ms="
-              f"{run['busy']['wall_ms']:.4f} busy_share="
+              f"{_fmt(run['busy']['wall_ms'])} busy_share="
               f"{_fmt(run['busy']['busy_share'])}; peak memory above the "
               f"window's entry {run['peak'] / 2**20:.1f} MiB; flash "
               f"launches a step {json.dumps(per_step)}; NCCL calls and "
@@ -5997,11 +6036,12 @@ def ppe_phase(gpu: str, pp_ref: dict) -> dict:
                                        pp_ref["batches"])
         eng, state, mesh = run.pop("eng"), run.pop("state"), run.pop("mesh")
         try:
-            # one step a reading: the profiler's processing of a MoE
-            # step's many routing kernels, more than the steps, sets the
-            # phase's wall
-            run["busy"] = _eager_busy(eng, state, *eng.shard_batch(
-                *pp_ref["batches"][0]), steps=1)
+            # one step a reading, for the first and the widest window
+            # only: the profiler's processing of a MoE step's many
+            # routing kernels, more than the steps, sets the phase's wall
+            run["busy"] = (_eager_busy(eng, state, *eng.shard_batch(
+                *pp_ref["batches"][0]), steps=1) if name in ("E0", "E4")
+                else _NOT_READ)
         finally:
             del eng, state
             mesh.close()
@@ -6032,7 +6072,7 @@ def ppe_phase(gpu: str, pp_ref: dict) -> dict:
               f"{' '.join(repr(v) for v in run['overflow'])}; step ms "
               f"{' '.join(f'{t:.3f}' for t in run['step_ms'])} (p50 of "
               f"steps 2-{PP_STEPS} {p50:.3f}); eager wall_ms="
-              f"{run['busy']['wall_ms']:.4f} busy_share="
+              f"{_fmt(run['busy']['wall_ms'])} busy_share="
               f"{_fmt(run['busy']['busy_share'])}; peak memory above the "
               f"window's entry {run['peak'] / 2**20:.1f} MiB; flash "
               f"launches a step {json.dumps(per_step)}; NCCL calls and "
@@ -6047,6 +6087,187 @@ def ppe_phase(gpu: str, pp_ref: dict) -> dict:
     assert all(gates.values()), gates
     print(f"[ppe] phase 5o wall {time.perf_counter() - t0:.1f} s")
     return {name: run["flash"] for name, run in runs.items()}
+
+
+# --------------------------------------------------------------------------
+# phase 5p: TP decode on one NCCL rank
+# --------------------------------------------------------------------------
+
+# TPL's flags: window L1's with -tp 1, which the harness runs as L1 (a
+# 'model' axis needs -tp > 1, and a serve mesh more than one rank, as in
+# JAX's harness)
+CLI_TPL_ARGV = CLI_L1_ARGV + ["-tp", "1"]
+# the serve GPT's K/V heads a rank at tp 2, 4 and 8 (8 heads, MHA)
+TPD_KV_HEADS = (4, 2, 1)
+
+
+def _tpd_window(name, kv, requests, gpu, ref, layers) -> dict:
+    """A serve window over a TP table (``_serve_window``), its streams
+    bitwise phase 5's window ``ref``, its NCCL calls those of one forward
+    a dispatch (2 x layers + 1 model-axis all-reduces: the row-parallel
+    ``out`` and ``fc2`` and the vocab-parallel embedding; one logit
+    all-gather) and, paged, one kernel launch a layer a decode step."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    summary, (launches, int8, _) = _serve_window(
+        name, kv, requests, gpu, before_main=_reset_mp_counts)
+    by_kvh = dict(pa.paged_attention.launches_by_kv_heads)
+    mp = _mp_counts()
+    same = _streams(summary) == SEEN[f"serve {ref}"]["streams"]
+    assert same, f"window {name}'s streams differ from window {ref}'s"
+    n = summary["dispatches"]
+    want = {"gather": 0, "scatter": 0, "reduce_from_model": (2 * layers + 1)
+            * n, "copy_to_model": 0, "gather_from_model": n,
+            "all_reduce": (2 * layers + 1) * n}
+    assert mp == want, (name, mp, want)
+    iters = summary["decode_iterations"]
+    if kv.kv_layout == "paged":
+        assert launches == layers * iters, (name, launches, iters)
+        assert int8 == (launches if kv.kv_dtype == "int8" else 0), int8
+        # tp 1: every launch at the model's whole K/V head count
+        assert by_kvh == {kv.model.kv_heads: launches}, (name, by_kvh)
+    else:
+        assert launches == 0 and not by_kvh, (launches, by_kvh)
+    assert kv.eager_rounds and kv.model.tp_mesh is not None
+    print(f"[tpd] window {name} ({gpu}): streams bitwise window {ref}'s; "
+          f"itl_p50_s={summary['serve_itl_p50_s']:.6f} (window {ref}: "
+          f"{SEEN[f'serve {ref}']['itl_p50_s']:.6f}); NCCL collectives "
+          f"{json.dumps(mp)} over {n} forwards; paged launches {launches} "
+          f"(int8 {int8}) over {iters} decode iterations, by K/V heads "
+          f"{json.dumps(by_kvh)}")
+    return {"launches": launches, "int8": int8, "by_kv_heads": by_kvh,
+            "itl_p50_s": summary["serve_itl_p50_s"]}
+
+
+def tpd_phase(gpu: str) -> dict:
+    """Phase 5p (module docstring): TPL through ``cli.main``; TPM, TPP and
+    TPQ, the serve GPT bound to a (1, 1) (data, model) NCCL mesh on
+    ``SlotKVCache(mesh=...)``; TPG; returns the paged launches."""
+    from distributed_tensorflow_tpu_torch.models.gpt import generate
+    from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+
+    t0 = time.perf_counter()
+    layers, slots, block = SERVE["layers"], SERVE["slots"], SERVE["block"]
+
+    # TPL: window L1 with -tp 1, bitwise L1
+    rec, _, tpl_paged, _ = _cli_lm_window(
+        "TPL (-tp 1, f32)", CLI_TPL_ARGV, gpu, 8,
+        (torch.float32, CLI_LM["heads"], CLI_LM["heads"]))
+    sm, l1 = rec["summary"], SEEN["L1"]
+    same = {"test_loss": sm["test_loss"] == l1["test_loss"],
+            "samples": sm["samples"] == l1["samples"],
+            "streams": _streams(rec["serve_summary"]) == l1["streams"]}
+    assert all(same.values()), (same, sm["test_loss"], l1["test_loss"])
+    assert tpl_paged == CLI_LM["layers"] * sm["serve"]["decode_iterations"]
+    assert rec["serve_kv"].mesh is None, "TPL's table took a mesh"
+    print(f"[tpd] TPL ({gpu}): cli.main with -tp 1 bitwise window L1 "
+          f"{json.dumps(same)}; the serve table without a mesh (one "
+          f"rank); paged launches {tpl_paged}")
+    del rec
+
+    model = _serve_model()
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    shared, requests = _bench_trace()
+    pool = dict(prefix_cache_blocks=SERVE["pool"], prefix_block=block)
+    mesh = meshlib.create_mesh(1, shape=(1, 1), axis_names=("data", "model"))
+    out = {"TPL": tpl_paged}
+    try:
+        for name, ref, kw in (
+                ("TPM", "M", {}),
+                ("TPP", "P", dict(kv_layout="paged", paged_block=block)),
+                ("TPQ", "Q", dict(kv_layout="paged", paged_block=block,
+                                  kv_dtype="int8"))):
+            kv = SlotKVCache(_serve_model(partition_model=True), sd, slots,
+                             mesh=mesh, **pool, **kw)
+            out[name] = _tpd_window(name, kv, requests, gpu, ref, layers)
+            label = {"TPM": "TP monolithic", "TPP": "TP paged"}.get(name)
+            if label:
+                for req in requests[:slots]:
+                    kv.insert(req.prompt)
+                _profile_decode(kv, label)
+            del kv
+        # TPG: generate over the mesh, bitwise the unbound model's
+        prompts = np.stack([r.prompt[:24] for r in requests[:slots]])
+        want = generate(model, None, prompts, 32, greedy=True)
+        _reset_mp_counts()
+        got = generate(_serve_model(partition_model=True), sd, prompts, 32,
+                       greedy=True, mesh=mesh)
+        mp = _mp_counts()
+        assert torch.equal(got, want), "TPG differs from generate"
+        # one prefill forward and 32 steps
+        assert mp["gather_from_model"] == 33, mp
+        print(f"[tpd] TPG ({gpu}): generate(mesh=(1, 1)) of 8 prompts x 32 "
+              f"tokens bitwise the unbound model's; NCCL collectives "
+              f"{json.dumps(mp)}")
+    finally:
+        mesh.close()
+    for label, ref in (("TP paged", "paged"),
+                       ("TP monolithic", "monolithic")):
+        tp, base = SEEN.get(f"decode {label}"), SEEN.get(f"decode {ref}")
+        if tp and base:
+            print(f"[tpd] {label} decode step ({gpu}): wall_ms="
+                  f"{tp['wall_ms']:.4f} busy_share={tp['busy_share']:.4f} "
+                  f"against window {ref}'s wall_ms={base['wall_ms']:.4f} "
+                  f"busy_share={base['busy_share']:.4f}")
+    del model, sd
+    torch.cuda.empty_cache()
+    print(f"[tpd] phase 5p wall {time.perf_counter() - t0:.1f} s")
+    return {"paged": out["TPP"]["launches"] + out["TPQ"]["launches"],
+            "int8": out["TPQ"]["int8"], "TPL": tpl_paged,
+            "by_kv_heads": {"bf16": out["TPP"]["by_kv_heads"],
+                            "int8": out["TPQ"]["by_kv_heads"]}}
+
+
+def tpd_timing_phase(tpd: dict) -> list[dict]:
+    """The paged kernel at the serve GPT's per-rank K/V heads (8 heads
+    over tp 2, 4 and 8: 4, 2 and 1 a rank, MHA), bf16 queries over bf16
+    and int8 pools, 8 slots, 8-token blocks, 18-entry tables: held against
+    its plain version at every split count, then timed beside its bound,
+    the plain version and SDPA.  Launches: windows TPP's (bf16) and TPQ's
+    (int8) at that K/V head count, as the wrapper counted them; one card
+    runs tp 1 only, at 8 K/V heads, so these read 0 here."""
+    from distributed_tensorflow_tpu_torch.ops import paged_attention as pa
+
+    rows = []
+    for i, (kvh, kv_dtype) in enumerate(
+            (k, dt) for k in TPD_KV_HEADS
+            for dt in (torch.bfloat16, torch.int8)):
+        tag = f"kvh{kvh}_{'int8' if kv_dtype == torch.int8 else 'bf16'}"
+        q, kp, vp, bt, pos, ks, vs = _paged_case(
+            60 + i, h=kvh, kvh=kvh, q_dtype=torch.bfloat16,
+            kv_dtype=kv_dtype)
+        ref = pa.paged_attention_reference(q, kp, vp, bt, pos, k_scale=ks,
+                                           v_scale=vs)
+        err = 0.0
+        for sp in (None, 1, 2, 4, bt.shape[1]):
+            got = pa._paged_cuda(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs,
+                                 splits=sp)
+            torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL,
+                                       msg=f"tp paged {tag} splits={sp}")
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+        t = _paged_timed(f"tp {tag}", q, kp, vp, bt, pos, (), ks, vs)
+        row = {"name": f"paged_attention_tp_{tag}", "route": "cuda",
+               "source": "distributed_tensorflow_tpu_torch/ops/csrc/"
+                         "paged_attention.cu",
+               "replaces": "distributed_tensorflow_tpu/ops/"
+                           "paged_attention.py:257",
+               "shape": f"S=8 H=KVH={kvh} D=64 blk=8 MB=18 bf16 q, "
+                        f"{tag.split('_')[1]} pools",
+               "launches": tpd["by_kv_heads"][tag.split("_")[1]].get(
+                   kvh, 0),
+               "max_abs_err": err,
+               **{k: t[k] for k in ("ms", "call_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "splits")},
+               "bound_share": t["bound_ms"] / t["ms"]}
+        rows.append(row)
+        print(f"[kernel] tp paged {row['shape']}: max_abs_err {err:.3e}; "
+              f"device ms kernel={t['ms']:.5f} (splits {t['splits']}) "
+              f"plain={t['plain_ms']:.5f} SDPA={t['library_ms']:.5f}; "
+              f"bound {t['bound_ms']:.6f} ({t['bound_by']})")
+        del q, kp, vp, bt, pos, ks, vs
+    return rows
 
 
 def ppc_timing_phase(ppc: dict, ppe: dict) -> list[dict]:
@@ -6224,49 +6445,89 @@ def build_phase() -> None:
               f"{fa.smem_bytes(d, 'tc32', 32)}")
 
 
+_PHASE_MARK = [0.0, 0.0]     # (start of the run, end of the last phase)
+
+
+def _phase_done(name: str) -> None:
+    """Print the seconds of the phase that just ended and of the run so
+    far (every phase's seconds, for the smoke's time budget)."""
+    now = time.perf_counter()
+    print(f"[phase] {name}: {now - _PHASE_MARK[1]:.1f} s (run "
+          f"{now - _PHASE_MARK[0]:.1f} s)")
+    _PHASE_MARK[1] = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity on the card
     torch.backends.cudnn.allow_tf32 = False
+    _PHASE_MARK[:] = [time.perf_counter()] * 2
 
     gpu = _device_line()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     build_phase()
+    _phase_done('build')
     paged_errs = paged_check_phase()
     flash_errs = flash_check_phase()
     bert_errs = bert_mask_check()
+    _phase_done('kernels')
     # before any profiler session: its host times are the measurement
     cnn_phase(gpu)
+    _phase_done('cnn')
     local_phase(gpu)
+    _phase_done('local')
     launches, int8_launches, verify_launches = serve_phase(gpu)
+    _phase_done('5 serve')
     fit, evaluate, steps = train_phase(gpu)
+    _phase_done('train')
     fit_master, fit16, ptrainer, (px, py) = precision_phase(gpu)
+    _phase_done('precision')
     bert_launches = bert_phase(gpu)
+    _phase_done('bert')
     repeat_failures = repeat_phase(gpu)
+    _phase_done('repeat')
     fit32, steps32 = f32_train_phase(gpu)
+    _phase_done('train-f32')
     cli_lm_launches = cli_lm_phase(gpu)
+    _phase_done('5f cli-lm')
     sp = sp_phase(gpu)
+    _phase_done('5g sp')
     moe = moe_phase(gpu)
+    _phase_done('5h moe')
     ckpt = ckpt_phase(gpu)
+    _phase_done('5i ckpt')
     codec = codec_phase(gpu)
+    _phase_done('5j codec')
     mp = mp_phase(gpu)
+    _phase_done('5k mp')
     pp, pp_ref = pp_phase(gpu)
+    _phase_done('5l pp')
     comp = composite_phase(gpu, sp)
+    _phase_done('5m composite')
     ppc = ppc_phase(gpu, pp_ref)
+    _phase_done('5n ppc')
     ppe = ppe_phase(gpu, pp_ref)
+    _phase_done('5o ppe')
     del pp_ref
+    tpd = tpd_phase(gpu)
+    _phase_done('5p tpd')
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
+    _phase_done('6 paged timings')
     # windows P and Q; the int8 sub-entry counts Q's int8-route launches
     paged_row["launches"] = launches
     paged_row["int8"]["launches"] = int8_launches
     # window S-small's verify rounds (l_q > 1)
     paged_row["verify_lq5"]["launches"] = verify_launches
+    # phase 5p's windows TPP and TPQ (the TP tables at tp 1: 8 kv heads)
+    paged_row["launches_tpd"] = tpd["paged"]
+    paged_row["int8"]["launches_tpd"] = tpd["int8"]
     flash_rows = flash_timing_phase(flash_errs)
+    _phase_done('6 flash timings')
     for row in flash_rows:
         kind = row["name"].rsplit(".", 1)[1]
         # the launches of this row's kernel: the tc count for a tc row
@@ -6295,6 +6556,7 @@ def main() -> int:
         row["launches"] = fit16[row["name"].rsplit(".", 1)[1]]
     bert_rows = bert_timing_phase(bert_errs)
     cli_lm_rows = cli_lm_timing_phase(cli_lm_launches)
+    _phase_done('6 bert, cli-lm timings')
     for row in cli_lm_rows:
         if row["name"].startswith("flash"):
             # phase 5i's C windows run these kernels at this shape
@@ -6308,7 +6570,10 @@ def main() -> int:
                 f"{kind}_{variant}"]
         elif row["name"] == "paged_attention_cli_lm_f32":
             row["launches_mp"] = mp["F1"]["paged_f32"]
+            # phase 5p's window TPL
+            row["launches_tpd"] = tpd["TPL"]
     sp_rows = sp_timing_phase(sp)
+    _phase_done('6 sp timings')
     for row in sp_rows:
         # phase 5m's windows X1 (f32: tc32) and X2 (bf16: tc forward, tc32
         # backward) run the ring's block kernels at this shape
@@ -6320,6 +6585,8 @@ def main() -> int:
         assert row["launches_composite"] > 0, row["name"]
     pp_rows = pp_timing_phase(pp, ppc, ppe)
     ppc_rows = ppc_timing_phase(ppc, ppe)
+    tpd_rows = tpd_timing_phase(tpd)
+    _phase_done('6 pp, ppc, tpd timings')
     f32 = bert_launches["f32"]
     simt = {k: f32[k] - f32[f"{k}_tc"] - f32.get(f"{k}_tc32", 0)
             for k in ("fwd", "dq", "dkv")}
@@ -6343,6 +6610,7 @@ def main() -> int:
             row["launches_at_this_shape"] = (
                 simt[kind] if "_bert_" in row["name"] else 0)
     timing_cross_check()
+    _phase_done('6 cross-check')
     _profile_step("CNN train step", "sync", "cnn", "mnist")
     _profile_cnn_chunk()
     _profile_train(ptrainer.engine, ptrainer.state, px, py,
@@ -6356,7 +6624,9 @@ def main() -> int:
     for policy in ("f32", "bf16-f32master"):
         _profile_bert_chunk(policy)
     remat_phase(gpu)
+    _phase_done('6 step profiles, 7 remat')
     _verify_cost(_serve_model(), _bench_trace()[1])
+    _phase_done('6 verify cost')
     assert not repeat_failures, repeat_failures
     print(f"[timing] device times from queued CUDA events, where the "
           f"profiler saw no device time or dropped a kernel's records: "
@@ -6365,7 +6635,7 @@ def main() -> int:
     print(gpu)
     print(json.dumps({"kernels": [paged_row, *flash_rows, *f16_rows,
                                   *bert_rows, *cli_lm_rows, *sp_rows,
-                                  *pp_rows, *ppc_rows]}))
+                                  *pp_rows, *ppc_rows, *tpd_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

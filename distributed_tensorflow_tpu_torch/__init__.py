@@ -30,11 +30,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-# ROADMAP Queue 1 item 8d's part still to port: the title not_ported
-# cites for it (decode of a tensor-parallel model)
-TP_DECODE = "remaining engines: TP decode"
-
-
 def not_ported(what: str, item: str):
     """Raise for a feature of the JAX package the port does not have yet,
     naming the ROADMAP Queue 1 item that will bring it."""

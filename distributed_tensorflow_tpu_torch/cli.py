@@ -52,8 +52,11 @@ or BERT's stage blocks carry the routed MoE FFN (``--num-experts``,
 ``--lr-schedule``/``--warmup-steps``/``--weight-decay``/``--clip-norm``
 build the optimizer recipe, ``--positional``/``--kv-heads`` reach the GPT,
 and after training a GPT ``--sample N`` decodes test prompts and ``--serve
-N`` serves a window of requests (``--serve-*``); the fleet's serve flags
-parse and raise.  ``--checkpoint-dir D`` writes checkpoints
+N`` serves a window of requests (``--serve-*``), after a run with a
+'model' axis too (TP decode: ``--sample`` over the run's mesh, ``--serve``
+on a table cut over 'model' after ``-tp`` and fsdp×tp, on the whole
+model after the other ``-tp`` composites); the fleet's serve flags parse
+and raise.  ``--checkpoint-dir D`` writes checkpoints
 (``--checkpoint-every``, ``--async-checkpoint``), ``--resume`` and
 ``--elastic-restore`` continue from the latest, ``--watchdog-timeout``
 and ``--watchdog-abort`` watch for stalls, and ``--max-restarts N``
@@ -74,6 +77,9 @@ the backward pass produces them (``parallel/overlap.py``).
         --model moe --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -m d \\
         -ds fsdp -n 4 -tp 2 --model mlp --dataset synthetic
+    python -m distributed_tensorflow_tpu_torch.cli --device cpu -tp 2 -n 4 \\
+        -b 4 --model gpt_tiny --dataset lm_synth --sample 4 --serve 4 \\
+        --serve-kv-layout paged
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -pp 2 -n 4 \\
         --microbatches 2 --model mlp --dataset synthetic
     python -m distributed_tensorflow_tpu_torch.cli --device cpu -n 8 -pp 2 \\

@@ -58,13 +58,11 @@ the mesh's 'seq' axis of one rank, as ``SeqParallelEngine`` does at
 sp = 1: a ring of one block is the whole causal attention, so the flash
 block kernels stay on the card's path.  ``evaluate`` sums the masked
 totals over 'data' (and 'seq' for an LM).  ``eval_params`` (what
-sampling and serving decode) is a whole, unbound copy of the model: its
-experts gathered and its MoE layers routing alone.
+sampling and serving decode) is a copy of the model with its experts
+gathered and its MoE layers routing alone; its Megatron cut stays.
 """
 
 from __future__ import annotations
-
-import copy
 
 import numpy as np
 import torch
@@ -73,11 +71,11 @@ from torch import nn
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, cross_entropy)
 from distributed_tensorflow_tpu_torch.engines.expert_parallel import (
-    _OverflowMonitor, router_losses)
+    _OverflowMonitor, router_losses, whole_experts)
 from distributed_tensorflow_tpu_torch.models.layers import (
     bind_model_mesh, bind_seq_mesh, tp_specs)
 from distributed_tensorflow_tpu_torch.models.moe import (
-    MoELayer, bind_expert_mesh, expert_specs, shard_experts)
+    bind_expert_mesh, expert_specs, shard_experts)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
@@ -290,21 +288,12 @@ class CompositeEngine(Engine):
 
     def eval_params(self, state: TrainState) -> nn.Module:
         """The model that sampling and serving decode: a copy whose MoE
-        layers hold every expert whole (gathered: a collective, every rank
-        calls it) and route alone; the state's own module when it has no
-        MoE layer.  A 'model' axis's slices stay cut (decode of a
-        tensor-parallel model is not ported)."""
+        layers hold every expert whole and route alone
+        (``expert_parallel.whole_experts``, a collective: every rank calls
+        it); the state's own module when it has no MoE layer.  A 'model'
+        axis's Megatron cut stays: it decodes over the mesh (TP decode,
+        ``models.gpt.generate(mesh=...)``), or the harness serves its
+        gathered twin."""
         if not self.moe:
             return state.model
-        whole = copy.deepcopy(state.model, memo={id(self.mesh): self.mesh})
-        with torch.no_grad():
-            for name, m in whole.named_modules():
-                if not isinstance(m, MoELayer):
-                    continue
-                for pname in ("w1", "w2"):
-                    full = f"{name}.{pname}"
-                    setattr(m, pname, nn.Parameter(self._whole(
-                        full, state.model.get_parameter(full).detach())))
-                m.experts, m.hidden_cols = (0, m.num_experts), (0, m.hidden)
-                m.expert_mesh, m.token_axes = None, ()
-        return whole
+        return whole_experts(self, state)

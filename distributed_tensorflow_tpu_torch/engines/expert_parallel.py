@@ -63,6 +63,7 @@ counted once.
 from __future__ import annotations
 
 import collections
+import copy
 import warnings
 
 import numpy as np
@@ -122,6 +123,26 @@ class _OverflowMonitor:
             "expert_overflow_window_mean": self.last_window_mean,
             "expert_overflow_warnings": self.warning_count,
         }
+
+
+def whole_experts(engine: Engine, state: TrainState) -> nn.Module:
+    """A copy of ``state.model`` whose MoE layers hold every expert whole
+    (gathered over 'expert', and over 'model' under the 2-D layout:
+    ``Engine._whole``, a collective, every rank calls it) and route their
+    tokens alone, unbound: what sampling and serving decode.  Any Megatron
+    cut of the other layers stays."""
+    whole = copy.deepcopy(state.model, memo={id(engine.mesh): engine.mesh})
+    with torch.no_grad():
+        for name, m in whole.named_modules():
+            if not isinstance(m, MoELayer):
+                continue
+            for pname in ("w1", "w2"):
+                full = f"{name}.{pname}"
+                setattr(m, pname, nn.Parameter(engine._whole(
+                    full, state.model.get_parameter(full).detach())))
+            m.experts, m.hidden_cols = (0, m.num_experts), (0, m.hidden)
+            m.expert_mesh, m.token_axes = None, ()
+    return whole
 
 
 def router_losses(model: nn.Module):
@@ -294,6 +315,16 @@ class ExpertParallelEngine(Engine):
         if self.dp > 1 and experts:
             all_reduce_grads_(experts, self.mesh, axis=meshlib.DATA_AXIS)
         return summed
+
+    def eval_params(self, state: TrainState) -> nn.Module:
+        """The model that sampling and serving decode: every expert
+        gathered whole, the MoE layers routing alone
+        (``whole_experts``)."""
+        return whole_experts(self, state) if self.moe_layers else state.model
+
+    def _eval_module(self, state: TrainState) -> nn.Module:
+        # evaluation routes this rank's rows over the bound mesh
+        return state.model
 
     def _reduce_totals(self, totals: torch.Tensor) -> None:
         # the ranks of a 'model' line scored the same rows

@@ -20,8 +20,10 @@ packed behind f32 gradients.  The conjugate pair makes a whole
 parameter's gradient the same on every rank of a 'model' group, so it
 needs no 'model' reduce.  ``grad_accum`` K, the precision policies (fp16
 loss scaling included), ``evaluate`` and ``eval_params`` are
-``SyncEngine``'s; the steps are eager (no CUDA graph) and the Adam not
-capturable.
+``SyncEngine``'s: ``eval_params`` hands over the bound module, which
+samples and serves Megatron-cut (TP decode, ``models.gpt.generate(mesh=
+...)``, ``SlotKVCache(mesh=...)``); the steps are eager (no CUDA graph)
+and the Adam not capturable.
 
 Dropout: every rank of a 'model' group draws from one stream (seeded from
 the seed, the step and the data index), so a replicated activation (the

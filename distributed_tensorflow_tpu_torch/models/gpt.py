@@ -113,26 +113,36 @@ engine reads after each tick.  ``unbound()`` builds a stage's whole twin
 without a mesh (its MoE FFN whole), which ``PipelineEngine.eval_params``
 evaluates and decodes with.
 
-Not ported here (raises ``NotImplementedError``): decode of a bound
-tensor-parallel model and ``generate(mesh=...)`` (ROADMAP: TP decode).
+A bound model decodes too (TP decode, JAX ``generate(mesh=...)`` and
+the mesh-sharded tables): the cursor, slot and paged reads run on the
+rank's ``heads/tp`` query and ``kv_heads/tp`` K/V heads, whose caches
+and pools hold those heads only (``init_cache`` and the tables size them
+from the attention blocks), the row-parallel ``out`` and ``fc2`` sum over
+'model' and the head gathers whole logits, so every rank of a 'model'
+group samples the same token.  With ``by_column`` a row-parallel layer
+runs, and sums, one query column at a time, at the decode step's shape.
+``generate(mesh=...)`` splits the batch over 'data' and keeps the
+Megatron cut over 'model' (module function).
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_tensorflow_tpu_torch import (
-    TP_DECODE, not_ported, resolve_device)
+from distributed_tensorflow_tpu_torch import resolve_device
 from distributed_tensorflow_tpu_torch.models.layers import (
     LN_EPS, ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    check_divisible, dense as _dense, dropout as _dropout, flax_init_,
-    layer_norm as _layer_norm, remat as _remat, unbound_kw)
+    bind_model_mesh, check_divisible, dense as _dense, dropout as _dropout,
+    flax_init_, layer_norm as _layer_norm, remat as _remat, unbound_kw)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.models.moe import MoELayer, moe_ffn
 from distributed_tensorflow_tpu_torch.parallel.compression import (
     int8_channel_decode, int8_channel_encode)
+from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel.mesh import SEQ_AXIS
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     SEQ_PARALLEL, block_span, dense_attention, seq_parallel_attention)
@@ -148,7 +158,12 @@ def _by_column(fn, *xs):
 
 def _dense_by(lin, x, dtype, by_column: bool):
     """``dense``, or with ``by_column`` one ``F.linear`` per query column
-    over the weights cast once."""
+    over the weights cast once.  A row-parallel layer runs its own forward
+    (its partial products summed over 'model' when bound), by column one
+    call per column, so that each sum has a decode step's shape."""
+    if isinstance(lin, RowParallelLinear):
+        return (_by_column(lambda c: lin(c, dtype), x) if by_column
+                else lin(x, dtype))
     if not by_column:
         return _dense(lin, x, dtype)
     w = lin.weight.to(dtype)
@@ -204,8 +219,10 @@ class CausalSelfAttention(nn.Module):
         """Column-parallel query, key and value (``heads/tp`` query and
         ``kv_heads/tp`` K/V heads on each rank), row-parallel ``out``.
         JAX's refusals come first: a packed projection width that does
-        not split over 'model'.  Where the widths split but the heads do
-        not (GSPMD then cuts a head across ranks and reshards around the
+        not split over 'model'.  The heads split as
+        ``parallel.mesh.kv_slot_sharding`` cuts a KV leaf's: where the
+        widths split but the heads do not (``kv_slot_sharding`` leaves
+        them whole; GSPMD cuts a head across ranks and reshards around the
         attention), the attention stays whole on every rank: its
         parameters replicated, its work repeated, no collective."""
         if not isinstance(self.query, ColumnParallelLinear) or \
@@ -218,7 +235,8 @@ class CausalSelfAttention(nn.Module):
                             0, tp)
         check_divisible(f"{prefix}.out.weight", self.out.whole["weight"], 1,
                         tp)
-        if self.heads % tp or self.kv_heads % tp:
+        _, kv = meshlib.kv_slot_sharding(mesh, 0, self.kv_heads, self.heads)
+        if kv.stop - kv.start != self.kv_heads // tp:
             return
         for name in ("query", "key", "value"):
             getattr(self, name).bind(mesh, f"{prefix}.{name}")
@@ -268,8 +286,6 @@ class CausalSelfAttention(nn.Module):
             out = dense_attention(q, self._widen(k), self._widen(v),
                                   causal=True)
         out = out.reshape(b, lq, self.heads * self.head_dim)
-        if self.tp_mesh is not None:
-            return self.out(out, self.dtype)
         return _dense_by(self.out, out, self.dtype, by_column)
 
     def _read(self, q, keys, vals, valid, by_column):
@@ -469,11 +485,9 @@ class GPTBlock(nn.Module):
         if self.moe is not None:
             # routed over all the call's tokens, as JAX routes them
             y = moe_ffn(self.moe, y)
-        elif self.tp_mesh is not None:
-            y = F.gelu(self.fc1(coll.copy_to_model(y, self.tp_mesh),
-                                self.dtype), approximate="tanh")
-            y = self.fc2(y, self.dtype)
         else:
+            if self.tp_mesh is not None:
+                y = coll.copy_to_model(y, self.tp_mesh)
             y = F.gelu(_dense_by(self.fc1, y, self.dtype, by_column),
                        approximate="tanh")
             y = _dense_by(self.fc2, y, self.dtype, by_column)
@@ -523,18 +537,27 @@ class GPTLM(nn.Module):
                              f"dense | flash, or one of "
                              f"{tuple(SEQ_PARALLEL)}")
         if decode and attention_impl in SEQ_PARALLEL:
-            # JAX gpt.py:655-669, less its last sentence, which points at
-            # partition_model decode: not ported here (TP decode)
+            # JAX gpt.py:655-669
             raise ValueError(
                 "decode mode is incompatible with sequence-parallel "
                 "attention (ring/ring_flash/ulysses run in shard_map "
                 "over 'seq'; a 1-token step has no sequence to shard); "
                 "clone with attention_impl='dense' — `generate` does "
-                "this.")
+                "this.  partition_model decode IS supported (GSPMD).")
         if positional not in ("learned", "rope"):
             raise ValueError(
                 f"unknown positional '{positional}'; learned | rope")
         device = resolve_device(device)
+        self._kw = dict(
+            vocab_size=vocab_size, hidden=hidden, layers=layers, heads=heads,
+            ffn=ffn, max_len=max_len, dropout_rate=dropout_rate,
+            attention_impl=attention_impl, positional=positional,
+            kv_heads=kv_heads, tie_embeddings=tie_embeddings, dtype=dtype,
+            moe_experts=moe_experts, moe_top_k=moe_top_k,
+            moe_capacity_factor=moe_capacity_factor, remat=remat,
+            partition_model=partition_model,
+            partition_experts=partition_experts, decode=decode,
+            device=device)
         self.vocab_size, self.hidden, self.layers = vocab_size, hidden, layers
         self.heads, self.ffn, self.max_len = heads, ffn, max_len
         self.kv_heads = kv_heads if kv_heads is not None else heads
@@ -586,20 +609,34 @@ class GPTLM(nn.Module):
         """Flax's initializers, drawn from ``generator`` (``flax_init_``)."""
         return flax_init_(self, generator)
 
+    def unbound(self) -> "GPTLM":
+        """A fresh whole twin of this model, with no mesh and no Megatron
+        layout, its sequence-parallel attention the whole-sequence one
+        (``models.layers.unbound_kw``), on the same device; its parameters
+        are drawn anew (load a whole ``state_dict`` into it)."""
+        return type(self)(**unbound_kw(self._kw))
+
+    def kv_heads_local(self) -> list[int]:
+        """Each layer's K/V heads on this rank: ``kv_heads/tp`` where
+        ``bind_tp`` cut the attention, else ``kv_heads``."""
+        return [block.attn.kv_heads for block in self.blocks]
+
     def init_cache(self, batch: int) -> list[dict]:
         """Zero cursor-decode state for ``batch`` sequences on the model's
-        device: per layer (B, max_len, KVH, D) K/V in the model dtype, a
-        0-d cursor and a 0-d sticky overflow flag."""
+        device: per layer (B, max_len, KVH, D) K/V in the model dtype (KVH
+        the layer's K/V heads on this rank), a 0-d cursor and a 0-d
+        sticky overflow flag."""
         dev = self.token_embed.weight.device
-        shape = (batch, self.max_len, self.kv_heads, self.head_dim)
-        return [{"cached_key": torch.zeros(shape, dtype=self.dtype,
-                                           device=dev),
-                 "cached_value": torch.zeros(shape, dtype=self.dtype,
-                                             device=dev),
+
+        def zeros(kvh):
+            return torch.zeros((batch, self.max_len, kvh, self.head_dim),
+                               dtype=self.dtype, device=dev)
+
+        return [{"cached_key": zeros(kvh), "cached_value": zeros(kvh),
                  "cache_index": torch.zeros((), dtype=torch.int64,
                                             device=dev),
                  "overflow": torch.zeros((), dtype=torch.bool, device=dev)}
-                for _ in range(self.layers)]
+                for kvh in self.kv_heads_local()]
 
     def _train_positions(self, lq: int, device):
         """(1, lq) positions of the training/eval mode: 0.. for a whole
@@ -620,9 +657,6 @@ class GPTLM(nn.Module):
         if by_column and pools is None:
             raise ValueError("by_column is a slot-decode option (pass "
                              "pools)")
-        if self.tp_mesh is not None and (pools is not None
-                                         or cache is not None):
-            not_ported("decode of a tensor-parallel model", TP_DECODE)
         keep = None
         if cache is not None:
             if pools is not None or positions is not None:
@@ -679,7 +713,7 @@ class GPTLM(nn.Module):
                           by_column)
         x = _layer_norm(self.ln_f, x, self.dtype)
         if self.tp_mesh is not None:
-            logits = self._tp_head(x)
+            logits = self._tp_head(x, by_column)
         elif self.tie_embeddings:
             head = self.token_embed.weight.to(self.dtype)
             logits = (_by_column(lambda c: F.linear(c, head), x)
@@ -690,22 +724,28 @@ class GPTLM(nn.Module):
             return logits.float(), cache
         return logits.float()
 
-    def _tp_head(self, x):
+    def _tp_head(self, x, by_column: bool = False):
         """The head of a tensor-parallel model: this rank's vocabulary
-        columns (the tied ``attend``, or the column-parallel ``lm_head``),
-        all-gathered into whole logits (``gather_from_model``, whose
-        backward keeps this rank's columns), so the loss runs on the
-        whole (B, L, V) logits, replicated over 'model'.  The untied
-        head's whole bias is added after the gather, so every rank takes
-        its whole gradient."""
+        columns (the tied ``attend``, or the column-parallel ``lm_head``;
+        by query column with ``by_column``), all-gathered into whole
+        logits (``gather_from_model``, whose backward keeps this rank's
+        columns), so the loss runs on the whole (B, L, V) logits, and
+        decode samples them, replicated over 'model'.  The untied head's
+        whole bias is added after the gather, so every rank takes its
+        whole gradient."""
         mesh = self.tp_mesh
         if self.tie_embeddings:
-            return coll.gather_from_model(
-                self.token_embed.attend(x, self.dtype), mesh)
-        head = self.lm_head
+            def part(c):
+                return self.token_embed.attend(c, self.dtype)
+        else:
+            def part(c):
+                return self.lm_head(coll.copy_to_model(c, mesh), self.dtype,
+                                    bias=False)
         logits = coll.gather_from_model(
-            head(coll.copy_to_model(x, mesh), self.dtype, bias=False), mesh)
-        return logits + head.bias.to(self.dtype)
+            _by_column(part, x) if by_column else part(x), mesh)
+        if self.tie_embeddings:
+            return logits
+        return logits + self.lm_head.bias.to(self.dtype)
 
 
 def sample_tokens(logits, *, greedy: bool, temperature: float = 1.0,
@@ -729,6 +769,39 @@ def sample_tokens(logits, *, greedy: bool, temperature: float = 1.0,
     return (probs / race).argmax(-1)
 
 
+def decode_model(model: GPTLM, params, mesh) -> GPTLM:
+    """The model that decodes over ``mesh`` (JAX's placement rule,
+    ``serving/kv_cache.py:285-300``), ``params`` (a ``state_dict``: whole
+    for an unbound model, this rank's slices for a bound one) loaded into
+    it.  With ``partition_model`` and a 'model' axis the model keeps the
+    Megatron cut: a bound model as it is (bound to this mesh's 'model'
+    axis), an unbound one as a copy bound to the mesh (``bind_model_mesh``:
+    each rank keeps the slices of the whole parameters that
+    ``convert.tp_shard_state_dict`` cuts); otherwise it decodes whole on
+    every rank."""
+    keep_tp = model.partition_model and meshlib.MODEL_AXIS in mesh.axis_names
+    if model.tp_mesh is None:
+        if keep_tp:
+            # a process group cannot be copied: share a bound 'seq' mesh
+            model = copy.deepcopy(model, {id(model.seq_mesh): model.seq_mesh})
+        if params is not None:
+            model.load_state_dict(params)
+        return bind_model_mesh(model, mesh) if keep_tp else model
+    bound = model.tp_mesh
+    if not keep_tp or any(
+            f(meshlib.MODEL_AXIS) != g(meshlib.MODEL_AXIS)
+            for f, g in ((bound.axis_size, mesh.axis_size),
+                         (bound.axis_index, mesh.axis_index))):
+        raise ValueError(
+            f"the model is bound to 'model' rank "
+            f"{bound.axis_index(meshlib.MODEL_AXIS)} of "
+            f"{bound.axis_size(meshlib.MODEL_AXIS)}; decode it over a mesh "
+            f"whose 'model' axis is that one (mesh axes {mesh.axis_names})")
+    if params is not None:
+        model.load_state_dict(params)
+    return model
+
+
 @torch.no_grad()
 def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
              temperature: float = 1.0, greedy: bool = False,
@@ -746,12 +819,25 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
     argmax; otherwise tokens draw from
     ``softmax(logits / temperature)`` with ``generator`` (default: a
     generator on the device seeded 0) — a stream that cannot equal the
-    JAX package's (``sample_tokens``)."""
-    if mesh is not None:
-        not_ported("generate(mesh=...) (multi-device decode)", TP_DECODE)
+    JAX package's (``sample_tokens``).
+
+    ``mesh`` (this rank's ``parallel.mesh.Mesh``; every rank of it calls
+    ``generate``) decodes over several ranks, as JAX's ``mesh`` does.  The
+    batch splits over 'data' (``B % dp`` is refused, with JAX's message):
+    each data rank decodes its rows (``kv_slot_sharding``) and one
+    all-gather over 'data' returns the whole (B, N) on every rank.  A MoE
+    model decodes the whole batch on every rank: its blocks route one
+    step's tokens together against one capacity, which a split of the
+    batch would change.  With ``partition_model`` and a 'model' axis the
+    model decodes Megatron-cut (``decode_model``): each rank runs its
+    heads and FFN columns, and every rank of a 'model' group samples the
+    same tokens from the gathered logits.  Any other axis ('seq',
+    'expert') replicates."""
     dev = resolve_device(device)
     model = model.to(dev)
-    if params is not None:
+    if mesh is not None:
+        model = decode_model(model, params, mesh)
+    elif params is not None:
         model.load_state_dict(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, lp = prompt.shape
@@ -759,9 +845,19 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
         raise ValueError(
             f"prompt ({lp}) + max_new_tokens ({max_new_tokens}) exceeds the "
             f"cache capacity max_len={model.max_len}")
+    dp = 1
+    if mesh is not None and meshlib.DATA_AXIS in mesh.axis_names:
+        dp = mesh.axis_size(meshlib.DATA_AXIS)
+        if b % dp:
+            raise ValueError(
+                f"batch {b} not divisible by the data axis ({dp})")
+    split = dp > 1 and not model.moe_experts
+    if split:
+        rows, _ = meshlib.kv_slot_sharding(mesh, b, model.kv_heads)
+        prompt = prompt[rows]
     if generator is None and not greedy:
         generator = torch.Generator(device=dev).manual_seed(0)
-    cache = model.init_cache(b)
+    cache = model.init_cache(prompt.shape[0])
     if lp > 1 and model.moe_experts:
         # one token at a time, as JAX prefills: a MoE block routes the
         # tokens of one call together, against one capacity
@@ -775,7 +871,11 @@ def generate(model: GPTLM, params, prompt, max_new_tokens: int, *,
         tok = sample_tokens(logits[:, -1], greedy=greedy,
                             temperature=temperature, generator=generator)
         out.append(tok)
-    return torch.stack(out, dim=1) if out else prompt[:, :0]
+    out = torch.stack(out, dim=1) if out else prompt[:, :0]
+    if split:
+        out = coll.all_gather(out.contiguous(), mesh, tiled=True,
+                              axis=meshlib.DATA_AXIS, dim=0)
+    return out
 
 
 # --------------------------------------------------------------------------

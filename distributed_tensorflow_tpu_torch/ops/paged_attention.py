@@ -288,7 +288,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions, *,
     the CUDA kernel adds one to ``paged_attention.launches``, one on int8
     pools also to ``paged_attention.int8_launches``, and one with
     ``l_q > 1`` (a speculative verify) also to
-    ``paged_attention.verify_launches``.
+    ``paged_attention.verify_launches``.  The dict
+    ``paged_attention.launches_by_kv_heads`` counts them by the pools' K/V
+    head count (a tensor-parallel rank's ``kv_heads/tp``).
     """
     _check(q, k_pool, v_pool, block_tables, positions, k_scale, v_scale)
     if q.device.type == "cpu":
@@ -336,9 +338,12 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, positions, *,
     paged_attention.launches += 1
     paged_attention.int8_launches += quantized
     paged_attention.verify_launches += l_q > 1
+    by_kvh = paged_attention.launches_by_kv_heads
+    by_kvh[kvh] = by_kvh.get(kvh, 0) + 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
 paged_attention.verify_launches = 0
+paged_attention.launches_by_kv_heads = {}

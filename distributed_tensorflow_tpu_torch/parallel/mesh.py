@@ -144,6 +144,32 @@ def _flat(coords, dims) -> int:
     return r
 
 
+def kv_slot_sharding(mesh: Mesh, rows: int, kv_heads: int,
+                     heads: int | None = None) -> tuple[slice, slice]:
+    """This rank's block of a decode KV leaf ``(rows, ..., kv_heads,
+    head_dim)`` (JAX ``kv_slot_sharding``), as ``(rows, kv heads)``
+    slices: the rows (a decode batch) split over 'data' in contiguous
+    blocks (the caller checks that they divide); the kv heads split over
+    'model' when ``kv_heads`` and ``heads`` (default ``kv_heads``) both
+    divide it, else each rank holds them whole.  ``generate`` reads the
+    rows; ``models.gpt.CausalSelfAttention.bind_tp`` the heads, so a
+    bound attention, its cache and a slot table's leaves hold that block.
+    Axes absent from the mesh (and any other axis) replicate."""
+    row = slice(0, rows)
+    if DATA_AXIS in mesh.axis_names:
+        n = rows // mesh.axis_size(DATA_AXIS)
+        d = mesh.axis_index(DATA_AXIS)
+        row = slice(d * n, (d + 1) * n)
+    head = slice(0, kv_heads)
+    if MODEL_AXIS in mesh.axis_names:
+        tp = mesh.axis_size(MODEL_AXIS)
+        if not (kv_heads % tp or (heads or kv_heads) % tp):
+            n = kv_heads // tp
+            m = mesh.axis_index(MODEL_AXIS)
+            head = slice(m * n, (m + 1) * n)
+    return row, head
+
+
 def _axis_groups(mesh: Mesh) -> dict:
     """Every axis's sub-groups, made in one order on every rank (each rank
     calls ``new_group`` for every group); returns this rank's group per

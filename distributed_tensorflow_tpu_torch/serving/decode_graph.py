@@ -14,7 +14,8 @@ the carry back into its buffers and the ``(3, k, slots)`` stack of tokens,
 active and done flags into its output buffer.  Every address it touches
 is the table's, so it replays for that table only.  The table's sampling
 generator is registered with the graph, so that a replay advances its
-Philox offset by what ``k`` eager steps draw.
+Philox offset by what ``k`` eager steps draw.  A TP table's round holds
+NCCL calls and is never captured: its ``eager_rounds`` runs it eagerly.
 """
 
 from __future__ import annotations

@@ -65,9 +65,30 @@ gather read are the dense math; the fused decode read agrees with them
 within a tolerance, not bitwise; int8 storage is a lossy codec.  Sampled
 streams cannot equal JAX's (``models.gpt.sample_tokens``).
 
-Not ported yet, each raising ``NotImplementedError``: mesh sharding and
-the compile/memory ledger; the disaggregated handoff and ``swap_params``
-(the fleet's) are absent.
+``mesh`` (JAX ``SlotKVCache(mesh=...)``, every rank of the mesh builds
+the table and drives it alike): a model with ``partition_model`` on a
+mesh with a 'model' axis decodes Megatron-cut
+(``models.gpt.decode_model``: a bound model as it is, an unbound one
+bound to the mesh from its whole parameters), and every layer's leaves
+hold the K/V heads of the layer's attention on this rank
+(``GPTLM.kv_heads_local``: ``kv_heads/tp`` where ``bind_tp`` cut them,
+``parallel.mesh.kv_slot_sharding``): the paged pool of a rank is its own
+contiguous ``(num_blocks + 1, block, kv_heads/tp, D)`` tensor, so the
+Hopper kernel reads it at that head count.  ``slots`` must divide by the
+'data' axis (JAX's message), but the table is replicated over 'data':
+every data rank serves every slot (JAX splits the slots over 'data'; the
+streams are the same).  The host state (block tables, the zero-copy
+ledger, refcounts, the prefix pool) is the same on every rank, since
+each makes the same host decisions (``serving.scheduler``: the batcher
+refuses arrivals that a wall clock could admit apart); the sampling
+generator is seeded alike, so every rank draws the same token.  A TP
+table's decode round holds NCCL calls (the row-parallel sums, the
+embedding's and the head's gather), so it runs eagerly, never captured
+(``eager_rounds``).
+
+Not ported yet, raising ``NotImplementedError``: the compile/memory
+ledger; the disaggregated handoff and ``swap_params`` (the fleet's) are
+absent.
 """
 
 from __future__ import annotations
@@ -79,9 +100,10 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import (
-    TP_DECODE, not_ported, resolve_device)
-from distributed_tensorflow_tpu_torch.models.gpt import sample_tokens
+from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch.models.gpt import (
+    decode_model, sample_tokens)
+from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.serving.decode_graph import RoundGraph
 
 
@@ -113,7 +135,8 @@ class SlotKVCache:
     ``model`` is a port ``GPTLM``; ``params``, when given, is a
     ``state_dict`` loaded into it.  The model is moved to ``device``
     (``None`` = the CUDA card).  ``generator`` feeds temperature sampling
-    (``greedy=False``); by default a generator on the device seeded 0."""
+    (``greedy=False``); by default a generator on the device seeded 0.
+    ``mesh``: a TP table (module docstring)."""
 
     def __new__(cls, *args, kv_layout: str = "monolithic", **kwargs):
         # one kwarg selects the layout at every call site, as in the JAX
@@ -135,8 +158,6 @@ class SlotKVCache:
         if kv_layout == "monolithic" and (paged_blocks or paged_block):
             raise ValueError("paged_blocks/paged_block only apply to "
                              "kv_layout='paged'")
-        if mesh is not None:
-            not_ported("mesh-sharded slot tables", TP_DECODE)
         if ledger is not None:
             not_ported("the compile/memory ledger", "rest of observability")
         if slots < 1:
@@ -155,9 +176,22 @@ class SlotKVCache:
         self.temperature = float(temperature)
         self.generator = (generator if generator is not None
                           else torch.Generator(self.device).manual_seed(0))
-        self.model = model.to(self.device)
-        if params is not None:
-            self.model.load_state_dict(params)
+        model = model.to(self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            dp = mesh.shape.get(meshlib.DATA_AXIS, 1)
+            if self.slots % dp:
+                raise ValueError(
+                    f"slots ({self.slots}) must divide by the mesh's data "
+                    f"axis ({dp}): each data shard owns a contiguous slot "
+                    f"block")
+            model = decode_model(model, params, mesh)
+        elif params is not None:
+            model.load_state_dict(params)
+        self.model = model
+        self._kv_heads = model.kv_heads_local()
+        # a TP table's round holds NCCL calls: eager, never captured
+        self.eager_rounds = model.tp_mesh is not None
         self._store = _storage_dtype(kv_dtype, model.dtype)
         self.kv_dtype = str(self._store).removeprefix("torch.")
         self.prefix_cache_blocks = int(prefix_cache_blocks)
@@ -219,11 +253,13 @@ class SlotKVCache:
         self._graphs.clear()
         self._eager_rounds.clear()
 
-    def _layer_cache(self, lead: tuple, names: tuple) -> dict:
+    def _layer_cache(self, lead: tuple, names: tuple, kv_heads: int) -> dict:
         """One layer's zero KV leaves: (*lead, KVH, D) payload at the
-        storage dtype and, under int8, (*lead, KVH) f32 scales."""
+        storage dtype and, under int8, (*lead, KVH) f32 scales, KVH the
+        layer's K/V heads on this rank (each leaf allocated whole: a
+        rank's pool is contiguous, as the paged kernel needs)."""
         m = self.model
-        shape = (*lead, m.kv_heads, m.head_dim)
+        shape = (*lead, kv_heads, m.head_dim)
         out = {n: torch.zeros(shape, dtype=self._store, device=self.device)
                for n in names[:2]}
         if self._store == torch.int8:
@@ -237,8 +273,8 @@ class SlotKVCache:
         self._drop_graphs()
         return [self._layer_cache((self.slots, self.max_len + 1),
                                   ("cached_key", "cached_value",
-                                   "key_scale", "value_scale"))
-                for _ in range(self.model.layers)]
+                                   "key_scale", "value_scale"), kvh)
+                for kvh in self._kv_heads]
 
     # ------------------------------------------------------------ slot API
     @property
@@ -524,16 +560,17 @@ class SlotKVCache:
             carry[name].copy_(val)
 
     def _run_round(self, k: int) -> None:
-        """Issue ``_round_body(k)``: eagerly on the CPU; on the card a
-        ``k``'s first round runs eagerly on a side stream (it creates what
-        a capture must find: library handles, workspaces), the second is
-        captured and replayed, every later one replays.  A capture that
-        fails raises; there is no eager fallback."""
+        """Issue ``_round_body(k)``: eagerly on the CPU and for a TP table
+        (``eager_rounds``: its round holds NCCL calls); otherwise, on the
+        card, a ``k``'s first round runs eagerly on a side stream (it
+        creates what a capture must find: library handles, workspaces),
+        the second is captured and replayed, every later one replays.  A
+        capture that fails raises; there is no eager fallback."""
         if k not in self._round_out:
             self._round_out[k] = torch.zeros((3, k, self.slots),
                                              dtype=torch.int32,
                                              device=self.device)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager_rounds:
             self._round_body(k)
             return
         graph = self._graphs.get(k)
@@ -981,8 +1018,9 @@ class PagedSlotKVCache(SlotKVCache):
         self._drop_graphs()
         return [self._layer_cache((self.num_blocks + 1, self.paged_block),
                                   ("key_pool", "value_pool",
-                                   "key_scale_pool", "value_scale_pool"))
-                for _ in range(self.model.layers)]
+                                   "key_scale_pool", "value_scale_pool"),
+                                  kvh)
+                for kvh in self._kv_heads]
 
     # -------------------------------------------------- block bookkeeping
     @property

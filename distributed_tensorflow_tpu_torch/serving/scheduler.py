@@ -40,6 +40,14 @@ ledger, and under the paged layout the zero-copy hit rate.
   ``serve_goodput_under_slo`` and the monitor's ``slo`` section (both
   None without a monitor).
 
+Over a TP table (``SlotKVCache(mesh=...)``) every rank of the mesh runs
+its own batcher on the same requests, and each forward is a collective,
+so every rank must make the same host decisions: arrivals at 0 or a
+``VirtualClock`` keep them equal (the table's seeded generator draws the
+same sampled tokens on every rank).  Wall-clock arrivals after 0 could
+admit differently on different ranks, so ``run`` refuses them where the
+table's model is cut over more than one 'model' rank.
+
 Disaggregated roles/handoff, the roofline and the timeline sampler are
 not ported yet and raise ``NotImplementedError``.
 """
@@ -58,6 +66,7 @@ from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.observability.metrics import (
     MetricsRegistry, exact_percentile)
 from distributed_tensorflow_tpu_torch.observability.trace import NULL_TRACER
+from distributed_tensorflow_tpu_torch.parallel.mesh import MODEL_AXIS
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
     SlotKVCache, SlotOverflow)
 
@@ -314,6 +323,23 @@ class ContinuousBatcher:
         self.idle_polls = 0
 
     # ------------------------------------------------------------ admission
+    def _check_lockstep(self, queue: RequestQueue) -> None:
+        """Over a table cut across 'model' ranks, refuse what could make
+        the ranks admit apart (module docstring): a wall clock with an
+        arrival after 0."""
+        mesh = self.kv.model.tp_mesh
+        if (mesh is None or mesh.axis_size(MODEL_AXIS) == 1
+                or isinstance(self.clock, VirtualClock)):
+            return
+        late = [r.rid for r in queue._items if r.arrival_s > 0]
+        if late:
+            raise ValueError(
+                f"the table's model is cut over {mesh.axis_size(MODEL_AXIS)}"
+                f" 'model' ranks, each with its own batcher: requests "
+                f"{late} arrive after 0 on a wall clock, which could admit "
+                f"them apart; serve them with a VirtualClock or arrivals "
+                f"at 0")
+
     def _check_capacity(self, req: Request) -> int:
         lp = int(np.asarray(req.prompt).reshape(-1).shape[0])
         if lp + req.max_new_tokens > self.kv.max_len:
@@ -775,6 +801,7 @@ class ContinuousBatcher:
         is the streaming hook."""
         queue = (requests if isinstance(requests, RequestQueue)
                  else RequestQueue(requests))
+        self._check_lockstep(queue)
         offered = len(queue)
         self._results: list[RequestResult] = []
         self._decode_tokens = 0

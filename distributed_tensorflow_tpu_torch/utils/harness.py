@@ -55,8 +55,13 @@ expert, model) mesh and ``ExpertParallelEngine`` over the classifier's
 2-D expert layout (``expert_tp[dp*ep*tp]``); ep×sp a (data, expert,
 seq) mesh and ``CompositeEngine`` over a MoE GPT or BERT
 (``expert_sp[dp*ep*sp,<attention>]``), and with tp a (data, expert, seq,
-model) one (``expert_tp_sp[dp*ep*tp*sp,<attention>]``).  Sampling and
-serving after a run with a 'model' axis are not ported (TP decode).
+model) one (``expert_tp_sp[dp*ep*tp*sp,<attention>]``).  Sampling after
+any of them passes the run's mesh to ``generate`` (TP decode: the batch
+over 'data', the Megatron cut over 'model', JAX ``harness.py:2179``);
+serving builds a TP table on the run's mesh where its axes are a subset
+of {data, model} and the slots divide by 'data' (-tp, fsdp×tp), and
+otherwise (tp×sp, ep×tp, ep×tp×sp) serves the whole model replicated
+(JAX ``harness.py:2462-2470``).
 With the pipeline: pp×tp a (data, pipe, model) mesh and
 ``PipelineEngine`` over the GPT or BERT stages with the Megatron layout
 (``pipeline_tp[dp*pp*tp,<schedule>]``); pp×sp a (data, pipe, seq) mesh
@@ -136,7 +141,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import TP_DECODE, not_ported
+from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch import models as modellib
 from distributed_tensorflow_tpu_torch.data import loaders
 from distributed_tensorflow_tpu_torch.engines import (
@@ -668,12 +673,11 @@ def _setup_model_parallel(config: ExperimentConfig, mode: str,
     """Megatron TP (JAX ``_setup_tensor_parallel``) or fsdp × tp (JAX
     ``_setup_fsdp_tp``): a (data, model) mesh of (n / tp, tp) ranks, the
     ``_tp_model`` and ``TensorParallelEngine`` or ``FSDPEngine``.
-    Sampling and serving after training decode the partitioned model,
-    which is not ported (TP decode)."""
+    Sampling and serving after training decode the partitioned model (TP
+    decode)."""
     from distributed_tensorflow_tpu_torch.engines import (
         FSDPEngine, TensorParallelEngine)
 
-    _reject_tp_decode(config, mode)
     mesh, dp = _split_mesh(config, config.tensor_parallel, mode,
                            meshlib.MODEL_AXIS, engines=engines,
                            grad_accum_ok=True)
@@ -693,16 +697,6 @@ def _setup_model_parallel(config: ExperimentConfig, mode: str,
         raise
     return _Experiment(mesh=mesh, n=dp, train_ds=train_ds, test_ds=test_ds,
                        engine=engine, global_batch=global_batch, name=name)
-
-
-def _reject_tp_decode(config: ExperimentConfig, mode: str) -> None:
-    """Sampling and serving after a run with a 'model' axis decode the
-    partitioned model, which is not ported (TP decode)."""
-    for flag, value in (("--sample", config.sample_tokens),
-                        ("--serve", config.serve_requests)):
-        if value:
-            not_ported(f"{flag} after {mode} training (decode of a "
-                       f"tensor-parallel model)", TP_DECODE)
 
 
 def _setup_tensor_parallel(config: ExperimentConfig) -> _Experiment:
@@ -755,7 +749,6 @@ def _setup_composite(config: ExperimentConfig) -> _Experiment:
     moe_experts=N`` model makes it MoE-aware (its experts whole on every
     rank), so the router weights reach the engine."""
     mode = "tensor_parallel×seq_parallel"
-    _reject_tp_decode(config, mode)
     mesh, dp = _split_mesh(config, config.tensor_parallel, mode,
                            meshlib.MODEL_AXIS,
                            (config.seq_parallel, meshlib.SEQ_AXIS),
@@ -791,8 +784,6 @@ def _setup_expert_parallel(config: ExperimentConfig,
 
     mode = ("expert_parallel×tensor_parallel" if tp > 1
             else "expert_parallel")
-    if tp > 1:
-        _reject_tp_decode(config, mode)
     extra = [(tp, meshlib.MODEL_AXIS)] if tp > 1 else []
     mesh, dp = _split_mesh(config, config.expert_parallel, mode,
                            meshlib.EXPERT_AXIS, *extra, grad_accum_ok=True)
@@ -860,8 +851,6 @@ def _setup_expert_sp(config: ExperimentConfig, tp: int = 1) -> _Experiment:
         raise ValueError(
             f"num_experts {config.num_experts} not divisible by "
             f"expert_parallel {config.expert_parallel}")
-    if tp > 1:
-        _reject_tp_decode(config, mode)
     extra = [(tp, meshlib.MODEL_AXIS)] if tp > 1 else []
     mesh, dp = _split_mesh(config, config.expert_parallel, mode,
                            meshlib.EXPERT_AXIS,
@@ -1804,11 +1793,15 @@ def _sample_from_state(config: ExperimentConfig, ex: _Experiment, state,
     """``sample_tokens`` N: greedy-decode N tokens per prompt from the
     trained model (``models.gpt.generate``, the KV-cache sampler), one
     prompt of ``sample_prompt_len`` test tokens per data shard, as JAX takes
-    them (a pipeline decodes them through ``PipelineEngine.generate``).  JAX decodes them over its mesh; here every rank
-    decodes all of them from its own copy of the parameters (they are
-    equal on every rank, the consensus ``eval_params`` under async and
-    gossip).  Greedy, so the continuation is a function of the
-    parameters.  Arguments were checked before training."""
+    them (a pipeline decodes them through ``PipelineEngine.generate``).
+    Over more than one rank ``generate`` takes the run's mesh, as JAX's
+    does (``harness.py:2179``): each data rank decodes its prompts (a MoE
+    model every prompt) and every rank returns them all; a model cut over
+    'model' decodes Megatron-cut (TP decode).  The parameters are the
+    engine's ``eval_params`` (the consensus under async and gossip, the
+    experts gathered under EP and the composites).  Greedy, so the
+    continuation is a function of the parameters.  Arguments were checked
+    before training."""
     from distributed_tensorflow_tpu_torch.models.gpt import generate
 
     prompts = np.asarray(test_ds.x[:ex.n, :config.sample_prompt_len],
@@ -1821,7 +1814,8 @@ def _sample_from_state(config: ExperimentConfig, ex: _Experiment, state,
                 "samples": full[:, config.sample_prompt_len:].tolist()}
     toks = generate(ex.engine.eval_params(state), None, prompts,
                     config.sample_tokens, greedy=True,
-                    device=ex.engine.device)
+                    device=ex.engine.device,
+                    mesh=ex.mesh if ex.mesh.world_size > 1 else None)
     return {"sample_prompts": prompts.tolist(),
             "samples": toks.cpu().tolist()}
 
@@ -1942,6 +1936,21 @@ def _validate_serving(config: ExperimentConfig, ex: _Experiment,
             f"max_len={model.max_len}")
 
 
+def _serve_mesh(config: ExperimentConfig, ex: _Experiment):
+    """The mesh the serve table takes (JAX ``harness.py:2462-2470``): the
+    run's, where it has more than one rank, its axes are a subset of
+    {data, model} and ``serve_slots`` divides by 'data'; else None
+    (replicated)."""
+    mesh = ex.mesh
+    if (mesh.world_size > 1
+            and set(mesh.axis_names) <= {meshlib.DATA_AXIS,
+                                         meshlib.MODEL_AXIS}
+            and config.serve_slots
+            % mesh.shape.get(meshlib.DATA_AXIS, 1) == 0):
+        return mesh
+    return None
+
+
 def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
                       test_ds) -> dict[str, Any]:
     """``serve_requests`` N: a continuous-batching window over the trained
@@ -1949,10 +1958,19 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     ``_serve_from_state``); returns the run report's ``serve`` section
     (``observability.serve_section``).
 
-    The table is built over the trained module itself (the consensus
-    ``eval_params`` under async and gossip), whose decode runs without
-    dropout; it serves on this rank's device, replicated, as JAX does
-    when its mesh does not shard the table.  Prompts are test rows
+    The table is built over the engine's ``eval_params`` (the consensus
+    under async and gossip), whose decode runs without dropout, on this
+    rank's device.  JAX's rule (``harness.py:2462-2470``) picks the layout:
+    where the run's mesh has no axis but 'data' and 'model' and the slots
+    divide by 'data', the table takes the mesh (``_serve_mesh``: after -tp
+    and fsdp×tp a TP table, the model's Megatron cut kept); otherwise
+    (tp×sp, ep×tp, ep×tp×sp) it serves the whole model, replicated: a bound
+    model's unbound twin (``GPTLM.unbound``) holding its gathered leaves,
+    as the pipeline's twins are built.  A run of one rank serves without a
+    mesh, as in JAX (-tp 1 trains on the sync path, so ``cli.main`` reaches
+    a TP table only over more than one rank).  The draft table takes the
+    same mesh (JAX ``:2556``).  Every rank drives its table alike, so each
+    makes the same host decisions.  Prompts are test rows
     (``serve_prompt_len`` tokens each, wrapping past the split), behind a
     seeded shared prefix of ``serve_shared_prefix`` tokens; every arrival
     is at 0, so the queue drains as slots free.  Greedy decode on the wall
@@ -1969,11 +1987,18 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
 
     model = ex.engine.eval_params(state)
     device = ex.engine.device
+    mesh = _serve_mesh(config, ex)
+    if mesh is None and model.tp_mesh is not None:
+        # the whole model, replicated: the unbound twin holding the
+        # gathered leaves (a collective: every rank calls it)
+        twin = model.unbound()
+        twin.load_state_dict(ex.engine.full_state_dict(state))
+        model = twin
     kv_kwargs: dict[str, Any] = dict(
         kv_dtype=(_resolve_serve_kv_dtype(config.serve_kv_dtype)
                   if config.serve_kv_dtype else None),
         prefix_cache_blocks=config.serve_prefix_cache,
-        prefix_block=config.serve_prefix_block, device=device)
+        prefix_block=config.serve_prefix_block, device=device, mesh=mesh)
     if config.serve_kv_layout == "paged":
         kv_kwargs.update(kv_layout="paged",
                          paged_blocks=config.serve_paged_blocks,
@@ -1992,7 +2017,7 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
             draft.reset_parameters(
                 torch.Generator().manual_seed(config.seed))
         draft_kv = SlotKVCache(draft, None, config.serve_slots,
-                               device=device)
+                               device=device, mesh=mesh)
     rows = np.asarray(test_ds.x, np.int32)
     plen = config.serve_prompt_len
     shared = np.zeros(0, np.int32)

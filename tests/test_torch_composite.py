@@ -114,8 +114,15 @@ GROUP_SIZES = (4, 24, 8, 7)
 CLI_ARGV = {
     "ep_sp": ["-n", "8", "-ep", "2", "-sp", "2", "-b", "4", "--sample", "4",
               "--sample-prompt-len", "4"],
-    "ep_tp_sp": ["-n", "8", "-ep", "2", "-tp", "2", "-sp", "2", "-b", "4"],
+    "ep_tp_sp": ["-n", "8", "-ep", "2", "-tp", "2", "-sp", "2", "-b", "4",
+                 "--sample", "4", "--sample-prompt-len", "4", "--serve",
+                 "4", "--serve-max-new", "4", "--serve-prompt-len", "4"],
 }
+# decode after a 'model' axis: tp×sp, the dense GPT, sampled and served
+DECODE_ARGV = ["-n", "8", "-tp", "2", "-sp", "2", "-b", "4", "--sample",
+               "4", "--sample-prompt-len", "4", "--serve", "4",
+               "--serve-max-new", "4", "--serve-prompt-len", "4",
+               "--serve-kv-layout", "paged", "--serve-prefix-block", "4"]
 CLI_COMMON = ["--model", "gpt", "--dataset", "lm_synth", "--num-experts",
               "4", "--model-arg", "hidden=32", "--model-arg", "layers=1",
               "--model-arg", "heads=2", "--model-arg", "ffn=64",
@@ -299,6 +306,9 @@ def _rank(rank: int, ports, inits, out_dir: str) -> None:
             out[f"cli/{name}"] = json.dumps(cli.main(
                 argv + CLI_COMMON + ["--device", "cpu"],
                 dataset_fn=_small_lm))
+        out["cli/tp_sp"] = json.dumps(cli.main(
+            DECODE_ARGV + CLI_COMMON + ["--device", "cpu"],
+            dataset_fn=_small_lm))
     finally:
         dist.destroy_process_group()
     if rank < 4:
@@ -735,12 +745,20 @@ def test_harness_rejections_equal_jax(kw):
 @pytest.mark.parametrize("flags", [
     dict(tensor_parallel=2, seq_parallel=2),
     dict(expert_parallel=2, tensor_parallel=2, seq_parallel=2)])
-def test_decode_after_a_model_axis_is_not_ported(flags):
-    from distributed_tensorflow_tpu_torch.utils import harness
-
-    for extra in (dict(sample_tokens=4), dict(serve_requests=4)):
-        config = harness.ExperimentConfig(model="gpt", dataset="lm_synth",
-                                          device="cpu", **flags, **extra)
-        with pytest.raises(NotImplementedError,
-                           match="remaining engines: TP decode"):
-            harness._setup(config)
+def test_decode_after_a_model_axis_is_not_ported(spawn_run, flags):
+    """Decode after a run with a 'model' axis (TP decode; refused before
+    it was ported, whence the name): ``--sample`` after tp×sp and
+    ep×tp×sp decodes one prompt per data shard over the run's mesh, and
+    ``--serve`` serves the whole model replicated (the mesh holds 'seq'),
+    every request completed; every rank reports the same samples."""
+    _, _, ranks = spawn_run
+    name = "ep_tp_sp" if "expert_parallel" in flags else "tp_sp"
+    summaries = [json.loads(str(g[f"cli/{name}"])) for g in ranks]
+    dp = 8 // (2 * flags.get("expert_parallel", 1) * 2)
+    samples = np.asarray(summaries[0]["samples"])
+    assert samples.shape == (dp, 4)
+    assert ((samples >= 0) & (samples < 64)).all()
+    assert all(s["samples"] == summaries[0]["samples"] for s in summaries)
+    serve = summaries[0]["serve"]
+    assert serve["completed"] == serve["requests"] == 4
+    assert serve["tokens_generated"] == 16

@@ -397,9 +397,16 @@ def test_unported_options_raise():
         GPTLM(**SMALL, attention_impl="sparse", device="cpu")
     with pytest.raises(ValueError, match="remat \\+ MoE blocks"):
         GPTLM(**SMALL, remat=True, moe_experts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ported since: generate(mesh=...) (TP decode), which keeps JAX's
+    # refusal of a batch the 'data' axis does not divide
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
+
+    two = Mesh(rank=0, world_size=2, device=torch.device("cpu"),
+               backend="gloo")
+    with pytest.raises(ValueError,
+                       match=r"batch 1 not divisible by the data axis \(2\)"):
         generate(GPTLM(**SMALL, device="cpu"), None,
-                 np.zeros((1, 4), np.int32), 2, device="cpu", mesh=object())
+                 np.zeros((1, 4), np.int32), 2, device="cpu", mesh=two)
 
 
 def test_create_model_builds_gpt_on_cpu_and_defaults_to_cuda():

@@ -311,9 +311,15 @@ def _jax_ex(jm):
 
 
 def _port_ex(tm, n=1):
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
+
     engine = types.SimpleNamespace(model=tm, eval_params=lambda s: tm,
                                    device=torch.device("cpu"))
-    return types.SimpleNamespace(n=n, engine=engine)
+    # the run's mesh: the 'data' axis of one rank (no process group: the
+    # table reads its layout only)
+    mesh = Mesh(rank=0, world_size=1, device=torch.device("cpu"),
+                backend="gloo")
+    return types.SimpleNamespace(n=n, engine=engine, mesh=mesh)
 
 
 @pytest.fixture(scope="module")

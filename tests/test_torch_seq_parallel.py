@@ -449,11 +449,9 @@ def test_decode_under_seq_parallel_raises_as_jax():
     with pytest.raises(ValueError) as port:
         create_model("gpt", num_classes=VOCAB, attention_impl="ring",
                      decode=True, device="cpu", **GPT)
-    # JAX's message less its last sentence, which offers partition_model
-    # decode: the port raises not_ported for partition_model
-    shared, last = str(ref.value).rsplit("  ", 1)
-    assert last == "partition_model decode IS supported (GSPMD)."
-    assert str(port.value) == shared
+    # JAX's message whole: its last sentence offers partition_model
+    # decode, which the port has too (TP decode)
+    assert str(port.value) == str(ref.value)
 
 
 def test_generate_decodes_a_seq_parallel_model_densely():

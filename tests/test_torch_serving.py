@@ -456,10 +456,21 @@ def test_sample_tokens_frequencies_follow_softmax():
 def test_unported_serving_options_raise(models):
     _, _, sd = models
     tm = GPTLM(**SMALL, device="cpu")
-    for kw in (dict(mesh=object()), dict(ledger=object())):
-        for layout in ("monolithic", "paged"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                SlotKVCache(tm, sd, 2, kv_layout=layout, device="cpu", **kw)
+    for layout in ("monolithic", "paged"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SlotKVCache(tm, sd, 2, kv_layout=layout, device="cpu",
+                        ledger=object())
+    # ported since: mesh-sharded tables (TP decode), which keep JAX's
+    # refusal of slots the 'data' axis does not divide
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
+
+    two = Mesh(rank=0, world_size=2, device=torch.device("cpu"),
+               backend="gloo")
+    for layout in ("monolithic", "paged"):
+        with pytest.raises(ValueError, match=r"slots \(3\) must divide by "
+                           r"the mesh's data axis \(2\)"):
+            SlotKVCache(tm, sd, 3, kv_layout=layout, device="cpu",
+                        mesh=two)
     kv = _port_kv(sd)
     assert isinstance(kv, PagedSlotKVCache)
     assert not isinstance(_port_kv(sd, layout="monolithic"),
