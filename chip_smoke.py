@@ -126,9 +126,10 @@ Phases (any failure raises and the script exits non-zero):
 5d. repeat — one seed gives one run: configs 1 (the CNN window), 3 and 5
              (f32) through ``cli.main`` twice each, their per-step losses,
              final parameters (one flat f32 buffer) and test accuracy and
-             loss bitwise equal; then once with cuDNN at torch's defaults,
-             for the examples/s that its deterministic algorithms cost
-             (a failure is raised after the timings);
+             loss bitwise equal; then configs 1 and 3 (the ones with
+             convolutions) once with cuDNN at torch's defaults, for the
+             examples/s that its deterministic algorithms cost (a failure
+             is raised after the timings);
 5e. train-f32 — the GPT of phase 5 at ``dtype float32`` (the JAX
              package's default), 4 steps through ``Trainer.fit`` at one
              step per call: every flash forward, dQ and dK/dV on ``tc32``
@@ -155,12 +156,14 @@ Phases (any failure raises and the script exits non-zero):
              serve section with ``serve_goodput_under_slo`` and ``slo``;
              the recipe's ``ScheduledAdamW`` in the engine.  L2, under
              ``bf16-f32master`` with a linear schedule, rope and
-             ``--kv-heads 2``, served at ``--serve-multi-step 8``, twice:
-             at steps_per_call 8 (replayed chunks) and 1 (eager), per-step
-             losses, the flat f32 master and test loss bitwise equal;
+             ``--kv-heads 2``, served at ``--serve-multi-step 8``:
              every flash launch on ``tc``, every paged launch on bf16
              pools with 2 kv heads (8 × 8 per round), RoundGraph replays,
              and the streams bitwise a direct ``multi_step=8`` window;
+             then its training flags without the serve window on the
+             first 192 rows of ``lm_synth`` (24 steps: an eager chunk, a
+             captured one, a replay) at steps_per_call 8 and 1: per-step
+             losses, the flat f32 master and test loss bitwise equal;
 5g. sp    — sequence parallelism on the card, where one GPU makes a (1, 1)
              (data, seq) NCCL mesh: the ``bench.py --lm`` GPT (hidden 512,
              8 layers, 8 heads, ffn 2048, vocab 16384, B = 8, L = 1024)
@@ -394,6 +397,32 @@ Phases (any failure raises and the script exits non-zero):
              (4, 2, 1; bf16 and int8 pools) joins the kernels line, its
              launches those of TPP and TPQ at that K/V head count
              (``paged_attention.launches_by_kv_heads``; 0 on one card);
+5q. lease — the elastic lease and the telemetry on the cli-lm GPT (phase
+             5i's C0 config, ``_ckpt_config``: f32, flash on ``tc32``, 2
+             epochs of 512 steps at steps_per_call 8, one NCCL rank),
+             through ``harness.run``.  Q1: ``--checkpoint-dir`` with
+             ``--max-steps-per-lease 300``, drained at boundary 304 with
+             ``preempted == "max_steps_per_lease:300"`` and its final
+             checkpoint there, then an ``--elastic-restore`` run of the
+             directory finishing the fit: the final state and test loss
+             bitwise C0's (phase 5i hands over its state).  Q2: the same
+             without the budget, a timer thread sending SIGTERM to this
+             process once chunk 20 is dispatched: drained with
+             ``preempted == "signal:SIGTERM"``, its resume bitwise C0,
+             and SIGTERM's disposition back after every window (a guard
+             handler of the smoke's own stands behind the lease in Q2, so
+             a stray notice fails a gate instead of ending the run).  Q3:
+             window L1's argv with ``--metrics-path``, ``--trace`` and
+             ``--timeline`` through ``cli.main``: test loss, samples,
+             serve streams and launch counts bitwise L1's, one metrics
+             record a step, every trace line whole, the span table, the
+             tracer's, logger's and timeline's overhead as shares of the
+             fit, step p50 beside L1's, the serve section's timeline keys,
+             the ``stragglers`` and ``lease`` sections, paged launches 8 x
+             decode iterations on f32 pools.  Q4: a 24-step fit under
+             ``--profile-dir``: its Chrome trace holds the Trainer's span
+             names and the ``tc32`` kernels' names.  Rows 1c-3c and 4f
+             gain ``launches_lease``;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -448,9 +477,12 @@ import functools
 import io
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -1989,21 +2021,21 @@ SUMMARY_KEYS = {"engine", "model", "dataset", "synthetic_data", "n_devices",
                 "test_accuracy", "test_loss"}
 
 
-def _cli(argv):
+def _cli(argv, dataset_fn=None):
     """``cli.main(argv)`` with its stdout captured: (summary, heartbeat
     lines)."""
     from distributed_tensorflow_tpu_torch import cli
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        summary = cli.main(argv)
+        summary = cli.main(argv, dataset_fn=dataset_fn)
     lines = out.getvalue().splitlines()
     assert json.loads(lines[-1]) == summary
     return summary, [line for line in lines[:-1] if line.startswith("step ")]
 
 
 def _recorded_cli(argv, *, cudnn_default: bool = False,
-                  steps_per_call: int = 8) -> dict:
+                  steps_per_call: int = 8, dataset_fn=None) -> dict:
     """``_cli(argv)`` that also keeps the run's per-step losses (every
     chunk's, in step order), its final parameters and buffers as one
     flat f32 buffer, its trainer and the summary of its serve window
@@ -2063,7 +2095,7 @@ def _recorded_cli(argv, *, cudnn_default: bool = False,
     if cudnn_default:
         cli.run = default_cudnn_run
     try:
-        summary, _ = _cli(argv)
+        summary, _ = _cli(argv, dataset_fn=dataset_fn)
     finally:
         harness.Trainer, cli.run = trainer, harness.run
         serving.ContinuousBatcher = batcher
@@ -2082,15 +2114,18 @@ def repeat_phase(gpu: str) -> list[str]:
     """One seed gives one run: configs 1 (the CNN window), 3 and 5 at f32
     through ``cli.main`` twice each, whose per-step losses, final
     parameters (one flat f32 buffer of the state dict) and test accuracy
-    and loss must be bitwise equal; then once with cuDNN at torch's
-    defaults, for the examples/s the deterministic algorithms cost.
-    Returns the failures (raised by ``main`` after the timings)."""
+    and loss must be bitwise equal; then, where the config has
+    convolutions, once with cuDNN at torch's defaults, for the examples/s
+    the deterministic algorithms cost.  Returns the failures (raised by
+    ``main`` after the timings)."""
     failures = []
-    for name, argv in (("config 1 (CNN, sync)", CNN_ARGV),
-                       ("config 3 (ResNet-20, async)", C3_ARGV),
-                       ("config 5 (BERT-tiny, f32, flash)", BERT_ARGV)):
+    for name, argv, convs in (
+            ("config 1 (CNN, sync)", CNN_ARGV, True),
+            ("config 3 (ResNet-20, async)", C3_ARGV, True),
+            ("config 5 (BERT-tiny, f32, flash)", BERT_ARGV, False)):
         a, b = _recorded_cli(argv), _recorded_cli(argv)
-        free = _recorded_cli(argv, cudnn_default=True)
+        # cuDNN's defaults move only convolutions: BERT has none
+        free = _recorded_cli(argv, cudnn_default=True) if convs else a
         sa, sb, sf = a["summary"], b["summary"], free["summary"]
         checks = {
             "losses": torch.equal(a["losses"], b["losses"]),
@@ -2106,10 +2141,11 @@ def repeat_phase(gpu: str) -> list[str]:
               f"step {first}); test_accuracy {sa['test_accuracy']:.6f} / "
               f"{sb['test_accuracy']:.6f}; examples_per_sec "
               f"{sa['examples_per_sec']:.1f} / {sb['examples_per_sec']:.1f}"
-              f" deterministic, {sf['examples_per_sec']:.1f} with cuDNN "
-              f"at its defaults (test_accuracy {sf['test_accuracy']:.6f}, "
-              f"losses and params bitwise the deterministic run's: "
-              f"{default_same})")
+              + (f" deterministic, {sf['examples_per_sec']:.1f} with cuDNN "
+                 f"at its defaults (test_accuracy "
+                 f"{sf['test_accuracy']:.6f}, losses and params bitwise the "
+                 f"deterministic run's: {default_same})" if convs else
+                 " (no convolution: cuDNN's defaults not run)"))
         if not all(checks.values()):
             failures.append(f"{name}: {checks}")
     return failures
@@ -3348,7 +3384,26 @@ CLI_L2_ARGV = CLI_LM_ARGV + [
     "--positional", "rope", "--kv-heads", "2", "--serve", "32",
     "--serve-slots", "8", "--serve-max-new", "32", "--serve-prefix-block",
     "8", "--serve-kv-layout", "paged", "--serve-multi-step", "8"]
+# L2's training flags without its serve window, for the replayed-against-
+# eager twin on the first LM_HEAD_ROWS rows (warmup inside those steps)
+CLI_L2_TWIN_ARGV = CLI_LM_ARGV + [
+    "--precision", "bf16-f32master", "--lr-schedule", "linear",
+    "--warmup-steps", "8", "--weight-decay", "0.1", "--clip-norm", "1.0",
+    "--positional", "rope", "--kv-heads", "2"]
 CLI_LM_TEST_LOSS = 3.85    # one nat under chance, ln 128 = 4.852
+LM_HEAD_ROWS = 192         # a short fit: 24 steps at -b 8, chunks of 8
+
+
+def _lm_head_rows(batch_size, type="train"):  # noqa: A002 — harness API
+    """The first ``LM_HEAD_ROWS`` training rows of ``lm_synth`` (100 test
+    rows): a ``dataset_fn`` for the short fits."""
+    from distributed_tensorflow_tpu_torch.data import loaders
+
+    ds = loaders.load_dataset("lm_synth", split=type)
+    rows = LM_HEAD_ROWS if type == "train" else 100
+    return loaders.Dataset(x=ds.x[:rows], y=ds.y[:rows],
+                           num_classes=ds.num_classes, name=ds.name,
+                           synthetic=ds.synthetic)
 
 
 @contextlib.contextmanager
@@ -3481,7 +3536,9 @@ def cli_lm_phase(gpu: str) -> dict:
     assert _streams(rec["serve_summary"]) == _streams(base), (
         "window L1's serve streams differ from the direct window's")
     SEEN["L1"] = {"test_loss": sm["test_loss"], "samples": sm["samples"],
-                  "streams": _streams(rec["serve_summary"])}
+                  "streams": _streams(rec["serve_summary"]),
+                  "counts": counts, "paged": paged,
+                  "step_ms_p50": sm["run_report"]["step_time_p50_s"] * 1e3}
     print(f"[cli-lm] window L1: test_loss {sm['test_loss']:.6f} <= "
           f"{CLI_LM_TEST_LOSS}; samples bitwise generate(greedy) on the "
           f"trained module; serve streams bitwise a direct SlotKVCache("
@@ -3497,10 +3554,6 @@ def cli_lm_phase(gpu: str) -> dict:
         "L2 (bf16-f32master, steps_per_call 8)", CLI_L2_ARGV
         + ["--steps-per-call", "8"], gpu, 8,
         (torch.bfloat16, 2, CLI_LM["heads"]))
-    eager, _, _, _ = _cli_lm_window(
-        "L2 (bf16-f32master, steps_per_call 1)", CLI_L2_ARGV
-        + ["--steps-per-call", "1"], gpu, 1,
-        (torch.bfloat16, 2, CLI_LM["heads"]))
     sv = graph["summary"]["serve"]
     assert counts == {"fwd": want_fwd, "dq": want_bwd, "dkv": want_bwd,
                       "fwd_tc": want_fwd, "dq_tc": want_bwd,
@@ -3509,13 +3562,21 @@ def cli_lm_phase(gpu: str) -> dict:
     rounds = sv["serve_dispatches"] - sv["prefills"]
     assert replays > 0 and paged == layers * 8 * rounds, (
         replays, paged, rounds)
-    masters = [r["trainer"].state.optimizer.master for r in (graph, eager)]
+    # replayed chunks against eager steps: L2's training flags without
+    # its serve window, on the first rows of lm_synth (an eager chunk, a
+    # captured one, a replay) at steps_per_call 8 and 1
+    twin = {k: _recorded_cli(CLI_L2_TWIN_ARGV + ["--steps-per-call",
+                                                 str(k)],
+                             steps_per_call=k, dataset_fn=_lm_head_rows)
+            for k in (8, 1)}
+    masters = [r["trainer"].state.optimizer.master for r in twin.values()]
     checks = {
-        "losses": torch.equal(graph["losses"], eager["losses"]),
+        "losses": torch.equal(twin[8]["losses"], twin[1]["losses"]),
         "master": torch.equal(*masters),
-        "test_loss": (graph["summary"]["test_loss"]
-                      == eager["summary"]["test_loss"])}
+        "test_loss": (twin[8]["summary"]["test_loss"]
+                      == twin[1]["summary"]["test_loss"])}
     assert all(checks.values()), checks
+    assert twin[1]["summary"]["steps"] == LM_HEAD_ROWS // CLI_LM["batch"]
     model = graph["trainer"].state.model
     assert isinstance(strip_master(graph["trainer"].state.optimizer),
                       ScheduledAdamW)
@@ -3525,13 +3586,15 @@ def cli_lm_phase(gpu: str) -> dict:
     assert _streams(graph["serve_summary"]) == _streams(base), (
         "window L2's serve streams differ from the direct multi_step "
         "window's")
-    print(f"[cli-lm] window L2 ({gpu}): steps_per_call 8 (replayed chunks) "
-          f"against 1 (eager), bitwise {json.dumps(checks)}; test_loss "
+    print(f"[cli-lm] window L2 ({gpu}): test_loss "
           f"{graph['summary']['test_loss']:.6f}; serve rounds {rounds}, "
           f"RoundGraph replays {replays}; streams bitwise a direct "
-          f"multi_step=8 window; examples_per_sec "
-          f"{graph['summary']['examples_per_sec']:.1f} (graph) / "
-          f"{eager['summary']['examples_per_sec']:.1f} (eager)")
+          f"multi_step=8 window; its training flags on "
+          f"{twin[1]['summary']['steps']} steps at steps_per_call 8 "
+          f"(replayed chunks) against 1 (eager): bitwise "
+          f"{json.dumps(checks)}, examples_per_sec "
+          f"{twin[8]['summary']['examples_per_sec']:.1f} / "
+          f"{twin[1]['summary']['examples_per_sec']:.1f}")
     l2 = {"fwd_tc": counts["fwd_tc"], "dq_tc": counts["dq_tc"],
           "dkv_tc": counts["dkv_tc"], "paged_bf16_gqa": paged}
     # where a replayed step of each window goes (after every window: a
@@ -3546,7 +3609,7 @@ def cli_lm_phase(gpu: str) -> dict:
             train.y[batch * i:batch * (i + 1)]) for i in range(8)))
         _profile_chunk(label, tr.engine, tr.state, list(xs), list(ys),
                        chunks=2)
-    del trainer, graph, eager, model, kv, base, masters
+    del trainer, graph, twin, model, kv, base, masters
     torch.cuda.empty_cache()
     return {"L1": l1, "L2": l2}
 
@@ -4363,8 +4426,9 @@ def _ckpt_config(**kw):
     return ExperimentConfig(**base)
 
 
-def _kept_run(config):
-    """``harness.run(config)`` and the Trainer it trained."""
+def _kept_run(config, on_chunk=None):
+    """``harness.run(config)`` and the Trainer it trained;
+    ``on_chunk(n)`` is called after the run's n-th chunk is dispatched."""
     from distributed_tensorflow_tpu_torch.utils import harness
 
     kept = {}
@@ -4373,6 +4437,16 @@ def _kept_run(config):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             kept["trainer"] = self
+            if on_chunk is not None:
+                chunk, n = self.engine.many_step, [0]
+
+                def many_step(*a, **k):
+                    out = chunk(*a, **k)
+                    n[0] += 1
+                    on_chunk(n[0])
+                    return out
+
+                self.engine.many_step = many_step
 
     saved = harness.Trainer
     harness.Trainer = Keeper
@@ -4641,6 +4715,10 @@ def ckpt_phase(gpu: str) -> dict:
               f"(timeout {wd['timeout_s']} s after rescale); a 0.2 s "
               f"watchdog around a {waited:.3f} s device wait: "
               f"{episodes} stall episode, re-armed after the next beat")
+        # phase 5q's uninterrupted twin: C0's final state
+        c0_state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in t0.state.engine.checkpoint_state(
+                        t0.state).items()}
         del t0, t1, crashed
         c2_counts, c2_bytes = _c2_window(gpu, tmp)
     finally:
@@ -4649,7 +4727,9 @@ def ckpt_phase(gpu: str) -> dict:
     return {"tc32": {k: c0_counts[f"{k}_tc32"] + c1_counts[f"{k}_tc32"]
                      for k in ("fwd", "dq", "dkv")},
             "tc": {k: c2_counts[f"{k}_tc"] for k in ("fwd", "dq", "dkv")},
-            "bytes_f32": c1_bytes, "bytes_bf16_f32master": c2_bytes}
+            "bytes_f32": c1_bytes, "bytes_bf16_f32master": c2_bytes,
+            "c0": {"state": c0_state, "test_loss": c0["test_loss"],
+                   "steps": c0["steps"]}}
 
 
 # --------------------------------------------------------------------------
@@ -6219,6 +6299,268 @@ def tpd_phase(gpu: str) -> dict:
                             "int8": out["TPQ"]["by_kv_heads"]}}
 
 
+# --------------------------------------------------------------------------
+# phase 5q: the lease drain and the telemetry on the cli-lm GPT
+# --------------------------------------------------------------------------
+
+LEASE_BUDGET = 300        # Q1's --max-steps-per-lease: not a multiple of
+                          # 8, so the drain lands on boundary 304
+LEASE_SIGNAL_CHUNK = 20   # Q2's timer thread sends SIGTERM once the fit
+                          # has dispatched this many chunks (160 steps)
+
+
+def _same_as(state, want: dict) -> bool:
+    """A state's checkpoint tensors and fields bitwise ``want``'s."""
+    got = state.engine.checkpoint_state(state)
+    return got.keys() == want.keys() and all(
+        torch.equal(v, got[k]) if isinstance(v, torch.Tensor) else v == got[k]
+        for k, v in want.items())
+
+
+def _sigterm_back(label: str, want) -> None:
+    """The window left SIGTERM's disposition as it found it."""
+    now = signal.getsignal(signal.SIGTERM)
+    assert now is want, (label, now, want)
+
+
+def _lease_resume(label, tmp, c0, gpu, stopped: int):
+    """An ``elastic_restore`` run of the drained directory finishes the
+    fit; its final state and test loss are bitwise C0's."""
+    r, tr = _kept_run(_ckpt_config(checkpoint_dir=f"{tmp}", elastic_restore=True))
+    rep = r["run_report"]
+    assert rep["restored_step"] == stopped and rep["resume_replay_steps"] == 0
+    assert r["steps"] == c0["steps"] - stopped and r["preempted"] is None, r
+    checks = {"state": _same_as(tr.state, c0["state"]),
+              "test_loss": r["test_loss"] == c0["test_loss"]}
+    assert all(checks.values()), (label, checks)
+    print(f"[lease] {label} resume ({gpu}): --elastic-restore from step "
+          f"{stopped}, {r['steps']} steps, resume_replay_steps 0, "
+          f"preemption_lost_s {rep['preemption_lost_s']:.3f}: bitwise C0 "
+          f"{json.dumps(checks)}")
+
+
+def lease_phase(gpu: str, c0: dict) -> dict:
+    """Phase 5q (module docstring): Q1–Q4; returns the windows' flash
+    launches on tc32 and Q3's paged launches on f32 pools."""
+    import shutil
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.data import loaders
+    from distributed_tensorflow_tpu_torch.utils import metrics as um
+    from distributed_tensorflow_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+
+    train = loaders.load_dataset("lm_synth", split="train")
+    test = loaders.load_dataset("lm_synth", split="test")
+    epoch = len(train) // CLI_LM["batch"]
+    evals = -(-len(test) // 100)
+    stop_q1 = -(-LEASE_BUDGET // 8) * 8
+    layers = CLI_LM["layers"]
+    print(f"[lease] predicted: Q1 drains at boundary {stop_q1} (budget "
+          f"{LEASE_BUDGET}, chunks of 8), Q2 at a boundary at or past "
+          f"{8 * LEASE_SIGNAL_CHUNK}; each drain + resume pair launches "
+          f"{layers} x ({2 * epoch} + {2 * evals}) flash forwards and "
+          f"{layers} x {2 * epoch} dQ and dK/dV, all tc32; Q3 L1's "
+          f"counts; Q4 {layers} x {LM_HEAD_ROWS // CLI_LM['batch']} "
+          f"+ {layers} (eval) forwards")
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[f"{k}_tc32"]
+
+    before = signal.getsignal(signal.SIGTERM)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lease_")
+    try:
+        # Q1: the step budget, then the resume
+        t_q = time.perf_counter()
+        _reset_flash_counts()
+        q1, _ = _kept_run(_ckpt_config(checkpoint_dir=f"{tmp}/q1",
+                                       max_steps_per_lease=LEASE_BUDGET))
+        _sigterm_back("Q1", before)
+        assert q1["preempted"] == f"max_steps_per_lease:{LEASE_BUDGET}", q1
+        assert q1["steps"] == stop_q1, q1["steps"]
+        assert CheckpointManager(f"{tmp}/q1").latest_step() == stop_q1
+        lease = q1["run_report"]["lease"]
+        assert lease == {"max_steps_per_lease": LEASE_BUDGET,
+                         "signal_handler_installed": True,
+                         "preempt_signal": None, "triggered": None}, lease
+        print(f"[lease] Q1 ({gpu}): --max-steps-per-lease {LEASE_BUDGET} "
+              f"drained at boundary {q1['steps']} (preempted "
+              f"{q1['preempted']!r}), final checkpoint step_{stop_q1}; "
+              f"lease {json.dumps(lease)}; stragglers "
+              f"{json.dumps(q1['run_report']['stragglers'])}")
+        _lease_resume("Q1", f"{tmp}/q1", c0, gpu, stop_q1)
+        _sigterm_back("Q1 resume", before)
+        counts = {**_flash_counts(), **_tc32_counts()}
+        _ckpt_launches("Q1", counts, 2 * epoch, 2 * evals, "tc32")
+        add(counts)
+        print(f"[lease] Q1 + resume: {time.perf_counter() - t_q:.1f} s; "
+              f"flash launches {json.dumps(counts)}")
+
+        # Q2: SIGTERM from a timer thread during the fit.  A guard handler
+        # of the smoke's own stands behind the lease, so a signal that
+        # landed outside it would fail the gates instead of ending the run
+        t_q = time.perf_counter()
+        caught: list = []
+        dispatched = threading.Event()
+        guard = lambda signum, frame: caught.append(signum)  # noqa: E731
+        signal.signal(signal.SIGTERM, guard)
+        try:
+            def notice():
+                if dispatched.wait(600):
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            timer = threading.Thread(target=notice, daemon=True)
+            timer.start()
+            _reset_flash_counts()
+            q2, _ = _kept_run(
+                _ckpt_config(checkpoint_dir=f"{tmp}/q2"),
+                on_chunk=lambda n: (dispatched.set()
+                                    if n == LEASE_SIGNAL_CHUNK else None))
+            timer.join(60)
+            _sigterm_back("Q2", guard)
+        finally:
+            signal.signal(signal.SIGTERM, before)
+        _sigterm_back("Q2, the guard removed", before)
+        stop_q2 = q2["steps"]
+        assert not caught, caught
+        assert q2["preempted"] == "signal:SIGTERM", q2["preempted"]
+        assert q2["run_report"]["lease"]["preempt_signal"] == "SIGTERM"
+        assert 8 * LEASE_SIGNAL_CHUNK <= stop_q2 < 2 * epoch, stop_q2
+        assert stop_q2 % 8 == 0
+        assert CheckpointManager(f"{tmp}/q2").latest_step() == stop_q2
+        print(f"[lease] Q2 ({gpu}): SIGTERM from a timer thread after "
+              f"chunk {LEASE_SIGNAL_CHUNK} was dispatched; drained at "
+              f"boundary {stop_q2} (preempted {q2['preempted']!r}) with "
+              f"its final checkpoint; SIGTERM's disposition back "
+              f"(the smoke's guard, then the default)")
+        _lease_resume("Q2", f"{tmp}/q2", c0, gpu, stop_q2)
+        _sigterm_back("Q2 resume", before)
+        counts = {**_flash_counts(), **_tc32_counts()}
+        _ckpt_launches("Q2", counts, 2 * epoch, 2 * evals, "tc32")
+        add(counts)
+        print(f"[lease] Q2 + resume: {time.perf_counter() - t_q:.1f} s")
+
+        # Q3: window L1 with the metrics, the trace and the timeline on
+        t_q = time.perf_counter()
+        made = {}
+
+        class KeptTracer(obs.Tracer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made["tracer"] = self
+
+        class KeptLogger(um.MetricsLogger):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made["logger"] = self
+
+        paths = {"metrics": Path(tmp) / "q3_metrics.jsonl",
+                 "trace": Path(tmp) / "q3_trace.jsonl"}
+        saved = obs.Tracer, um.MetricsLogger
+        obs.Tracer, um.MetricsLogger = KeptTracer, KeptLogger
+        try:
+            rec, counts, paged, _ = _cli_lm_window(
+                "Q3 (L1 + --metrics-path --trace --timeline)",
+                CLI_L1_ARGV + ["--metrics-path", str(paths["metrics"]),
+                               "--trace", str(paths["trace"]),
+                               "--timeline"], gpu, 8,
+                (torch.float32, CLI_LM["heads"], CLI_LM["heads"]))
+        finally:
+            obs.Tracer, um.MetricsLogger = saved
+        _sigterm_back("Q3", before)
+        sm, sv, l1 = rec["summary"], rec["summary"]["serve"], SEEN["L1"]
+        rr = sm["run_report"]
+        checks = {"test_loss": sm["test_loss"] == l1["test_loss"],
+                  "samples": sm["samples"] == l1["samples"],
+                  "streams": _streams(rec["serve_summary"]) == l1["streams"],
+                  "flash launches": counts == l1["counts"],
+                  "paged launches": paged == l1["paged"]}
+        assert all(checks.values()), checks
+        assert paged == layers * sv["decode_iterations"]
+        records = [json.loads(line) for line in
+                   paths["metrics"].read_text().splitlines()]
+        assert [r["step"] for r in records] == list(range(1, epoch + 1))
+        assert {"schema_version", "step", "time", "loss",
+                "accuracy"} <= set(records[0]), records[0]
+        lines = paths["trace"].read_text().splitlines()
+        trace = [json.loads(line) for line in lines]   # every line whole
+        tracer, logger = made["tracer"], made["logger"]
+        assert len(trace) == tracer.stats()["written"] and \
+            tracer.stats()["dropped"] == 0
+        span_names = {r["name"] for r in trace if r["event"] == "span"}
+        assert {"compile", "chunk_dispatch", "materialize", "eval", "serve",
+                "request", "prefill_chunk", "decode"} <= span_names, \
+            span_names
+        assert sum(r["event"] == "event" and r["name"] == "timeline_series"
+                   for r in trace) > 0
+        tl_keys = ("queue_depth_auc", "kv_blocks_in_use_p95",
+                   "timeline_overhead_s")
+        assert all(k in sv for k in tl_keys), sorted(sv)
+        assert rr["stragglers"]["observed"] > 0 and rr["lease"] is None
+        assert rr["metrics_sink"] == {"records": epoch, "dropped": 0,
+                                      "written": epoch}, rr["metrics_sink"]
+        elapsed = rr["elapsed_s"]
+        shares = {"tracer": tracer.overhead_s / elapsed,
+                  "metrics_logger": logger.overhead_s / elapsed,
+                  "timeline": rr["timeline"]["overhead_s"] / elapsed,
+                  "report_total": rr["telemetry_overhead_frac"]}
+        print(f"[lease] Q3 ({gpu}): bitwise L1 {json.dumps(checks)}; "
+              f"{len(records)} metrics records (one a step), "
+              f"{len(trace)} trace lines, all whole; spans "
+              + "; ".join(f"{name} {v['count']} x, {v['total_s']:.4f} s"
+                          for name, v in rr["spans"].items())
+              + f"; telemetry overhead shares of the fit's "
+              f"{elapsed:.3f} s: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in shares.items())
+              + f"; step_ms_p50 {rr['step_time_p50_s'] * 1e3:.4f} "
+              f"(L1 {l1['step_ms_p50']:.4f}); serve "
+              + ", ".join(f"{k} {sv[k]!r}" for k in tl_keys)
+              + f"; stragglers {json.dumps(rr['stragglers'])}; lease "
+              f"{rr['lease']!r} (no --checkpoint-dir); paged launches "
+              f"{paged} = {layers} x {sv['decode_iterations']} decode "
+              f"iterations on f32 pools; {time.perf_counter() - t_q:.1f} s")
+        add(counts)
+        q3_paged = paged
+        del rec
+
+        # Q4: a short fit under --profile-dir
+        t_q = time.perf_counter()
+        prof = Path(tmp) / "q4_profile"
+        _reset_flash_counts()
+        q4, _ = _kept_run(_ckpt_config(
+            epochs=1, dataset_fn=_lm_head_rows,
+            profile_dir=str(prof)))
+        _sigterm_back("Q4", before)
+        counts = {**_flash_counts(), **_tc32_counts()}
+        add(counts)
+        files = sorted(prof.glob("*.pt.trace.json"))
+        assert len(files) == 1, files
+        events = json.loads(files[0].read_text())["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        spans = {n for n in ("compile", "chunk_dispatch", "materialize")
+                 if n in names}
+        kernels = {k: sum(k in n for n in names) for k in (
+            "flash_fwd_tc32_kernel", "flash_dq_tc32_kernel",
+            "flash_dkv_tc32_kernel")}
+        assert spans == {"compile", "chunk_dispatch", "materialize"}, spans
+        assert all(kernels.values()), kernels
+        print(f"[lease] Q4 ({gpu}): a {q4['steps']}-step fit under "
+              f"--profile-dir ({files[0].stat().st_size} bytes, "
+              f"{len(events)} events): the Trainer's spans {sorted(spans)}; "
+              f"tc32 kernel events {json.dumps(kernels)} against launches "
+              f"{json.dumps({k: counts[k + '_tc32'] for k in total})} "
+              f"(the first chunk eager, the second captured, the third "
+              f"replayed); {time.perf_counter() - t_q:.1f} s")
+    finally:
+        signal.signal(signal.SIGTERM, before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"tc32": total, "paged_f32": q3_paged}
+
+
 def tpd_timing_phase(tpd: dict) -> list[dict]:
     """The paged kernel at the serve GPT's per-rank K/V heads (8 heads
     over tp 2, 4 and 8: 4, 2 and 1 a rank, MHA), bf16 queries over bf16
@@ -6514,6 +6856,8 @@ def main() -> int:
     del pp_ref
     tpd = tpd_phase(gpu)
     _phase_done('5p tpd')
+    lease = lease_phase(gpu, ckpt.pop("c0"))
+    _phase_done('5q lease')
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -6568,10 +6912,15 @@ def main() -> int:
             # phase 5k's FSDP windows: F1 on tc32, F2 on tc
             row["launches_mp"] = mp["F1" if variant == "tc32" else "F2"][
                 f"{kind}_{variant}"]
+            if variant == "tc32":
+                # phase 5q's windows Q1-Q4 (all tc32)
+                row["launches_lease"] = lease["tc32"][kind]
         elif row["name"] == "paged_attention_cli_lm_f32":
             row["launches_mp"] = mp["F1"]["paged_f32"]
             # phase 5p's window TPL
             row["launches_tpd"] = tpd["TPL"]
+            # phase 5q's window Q3
+            row["launches_lease"] = lease["paged_f32"]
     sp_rows = sp_timing_phase(sp)
     _phase_done('6 sp timings')
     for row in sp_rows:

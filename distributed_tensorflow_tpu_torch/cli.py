@@ -61,7 +61,13 @@ and raise.  ``--checkpoint-dir D`` writes checkpoints
 ``--elastic-restore`` continue from the latest, ``--watchdog-timeout``
 and ``--watchdog-abort`` watch for stalls, and ``--max-restarts N``
 restarts a crashed run from its latest checkpoint (with ``-n`` > 1 the
-spawn of every rank is relaunched).  ``--grad-compression
+spawn of every rank is relaunched).  A checkpointed run drains on SIGTERM
+or after ``--max-steps-per-lease`` steps (the final checkpoint, the
+reason in ``preempted``; ``--elastic-restore`` continues it), the
+launcher of ``-n`` > 1 ranks forwarding the signal to them.
+``--metrics-path``, ``--trace``, ``--timeline`` (``--timeline-interval``)
+and ``--profile-dir`` write per-step metrics, a span trace, gauge series
+and a ``torch.profiler`` trace, none of which changes a loss or a token.  ``--grad-compression
 {none,bf16,int8}`` sends the gradient (async, gossip: parameter) exchange
 through a codec, and ``--grad-bucket-mb MB`` reduces it in ~MB buckets as
 the backward pass produces them (``parallel/overlap.py``).
@@ -96,10 +102,13 @@ the backward pass produces them (``parallel/overlap.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import signal
 import tempfile
+import threading
 
 import torch
 
@@ -349,6 +358,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on stall, exit(75) after reporting so a supervisor "
                         "can relaunch with --resume (a wedged CUDA runtime "
                         "cannot be recovered in-process)")
+    p.add_argument("--max-steps-per-lease", type=int, default=0,
+                   metavar="N",
+                   help="graceful lease drain (elastic/lease.py): stop at "
+                        "the first chunk boundary at/after N steps, write "
+                        "the final checkpoint (data state included) and "
+                        "exit with a structured `preempted` report "
+                        "section — relaunch with --elastic-restore to "
+                        "continue.  Checkpointed runs also drain on "
+                        "SIGTERM (the scheduler's preemption notice) "
+                        "whether or not N is set; with -n N > 1 the "
+                        "launcher forwards SIGTERM to its ranks and they "
+                        "agree on the stop.  Requires --checkpoint-dir")
+    p.add_argument("--metrics-path", "--metrics", default=None,
+                   dest="metrics_path",
+                   help="per-step metrics JSONL path (async crash-durable "
+                        "sink; records ride the chunked drain, so this "
+                        "does not downshift --steps-per-call)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="structured trace-span JSONL path: a monotonic-"
+                        "clock timeline of compile/chunk_dispatch/"
+                        "materialize/checkpoint/eval spans plus prefetch "
+                        "gauges, with run/host/process ids (other ranks "
+                        "write PATH.rankN); span names are also "
+                        "torch.profiler regions (in the --profile-dir "
+                        "trace) and NVTX ranges")
+    p.add_argument("--timeline", action="store_true",
+                   help="time-series gauge sampler: chunk step time and "
+                        "prefetch depth during training, queue depth / "
+                        "slots / KV blocks during --serve, sampled at "
+                        "existing loop boundaries (bounded rings, "
+                        "self-measured overhead); the run report's "
+                        "'timeline' section and bulk timeline_series "
+                        "events in the --trace file.  Host-side only: it "
+                        "reads no device value the loops do not already "
+                        "read")
+    p.add_argument("--timeline-interval", type=float, default=0.05,
+                   metavar="SECONDS",
+                   help="minimum seconds between --timeline samples per "
+                        "gauge group (default 0.05; 0 = record every "
+                        "boundary crossing)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the fit "
+                        "(CPU and CUDA activity) here")
     p.add_argument("--max-restarts", type=int, default=0,
                    help=">0: on crash, restart from the latest checkpoint up "
                         "to N times (requires --checkpoint-dir + "
@@ -504,18 +556,45 @@ def _rank_main(rank: int, world: int, port: int, config: ExperimentConfig,
             json.dump(summary, f)
 
 
+@contextlib.contextmanager
+def _forwarding_sigterm(processes):
+    """While the block runs, a SIGTERM to this process is sent on to each
+    live process of ``processes`` (the spawned ranks, whose leases drain
+    on it); the previous disposition is back after.  Off the main thread
+    (no handler can be set there) it does nothing."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def forward(signum, _frame):
+        for p in processes:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    prev = signal.signal(signal.SIGTERM, forward)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
 def _spawn(config: ExperimentConfig, n: int) -> dict:
     """Run ``config`` on ``n`` spawned ranks; returns rank 0's summary.  A
     rank that diverged (``TrainingDiverged``) raises it here, so crash
     recovery does not restart into the same NaN; any other failed rank
-    raises the spawn's error."""
+    raises the spawn's error.  With ``checkpoint_dir`` (where each rank
+    arms its lease) a SIGTERM to the launcher reaches every rank."""
     meshlib.check_device_count(n, config.device)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "summary.json")
         try:
-            torch.multiprocessing.spawn(
+            ctx = torch.multiprocessing.spawn(
                 _rank_main, args=(n, meshlib.free_port(), config, out_path),
-                nprocs=n, join=True)
+                nprocs=n, join=False)
+            with (_forwarding_sigterm(ctx.processes) if config.checkpoint_dir
+                  else contextlib.nullcontext()):
+                while not ctx.join():
+                    pass
         except torch.multiprocessing.ProcessRaisedException as e:
             if "TrainingDiverged" in str(e) or "AnomalyDetected" in str(e):
                 raise failure.TrainingDiverged(
@@ -573,6 +652,10 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         resume=args.resume, elastic_restore=args.elastic_restore,
         watchdog_timeout=args.watchdog_timeout,
         watchdog_abort=args.watchdog_abort, max_restarts=args.max_restarts,
+        max_steps_per_lease=args.max_steps_per_lease,
+        metrics_path=args.metrics_path, trace_path=args.trace,
+        timeline=args.timeline, timeline_interval=args.timeline_interval,
+        profile_dir=args.profile_dir,
         prefetch=args.prefetch, result_path=args.result_path,
         supervisor_address=args.supervisor, model_args=model_args,
         device=device, sample_tokens=args.sample,

@@ -37,16 +37,36 @@ crash recovery never restarts.
 the first chunk boundary at or after every ``checkpoint_every`` steps
 and a final one, each with its data state as the elastic sidecar;
 ``watchdog`` (``utils/failure.Watchdog``) beats once per dispatch and per
-flush, its per-step budget scaled by k; ``should_stop`` ends the fit at a
-chunk boundary (its reason in ``preempted``) after the final checkpoint;
-``data_state`` (a checkpoint's sidecar) resumes the batch stream exactly
-where the checkpoint left it.  Telemetry sinks, the health policy and the
-straggler detector are not ported: passing any of them raises
+flush, its per-step budget scaled by k; ``should_stop`` (the lease,
+``elastic/lease.py``) ends the fit at a chunk boundary (its reason in
+``preempted``) after the final checkpoint; ``data_state`` (a
+checkpoint's sidecar) resumes the batch stream exactly where the
+checkpoint left it.
+
+Telemetry rides the drain without downshifting it, with the JAX
+Trainer's names at the JAX Trainer's places: ``tracer``
+(``observability.Tracer``) gets the ``compile`` span (the first
+dispatch: on the card the first chunk builds the kernels and captures
+the CUDA graph), ``chunk_dispatch``, ``materialize``, ``checkpoint`` (a
+synchronous save) or ``ckpt_snapshot`` (the async manager's, whose
+writer thread adds ``ckpt_write``), ``eval``, the ``prefetch_depth``
+gauge at each chunk boundary and the ``collective_profile`` and
+``loss_scale`` events; ``metrics_logger`` (``utils.metrics.MetricsLogger``)
+logs every step's metrics, read from the chunk's stacked trajectory at
+its flush (bitwise the k = 1 records), before the nan guard sees them;
+``timeline`` (``observability.Timeline``) samples ``chunk_step_time_s``
+and ``prefetch_depth`` at each chunk boundary; ``straggler_detector``
+(``elastic.StragglerDetector``) observes each step time at k = 1 and each
+chunk's average step time in the chunked drain, and its report rides the
+result as ``stragglers``.  None of them reads the device beyond the
+drain's own reads, and none changes a loss.  The health policy
+(``on_anomaly``) and the roofline are not ported: passing either raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 import warnings
@@ -81,13 +101,8 @@ def _check_finite(metrics: dict[str, float], step: int) -> None:
 
 def _reject_unported(**given) -> None:
     items = {
-        "straggler_detector": "remaining engines (elastic: lease and "
-                              "stragglers)",
-        "metrics_logger": "rest of observability",
-        "tracer": "rest of observability",
-        "timeline": "rest of observability",
-        "roofline": "rest of observability",
-        "on_anomaly": "rest of observability",
+        "roofline": "roofline, the ledger and the analyzer",
+        "on_anomaly": "health",
     }
     for name, value in given.items():
         if value:
@@ -171,12 +186,10 @@ class Trainer:
         last step's at the end) for NaN/inf.  Step times are chunk
         averages of the non-overlapped wall time between host reads (at
         k = 1, each step's dispatch)."""
-        _reject_unported(
-            straggler_detector=straggler_detector is not None,
-            metrics_logger=metrics_logger is not None,
-            tracer=tracer is not None and tracer is not NULL_TRACER,
-            timeline=timeline is not None, roofline=roofline is not None,
-            on_anomaly=on_anomaly != "warn")
+        _reject_unported(roofline=roofline is not None,
+                         on_anomaly=on_anomaly != "warn")
+        if tracer is None:
+            tracer = NULL_TRACER
         if target_accuracy is not None and eval_ds is None:
             raise ValueError("target_accuracy requires eval_ds (nothing "
                              "would ever be evaluated against the target)")
@@ -227,6 +240,9 @@ class Trainer:
                            f"restarts from epoch 0 "
                            f"(resume_replay_steps={start_step})")
         ckpt_async = bool(getattr(checkpoint_manager, "asynchronous", False))
+        if ckpt_async:
+            # the writer thread's ckpt_write spans join this fit's trace
+            checkpoint_manager.tracer = tracer
         ckpt_wait = 0.0        # training-thread seconds in checkpointing
         ckpt_last_step = None  # skip a final save the cadence already wrote
         # managers outlive fits: report THIS fit's overlapped seconds
@@ -255,15 +271,20 @@ class Trainer:
             drains."""
             nonlocal ckpt_wait, ckpt_last_step, last_data_state
             t_ck = time.perf_counter()
-            if not (final and step == ckpt_last_step):
-                last_data_state = current_data_state()
-                checkpoint_manager.save(
-                    self.state, step=step,
-                    extra={"data_state": last_data_state,
-                           "wall_time": time.time(), "step": step,
-                           "schema": 1})
-            if final and ckpt_async:
-                checkpoint_manager.wait()
+            write = not (final and step == ckpt_last_step)
+            attrs = {"step": step, **({"final": True} if final else {})}
+            with tracer.span("ckpt_snapshot" if ckpt_async
+                             else "checkpoint", **attrs) \
+                    if ckpt_async or write else contextlib.nullcontext():
+                if write:
+                    last_data_state = current_data_state()
+                    checkpoint_manager.save(
+                        self.state, step=step,
+                        extra={"data_state": last_data_state,
+                               "wall_time": time.time(), "step": step,
+                               "schema": 1})
+                if final and ckpt_async:
+                    checkpoint_manager.wait()
             ckpt_last_step = step
             ckpt_wait += time.perf_counter() - t_ck
 
@@ -289,6 +310,18 @@ class Trainer:
             # budget becomes a per-beat budget of k × timeout
             watchdog.rescale(k)
         on_card = eng.device.type == "cuda"
+        # the gradient exchange's payload under the codec and raw
+        grad_bytes = eng.grad_collective_bytes(self.state)
+        grad_bytes_raw = eng.grad_collective_bytes_raw(self.state)
+        codec = eng.grad_codec
+        if grad_bytes:
+            tracer.event("collective_profile",
+                         grad_allreduce_bytes=grad_bytes,
+                         grad_allreduce_bytes_raw=grad_bytes_raw,
+                         grad_compression=codec.name,
+                         grad_bucket_mb=float(getattr(codec, "bucket_mb",
+                                                      0.0)),
+                         n_devices=n)
         timer = StepTimer()
         t0 = time.perf_counter()
         steps = examples = 0
@@ -297,6 +330,7 @@ class Trainer:
         eval_acc = 0.0
         reached = stop = False
         preempted = None     # should_stop's reason once the drain fires
+        compiled = False     # the first dispatch is spanned as 'compile'
         chunk_sizes: set[int] = set()
         pf_starvation, pf_fill_wait = 0, 0.0
         prev_eval_step = 0   # step of the eval BEFORE the current one
@@ -327,8 +361,9 @@ class Trainer:
                 return False
             gap = steps - prev_eval_step
             prev_eval_step = steps
-            eval_acc = self.evaluate(eval_ds, batch_size=eval_batch)[
-                "accuracy"]
+            with tracer.span("eval", step=steps):
+                eval_acc = self.evaluate(eval_ds, batch_size=eval_batch)[
+                    "accuracy"]
             if eval_acc >= target_accuracy:
                 eval_gap = gap
                 reached = stop = True
@@ -336,21 +371,30 @@ class Trainer:
             return False
 
         def note_loss_scale(gstep: int, floats: dict) -> None:
-            """Record the running scale and each skipped step."""
+            """Record the running scale and turn each skipped step into a
+            ``loss_scale`` trace event."""
             nonlocal ls_last_scale, ls_n_skipped
             ls_last_scale = floats["loss_scale"]
             if floats["ls_skipped"]:
                 ls_n_skipped += 1
                 if len(ls_skipped_steps) < 64:
                     ls_skipped_steps.append(gstep)
+                tracer.event("loss_scale", step=gstep,
+                             action="backoff_skip", scale=ls_last_scale)
 
         def record_step(gstep: int, floats_fn) -> None:
-            """The loss-scale bookkeeping and the log_every heartbeat with
-            its nan guard; ``floats_fn`` reads the step's metrics only when
-            one of them needs them."""
+            """The per-step sinks: the metrics logger (first — a diverging
+            step's record must reach the sink before the guard raises),
+            the log_every heartbeat with its nan guard, then the
+            loss-scale bookkeeping; ``floats_fn`` reads the step's metrics
+            only when one of them needs them."""
             nonlocal last_metrics
-            if ls_active:
-                note_loss_scale(gstep, floats_fn())
+            if metrics_logger is not None and metrics_logger.should_log(
+                    gstep):
+                floats = floats_fn()
+                metrics_logger.log(gstep, **floats)
+                if nan_guard:
+                    _check_finite(floats, gstep)
             if log_every and steps % log_every == 0:
                 m = floats_fn()
                 if nan_guard:
@@ -358,6 +402,8 @@ class Trainer:
                 last_metrics = m
                 log_fn(f"step {gstep}  loss {m['loss']:.4f}"
                        f"  acc {m['accuracy']:.4f}")
+            if ls_active:
+                note_loss_scale(gstep, floats_fn())
 
         # a failed fit (divergence, a raising engine or log_fn) must not
         # leave a write in flight: the prefetcher closes in its per-epoch
@@ -382,8 +428,11 @@ class Trainer:
                         for xs, ys in pf:
                             chunk_sizes.add(1)
                             with timer:  # dispatch + throttle
-                                self.state, metrics = eng.step(self.state,
-                                                               xs, ys)
+                                with tracer.span("chunk_dispatch" if compiled
+                                                 else "compile", steps=1):
+                                    self.state, metrics = eng.step(
+                                        self.state, xs, ys)
+                                compiled = True
                                 if on_card:
                                     done = torch.cuda.Event()
                                     done.record()
@@ -399,6 +448,11 @@ class Trainer:
                             steps += 1
                             gstep = start_step + steps
                             examples += bs  # global examples per step
+                            if straggler_detector is not None:
+                                # the step's dispatch + throttle time: the
+                                # k = 1 rendering of the chunk average
+                                straggler_detector.observe(
+                                    gstep, timer.times[-1])
                             floats = functools.cache(
                                 lambda m=metrics: {kk: float(v)
                                                    for kk, v in m.items()})
@@ -439,12 +493,29 @@ class Trainer:
                             per-step bookkeeping."""
                             nonlocal steps, examples, metrics, t_mark
                             n_chunk, t_disp, stacked = in_flight_chunks.pop(0)
-                            floats = {kk: v.cpu().numpy()
-                                      for kk, v in stacked.items()}
+                            with tracer.span("materialize", steps=n_chunk):
+                                floats = {kk: v.cpu().numpy()
+                                          for kk, v in stacked.items()}
+                            # prefetch gauges ride the same host read
+                            tracer.gauge("prefetch_depth", pf.queue_depth,
+                                         starvation=pf.starvation)
                             now = time.perf_counter()
                             dt = (now - max(t_disp, t_mark)) / n_chunk
                             t_mark = now
+                            if timeline is not None:
+                                # chunk step time and prefetch depth at
+                                # the same boundary: no extra reads
+                                timeline.sample_many(
+                                    {"chunk_step_time_s": dt,
+                                     "prefetch_depth": pf.queue_depth},
+                                    group="trainer")
                             timer.times.extend([dt] * n_chunk)
+                            if straggler_detector is not None:
+                                # the chunk's average step time against
+                                # the running median, labelled with the
+                                # chunk's last step
+                                straggler_detector.observe(
+                                    start_step + steps + n_chunk, dt)
                             if watchdog is not None:
                                 # flush beat: device progress confirmed
                                 watchdog.beat()
@@ -460,17 +531,19 @@ class Trainer:
                         next_chunk = pf.take(
                             k if max_steps is None
                             else min(k, max_steps - dispatched))
-                        first = not chunk_sizes
                         while not stop and next_chunk:
                             chunk = next_chunk
                             t_disp = time.perf_counter()
-                            self.state, stacked = eng.many_step(
-                                self.state, [c[0] for c in chunk],
-                                [c[1] for c in chunk])
-                            if first:
+                            with tracer.span("chunk_dispatch" if compiled
+                                             else "compile",
+                                             steps=len(chunk)):
+                                self.state, stacked = eng.many_step(
+                                    self.state, [c[0] for c in chunk],
+                                    [c[1] for c in chunk])
+                            if not compiled:
                                 # the first chunk carries first-call costs
                                 timer.compile_steps = len(chunk)
-                                first = False
+                                compiled = True
                             if watchdog is not None:
                                 # a dispatch beat too: it arms the clock
                                 # past the first chunk's builds and capture
@@ -510,6 +583,11 @@ class Trainer:
                                     break
                         while in_flight_chunks:
                             flush_chunk()
+                        if not stop and should_stop is not None:
+                            # the drained epoch end is a boundary too
+                            reason = should_stop(steps)
+                            if reason:
+                                preempted, stop = reason, True
                         if max_steps is not None and steps >= max_steps:
                             stop = True
                 finally:
@@ -541,11 +619,14 @@ class Trainer:
                     checkpoint_manager.wait(reraise=False)
                 except Exception:
                     pass
+            # no buffered record outlives a raising fit
+            for sink in (metrics_logger, tracer):
+                try:
+                    if sink is not None:
+                        sink.flush()
+                except Exception:
+                    pass
             raise
-        # the gradient exchange's payload under the codec and raw (the
-        # tracer's collective_profile event is not ported)
-        grad_bytes = eng.grad_collective_bytes(self.state)
-        codec = eng.grad_codec
         result = {
             "elapsed": elapsed, "steps": steps, "epochs": epochs,
             "steps_per_call": k, "prefetch_depth": prefetch,
@@ -569,6 +650,9 @@ class Trainer:
             # when this fit resumed with a data state; 0 = exact)
             **({"resume_replay_steps": replay_steps}
                if data_state is not None else {}),
+            # step-time outlier summary (elastic/stragglers.py)
+            **({"stragglers": straggler_detector.report()}
+               if straggler_detector is not None else {}),
             # the batch-stream position of the LAST checkpoint written
             **({"data_state": last_data_state}
                if last_data_state is not None else {}),
@@ -582,8 +666,7 @@ class Trainer:
                if target_accuracy is not None else {}),
             "step_time": timer.summary(),
             **({"grad_allreduce_bytes": grad_bytes,
-                "grad_allreduce_bytes_raw":
-                    eng.grad_collective_bytes_raw(self.state),
+                "grad_allreduce_bytes_raw": grad_bytes_raw,
                 "grad_compression": codec.name,
                 "grad_bucket_mb": float(getattr(codec, "bucket_mb", 0.0))}
                if grad_bytes else {}),

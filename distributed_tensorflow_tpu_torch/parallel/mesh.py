@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import random
 import socket
 import sys
 
@@ -62,6 +63,19 @@ def check_device_count(n: int, device) -> None:
 
 
 def free_port() -> int:
+    """A free loopback port for a process group's store, picked at random
+    below the kernel's ephemeral range (32768-60999 by default): a port
+    the kernel hands out can be handed out again, as the local end of any
+    process's outgoing connection, before the store binds it."""
+    rng = random.SystemRandom()
+    for _ in range(64):
+        port = rng.randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]

@@ -159,7 +159,8 @@ class SlotKVCache:
             raise ValueError("paged_blocks/paged_block only apply to "
                              "kv_layout='paged'")
         if ledger is not None:
-            not_ported("the compile/memory ledger", "rest of observability")
+            not_ported("the compile/memory ledger",
+                       "roofline, the ledger and the analyzer")
         if slots < 1:
             raise ValueError(f"slots must be positive, got {slots}")
         if prefix_cache_blocks < 0:
@@ -955,6 +956,25 @@ class SlotKVCache:
         return (self._leaf_bytes() * self.max_len // (self.max_len + 1)
                 // self.slots)
 
+    def timeline_gauges(self) -> dict[str, float]:
+        """Host gauge snapshot for the timeline sampler (JAX's keys): sums
+        over the host numpy slot table and pool lengths, no device read
+        (the leaves give only their sizes).  ``kv_live_bytes`` is tokens
+        actually valid × stored bytes per token (K/V and, under int8, the
+        scales; the scratch column left out)."""
+        per_tok = getattr(self, "_tl_token_bytes", None)
+        if per_tok is None:
+            per_tok = self._tl_token_bytes = self._leaf_bytes() / (
+                self.slots * (self.max_len + 1))
+        live_tokens = int(self.lengths.sum())
+        return {
+            "kv_active_slots": int(self.active.sum()),
+            "kv_reserved_slots": int(self.reserved.sum()),
+            "kv_live_tokens": live_tokens,
+            "kv_live_bytes": live_tokens * per_tok,
+            "kv_prefix_pool_blocks": len(self._prefix_pool),
+        }
+
 
 class PagedSlotKVCache(SlotKVCache):
     """Paged KV layout: one physical block pool per layer shared by every
@@ -1216,6 +1236,27 @@ class PagedSlotKVCache(SlotKVCache):
         live = int(self.active.sum()) + int(self.reserved.sum())
         return (self.blocks_in_use * per_block
                 + self.block_tables_np.nbytes) // max(live, 1)
+
+    def timeline_gauges(self) -> dict[str, float]:
+        """Paged gauge snapshot (JAX's keys): the base slot-table gauges
+        plus pool occupancy and refcounts, all host numpy.
+        ``kv_live_bytes`` is allocated blocks × stored bytes per block
+        (aliased blocks counted once; int8 scales included)."""
+        per_block = getattr(self, "_tl_block_bytes", None)
+        if per_block is None:
+            per_block = self._tl_block_bytes = (
+                self._leaf_bytes() // (self.num_blocks + 1))
+        live_tokens = int(self.lengths.sum())
+        return {
+            "kv_active_slots": int(self.active.sum()),
+            "kv_reserved_slots": int(self.reserved.sum()),
+            "kv_live_tokens": live_tokens,
+            "kv_live_bytes": self.blocks_in_use * per_block,
+            "kv_prefix_pool_blocks": len(self._prefix_pool),
+            "kv_blocks_in_use": self.blocks_in_use,
+            "kv_pool_refcount_total": int(self._block_refs.sum()),
+            "kv_free_blocks": len(self._free_list),
+        }
 
     def paged_stats(self) -> dict:
         """Pool utilization + the zero-copy/CoW ledger (cumulative)."""

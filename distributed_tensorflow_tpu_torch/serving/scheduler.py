@@ -48,8 +48,16 @@ same sampled tokens on every rank).  Wall-clock arrivals after 0 could
 admit differently on different ranks, so ``run`` refuses them where the
 table's model is cut over more than one 'model' rank.
 
-Disaggregated roles/handoff, the roofline and the timeline sampler are
-not ported yet and raise ``NotImplementedError``.
+* ``timeline`` (``observability.Timeline``, ``timeline_tag`` its
+  replica key): each iteration samples the queue depth, active slots,
+  pending prefills and the table's host gauges (``timeline_gauges``) in
+  the pass that records the queue-depth histogram, throttled by the
+  timeline's interval, with no device read; the summary then gains
+  ``queue_depth_auc``, ``kv_blocks_in_use_p95`` and
+  ``timeline_overhead_s`` (only then).
+
+Disaggregated roles/handoff and the roofline are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -268,7 +276,8 @@ class ContinuousBatcher:
                  prefill_chunk: int = 0, metrics=None, slo=None,
                  queue_cap: int = 0, should_stop=None,
                  draft_kv: SlotKVCache | None = None, draft_k: int = 4,
-                 timeline=None, role: str | None = None, handoff_out=None,
+                 timeline=None, timeline_tag: int | None = None,
+                 role: str | None = None, handoff_out=None,
                  roofline=None, multi_step: int | None = None):
         if mode not in ("continuous", "static"):
             raise ValueError(f"mode must be continuous|static, got {mode}")
@@ -305,9 +314,9 @@ class ContinuousBatcher:
                 f"dispatch, got {multi_step}")
         if role is not None or handoff_out is not None:
             not_ported("disaggregated roles / KV handoff", "fleet")
-        if timeline is not None or roofline is not None:
-            not_ported("the timeline and the roofline",
-                       "rest of observability")
+        if roofline is not None:
+            not_ported("the batcher's roofline",
+                       "roofline, the ledger and the analyzer")
         self.kv = kv
         self.draft_kv = draft_kv
         self.draft_k = int(draft_k)
@@ -320,6 +329,8 @@ class ContinuousBatcher:
         self.slo = slo
         self.queue_cap = int(queue_cap)
         self.should_stop = should_stop
+        self.timeline = timeline
+        self.timeline_tag = timeline_tag
         self.idle_polls = 0
 
     # ------------------------------------------------------------ admission
@@ -523,7 +534,7 @@ class ContinuousBatcher:
                 break
             prefills += self._admission_pass(queue, live, pending, on_token)
             self._shed_pass(queue)
-            self._registry.record("queue_depth", queue.depth(clock.now()))
+            self._observe_pass(queue, live, pending)
             dc, dp = self._chunk_pass(live, pending, on_token)
             chunks += dc
             prefills += dp
@@ -597,6 +608,21 @@ class ContinuousBatcher:
             for req in queue.shed_ready(now, self.queue_cap):
                 self._shed(req, depth)
 
+    def _observe_pass(self, queue: RequestQueue, live: dict[int, _Live],
+                      pending: dict[int, dict]) -> None:
+        """The arrived backlog, per iteration, into the histogram the
+        summary's queue_depth_p95 reads, and the timeline's sample batch
+        at the same boundary: host counters only, no device read."""
+        clock = self.clock
+        self._registry.record("queue_depth", queue.depth(clock.now()))
+        if self.timeline is not None:
+            self.timeline.sample_many(
+                {"queue_depth": queue.depth(clock.now()),
+                 "active_slots": len(live),
+                 "prefill_pending": len(pending),
+                 **self.kv.timeline_gauges()},
+                replica=self.timeline_tag, group="batcher")
+
     def _chunk_pass(self, live: dict[int, _Live], pending: dict[int, dict],
                     on_token: Callable[[int, int], None] | None,
                     ) -> tuple[int, int]:
@@ -645,7 +671,7 @@ class ContinuousBatcher:
                 break
             prefills += self._admission_pass(queue, live, pending, on_token)
             self._shed_pass(queue)
-            self._registry.record("queue_depth", queue.depth(clock.now()))
+            self._observe_pass(queue, live, pending)
             dc, dp = self._chunk_pass(live, pending, on_token)
             chunks += dc
             prefills += dp
@@ -994,6 +1020,14 @@ class ContinuousBatcher:
             summary["serve_host_gap_s"] = max(
                 wall_elapsed - device_phase.get("prefill_s", 0.0)
                 - device_phase.get("decode_s", 0.0), 0.0)
+        if self.timeline is not None:
+            # only with sampling on (the key set without it is unchanged)
+            tag = self.timeline_tag
+            summary["queue_depth_auc"] = self.timeline.stat(
+                "queue_depth", "auc", replica=tag)
+            summary["kv_blocks_in_use_p95"] = self.timeline.stat(
+                "kv_blocks_in_use", "p95", replica=tag)
+            summary["timeline_overhead_s"] = self.timeline.overhead_s
         return summary
 
     def _dispatches(self) -> int:

@@ -43,6 +43,7 @@ checkpoint.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -336,6 +337,10 @@ class AsyncCheckpointManager(CheckpointManager):
     wall time the trainer stood blocked on is counted once, in
     ``wait_s`` — never double-booked as overlap).
 
+    ``tracer``, when set (the Trainer wires its own in), gets a
+    ``ckpt_write`` span per background write, the overlapped twin of the
+    training thread's ``ckpt_snapshot`` span.
+
     A multi-rank save falls back to the synchronous path: it is a
     collective (the expert gather, the barriers) and cannot leave the
     training thread without racing training's own collectives.
@@ -345,6 +350,7 @@ class AsyncCheckpointManager(CheckpointManager):
 
     def __init__(self, directory: str | Path, max_to_keep: int = 3):
         super().__init__(directory, max_to_keep)
+        self.tracer = None          # optional observability.Tracer
         self.wait_s = 0.0           # training-thread seconds blocked here
         # writer seconds GENUINELY concurrent with training: the writer
         # tallies its wall time, minus any of it the trainer spent
@@ -376,10 +382,14 @@ class AsyncCheckpointManager(CheckpointManager):
             step, host_state, copied, extra = job
             t0 = time.perf_counter()
             try:
-                if copied is not None:
-                    copied.synchronize()  # the snapshot's copies landed
-                self._write(step, host_state, extra)
-                self._retain()
+                span = (self.tracer.span("ckpt_write", step=step)
+                        if self.tracer is not None
+                        else contextlib.nullcontext())
+                with span:
+                    if copied is not None:
+                        copied.synchronize()  # the snapshot's copies landed
+                    self._write(step, host_state, extra)
+                    self._retain()
             except BaseException as e:  # noqa: BLE001 — surfaced on the
                 self._error = e         # training thread at the next sync
             finally:

@@ -119,8 +119,26 @@ decodes through ``PipelineEngine.generate``, and ``--precision``,
 ``--grad-compression``, ``--grad-bucket-mb``, ``--grad-accum`` and
 ``--serve`` are refused with JAX's messages.
 
-The JAX ``ExperimentConfig``'s other fields (the lease, telemetry) are
-absent, and the fleet's serve fields
+Every ``run`` has a live tracer (``observability.Tracer``: span
+aggregates for the run report, and the JSONL file under ``trace_path``),
+a ``StragglerDetector`` on its step times, a ``MetricsLogger`` under
+``metrics_path``, a ``Timeline`` under ``timeline`` (sampled by the fit
+and the serve window) and a ``torch.profiler`` window around the fit
+under ``profile_dir``; its summary's ``run_report`` is
+``observability.build_run_report`` (the JAX report's keys), also emitted
+as a ``run_report`` event.  A run with ``checkpoint_dir`` arms a
+``LeaseManager``: SIGTERM, or ``max_steps_per_lease`` steps, ends the fit
+at a chunk boundary with its final checkpoint and the reason in
+``preempted``, the supervisor gets ``['preempted', reason, step]``, and a
+relaunch with ``elastic_restore`` continues it bitwise; a SIGTERM also
+drains the serve window.  JAX runs one process, so one flag stops every
+device at one boundary; over the ranks of ``cli -n N`` a signal reaches
+them at different moments, so under a signal-armed lease the ranks
+agree on the stop at each boundary by one all-reduce (max) of the
+signal's number (``_lease_stop``; none at one rank).
+
+The JAX ``ExperimentConfig``'s health and roofline fields are absent,
+and the fleet's serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -207,6 +225,19 @@ class ExperimentConfig:
     watchdog_abort: bool = False    # on a stall: exit 75 after reporting
     max_restarts: int = 0           # >0: restart from the latest
                                     # checkpoint on a crash, this many times
+    max_steps_per_lease: int = 0    # >0: graceful lease drain after this
+                                    # many steps (elastic/lease.py); every
+                                    # checkpointed run also drains on
+                                    # SIGTERM
+    metrics_path: str | None = None  # per-step metrics JSONL (async sink)
+    trace_path: str | None = None   # structured span/event JSONL
+                                    # (observability/trace.py)
+    timeline: bool = False          # gauge sampler: chunk step time,
+                                    # prefetch depth, the serve window's
+                                    # queue/slot/KV gauges
+    timeline_interval: float = 0.05  # min seconds between samples per
+                                    # gauge group (0: every boundary)
+    profile_dir: str | None = None  # torch.profiler Chrome trace output
     steps_per_call: int | None = None  # drain chunk (None: auto, 8)
     prefetch: int = 2               # batches staged on the device ahead
     eval_batch: int = 100           # the reference's test batch
@@ -1326,11 +1357,15 @@ def _repeatable_math():
 
 
 def _check_recovery_config(config: ExperimentConfig) -> None:
-    """The checkpoint, resume and watchdog flags that cannot work
-    together, before anything is set up."""
+    """The checkpoint, resume, lease, watchdog and timeline flags that
+    cannot work, before anything is set up (JAX's messages)."""
     if config.watchdog_abort and config.watchdog_timeout <= 0:
         raise ValueError("watchdog_abort requires watchdog_timeout > 0 "
                          "(nothing would ever detect the stall)")
+    if config.timeline_interval < 0:
+        raise ValueError(f"--timeline-interval must be >= 0 seconds "
+                         f"(0 = sample at every boundary), got "
+                         f"{config.timeline_interval}")
     if config.resume and not config.checkpoint_dir:
         raise ValueError("--resume requires --checkpoint-dir")
     if config.elastic_restore and not config.checkpoint_dir:
@@ -1341,6 +1376,13 @@ def _check_recovery_config(config: ExperimentConfig) -> None:
     if config.checkpoint_every < 0:
         raise ValueError(f"--checkpoint-every must be >= 0, got "
                          f"{config.checkpoint_every}")
+    if config.max_steps_per_lease < 0:
+        raise ValueError(f"--max-steps-per-lease must be >= 0, got "
+                         f"{config.max_steps_per_lease}")
+    if config.max_steps_per_lease and not config.checkpoint_dir:
+        raise ValueError("--max-steps-per-lease requires --checkpoint-dir "
+                         "(the lease drain's final checkpoint needs "
+                         "somewhere to go)")
 
 
 def _restore(config: ExperimentConfig, ex: _Experiment, trainer, ckpt_mgr,
@@ -1421,31 +1463,82 @@ def run(config: ExperimentConfig) -> dict[str, Any]:
     return _run(config)
 
 
-def _probe_collective_overlap(ex: _Experiment) -> dict | None:
+def _probe_collective_overlap(ex: _Experiment, tracer) -> dict | None:
     """The one-time exposed-against-hidden split of a
     ``--grad-bucket-mb`` run (``overlap.probe_engine_overlap``, JAX
-    ``harness.py:2047-2086``) on the first training batch, or None when
-    the engine has no probe (SP, EP, async and gossip: JAX's have none)
-    or the probe failed; a failed probe never ends the run.  Under ``-n
-    N`` the ranks are processes and the probe holds collectives, so every
-    rank runs it together (JAX skips it only on multi-host jobs)."""
+    ``harness.py:2047-2086``) on the first training batch, spanned and
+    evented as ``collective_overlap`` on ``tracer``; None when the engine
+    has no probe (SP, EP, async and gossip: JAX's have none) or the probe
+    failed, and a failed probe never ends the run.  Under ``-n N`` the
+    ranks are processes and the probe holds collectives, so every rank
+    runs it together (JAX skips it only on multi-host jobs)."""
     from distributed_tensorflow_tpu_torch.parallel import overlap
 
-    try:
-        batch = next(iter(ex.train_ds.batches(ex.global_batch,
-                                              shuffle=False)), None)
-        if batch is None:
-            return None
-        xs, ys = ex.engine.shard_batch(batch[0], batch[1])
-        return overlap.probe_engine_overlap(
-            ex.engine, xs, ys, sample_x=ex.train_ds.x[:1])
-    except Exception as e:
-        print(f"warning: collective overlap probe failed: "
-              f"{type(e).__name__}: {e}", file=sys.stderr)
+    result = error = None
+    with tracer.span("collective_overlap", probe=True):
+        try:
+            batch = next(iter(ex.train_ds.batches(ex.global_batch,
+                                                  shuffle=False)), None)
+            if batch is None:
+                error = "dataset yielded no probe batch"
+            else:
+                xs, ys = ex.engine.shard_batch(batch[0], batch[1])
+                result = overlap.probe_engine_overlap(
+                    ex.engine, xs, ys, sample_x=ex.train_ds.x[:1])
+                if result is None:
+                    error = "engine has no overlap probe"
+        except Exception as e:
+            error = f"{type(e).__name__}: {e}"
+            print(f"warning: collective overlap probe failed: {error}",
+                  file=sys.stderr)
+    if result is None:
+        tracer.event("collective_overlap", supported=False, error=error)
         return None
+    tracer.event("collective_overlap", **result)
+    return result
+
+
+def _lease_stop(lease, mesh):
+    """The lease's ``should_stop`` for this rank.  JAX runs one process,
+    where one signal flag stops every device at the same boundary; the
+    ranks of ``cli -n N`` are processes that a SIGTERM reaches at
+    different moments, and a rank stopping a chunk before its peers would
+    leave them in their next collective.  So under a signal-armed lease
+    over more than one rank each consultation is a vote: one all-reduce
+    (max) of the signal number this rank has seen.  A signal any rank saw
+    stops every rank at this boundary with the same reason (and the same
+    ``lease.report()``); a signal that lands after the vote waits for the
+    next boundary.  The step budget needs no vote (every rank counts the
+    same steps).  At one rank, or off the main thread (no handler), it is
+    ``lease.should_stop`` itself: no collective."""
+    if mesh.world_size == 1 or not lease.installed:
+        return lease.should_stop
+    import torch.distributed as dist
+
+    def agreed(steps_done: int) -> str | None:
+        vote = torch.tensor([lease.preempt_signal or 0], dtype=torch.int64,
+                            device=mesh.device)
+        dist.all_reduce(vote, op=dist.ReduceOp.MAX)
+        signum = int(vote.item())
+        if signum:
+            lease.preempt_signal = signum
+            return lease.should_stop(steps_done)
+        budget = lease.max_steps_per_lease
+        if budget and steps_done >= budget:
+            return f"max_steps_per_lease:{budget}"
+        return None
+
+    return agreed
 
 
 def _run(config: ExperimentConfig) -> dict[str, Any]:
+    from distributed_tensorflow_tpu_torch.elastic import (
+        LeaseManager, StragglerDetector)
+    from distributed_tensorflow_tpu_torch.observability import (
+        Timeline, Tracer, build_run_report)
+    from distributed_tensorflow_tpu_torch.utils.metrics import (
+        MetricsLogger, profile)
+
     _reject_fleet(config)
     _check_recovery_config(config)
     ex = _setup(config)
@@ -1460,10 +1553,24 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
         sink = ResultSink(
             config.result_path if rank0 else None,
             supervisor_address=config.supervisor_address if rank0 else None)
-        ckpt_mgr = watchdog = None
+        # the tracer is always live: file-backed under --trace, its span
+        # aggregates otherwise (the run report reads them either way);
+        # every rank traces into its own file
+        trace_path = config.trace_path
+        if trace_path and ex.mesh.world_size > 1 and not rank0:
+            trace_path = f"{trace_path}.rank{ex.mesh.rank}"
+        tracer = Tracer(path=trace_path, process_index=ex.mesh.rank)
+        # every rank logs (and guards) its steps; rank 0 writes the file
+        metrics_logger = (MetricsLogger(config.metrics_path if rank0
+                                        else None,
+                                        log_every=max(1, config.log_every))
+                          if config.metrics_path else None)
+        timeline = (Timeline(interval_s=config.timeline_interval)
+                    if config.timeline else None)
+        ckpt_mgr = watchdog = lease = None
         # before any state of the run exists: the probe's throwaway state
         # reinitializes the engine's module
-        overlap_probe = (_probe_collective_overlap(ex)
+        overlap_probe = (_probe_collective_overlap(ex, tracer)
                          if config.grad_bucket_mb else None)
         try:
             trainer = Trainer(None, engine=ex.engine, seed=config.seed)
@@ -1480,6 +1587,11 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                             else CheckpointManager(config.checkpoint_dir))
                 if config.resume or config.elastic_restore:
                     resumed = _restore(config, ex, trainer, ckpt_mgr, sink)
+                # every checkpointed run arms the graceful SIGTERM drain;
+                # --max-steps-per-lease adds the step budget
+                lease = LeaseManager(
+                    max_steps_per_lease=config.max_steps_per_lease).install()
+            straggler = StragglerDetector(tracer=tracer)
             if config.watchdog_timeout > 0:
                 from distributed_tensorflow_tpu_torch.utils.failure import (
                     Watchdog)
@@ -1490,7 +1602,10 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                         # the step loop is wedged where no exception
                         # reaches it: exit so a supervisor relaunches
                         # with --resume (EX_TEMPFAIL); os._exit skips
-                        # every finally, so close the sink first
+                        # every finally, so drain the sinks first
+                        if metrics_logger is not None:
+                            metrics_logger.close()
+                        tracer.close()
                         sink.close()
                         os._exit(75)
 
@@ -1498,19 +1613,29 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                                     on_stall=_on_stall)
             sink.start()
             try:
-                fit = trainer.fit(ex.train_ds, epochs=config.epochs,
-                                  batch_size=ex.global_batch,
-                                  log_every=config.log_every,
-                                  log_fn=print if rank0 else _quiet,
-                                  checkpoint_manager=ckpt_mgr,
-                                  checkpoint_every=config.checkpoint_every,
-                                  watchdog=watchdog,
-                                  steps_per_call=config.steps_per_call,
-                                  prefetch=config.prefetch,
-                                  data_state=resumed["data_state"])
+                with profile(config.profile_dir, tracer=tracer):
+                    fit = trainer.fit(
+                        ex.train_ds, epochs=config.epochs,
+                        batch_size=ex.global_batch,
+                        log_every=config.log_every,
+                        log_fn=print if rank0 else _quiet,
+                        checkpoint_manager=ckpt_mgr,
+                        checkpoint_every=config.checkpoint_every,
+                        metrics_logger=metrics_logger, watchdog=watchdog,
+                        steps_per_call=config.steps_per_call,
+                        prefetch=config.prefetch, tracer=tracer,
+                        should_stop=(_lease_stop(lease, ex.mesh)
+                                     if lease is not None else None),
+                        data_state=resumed["data_state"],
+                        straggler_detector=straggler, timeline=timeline)
             finally:
                 if watchdog is not None:
                     watchdog.close()
+                if lease is not None and not config.serve_requests:
+                    # nothing after the fit consults the lease without a
+                    # serve window, and a still-armed handler would
+                    # swallow a SIGTERM during the evaluation and report
+                    lease.uninstall()
             if config.grad_bucket_mb:
                 # None: the engine has no probe or it failed (not a
                 # measured 0)
@@ -1518,12 +1643,20 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             if config.elastic_restore:
                 fit["preemption_lost_s"] = resumed["preemption_lost_s"]
                 fit["restored_step"] = resumed["restored_step"]
+            if lease is not None:
+                fit["lease"] = lease.report()
+            if fit.get("preempted"):
+                # the drain notice: a planned ['preempted', reason, step]
+                # instead of a dead socket
+                sink.preempted(fit["preempted"],
+                               fit.get("start_step", 0) + fit["steps"])
             sink.done(fit["elapsed"])
-            ev = trainer.evaluate(ex.test_ds, batch_size=config.eval_batch)
+            with tracer.span("eval", final=True):
+                ev = trainer.evaluate(ex.test_ds,
+                                      batch_size=config.eval_batch)
             sink.results(ev["accuracy"], loss=ev["loss"])
             model_name = config.model if config.model_fn is None else getattr(
                 config.model_fn, "__name__", "custom_model_fn")
-            st = fit["step_time"]
             total = (ex.n * config.seq_parallel * config.tensor_parallel
                      * config.pipeline_parallel * config.expert_parallel)
             summary = {
@@ -1545,6 +1678,8 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 "epochs": config.epochs,
                 "precision": fit["precision"],
                 "steps": fit["steps"],
+                # the lease's reason when it ended the fit, None on a
+                # normal finish: relaunch with --elastic-restore
                 "preempted": fit.get("preempted"),
                 "steps_per_call": fit["steps_per_call"],
                 "prefetch_depth": fit["prefetch_depth"],
@@ -1558,51 +1693,6 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 # number (exp of a classification loss means nothing)
                 **({"test_perplexity": math.exp(min(ev["loss"], 80.0))}
                    if config.model in _LM_MODELS else {}),
-                # the JAX run report's keys that this fit measures
-                "run_report": {
-                    "steps": fit["steps"], "elapsed_s": fit["elapsed"],
-                    "steps_per_call": fit["steps_per_call"],
-                    "steps_per_call_clamp": fit.get("steps_per_call_clamp"),
-                    "chunk_sizes": fit["chunk_sizes"],
-                    "prefetch_depth": fit["prefetch_depth"],
-                    "compile_s": st.get("compile_s"),
-                    "step_time_p50_s": st.get("steady_p50_s"),
-                    "step_time_p95_s": st.get("steady_p95_s"),
-                    "step_time_mean_s": st.get("steady_mean_s"),
-                    "precision": fit["precision"],
-                    "param_bytes_per_device": fit["param_bytes_per_device"],
-                    "opt_state_bytes_per_device":
-                        fit["opt_state_bytes_per_device"],
-                    "loss_scale": fit.get("loss_scale"),
-                    # the gradient exchange: wire against raw bytes, the
-                    # codec, the bucket size and the probe's split
-                    "grad_allreduce_bytes": fit.get("grad_allreduce_bytes"),
-                    "grad_allreduce_bytes_raw":
-                        fit.get("grad_allreduce_bytes_raw"),
-                    "grad_compression": fit.get("grad_compression"),
-                    "grad_bucket_mb": fit.get("grad_bucket_mb"),
-                    "grad_collective_exposed_s": (
-                        fit.get("collective_overlap") or {}).get(
-                            "exposed_s"),
-                    "grad_collective_hidden_s": (
-                        fit.get("collective_overlap") or {}).get(
-                            "hidden_s"),
-                    "collective_overlap": fit.get("collective_overlap"),
-                    # checkpoint cost: blocked against overlapped seconds
-                    "checkpoint_wait_s": fit.get("checkpoint_wait_s"),
-                    "checkpoint_overlapped_s":
-                        fit.get("checkpoint_overlapped_s"),
-                    "checkpoint_async": fit.get("checkpoint_async"),
-                    # the resume's accounting (elastic restore)
-                    "preempted": fit.get("preempted"),
-                    "preemption_lost_s": fit.get("preemption_lost_s"),
-                    "resume_replay_steps": fit.get("resume_replay_steps"),
-                    "restored_step": fit.get("restored_step"),
-                    "watchdog": None if watchdog is None else {
-                        "beats": watchdog.beats,
-                        "stall_episodes": watchdog.stall_episodes,
-                        "timeout_s": watchdog.timeout},
-                },
             }
             # an expert-parallel run reports the router-health watch
             # (sustained capacity overflow warns during training)
@@ -1612,9 +1702,17 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             if config.sample_tokens:
                 summary.update(_sample_from_state(config, ex, trainer.state,
                                                   ex.test_ds))
+            serve_sec = None
             if config.serve_requests:
-                serve_sec = _serve_from_state(config, ex, trainer.state,
-                                              ex.test_ds)
+                # the serve window drains on the lease's SIGNAL alone
+                # (the budget counts training steps)
+                serve_stop = (_lease_stop(lease, ex.mesh)
+                              if lease is not None else None)
+                serve_sec = _serve_from_state(
+                    config, ex, trainer.state, ex.test_ds, tracer=tracer,
+                    should_stop=(None if serve_stop is None else
+                                 (lambda _iters: serve_stop(0))),
+                    timeline=timeline)
                 summary["serve"] = serve_sec
                 # a window that lost requests must not bury it in the
                 # summary: a warning and a flag to gate on (0 = clean)
@@ -1622,20 +1720,41 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 summary["serve_exit_policy"] = 1 if unserved else 0
                 if unserved:
                     reasons = [f"unserved_requests={unserved}"]
+                    tracer.event("serve_warning", reasons=reasons,
+                                 preempted=serve_sec.get("preempted"))
                     sink.emit("serve_warning", reasons=reasons,
                               preempted=serve_sec.get("preempted"))
                     print(f"warning: serve window degraded "
                           f"({', '.join(reasons)}); serve_exit_policy=1",
                           file=sys.stderr)
+            if metrics_logger is not None:
+                # drained first: stats() mid-drain would read as loss
+                metrics_logger.flush()
+            if timeline is not None:
+                # the sampled series as bulk timeline_series events
+                timeline.emit(tracer)
+            report = build_run_report(fit, watchdog=watchdog,
+                                      metrics_logger=metrics_logger,
+                                      tracer=tracer, serve=serve_sec,
+                                      timeline=timeline)
+            summary["run_report"] = report
+            sink.emit("run_report", **report)
             sink.emit("summary", **summary)
             return summary
         finally:
+            if lease is not None:
+                # the previous SIGTERM disposition back: a later run in
+                # this process must not drain into this run's lease
+                lease.uninstall()
             if ckpt_mgr is not None:
                 # drain + join the writer on ANY exit: a restart must never
                 # begin its restore with a write of this run in flight
                 # (reraise=False: fit's final drain surfaced writer errors,
                 # and an exception path must keep its own error)
                 ckpt_mgr.close(reraise=False)
+            if metrics_logger is not None:
+                metrics_logger.close()
+            tracer.close()
             sink.close()
     finally:
         ex.mesh.close()
@@ -1952,7 +2071,8 @@ def _serve_mesh(config: ExperimentConfig, ex: _Experiment):
 
 
 def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
-                      test_ds) -> dict[str, Any]:
+                      test_ds, tracer=None, should_stop=None,
+                      timeline=None) -> dict[str, Any]:
     """``serve_requests`` N: a continuous-batching window over the trained
     model (``SlotKVCache`` + ``ContinuousBatcher``, JAX
     ``_serve_from_state``); returns the run report's ``serve`` section
@@ -1979,9 +2099,12 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     draft of ``'key=int,...'`` sizes is a fresh GPT drawn from
     ``torch.Generator().manual_seed(seed)``: flax's initialization cannot
     be reproduced, so its accept rate is the port's own, while greedy
-    acceptance keeps the streams those of plain decode."""
+    acceptance keeps the streams those of plain decode.  ``tracer`` spans
+    the window as ``serve`` and reaches the batcher (its request, prefill
+    and decode spans); ``should_stop`` is the lease's drain and
+    ``timeline`` the gauge sampler (JAX ``harness.py:2646-2657``)."""
     from distributed_tensorflow_tpu_torch.observability import (
-        SLOMonitor, serve_section)
+        NULL_TRACER, SLOMonitor, serve_section)
     from distributed_tensorflow_tpu_torch.serving import (
         ContinuousBatcher, Request, SlotKVCache)
 
@@ -2033,9 +2156,15 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     batcher_kwargs: dict[str, Any] = {}
     if config.serve_multi_step is not None:
         batcher_kwargs.update(multi_step=config.serve_multi_step)
-    summary = ContinuousBatcher(
-        kv, prefill_chunk=config.serve_prefill_chunk,
-        slo=SLOMonitor(config.serve_slo_ttft, config.serve_slo_itl),
-        queue_cap=config.serve_queue_cap, draft_kv=draft_kv,
-        draft_k=config.serve_draft_k, **batcher_kwargs).run(requests)
-    return serve_section(summary, ex.n)
+    if timeline is not None:
+        batcher_kwargs.update(timeline=timeline)
+    tracer = tracer if tracer is not None else NULL_TRACER
+    with tracer.span("serve", requests=config.serve_requests,
+                     slots=config.serve_slots):
+        summary = ContinuousBatcher(
+            kv, tracer=tracer, prefill_chunk=config.serve_prefill_chunk,
+            slo=SLOMonitor(config.serve_slo_ttft, config.serve_slo_itl),
+            queue_cap=config.serve_queue_cap, should_stop=should_stop,
+            draft_kv=draft_kv, draft_k=config.serve_draft_k,
+            **batcher_kwargs).run(requests)
+    return serve_section(summary, ex.n, tracer=tracer)

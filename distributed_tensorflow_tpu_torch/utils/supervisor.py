@@ -5,7 +5,8 @@ The reference reports run results over an out-of-band TCP channel on port
 ``('results', accuracy)`` (reference server.py:121-124, 182-187).  Here
 the primary sink is JSON lines (file and/or stdout), plus an optional
 socket client that sends the reference's event sequence, and a listener
-for tests.
+for tests.  A lease drain adds a fourth shape, ``['preempted', reason,
+step]`` (``ResultSink.preempted``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -62,6 +63,19 @@ class ResultSink:
         self.emit("results", accuracy=accuracy, **extra)
         if self._sock:
             wire.send_msg(self._sock, ["results", accuracy])
+
+    def preempted(self, reason: str, step: int,
+                  **extra: Any) -> None:
+        """Graceful-drain notice (``elastic/lease.py``): the run ended its
+        lease — a SIGTERM preemption notice or ``--max-steps-per-lease``
+        budget — after writing a final checkpoint, and a relaunch with
+        ``--elastic-restore`` continues it from ``step``.  The message
+        ``['preempted', reason, step]`` lets an external supervisor tell
+        a planned drain (relaunch me) from a corpse (investigate me);
+        JSONL consumers get the same fields as a ``preempted`` event."""
+        self.emit("preempted", reason=reason, step=step, **extra)
+        if self._sock:
+            wire.send_msg(self._sock, ["preempted", reason, step])
 
     def close(self) -> None:
         if self._sock:

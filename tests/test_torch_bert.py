@@ -47,6 +47,8 @@ from distributed_tensorflow_tpu_torch.models.bert import BertTinyClassifier
 from distributed_tensorflow_tpu_torch.models.convert import bert_state_dict
 from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 jfa = importlib.import_module("distributed_tensorflow_tpu.ops.flash_attention")
 
 SMALL = dict(num_classes=2, vocab_size=100, hidden=32, layers=2, heads=2,

@@ -50,6 +50,8 @@ from distributed_tensorflow_tpu_torch.parallel import precision as tpl
 from distributed_tensorflow_tpu_torch.utils.checkpoint import (
     AsyncCheckpointError, AsyncCheckpointManager, CheckpointManager)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 # test_torch_train.py's f32 tolerance for the port's metrics against JAX's
 METRIC = dict(rtol=1e-5, atol=0)
 
@@ -442,7 +444,7 @@ def test_cli_checkpoint_flags_parse_as_jax():
         p.parse_args(["--async-checkpoint", "maybe"])
     ours = {a.dest for a in p._actions} - {"help", "device"}
     theirs = {a.dest for a in jp._actions} - {"help"}
-    assert len(ours & theirs) == 82 and len(theirs) == 93
+    assert len(ours & theirs) == 88 and len(theirs) == 93
 
 
 def _harness_config(tmp_path, **kw):

@@ -72,6 +72,8 @@ from distributed_tensorflow_tpu_torch.utils import wire as twire
 from distributed_tensorflow_tpu_torch.utils.harness import (
     ExperimentConfig, steps_to_accuracy)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 LOGITS = dict(rtol=1e-5, atol=1e-5)
 GRADS = dict(rtol=1e-4, atol=1e-6)
 METRIC = dict(rtol=1e-5, atol=0)
@@ -553,7 +555,7 @@ def test_cli_summary_keys_match_jax(tmp_path, capsys):
         assert got[key] == want[key], key
     events = [line.split('"event": "')[1].split('"')[0] for line in
               (tmp_path / "t.jsonl").read_text().splitlines()]
-    assert events == ["start", "done", "results", "summary"]
+    assert events == ["start", "done", "results", "run_report", "summary"]
 
 
 def test_run_turns_tf32_off_and_restores_it(monkeypatch, capsys):

@@ -59,6 +59,8 @@ from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel import overlap
 from distributed_tensorflow_tpu_torch.utils import harness
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 GPT = dict(vocab_size=64, hidden=32, layers=2, heads=4, max_len=32)
 BUCKET_MB = 2e-3     # ~2 KB: several buckets over the small models
 LR = 0.1

@@ -63,6 +63,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD, LR = 8, 0.1
 BERT = dict(num_classes=2, vocab_size=128, hidden=32, layers=1, heads=2,
             ffn=64, max_len=64, dropout_rate=0.0)

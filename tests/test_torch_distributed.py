@@ -32,6 +32,8 @@ from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD = 2
 SGD_LR = 0.5
 SGD_STEPS = 3
@@ -247,7 +249,7 @@ def test_cli_two_ranks(tmp_path, capsys):
     assert json.loads(printed[-1]) == summary
     lines = [json.loads(line) for line in events.read_text().splitlines()]
     assert [e["event"] for e in lines] == ["start", "done", "results",
-                                           "summary"]
+                                           "run_report", "summary"]
     assert listener.messages[0] == "start"
     assert [m[0] for m in listener.messages[1:]] == ["done", "results"]
     assert listener.messages[2][1] == summary["test_accuracy"]

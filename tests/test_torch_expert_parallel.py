@@ -40,6 +40,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 LR = 0.1
 STEPS, BATCH, EVAL_ROWS = 2, 16, 24
 PARAMS_ATOL, METRIC_ATOL = 1e-5, 1e-5

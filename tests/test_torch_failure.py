@@ -38,6 +38,8 @@ from distributed_tensorflow_tpu_torch.utils.failure import (
     run_with_recovery)
 from distributed_tensorflow_tpu_torch.utils.harness import ExperimentConfig
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 
 # ------------------------------------------------------------ check_finite
 def test_check_finite_passes():

@@ -30,6 +30,8 @@ import jax.numpy as jnp
 
 from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 jfa = importlib.import_module("distributed_tensorflow_tpu.ops.flash_attention")
 
 OUT = dict(rtol=1e-5, atol=1e-5)

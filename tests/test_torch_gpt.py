@@ -51,6 +51,8 @@ from distributed_tensorflow_tpu_torch.parallel import compression as tcomp
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=4, kv_heads=2,
              ffn=64, max_len=32, dropout_rate=0.0)
 TOL = dict(rtol=1e-5, atol=2e-5)

@@ -62,6 +62,8 @@ from distributed_tensorflow_tpu_torch.parallel import precision as tprecision
 from distributed_tensorflow_tpu_torch.utils import harness as tharness
 from distributed_tensorflow_tpu_torch.utils.optim import ScheduledAdamW
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 F32_ULP = 2.0 ** -23
 STEP_TOL = dict(rtol=1e-5, atol=1e-7)
 SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=4, kv_heads=2,

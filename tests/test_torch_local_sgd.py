@@ -42,6 +42,8 @@ from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 SGD_LR = 0.5
 PARAMS_ATOL = 1e-5
 ASYNC_WORLD, ASYNC_STEPS, SYNC_EVERY = 2, 4, 2

@@ -64,6 +64,8 @@ from distributed_tensorflow_tpu_torch.models.gpt import generate
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.utils import harness
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 T, D, E, H = 64, 16, 4, 32
 OUT_TOL = dict(rtol=0, atol=1e-6)
 GRAD_TOL = dict(rtol=0, atol=1e-5)

@@ -46,6 +46,8 @@ from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 from distributed_tensorflow_tpu_torch.serving import (
     ContinuousBatcher, Request, SlotKVCache, VirtualClock)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 MOE_GPT = dict(vocab_size=64, hidden=16, layers=1, heads=2, ffn=32,
                max_len=32, dropout_rate=0.0, moe_experts=4)
 BLK = 4

@@ -26,6 +26,8 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from distributed_tensorflow_tpu.ops import paged_attention as jpa
 from distributed_tensorflow_tpu_torch.ops import paged_attention as tpa
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=1e-5, atol=2e-5)
 
 

@@ -45,6 +45,8 @@ from distributed_tensorflow_tpu_torch.models.gpt import gpt_pipeline_stages
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.utils import harness
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 GPT = dict(vocab_size=64, hidden=32, heads=4, ffn=64, max_len=16)
 BERT = dict(num_classes=2, vocab_size=64, hidden=32, heads=2, ffn=64,

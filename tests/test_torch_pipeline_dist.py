@@ -61,6 +61,8 @@ import torch.multiprocessing as mp
 
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD = 4
 LR = 0.1
 TOL = dict(atol=2e-5, rtol=1e-4)

@@ -60,6 +60,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD, LR, AUX, Z = 8, 0.1, 0.01, 1e-3
 TOL = dict(atol=2e-5, rtol=1e-4)
 GPT = dict(vocab_size=64, hidden=32, heads=2, ffn=64, max_len=16)

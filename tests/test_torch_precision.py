@@ -68,6 +68,8 @@ from distributed_tensorflow_tpu_torch.parallel import mesh as tmesh
 from distributed_tensorflow_tpu_torch.parallel import precision as tpl
 from distributed_tensorflow_tpu_torch.utils import harness
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 jfa = importlib.import_module("distributed_tensorflow_tpu.ops.flash_attention")
 
 DT = {"bf16": torch.bfloat16, "bf16-f32master": torch.bfloat16,

@@ -39,6 +39,8 @@ from distributed_tensorflow_tpu_torch.models.convert import (
     bert_state_dict, gpt_state_dict)
 from distributed_tensorflow_tpu_torch.utils import harness as tharness
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 GPT = dict(num_classes=64, hidden=32, layers=2, heads=4, ffn=64, max_len=32)
 BERT = dict(num_classes=2, vocab_size=100, hidden=32, layers=2, heads=2,
             ffn=64, max_len=32)

@@ -38,6 +38,8 @@ from distributed_tensorflow_tpu_torch.models.convert import resnet_state_dict
 from distributed_tensorflow_tpu_torch.models.resnet import (
     GN_EPS, ResNet20, _same_pad, conv_same)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 LOGITS = dict(rtol=1e-5, atol=1e-5)
 GRADS = dict(rtol=1e-4, atol=1e-5)
 

@@ -39,6 +39,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 from distributed_tensorflow_tpu_torch.parallel import ring_attention as ra
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD = 4
 B, L, H, D = 2, 32, 4, 8            # blocks of 8 tokens on 4 ranks
 IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")

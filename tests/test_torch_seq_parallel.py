@@ -49,6 +49,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 LR = 0.1
 STEPS, BATCH, SEQ, VOCAB = 2, 8, 16, 64
 PARAMS_ATOL, DENSE_ATOL, LOSS_RTOL = 1e-5, 2e-5, 1e-5

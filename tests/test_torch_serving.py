@@ -34,6 +34,8 @@ from distributed_tensorflow_tpu_torch.serving import (
 from distributed_tensorflow_tpu_torch.models.gpt import (
     generate, sample_tokens)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=4, kv_heads=2,
              ffn=64, max_len=32, dropout_rate=0.0)
 BLK = 4
@@ -490,5 +492,8 @@ def test_unported_serving_options_raise(models):
                     prefix_cache_blocks=4, prefix_block=4, paged_block=8)
     with pytest.raises(ValueError, match="only apply"):
         SlotKVCache(tm, sd, 2, device="cpu", paged_block=4)
-    with pytest.raises(TypeError):
-        ContinuousBatcher(kv, timeline_tag=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "
+                       "roofline, the ledger and the analyzer"):
+        ContinuousBatcher(kv, roofline=object())
+    # ported since: the timeline sampler and its replica tag
+    ContinuousBatcher(kv, timeline=object(), timeline_tag=1)

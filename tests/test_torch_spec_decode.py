@@ -35,6 +35,8 @@ from distributed_tensorflow_tpu_torch.serving import (
 from distributed_tensorflow_tpu_torch.utils.harness import (
     parse_draft_config)
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 TARGET = dict(vocab_size=64, hidden=32, layers=2, heads=2, ffn=64,
               max_len=32, dropout_rate=0.0)
 DRAFT = dict(TARGET, hidden=16, layers=1, ffn=32)

@@ -56,6 +56,8 @@ import torch.multiprocessing as mp
 
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD = 4
 GPT = dict(num_classes=64, hidden=32, layers=2, heads=4, kv_heads=2, ffn=64,
            max_len=16, dropout_rate=0.0)

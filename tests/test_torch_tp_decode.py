@@ -66,6 +66,8 @@ import torch.multiprocessing as mp
 from distributed_tensorflow_tpu_torch.data import loaders as tloaders
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 WORLD, SHAPE, AXES = 4, (2, 2), ("data", "model")
 BASE = dict(vocab_size=64, hidden=32, layers=2, heads=4, ffn=64,
             max_len=32, dropout_rate=0.0)

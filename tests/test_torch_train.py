@@ -51,6 +51,8 @@ from distributed_tensorflow_tpu_torch.models import create_model
 from distributed_tensorflow_tpu_torch.models.convert import gpt_state_dict
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=4, kv_heads=2,
              ffn=64, max_len=32, dropout_rate=0.0, attention_impl="flash")
 METRIC = dict(rtol=1e-5, atol=0)
@@ -279,11 +281,23 @@ def test_unported_options_raise(tmp_path):
     x, y = _lm(8)
     ds = tloaders.Dataset(x=x, y=y, num_classes=64)
     trainer = Trainer(model, device="cpu")
-    for kw in (dict(metrics_logger=[]), dict(tracer=object()),
-               dict(straggler_detector=object()), dict(timeline=object()),
-               dict(roofline=object()), dict(on_anomaly="halt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(roofline=object()), "roofline, the ledger"),
+                     (dict(on_anomaly="halt"), "health")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1: {item}"):
             trainer.fit(ds, batch_size=8, **kw)
+    # ported since: the telemetry sinks and the straggler detector
+    from distributed_tensorflow_tpu_torch.elastic import StragglerDetector
+    from distributed_tensorflow_tpu_torch.observability import (
+        Timeline, Tracer)
+    from distributed_tensorflow_tpu_torch.utils.metrics import MetricsLogger
+
+    r = Trainer(GPTLM(**SMALL, device="cpu"), device="cpu").fit(
+                    ds, batch_size=8, log_every=0, max_steps=1,
+                    metrics_logger=MetricsLogger(), tracer=Tracer(),
+                    straggler_detector=StragglerDetector(),
+                    timeline=Timeline(interval_s=0.0))
+    assert r["steps"] == 1 and r["stragglers"]["observed"] == 1
     # ported since: the checkpoint manager and its cadence, the watchdog,
     # should_stop and the data state
     with Watchdog(timeout=30.0) as wd:

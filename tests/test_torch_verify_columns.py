@@ -24,6 +24,8 @@ import torch
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 from distributed_tensorflow_tpu_torch.serving import SlotKVCache
 
+from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
+
 SMALL = dict(vocab_size=64, hidden=32, layers=2, heads=2, ffn=64,
              max_len=48, dropout_rate=0.0)
 CARD = dict(vocab_size=2048, hidden=256, layers=2, heads=4, ffn=1024,
