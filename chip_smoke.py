@@ -423,6 +423,29 @@ Phases (any failure raises and the script exits non-zero):
              ``--profile-dir``: its Chrome trace holds the Trainer's span
              names and the ``tc32`` kernels' names.  Rows 1c-3c and 4f
              gain ``launches_lease``;
+5r. health — the health layer, the roofline, the program ledger and the
+             analyzer on the cli-lm GPT (f32, flash on ``tc32``, one NCCL
+             rank).  R1: window L1's argv with ``--health on --roofline``
+             (and ``--metrics-path``) through ``cli.main``: test loss,
+             samples, serve streams and launch counts bitwise L1's, one
+             metrics record a step with the six health keys finite, the
+             ``health`` section with 0 anomalies, ``train_mfu``,
+             ``serve_prefill_mfu`` and ``serve_decode_mbu`` each in
+             (0, 1.05] against the H100's peaks
+             (``observability/roofline.py``), the report's ``xla``
+             manifest with the chunk graph's capture seconds, memory and
+             FLOPs beside ``torch.cuda.max_memory_allocated()``, the
+             port's ``analyze roofline`` and ``analyze health`` exiting 0
+             on the run's files, step p50 beside L1's.  R1r: the serve
+             GPT's paged table under a ledger records its captured round.
+             R2: 24 steps on ``_lm_head_rows`` with health on, replayed
+             chunks of 8 against single eager steps: the loss and the six
+             health streams bitwise.  R3: ``HealthConfig(inject_nan_at=
+             20)``, a step of the first replayed chunk: ``'halt'`` raises
+             ``AnomalyDetected`` at step 20 with its record logged,
+             ``'warn'`` is fatal under the nan-guard default, ``'warn'``
+             with ``nan_guard=False`` completes with the first anomaly at
+             20.  Rows 1c-3c and 4f gain ``launches_health``;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -491,6 +514,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch.observability.roofline import (
+    device_peaks)
+
 F32_TOL = dict(rtol=1e-5, atol=2e-5)   # as tests/test_serving_paged_kernel.py
 # bf16 output: kernel and plain version both accumulate in f32 and round
 # once to bf16, so they may differ by one bf16 rounding (relative 2^-8)
@@ -541,9 +567,12 @@ TRAIN_GRAD_RTOL = 1e-1
 # relative (Frobenius norm), a hundredth of the bf16 bounds' 1e-1.
 TRAIN_F32_LOSS_RTOL = 1e-5
 TRAIN_F32_GRAD_RTOL = 1e-3
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-              torch.float16: 989e12}
+# the H100 SXM's data-sheet peaks, as the port's roofline holds them
+_H100 = device_peaks("NVIDIA H100 80GB HBM3")
+HBM_BYTES_PER_S = _H100.hbm_bytes_per_s
+PEAK_FLOPS = {torch.float32: _H100.flops_per_s["f32"],
+              torch.bfloat16: _H100.flops_per_s["bf16"],
+              torch.float16: _H100.flops_per_s["bf16"]}
 # the tc32 kernels run each f32 product as three TF32 products at the
 # dense TF32 peak (data sheet, SXM): ~165 TFLOP/s of f32 products
 TF32_FLOPS = 494.7e12
@@ -2561,7 +2590,8 @@ def precision_phase(gpu: str):
     return fit, fit16, trainer, (x[:batch], y[:batch])
 
 
-def _profile_chunk(label: str, engine, state, xs, ys, chunks: int = 4):
+def _profile_chunk(label: str, engine, state, xs, ys, chunks: int = 4,
+                   top: int = 6):
     """Where a replayed chunk's time goes: ``chunks`` replays of the
     engine's CUDA graph for ``len(xs)`` steps on the host clock, then under
     ``torch.profiler``: per step, the wall, the kernels' device time, the
@@ -2593,7 +2623,7 @@ def _profile_chunk(label: str, engine, state, xs, ys, chunks: int = 4):
           f"{event_ms:.4f} device_busy_ms={busy_us / 1e3:.4f} "
           f"busy_share={busy_us / wall_us:.4f} "
           f"kernels_per_step={sum(r[1] for r in rows):.1f}")
-    for dev_us, count, key in rows[:6]:
+    for dev_us, count, key in rows[:top]:
         print(f"[profile]   {dev_us:9.2f} us/step x{count:<6.1f} {key[:80]}")
 
 
@@ -6561,6 +6591,250 @@ def lease_phase(gpu: str, c0: dict) -> dict:
     return {"tc32": total, "paged_f32": q3_paged}
 
 
+# --------------------------------------------------------------------------
+# phase 5r: health, the roofline, the ledger and the analyzer on the cli-lm
+# GPT
+# --------------------------------------------------------------------------
+
+HEALTH_INJECT_AT = 20     # R3's poisoned step: inside the third chunk of 8,
+                          # the first replayed one
+
+
+def _health_records(path) -> list[dict]:
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def _health_fit(gpu, label: str, cfg, **fit_kw):
+    """The cli-lm GPT (``_ckpt_config``'s engine) on ``_lm_head_rows``
+    with health ``cfg`` through ``Trainer.fit`` at steps_per_call 8; its
+    result (or the error it raised), every step's metrics record and the
+    flash launches."""
+    from distributed_tensorflow_tpu_torch.engines import Trainer
+    from distributed_tensorflow_tpu_torch.utils import harness
+
+    class Records:
+        def __init__(self):
+            self.records = []
+
+        def should_log(self, step):
+            return True
+
+        def log(self, step, **metrics):
+            self.records.append((step, metrics))
+
+        def flush(self):
+            pass
+
+    ex = harness._setup(_ckpt_config(epochs=1, dataset_fn=_lm_head_rows))
+    rec = Records()
+    _reset_flash_counts()
+    try:
+        ex.engine.enable_health(cfg)
+        try:
+            out = Trainer(None, engine=ex.engine, seed=0).fit(
+                ex.train_ds, batch_size=CLI_LM["batch"], log_every=0,
+                steps_per_call=8, metrics_logger=rec,
+                log_fn=lambda _: None, **fit_kw)
+        except Exception as e:   # the policy's raise is this window's result
+            out = e
+    finally:
+        ex.mesh.close()
+    torch.cuda.synchronize()
+    counts = {**_flash_counts(), **_tc32_counts()}
+    print(f"[health] {label} ({gpu}): "
+          + (f"raised {type(out).__name__}: {out}"
+             if isinstance(out, Exception) else
+             f"{out['steps']} steps, health {json.dumps(out['health'])}")
+          + f"; {len(rec.records)} records; flash launches "
+          f"{json.dumps(counts)}")
+    return out, rec.records, counts
+
+
+def health_phase(gpu: str) -> dict:
+    """Phase 5r (module docstring): R1, R1r, R2, R3; returns the windows'
+    flash launches on tc32 and R1's paged launches on f32 pools."""
+    import shutil
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.observability import (
+        HealthConfig, ProgramLedger, analyze)
+    from distributed_tensorflow_tpu_torch.observability import health as hl
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+    from distributed_tensorflow_tpu_torch.utils.failure import (
+        AnomalyDetected)
+
+    layers = CLI_LM["layers"]
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[f"{k}_tc32"]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_health_"))
+    try:
+        # R1: window L1 with --health on --roofline
+        t_r = time.perf_counter()
+        rec, counts, paged, _ = _cli_lm_window(
+            "R1 (L1 + --health on --roofline)",
+            CLI_L1_ARGV + ["--health", "on", "--roofline",
+                           "--metrics-path", str(tmp / "r1_metrics.jsonl")],
+            gpu, 8, (torch.float32, CLI_LM["heads"], CLI_LM["heads"]))
+        add(counts)
+        sm, sv, l1 = rec["summary"], rec["summary"]["serve"], SEEN["L1"]
+        rr = sm["run_report"]
+        checks = {"test_loss": sm["test_loss"] == l1["test_loss"],
+                  "samples": sm["samples"] == l1["samples"],
+                  "streams": _streams(rec["serve_summary"]) == l1["streams"],
+                  "flash launches": counts == l1["counts"],
+                  "paged launches": paged == l1["paged"]}
+        assert all(checks.values()), checks
+        records = _health_records(tmp / "r1_metrics.jsonl")
+        assert [r["step"] for r in records] == list(
+            range(1, sm["steps"] + 1))
+        for r in records:
+            assert all(k in r and math.isfinite(r[k])
+                       for k in hl.HEALTH_KEYS), r
+        health = rr["health"]
+        assert health["anomalies"] == 0 and health["on_anomaly"] == "warn", \
+            health
+        shares = {"train_mfu": rr["train_mfu"],
+                  "serve_prefill_mfu": sv["serve_prefill_mfu"],
+                  "serve_decode_mbu": sv["serve_decode_mbu"]}
+        assert all(isinstance(v, float) and 0 < v <= 1.05
+                   for v in shares.values()), shares
+        xla = rr["xla"]["programs"]
+        chunk = xla["train_chunk_k8"]
+        assert chunk["compile_s"] > 0 and chunk["peak_bytes_est"] > 0, chunk
+        assert chunk["flops"] and chunk["flops"] > 0, chunk
+        report = tmp / "r1_summary.json"
+        report.write_text(json.dumps(sm))
+        outs = {}
+        for cmd in (["roofline", str(report)],
+                    ["health", str(tmp / "r1_metrics.jsonl")]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = analyze.main(cmd)
+            assert code == 0, (cmd, code, buf.getvalue())
+            outs[cmd[0]] = buf.getvalue()
+        offline = json.loads(outs["health"])
+        assert offline["steps"] == sm["steps"] and \
+            offline["first_anomaly_step"] is None, offline
+        rf = rr["roofline"]
+        print(f"[health] R1 ({gpu}): bitwise L1 {json.dumps(checks)}; "
+              f"{len(records)} metrics records, each with the six health "
+              f"keys finite; health {json.dumps(health)}; "
+              + ", ".join(f"{k} {v!r}" for k, v in shares.items())
+              + f" (peaks {json.dumps(rf['device'])}; train model FLOPs a "
+              f"step {rf['train']['model_flops_per_step']!r}, achieved "
+              f"{rf['train']['achieved_flops_per_sec']!r}; serve "
+              f"{json.dumps(rf['serve'])}); xla manifest "
+              + "; ".join(f"{n} compiles {p['compiles']} compile_s "
+                          f"{p['compile_s']:.4f} peak_bytes_est "
+                          f"{p['peak_bytes_est']} flops {p['flops']!r}"
+                          for n, p in xla.items())
+              + f"; peak_hbm_bytes_est {rr['peak_hbm_bytes_est']}, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+              f"step_ms_p50 {rr['step_time_p50_s'] * 1e3:.4f} (L1 "
+              f"{l1['step_ms_p50']:.4f}); analyze roofline exit 0:\n"
+              + outs["roofline"].rstrip()
+              + f"\n[health] R1: analyze health exit 0: first anomaly "
+              f"{offline['first_anomaly_step']!r}, maxima "
+              f"{json.dumps(offline.get('maxima'))}; "
+              f"{time.perf_counter() - t_r:.1f} s")
+        r1_paged = paged
+        r1_trainer = rec["trainer"]
+        del rec
+
+        # R1r: a paged serve table's fused decode rounds in the ledger
+        ledger = ProgramLedger()
+        kv = SlotKVCache(_serve_model(), None, 8, kv_layout="paged",
+                         paged_block=8, prefix_block=8, ledger=ledger)
+        for i in range(8):
+            kv.insert(np.arange(8, dtype=np.int32) + i)
+        for _ in range(3):       # eager, captured, replayed
+            kv.advance_multi(8)
+        torch.cuda.synchronize()
+        rounds = ledger.programs()["kv_paged_decode_multi_k8"]
+        assert rounds["compiles"] == 1 and rounds["compile_s"] > 0 and \
+            rounds["peak_bytes_est"] > 0, rounds
+        print(f"[health] R1r ({gpu}): the serve GPT's paged table, rounds "
+              f"of 8 (eager, captured, replayed) under a ledger: "
+              + "; ".join(f"{n} {json.dumps(p)}"
+                          for n, p in ledger.programs().items()))
+        del kv
+
+        # R2: 24 steps, chunks of 8 replayed against single eager steps
+        t_r = time.perf_counter()
+        streams = {}
+        for k in (8, 1):
+            path = tmp / f"r2_k{k}.jsonl"
+            _reset_flash_counts()
+            r2, _ = _kept_run(_ckpt_config(
+                epochs=1, dataset_fn=_lm_head_rows, health="on",
+                steps_per_call=k, metrics_path=str(path)))
+            add({**_flash_counts(), **_tc32_counts()})
+            streams[k] = [{key: r[key] for key in ("step", "loss",
+                                                   *hl.HEALTH_KEYS)}
+                          for r in _health_records(path)]
+            assert r2["steps_per_call"] == k and len(streams[k]) == 24
+        assert streams[8] == streams[1], next(
+            (a, b) for a, b in zip(streams[8], streams[1]) if a != b)
+        print(f"[health] R2 ({gpu}): 24 steps, the six health streams and "
+              f"the loss of replayed chunks of 8 bitwise 24 eager steps; "
+              f"step 24 {json.dumps(streams[8][-1])}; "
+              f"{time.perf_counter() - t_r:.1f} s")
+
+        # R3: the injection at a step of a replayed chunk
+        t_r = time.perf_counter()
+        cfg = HealthConfig(inject_nan_at=HEALTH_INJECT_AT)
+        out, recs, counts = _health_fit(gpu, "R3 halt", cfg,
+                                        on_anomaly="halt")
+        add(counts)
+        assert isinstance(out, AnomalyDetected), out
+        assert f"at step {HEALTH_INJECT_AT}" in str(out), out
+        assert recs[-1][0] == HEALTH_INJECT_AT, recs[-1]
+        assert recs[-1][1]["nonfinite_count"] > 0, recs[-1]
+        out, _, counts = _health_fit(gpu, "R3 warn", cfg)
+        add(counts)
+        assert isinstance(out, AnomalyDetected), out
+        assert f"diverged at step {HEALTH_INJECT_AT}" in str(out), out
+        out, recs, counts = _health_fit(gpu, "R3 warn, nan_guard=False",
+                                        cfg, nan_guard=False)
+        add(counts)
+        assert not isinstance(out, Exception), out
+        assert out["steps"] == 24 and out["health"]["anomalies"] >= 1
+        assert out["health"]["first_anomaly_step"] == HEALTH_INJECT_AT
+        print(f"[health] R3 ({gpu}): inject_nan_at {HEALTH_INJECT_AT} "
+              f"inside a replayed chunk: 'halt' raised at it with its "
+              f"record logged; 'warn' fatal under the nan-guard default; "
+              f"'warn' with nan_guard=False completed, first anomaly "
+              f"{out['health']['first_anomaly_step']}; "
+              f"{time.perf_counter() - t_r:.1f} s")
+        # where R1's replayed step goes, beside L1's (phase 5f): the
+        # capture's kernels among the step's (after every window: a
+        # profiler session before one would be in its host times).  The
+        # fit's batch shapes, so its captured graph replays (the run's
+        # process group is gone: an eager chunk could not reduce)
+        from distributed_tensorflow_tpu_torch.data import loaders
+
+        train, batch = loaders.load_dataset("lm_synth",
+                                            split="train"), CLI_LM["batch"]
+        eng = r1_trainer.engine
+        xs, ys = zip(*(eng.shard_batch(
+            train.x[batch * i:batch * (i + 1)],
+            train.y[batch * i:batch * (i + 1)]) for i in range(8)))
+        _profile_chunk("cli-lm R1 step (B=8, L=128, f32, --health on)",
+                       eng, r1_trainer.state, list(xs), list(ys),
+                       chunks=2, top=16)
+        del r1_trainer, eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[health] phase 5r launches: tc32 {json.dumps(total)}, paged on "
+          f"f32 pools {r1_paged} ({layers} x R1's decode iterations)")
+    return {"tc32": total, "paged_f32": r1_paged}
+
+
 def tpd_timing_phase(tpd: dict) -> list[dict]:
     """The paged kernel at the serve GPT's per-rank K/V heads (8 heads
     over tp 2, 4 and 8: 4, 2 and 1 a rank, MHA), bf16 queries over bf16
@@ -6858,6 +7132,8 @@ def main() -> int:
     _phase_done('5p tpd')
     lease = lease_phase(gpu, ckpt.pop("c0"))
     _phase_done('5q lease')
+    health = health_phase(gpu)
+    _phase_done('5r health')
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -6915,12 +7191,16 @@ def main() -> int:
             if variant == "tc32":
                 # phase 5q's windows Q1-Q4 (all tc32)
                 row["launches_lease"] = lease["tc32"][kind]
+                # phase 5r's windows R1-R3 (all tc32)
+                row["launches_health"] = health["tc32"][kind]
         elif row["name"] == "paged_attention_cli_lm_f32":
             row["launches_mp"] = mp["F1"]["paged_f32"]
             # phase 5p's window TPL
             row["launches_tpd"] = tpd["TPL"]
             # phase 5q's window Q3
             row["launches_lease"] = lease["paged_f32"]
+            # phase 5r's window R1
+            row["launches_health"] = health["paged_f32"]
     sp_rows = sp_timing_phase(sp)
     _phase_done('6 sp timings')
     for row in sp_rows:

@@ -291,6 +291,12 @@ def build_parser() -> argparse.ArgumentParser:
                         " Sync, async, gossip, fsdp, -tp, -sp and -ep (the "
                         "last four as an encode/decode after the exact "
                         "reduce)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="kernel build cache directory: the hand-written "
+                        "CUDA kernels (ops/_build.py) are built with nvcc "
+                        "into DIR and loaded from there by repeat runs.  "
+                        "XLA's persistent compilation cache has no other "
+                        "torch counterpart: the port compiles nothing else")
     p.add_argument("--grad-bucket-mb", type=float, default=0.0,
                    metavar="MB",
                    help="communication/compute overlap: cut the gradients "
@@ -358,6 +364,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on stall, exit(75) after reporting so a supervisor "
                         "can relaunch with --resume (a wedged CUDA runtime "
                         "cannot be recovered in-process)")
+    p.add_argument("--health", default="off", choices=["off", "on"],
+                   help="per-step numeric training-health stats, computed "
+                        "on the device inside the step (inside a replayed "
+                        "chunk too) and stacked through the trajectory "
+                        "like the loss: global grad norm, param norm, "
+                        "update norm and ratio, non-finite parameter "
+                        "count, loss-spike score vs a running EMA "
+                        "(observability/health.py).  They ride "
+                        "--metrics-path records and feed --on-anomaly; "
+                        "'off' (default) runs the step without them")
+    p.add_argument("--on-anomaly", default="warn", choices=["warn", "halt"],
+                   dest="on_anomaly",
+                   help="with --health on: response to a per-step health "
+                        "anomaly (non-finite params/grads, update-ratio "
+                        "ceiling, loss spike) — 'warn' records structured "
+                        "anomaly trace events and a health summary, "
+                        "'halt' additionally stops at the offending step. "
+                        " Subsumes the loss-only nan guard")
+    p.add_argument("--no-nan-guard", action="store_true",
+                   help="disable the fatal divergence (NaN/inf) response: "
+                        "without --health, skips the legacy loss-only "
+                        "check; with --health on + --on-anomaly warn, "
+                        "downgrades nonfinite anomalies (which stay fatal "
+                        "by default) to record-and-continue")
     p.add_argument("--max-steps-per-lease", type=int, default=0,
                    metavar="N",
                    help="graceful lease drain (elastic/lease.py): stop at "
@@ -398,6 +428,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="minimum seconds between --timeline samples per "
                         "gauge group (default 0.05; 0 = record every "
                         "boundary crossing)")
+    p.add_argument("--roofline", action="store_true",
+                   help="roofline efficiency accounting: an analytic model "
+                        "FLOPs/bytes cost model and the card's data-sheet "
+                        "peaks (the H100 SXM: 989 TFLOP/s bf16/fp16, 67 "
+                        "f32 on the CUDA cores, 3.35 TB/s HBM) → train_mfu "
+                        "in the run report, serve_prefill_mfu / "
+                        "serve_decode_mbu on the serve summary, and a "
+                        "per-program attribution table in the run report "
+                        "('roofline' section; renders offline via the "
+                        "port's `analyze roofline`).  On an unknown card "
+                        "utilizations report null — a peak is never "
+                        "invented.  Host-side only; arms the program "
+                        "ledger")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the fit "
                         "(CPU and CUDA activity) here")
@@ -652,6 +695,9 @@ def main(argv: list[str] | None = None, *, model_fn=None,
         resume=args.resume, elastic_restore=args.elastic_restore,
         watchdog_timeout=args.watchdog_timeout,
         watchdog_abort=args.watchdog_abort, max_restarts=args.max_restarts,
+        nan_guard=not args.no_nan_guard, health=args.health,
+        on_anomaly=args.on_anomaly, roofline=args.roofline,
+        compile_cache=args.compile_cache,
         max_steps_per_lease=args.max_steps_per_lease,
         metrics_path=args.metrics_path, trace_path=args.trace,
         timeline=args.timeline, timeline_interval=args.timeline_interval,

@@ -27,11 +27,26 @@ raw figure (``grad_allreduce_bytes``, ``grad_allreduce_bytes_raw``,
 ``loss_scale`` section (the final scale, the count of skipped steps and up
 to 64 of their numbers), read from the per-step ``loss_scale`` and
 ``ls_skipped`` metrics, which the Trainer then reads every step as the
-JAX Trainer does.  A step the scaler skipped does not trip ``nan_guard``:
-the scaler already answered its non-finite gradients (the JAX Trainer
-waives it through its health policy, which the port does not have yet);
-any other NaN/inf metric raises ``utils.failure.TrainingDiverged``, which
-crash recovery never restarts.
+JAX Trainer does.  ``nan_guard`` checks the metrics read at the log
+cadence: a NaN/inf raises ``utils.failure.TrainingDiverged``, which crash
+recovery never restarts, unless the scaler skipped the step (the scaler
+already answered its non-finite gradients; JAX's cadence check has no
+such waiver, its health policy has).
+
+With the engine's health layer on (``Engine.enable_health``) every step's
+health stats are read at its chunk's flush (each step at k = 1) and
+``on_anomaly`` decides (JAX ``allreduce.py:217-330``): each offending
+stat becomes an ``anomaly`` trace event; ``'halt'`` raises
+``AnomalyDetected`` at the step, after its metrics record is logged;
+under ``'warn'`` a non-finite anomaly stays fatal unless ``nan_guard``
+is False (the cadence check itself is off: health subsumes it), and
+other anomalies warn once.  A step the fp16 scaler skipped is waived: the
+scaler already answered its non-finite gradients.  The result gains a
+``health`` section (the anomaly record and the run maxima).  ``roofline``
+(``observability.roofline.Roofline``) adds the analytic model FLOPs of a
+step, the achieved rate over the fit, ``train_mfu`` and the peak table's
+revision to the result, and the achieved rate of each chunk to the
+timeline.
 
 ``checkpoint_manager`` (``utils/checkpoint.py``) writes a checkpoint at
 the first chunk boundary at or after every ``checkpoint_every`` steps
@@ -59,28 +74,29 @@ and ``prefetch_depth`` at each chunk boundary; ``straggler_detector``
 (``elastic.StragglerDetector``) observes each step time at k = 1 and each
 chunk's average step time in the chunked drain, and its report rides the
 result as ``stragglers``.  None of them reads the device beyond the
-drain's own reads, and none changes a loss.  The health policy
-(``on_anomaly``) and the roofline are not ported: passing either raises
-``NotImplementedError``.
+drain's own reads, and none changes a loss.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import time
 import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.data.device_prefetch import (
     DevicePrefetch)
 from distributed_tensorflow_tpu_torch.elastic.data_state import DataState
 from distributed_tensorflow_tpu_torch.engines.sync import SyncEngine
+from distributed_tensorflow_tpu_torch.observability import health as healthlib
 from distributed_tensorflow_tpu_torch.observability.trace import NULL_TRACER
-from distributed_tensorflow_tpu_torch.utils.failure import check_finite
+from distributed_tensorflow_tpu_torch.utils.failure import (
+    AnomalyDetected, check_finite)
 from distributed_tensorflow_tpu_torch.utils.metrics import StepTimer
 
 # steady-state chunk length when no per-step cadence demands step-granular
@@ -97,16 +113,6 @@ def _check_finite(metrics: dict[str, float], step: int) -> None:
     if metrics.get("ls_skipped"):
         return
     check_finite(metrics, step)
-
-
-def _reject_unported(**given) -> None:
-    items = {
-        "roofline": "roofline, the ledger and the analyzer",
-        "on_anomaly": "health",
-    }
-    for name, value in given.items():
-        if value:
-            not_ported(f"Trainer.fit {name}", items[name])
 
 
 class Trainer:
@@ -185,11 +191,27 @@ class Trainer:
         steps, and ``nan_guard`` checks the metrics read then (and the
         last step's at the end) for NaN/inf.  Step times are chunk
         averages of the non-overlapped wall time between host reads (at
-        k = 1, each step's dispatch)."""
-        _reject_unported(roofline=roofline is not None,
-                         on_anomaly=on_anomaly != "warn")
+        k = 1, each step's dispatch).
+
+        ``on_anomaly`` (``'warn'`` or ``'halt'``) is the health policy
+        with the engine's health layer on; ``roofline`` adds the
+        roofline keys (module docstring)."""
         if tracer is None:
             tracer = NULL_TRACER
+        if on_anomaly not in ("warn", "halt"):
+            raise ValueError(
+                f"on_anomaly must be 'warn' or 'halt', got '{on_anomaly}'")
+        # the health policy (JAX :226-242): with health on the loss-only
+        # guard's cadence checks are off, but divergence stays fatal
+        # under 'warn' unless nan_guard was turned off
+        health_cfg = self.engine.health
+        guard_divergence = nan_guard
+        nan_guard = nan_guard and health_cfg is None
+        h_max: dict = {}
+        anomaly_steps: list[int] = []
+        first_anomaly = None
+        n_anomalies = 0
+        warned_anomaly = False
         if target_accuracy is not None and eval_ds is None:
             raise ValueError("target_accuracy requires eval_ds (nothing "
                              "would ever be evaluated against the target)")
@@ -309,6 +331,15 @@ class Trainer:
             # one beat per dispatch and per flush: the per-step stall
             # budget becomes a per-beat budget of k × timeout
             watchdog.rescale(k)
+        # --roofline: the analytic model FLOPs of one optimizer step (the
+        # GPT family on a (B, L) token batch; else None)
+        rf_flops_step = None
+        if roofline is not None and roofline.cost is not None:
+            xshape = np.shape(train_ds.x)
+            if len(xshape) == 2:
+                rf_flops_step = roofline.cost.train_step_flops(
+                    bs, int(xshape[1]),
+                    grad_accum=int(getattr(eng, "grad_accum", 1) or 1))
         on_card = eng.device.type == "cuda"
         # the gradient exchange's payload under the codec and raw
         grad_bytes = eng.grad_collective_bytes(self.state)
@@ -382,12 +413,56 @@ class Trainer:
                 tracer.event("loss_scale", step=gstep,
                              action="backoff_skip", scale=ls_last_scale)
 
+        def note_health(gstep: int, floats: dict) -> None:
+            """The per-step anomaly policy over the step's floats (JAX
+            ``note_health``): the run maxima, one ``anomaly`` trace event
+            per offending stat, and the response — the step's metrics
+            record is already logged."""
+            nonlocal first_anomaly, n_anomalies, warned_anomaly
+            for stat in ("grad_norm", "update_ratio", "loss_spike"):
+                v = floats.get(stat)
+                if v is not None and math.isfinite(v):
+                    h_max[stat] = max(h_max.get(stat, v), v)
+            anomalies = healthlib.detect_anomalies(floats, health_cfg)
+            if not anomalies:
+                return
+            n_anomalies += len(anomalies)
+            if first_anomaly is None:
+                first_anomaly = gstep
+            if len(anomaly_steps) < 64:  # bounded: a NaN'd run flags every
+                anomaly_steps.append(gstep)  # step until it ends
+            for a in anomalies:
+                tracer.event("anomaly", step=gstep, policy=on_anomaly, **a)
+            a = anomalies[0]
+            if floats.get("ls_skipped"):
+                # the loss scaler already answered this step's non-finite
+                # gradients (skip + backoff); the events above record it
+                return
+            if on_anomaly == "halt":
+                raise AnomalyDetected(
+                    f"health anomaly at step {gstep}: {a['stat']}="
+                    f"{a['value']} ({a['reason']}; limit {a['limit']}) — "
+                    f"halted by on_anomaly='halt'")
+            diverged = [x for x in anomalies if x["kind"] == "nonfinite"]
+            if guard_divergence and diverged:
+                d = diverged[0]
+                raise AnomalyDetected(
+                    f"training diverged at step {gstep}: {d['stat']}="
+                    f"{d['value']} ({d['reason']}) — fatal under the "
+                    f"nan-guard default; pass nan_guard=False "
+                    f"(--no-nan-guard) to record and continue")
+            if not warned_anomaly:
+                warned_anomaly = True
+                log_fn(f"step {gstep}  ANOMALY {a['stat']}={a['value']} "
+                       f"({a['reason']}) — continuing under "
+                       f"on_anomaly='warn'")
+
         def record_step(gstep: int, floats_fn) -> None:
             """The per-step sinks: the metrics logger (first — a diverging
             step's record must reach the sink before the guard raises),
             the log_every heartbeat with its nan guard, then the
-            loss-scale bookkeeping; ``floats_fn`` reads the step's metrics
-            only when one of them needs them."""
+            loss-scale bookkeeping and the health policy; ``floats_fn``
+            reads the step's metrics only when one of them needs them."""
             nonlocal last_metrics
             if metrics_logger is not None and metrics_logger.should_log(
                     gstep):
@@ -404,6 +479,8 @@ class Trainer:
                        f"  acc {m['accuracy']:.4f}")
             if ls_active:
                 note_loss_scale(gstep, floats_fn())
+            if health_cfg is not None:
+                note_health(gstep, floats_fn())
 
         # a failed fit (divergence, a raising engine or log_fn) must not
         # leave a write in flight: the prefetcher closes in its per-epoch
@@ -505,10 +582,15 @@ class Trainer:
                             if timeline is not None:
                                 # chunk step time and prefetch depth at
                                 # the same boundary: no extra reads
-                                timeline.sample_many(
-                                    {"chunk_step_time_s": dt,
-                                     "prefetch_depth": pf.queue_depth},
-                                    group="trainer")
+                                tl_vals = {"chunk_step_time_s": dt,
+                                           "prefetch_depth": pf.queue_depth}
+                                if rf_flops_step is not None and dt > 0:
+                                    # --roofline: the chunk's achieved
+                                    # model-FLOPs rate on the same series
+                                    tl_vals["achieved_flops_per_sec"] = \
+                                        rf_flops_step / dt
+                                timeline.sample_many(tl_vals,
+                                                     group="trainer")
                             timer.times.extend([dt] * n_chunk)
                             if straggler_detector is not None:
                                 # the chunk's average step time against
@@ -627,6 +709,10 @@ class Trainer:
                 except Exception:
                     pass
             raise
+        # --roofline: the achieved model FLOPs over the whole fit (first
+        # chunk's builds and capture included) and its MFU
+        rf_achieved = (rf_flops_step * steps / elapsed
+                       if rf_flops_step and steps and elapsed > 0 else None)
         result = {
             "elapsed": elapsed, "steps": steps, "epochs": epochs,
             "steps_per_call": k, "prefetch_depth": prefetch,
@@ -679,6 +765,24 @@ class Trainer:
                 "skipped_steps": ls_n_skipped,
                 "skipped_step_list": ls_skipped_steps,
             }} if ls_active else {}),
+            # the health record (health on): anomalies and the run maxima
+            **({"health": {
+                "on_anomaly": on_anomaly,
+                "anomalies": n_anomalies,
+                "anomaly_steps": anomaly_steps,
+                "first_anomaly_step": first_anomaly,
+                "max_grad_norm": h_max.get("grad_norm"),
+                "max_update_ratio": h_max.get("update_ratio"),
+                "max_loss_spike": h_max.get("loss_spike"),
+            }} if health_cfg is not None else {}),
+            # --roofline (only then): analytic model FLOPs a step, the
+            # achieved rate and MFU over the run's devices × the peak
+            # (None on an unknown card or a non-GPT model)
+            **({"train_model_flops_per_step": rf_flops_step,
+                "train_achieved_flops_per_sec": rf_achieved,
+                "train_mfu": roofline.mfu(rf_achieved),
+                "roofline_peak_table_revision": roofline.revision}
+               if roofline is not None else {}),
             **{f"final_{k}": v for k, v in last_metrics.items()},
         }
         self.history.append(result)

@@ -52,6 +52,19 @@ the same for a ``state_dict``); the codec's roundtrip sees whole leaves
 optimizer's clip takes the global norm (``_global_norm``): every rank's
 squared norms gathered, a leaf replicated over an axis counted on that
 axis's rank 0 only.
+
+``enable_health`` (``--health on``, before ``init_state``) installs the
+health capture of ``observability/health.py`` on the optimizer
+``init_state`` builds (outside a master policy's ``MasterWeights``), so
+every step's metrics gain the six health keys, computed on the device
+(inside a replayed chunk too) and stacked through ``many_step`` like the
+loss.  The loss EMA behind ``loss_spike`` is a pair of device tensors the
+engine holds (fresh at every ``init_state``, so it restarts on a
+resume); the capture's step count is a checkpoint entry.  Where ranks
+hold slices, the stats are the whole model's (``_health_reduce``, the
+recipe clip's weighting); where they hold their own copies, the worst
+rank's norms and ratio and the sum of the counts.  With health off
+nothing is wrapped and nothing extra runs.
 """
 
 from __future__ import annotations
@@ -66,6 +79,9 @@ from torch import nn
 from torch.nn.parameter import is_lazy
 
 from distributed_tensorflow_tpu_torch import resolve_device
+from distributed_tensorflow_tpu_torch.observability import health as hl
+from distributed_tensorflow_tpu_torch.observability.roofline import (
+    GPTCostModel)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import compression
 from distributed_tensorflow_tpu_torch.parallel import overlap
@@ -199,6 +215,11 @@ class Engine:
     # axis its spec names first, along a new leading dim (a pipeline
     # stage's block)
     stacked_params: frozenset = frozenset()
+    # the health layer's config (enable_health); None: health off
+    health = None
+    # the program ledger (observability/xla_stats.ProgramLedger) a
+    # capturing engine records its chunk graphs in; None: off
+    ledger = None
 
     def __init__(self, model, optimizer: Callable | None = None, mesh=None,
                  learning_rate: float = 1e-3, grad_compression: str = "none",
@@ -237,6 +258,80 @@ class Engine:
             optimizer if optimizer is not None else
             lambda params: torch.optim.Adam(params, lr=learning_rate,
                                             capturable=capturable))
+        self._state_built = False
+        self._health_ema = None
+
+    # -------------------------------------------------------------- health
+    def enable_health(self, config=None):
+        """Turn on the numeric-health layer (``--health on``; JAX
+        ``Engine.enable_health``): the optimizer that ``init_state``
+        builds gets the capture of ``observability/health.py``, so every
+        later step's metrics carry ``grad_norm``, ``param_norm``,
+        ``update_norm``, ``update_ratio``, ``nonfinite_count`` and
+        ``loss_spike``, computed on the device.  Must run before
+        ``init_state``/the first step.  Returns the config."""
+        if self.health is not None:
+            return self.health
+        if self._state_built:
+            raise RuntimeError(
+                "enable_health() must run before the engine builds its "
+                "step program or initializes state (the optimizer tree "
+                "gains capture slots at tx.init)")
+        self.health = config if config is not None else hl.HealthConfig()
+        return self.health
+
+    def _install_health(self, optimizer) -> None:
+        scale = (precisionlib.loss_scale_from(optimizer)
+                 if self.precision.loss_scaling else None)
+        hl.wrap_optimizer(optimizer, self.health,
+                          list(self.model.parameters()),
+                          reduce=self._health_reduce, loss_scale=scale)
+        self._health_ema = hl.ema_init(self.device)
+
+    def _health_reduce(self, gsq, psq, usq, flags) -> dict:
+        """The five captured stats from this rank's per-parameter squared
+        norms and non-finite flags (``health.local_stats``), over the
+        whole model where ranks hold slices (each leaf's squares weighted
+        by ``_norm_weights`` and summed over every rank; a leaf non-finite
+        where any rank's slice is, counted once), and as the worst rank's
+        norms and ratio and the sum of the counts where ranks hold their
+        own copies (``checkpoint_per_rank``).  One gather of this rank's
+        values, only over more than one rank."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            return hl.local_stats(gsq, psq, usq, flags)
+        if self.checkpoint_per_rank:
+            local = hl.local_stats(gsq, psq, usq, flags)
+            row = torch.stack([local[k].float() for k in hl.HEALTH_KEYS[:5]])
+            rows = coll.all_gather(row, self.mesh).reshape(-1, 5)
+            worst = rows[:, :4].amax(0)
+            return {"grad_norm": worst[0], "param_norm": worst[1],
+                    "update_norm": worst[2], "update_ratio": worst[3],
+                    "nonfinite_count": rows[:, 4].sum().to(torch.int32)}
+        if not self.param_specs:
+            return hl.local_stats(gsq, psq, usq, flags)
+        w = self._norm_w > 0
+        sq = torch.stack([torch.where(w, v, torch.zeros_like(v))
+                          for v in (gsq, psq, usq)] + [flags.float()])
+        every = coll.all_gather(sq, self.mesh).reshape(-1, *sq.shape)
+        sums = every[:, :3].sum(0)
+        return hl.local_stats(sums[0], sums[1], sums[2],
+                              every[:, 3].amax(0) > 0)
+
+    def _health_metrics(self, state: TrainState, metrics: dict) -> dict:
+        """The step's health keys: the capture's stats and the loss spike
+        against the engine's EMA (updated in place)."""
+        stats = hl.from_opt_state(state.optimizer)
+        if "loss" in metrics:
+            stats["loss_spike"] = hl.ema_update_(
+                metrics["loss"], self._health_ema, self.health)
+        return stats
+
+    def roofline_model(self):
+        """Analytic cost model of this engine's model for ``--roofline``
+        (``observability/roofline.py``), or None for families the analytic
+        accounting does not cover (CNN, MLP, BERT: their MFU then reports
+        None, never a GPT formula applied to another architecture)."""
+        return GPTCostModel.from_model(self.model)
 
     @property
     def stream_words(self) -> tuple[int, ...]:
@@ -283,10 +378,14 @@ class Engine:
                 seed, *self.codec_stream_words, compression.RNG_TAG))
         optimizer = self.make_optimizer(list(self.model.parameters()))
         inner = precisionlib.strip_master(optimizer)
-        if self.param_specs and hasattr(inner, "global_norm"):
+        if self.param_specs and self.mesh is not None:
             # the weights on the device once: a step reads no host value
             self._norm_w = self._norm_weights()
-            inner.global_norm = self._global_norm
+            if hasattr(inner, "global_norm"):
+                inner.global_norm = self._global_norm
+        if self.health is not None:
+            self._install_health(optimizer)
+        self._state_built = True
         return TrainState(step=0, model=self.model, optimizer=optimizer,
                           generator=stream, codec_generator=codec_stream,
                           seed=seed, engine=self)
@@ -472,10 +571,13 @@ class Engine:
         """One training step (the subclass's ``_step``); under fp16 loss
         scaling the metrics gain ``loss_scale`` (the scale after the step)
         and ``ls_skipped`` (1 where non-finite gradients skipped it), read
-        from the device like the loss (JAX ``_precision_wrap``)."""
+        from the device like the loss (JAX ``_precision_wrap``), and with
+        health on the six health keys (JAX ``_health_wrap``)."""
         state, metrics = self._step(state, x, y)
         if self.precision.loss_scaling:
             metrics.update(precisionlib.scale_stats_from(state.optimizer))
+        if self.health is not None:
+            metrics.update(self._health_metrics(state, metrics))
         return state, metrics
 
     def _step(self, state: TrainState, x, y):

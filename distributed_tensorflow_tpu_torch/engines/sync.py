@@ -40,12 +40,15 @@ unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 
 import torch
 
 from distributed_tensorflow_tpu_torch.engines.base import (
     Engine, TrainState, all_reduce_grads_, make_loss_fn)
+from distributed_tensorflow_tpu_torch.observability.xla_stats import (
+    count_flops)
 from distributed_tensorflow_tpu_torch.parallel import collectives as coll
 from distributed_tensorflow_tpu_torch.parallel import compression
 from distributed_tensorflow_tpu_torch.parallel import overlap
@@ -149,6 +152,11 @@ class _BucketReducer:
             h.remove()
 
 
+def chunk_name(k: int) -> str:
+    """The program ledger's name of a captured chunk of ``k`` steps."""
+    return f"train_chunk_k{k}"
+
+
 class _ChunkGraph:
     """A chunk of k steps of one ``TrainState`` captured as one CUDA
     graph, with the static buffers it reads (the k batches) and writes
@@ -159,7 +167,9 @@ class _ChunkGraph:
     advances the dropout generator by what its steps draw; the launch
     counters then move by what the capture recorded, since the capture
     itself launched nothing.  ``captures`` and ``replays`` count the
-    class's graphs and launches of them, in every engine."""
+    class's graphs and launches of them, in every engine.  With the
+    engine's program ledger (``ledger``) the capture is recorded there
+    (``chunk_name``: its wall time and the memory allocated during it)."""
 
     captures = 0
     replays = 0
@@ -182,11 +192,14 @@ class _ChunkGraph:
         gc.collect()
         gc_was_on = gc.isenabled()
         gc.disable()
+        observed = (contextlib.nullcontext() if engine.ledger is None else
+                    engine.ledger.observe(chunk_name(len(xs)),
+                                          engine.device))
         try:
             # thread-local: the capture forbids unsafe calls to this thread
             # only, not to the NCCL watchdog's or the autograd engine's
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
+            with observed, torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
                 _, self.metrics = Engine.many_step(engine, state, self.xs,
                                                    self.ys)
         finally:
@@ -414,12 +427,20 @@ class SyncEngine(Engine):
 
     def _warm_up(self, state: TrainState, xs_seq, ys_seq):
         """The eager chunk before a capture, on a side stream as PyTorch's
-        CUDA-graph recipe warms up; the caller's stream waits for it."""
+        CUDA-graph recipe warms up; the caller's stream waits for it.
+        With a program ledger its FLOPs are counted
+        (``xla_stats.count_flops``) and recorded for the chunk."""
         here = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            state, metrics = super().many_step(state, xs_seq, ys_seq)
+            if self.ledger is None:
+                state, metrics = super().many_step(state, xs_seq, ys_seq)
+            else:
+                # the chunk's FLOPs, counted on this eager run only
+                (state, metrics), flops = count_flops(
+                    super().many_step, state, xs_seq, ys_seq)
+                self.ledger.add_flops(chunk_name(len(xs_seq)), flops)
         here.wait_stream(side)
         for v in metrics.values():
             v.record_stream(here)

@@ -20,8 +20,11 @@ questions a throughput number alone cannot:
 unchanged.  ``runtime_environment`` reports what makes a card's number
 attributable: torch, CUDA and NCCL versions, the device's name and its
 power limit, in place of JAX's ``jax_version``, ``xla_flags`` and
-``libtpu_init_args``.  The ledger and roofline sections report None
-(ROADMAP Queue 1 item 9c).
+``libtpu_init_args``.  With the program ledger
+(``xla_stats.ProgramLedger``) the report carries its manifest (``xla``)
+and ``peak_hbm_bytes_est``; with a ``roofline.Roofline`` the
+``roofline`` section (train and serve utilizations, the device's peaks,
+the per-program attribution) and ``train_mfu``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from typing import Any
 
 import torch
 
-from distributed_tensorflow_tpu_torch import not_ported
 from distributed_tensorflow_tpu_torch.observability.sink import SCHEMA_VERSION
 
 
@@ -115,12 +117,11 @@ def build_run_report(fit_result: dict[str, Any], *,
     regression gating training has (`analyze diff` flattens the nested
     serve_* keys).
 
-    ``ledger`` and ``roofline`` (the compile/memory ledger and the
-    roofline, ROADMAP Queue 1 item 9c) are not ported: their sections
-    report None, and passing either raises."""
-    if ledger is not None or roofline is not None:
-        not_ported("build_run_report ledger/roofline",
-                   "roofline, the ledger and the analyzer")
+    ``ledger`` (``xla_stats.ProgramLedger``) adds its manifest as the
+    ``xla`` section, with ``peak_hbm_bytes_est`` and the ledger's seconds
+    in ``compile_total_s`` hoisted; ``roofline``
+    (``roofline.Roofline``) adds the ``roofline`` section and
+    ``train_mfu`` (only then: the key set without it is unchanged)."""
     st = fit_result.get("step_time") or {}
     elapsed = float(fit_result.get("elapsed") or 0.0)
 
@@ -240,12 +241,13 @@ def build_run_report(fit_result: dict[str, Any], *,
     if metrics_logger is not None:
         overhead += getattr(metrics_logger, "overhead_s", 0.0)
 
-    # --timeline sections (None when sampling is off — "disabled" stays
-    # distinguishable from "measured zero"): `timeline`, per-series
-    # digests + the sampler's own measured cost (the < 1% budget is
-    # reported, not assumed).  The ledger's `xla` manifest and
-    # `peak_hbm_bytes_est` report None until the ledger is ported;
-    # compile_total_s is the `compile` span total alone.
+    # --timeline sections (None when sampling or the ledger is off —
+    # "disabled" stays distinguishable from "measured zero"): `timeline`,
+    # per-series digests + the sampler's own measured cost (the < 1%
+    # budget is reported, not assumed); `xla`, the program ledger's
+    # manifest, with peak_hbm_bytes_est (the per-program peaks summed)
+    # and compile_total_s (the `compile` span total + the ledger's
+    # captures, builds and first calls) hoisted for `analyze diff`.
     compile_span_s = 0.0
     if tracer is not None and tracer.enabled:
         compile_span_s = (tracer.span_summary().get("compile") or
@@ -261,10 +263,61 @@ def build_run_report(fit_result: dict[str, Any], *,
         overhead += timeline.overhead_s
     else:
         report["timeline"] = None
-    report["xla"] = None
-    report["peak_hbm_bytes_est"] = None
-    report["compile_total_s"] = (round(compile_span_s, 6)
-                                 if compile_span_s else None)
+    if ledger is not None:
+        manifest = ledger.manifest()
+        report["xla"] = manifest
+        report["peak_hbm_bytes_est"] = manifest["peak_hbm_bytes_est"]
+        report["compile_total_s"] = round(
+            compile_span_s + manifest["compile_total_s"], 6)
+    else:
+        report["xla"] = None
+        report["peak_hbm_bytes_est"] = None
+        report["compile_total_s"] = (round(compile_span_s, 6)
+                                     if compile_span_s else None)
+
+    # --roofline section, ONLY when a Roofline was given (the key set
+    # without it is unchanged): the train half echoes the Trainer's
+    # roofline keys, the serve half the serve section's own roofline
+    # block, and `programs` is the per-program attribution table from the
+    # ledger's manifest (intensity, bound, attainable fraction of peak;
+    # None columns where the ledger measured no FLOPs or bytes)
+    if roofline is not None:
+        from distributed_tensorflow_tpu_torch.observability.roofline import (
+            flops_crosscheck, program_attribution)
+
+        rf_train = {
+            "model_flops_per_step": fit_result.get(
+                "train_model_flops_per_step"),
+            "achieved_flops_per_sec": fit_result.get(
+                "train_achieved_flops_per_sec"),
+            "mfu": fit_result.get("train_mfu"),
+        }
+        programs = None
+        if ledger is not None:
+            manifest = report["xla"] or {}
+            programs = program_attribution(
+                manifest.get("programs", {}),
+                peaks=roofline.peaks, dtype=roofline.dtype)
+            # the measured-vs-analytic cross-check on the training chunk
+            # (None when either side is missing): a captured chunk
+            # ``train_chunk_k<k>`` counted k steps' FLOPs
+            name, xla_train = next(
+                ((name, rec.get("flops"))
+                 for name, rec in manifest.get("programs", {}).items()
+                 if "train" in name and rec.get("flops")), (None, None))
+            steps = (int(name.rpartition("_k")[2])
+                     if name and name.startswith("train_chunk_k") else 1)
+            model = rf_train["model_flops_per_step"]
+            rf_train["xla_flops_crosscheck"] = flops_crosscheck(
+                model * steps if model else None, xla_train)
+        report["roofline"] = {
+            "device": roofline.describe(),
+            "train": rf_train,
+            "serve": (serve or {}).get("roofline"),
+            "programs": programs,
+        }
+        # hoisted for `analyze diff`'s higher-is-better gate
+        report["train_mfu"] = fit_result.get("train_mfu")
 
     # execution environment (torch, CUDA and NCCL versions, the card and
     # its power limit): report trajectories stay attributable across

@@ -8,10 +8,18 @@ anew, an unchanged one loads the library already there.  Nothing is
 compiled at import time.  ``ptxas -v`` reports each kernel's registers,
 spills and shared memory; the report is kept beside the library
 (``<name>-<hash>.log``) and in ``build_logs``.
+
+``set_build_dir`` points the cache elsewhere (the CLI's
+``--compile-cache DIR``: repeat runs with the same directory load the
+libraries already built there).  A program ledger
+(``observability.xla_stats.ProgramLedger``) given to ``watch_builds``
+records each library built while it is watched as ``nvcc_<name>`` with
+the ``nvcc`` wall time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,6 +39,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 build_seconds: dict[str, float] = {}
 # nvcc's output (the ptxas report) of each library loaded in this process
 build_logs: dict[str, str] = {}
+# the program ledgers recording each build (watch_builds)
+_ledgers: list = []
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under ``path`` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
+
+
+@contextlib.contextmanager
+def watch_builds(ledger):
+    """Record every library built inside the block in ``ledger``."""
+    _ledgers.append(ledger)
+    try:
+        yield ledger
+    finally:
+        _ledgers.remove(ledger)
 
 
 def _nvcc() -> str:
@@ -67,6 +94,8 @@ def load(name: str) -> ctypes.CDLL:
             log.write_text(proc.stdout + proc.stderr)
             os.replace(out, lib)   # atomic: a reader never sees half a file
         build_seconds[name] = time.perf_counter() - t0
+        for ledger in _ledgers:
+            ledger.record(f"nvcc_{name}", compile_s=build_seconds[name])
     else:
         build_seconds.setdefault(name, 0.0)
     build_logs[name] = log.read_text() if log.exists() else ""

@@ -346,7 +346,8 @@ def optimizer_entries(model: nn.Module, optimizer) -> dict[str, torch.Tensor]:
     the parameter (the inner optimizer's under a master policy, whose
     flat entries are cut per parameter and whose scalar entries, Adam's
     count, appear under every name); a ``MasterWeights`` adds
-    ``master/<name>`` and its four ``scale/*`` fields."""
+    ``master/<name>`` and its four ``scale/*`` fields, and the health
+    capture (``observability/health.py``) its ``health/count``."""
     names = {id(p): n for n, p in model.named_parameters()}
     out: dict[str, torch.Tensor] = {}
     if isinstance(optimizer, MasterWeights):
@@ -371,12 +372,16 @@ def optimizer_entries(model: nn.Module, optimizer) -> dict[str, torch.Tensor]:
                     out[f"opt/{n}/{key}"] = v
         for key in ("loss_scale", "good_steps", "skipped", "last_skipped"):
             out[f"scale/{key}"] = getattr(m, key)
-        return out
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            for key, v in optimizer.state.get(p, {}).items():
-                if isinstance(v, torch.Tensor):
-                    out[f"opt/{names[id(p)]}/{key}"] = v
+    else:
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                for key, v in optimizer.state.get(p, {}).items():
+                    if isinstance(v, torch.Tensor):
+                        out[f"opt/{names[id(p)]}/{key}"] = v
+    capture = getattr(optimizer, "health_capture", None)
+    if capture is not None:
+        # the health capture's step count (JAX keeps it in opt_state)
+        out["health/count"] = capture.count
     return out
 
 
@@ -394,7 +399,10 @@ def materialize_optimizer_state(optimizer) -> None:
     saved = [(p.detach().clone(), p.grad) for p in params]
     for p in params:
         p.grad = torch.zeros_like(p)
-    opt.step()
+    # the optimizer's own step: a health capture around it
+    # (observability/health.py) must not count this one
+    capture = getattr(opt, "health_capture", None)
+    (opt.step if capture is None else capture.inner_step)()
     for p, (value, grad) in zip(params, saved):
         p.copy_(value)
         p.grad = grad
@@ -433,7 +441,7 @@ def f32_layout(state) -> dict[str, tuple[torch.Size, torch.dtype]]:
         out[f"model/{k}"] = (v.shape, torch.float32 if k in floats
                              else v.dtype)
     for k, v in optimizer_entries(state.model, state.optimizer).items():
-        if k.startswith("opt/"):
+        if k.startswith(("opt/", "health/")):
             out[k] = (v.shape, v.dtype)
     return out
 
@@ -456,7 +464,7 @@ def adopt_f32_checkpoint(state, d: dict, policy: PrecisionPolicy):
             sd[k[len("model/"):]].copy_(v)
     live = optimizer_entries(state.model, state.optimizer)
     for k, v in d.items():
-        if k.startswith("opt/"):
+        if k.startswith(("opt/", "health/")):
             live[k].copy_(v)
     return state
 

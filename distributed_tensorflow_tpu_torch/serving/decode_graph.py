@@ -16,9 +16,14 @@ is the table's, so it replays for that table only.  The table's sampling
 generator is registered with the graph, so that a replay advances its
 Philox offset by what ``k`` eager steps draw.  A TP table's round holds
 NCCL calls and is never captured: its ``eager_rounds`` runs it eagerly.
+With the table's program ledger each capture is recorded there under
+JAX's name of the round (``kv_decode_multi_k<k>``, paged
+``kv_paged_decode_multi_k<k>``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -50,11 +55,14 @@ class RoundGraph:
             self.graph.register_generator_state(kv.generator)
         counters = _launch_counters()
         before = [getattr(fn, name) for fn, name in counters]
+        observed = (contextlib.nullcontext() if kv._ledger is None else
+                    kv._ledger.observe(f"{kv._PROGRAM}_decode_multi_k{k}",
+                                       kv.device))
         try:
             # thread-local: the capture forbids unsafe calls to this thread
             # only
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
+            with observed, torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
                 kv._round_body(self.k)
         finally:
             self.counts = []

@@ -86,13 +86,21 @@ table's decode round holds NCCL calls (the row-parallel sums, the
 embedding's and the head's gather), so it runs eagerly, never captured
 (``eager_rounds``).
 
-Not ported yet, raising ``NotImplementedError``: the compile/memory
-ledger; the disaggregated handoff and ``swap_params`` (the fleet's) are
-absent.
+``ledger`` (``observability.xla_stats.ProgramLedger``, JAX
+``SlotKVCache(ledger=)``): the first call of each entry point per shape
+signature (a prefill chunk of ``n`` tokens, the decode step, a verify of
+``width`` columns) and each captured round is recorded under JAX's
+program name (``kv_prefill_chunk_l<n>``, ``kv_decode_step``,
+``kv_verify_w<width>``, ``kv_decode_multi_k<k>``; ``kv_paged_…`` for the
+paged table) with its wall time and the card's memory around it.  It
+observes and changes nothing that runs.
+
+The disaggregated handoff and ``swap_params`` (the fleet's) are absent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 from collections import OrderedDict
@@ -100,7 +108,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from distributed_tensorflow_tpu_torch import not_ported, resolve_device
+from distributed_tensorflow_tpu_torch import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import (
     decode_model, sample_tokens)
 from distributed_tensorflow_tpu_torch.parallel import mesh as meshlib
@@ -158,9 +166,6 @@ class SlotKVCache:
         if kv_layout == "monolithic" and (paged_blocks or paged_block):
             raise ValueError("paged_blocks/paged_block only apply to "
                              "kv_layout='paged'")
-        if ledger is not None:
-            not_ported("the compile/memory ledger",
-                       "roofline, the ledger and the analyzer")
         if slots < 1:
             raise ValueError(f"slots must be positive, got {slots}")
         if prefix_cache_blocks < 0:
@@ -171,6 +176,7 @@ class SlotKVCache:
                              f"{prefix_block}")
         self.kv_layout = kv_layout
         self.device = resolve_device(device)
+        self._ledger = ledger
         self.slots = int(slots)
         self.max_len = int(model.max_len)
         self.greedy = bool(greedy)
@@ -253,6 +259,18 @@ class SlotKVCache:
         the prefix pool's restore and the copy-on-write write in place."""
         self._graphs.clear()
         self._eager_rounds.clear()
+
+    # the program-name prefix the ledger records this layout's entry
+    # points under (JAX's names)
+    _PROGRAM = "kv"
+
+    def _observed(self, name: str, signature=()):
+        """The ledger's record of the first call of entry point ``name``
+        per ``signature`` (a null context without a ledger)."""
+        if self._ledger is None:
+            return contextlib.nullcontext()
+        return self._ledger.first_call(f"{self._PROGRAM}_{name}",
+                                       signature, self.device)
 
     def _layer_cache(self, lead: tuple, names: tuple, kv_heads: int) -> dict:
         """One layer's zero KV leaves: (*lead, KVH, D) payload at the
@@ -384,21 +402,22 @@ class SlotKVCache:
         final = filled + n == lp
         self._ensure_writable(slot, filled, filled + n)
         t0 = time.perf_counter()
-        if getattr(self.model, "moe_experts", 0):
-            # one token at a time, as JAX's prefill scan: a MoE block
-            # routes the tokens of one forward together, against one
-            # capacity, so a many-token forward would drop others
-            for j in range(filled, filled + n):
+        with self._observed(f"prefill_chunk_l{n}", n):
+            if getattr(self.model, "moe_experts", 0):
+                # one token at a time, as JAX's prefill scan: a MoE block
+                # routes the tokens of one forward together, against one
+                # capacity, so a many-token forward would drop others
+                for j in range(filled, filled + n):
+                    logits = self._prefill_forward(
+                        slot, pend["prompt"][None, j:j + 1],
+                        np.full((1, 1), j, dtype=np.int32))
+            else:
                 logits = self._prefill_forward(
-                    slot, pend["prompt"][None, j:j + 1],
-                    np.full((1, 1), j, dtype=np.int32))
-        else:
-            logits = self._prefill_forward(
-                slot, pend["prompt"][None, filled:filled + n],
-                np.arange(filled, filled + n, dtype=np.int32)[None, :])
-        # materialized before host state flips: a device error surfaces
-        # while the slot is still pending
-        first = int(self._sample(logits[:, -1])[0])
+                    slot, pend["prompt"][None, filled:filled + n],
+                    np.arange(filled, filled + n, dtype=np.int32)[None, :])
+            # materialized before host state flips: a device error
+            # surfaces while the slot is still pending
+            first = int(self._sample(logits[:, -1])[0])
         self._phase_s["prefill_s"] += time.perf_counter() - t0
         self.dispatch_count += 1
         pend["filled"] = filled + n
@@ -462,9 +481,10 @@ class SlotKVCache:
         uninterrupted decode loop uploads nothing."""
         mask = self.active if only is None else np.asarray(only, np.bool_)
         t0 = time.perf_counter()
-        logits = self.decode_logits(mask)
-        d_nxt = self._sample(logits)
-        nxt = d_nxt.cpu().numpy().astype(np.int32)
+        with self._observed("decode_step"):
+            logits = self.decode_logits(mask)
+            d_nxt = self._sample(logits)
+            nxt = d_nxt.cpu().numpy().astype(np.int32)
         self._phase_s["decode_s"] += time.perf_counter() - t0
         self.dispatch_count += 1
         d_mask = self._dev_cached("mask", mask)
@@ -760,7 +780,9 @@ class SlotKVCache:
         scheduler commits, and rejected positions are invalidated by
         length bookkeeping alone.  Greedy only."""
         t0 = time.perf_counter()
-        g = self.verify_logits(block).argmax(-1).cpu().numpy()
+        with self._observed(f"verify_w{np.shape(block)[1]}",
+                            np.shape(block)[1]):
+            g = self.verify_logits(block).argmax(-1).cpu().numpy()
         self._phase_s["decode_s"] += time.perf_counter() - t0
         self.dispatch_count += 1
         return g.astype(np.int32)
@@ -982,6 +1004,8 @@ class PagedSlotKVCache(SlotKVCache):
     ``paged_block`` (default ``prefix_block``) must divide ``max_len`` and
     equal ``prefix_block`` when the prefix pool is on: a hit aliases pool
     blocks by id."""
+
+    _PROGRAM = "kv_paged"
 
     def __init__(self, model, params, slots: int, *, kv_layout: str = "paged",
                  prefix_cache_blocks: int = 0, prefix_block: int = 16,

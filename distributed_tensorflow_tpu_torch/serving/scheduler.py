@@ -56,8 +56,18 @@ table's model is cut over more than one 'model' rank.
   ``queue_depth_auc``, ``kv_blocks_in_use_p95`` and
   ``timeline_overhead_s`` (only then).
 
-Disaggregated roles/handoff and the roofline are not ported yet and
-raise ``NotImplementedError``.
+* ``roofline`` (``observability.roofline.Roofline`` built for this
+  table, ``Roofline.for_kv``): the batcher tallies the analytic model
+  FLOPs of every prefill (the positions actually computed, plus one LM
+  head a completed prefill) and decode or verify, and the bytes a decode
+  must read, in host counters at boundaries that already exist (no
+  device read); the summary then gains ``serve_prefill_mfu``,
+  ``serve_decode_mbu`` and a ``roofline`` section (only then), their
+  rates over the table's own prefill and decode seconds.  The draft's
+  work is not counted.
+
+Disaggregated roles/handoff are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -314,13 +324,14 @@ class ContinuousBatcher:
                 f"dispatch, got {multi_step}")
         if role is not None or handoff_out is not None:
             not_ported("disaggregated roles / KV handoff", "fleet")
-        if roofline is not None:
-            not_ported("the batcher's roofline",
-                       "roofline, the ledger and the analyzer")
         self.kv = kv
         self.draft_kv = draft_kv
         self.draft_k = int(draft_k)
         self.multi_step = None if multi_step is None else int(multi_step)
+        # --roofline: the analytic cost model of this table's model (the
+        # target's work only: a draft's is never credited)
+        self.roofline = roofline
+        self._rf_cost = roofline.cost if roofline is not None else None
         self.tracer = tracer
         self.clock = clock if clock is not None else WallClock()
         self.mode = mode
@@ -374,6 +385,13 @@ class ContinuousBatcher:
         with tracer.span("prefill", rid=req.rid, prompt_len=lp):
             slot, first = kv.insert(req.prompt)
         self.clock.on_prefill(kv.prefill_tokens_computed - before)
+        if self._rf_cost is not None:
+            # the positions computed (a prefix hit of r tokens leaves
+            # r..lp, attending over the cached ones) and one LM head
+            done = kv.prefill_tokens_computed - before
+            self._rf_prefill_flops += (
+                self._rf_cost.prefill_chunk_flops(done, lp - done)
+                + self._rf_cost.lm_head_flops)
         if hasattr(kv, "note_admission"):
             # the paged block budget (prompt + decode growth) for can_admit
             kv.note_admission(slot, lp + req.max_new_tokens)
@@ -639,6 +657,13 @@ class ContinuousBatcher:
                          slot=slot, tokens=n, start=start):
             first = kv.prefill_chunk(slot, self.prefill_chunk)
         clock.on_prefill(n)
+        if self._rf_cost is not None:
+            # n new positions over `start` cached ones; the LM head once,
+            # on the final chunk's sample
+            self._rf_prefill_flops += self._rf_cost.prefill_chunk_flops(
+                n, start)
+            if first is not None:
+                self._rf_prefill_flops += self._rf_cost.lm_head_flops
         if first is None:
             return 1, 0
         pending.pop(slot)
@@ -675,17 +700,20 @@ class ContinuousBatcher:
             dc, dp = self._chunk_pass(live, pending, on_token)
             chunks += dc
             prefills += dp
-            handle = None
+            handle = pre = None
             # slots the device halted (EOS/budget mid-round) never
             # dispatch again: they finish at this round's drain
             if live and any(not kv.halted[s] for s in live):
+                # the host lengths at dispatch (JAX's roofline contexts)
+                pre = kv.lengths.copy()
                 with tracer.span("decode_dispatch", active=len(live), k=k):
                     handle = kv.dispatch_multi(k)
             if inflight is not None:
-                toks, acts = kv.drain_multi(inflight)
+                h, pre_prev = inflight
                 inflight = None
-                decode_iterations += self._deliver_multi(live, toks, acts,
-                                                         on_token)
+                toks, acts = kv.drain_multi(h)
+                decode_iterations += self._deliver_multi(
+                    live, toks, acts, pre_prev, on_token)
                 # a live slot still halted after delivery met the device's
                 # stop conditions without ``_finished`` agreeing: only the
                 # table's end (length == max_len) does that
@@ -698,7 +726,7 @@ class ContinuousBatcher:
                             "requested — admission must bound "
                             "prompt+max_new_tokens to max_len")
             if handle is not None:
-                inflight = handle
+                inflight = (handle, pre)
                 continue
             if live or pending:
                 continue
@@ -708,19 +736,24 @@ class ContinuousBatcher:
         return decode_iterations, prefills, chunks
 
     def _deliver_multi(self, live: dict[int, _Live], toks: np.ndarray,
-                       acts: np.ndarray,
+                       acts: np.ndarray, pre: np.ndarray,
                        on_token: Callable[[int, int], None] | None) -> int:
         """Replay a drained (k, slots) stack level by level as if each
         level were one decode iteration → the iterations delivered.  Each
         non-empty level advances the clock once and stamps each of its
         tokens with ``now - last_t``: under ``VirtualClock`` the k = 1
         attribution exactly.  Levels where every slot had stopped deliver
-        nothing and are not counted."""
+        nothing and are not counted.  ``pre``: the host lengths at the
+        round's dispatch (the roofline's contexts)."""
         clock = self.clock
         iterations = 0
         for j in range(acts.shape[0]):
             if not acts[j].any():
                 continue
+            if self._rf_cost is not None:
+                # level j's context: the dispatch-time length + j
+                self._tally_decode([int(pre[s]) + j for s in sorted(live)
+                                    if acts[j, s]])
             clock.on_decode_iteration()
             now = clock.now()
             iterations += 1
@@ -747,10 +780,23 @@ class ContinuousBatcher:
         up to ``draft_k + 1`` from a draft-k → verify-1 round."""
         k_eff = self._spec_k(live) if self.draft_kv is not None else 0
         if k_eff < 1:
+            if self._rf_cost is not None:
+                self._tally_decode([int(self.kv.lengths[s])
+                                    for s in sorted(live)])
             with self.tracer.span("decode_step", active=len(live)):
                 toks = self.kv.advance()
             return {slot: [int(toks[slot])] for slot in live}
         return self._spec_round(live, k_eff)
+
+    def _tally_decode(self, contexts: list[int]) -> None:
+        """The roofline's decode tallies of one step over slots at these
+        context lengths: each slot's token FLOPs, and the step's
+        must-read bytes (the weights once, each slot's KV)."""
+        if contexts:
+            self._rf_decode_flops += sum(
+                self._rf_cost.decode_flops_per_token(c) for c in contexts)
+            self._rf_decode_bytes += self._rf_cost.decode_step_bytes(
+                contexts)
 
     def _spec_k(self, live: dict[int, _Live]) -> int:
         """This round's draft budget: ``draft_k`` capped by the room left
@@ -775,6 +821,14 @@ class ContinuousBatcher:
         kv, draft, tracer = self.kv, self.draft_kv, self.tracer
         slots = sorted(live)
         base = {s: int(kv.lengths[s]) for s in slots}
+        if self._rf_cost is not None:
+            # the target's verify FLOPs; the bytes of one step (the
+            # verify width widens activations, not weight or KV reads)
+            self._rf_decode_flops += sum(
+                self._rf_cost.verify_flops(base[s], k_eff + 1)
+                for s in slots)
+            self._rf_decode_bytes += self._rf_cost.decode_step_bytes(
+                [base[s] for s in slots])
         block = np.zeros((kv.slots, k_eff + 1), np.int32)
         block[:, 0] = kv.tokens
         with tracer.span("draft_propose", active=len(live), k=k_eff):
@@ -843,6 +897,11 @@ class ContinuousBatcher:
         self._accepted = 0
         self._draft_iterations = 0
         self._draft_catchup = 0
+        # the roofline's tallies (stay 0 without one): analytic model
+        # FLOPs of prefill and decode, a decode's must-read bytes
+        self._rf_prefill_flops = 0.0
+        self._rf_decode_flops = 0.0
+        self._rf_decode_bytes = 0.0
         if self.slo is not None:
             self.slo.reset()   # one monitor measures one window
         live: dict[int, _Live] = {}
@@ -1010,6 +1069,35 @@ class ContinuousBatcher:
             "device_phase_s": device_phase,
             "results": results,
         }
+        if self.roofline is not None:
+            # only with a Roofline (the key set without it is unchanged):
+            # the analytic tallies over the table's own phase seconds;
+            # None on an unknown card (a peak is never invented)
+            rf = self.roofline
+            pre_s = device_phase.get("prefill_s", 0.0)
+            dec_s = device_phase.get("decode_s", 0.0)
+            pre_fps = (self._rf_prefill_flops / pre_s
+                       if pre_s > 0 else None)
+            dec_fps = (self._rf_decode_flops / dec_s
+                       if dec_s > 0 else None)
+            dec_bps = (self._rf_decode_bytes / dec_s
+                       if dec_s > 0 else None)
+            summary["serve_prefill_mfu"] = rf.mfu(pre_fps)
+            summary["serve_decode_mbu"] = rf.mbu(dec_bps)
+            summary["roofline"] = {
+                "prefill_model_flops": self._rf_prefill_flops,
+                "decode_model_flops": self._rf_decode_flops,
+                "decode_must_read_bytes": self._rf_decode_bytes,
+                "prefill_s": pre_s,
+                "decode_s": dec_s,
+                "prefill_achieved_flops_per_sec": pre_fps,
+                "decode_achieved_flops_per_sec": dec_fps,
+                "decode_achieved_bytes_per_sec": dec_bps,
+                "prefill_mfu": rf.mfu(pre_fps),
+                "decode_mfu": rf.mfu(dec_fps),
+                "decode_mbu": rf.mbu(dec_bps),
+                "device": rf.describe(),
+            }
         if self.multi_step is not None:
             # only with the option set (the key set without it is the
             # single-step one): forwards issued, and wall time less the
@@ -1020,6 +1108,11 @@ class ContinuousBatcher:
             summary["serve_host_gap_s"] = max(
                 wall_elapsed - device_phase.get("prefill_s", 0.0)
                 - device_phase.get("decode_s", 0.0), 0.0)
+            if self.roofline is not None:
+                summary["roofline"]["dispatches"] = summary[
+                    "serve_dispatches"]
+                summary["roofline"]["host_gap_s"] = summary[
+                    "serve_host_gap_s"]
         if self.timeline is not None:
             # only with sampling on (the key set without it is unchanged)
             tag = self.timeline_tag

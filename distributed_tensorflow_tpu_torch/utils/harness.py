@@ -137,8 +137,21 @@ them at different moments, so under a signal-armed lease the ranks
 agree on the stop at each boundary by one all-reduce (max) of the
 signal's number (``_lease_stop``; none at one rank).
 
-The JAX ``ExperimentConfig``'s health and roofline fields are absent,
-and the fleet's serve fields
+``health`` ``'on'`` turns on the engine's health layer before any state
+exists (``Engine.enable_health``), and ``on_anomaly`` and ``nan_guard``
+reach ``Trainer.fit``; a ``resume`` across a health toggle raises JAX's
+message (the capture's step count is a checkpoint entry; the loss EMA
+restarts on resume, as JAX's).  ``timeline`` or ``roofline`` arms the
+program ledger (``observability.ProgramLedger``: the chunk graphs, the
+kernel builds, the serve table's first calls and round graphs), whose
+manifest the run report carries; ``roofline`` builds a
+``observability.Roofline`` from the card's name, the run's device count
+and the engine's cost model for the fit and the report, and another
+from the serve table (``Roofline.for_kv``) for the batcher.
+``compile_cache`` points the kernel build cache (``ops/_build.py``) at
+a directory: the counterpart of XLA's persistent compilation cache.
+
+The fleet's serve fields
 (``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
 ``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
 ``serve_autoscale``) raise ``NotImplementedError`` at any value but their
@@ -207,6 +220,9 @@ class ExperimentConfig:
                                     # reduced as the backward produces
                                     # them (parallel/overlap.py); 0: the
                                     # unbucketed exchange
+    compile_cache: str | None = None  # kernel build cache directory
+                                    # (ops/_build.py): repeat runs load
+                                    # the libraries built there
     sync_every: int = 10            # async: parameter-averaging period
     degree: int = 1                 # gossip: ring neighbours on each side
     seed: int = 0
@@ -223,6 +239,14 @@ class ExperimentConfig:
                                     # the data state (exactly-once resume)
     watchdog_timeout: float = 0.0   # >0: per-step stall budget (seconds)
     watchdog_abort: bool = False    # on a stall: exit 75 after reporting
+    nan_guard: bool = True          # divergence check at log cadence
+                                    # (with health on: divergence stays
+                                    # fatal unless this is False)
+    health: str = "off"             # 'on': per-step health stats on the
+                                    # device (observability/health.py)
+    on_anomaly: str = "warn"        # health anomaly policy: 'warn' records
+                                    # anomaly events, 'halt' raises at the
+                                    # offending step
     max_restarts: int = 0           # >0: restart from the latest
                                     # checkpoint on a crash, this many times
     max_steps_per_lease: int = 0    # >0: graceful lease drain after this
@@ -237,6 +261,10 @@ class ExperimentConfig:
                                     # queue/slot/KV gauges
     timeline_interval: float = 0.05  # min seconds between samples per
                                     # gauge group (0: every boundary)
+    roofline: bool = False          # analytic FLOPs/bytes, the H100's
+                                    # peaks: train_mfu, serve MFU/MBU and
+                                    # the report's roofline section; arms
+                                    # the program ledger
     profile_dir: str | None = None  # torch.profiler Chrome trace output
     steps_per_call: int | None = None  # drain chunk (None: auto, 8)
     prefetch: int = 2               # batches staged on the device ahead
@@ -1415,10 +1443,15 @@ def _restore(config: ExperimentConfig, ex: _Experiment, trainer, ckpt_mgr,
             trainer.state = precisionlib.restore_into_policy(
                 ckpt_mgr, template, ex.engine.precision)
     except Exception as e:
+        # the commonest mismatch is a --health toggle across the resume:
+        # the health capture's step count is a checkpoint entry
         raise ValueError(
             f"--resume could not restore the checkpoint under "
             f"{config.checkpoint_dir} into this run's state layout "
-            f"(--precision {config.precision}).  An f32 checkpoint "
+            f"(--health {config.health}, --precision {config.precision}).  "
+            f"If the checkpointed run used a different --health setting, "
+            f"the optimizer tree differs (the health capture slots live in "
+            f"it) — resume with the original setting.  An f32 checkpoint "
             f"restores into a master --precision policy automatically; "
             f"other precision crossings need the original policy.  "
             f"Original error: {type(e).__name__}: {e}") from e
@@ -1535,14 +1568,27 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
     from distributed_tensorflow_tpu_torch.elastic import (
         LeaseManager, StragglerDetector)
     from distributed_tensorflow_tpu_torch.observability import (
-        Timeline, Tracer, build_run_report)
+        ProgramLedger, Timeline, Tracer, build_run_report)
     from distributed_tensorflow_tpu_torch.utils.metrics import (
         MetricsLogger, profile)
 
+    from distributed_tensorflow_tpu_torch.ops import _build
+
     _reject_fleet(config)
     _check_recovery_config(config)
+    if config.compile_cache:
+        # before any kernel is built: the run's libraries load from (or
+        # build into) this directory
+        _build.set_build_dir(config.compile_cache)
     ex = _setup(config)
     try:
+        # the health layer before any state exists (the probe's, the
+        # resume template's, the fit's)
+        if config.health not in ("off", "on"):
+            raise ValueError(
+                f"--health must be 'off' or 'on', got '{config.health}'")
+        if config.health == "on":
+            ex.engine.enable_health()
         if config.sample_tokens:
             _validate_sampling(config, ex, ex.test_ds)
         if config.serve_requests:
@@ -1567,6 +1613,14 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                           if config.metrics_path else None)
         timeline = (Timeline(interval_s=config.timeline_interval)
                     if config.timeline else None)
+        # --timeline or --roofline arms the program ledger: the engine's
+        # chunk graphs, the kernel builds and the serve table record there
+        ledger = (ProgramLedger() if config.timeline or config.roofline
+                  else None)
+        ex.engine.ledger = ledger
+        total = (ex.n * config.seq_parallel * config.tensor_parallel
+                 * config.pipeline_parallel * config.expert_parallel)
+        roofline = _roofline(config, ex, total) if config.roofline else None
         ckpt_mgr = watchdog = lease = None
         # before any state of the run exists: the probe's throwaway state
         # reinitializes the engine's module
@@ -1613,7 +1667,9 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                                     on_stall=_on_stall)
             sink.start()
             try:
-                with profile(config.profile_dir, tracer=tracer):
+                with profile(config.profile_dir, tracer=tracer), (
+                        _build.watch_builds(ledger) if ledger is not None
+                        else contextlib.nullcontext()):
                     fit = trainer.fit(
                         ex.train_ds, epochs=config.epochs,
                         batch_size=ex.global_batch,
@@ -1627,7 +1683,9 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                         should_stop=(_lease_stop(lease, ex.mesh)
                                      if lease is not None else None),
                         data_state=resumed["data_state"],
-                        straggler_detector=straggler, timeline=timeline)
+                        straggler_detector=straggler, timeline=timeline,
+                        nan_guard=config.nan_guard,
+                        on_anomaly=config.on_anomaly, roofline=roofline)
             finally:
                 if watchdog is not None:
                     watchdog.close()
@@ -1657,8 +1715,6 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             sink.results(ev["accuracy"], loss=ev["loss"])
             model_name = config.model if config.model_fn is None else getattr(
                 config.model_fn, "__name__", "custom_model_fn")
-            total = (ex.n * config.seq_parallel * config.tensor_parallel
-                     * config.pipeline_parallel * config.expert_parallel)
             summary = {
                 "engine": ex.name,
                 "model": model_name,
@@ -1708,11 +1764,15 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
                 # (the budget counts training steps)
                 serve_stop = (_lease_stop(lease, ex.mesh)
                               if lease is not None else None)
-                serve_sec = _serve_from_state(
-                    config, ex, trainer.state, ex.test_ds, tracer=tracer,
-                    should_stop=(None if serve_stop is None else
-                                 (lambda _iters: serve_stop(0))),
-                    timeline=timeline)
+                with (_build.watch_builds(ledger) if ledger is not None
+                      else contextlib.nullcontext()):
+                    serve_sec = _serve_from_state(
+                        config, ex, trainer.state, ex.test_ds,
+                        tracer=tracer,
+                        should_stop=(None if serve_stop is None else
+                                     (lambda _iters: serve_stop(0))),
+                        timeline=timeline, ledger=ledger,
+                        roofline=roofline, total_devices=total)
                 summary["serve"] = serve_sec
                 # a window that lost requests must not bury it in the
                 # summary: a warning and a flag to gate on (0 = clean)
@@ -1736,7 +1796,8 @@ def _run(config: ExperimentConfig) -> dict[str, Any]:
             report = build_run_report(fit, watchdog=watchdog,
                                       metrics_logger=metrics_logger,
                                       tracer=tracer, serve=serve_sec,
-                                      timeline=timeline)
+                                      timeline=timeline, ledger=ledger,
+                                      roofline=roofline)
             summary["run_report"] = report
             sink.emit("run_report", **report)
             sink.emit("summary", **summary)
@@ -2070,9 +2131,26 @@ def _serve_mesh(config: ExperimentConfig, ex: _Experiment):
     return None
 
 
+def _roofline(config: ExperimentConfig, ex: _Experiment, total: int):
+    """``--roofline``: the card's peaks (looked up by its name; None on
+    the CPU or an unknown card), the run's device count and the engine's
+    analytic cost model (None for a non-GPT model), in the model's
+    compute dtype (JAX ``harness.py:1783-1800``)."""
+    from distributed_tensorflow_tpu_torch.observability.roofline import (
+        Roofline, _dtype_key, device_peaks)
+
+    dev = ex.engine.device
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    return Roofline(device_peaks(kind), total, ex.engine.roofline_model(),
+                    _dtype_key(getattr(ex.engine.model, "dtype",
+                                       "float32")))
+
+
 def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
                       test_ds, tracer=None, should_stop=None,
-                      timeline=None) -> dict[str, Any]:
+                      timeline=None, ledger=None, roofline=None,
+                      total_devices: int = 1) -> dict[str, Any]:
     """``serve_requests`` N: a continuous-batching window over the trained
     model (``SlotKVCache`` + ``ContinuousBatcher``, JAX
     ``_serve_from_state``); returns the run report's ``serve`` section
@@ -2102,7 +2180,10 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     acceptance keeps the streams those of plain decode.  ``tracer`` spans
     the window as ``serve`` and reaches the batcher (its request, prefill
     and decode spans); ``should_stop`` is the lease's drain and
-    ``timeline`` the gauge sampler (JAX ``harness.py:2646-2657``)."""
+    ``timeline`` the gauge sampler (JAX ``harness.py:2646-2657``).
+    ``ledger`` reaches the target table; with ``roofline`` the batcher
+    gets one rebuilt from that table (``Roofline.for_kv``: its storage
+    dtype and layout), on the same card and ``total_devices``."""
     from distributed_tensorflow_tpu_torch.observability import (
         NULL_TRACER, SLOMonitor, serve_section)
     from distributed_tensorflow_tpu_torch.serving import (
@@ -2121,12 +2202,21 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
         kv_dtype=(_resolve_serve_kv_dtype(config.serve_kv_dtype)
                   if config.serve_kv_dtype else None),
         prefix_cache_blocks=config.serve_prefix_cache,
-        prefix_block=config.serve_prefix_block, device=device, mesh=mesh)
+        prefix_block=config.serve_prefix_block, device=device, mesh=mesh,
+        ledger=ledger)
     if config.serve_kv_layout == "paged":
         kv_kwargs.update(kv_layout="paged",
                          paged_blocks=config.serve_paged_blocks,
                          paged_block=config.serve_paged_block)
     kv = SlotKVCache(model, None, config.serve_slots, **kv_kwargs)
+    serve_roofline = None
+    if roofline is not None:
+        from distributed_tensorflow_tpu_torch.observability.roofline import (
+            Roofline)
+
+        serve_roofline = Roofline.for_kv(
+            kv, roofline.peaks.device_kind if roofline.peaks else None,
+            total_devices)
     draft_kv = None
     if config.serve_draft_config:
         overrides = parse_draft_config(config.serve_draft_config)
@@ -2158,6 +2248,8 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
         batcher_kwargs.update(multi_step=config.serve_multi_step)
     if timeline is not None:
         batcher_kwargs.update(timeline=timeline)
+    if serve_roofline is not None:
+        batcher_kwargs.update(roofline=serve_roofline)
     tracer = tracer if tracer is not None else NULL_TRACER
     with tracer.span("serve", requests=config.serve_requests,
                      slots=config.serve_slots):

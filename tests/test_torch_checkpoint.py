@@ -444,7 +444,7 @@ def test_cli_checkpoint_flags_parse_as_jax():
         p.parse_args(["--async-checkpoint", "maybe"])
     ours = {a.dest for a in p._actions} - {"help", "device"}
     theirs = {a.dest for a in jp._actions} - {"help"}
-    assert len(ours & theirs) == 88 and len(theirs) == 93
+    assert len(ours & theirs) == 93 and len(theirs) == 93
 
 
 def _harness_config(tmp_path, **kw):

@@ -462,10 +462,17 @@ def test_run_report_none_for_absent_subsystems():
             assert report[key] is None, key
         assert report["elapsed_s"] == 0.0
         assert build({"steps": 0})["elapsed_s"] is None
-    for kw in (dict(ledger=object()), dict(roofline=object())):
-        with pytest.raises(NotImplementedError,
-                           match="roofline, the ledger and the analyzer"):
-            build_run_report({"steps": 0}, **kw)
+    # ported since: the ledger's and the roofline's sections, present only
+    # when given
+    from distributed_tensorflow_tpu_torch.observability import (
+        ProgramLedger, Roofline)
+
+    assert "roofline" not in build_run_report({"steps": 0})
+    report = build_run_report({"steps": 0}, ledger=ProgramLedger(),
+                              roofline=Roofline(None))
+    assert report["xla"]["program_count"] == 0
+    assert report["peak_hbm_bytes_est"] == 0
+    assert report["roofline"]["programs"] == []
 
 
 # ------------------------------------------------------------- the CLI

@@ -458,10 +458,15 @@ def test_sample_tokens_frequencies_follow_softmax():
 def test_unported_serving_options_raise(models):
     _, _, sd = models
     tm = GPTLM(**SMALL, device="cpu")
+    # ported since: the program ledger and the batcher's roofline
+    from distributed_tensorflow_tpu_torch.observability import (
+        ProgramLedger, Roofline)
+
     for layout in ("monolithic", "paged"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlotKVCache(tm, sd, 2, kv_layout=layout, device="cpu",
-                        ledger=object())
+        ledger = ProgramLedger()
+        SlotKVCache(tm, sd, 2, kv_layout=layout, device="cpu",
+                    ledger=ledger).insert(np.arange(3, dtype=np.int32))
+        assert ledger.programs()
     # ported since: mesh-sharded tables (TP decode), which keep JAX's
     # refusal of slots the 'data' axis does not divide
     from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
@@ -492,8 +497,7 @@ def test_unported_serving_options_raise(models):
                     prefix_cache_blocks=4, prefix_block=4, paged_block=8)
     with pytest.raises(ValueError, match="only apply"):
         SlotKVCache(tm, sd, 2, device="cpu", paged_block=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "
-                       "roofline, the ledger and the analyzer"):
-        ContinuousBatcher(kv, roofline=object())
+    assert ContinuousBatcher(kv, roofline=Roofline(None)).roofline \
+        is not None
     # ported since: the timeline sampler and its replica tag
     ContinuousBatcher(kv, timeline=object(), timeline_tag=1)

@@ -281,11 +281,16 @@ def test_unported_options_raise(tmp_path):
     x, y = _lm(8)
     ds = tloaders.Dataset(x=x, y=y, num_classes=64)
     trainer = Trainer(model, device="cpu")
-    for kw, item in ((dict(roofline=object()), "roofline, the ledger"),
-                     (dict(on_anomaly="halt"), "health")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1: {item}"):
-            trainer.fit(ds, batch_size=8, **kw)
+    # ported since: the roofline and the health policy (JAX's value check)
+    from distributed_tensorflow_tpu_torch.observability import Roofline
+
+    other = Trainer(GPTLM(**SMALL, device="cpu"), device="cpu")
+    r = other.fit(ds, batch_size=8, log_every=0, max_steps=1,
+                  roofline=Roofline(None), on_anomaly="halt")
+    assert r["train_mfu"] is None and r["roofline_peak_table_revision"]
+    with pytest.raises(ValueError, match="on_anomaly must be 'warn' or "
+                       "'halt', got 'stop'"):
+        other.fit(ds, batch_size=8, on_anomaly="stop")
     # ported since: the telemetry sinks and the straggler detector
     from distributed_tensorflow_tpu_torch.elastic import StragglerDetector
     from distributed_tensorflow_tpu_torch.observability import (
