@@ -446,6 +446,43 @@ Phases (any failure raises and the script exits non-zero):
              ``'warn'`` is fatal under the nan-guard default, ``'warn'``
              with ``nan_guard=False`` completes with the first anomaly at
              20.  Rows 1c-3c and 4f gain ``launches_health``;
+5s. fleet — the serving fleet (``serving.fleet.ReplicaSet``) on the
+             serve GPT of phase 5 at full width and its trace, two
+             replicas of 8 slots, each table over its own copy of the
+             model and warmed as phase 5's were (the first two requests):
+             FM, monolithic tables under the sequential driver on a
+             virtual clock, streams bitwise M's; FP, paged zero-copy
+             tables on a thread and a CUDA stream each (the wall clock),
+             streams bitwise P's, paged launches layers x both replicas'
+             decode steps, and its first 8 requests again on the host
+             clock and under the profiler for the busy share (each
+             rerun's paged launches layers x its decode steps); FM, FP,
+             FS and the reruns with no failover, retry or failed
+             replica, and every replica stepping; FC, FP with
+             ``crash:replica=0,iter=20`` and then
+             ``nanlogits:replica=1,iter=10``: one failover, retries ==
+             requeued >= 1, no duplicate, every request at its length,
+             the never-requeued streams bitwise P's, each requeued one's
+             delivered prefix P's and its resumed tokens bitwise one
+             table's re-prefill of prompt + prefix (the fleet's retry;
+             how many also equal P's is printed), the corruption caught
+             before delivery; FS, paged at multi_step 8 under the
+             sequential driver with ``_serve_model(seed=1)``'s weights
+             swapped in after 16 completions and the trace's second half
+             arriving later: each stream bitwise one table's under the
+             weights it was admitted under (both kinds present), one swap
+             generation, no RoundGraph capture in the run (the rounds are
+             captured when the fleet is built, the swap copies in place)
+             and layers x 8 paged launches a replayed round; FCLI, window
+             L1's argv with ``--serve-replicas 2 --serve-fault-spec
+             crash:replica=0,iter=5 --serve-hot-swap`` through
+             ``cli.main``: test loss and flash launches L1's, one
+             failover, one swap generation, no duplicate, streams held to
+             L1's as in FC.  Printed on ``[fleet]`` lines: each window's
+             wall, decode steps and rounds per replica, paged launches,
+             failovers, retries and ``serve_failover_recovery_p95_s``,
+             and the phase's seconds; rows 4 and 4f gain
+             ``launches_fleet``;
 6. timings — the main paths' kernels at their shapes beside their bounds,
              the plain versions and a library call: each one's device time
              per launch from ``torch.profiler`` (``ms``; a session that
@@ -496,6 +533,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -6835,6 +6873,378 @@ def health_phase(gpu: str) -> dict:
     return {"tc32": total, "paged_f32": r1_paged}
 
 
+FLEET_CRASH = "crash:replica=0,iter=20"     # FC: replica 0's 20th step
+FLEET_NAN = "nanlogits:replica=1,iter=10"   # FC: replica 1's 10th step
+FLEET_SWAP_AFTER = 16                       # FS: completions before swap
+FLEET_LATER = 1e4                           # FS: the second group arrives
+FLEET_CLI_ARGV = CLI_L1_ARGV + ["--serve-replicas", "2",
+                                "--serve-fault-spec",
+                                "crash:replica=0,iter=5", "--serve-hot-swap"]
+
+
+def _fleet_kvs(model, layout: str, n: int = 2):
+    """``n`` replica tables of phase 5's M (monolithic) or P (paged)
+    config, each over its own copy of ``model``."""
+    from distributed_tensorflow_tpu_torch.serving import build_replica_kvs
+
+    kw = dict(prefix_cache_blocks=SERVE["pool"], prefix_block=SERVE["block"])
+    if layout == "paged":
+        kw.update(kv_layout="paged", paged_block=SERVE["block"])
+    return build_replica_kvs(model, None, n, SERVE["slots"], **kw)
+
+
+def _warm_tables(kvs, requests, **batcher_kw) -> None:
+    """Each table serves the trace's first two requests alone, as
+    ``_serve_window`` warms its table: its pool then holds what M's and
+    P's held, so each request's prefill reuses what it reused there."""
+    from distributed_tensorflow_tpu_torch.serving import ContinuousBatcher
+
+    for kv in kvs:
+        ContinuousBatcher(kv, prefill_chunk=SERVE["chunk"],
+                          **batcher_kw).run(requests[:2])
+    torch.cuda.synchronize()
+
+
+class _Resumes:
+    """Every resume request the journal hands out while the block runs
+    (rid → the retry request: the prompt plus the prefix delivered)."""
+
+    def __enter__(self):
+        from distributed_tensorflow_tpu_torch.serving import fleet
+
+        self.fleet, self.orig = fleet, fleet.RequestJournal.retry_request
+        self.requests: dict = {}
+        orig, out = self.orig, self.requests
+
+        def retry_request(journal, rid):
+            req = orig(journal, rid)
+            if req is not None:
+                out[rid] = req
+            return req
+
+        fleet.RequestJournal.retry_request = retry_request
+        return self
+
+    def __exit__(self, *exc):
+        self.fleet.RequestJournal.retry_request = self.orig
+
+
+def _assert_no_failover(name, s: dict) -> None:
+    """No replica of the fleet run ``s`` failed or was failed over."""
+    fl = s["serve_fleet"]
+    assert fl["failovers"] == 0 and fl["failed_replicas"] == [], (name, fl)
+    assert fl["faults_injected"] == [] and fl["retries"] == 0, (name, fl)
+
+
+def _fleet_window(name, gpu, kvs, requests, *, clock=None, spec=None,
+                  new_weights=None, multi_step=None) -> dict:
+    """One ``ReplicaSet.run`` over ``kvs`` (the wall clock and a thread per
+    replica unless ``clock``), each count set to 0 just before the run and
+    read just after; returns the summary, the paged launches, each
+    replica's decode steps and rounds, the resumes, the generation each
+    request was admitted under, the RoundGraph captures and replays of
+    the run and its wall seconds."""
+    from distributed_tensorflow_tpu_torch.serving import (
+        FaultInjector, ReplicaSet)
+    from distributed_tensorflow_tpu_torch.serving.decode_graph import (
+        RoundGraph)
+
+    rs = ReplicaSet(kvs, clock=clock, prefill_chunk=SERVE["chunk"],
+                    fault_injector=(FaultInjector(spec, seed=0)
+                                    if spec else None),
+                    multi_step=multi_step)
+    steps, rounds = [0] * len(kvs), [0] * len(kvs)
+    for r in rs.replicas:
+        # the injector's wrapper is inside: a crashed step raises before
+        # its forward and is not counted, a corrupted one is
+        advance, dispatch = r.kv.advance, r.kv.dispatch_multi
+
+        def counted(only=None, _f=advance, _i=r.id):
+            toks = _f(only)
+            steps[_i] += only is None
+            return toks
+
+        def counted_round(k, _f=dispatch, _i=r.id):
+            handle = _f(k)
+            rounds[_i] += 1
+            return handle
+
+        r.kv.advance, r.kv.dispatch_multi = counted, counted_round
+    if new_weights is not None:
+        rs.schedule_swap(new_weights, after_completions=FLEET_SWAP_AFTER)
+    admitted_gen: dict = {}
+
+    def first_token(rid, tok):
+        if rid not in admitted_gen:
+            replica = rs.journal.entries[rid].replica
+            admitted_gen[rid] = rs.replicas[replica].generation
+    torch.cuda.synchronize()
+    _reset_paged_counts()
+    captures, replays = RoundGraph.captures, RoundGraph.replays
+    with _Resumes() as resumes:
+        t0 = time.perf_counter()
+        try:
+            s = rs.run(requests, on_token=first_token)
+        finally:
+            rs.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    paged = _paged_counts()[0]
+    fl = s["serve_fleet"]
+    out = {"summary": s, "paged": paged, "steps": steps, "rounds": rounds,
+           "resumes": resumes.requests, "admitted_gen": admitted_gen,
+           "captures": RoundGraph.captures - captures,
+           "replays": RoundGraph.replays - replays, "wall_s": wall}
+    print(f"[fleet] window {name} ({gpu}; {kvs[0].kv_layout}, "
+          f"{'threads, wall clock' if rs.threaded else 'sequential, virtual clock'}"
+          f"): wall_s={wall:.4f} decode_steps_per_replica={steps} "
+          f"rounds_per_replica={rounds} decode_iterations="
+          f"{s['decode_iterations']} paged_launches={paged} "
+          f"completed={s['completed']} failovers={fl['failovers']} "
+          f"retries={fl['retries']} requeued={fl['requeued_requests']} "
+          f"duplicate_emissions={s['serve_duplicate_emissions']} "
+          f"fenced={fl['fenced_emissions']} "
+          f"serve_failover_recovery_p95_s="
+          f"{s['serve_failover_recovery_p95_s']} swap_generations="
+          f"{fl['swap_generations']} min_admitting_replicas="
+          f"{fl['min_admitting_replicas']} graph captures/replays "
+          f"{out['captures']}/{out['replays']} tokens_per_sec="
+          f"{s['serve_tokens_per_sec']:.3f}")
+    assert s["completed"] == len(requests), (name, s["completed"])
+    assert s["serve_duplicate_emissions"] == 0, name
+    if spec is None:
+        # a replica that failed over, its requests served by the other,
+        # would give the same streams: no failure is allowed here
+        _assert_no_failover(name, s)
+    for r in s["results"]:
+        assert len(r.tokens) == requests[r.rid].max_new_tokens, (name, r.rid)
+        assert all(0 <= t < SERVE["vocab"] for t in r.tokens), (name, r.rid)
+    return out
+
+
+def _resumed_check(name, gpu, kv_ref, w: dict, base: list) -> dict:
+    """Window ``w``'s requeued requests: each delivered prefix ``base``'s,
+    and each resumed stream bitwise one table's (``kvs_ref``, warmed as
+    the replicas were) fed the same prompt plus delivered prefix, as the
+    fleet's retry feeds it (JAX ``RequestJournal.retry_request``).
+    Requests never requeued are ``base``'s bitwise.  Prints how many
+    resumed tokens also equal ``base``'s."""
+    from distributed_tensorflow_tpu_torch.serving import ContinuousBatcher
+
+    s, resumes = w["summary"], w["resumes"]
+    got = {r.rid: r.tokens for r in s["results"]}
+    for rid, toks in got.items():
+        if rid not in resumes:
+            assert toks == base[rid], (name, rid)
+    retry = [dataclasses.replace(req, arrival_s=0.0)
+             for _, req in sorted(resumes.items())]
+    ref = ContinuousBatcher(kv_ref, prefill_chunk=SERVE["chunk"]).run(
+        retry)
+    ref = {r.rid: r.tokens for r in ref["results"]}
+    same = total = 0
+    delivered = []
+    for rid, req in sorted(resumes.items()):
+        n = len(got[rid]) - req.max_new_tokens
+        delivered.append(n)
+        assert got[rid][:n] == base[rid][:n], (name, rid, n)
+        assert got[rid][n:] == ref[rid], (
+            f"{name}: rid {rid}'s resumed stream differs from one table's "
+            f"re-prefill of its prompt and {n} delivered tokens")
+        same += sum(a == b for a, b in zip(got[rid][n:], base[rid][n:]))
+        total += req.max_new_tokens
+    print(f"[fleet] window {name} ({gpu}): {len(got) - len(resumes)} "
+          f"requests never requeued bitwise the base window's; "
+          f"{len(resumes)} requeued (delivered prefixes {delivered}, each "
+          f"the base window's), their resumed streams bitwise one table's "
+          f"re-prefill of prompt + delivered prefix; resumed tokens equal "
+          f"to the base window's at {same}/{total} positions")
+    return {"resumed": len(resumes), "same": same, "total": total}
+
+
+def fleet_phase(gpu: str) -> dict:
+    """Phase 5s (module docstring): FM, FP, FC, FS and FCLI; returns the
+    paged launches of the windows on the serve GPT (row 4) and FCLI's
+    (row 4f)."""
+    from distributed_tensorflow_tpu_torch.serving import (
+        ContinuousBatcher, SlotKVCache, VirtualClock, fleet)
+
+    t_phase = time.perf_counter()
+    layers = SERVE["layers"]
+    model = _serve_model()
+    _, requests = _bench_trace()
+    base_m = SEEN["serve M"]["streams"]
+    base_p = SEEN["serve P"]["streams"]
+    launches = 0
+
+    # FM: monolithic tables, the sequential driver on the virtual clock
+    kvs = _fleet_kvs(model, "monolithic")
+    _warm_tables(kvs, requests)
+    w = _fleet_window("FM", gpu, kvs, requests, clock=VirtualClock())
+    assert _streams(w["summary"]) == base_m, "FM's streams differ from M's"
+    assert w["paged"] == 0, w["paged"]
+    assert all(w["steps"]), w["steps"]
+    walls = {"FM": w["wall_s"]}
+    del kvs
+
+    # FP: paged zero-copy tables, a thread per replica on the wall clock
+    kvs = _fleet_kvs(model, "paged")
+    _warm_tables(kvs, requests)
+    w = _fleet_window("FP", gpu, kvs, requests)
+    assert _streams(w["summary"]) == base_p, "FP's streams differ from P's"
+    assert w["paged"] == layers * sum(w["steps"]) == layers * w["summary"][
+        "decode_iterations"], (w["paged"], w["steps"])
+    assert all(w["steps"]), w["steps"]
+    launches += w["paged"]
+    walls["FP"] = w["wall_s"]
+    # the device's busy share: FP's tables serve the trace's first 8
+    # requests on the host clock, then again under the profiler (kernel
+    # time summed over both replicas' streams; a short window, since the
+    # profiler's processing grows with the kernels it saw)
+    rs_busy = fleet.ReplicaSet(kvs, prefill_chunk=SERVE["chunk"])
+    busy_launches = []
+
+    def busy_run():
+        # each rerun's paged launches are its own layers x steps
+        _reset_paged_counts()
+        sub = rs_busy.run(requests[:8])
+        torch.cuda.synchronize()
+        paged = _paged_counts()[0]
+        assert sub["completed"] == 8, sub["completed"]
+        _assert_no_failover("FP rerun", sub)
+        assert paged == layers * sub["decode_iterations"] > 0, (
+            paged, sub["decode_iterations"])
+        busy_launches.append(paged)
+
+    t0 = time.perf_counter()
+    busy_run()
+    wall_sub = time.perf_counter() - t0
+    rows = _profiled(busy_run, 1)
+    rs_busy.close()
+    launches += sum(busy_launches)
+    busy_us = sum(r[0] for r in rows)
+    print(f"[fleet] window FP ({gpu}), its first 8 requests: wall "
+          f"{wall_sub * 1e3:.3f} ms, device kernel time summed over both "
+          f"streams {busy_us / 1e3:.3f} ms: busy share "
+          f"{busy_us / 1e6 / wall_sub:.4f} "
+          f"({sum(r[1] for r in rows):.0f} kernels)")
+    del kvs, rs_busy
+
+    # FC: FP with a crash, then with nonfinite logits
+    fc = {}
+    for tag, spec in (("FC-crash", FLEET_CRASH), ("FC-nan", FLEET_NAN)):
+        kvs = _fleet_kvs(model, "paged")
+        _warm_tables(kvs, requests)
+        w = _fleet_window(tag, gpu, kvs, requests, spec=spec)
+        fl = w["summary"]["serve_fleet"]
+        assert fl["failovers"] == 1, (tag, fl["failovers"])
+        assert fl["requeued_requests"] >= 1, tag
+        assert fl["retries"] == fl["requeued_requests"], tag
+        assert w["paged"] == layers * sum(w["steps"]), (w["paged"],
+                                                          w["steps"])
+        if tag == "FC-nan":
+            assert fl["failover_events"][0]["kind"] == "corruption", fl
+        ref = _fleet_kvs(model, "paged", 1)
+        _warm_tables(ref, requests)
+        fc[tag] = _resumed_check(tag, gpu, ref[0], w, base_p)
+        fc[tag]["recovery_p95_s"] = w["summary"][
+            "serve_failover_recovery_p95_s"]
+        launches += w["paged"]
+        walls[tag] = w["wall_s"]
+        del kvs, ref
+
+    # FS: paged, fused rounds of 8 (K's config), the sequential driver; a
+    # second set of weights swapped in after 16 completions, the trace in
+    # two groups (the second arriving later)
+    trace = [dataclasses.replace(
+        r, arrival_s=0.0 if r.rid < 16 else FLEET_LATER) for r in requests]
+    new_model = _serve_model(seed=1)
+    new = {k: v.detach().clone() for k, v in new_model.state_dict().items()}
+    base_new = ContinuousBatcher(
+        SlotKVCache(new_model, None, SERVE["slots"], kv_layout="paged",
+                    paged_block=SERVE["block"],
+                    prefix_cache_blocks=SERVE["pool"],
+                    prefix_block=SERVE["block"]),
+        prefill_chunk=SERVE["chunk"], multi_step=8).run(requests)
+    base_new = _streams(base_new)
+    kvs = _fleet_kvs(model, "paged")
+    _warm_tables(kvs, requests, multi_step=8)
+    w = _fleet_window("FS", gpu, kvs, trace, clock=VirtualClock(),
+                      new_weights=new, multi_step=8)
+    s, fl = w["summary"], w["summary"]["serve_fleet"]
+    assert fl["swap_generations"] == 1 and fl["min_admitting_replicas"] >= 1
+    assert all(w["rounds"]), w["rounds"]
+    gens = w["admitted_gen"]
+    got = _streams(s)
+    for rid, toks in enumerate(got):
+        want = base_new if gens[rid] else base_p
+        assert toks == want[rid], ("FS", rid, gens[rid])
+    old_n = sum(1 for g in gens.values() if g == 0)
+    assert 0 < old_n < len(requests), gens
+    assert w["captures"] == 0 and w["replays"] > 0, (w["captures"],
+                                                      w["replays"])
+    rounds = s["serve_dispatches"] - s["prefill_chunks"]
+    assert w["replays"] == rounds == sum(w["rounds"]), (w["replays"],
+                                                        rounds)
+    assert w["paged"] == layers * 8 * rounds, (w["paged"], rounds)
+    launches += w["paged"]
+    walls["FS"] = w["wall_s"]
+    print(f"[fleet] window FS ({gpu}): {old_n} requests admitted under the "
+          f"old weights, {len(requests) - old_n} under the new, each "
+          f"bitwise one table's stream under its weights (P's; a "
+          f"multi_step=8 table of _serve_model(seed=1)); RoundGraph "
+          f"captures 0 and {w['replays']} replays in the run (the rounds "
+          f"were captured when the fleet was built; the swap copied in "
+          f"place)")
+    del kvs, new_model, new
+
+    # FCLI: window L1's argv with two replicas, a crash and the drill
+    kept, steps = {}, [0, 0]
+    run = fleet.ReplicaSet.run
+
+    def keep(rs, *a, **k):
+        for r in rs.replicas:
+            def counted(only=None, _f=r.kv.advance, _i=r.id):
+                toks = _f(only)
+                steps[_i] += only is None
+                return toks
+            r.kv.advance = counted
+        kept["summary"] = summary = run(rs, *a, **k)
+        return summary
+
+    fleet.ReplicaSet.run = keep
+    try:
+        with _Resumes() as resumes:
+            rec, counts, paged, _ = _cli_lm_window(
+                "FCLI (L1 + --serve-replicas 2 + crash + --serve-hot-swap)",
+                FLEET_CLI_ARGV, gpu, 8,
+                (torch.float32, CLI_LM["heads"], CLI_LM["heads"]))
+    finally:
+        fleet.ReplicaSet.run = run
+    sm, sv, l1 = rec["summary"], rec["summary"]["serve"], SEEN["L1"]
+    fl = sv["serve_fleet"]
+    assert sv["mode"] == "fleet" and sv["replicas"] == 2, sv["mode"]
+    assert sv["serve_duplicate_emissions"] == 0 and fl["failovers"] == 1
+    assert fl["swap_generations"] == 1, fl
+    assert counts == l1["counts"] and sm["test_loss"] == l1["test_loss"]
+    w = {"summary": kept["summary"], "resumes": resumes.requests}
+    ref = SlotKVCache(rec["trainer"].state.model, None, CLI_LM["slots"],
+                      kv_layout="paged", prefix_cache_blocks=128,
+                      prefix_block=CLI_LM["block"])
+    fcli = _resumed_check("FCLI", gpu, ref, w, l1["streams"])
+    assert fcli["resumed"] >= 1, fcli
+    assert paged == CLI_LM["layers"] * sum(steps), (paged, steps)
+    print(f"[fleet] window FCLI ({gpu}): test_loss and flash launches "
+          f"bitwise L1's; completed {sv['completed']}, failovers "
+          f"{fl['failovers']}, retries {fl['retries']}, swap_generations "
+          f"{fl['swap_generations']}, serve_failover_recovery_p95_s "
+          f"{sv['serve_failover_recovery_p95_s']}, decode steps per "
+          f"replica {steps}, paged launches {paged} (layers x steps)")
+    total = time.perf_counter() - t_phase
+    print(f"[fleet] phase 5s ({gpu}): walls {json.dumps(walls)}; "
+          f"FC {json.dumps(fc)}; phase {total:.1f} s")
+    return {"paged": launches, "paged_f32": paged}
+
+
 def tpd_timing_phase(tpd: dict) -> list[dict]:
     """The paged kernel at the serve GPT's per-rank K/V heads (8 heads
     over tp 2, 4 and 8: 4, 2 and 1 a rank, MHA), bf16 queries over bf16
@@ -7134,6 +7544,8 @@ def main() -> int:
     _phase_done('5q lease')
     health = health_phase(gpu)
     _phase_done('5r health')
+    fleet_out = fleet_phase(gpu)
+    _phase_done('5s fleet')
     # the timings last: each profiler session before the serve and train
     # windows would be in their host times
     paged_row = paged_timing_phase(paged_errs)
@@ -7146,6 +7558,8 @@ def main() -> int:
     # phase 5p's windows TPP and TPQ (the TP tables at tp 1: 8 kv heads)
     paged_row["launches_tpd"] = tpd["paged"]
     paged_row["int8"]["launches_tpd"] = tpd["int8"]
+    # phase 5s's windows FP, FC and FS (and FP's two short reruns)
+    paged_row["launches_fleet"] = fleet_out["paged"]
     flash_rows = flash_timing_phase(flash_errs)
     _phase_done('6 flash timings')
     for row in flash_rows:
@@ -7201,6 +7615,8 @@ def main() -> int:
             row["launches_lease"] = lease["paged_f32"]
             # phase 5r's window R1
             row["launches_health"] = health["paged_f32"]
+            # phase 5s's window FCLI
+            row["launches_fleet"] = fleet_out["paged_f32"]
     sp_rows = sp_timing_phase(sp)
     _phase_done('6 sp timings')
     for row in sp_rows:

@@ -55,8 +55,10 @@ and after training a GPT ``--sample N`` decodes test prompts and ``--serve
 N`` serves a window of requests (``--serve-*``), after a run with a
 'model' axis too (TP decode: ``--sample`` over the run's mesh, ``--serve``
 on a table cut over 'model' after ``-tp`` and fsdp×tp, on the whole
-model after the other ``-tp`` composites); the fleet's serve flags parse
-and raise.  ``--checkpoint-dir D`` writes checkpoints
+model after the other ``-tp`` composites), through a fleet of replicas
+with ``--serve-replicas``, ``--serve-fault-spec``, ``--serve-watchdog``
+and ``--serve-hot-swap`` (``serving.fleet``); the disaggregation, routing
+and autoscale flags parse and raise.  ``--checkpoint-dir D`` writes checkpoints
 (``--checkpoint-every``, ``--async-checkpoint``), ``--resume`` and
 ``--elastic-restore`` continue from the latest, ``--watchdog-timeout``
 and ``--watchdog-abort`` watch for stalls, and ``--max-restarts N``
@@ -455,9 +457,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _serve_flags(p: argparse.ArgumentParser) -> None:
-    """--sample and the --serve window's flags (the JAX CLI's).  The
-    fleet's flags parse, and raise NotImplementedError at any value but
-    their default (ROADMAP Queue 1: fleet)."""
+    """--sample and the --serve window's flags (the JAX CLI's).
+    ``--serve-disaggregate``, ``--serve-routing`` and ``--serve-autoscale``
+    parse, and raise NotImplementedError at any value but their default
+    (ROADMAP Queue 1, item 10b)."""
     p.add_argument("--sample", type=int, default=0, metavar="N",
                    help="after training a GPT LM, greedy-decode N tokens "
                         "per prompt from the final parameters (KV-cache "
@@ -550,15 +553,32 @@ def _serve_flags(p: argparse.ArgumentParser) -> None:
                         "dispatch (one CUDA graph replay on the card), "
                         "pipelined one round ahead; greedy streams are "
                         "those of K = 1")
-    fleet = " (serving fleet: not ported, raises)"
     p.add_argument("--serve-replicas", type=int, default=1, metavar="N",
-                   help="--serve: replicas behind a router" + fleet)
+                   help="--serve: run the window through a ReplicaSet "
+                        "fleet of N continuous-batching replicas, each "
+                        "with its own --serve-slots table and its own copy "
+                        "of the model, behind a least-loaded router with "
+                        "journaled failover; the serve section gains "
+                        "serve_fleet")
     p.add_argument("--serve-fault-spec", default=None, metavar="SPEC",
-                   help="--serve: seeded fault injection" + fleet)
+                   help="--serve: seeded fault injection into the fleet "
+                        "(forces the fleet even at 1 replica): "
+                        "'kind:key=val,...[;kind:...]', kind "
+                        "crash|stall|nanlogits, keys replica=N and one of "
+                        "iter=K, prefill=K, verify=K or prob=P, stall_s=S")
     p.add_argument("--serve-watchdog", type=float, default=0.0,
-                   metavar="S", help="--serve: replica watchdog" + fleet)
+                   metavar="S",
+                   help="--serve-replicas: fail over a replica that made "
+                        "no progress for S seconds while busy (the zombie "
+                        "is fenced: its late emissions are rejected); 0 = "
+                        "off")
     p.add_argument("--serve-hot-swap", action="store_true",
-                   help="--serve: weight hot-swap drill" + fleet)
+                   help="--serve: weight hot-swap drill — after half the "
+                        "window completes, each replica in turn drains "
+                        "and copies the same trained weights back in "
+                        "place (swap_generations, never below N-1 "
+                        "admitting replicas)")
+    fleet = " (not ported, raises)"
     p.add_argument("--serve-disaggregate", default=None, metavar="P:D",
                    help="--serve: prefill/decode replicas" + fleet)
     p.add_argument("--serve-routing", default="least-loaded",

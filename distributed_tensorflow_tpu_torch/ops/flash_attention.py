@@ -56,6 +56,8 @@ import functools
 
 import torch
 
+from distributed_tensorflow_tpu_torch.ops import COUNT_LOCK
+
 NEG_INF = -1e30   # matches parallel.ring_attention.NEG_INF
 _TINY = 1e-30
 MAX_HEAD_DIM = 256
@@ -285,13 +287,14 @@ def _code(route, q, length):
 
 def _count(kind, route, dtype):
     f = flash_attention
-    setattr(f, f"{kind}_launches", getattr(f, f"{kind}_launches") + 1)
+    counters = [f"{kind}_launches"]
     if route != "simt":
-        counter = f"{kind}{_SUFFIX[route]}_launches"
-        setattr(f, counter, getattr(f, counter) + 1)
+        counters.append(f"{kind}{_SUFFIX[route]}_launches")
     if dtype == torch.float16:
-        counter = f"{kind}_f16_launches"
-        setattr(f, counter, getattr(f, counter) + 1)
+        counters.append(f"{kind}_f16_launches")
+    with COUNT_LOCK:
+        for counter in counters:
+            setattr(f, counter, getattr(f, counter) + 1)
 
 
 def _fwd_cuda(q, k, v, mask, scale, causal, route=None):

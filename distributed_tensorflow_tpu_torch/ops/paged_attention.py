@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from distributed_tensorflow_tpu_torch.ops import COUNT_LOCK
 from distributed_tensorflow_tpu_torch.parallel.ring_attention import (
     dense_attention)
 
@@ -335,11 +336,12 @@ def _paged_cuda(q, k_pool, v_pool, block_tables, positions, *,
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed with "
                            f"cudaError_t {err}")
-    paged_attention.launches += 1
-    paged_attention.int8_launches += quantized
-    paged_attention.verify_launches += l_q > 1
-    by_kvh = paged_attention.launches_by_kv_heads
-    by_kvh[kvh] = by_kvh.get(kvh, 0) + 1
+    with COUNT_LOCK:
+        paged_attention.launches += 1
+        paged_attention.int8_launches += quantized
+        paged_attention.verify_launches += l_q > 1
+        by_kvh = paged_attention.launches_by_kv_heads
+        by_kvh[kvh] = by_kvh.get(kvh, 0) + 1
     return out
 
 

@@ -11,7 +11,11 @@
 * ``scheduler.ContinuousBatcher`` — the host half: iteration-level
   admission/eviction, chunked prefill, TTFT/ITL percentile accounting.
 
-The fleet (``fleet.ReplicaSet``) is not ported yet (ROADMAP Queue 1).
+* ``fleet.ReplicaSet`` — N replicas behind a journaled least-loaded
+  router: failover with bounded retry, seeded fault injection
+  (``FaultInjector``), the stall watchdog and the weight hot swap
+  (``SlotKVCache.swap_params``).  Disaggregation, affinity routing and
+  autoscale are not ported yet (ROADMAP Queue 1, item 10b).
 """
 
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (  # noqa: F401
@@ -19,3 +23,6 @@ from distributed_tensorflow_tpu_torch.serving.kv_cache import (  # noqa: F401
 from distributed_tensorflow_tpu_torch.serving.scheduler import (  # noqa: F401
     ContinuousBatcher, Request, RequestQueue, RequestResult, VirtualClock,
     WallClock)
+from distributed_tensorflow_tpu_torch.serving.fleet import (  # noqa: F401
+    CorruptionDetected, FaultInjector, FaultSpec, InjectedFault, ReplicaSet,
+    RequestJournal, build_replica_kvs)

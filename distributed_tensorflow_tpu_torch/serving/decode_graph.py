@@ -19,6 +19,14 @@ NCCL calls and is never captured: its ``eager_rounds`` runs it eagerly.
 With the table's program ledger each capture is recorded there under
 JAX's name of the round (``kv_decode_multi_k<k>``, paged
 ``kv_paged_decode_multi_k<k>``).
+
+A capture sets the launch counters back by what it recorded, and a replay
+adds it, under ``ops.COUNT_LOCK``.  The counts are exact only if no other
+thread launches during a capture, so a serving fleet captures every
+replica's rounds before its threads start (``SlotKVCache.prepare_round``,
+``serving.fleet.ReplicaSet``): ``torch.cuda.graph`` also synchronizes the
+device and empties the allocator's cache on entering, and all captures
+share one capture stream.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from distributed_tensorflow_tpu_torch.ops import COUNT_LOCK
 
 
 def _launch_counters() -> list[tuple[object, str]]:
@@ -54,7 +64,8 @@ class RoundGraph:
         if not kv.greedy:
             self.graph.register_generator_state(kv.generator)
         counters = _launch_counters()
-        before = [getattr(fn, name) for fn, name in counters]
+        with COUNT_LOCK:
+            before = [getattr(fn, name) for fn, name in counters]
         observed = (contextlib.nullcontext() if kv._ledger is None else
                     kv._ledger.observe(f"{kv._PROGRAM}_decode_multi_k{k}",
                                        kv.device))
@@ -65,17 +76,20 @@ class RoundGraph:
                     self.graph, capture_error_mode="thread_local"):
                 kv._round_body(self.k)
         finally:
-            self.counts = []
-            for (fn, name), was in zip(counters, before):
-                self.counts.append((fn, name, getattr(fn, name) - was))
-                setattr(fn, name, was)
-        RoundGraph.captures += 1
+            with COUNT_LOCK:
+                self.counts = []
+                for (fn, name), was in zip(counters, before):
+                    self.counts.append((fn, name, getattr(fn, name) - was))
+                    setattr(fn, name, was)
+        with COUNT_LOCK:
+            RoundGraph.captures += 1
 
     def replay(self, kv) -> None:
         if kv is not self.kv:
             raise ValueError("this decode round's CUDA graph was captured "
                              "for another slot table")
         self.graph.replay()
-        RoundGraph.replays += 1
-        for fn, name, n in self.counts:
-            setattr(fn, name, getattr(fn, name) + n)
+        with COUNT_LOCK:
+            RoundGraph.replays += 1
+            for fn, name, n in self.counts:
+                setattr(fn, name, getattr(fn, name) + n)

@@ -95,7 +95,11 @@ program name (``kv_prefill_chunk_l<n>``, ``kv_decode_step``,
 paged table) with its wall time and the card's memory around it.  It
 observes and changes nothing that runs.
 
-The disaggregated handoff and ``swap_params`` (the fleet's) are absent.
+``swap_params`` (JAX ``swap_params``, the fleet's weight hot-swap) copies
+a state_dict of the same keys, shapes and dtypes into the table's own
+model's parameters in place, on the current stream: a captured round replays the addresses it captured, so the swap
+reaches it without a recapture.  It empties the prefix pool, whose blocks
+hold KV of the old weights (JAX's swap keeps them).  The disaggregated handoff is absent.
 """
 
 from __future__ import annotations
@@ -222,6 +226,42 @@ class SlotKVCache:
         self._phase_s = {"prefill_s": 0.0, "decode_s": 0.0}
         self._init_multi_state()
         self.cache = self._init_cache()
+
+    def swap_params(self, params) -> None:
+        """Zero-downtime weight hot-swap (JAX ``swap_params``): copy
+        ``params``, a state_dict of the served model (same keys, shapes
+        and dtypes), into the model's own parameters, in place, on the
+        current stream (the fleet enters the replica's stream and drains
+        its in-flight slots first: KV written under the old weights must
+        never be decoded under the new ones).  Every address stays, so a
+        captured round replays on the new weights and a swap never
+        recaptures.  The prefix pool is emptied: its blocks hold KV of
+        the old weights.  On the card the stream is synchronized before
+        returning, so the source tensors may be freed."""
+        served = self.model.state_dict()
+        if set(params) != set(served):
+            raise ValueError(
+                "swap_params needs the same param tree structure as the "
+                "served checkpoint (same model config) — a different "
+                "architecture cannot hot-swap into live slots")
+        new = {k: torch.as_tensor(params[k]) for k in served}
+        mismatch = [
+            f"{k}: {tuple(a.shape)}/{str(a.dtype).removeprefix('torch.')} "
+            f"vs {tuple(b.shape)}/{str(b.dtype).removeprefix('torch.')}"
+            for k, a in served.items() for b in (new[k],)
+            if a.shape != b.shape or a.dtype != b.dtype]
+        if mismatch:
+            raise ValueError(
+                f"swap_params shape/dtype mismatch (a swap must be a "
+                f"compiled-program cache hit): {mismatch[:3]}")
+        # the pool's blocks hold KV the old weights wrote (JAX's swap
+        # keeps them, so a later hit would decode over stale KV)
+        self._drop_pool()
+        with torch.no_grad():
+            for k, t in served.items():
+                t.copy_(new[k], non_blocking=False)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _init_multi_state(self) -> None:
         """The multi-step decode state (JAX ``kv_cache.py:261-283``).
@@ -608,6 +648,25 @@ class SlotKVCache:
             graph = self._graphs[k] = RoundGraph(self, k)
         graph.replay(self)
 
+    def prepare_round(self, k: int) -> None:
+        """Make ``k``'s fused round ready to replay before serving: on the
+        card, unless the table's rounds run eagerly, run its eager round
+        and its capture now, on an idle table (rows that take part in no
+        step write only where nothing reads), so that serving replays
+        and never captures (``serving.fleet.ReplicaSet`` does this for
+        every replica before its threads start).  A no-op on the CPU and
+        once ``k`` is captured."""
+        if (self.device.type != "cuda" or self.eager_rounds
+                or k in self._graphs):
+            return
+        if (self.active.any() or self.reserved.any()
+                or self._multi_pending):
+            raise RuntimeError("prepare_round needs an idle table (no "
+                               "live, reserved or in-flight slot)")
+        while k not in self._graphs:
+            self.dispatch_multi(k)
+            self.drain_multi()
+
     def _multi_prepare(self, mask: np.ndarray, k: int) -> None:
         """Layout hook before a fused dispatch (the paged table covers
         in-flight growth and stages its block table)."""
@@ -960,9 +1019,13 @@ class SlotKVCache:
         s["hit_rate"] = s["hits"] / total if total else 0.0
         return s
 
+    def _drop_pool(self) -> None:
+        """Empty the prefix pool (its accounting stays)."""
+        self._prefix_pool.clear()
+
     def reset_prefix_cache(self) -> None:
         """Drop pooled blocks and zero the accounting."""
-        self._prefix_pool.clear()
+        self._drop_pool()
         for k in self.prefix_stats:
             self.prefix_stats[k] = 0
 
@@ -1241,12 +1304,15 @@ class PagedSlotKVCache(SlotKVCache):
             self._release_block(bid)
             self.prefix_stats["evictions"] += 1
 
-    def reset_prefix_cache(self) -> None:
-        """Release the pool's pins and zero the pool and zero-copy/CoW
-        accounting."""
+    def _drop_pool(self) -> None:
+        """Release the pool's pins and empty it."""
         while self._prefix_pool:
             _, bid = self._prefix_pool.popitem(last=False)
             self._release_block(bid)
+
+    def reset_prefix_cache(self) -> None:
+        """Release the pool's pins and zero the pool and zero-copy/CoW
+        accounting."""
         super().reset_prefix_cache()
         for k in self._paged_counters:
             self._paged_counters[k] = 0

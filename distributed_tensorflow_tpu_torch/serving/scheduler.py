@@ -67,7 +67,7 @@ table's model is cut over more than one 'model' rank.
   work is not counted.
 
 Disaggregated roles/handoff are not ported yet and raise
-``NotImplementedError``.
+``NotImplementedError`` (``DISAGG_ITEM``).
 """
 
 from __future__ import annotations
@@ -87,6 +87,11 @@ from distributed_tensorflow_tpu_torch.observability.trace import NULL_TRACER
 from distributed_tensorflow_tpu_torch.parallel.mesh import MODEL_AXIS
 from distributed_tensorflow_tpu_torch.serving.kv_cache import (
     SlotKVCache, SlotOverflow)
+
+
+# the ROADMAP Queue 1 item that brings the disaggregated fleet (roles and
+# the KV handoff), affinity routing and autoscale
+DISAGG_ITEM = "10b. Disaggregated prefill and decode, routing and autoscale"
 
 
 # ------------------------------------------------------------------ clocks
@@ -323,7 +328,7 @@ class ContinuousBatcher:
                 f"multi_step must be >= 1 fused decode iterations per "
                 f"dispatch, got {multi_step}")
         if role is not None or handoff_out is not None:
-            not_ported("disaggregated roles / KV handoff", "fleet")
+            not_ported("disaggregated roles / KV handoff", DISAGG_ITEM)
         self.kv = kv
         self.draft_kv = draft_kv
         self.draft_k = int(draft_k)

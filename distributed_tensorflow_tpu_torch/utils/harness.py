@@ -151,16 +151,17 @@ from the serve table (``Roofline.for_kv``) for the batcher.
 ``compile_cache`` points the kernel build cache (``ops/_build.py``) at
 a directory: the counterpart of XLA's persistent compilation cache.
 
-The fleet's serve fields
-(``serve_replicas``, ``serve_fault_spec``, ``serve_watchdog_s``,
-``serve_hot_swap``, ``serve_disaggregate``, ``serve_routing``,
-``serve_autoscale``) raise ``NotImplementedError`` at any value but their
-default.
+``serve_replicas`` > 1, ``serve_fault_spec`` or ``serve_hot_swap`` serve
+the window through a ``serving.fleet.ReplicaSet`` (``serve_watchdog_s``
+its stall watchdog); ``serve_disaggregate``, ``serve_routing`` and
+``serve_autoscale`` raise ``NotImplementedError`` at any value but their
+default (ROADMAP Queue 1, item 10b).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 import os
@@ -323,25 +324,24 @@ class ExperimentConfig:
     serve_draft_config: str | None = None  # speculative draft: 'self' or
                                     # 'key=int,...' GPT size overrides
     serve_draft_k: int = 4          # draft tokens proposed per verify
-    serve_replicas: int = 1         # fleet (not ported)
-    serve_fault_spec: str | None = None    # fleet (not ported)
-    serve_watchdog_s: float = 0.0   # fleet (not ported)
-    serve_hot_swap: bool = False    # fleet (not ported)
+    serve_replicas: int = 1         # >1: a ReplicaSet fleet of N tables
+    serve_fault_spec: str | None = None    # seeded faults (forces the fleet)
+    serve_watchdog_s: float = 0.0   # >0: the fleet's stall watchdog
+    serve_hot_swap: bool = False    # the weight hot-swap drill (fleet)
     serve_kv_layout: str = "monolithic"    # monolithic | paged
     serve_paged_block: int = 0      # paged block tokens (0: prefix block)
     serve_paged_blocks: int = 0     # paged pool capacity (0: auto-size)
-    serve_disaggregate: str | None = None  # fleet (not ported)
-    serve_routing: str = "least-loaded"    # fleet (not ported)
-    serve_autoscale: str | None = None     # fleet (not ported)
+    serve_disaggregate: str | None = None  # fleet 10b (not ported)
+    serve_routing: str = "least-loaded"    # fleet 10b (not ported)
+    serve_autoscale: str | None = None     # fleet 10b (not ported)
     serve_multi_step: int | None = None    # k: fused k-step decode rounds
 
 
 _SEQUENCE_MODELS = ("bert_tiny", "bert", "gpt", "gpt_tiny")
 _LM_MODELS = ("gpt", "gpt_tiny")  # causal LMs: (B, L) next-token targets
-# the fleet's serve fields (ROADMAP Queue 1: fleet) and their defaults
-_FLEET_DEFAULTS = {"serve_replicas": 1, "serve_fault_spec": None,
-                   "serve_watchdog_s": 0.0, "serve_hot_swap": False,
-                   "serve_disaggregate": None,
+# the fleet's serve fields not ported yet (ROADMAP Queue 1, item 10b) and
+# their defaults
+_FLEET_DEFAULTS = {"serve_disaggregate": None,
                    "serve_routing": "least-loaded", "serve_autoscale": None}
 
 
@@ -1894,12 +1894,16 @@ def parse_draft_config(spec: str) -> dict[str, int] | None:
 
 
 def _reject_fleet(config: ExperimentConfig) -> None:
-    """The fleet's serve fields at any value but their default raise
-    (ROADMAP Queue 1: fleet), before anything is set up."""
+    """The fleet's disaggregation, routing and autoscale fields at any
+    value but their default raise (ROADMAP Queue 1, item 10b), before
+    anything is set up."""
+    from distributed_tensorflow_tpu_torch.serving.scheduler import (
+        DISAGG_ITEM)
+
     for name, default in _FLEET_DEFAULTS.items():
         if getattr(config, name) != default:
-            not_ported(f"--{name.replace('_', '-').removesuffix('-s')} "
-                       f"(serving fleet)", "fleet")
+            not_ported(f"--{name.replace('_', '-')} (serving fleet)",
+                       DISAGG_ITEM)
 
 
 def _is_pipeline(engine) -> bool:
@@ -2016,8 +2020,11 @@ def _resolve_serve_kv_dtype(name: str):
 def _validate_serving(config: ExperimentConfig, ex: _Experiment,
                       test_ds) -> None:
     """Every ``serve_requests`` failure that can be known is raised before
-    training (JAX ``_validate_serving``; its fleet checks are ``run``'s
-    ``_reject_fleet`` here)."""
+    training (JAX ``_validate_serving``; its checks of the fleet's
+    disaggregation, routing and autoscale flags are ``run``'s
+    ``_reject_fleet`` here).  A fleet over a table cut across 'model'
+    ranks is refused: each rank would drive its replicas on threads of
+    its own, which could order the table's collectives apart."""
     if config.serve_requests < 0:
         raise ValueError(
             f"--serve must be positive, got {config.serve_requests}")
@@ -2098,10 +2105,38 @@ def _validate_serving(config: ExperimentConfig, ex: _Experiment,
                 f"equal --serve-prefix-block "
                 f"({config.serve_prefix_block}) when the prefix pool is "
                 f"on: pool hits alias physical blocks")
+    if config.serve_replicas < 1:
+        raise ValueError(
+            f"--serve-replicas must be >= 1, got {config.serve_replicas}")
+    n_fleet = config.serve_replicas
     if config.serve_multi_step is not None and config.serve_multi_step < 1:
         raise ValueError(
             f"--serve-multi-step must be >= 1 fused decode iterations "
             f"per dispatch, got {config.serve_multi_step}")
+    if config.serve_watchdog_s < 0:
+        raise ValueError(
+            f"--serve-watchdog must be >= 0 (0 = off), got "
+            f"{config.serve_watchdog_s}")
+    if config.serve_fault_spec:
+        # fault grammar + replica bounds checked pre-train, like every
+        # other deterministically-knowable serve flag
+        from distributed_tensorflow_tpu_torch.serving.fleet import (
+            FaultInjector)
+
+        for fault in FaultInjector.parse(config.serve_fault_spec):
+            if fault.replica >= n_fleet:
+                raise ValueError(
+                    f"--serve-fault-spec targets replica {fault.replica} "
+                    f"but the fleet has {n_fleet} replicas")
+    mesh = _serve_mesh(config, ex)
+    tp = 1 if mesh is None else mesh.shape.get(meshlib.MODEL_AXIS, 1)
+    if _is_fleet(config) and tp > 1:
+        raise ValueError(
+            f"--serve-replicas/--serve-fault-spec/--serve-hot-swap serve "
+            f"a fleet of replica threads on every rank; over a table cut "
+            f"across {tp} 'model' ranks the ranks' threads could order "
+            f"the table's collectives apart — serve the fleet after a run "
+            f"without a 'model' axis")
     plen = config.serve_prompt_len
     if plen < 1 or plen > test_ds.x.shape[1]:
         raise ValueError(
@@ -2114,6 +2149,13 @@ def _validate_serving(config: ExperimentConfig, ex: _Experiment,
             f"--serve-prompt-len {plen} + --serve-max-new "
             f"{config.serve_max_new} exceeds the model's capacity "
             f"max_len={model.max_len}")
+
+
+def _is_fleet(config: ExperimentConfig) -> bool:
+    """A fault spec or the hot-swap drill forces the fleet even at one
+    replica (JAX ``harness.py:2495-2497``)."""
+    return (config.serve_replicas > 1 or bool(config.serve_fault_spec)
+            or config.serve_hot_swap)
 
 
 def _serve_mesh(config: ExperimentConfig, ex: _Experiment):
@@ -2183,7 +2225,10 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     ``timeline`` the gauge sampler (JAX ``harness.py:2646-2657``).
     ``ledger`` reaches the target table; with ``roofline`` the batcher
     gets one rebuilt from that table (``Roofline.for_kv``: its storage
-    dtype and layout), on the same card and ``total_devices``."""
+    dtype and layout), on the same card and ``total_devices``.  With
+    ``serve_replicas`` > 1, a fault spec or the hot-swap drill the window
+    runs through a fleet (``_serve_fleet``) on the wall clock, one thread
+    per replica."""
     from distributed_tensorflow_tpu_torch.observability import (
         NULL_TRACER, SLOMonitor, serve_section)
     from distributed_tensorflow_tpu_torch.serving import (
@@ -2251,12 +2296,66 @@ def _serve_from_state(config: ExperimentConfig, ex: _Experiment, state,
     if serve_roofline is not None:
         batcher_kwargs.update(roofline=serve_roofline)
     tracer = tracer if tracer is not None else NULL_TRACER
+    slo = SLOMonitor(config.serve_slo_ttft, config.serve_slo_itl)
+    if _is_fleet(config):
+        summary = _serve_fleet(config, kv, draft_kv, requests, slo, tracer,
+                               should_stop, kv_kwargs, batcher_kwargs)
+        return serve_section(summary, ex.n, tracer=tracer)
     with tracer.span("serve", requests=config.serve_requests,
                      slots=config.serve_slots):
         summary = ContinuousBatcher(
             kv, tracer=tracer, prefill_chunk=config.serve_prefill_chunk,
-            slo=SLOMonitor(config.serve_slo_ttft, config.serve_slo_itl),
-            queue_cap=config.serve_queue_cap, should_stop=should_stop,
-            draft_kv=draft_kv, draft_k=config.serve_draft_k,
-            **batcher_kwargs).run(requests)
+            slo=slo, queue_cap=config.serve_queue_cap,
+            should_stop=should_stop, draft_kv=draft_kv,
+            draft_k=config.serve_draft_k, **batcher_kwargs).run(requests)
     return serve_section(summary, ex.n, tracer=tracer)
+
+
+def _serve_fleet(config: ExperimentConfig, kv, draft_kv, requests, slo,
+                 tracer, should_stop, kv_kwargs: dict,
+                 batcher_kwargs: dict) -> dict[str, Any]:
+    """The fleet branch of ``_serve_from_state`` (JAX
+    ``harness.py:2574-2640``): replica 0 over the table already built,
+    ``build_replica_kvs`` for the rest (each over its own copy of the
+    trained model), the draft tables beside them (a ``'self'`` draft over
+    each replica's own model, as JAX's shares the served params), the
+    injector seeded with the run's seed, and with ``serve_hot_swap`` the
+    drill: the same trained weights swapped back in after half the window
+    (``max(serve_requests // 2, 1)`` completions).  Returns the fleet's
+    summary."""
+    from distributed_tensorflow_tpu_torch.serving import SlotKVCache
+    from distributed_tensorflow_tpu_torch.serving.fleet import (
+        FaultInjector, ReplicaSet, build_replica_kvs)
+
+    n = config.serve_replicas
+    kvs = [kv] + build_replica_kvs(kv.model, None, n - 1,
+                                   config.serve_slots, **kv_kwargs)
+    draft_kvs = None
+    if draft_kv is not None:
+        draft_kvs = [draft_kv]
+        for table in kvs[1:]:
+            draft = (table.model if draft_kv.model is kv.model
+                     else copy.deepcopy(draft_kv.model))
+            draft_kvs.append(SlotKVCache(draft, None, config.serve_slots,
+                                         device=kv.device, mesh=kv.mesh))
+    injector = (FaultInjector(config.serve_fault_spec, seed=config.seed)
+                if config.serve_fault_spec else None)
+    replica_set = ReplicaSet(
+        kvs, tracer=tracer, prefill_chunk=config.serve_prefill_chunk,
+        queue_cap=config.serve_queue_cap, slo=slo, draft_kvs=draft_kvs,
+        draft_k=config.serve_draft_k,
+        watchdog_timeout_s=config.serve_watchdog_s,
+        fault_injector=injector, **batcher_kwargs)
+    if config.serve_hot_swap:
+        # the drill: re-install the SAME trained weights after half the
+        # window — drain, swap_generations and N-1 availability with
+        # greedy tokens unchanged; a real rollout passes new weights
+        replica_set.schedule_swap(
+            {k: v.detach().clone() for k, v in kv.model.state_dict().items()},
+            after_completions=max(config.serve_requests // 2, 1))
+    with tracer.span("serve", requests=config.serve_requests,
+                     slots=config.serve_slots, replicas=n):
+        try:
+            return replica_set.run(requests, should_stop=should_stop)
+        finally:
+            replica_set.close()

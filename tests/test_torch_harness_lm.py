@@ -25,7 +25,7 @@ held to the JAX package at small sizes on the CPU:
   prefix, chunked prefill and a ``self`` draft; paged with a prefix pool
   and a shared prefix);
 * every ``ValueError`` of ``_validate_sampling``/``_validate_serving``
-  raised as JAX raises it; each fleet flag raising
+  raised as JAX raises it; each fleet flag of item 10b raising
   ``NotImplementedError`` naming its ROADMAP item;
 * ``SLOMonitor`` against JAX's on seeded observations with sheds;
 * the CLI: the new flags reach the config as the JAX CLI's do, and one
@@ -469,14 +469,14 @@ def test_validators_reject_a_classifier_as_jax(check, kw):
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("--serve-replicas", "2"), ("--serve-fault-spec", "crash:replica=0"),
-    ("--serve-watchdog", "1.0"), ("--serve-hot-swap", None),
     ("--serve-disaggregate", "1:1"), ("--serve-routing", "affinity"),
     ("--serve-autoscale", "1:2")])
 def test_fleet_flags_raise_not_ported(flag, value):
+    # the fleet's replica flags are ported (tests/test_torch_fleet.py);
+    # disaggregation, routing and autoscale wait for item 10b
     argv = ["--device", "cpu", "-n", "1", "--model", "gpt_tiny", "--serve",
             "4", flag] + ([value] if value is not None else [])
-    with pytest.raises(NotImplementedError, match="Queue 1: fleet"):
+    with pytest.raises(NotImplementedError, match="Queue 1: 10b"):
         tcli.main(argv, dataset_fn=_small_lm_fn)
 
 

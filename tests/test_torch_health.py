@@ -3,11 +3,13 @@ the engines, the Trainer, the checkpoint and the CLI, held to the JAX
 package on the CPU at small sizes:
 
 * ``global_norm`` and ``nonfinite_leaf_count`` on the same arrays;
-* the capture around a torch Adam against JAX's
-  ``wrap_optimizer(optax.adam)`` over 3 steps on the same parameters and
-  gradients: the norms and the ratio within rtol 1e-5 (f32; optax and
-  torch round Adam's update differently, port ``engines/base.py``), the
-  non-finite count exact; the injection poisons exactly its step;
+* the capture around the port's ``ScheduledAdamW`` (optax's Adam
+  formula) against JAX's ``wrap_optimizer(optax.adam)`` over 3 steps on
+  the same parameters and gradients: the norms and the ratio within rtol
+  1e-5 (f32), the non-finite count exact; around a ``torch.optim.Adam``
+  (which rounds Adam's update otherwise than optax) the optimizer stays
+  what it was and ``update_norm`` is its own new − old; the injection
+  poisons exactly its step;
 * ``ema_spike`` and ``detect_anomalies`` on the same inputs;
 * a ``SyncEngine`` with health against JAX's with health, step by step on
   the same MLP weights and batches (an MLP: every parameter gets a
@@ -55,6 +57,7 @@ from distributed_tensorflow_tpu_torch.models.mlp import MLP
 from distributed_tensorflow_tpu_torch.observability import health as hl
 from distributed_tensorflow_tpu_torch.parallel import precision as tpl
 from distributed_tensorflow_tpu_torch.utils.failure import AnomalyDetected
+from distributed_tensorflow_tpu_torch.utils.optim import ScheduledAdamW
 
 from _torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -72,9 +75,13 @@ def _arrays(seed=0, shapes=((16, 12), (12,), (4, 4, 5)), scale=1.0):
             for s in shapes]
 
 
-# the port's update is new − old in f32, JAX's the emitted u: they differ
-# by one rounding of p + u, relative eps·|p|/|u| — parameters at an init's
-# scale (0.1) under Adam at lr 1e-2 keep that under 1e-6
+# the port's update is new − old in f32, JAX's the emitted u; JAX's own
+# new − old agrees with its u to ~1e-8 relative, so that rounding is not
+# the gap.  torch.optim.Adam rounds Adam's update otherwise than optax
+# (after 3 steps its parameters differ from optax's by up to 2.2e-7, and
+# its update_norm at step 1 by 1.0e-5 relative), so the parity runs drive
+# the port's ScheduledAdamW, which is optax's formula (≤ 1e-7 relative);
+# parameters at an init's scale (0.1) under Adam at lr 1e-2
 PARAM_SCALE = 0.1
 
 
@@ -118,17 +125,25 @@ def _jax_adam_run(params, grads_seq, cfg):
     return out
 
 
-def _port_adam_run(params, grads_seq, cfg):
+def _port_adam_run(params, grads_seq, cfg, torch_adam=False):
+    """The capture around the port's ``ScheduledAdamW`` (optax's Adam
+    formula), or around ``torch.optim.Adam`` with ``torch_adam``; returns
+    the capture's stats per step, the optimizer and each step's own
+    new − old norm (f64 norm of the f32 difference)."""
     ps = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in params]
-    opt = torch.optim.Adam(ps, lr=1e-2)
+    opt = (torch.optim.Adam(ps, lr=1e-2) if torch_adam else
+           ScheduledAdamW(ps, lr=1e-2, decay_mask=[False] * len(ps)))
     hl.wrap_optimizer(opt, cfg, ps)
-    out = []
+    out, moved = [], []
     for grads in grads_seq:
         for p, g in zip(ps, grads):
             p.grad = torch.from_numpy(g.copy())
+        old = [p.detach().clone() for p in ps]
         opt.step()
         out.append({k: float(v) for k, v in hl.from_opt_state(opt).items()})
-    return out, opt
+        moved.append(math.sqrt(sum(float(((p.detach() - o).double() ** 2)
+                                          .sum()) for p, o in zip(ps, old))))
+    return out, opt, moved
 
 
 def test_wrapped_adam_stats_match_jax_wrap_optimizer():
@@ -136,15 +151,22 @@ def test_wrapped_adam_stats_match_jax_wrap_optimizer():
     grads_seq = [_arrays(10 + i) for i in range(3)]
     cfg = hl.HealthConfig()
     want = _jax_adam_run(params, grads_seq, jhl.HealthConfig())
-    got, opt = _port_adam_run(params, grads_seq, cfg)
+    got, opt, _ = _port_adam_run(params, grads_seq, cfg)
     for i, (g, w) in enumerate(zip(got, want)):
         for k in NORM_KEYS:
             np.testing.assert_allclose(g[k], w[k], err_msg=f"{k} step {i}",
                                        **STATS)
         assert g["nonfinite_count"] == w["nonfinite_count"] == 0
     assert int(opt.health_capture.count) == 3
-    # the capture leaves the optimizer what it was
+    # the capture leaves the optimizer what it was, a torch Adam too, and
+    # its update_norm is that optimizer's own new − old
+    got, opt, moved = _port_adam_run(params, grads_seq, cfg,
+                                     torch_adam=True)
     assert isinstance(opt, torch.optim.Adam)
+    assert int(opt.health_capture.count) == 3
+    for i, (g, m) in enumerate(zip(got, moved)):
+        np.testing.assert_allclose(g["update_norm"], m,
+                                   err_msg=f"update_norm step {i}", **STATS)
 
 
 def test_injection_poisons_exactly_its_step():
@@ -152,7 +174,7 @@ def test_injection_poisons_exactly_its_step():
     grads_seq = [_arrays(20 + i) for i in range(3)]
     want = _jax_adam_run(params, grads_seq,
                          jhl.HealthConfig(inject_nan_at=2))
-    got, _ = _port_adam_run(params, grads_seq, hl.HealthConfig(
+    got, _, _ = _port_adam_run(params, grads_seq, hl.HealthConfig(
         inject_nan_at=2))
     for k in NORM_KEYS:
         np.testing.assert_allclose(got[0][k], want[0][k], **STATS)
@@ -163,11 +185,11 @@ def test_injection_poisons_exactly_its_step():
     # a finite scale: only step 2's gradients scaled
     want = _jax_adam_run(params, grads_seq, jhl.HealthConfig(
         inject_nan_at=2, inject_scale=4.0))
-    got, _ = _port_adam_run(params, grads_seq, hl.HealthConfig(
+    got, _, _ = _port_adam_run(params, grads_seq, hl.HealthConfig(
         inject_nan_at=2, inject_scale=4.0))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], **STATS)
-    base, _ = _port_adam_run(params, grads_seq, hl.HealthConfig())
+    base, _, _ = _port_adam_run(params, grads_seq, hl.HealthConfig())
     np.testing.assert_allclose(got[1]["grad_norm"],
                                4 * base[1]["grad_norm"], **STATS)
     assert got[0]["grad_norm"] == base[0]["grad_norm"]
